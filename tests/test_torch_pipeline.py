@@ -1,0 +1,295 @@
+"""The port's main path against the reference package, on the CPU.
+
+The same numpy features go through ``repro.core.run_gpic`` (with
+``use_pallas=False``: the jnp oracles) and ``repro_torch.run_gpic(...,
+device="cpu")`` (the kernels' plain versions), with the port's config made
+from the reference config's fields by ``repro_torch.interop``. The two
+packages draw different random numbers, so where randomness enters (the
+k-means seeds, extra power columns) the reference's draws are passed in.
+
+Agreement, at n = 400 on the paper's 2-D datasets:
+  (a) with the stopping rule off (eps_scale=0, 20 sweeps) the embeddings
+      agree to max|dv| / max|v| <= 1e-4 (f32 sums in two orders);
+  (b) at the default eps the per-column sweep counts differ by at most 1
+      (an eps-crossing can move by one sweep on f32 noise);
+  (c) k-means from the reference's kmeans++ centroids gives identical
+      labels on the same embedding;
+  (d) on the rbf cases, ``run_gpic`` gives the same partition (ARI 1.0
+      between packages).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core as jcore
+from repro.data import dataset_by_name as ref_dataset_by_name
+from repro_torch import (AffinitySpec, GPICConfig, adjusted_rand_index, dataset_by_name,
+                         run_gpic)
+from repro_torch.core import health as thealth
+from repro_torch.core.kmeans import kmeans
+from repro_torch.core.operators import explicit_operator
+from repro_torch.core.power import batched_power_iteration
+from repro_torch.interop import config_from_reference, result_to_numpy
+
+N = 400
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: (dataset, affinity kind, sigma): rbf at the bandwidths of
+#: examples/quickstart.py, and the default cosine_shifted spec. On these
+#: 2-D sets cosine_shifted leaves an embedding spread of ~1e-8 (f32
+#: noise), so its partition is compared nowhere; everything else is.
+RBF_CASES = [("gaussians", "rbf", 0.3), ("cassini", "rbf", 0.3), ("smiley", "rbf", 0.15)]
+CASES = RBF_CASES + [("gaussians", "cosine_shifted", 1.0)]
+IDS = [f"{d}-{k}" for d, k, _ in CASES]
+
+
+def _plain_fields(cfg) -> dict:
+    """A reference GPICConfig as plain values (dtype as a string)."""
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    out["a_dtype"] = jnp.dtype(cfg.a_dtype).name
+    if out["affinity"] is not None:
+        out["affinity"] = dataclasses.asdict(out["affinity"])
+    return out
+
+
+def _both(case, **cfg_kw):
+    """(x, y, k, reference result as numpy, port result as numpy)."""
+    name, kind, sigma = case
+    x, y, k = dataset_by_name(name, N, seed=0)
+    xr, yr, _ = ref_dataset_by_name(name, N, seed=0)
+    np.testing.assert_array_equal(x, xr)        # the port's copy of the data
+    np.testing.assert_array_equal(y, yr)
+    ref_cfg = jcore.GPICConfig(**{"affinity_kind": kind, "sigma": sigma, "max_iter": 400,
+                                  "use_pallas": False, **cfg_kw})
+    ref = jcore.run_gpic(jnp.asarray(x), k, ref_cfg, key=jax.random.key(1))
+    port = run_gpic(x, k, config_from_reference(_plain_fields(ref_cfg)), device="cpu")
+    ref_np = {"labels": np.asarray(ref.labels), "embeddings": np.asarray(ref.embeddings),
+              "n_iter_cols": np.asarray(ref.n_iter_cols), "health": ref.health.to_dict()}
+    return x, y, k, ref_np, result_to_numpy(port), port
+
+
+@functools.cache
+def _default_run(case):
+    """One default-eps run of a case in both packages (cached: the
+    sweep-count, k-means, partition and health tests all read it)."""
+    return _both(case)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_embeddings_agree_without_stopping(case):
+    _, _, _, ref, port, _ = _both(case, eps_scale=0.0, max_iter=20)
+    assert list(ref["n_iter_cols"]) == list(port["n_iter_cols"]) == [20]
+    v_ref, v_port = ref["embeddings"], port["embeddings"]
+    assert v_port.shape == v_ref.shape == (N, 1)
+    assert np.max(np.abs(v_port - v_ref)) / np.max(np.abs(v_ref)) <= 1e-4
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_sweep_counts_agree(case):
+    _, _, _, ref, port, _ = _default_run(case)
+    assert np.max(np.abs(ref["n_iter_cols"] - port["n_iter_cols"])) <= 1
+    assert port["converged_cols"].all()
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_kmeans_from_reference_init_gives_same_labels(case):
+    _, _, k, ref, _, _ = _default_run(case)
+    emb = jcore.standardize_columns(jnp.asarray(ref["embeddings"]))
+    key = jax.random.key(5)
+    init = jcore.kmeans_plus_plus_init(key, emb, k)
+    labels_ref, cents_ref = jcore.kmeans(key, emb, k, init=init, force_reference=True)
+    labels, cents = kmeans(torch.from_numpy(np.asarray(emb)), k,
+                           init=torch.from_numpy(np.asarray(init)))
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(labels_ref))
+    np.testing.assert_allclose(cents.numpy(), np.asarray(cents_ref), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", RBF_CASES, ids=IDS[:len(RBF_CASES)])
+def test_run_gpic_partitions_agree(case):
+    _, _, _, ref, port, _ = _default_run(case)
+    assert adjusted_rand_index(ref["labels"], port["labels"]) == 1.0
+    assert port["labels"].dtype == np.int32 and port["labels"][0] == 0
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_health_reports_agree(case):
+    _, _, _, ref, _, port = _default_run(case)
+    assert port.health.to_dict() == ref["health"]
+
+
+@pytest.mark.parametrize("stopping", [False, True], ids=["no_stopping", "default_eps"])
+def test_power_columns_from_reference_draws(stopping):
+    """n_vectors=3: the reference's random start columns, passed in as
+    numpy, give the same per-column trajectories in the port: the same
+    states after 20 sweeps with the stopping rule off, and sweep counts
+    within one of each other at the default eps."""
+    x, _, _ = dataset_by_name("cassini", N, seed=0)
+    jop = jcore.explicit_operator(jnp.asarray(x), kind="rbf", sigma=0.3, use_pallas=False)
+    v0 = np.array(jcore.init_power_vectors(jax.random.key(2), jop.degree, 3))
+    eps, max_iter = (1e-5 / N, 400) if stopping else (0.0, 20)
+    v_ref, t_ref, done_ref = jcore.batched_power_iteration(jop, jnp.asarray(v0), eps, max_iter)
+    top = explicit_operator(torch.from_numpy(x), kind="rbf", sigma=0.3)
+    v, t_cols, done = batched_power_iteration(top, torch.from_numpy(v0), eps, max_iter)
+    np.testing.assert_array_equal(done.numpy(), np.asarray(done_ref))
+    if stopping:
+        assert done.all()
+        assert np.max(np.abs(t_cols.numpy() - np.asarray(t_ref))) <= 1
+    else:
+        assert t_cols.tolist() == np.asarray(t_ref).tolist() == [20, 20, 20]
+        v_ref = np.asarray(v_ref)
+        assert np.max(np.abs(v.numpy() - v_ref)) / np.max(np.abs(v_ref)) <= 1e-4
+
+
+def _cycle_operator(n):
+    """W = a directed n-cycle: the iterate rotates forever (a periodic
+    trajectory whose acceleration statistic never improves)."""
+    return np.roll(np.eye(n, dtype=np.float32), 1, axis=1)
+
+
+@pytest.mark.parametrize("case", ["zero_and_nan_columns", "periodic"])
+def test_power_loop_health_latches_match_reference(case):
+    if case == "periodic":
+        w = _cycle_operator(3)
+        v0 = np.array([[0.5], [0.3], [0.2]], np.float32)
+        max_iter = 30
+    else:
+        x, _, _ = dataset_by_name("gaussians", 120, seed=0)
+        jop = jcore.explicit_operator(jnp.asarray(x), kind="rbf", sigma=0.3,
+                                      use_pallas=False)
+        w = np.asarray(jop.matmat(jnp.eye(120, dtype=jnp.float32)))  # W = D^-1 A
+        v0 = np.stack([np.full(120, 1 / 120), np.zeros(120),
+                       np.full(120, np.nan)], axis=1).astype(np.float32)
+        max_iter = 400
+    v_ref, t_ref, done_ref, st_ref = jcore.batched_power_iteration(
+        lambda v: jnp.asarray(w) @ v, jnp.asarray(v0), 1e-5 / len(v0), max_iter,
+        return_status=True)
+    wt = torch.from_numpy(w)
+    v, t_cols, done, status = batched_power_iteration(
+        lambda vv: wt @ vv, torch.from_numpy(v0),
+        1e-5 / len(v0), max_iter, return_status=True)
+    np.testing.assert_array_equal(status.numpy(), np.asarray(st_ref))
+    np.testing.assert_array_equal(done.numpy(), np.asarray(done_ref))
+    np.testing.assert_array_equal(t_cols.numpy(), np.asarray(t_ref))
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), rtol=1e-4, atol=1e-7)
+    if case == "periodic":
+        assert status.tolist() == [thealth.COL_STALLED | thealth.COL_MAXITER]
+    else:
+        assert status.tolist()[1:] == [thealth.COL_ZERO, thealth.COL_NONFINITE]
+
+
+def _bad_input(case):
+    x, _, _ = dataset_by_name("gaussians", 60, seed=0)
+    if case == "nonfinite":
+        x = x.copy()
+        x[3, 1] = np.nan
+        return x, 4
+    if case == "identical":
+        return np.ones((20, 2), np.float32), 2
+    if case == "n_below_k":
+        return x[:3], 4
+    return x[:, 0], 2                                  # one-dimensional
+
+
+@pytest.mark.parametrize("case", ["nonfinite", "identical", "n_below_k", "not_a_matrix"])
+def test_front_door_raises_like_the_reference(case):
+    x, k = _bad_input(case)
+    with pytest.raises(jcore.GPICError) as ref_err:
+        jcore.run_gpic(jnp.asarray(x), k, use_pallas=False)
+    with pytest.raises(thealth.GPICError) as port_err:
+        run_gpic(x, k, device="cpu")
+    assert type(port_err.value).__name__ == type(ref_err.value).__name__
+
+
+def test_sanitize_zero_fills_and_notes_like_the_reference():
+    x, _ = _bad_input("nonfinite")
+    ref = jcore.run_gpic(jnp.asarray(x), 4, affinity_kind="rbf", sigma=0.3,
+                         sanitize=True, use_pallas=False)
+    port = run_gpic(x, 4, GPICConfig(affinity_kind="rbf", sigma=0.3, sanitize=True),
+                    device="cpu")
+    assert port.health.notes == ref.health.notes == ("sanitized:1_nonfinite_features",)
+    assert port.health.to_dict()["status"] == "degraded"
+
+
+def test_empty_graph_raises_like_the_reference():
+    x = np.arange(40, dtype=np.float32).reshape(20, 2) * 10.0
+    with pytest.raises(jcore.DegenerateGraphError):
+        jcore.run_gpic(jnp.asarray(x), 2, affinity_kind="rbf", sigma=0.01,
+                       use_pallas=False)
+    with pytest.raises(thealth.DegenerateGraphError):
+        run_gpic(x, 2, GPICConfig(affinity_kind="rbf", sigma=0.01), device="cpu")
+
+
+def test_run_gpic_needs_cuda_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: run_gpic() runs there")
+    x, _, k = dataset_by_name("gaussians", 40, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_gpic(x, k)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_gpic(x, k, device="cuda")
+
+
+@pytest.mark.parametrize("override", [
+    dict(engine="streaming"), dict(engine="matrix_free"),
+    dict(embedding="orthogonal"), dict(embedding="ensemble"),
+    dict(affinity=jcore.AffinitySpec(kind="rbf", sigma=0.3, knn_k=5)),
+    dict(affinity=jcore.AffinitySpec(kind="rbf", bandwidth="adaptive")),
+    dict(a_dtype=jnp.bfloat16), dict(tile=128), dict(n_vectors=33),
+], ids=["streaming", "matrix_free", "orthogonal", "ensemble", "knn", "adaptive",
+        "bf16", "tile", "n_vectors_past_kernel_limit"])
+def test_unported_settings_raise_not_implemented(override):
+    ref_cfg = jcore.GPICConfig(**override)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        config_from_reference(_plain_fields(ref_cfg))
+    x, _, k = dataset_by_name("gaussians", 40, seed=0)
+    port_override = dict(override)
+    if "affinity" in port_override:
+        port_override["affinity"] = AffinitySpec(**dataclasses.asdict(override["affinity"]))
+    if "a_dtype" in port_override:
+        port_override["a_dtype"] = torch.bfloat16
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_gpic(x, k, GPICConfig(**port_override), device="cpu")
+
+
+def test_config_from_reference_defaults_and_rejections():
+    assert config_from_reference(_plain_fields(jcore.GPICConfig())) == GPICConfig()
+    fields = _plain_fields(jcore.GPICConfig(use_pallas=False, retry_on_fallback=True))
+    assert config_from_reference(fields) == GPICConfig()
+    with pytest.raises(NotImplementedError, match="mesh"):
+        config_from_reference(dict(fields, mesh="a mesh"))
+    with pytest.raises(NotImplementedError, match="checkpoint_every"):
+        config_from_reference(dict(fields, checkpoint_every=5, ckpt_dir="/tmp/x"))
+    with pytest.raises(ValueError, match="unknown GPICConfig field"):
+        config_from_reference(dict(fields, not_a_field=1))
+    with pytest.raises(ValueError, match="unknown engine"):
+        config_from_reference(dict(fields, engine="warp"))
+
+
+def test_port_imports_no_jax_and_nothing_of_the_reference():
+    code = ("import sys, repro_torch, repro_torch.interop, repro_torch.core, "
+            "repro_torch.kernels.ops; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'repro' or m.startswith('repro.')]; "
+            "sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    pattern = re.compile(r"^\s*(import jax|from jax|from repro[. ]|import repro\b)")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    offenders = [f"{path}:{i}" for path in files
+                 for i, line in enumerate(open(path), 1) if pattern.match(line)]
+    assert offenders == []
