@@ -10,24 +10,41 @@ Phases (any failure exits non-zero before the last line is printed):
                 nvcc (one process per source, all started together).
   2. kernels    hold each kernel against its plain PyTorch version on the
                 card, at the main path's shapes (n = 45,000 points of the
-                paper's 2-D gaussians, m = 2, r = 1, k = 4 on a 1-D
-                embedding) and at ragged ones (n = 1,037, m = 16, r = 4, an
-                off-diagonal stripe, planted k-means ties); time the kernel,
-                the plain version and, where one exists, the one PyTorch
-                call that computes the same function.
-  3. end to end run_gpic on gaussians at n = 2,000 on the card against the
-                same call on the CPU (the plain versions), then at the
-                paper's n = 45,000 with the launch counters reset just
-                before: ARI against the ground truth >= 0.99, and every
-                kernel of the path launched (affinity once, the sweep once
-                per power iteration, the assignment kmeans_iters + 1 times).
-  4. profile    one more n = 45,000 run under torch.profiler: the device's
-                busy share of the wall time and device time by kernel.
+                paper's 2-D gaussians, m = 2, r = 1 or 2, k = 4 on a 1-D
+                embedding) and at ragged ones (n = 1,037, m = 16, r up to
+                32, off-diagonal stripes, planted k-means ties); time the
+                kernel, the plain version and, where one exists, the one
+                PyTorch call that computes the same function. The streamed
+                D and U must be bitwise the explicit kernels' D and U, and
+                the Gram the same bits on every call.
+  3. end to end run_gpic on each path, with the launch counters reset just
+                before it and read just after:
+                - explicit, gaussians: n = 2,000 on the card against the
+                  same call on the CPU (the plain versions), then the
+                  paper's n = 45,000: ARI >= 0.99, affinity once, the sweep
+                  once per power iteration, the assignment kmeans_iters + 1
+                  times;
+                - streaming, the same config: the explicit run's embedding,
+                  labels and sweeps, the streamed degree once, the streamed
+                  sweep once per iteration, no affinity build, peak memory
+                  under 1 GB;
+                - streaming at n = 150,000, where A would need 90 GB: ARI
+                  >= 0.99, peak memory under 1 GB, the kernel against its
+                  plain version on three 2,048-row stripes;
+                - orthogonal (three_circles, r = 2) on both engines, as is
+                  and with residual_tol=1e-3: the same labels and sweeps on
+                  both, the ARI floor, the Gram once per QR sweep plus once
+                  per residual check;
+                - ensemble, streaming, gaussians: ARI >= 0.99, an (n, S)
+                  embedding.
+  4. profile    one more n = 45,000 run of each engine under torch.profiler:
+                the device's busy share of the wall time and device time by
+                kernel.
 
 The last lines are one JSON object with every kernel's numbers, the card's
 name and power limit from nvidia-smi, and the result object
 ``{"ok": true, "device": {...}}``. The full report also goes to
-chiprun_out/chip_smoke_report.json.
+chiprun_out/chip_smoke_report.json, the traces to chiprun_out/e2e_*.json.
 """
 from __future__ import annotations
 
@@ -44,13 +61,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 
 N_MAIN = 45_000         # the paper's dataset size
+N_BIG = 150_000         # past the card: A would need n^2 * 4 B = 90 GB
 SIGMA = 0.3             # the paper's bandwidth for gaussians
+ORTHO_ARI_FLOOR = 0.90  # the reference's floor for three_circles, orthogonal
+MEM_LIMIT = 1e9         # peak device bytes of a streaming run
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM
 A_ATOL = 1e-6           # affinity entries
 D_RTOL = 1e-5           # degrees, relative to the row's absolute mass
 U_RTOL, U_ATOL = 1e-5, 1e-7  # power-sweep output; atol scales with max|U_ref|
 KM_RTOL = 1e-5          # assignment distances (labels must be exact)
+G_RTOL = 1e-5           # Gram entries, relative to max|G_ref|
 
 
 def check(cond: bool, msg: str) -> None:
@@ -182,6 +203,9 @@ def phase_affinity(report):
         print(f"[affinity] n={n} m={m} {kind}: max|A-A_ref|={err_a:.3e} "
               f"max|D-D_ref|/mass={err_d:.3e}", flush=True)
         check(err_a <= A_ATOL and err_d <= D_RTOL, f"affinity {kind} disagrees")
+        # the shared tile code (affinity_tile.cuh) rounds as the plain
+        # version does, one step at a time: A is its bits exactly
+        check(err_a == 0.0, f"affinity {kind}: A is not bitwise the plain version's")
         worst_a, worst_d = max(worst_a, err_a), max(worst_d, err_d)
         if kind == "rbf":
             del a, d
@@ -219,12 +243,16 @@ def phase_affinity(report):
                                          library_ms=None)
 
 
-def _u_errors(u, u_ref):
+def _u_errors(u, u_ref, mass=None):
     """Max |U - U_ref|, and the most by which |U - U_ref| exceeds
-    rtol |U_ref| + atol max|U_ref| (<= 0 where the kernel agrees)."""
+    rtol mass + atol max|U_ref| (<= 0 where the kernel agrees). ``mass``
+    defaults to |U_ref|; where the sums can cancel (raw cosine has
+    negative entries) it is the absolute mass (|A| |V|) / max(d, 1e-30)
+    that the rounding error scales with."""
     diff = (u - u_ref).abs()
     atol = U_ATOL * float(u_ref.abs().max())
-    return float(diff.max()), float((diff - U_RTOL * u_ref.abs()).max() - atol)
+    mass = u_ref.abs() if mass is None else mass
+    return float(diff.max()), float((diff - U_RTOL * mass).max() - atol)
 
 
 def phase_power_step(report):
@@ -320,9 +348,206 @@ def phase_kmeans_assign(report):
                                    host_paced_ms=host)
 
 
+def _plain_streaming_stripes(x, v, d, kind, sigma, stripe=4096, rows=None):
+    """The plain streamed U and D, and the rows' absolute mass, over row
+    stripes (the whole (n, n) A at once would double peak memory).
+    ``rows`` selects the stripes' first rows (default: all of them)."""
+    from repro_torch.kernels import ref
+    n = x.shape[0]
+    out = []
+    for r0 in (range(0, n, stripe) if rows is None else rows):
+        r1 = min(r0 + stripe, n)
+        a_ref, d_ref = ref.affinity_and_degree_ref(x[r0:r1], x, kind=kind, sigma=sigma,
+                                                   row_offset=r0)
+        u_ref = None if v is None else ref.affinity_matmat_ref(
+            x[r0:r1], v, d[r0:r1], x, kind=kind, sigma=sigma, row_offset=r0)
+        out.append((r0, r1, u_ref, d_ref, a_ref.abs().sum(dim=1)))
+        del a_ref
+    return out
+
+
+def _plain_matmat_stripes(x, v, d, kind, sigma, stripe=4096):
+    from repro_torch.kernels import ref
+    for r0 in range(0, x.shape[0], stripe):
+        ref.affinity_matmat_ref(x[r0:r0 + stripe], v, d[r0:r0 + stripe], x, kind=kind,
+                                sigma=sigma, row_offset=r0)
+
+
+def _plain_degree_stripes(x, kind, sigma, stripe=4096):
+    from repro_torch.kernels import ref
+    for r0 in range(0, x.shape[0], stripe):
+        ref.affinity_degree_streaming_ref(x[r0:r0 + stripe], x, kind=kind, sigma=sigma,
+                                          row_offset=r0)
+
+
+def _stripe_u_d_errors(u, d_s, stripes):
+    """(max|U-U_ref|, excess over the U rule, max|D-D_ref|/mass,
+    max|D-D_ref|) over the stripes of :func:`_plain_streaming_stripes`."""
+    u_part = torch.cat([u[r0:r1] for r0, r1, *_ in stripes])
+    u_ref = torch.cat([s[2] for s in stripes])
+    abs_err, excess = _u_errors(u_part, u_ref)
+    d_diff = [((d_s[r0:r1] - d_ref).abs(), mass) for r0, r1, _, d_ref, mass in stripes]
+    err_d = max(float((diff / mass.clamp_min(1e-30)).max()) for diff, mass in d_diff)
+    return abs_err, excess, err_d, max(float(diff.max()) for diff, _ in d_diff)
+
+
+def streaming_flops(rows: int, cols: int, m: int, r: int | None) -> float:
+    """Operations of one streamed sweep, n^2 (2m + 6 + 2r), or of the
+    streamed degree, n^2 (2m + 7): the dot product, the rbf transform with
+    its expf, then 2r for the product with V or 1 for the row sum."""
+    return rows * cols * (2 * m + 6 + (1 if r is None else 2 * r))
+
+
+def phase_streaming(report):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.affinity import affinity_and_degree
+    from repro_torch.kernels.power_step import degree_normalized_matmat
+    from repro_torch.kernels.streaming import affinity_degree_streaming, affinity_matmat
+    feats, _, _ = _features(N_MAIN)
+    x = feats["rbf"]
+    n, m = x.shape
+    a, d = affinity_and_degree(x, kind="rbf", sigma=SIGMA)
+    d_s = affinity_degree_streaming(x, kind="rbf", sigma=SIGMA)
+    torch.cuda.synchronize()
+    check(torch.equal(d_s, d), "the streamed D is not bitwise the stored D")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    v1 = (d / d.sum())[:, None].contiguous()             # the main path's v0
+    v2 = torch.cat([v1, torch.rand((n, 1), generator=g, device="cuda") / n], dim=1)
+    worst_u = worst_d = worst_d_abs = 0.0
+    main = {}
+    for v in (v1, v2):
+        r = v.shape[1]
+        u_s = affinity_matmat(x, v, d, kind="rbf", sigma=SIGMA)
+        u_e = degree_normalized_matmat(a, v, d)
+        torch.cuda.synchronize()
+        check(torch.equal(u_s, u_e), f"r={r}: the streamed U is not bitwise the explicit U")
+        abs_err, excess, err_d, abs_d = _stripe_u_d_errors(
+            u_s, d_s, _plain_streaming_stripes(x, v, d, "rbf", SIGMA))
+        print(f"[streaming] n={n} m={m} rbf r={r}: D and U bitwise the explicit kernels'; "
+              f"vs plain: max|U-U_ref|={abs_err:.3e} excess over tolerance={excess:.3e} "
+              f"max|D-D_ref|/mass={err_d:.3e}", flush=True)
+        check(excess <= 0.0 and err_d <= D_RTOL, f"streaming r={r} disagrees with plain")
+        worst_u, worst_d = max(worst_u, abs_err), max(worst_d, err_d)
+        worst_d_abs = max(worst_d_abs, abs_d)
+        ms = cuda_ms(lambda: affinity_matmat(x, v, d, kind="rbf", sigma=SIGMA), 10)
+        plain = cuda_ms(lambda: _plain_matmat_stripes(x, v, d, "rbf", SIGMA), 2)
+        b, by = bound_ms(4.0 * (n * m + 2 * n * r + n), streaming_flops(n, n, m, r))
+        print(f"[streaming] matmat n={n} r={r}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"library_ms=null bound_ms={b:.4f} ({by}); explicit sweep on stored A: "
+              f"{cuda_ms(lambda: degree_normalized_matmat(a, v, d), 10):.4f} ms", flush=True)
+        main[r] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+    ms_d = cuda_ms(lambda: affinity_degree_streaming(x, kind="rbf", sigma=SIGMA), 10)
+    plain_d = cuda_ms(lambda: _plain_degree_stripes(x, "rbf", SIGMA), 2)
+    b_d, by_d = bound_ms(4.0 * (n * m + n), streaming_flops(n, n, m, None))
+    print(f"[streaming] degree n={n}: kernel_ms={ms_d:.4f} plain_ms={plain_d:.4f} "
+          f"library_ms=null bound_ms={b_d:.4f} ({by_d})", flush=True)
+    del a, d, d_s
+    torch.cuda.empty_cache()
+
+    # ragged rows, wide features, all kinds, off-diagonal stripes, d=None
+    xs = torch.randn((1037, 16), generator=g, device="cuda") * 0.25
+    xs_n = xs / xs.norm(dim=1, keepdim=True)
+    for kind in ("cosine", "cosine_shifted", "rbf"):
+        x = xs if kind == "rbf" else xs_n
+        for rows, cols, ro, co in ((slice(None), None, 0, 0),
+                                   (slice(100, 400), slice(300, None), 100, 300)):
+            xr = x[rows].contiguous()
+            xc = None if cols is None else x[cols].contiguous()
+            n_cols = x.shape[0] if xc is None else xc.shape[0]
+            dd = affinity_degree_streaming(xr, xc, kind=kind, sigma=1.1, row_offset=ro,
+                                           col_offset=co)
+            a_ref, d_ref = ref.affinity_and_degree_ref(xr, xc, kind=kind, sigma=1.1,
+                                                       row_offset=ro, col_offset=co)
+            err_d = float(((dd - d_ref).abs() / a_ref.abs().sum(1).clamp_min(1e-30)).max())
+            check(err_d <= D_RTOL, f"ragged streamed degree {kind} disagrees")
+            worst_d = max(worst_d, err_d)
+            worst_d_abs = max(worst_d_abs, float((dd - d_ref).abs().max()))
+            for r in (4, 32):
+                vs = torch.rand((n_cols, r), generator=g, device="cuda")
+                for dn in (dd, None):
+                    u = affinity_matmat(xr, vs, dn, xc, kind=kind, sigma=1.1,
+                                        row_offset=ro, col_offset=co)
+                    u_ref = ref.affinity_matmat_ref(xr, vs, dn, xc, kind=kind, sigma=1.1,
+                                                    row_offset=ro, col_offset=co)
+                    mass = a_ref.abs() @ vs
+                    if dn is not None:      # the kernel's floored divide
+                        mass = mass / dn.clamp_min(1e-30)[:, None]
+                    abs_err, excess = _u_errors(u, u_ref, mass)
+                    check(excess <= 0.0, f"ragged streaming {kind} r={r} "
+                          f"d={'given' if dn is not None else 'None'} disagrees")
+                    # raw cosine degrees can be negative, where the floored
+                    # divide scales U by 1e30: its absolute error says nothing
+                    if dn is None or kind != "cosine":
+                        worst_u = max(worst_u, abs_err)
+            print(f"[streaming] ragged {tuple(xr.shape)}x{n_cols} m=16 {kind} "
+                  f"offsets=({ro},{co}) r=4,32 d=given,None: agree; "
+                  f"max|D-D_ref|/mass={err_d:.3e}")
+    report["streaming_matmat"] = dict(main[1], max_abs_err=worst_u, library_ms=None,
+                                      r2=main[2])
+    report["streaming_degree"] = dict(ms=ms_d, plain_ms=plain_d, bound_ms=b_d, bound_by=by_d,
+                                      max_abs_err=worst_d_abs, max_rel_err_d=worst_d,
+                                      library_ms=None)
+
+
+def phase_gram(report):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gram import gram
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n = N_MAIN
+    v = torch.rand((n, 2), generator=g, device="cuda")
+    v = v / v.sum(dim=0, keepdim=True)                   # the loop's L1 scale
+    vu = torch.cat([v, v * (1.0 + 0.01 * torch.rand((n, 2), generator=g, device="cuda"))],
+                   dim=1)
+    cases = [("V", v), ("[V|U]", vu)]
+    cases += [(f"ragged c={c}", torch.randn((1037, c), generator=g, device="cuda"))
+              for c in (1, 3, 64)]
+    worst = 0.0
+    for tag, vv in cases:
+        gk = gram(vv)
+        g_ref = ref.gram_ref(vv)
+        again = gram(vv)
+        torch.cuda.synchronize()
+        err = float((gk - g_ref).abs().max())
+        scale = float(g_ref.abs().max())
+        print(f"[gram] {tag} {tuple(vv.shape)}: max|G-G_ref|={err:.3e} max|G_ref|={scale:.3e} "
+              f"same bits on a second call={torch.equal(gk, again)}", flush=True)
+        check(err <= G_RTOL * scale, f"gram disagrees ({tag})")
+        check(torch.equal(gk, again), f"gram gives other bits on a second call ({tag})")
+        worst = max(worst, err)
+    fns = {"ms": lambda: gram(v), "plain_ms": lambda: ref.gram_ref(v),
+           "library_ms": lambda: v.T @ v}
+    times = {key: device_ms(fn, 50) for key, fn in fns.items()}
+    host = {key: cuda_ms(fn, 50) for key, fn in fns.items()}
+    c = v.shape[1]
+    b, by = bound_ms(4.0 * (n * c + c * c), 2.0 * n * c * c)
+    print(f"[gram] n={n} c={c}: device kernel_ms={times['ms']:.6f} "
+          f"plain_ms={times['plain_ms']:.6f} library_ms={times['library_ms']:.6f} "
+          f"bound_ms={b:.6f} ({by}); host-paced per call: kernel {host['ms']:.4f} "
+          f"plain {host['plain_ms']:.4f} library {host['library_ms']:.4f}", flush=True)
+    report["gram"] = dict(times, bound_ms=b, bound_by=by, max_abs_err=worst,
+                          host_paced_ms=host)
+
+
+def _counted_run(x, k, cfg):
+    """run_gpic with the launch counters set to 0 just before and read
+    just after, and the peak device memory of the run. Returns (result,
+    labels as numpy, wall seconds, counts, peak bytes)."""
+    from repro_torch import run_gpic
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_gpic(x, k, cfg)
+    labels = res.labels.cpu().numpy()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    return res, labels, wall, counts, torch.cuda.max_memory_allocated()
+
+
 def phase_end_to_end(report):
     from repro_torch import GPICConfig, adjusted_rand_index, dataset_by_name, run_gpic
-    from repro_torch.kernels import ops
     cfg = GPICConfig(affinity_kind="rbf", sigma=SIGMA, max_iter=400)
 
     # small input: the card against the plain versions on the CPU
@@ -339,21 +564,14 @@ def phase_end_to_end(report):
 
     # the main path at the paper's size, counted
     x, y, k = dataset_by_name("gaussians", N_MAIN, seed=0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = run_gpic(x, k, cfg)
-    labels = res.labels.cpu().numpy()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    res, labels, wall, counts, peak = _counted_run(x, k, cfg)
     sweeps = int(res.n_iter)
     ari = adjusted_rand_index(y, labels)
     emb = res.embedding
-    print(f"[e2e] gaussians n={N_MAIN} rbf sigma={SIGMA}: wall_s={wall:.4f} sweeps={sweeps} "
-          f"converged={bool(res.converged)} ARI={ari:.4f} peak_mem_GB={peak / 1e9:.3f} "
-          f"launches={counts} health: {res.health.summary()}", flush=True)
+    print(f"[e2e] explicit gaussians n={N_MAIN} rbf sigma={SIGMA}: wall_s={wall:.4f} "
+          f"sweeps={sweeps} converged={bool(res.converged)} ARI={ari:.4f} "
+          f"peak_mem_GB={peak / 1e9:.3f} launches={counts} health: {res.health.summary()}",
+          flush=True)
     check(labels.shape == (N_MAIN,) and bool(torch.isfinite(emb).all())
           and emb.shape == (N_MAIN,), "the result has the wrong shape or is not finite")
     check(ari >= 0.99, f"ARI {ari:.4f} < 0.99")
@@ -362,11 +580,136 @@ def phase_end_to_end(report):
     check(counts["kmeans_assign"] == cfg.kmeans_iters + 1, f"assignment launched {counts}")
     report["e2e"] = dict(n=N_MAIN, wall_s=wall, sweeps=sweeps, ari=ari,
                          peak_mem_bytes=peak, launches=counts)
+    return counts, res, labels
+
+
+def phase_streaming_e2e(report, explicit):
+    """The streaming engine on the main path's config: the explicit run's
+    result, without A."""
+    from repro_torch import GPICConfig, adjusted_rand_index, dataset_by_name
+    _, res_e, labels_e = explicit
+    cfg = GPICConfig(engine="streaming", affinity_kind="rbf", sigma=SIGMA, max_iter=400)
+    x, y, k = dataset_by_name("gaussians", N_MAIN, seed=0)
+    res, labels, wall, counts, peak = _counted_run(x, k, cfg)
+    sweeps = int(res.n_iter)
+    ari = adjusted_rand_index(y, labels)
+    bitwise = torch.equal(res.embeddings, res_e.embeddings)
+    print(f"[e2e] streaming gaussians n={N_MAIN}: wall_s={wall:.4f} sweeps={sweeps} "
+          f"(explicit {int(res_e.n_iter)}) ARI={ari:.4f} peak_mem_GB={peak / 1e9:.3f} "
+          f"embedding bitwise the explicit run's={bitwise} labels equal="
+          f"{bool((labels == labels_e).all())} launches={counts}", flush=True)
+    check(bool(torch.isfinite(res.embedding).all()) and labels.shape == (N_MAIN,),
+          "the streaming result has the wrong shape or is not finite")
+    check(sweeps == int(res_e.n_iter) and bool((labels == labels_e).all()),
+          "streaming and explicit runs disagree on sweeps or labels")
+    check(ari >= 0.99, f"streaming ARI {ari:.4f} < 0.99")
+    check(counts["streaming_degree"] == 1 and counts["streaming_matmat"] == sweeps
+          and counts["affinity_and_degree"] == 0 and counts["degree_normalized_matmat"] == 0
+          and counts["kmeans_assign"] == cfg.kmeans_iters + 1,
+          f"streaming launches {counts} vs {sweeps} sweeps")
+    check(peak < MEM_LIMIT, f"streaming peak memory {peak / 1e9:.3f} GB >= 1 GB")
+    report["e2e_streaming"] = dict(n=N_MAIN, wall_s=wall, sweeps=sweeps, ari=ari,
+                                   peak_mem_bytes=peak, launches=counts,
+                                   bitwise_explicit=bitwise)
     return counts
 
 
+def phase_past_memory(report):
+    """Streaming where the explicit engine cannot run: A at n = 150,000
+    would be 90 GB on an 80 GB card."""
+    from repro_torch import GPICConfig, adjusted_rand_index, dataset_by_name
+    from repro_torch.kernels.streaming import affinity_degree_streaming, affinity_matmat
+    cfg = GPICConfig(engine="streaming", affinity_kind="rbf", sigma=SIGMA, max_iter=400)
+    x, y, k = dataset_by_name("gaussians", N_BIG, seed=0)
+    res, labels, wall, counts, peak = _counted_run(x, k, cfg)
+    sweeps = int(res.n_iter)
+    ari = adjusted_rand_index(y, labels)
+    print(f"[e2e] streaming gaussians n={N_BIG} (A would be {4.0 * N_BIG ** 2 / 1e9:.1f} GB): "
+          f"wall_s={wall:.4f} sweeps={sweeps} converged={bool(res.converged)} ARI={ari:.4f} "
+          f"peak_mem_GB={peak / 1e9:.3f} launches={counts}", flush=True)
+    check(ari >= 0.99, f"n={N_BIG} ARI {ari:.4f} < 0.99")
+    check(peak < MEM_LIMIT, f"n={N_BIG} peak memory {peak / 1e9:.3f} GB >= 1 GB")
+    check(counts["streaming_matmat"] == sweeps, f"n={N_BIG} launches {counts}")
+    # one sweep of the final state against the plain version on 3 stripes
+    xt = torch.as_tensor(x, device="cuda")
+    v = res.embeddings.contiguous()
+    d = affinity_degree_streaming(xt, kind="rbf", sigma=SIGMA)
+    u = affinity_matmat(xt, v, d, kind="rbf", sigma=SIGMA)
+    rows = (0, N_BIG // 2 - 1024, N_BIG - 2048)
+    abs_err, excess, err_d, _ = _stripe_u_d_errors(
+        u, d, _plain_streaming_stripes(xt, v, d, "rbf", SIGMA, stripe=2048, rows=rows))
+    print(f"[e2e] n={N_BIG} one sweep vs plain on rows {rows} (+2,048): "
+          f"max|U-U_ref|={abs_err:.3e} excess={excess:.3e} max|D-D_ref|/mass={err_d:.3e}",
+          flush=True)
+    check(excess <= 0.0 and err_d <= D_RTOL, f"n={N_BIG} streaming disagrees with plain")
+    report["e2e_past_memory"] = dict(n=N_BIG, wall_s=wall, sweeps=sweeps, ari=ari,
+                                     peak_mem_bytes=peak, launches=counts,
+                                     max_abs_err=abs_err, max_rel_err_d=err_d)
+
+
+def phase_orthogonal(report):
+    """The orthogonal block (r = 2) on three_circles, both engines, with
+    and without the residual rule. Returns the Gram's count of the first
+    streaming run."""
+    from repro_torch import GPICConfig, adjusted_rand_index, dataset_by_name
+    x, y, k = dataset_by_name("three_circles", N_MAIN, seed=0)
+    runs, gram_count = [], None
+    for tol in (None, 1e-3):
+        out = {}
+        for engine, sweep_op in (("explicit", "degree_normalized_matmat"),
+                                 ("streaming", "streaming_matmat")):
+            cfg = GPICConfig(engine=engine, affinity_kind="rbf", sigma=SIGMA, n_vectors=2,
+                             embedding="orthogonal", max_iter=400, residual_tol=tol)
+            res, labels, wall, counts, peak = _counted_run(x, k, cfg)
+            cols = res.n_iter_cols.tolist()
+            sweeps = max(cols)
+            # the residual is priced on every sweep from column 0's
+            # convergence on (qr_every = 1) until the loop stops
+            checks = sweeps - cols[0] + 1 if tol is not None and bool(res.converged_cols[0]) else 0
+            ari = adjusted_rand_index(y, labels)
+            print(f"[e2e] orthogonal three_circles n={N_MAIN} {engine} residual_tol={tol}: "
+                  f"wall_s={wall:.4f} n_iter_cols={cols} ARI={ari:.4f} "
+                  f"peak_mem_GB={peak / 1e9:.3f} launches={counts}", flush=True)
+            check(counts[sweep_op] == sweeps, f"orthogonal sweep launches {counts}")
+            check(counts["gram"] == sweeps + checks,
+                  f"gram launched {counts['gram']}, expected {sweeps} QR sweeps + "
+                  f"{checks} residual checks")
+            out[engine] = (labels, cols, ari)
+            runs.append(dict(engine=engine, residual_tol=tol, wall_s=wall, n_iter_cols=cols,
+                             ari=ari, peak_mem_bytes=peak, launches=counts))
+            if engine == "streaming" and gram_count is None:
+                gram_count = counts["gram"]
+        (lab_e, cols_e, ari_e), (lab_s, cols_s, ari_s) = out["explicit"], out["streaming"]
+        check(bool((lab_e == lab_s).all()) and cols_e == cols_s,
+              f"orthogonal engines disagree (residual_tol={tol})")
+        check(min(ari_e, ari_s) >= ORTHO_ARI_FLOOR,
+              f"orthogonal ARI {min(ari_e, ari_s):.4f} < {ORTHO_ARI_FLOOR}")
+    report["e2e_orthogonal"] = runs
+    return gram_count
+
+
+def phase_ensemble(report):
+    from repro_torch import GPICConfig, adjusted_rand_index, dataset_by_name
+    from repro_torch.core.power import default_snapshot_iters
+    cfg = GPICConfig(engine="streaming", affinity_kind="rbf", sigma=SIGMA, max_iter=400,
+                     embedding="ensemble")
+    x, y, k = dataset_by_name("gaussians", N_MAIN, seed=0)
+    res, labels, wall, counts, peak = _counted_run(x, k, cfg)
+    n_snap = len(default_snapshot_iters(cfg.max_iter))
+    ari = adjusted_rand_index(y, labels)
+    print(f"[e2e] ensemble streaming gaussians n={N_MAIN}: wall_s={wall:.4f} "
+          f"sweeps={int(res.n_iter)} embedding={tuple(res.embeddings.shape)} ARI={ari:.4f} "
+          f"launches={counts}", flush=True)
+    check(tuple(res.embeddings.shape) == (N_MAIN, n_snap)
+          and bool(torch.isfinite(res.embeddings).all()), "ensemble embedding shape")
+    check(ari >= 0.99, f"ensemble ARI {ari:.4f} < 0.99")
+    report["e2e_ensemble"] = dict(wall_s=wall, sweeps=int(res.n_iter), ari=ari,
+                                  embedding_shape=list(res.embeddings.shape), launches=counts)
+
+
 #: device-event names of this port's kernels (always listed by the profile)
-KERNEL_LABELS = ("affinity_kernel", "power_step_kernel", "kmeans_assign_kernel")
+KERNEL_LABELS = ("affinity_kernel", "power_step_kernel", "kmeans_assign_kernel",
+                 "streaming_matmat_kernel", "streaming_degree_kernel", "gram_")
 
 
 def _kernel_label(name: str) -> str:
@@ -375,22 +718,22 @@ def _kernel_label(name: str) -> str:
     return name.split("(")[0][:90]
 
 
-def phase_profile(report, out_dir):
-    """One more main-path run under torch.profiler, after the counted one:
-    device busy share of the wall time and device time by kernel. The
-    trace goes to chiprun_out/e2e_trace.json."""
+def phase_profile(report, out_dir, engine):
+    """One more main-path run of ``engine`` under torch.profiler, after the
+    counted one: device busy share of the wall time and device time by
+    kernel. The trace goes to chiprun_out/e2e_<engine>_trace.json."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import GPICConfig, dataset_by_name, run_gpic
     x, _, k = dataset_by_name("gaussians", N_MAIN, seed=0)
-    cfg = GPICConfig(affinity_kind="rbf", sigma=SIGMA, max_iter=400)
+    cfg = GPICConfig(engine=engine, affinity_kind="rbf", sigma=SIGMA, max_iter=400)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_gpic(x, k, cfg).labels.cpu()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(os.path.join(out_dir, "e2e_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"e2e_{engine}_trace.json"))
     spans = sorted((ev.time_range.start, ev.time_range.end, _kernel_label(ev.name))
                    for ev in prof.events() if ev.device_type == DeviceType.CUDA)
     busy_us, reach = 0.0, float("-inf")
@@ -405,15 +748,15 @@ def phase_profile(report, out_dir):
     top = [(label, v) for i, (label, v) in enumerate(ranked)
            if i < 10 or label.startswith(KERNEL_LABELS)]
     if not spans:
-        print(f"[profile] wall_ms={wall_ms:.3f}: the profiler recorded no device "
+        print(f"[profile] {engine} wall_ms={wall_ms:.3f}: the profiler recorded no device "
               "events; device time not measured", flush=True)
     else:
-        print(f"[profile] wall_ms={wall_ms:.3f} device_busy_ms={busy_us / 1e3:.3f} "
+        print(f"[profile] {engine} wall_ms={wall_ms:.3f} device_busy_ms={busy_us / 1e3:.3f} "
               f"busy_share={busy_us / 1e3 / wall_ms:.4f} device_events={len(spans)}",
               flush=True)
         for label, (count, ms) in top:
             print(f"[profile]   {ms:9.3f} ms  x{count:<4d} {label}")
-    report["profile"] = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+    report[f"profile_{engine}"] = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                              device_events=len(spans),
                              top=[dict(name=l, launches=c, ms=ms) for l, (c, ms) in top])
 
@@ -425,6 +768,11 @@ SOURCES = {
                                  "src/repro/kernels/power_step.py:77"),
     "kmeans_assign": ("src/repro_torch/kernels/csrc/kmeans_assign.cu",
                       "src/repro/kernels/kmeans_assign.py:39"),
+    "streaming_matmat": ("src/repro_torch/kernels/csrc/streaming.cu",
+                         "src/repro/kernels/streaming.py:148"),
+    "streaming_degree": ("src/repro_torch/kernels/csrc/streaming.cu",
+                         "src/repro/kernels/streaming.py:277"),
+    "gram": ("src/repro_torch/kernels/csrc/gram.cu", "src/repro/kernels/gram.py:41"),
 }
 
 
@@ -437,10 +785,23 @@ def main() -> int:
     phase_affinity(kernels)
     phase_power_step(kernels)
     phase_kmeans_assign(kernels)
-    counts = phase_end_to_end(report)
+    phase_streaming(kernels)
+    phase_gram(kernels)
+    # each kernel's launches come from the run of the path that uses it
+    explicit = phase_end_to_end(report)
+    counts = {name: explicit[0][name] for name in
+              ("affinity_and_degree", "degree_normalized_matmat", "kmeans_assign")}
+    streaming = phase_streaming_e2e(report, explicit)
+    counts.update({name: streaming[name] for name in ("streaming_matmat", "streaming_degree")})
+    del explicit
+    phase_past_memory(report)
+    counts["gram"] = phase_orthogonal(report)
+    phase_ensemble(report)
+    check(all(counts[name] > 0 for name in SOURCES), f"a kernel was never launched: {counts}")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    phase_profile(report, out_dir)
+    phase_profile(report, out_dir, "explicit")
+    phase_profile(report, out_dir, "streaming")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": counts[name],

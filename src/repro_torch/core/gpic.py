@@ -10,7 +10,10 @@ The paper's six CUDA kernels map onto two fused kernels plus O(n) epilogues:
     paper kernel 5 Norm            → O(n r) epilogue in the power loop
 
 then k-means on the embedding (kernels.ops.kmeans_assign per Lloyd step).
-This slice ports ``engine='explicit'`` with ``embedding='pic'``.
+``engine='streaming'`` stores no A: kernels.ops.streaming_degree builds D
+once and kernels.ops.streaming_matmat rebuilds A's tiles inside every
+sweep. Every embedding mode runs on either engine ('orthogonal' prices its
+QR with kernels.ops.gram).
 
 Prefer the ``run_gpic``/``GPICConfig`` front door (core/pipeline.py).
 """
@@ -26,7 +29,7 @@ from .affinity import (
 )
 from .health import HealthReport, count_bad_rows
 from .kmeans import kmeans
-from .operators import explicit_operator
+from .operators import explicit_operator, streaming_operator
 from .pic import PICResult, make_pic_result
 from .power import init_power_vectors, run_power_embedding, standardize_columns
 
@@ -34,12 +37,16 @@ from .power import init_power_vectors, run_power_embedding, standardize_columns
 def _build_engine_operator(x, spec, *, engine, a_dtype=torch.float32):
     """Normalize features per the spec's kind and bind the engine: the
     cosine kinds take row-normalized input, rbf the raw features."""
-    if engine != "explicit":
+    if engine == "matrix_free":
         raise NotImplementedError(
-            f"engine={engine!r} is not ported yet (ROADMAP queue 1 item 3 "
-            "brings 'streaming', item 8 'matrix_free')")
+            "engine='matrix_free' is not ported yet (ROADMAP queue 1 item 8)")
+    if engine not in ("explicit", "streaming"):
+        raise ValueError(f"unknown engine {engine!r} "
+                         "(expected 'explicit' or 'streaming')")
     inp = x if spec.kind == "rbf" else row_normalize_features(x)
-    return explicit_operator(inp, spec=spec, a_dtype=a_dtype)
+    if engine == "explicit":
+        return explicit_operator(inp, spec=spec, a_dtype=a_dtype)
+    return streaming_operator(inp, spec=spec)
 
 
 def gpic(
@@ -57,11 +64,16 @@ def gpic(
     engine: str = "explicit",
     a_dtype: torch.dtype = torch.float32,
     embedding: str = "pic",
+    qr_every: int = 1,
+    snapshot_iters: tuple | None = None,
+    residual_tol: float | None = None,
 ) -> PICResult:
     """Accelerated PIC via the multi-vector power engine, on the device of
     ``x``. ``affinity`` (an :class:`AffinitySpec`) takes precedence over the
     ``affinity_kind``/``sigma`` shorthand. ``generator`` draws the extra
-    power columns and then the kmeans++ seeds."""
+    power columns and then the kmeans++ seeds. ``qr_every`` and
+    ``residual_tol`` tune embedding='orthogonal', ``snapshot_iters``
+    embedding='ensemble'."""
     n = x.shape[0]
     if eps is None:
         eps = 1e-5 / n
@@ -71,7 +83,8 @@ def gpic(
 
     v0 = init_power_vectors(op.degree, n_vectors, generator=generator)
     v, t_cols, done, emb_raw, status = run_power_embedding(
-        op, v0, eps, max_iter, embedding=embedding)
+        op, v0, eps, max_iter, embedding=embedding, qr_every=qr_every,
+        snapshot_iters=snapshot_iters, residual_tol=residual_tol)
     emb = standardize_columns(emb_raw)
     labels, _ = kmeans(emb, k, iters=kmeans_iters, generator=generator)
     # a dense graph disconnects only by underflow, which the isolated-row

@@ -6,8 +6,8 @@
 
 ``run_gpic`` runs on the CUDA card unless the caller asks for another
 device (the tests pass ``device="cpu"``, which runs the kernels' plain
-versions). This slice routes the local explicit engine with the classic
-``embedding='pic'`` and a dense fixed-bandwidth affinity; the settings a
+versions). The port routes the local explicit and streaming engines with a
+dense fixed-bandwidth affinity and every embedding mode; the settings a
 later slice brings raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
@@ -31,19 +31,27 @@ ENGINES = ("explicit", "streaming", "matrix_free")
 class GPICConfig:
     """Everything that selects and tunes a GPIC run, in one hashable value.
 
-      engine:       'explicit' (paper-faithful A build). 'streaming' and
-                    'matrix_free' are not ported yet.
+      engine:       'explicit' (paper-faithful A build) or 'streaming'
+                    (A never stored: tiles rebuilt from the features in
+                    every sweep). 'matrix_free' is not ported yet.
       affinity:     an :class:`AffinitySpec`; None derives the dense fixed
                     spec from affinity_kind/sigma. Rejected alongside
                     non-default affinity_kind/sigma.
       affinity_kind/sigma: shorthand for the dense fixed spec (sigma only
                     read for 'rbf').
       n_vectors:    r power vectors in one engine state.
-      embedding:    'pic' (classic per-column loop); 'orthogonal' and
-                    'ensemble' are not ported yet.
+      embedding:    'pic' (classic per-column loop), 'orthogonal' (block
+                    iteration: column 0 pinned to the classic trajectory,
+                    columns 1..r-1 QR-orthonormalized into the invariant
+                    subspace) or 'ensemble' (diffusion-time snapshots).
+      qr_every:     re-orthonormalization period in sweeps ('orthogonal').
+      residual_tol: arm the subspace residual stopping rule ('orthogonal'
+                    with n_vectors > 1); None = off.
+      snapshot_iters: ascending sweep counts to snapshot ('ensemble'; None
+                    = geometric in max_iter).
       eps_scale:    convergence threshold numerator (eps = eps_scale / n).
       max_iter / kmeans_iters: loop caps.
-      a_dtype:      A storage dtype; this slice stores float32.
+      a_dtype:      A storage dtype ('explicit'); the port stores float32.
       tile:         kernel tile override; this slice's kernels have fixed
                     tiles, so it must stay None.
       seed:         seeds the ``torch.Generator`` for the k-means init and
@@ -59,6 +67,9 @@ class GPICConfig:
     sigma: float = 1.0
     n_vectors: int = 1
     embedding: str = "pic"
+    qr_every: int = 1
+    residual_tol: float | None = None
+    snapshot_iters: tuple[int, ...] | None = None
     eps_scale: float = 1e-5
     max_iter: int = 50
     kmeans_iters: int = 25
@@ -83,30 +94,42 @@ def _resolve_device(device) -> torch.device:
 
 
 def check_config(cfg: GPICConfig) -> AffinitySpec:
-    """The front-door checks that apply to the fields this slice keeps:
-    ValueError for a bad value, NotImplementedError for one a later slice
-    routes. Returns the resolved affinity spec."""
+    """The front-door checks: first the reference's ValueErrors for a bad
+    value or combination, in the reference's order, so a config the
+    reference refuses raises the same class here; then NotImplementedError
+    for a setting a later slice routes. Returns the resolved affinity spec."""
     if cfg.engine not in ENGINES:
         raise ValueError(
             f"unknown engine {cfg.engine!r} (expected one of {ENGINES})")
-    if cfg.engine != "explicit":
-        raise NotImplementedError(
-            f"engine={cfg.engine!r} is not ported yet (ROADMAP queue 1 item "
-            "3 brings 'streaming', item 8 'matrix_free')")
     if cfg.embedding not in EMBEDDINGS:
         raise ValueError(
             f"unknown embedding {cfg.embedding!r} "
             f"(expected one of {EMBEDDINGS})")
-    if cfg.embedding != "pic":
-        raise NotImplementedError(
-            f"embedding={cfg.embedding!r} is not ported yet (ROADMAP queue 1 "
-            "item 4, embedding modes)")
-    if cfg.n_vectors < 1:
-        raise ValueError(f"n_vectors must be >= 1, got {cfg.n_vectors}")
-    if cfg.n_vectors > MAX_R:
-        raise NotImplementedError(
-            f"n_vectors={cfg.n_vectors}: the power-step kernel takes at most "
-            f"{MAX_R} columns (ROADMAP queue 2, kernel 2 follow-up)")
+    if cfg.qr_every < 1:
+        raise ValueError(
+            f"qr_every must be >= 1 (a period in sweeps), got {cfg.qr_every}")
+    if cfg.qr_every != 1 and cfg.embedding != "orthogonal":
+        raise ValueError(
+            "qr_every tunes the re-orthonormalization period of "
+            "embedding='orthogonal' only")
+    if cfg.snapshot_iters is not None and cfg.embedding != "ensemble":
+        raise ValueError(
+            "snapshot_iters selects the diffusion times of "
+            "embedding='ensemble' only")
+    if cfg.residual_tol is not None:
+        if cfg.embedding != "orthogonal":
+            raise ValueError(
+                "residual_tol arms the subspace residual stopping rule of "
+                "embedding='orthogonal' only")
+        if cfg.n_vectors < 2:
+            raise ValueError(
+                "residual_tol stops the QR-coupled block columns; with "
+                "n_vectors=1 the orthogonal loop IS the classic one and "
+                "the rule can never arm — drop it or raise n_vectors")
+        if not float(cfg.residual_tol) > 0.0:
+            raise ValueError(
+                f"residual_tol must be > 0 (a relative residual), got "
+                f"{cfg.residual_tol}")
     if cfg.affinity is not None and (
             cfg.affinity_kind != "cosine_shifted" or cfg.sigma != 1.0):
         raise ValueError(
@@ -114,6 +137,19 @@ def check_config(cfg: GPICConfig) -> AffinitySpec:
             "affinity_kind/sigma shorthand, not both")
     spec = as_affinity_spec(cfg.affinity, kind=cfg.affinity_kind,
                             sigma=cfg.sigma)
+    if cfg.engine == "streaming" and cfg.a_dtype != torch.float32:
+        raise ValueError(
+            "a_dtype (O4) selects the A *storage* dtype; the streaming "
+            "engine never stores A")
+    if cfg.n_vectors < 1:
+        raise ValueError(f"n_vectors must be >= 1, got {cfg.n_vectors}")
+    if cfg.engine == "matrix_free":
+        raise NotImplementedError(
+            "engine='matrix_free' is not ported yet (ROADMAP queue 1 item 8)")
+    if cfg.n_vectors > MAX_R:
+        raise NotImplementedError(
+            f"n_vectors={cfg.n_vectors}: the power-step kernel takes at most "
+            f"{MAX_R} columns (ROADMAP queue 2, kernel 2 follow-up)")
     if not spec.dense_fixed:
         raise NotImplementedError(
             "adaptive-bandwidth and kNN-truncated affinity specs are not "
@@ -121,7 +157,8 @@ def check_config(cfg: GPICConfig) -> AffinitySpec:
     if cfg.a_dtype != torch.float32:
         raise NotImplementedError(
             f"a_dtype={cfg.a_dtype} is not ported yet (ROADMAP queue 1 item "
-            "13, bf16 A storage)")
+            "13, bf16 A storage: the reference's a_dtype through kernel 1's "
+            "out_dtype and kernel 2's upcast)")
     if cfg.tile is not None:
         raise NotImplementedError(
             "tile overrides are not ported yet (ROADMAP queue 1 item 1, the "
@@ -169,7 +206,9 @@ def run_gpic(
                eps=cfg.eps_scale / x.shape[0], max_iter=cfg.max_iter,
                kmeans_iters=cfg.kmeans_iters, affinity=spec,
                n_vectors=cfg.n_vectors, engine=cfg.engine,
-               a_dtype=cfg.a_dtype, embedding=cfg.embedding)
+               a_dtype=cfg.a_dtype, embedding=cfg.embedding,
+               qr_every=cfg.qr_every, residual_tol=cfg.residual_tol,
+               snapshot_iters=cfg.snapshot_iters)
     if notes:
         res = replace(res, health=replace(res.health,
                                           notes=res.health.notes + notes))

@@ -6,18 +6,31 @@ operator realizes it, so the per-iteration memory traffic does not depend
 on the number of power vectors.
 
 The engine is parameterized by a :class:`PowerOperator`: ``matmat``
-performs the sweep on one device.
+performs the sweep and ``gram`` the V^T V products of the block algebra,
+on one device.
 
-This slice ports ``mode='pic'``: the paper's per-vector Algorithm 1/2 loop,
-where each column carries its own delta and acceleration-based stopping
-flag, and a converged column is frozen while the others keep iterating.
+Three embedding modes share the one loop:
+
+  mode='pic'         the paper's per-vector Algorithm 1/2 loop: each column
+                     carries its own delta and acceleration-based stopping
+                     flag, and a converged column is frozen while the
+                     others keep iterating.
+  mode='orthogonal'  block iteration: column 0 keeps the classic pinned
+                     trajectory, columns 1..r-1 are Cholesky-QR
+                     re-orthonormalized against it every ``qr_every``
+                     sweeps. Only column 0 freezes; the block columns'
+                     done flags latch their first eps-crossing.
+  ensemble           :func:`ensemble_power_iteration` snapshots the classic
+                     block at a few diffusion times and stacks them.
+
 The reference's ``while_loop`` is a Python loop here that reads
-``done.all()`` on the host once per sweep.
+``done.all()`` on the host once per sweep; its ``lax.cond`` on the QR
+cadence is a Python ``if`` on the sweep count.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable
+from dataclasses import dataclass, field
+from typing import Callable, Sequence
 
 import torch
 
@@ -30,6 +43,13 @@ EMBEDDINGS = ("pic", "orthogonal", "ensemble")
 STALL_PATIENCE = 10
 
 
+def _gram_plain(v):
+    """V^T V in f32: the default binding; the operator builders bind the
+    Gram kernel (``kernels.ops.gram``)."""
+    v32 = v.float()
+    return v32.T @ v32
+
+
 @dataclass(frozen=True)
 class PowerOperator:
     """One degree-normalized sweep of A.
@@ -38,9 +58,12 @@ class PowerOperator:
       matmat: maps the (n, r) V to (A V) / d.
       degree: the (n,) degree backing the sweep (v0 seed and diagnostics;
         None for a bare callable).
+      gram: maps an (n, c) block to its (c, c) Gram V^T V (the
+        re-orthonormalization and the subspace residual).
     """
     matmat: Callable[[torch.Tensor], torch.Tensor]
     degree: torch.Tensor | None = None
+    gram: Callable[[torch.Tensor], torch.Tensor] = field(default=_gram_plain)
 
 
 def as_operator(op) -> PowerOperator:
@@ -50,9 +73,78 @@ def as_operator(op) -> PowerOperator:
     return PowerOperator(matmat=op)
 
 
-def _power_loop(op, v0, eps, max_iter):
-    """The convergence loop of ``mode='pic'``. Returns
-    (t, V, t_cols, done, status); status is the (r,) int32 COL_* mask.
+def orthonormalize_block(op, v):
+    """Cholesky-QR of the (n, r) block with column 0 pinned.
+
+    G = V^T V = L L^T, Q = V L^-T: column j of Q is column j of V
+    orthogonalized against the earlier columns and L2-normalized. Column 0
+    is returned untouched (the classic degree-seeded trajectory stays the
+    block's first basis vector, bitwise). A numerically singular Gram
+    (columns momentarily aligned) fails the factorization; the block then
+    passes through unchanged and the next QR retries. ``cholesky_ex``
+    reports the failure in ``info`` where the reference's Cholesky returns
+    NaNs, and L may come back partly filled and still finite, so both are
+    tested. The (r, r) algebra stays on the block's device: the skip is a
+    ``torch.where``, not a host decision.
+    """
+    ell, info = torch.linalg.cholesky_ex(op.gram(v))
+    ok = (info == 0) & torch.all(torch.isfinite(ell))
+    q = torch.linalg.solve_triangular(ell, v.T, upper=False).T
+    out = torch.cat([v[:, :1], q[:, 1:]], dim=1)
+    return torch.where(ok, out, v)
+
+
+def subspace_residual(op, v, u):
+    """Relative invariant-subspace residual ||U - V Lam||_F / ||U||_F with
+    U = W V (the sweep output) and Lam = (V^T V)^-1 V^T U, from one Gram
+    of [V | U]:
+
+        ||U - V Lam||^2_F = tr(G_uu) - tr(G_vu^T Lam).
+
+    A singular G_vv (``solve_ex`` reports it in ``info``), a non-finite
+    result or a zero U reports inf ("not converged"), as the reference's
+    guard does.
+    """
+    r = v.shape[1]
+    g = op.gram(torch.cat([v, u], dim=1))                      # (2r, 2r)
+    gvv, gvu, guu = g[:r, :r], g[:r, r:], g[r:, r:]
+    lam, info = torch.linalg.solve_ex(gvv, gvu)
+    denom = torch.trace(guu)
+    res2 = denom - torch.trace(gvu.T @ lam)
+    rel = torch.sqrt(torch.clamp_min(res2, 0.0) / torch.clamp_min(denom, 1e-30))
+    ok = (info == 0) & torch.isfinite(rel) & (denom > 0)
+    return torch.where(ok, rel, torch.full_like(rel, float("inf")))
+
+
+def _validate_loop_args(mode, qr_every, residual_tol, r):
+    """Argument checks of the loop. Returns (block, residual): whether the
+    QR couples the columns, and whether the residual rule is armed."""
+    if mode not in ("pic", "orthogonal"):
+        raise ValueError(
+            f"unknown power-loop mode {mode!r} (expected 'pic' or "
+            "'orthogonal'; 'ensemble' is ensemble_power_iteration)")
+    if qr_every < 1:
+        raise ValueError(f"qr_every must be >= 1, got {qr_every}")
+    if residual_tol is not None and not float(residual_tol) > 0.0:
+        raise ValueError(
+            f"residual_tol must be > 0 (a relative residual), got "
+            f"{residual_tol}")
+    block = mode == "orthogonal" and r > 1
+    residual = residual_tol is not None
+    if residual and not block:
+        raise ValueError(
+            "residual_tol needs a QR-coupled block (mode='orthogonal' "
+            f"with r > 1); got mode={mode!r}, r={r} — the rule could "
+            "never arm")
+    return block, residual
+
+
+def _power_loop(op, v0, eps, max_iter, mode="pic", qr_every=1, snapshot_iters=(),
+                residual_tol=None):
+    """The one convergence loop behind every embedding mode. Returns
+    (t, V, t_cols, done, snaps, status): snaps is the list of the states
+    after each of ``snapshot_iters`` sweeps (None where the loop stopped
+    earlier), status the (r,) int32 COL_* mask.
 
     The divergence latches are always armed: a column whose L1 mass hits
     exact zero (COL_ZERO) or that produced a NaN/Inf (COL_NONFINITE) is
@@ -60,9 +152,15 @@ def _power_loop(op, v0, eps, max_iter):
     stops improving for STALL_PATIENCE sweeps is flagged COL_STALLED. On a
     clean run every latch predicate is False, so the values are the
     unlatched ones.
+
+    ``residual_tol`` (block mode only) arms the subspace residual rule: on
+    a QR sweep after column 0 has converged by its classic rule, a
+    relative residual <= residual_tol latches every column done. The gate
+    reads ``done[0]`` on the host.
     """
     op = as_operator(op)
     r = v0.shape[1]
+    block, residual = _validate_loop_args(mode, qr_every, residual_tol, r)
     dev = v0.device
     eps = torch.tensor(eps, dtype=torch.float32, device=dev)
     t = 0
@@ -72,6 +170,8 @@ def _power_loop(op, v0, eps, max_iter):
     status = torch.zeros((r,), dtype=torch.int32, device=dev)
     best = torch.full((r,), float("inf"), dtype=torch.float32, device=dev)
     since = torch.zeros((r,), dtype=torch.int32, device=dev)
+    pinned = torch.arange(r, device=dev) == 0
+    snaps = [None] * len(snapshot_iters)
     while t < max_iter and not bool(done.all()):
         u = op.matmat(v)                                   # (n, r)
         l1 = torch.sum(torch.abs(u), dim=0)                # (r,)
@@ -86,12 +186,17 @@ def _power_loop(op, v0, eps, max_iter):
                   | torch.where(zero_col & fault, COL_ZERO, 0)
                   | torch.where(bad_col & fault, COL_NONFINITE, 0)
                   ).to(torch.int32)
+        qr_now = (t + 1) % qr_every == 0
+        if block and qr_now:
+            v_next = orthonormalize_block(op, v_next)
         delta_next = torch.abs(v_next - v)
         accel = torch.amax(torch.abs(delta_next - delta), dim=0)  # (r,)
         # columns already done are frozen: keep prior value/delta and don't
-        # count the iteration; columns converging NOW keep this update
-        v_next = torch.where(done[None, :], v, v_next)
-        delta_next = torch.where(done[None, :], delta, delta_next)
+        # count the iteration; columns converging NOW keep this update. In
+        # block mode only the pinned column 0 freezes.
+        freeze = done & pinned if block else done
+        v_next = torch.where(freeze[None, :], v, v_next)
+        delta_next = torch.where(freeze[None, :], delta, delta_next)
         t_cols = t_cols + torch.where(done, 0, 1).to(torch.int32)
         done = done | (accel <= eps) | fault
         improved = accel < best
@@ -99,14 +204,21 @@ def _power_loop(op, v0, eps, max_iter):
         best = torch.minimum(best, accel)
         status = (status | torch.where(
             ~done & (since >= STALL_PATIENCE), COL_STALLED, 0)).to(torch.int32)
+        if residual and qr_now and bool(done[0]):
+            # priced at QR cadence once the pinned column has converged, so
+            # column 0's classic n_iter/converged stats are kept bitwise
+            done = done | (subspace_residual(op, v, u) <= residual_tol)
         t += 1
+        for j, s in enumerate(snapshot_iters):
+            if t == s:
+                snaps[j] = v_next
         v, delta = v_next, delta_next
     status = (status | torch.where(~done, COL_MAXITER, 0)).to(torch.int32)
-    return t, v, t_cols, done, status
+    return t, v, t_cols, done, snaps, status
 
 
-def batched_power_iteration(op, v0, eps, max_iter, *, mode="pic",
-                            return_status=False):
+def batched_power_iteration(op, v0, eps, max_iter, *, mode="pic", qr_every=1,
+                            residual_tol=None, return_status=False):
     """Run the truncated power iteration on batched state.
 
     Args:
@@ -115,39 +227,95 @@ def batched_power_iteration(op, v0, eps, max_iter, *, mode="pic",
       v0: (n, r) initial vectors.
       eps: the paper's acceleration threshold (typically 1e-5 / n).
       max_iter: iteration cap.
-      mode: 'pic' (the classic per-column loop with frozen columns); the
-        reference's 'orthogonal' block mode is not ported yet.
+      mode: 'pic' (classic per-column loop, frozen columns) or
+        'orthogonal' (block iteration, column 0 pinned). With r = 1 both
+        modes are the same classic loop.
+      qr_every: re-orthonormalization period in sweeps ('orthogonal').
+      residual_tol: arm the subspace residual stopping rule ('orthogonal'
+        with r > 1 only).
       return_status: also return the (r,) int32 COL_* status bitmask.
 
     Returns:
       (V, t_cols, done) — plus the status mask when ``return_status``.
     """
-    if mode != "pic":
-        if mode == "orthogonal":
-            raise NotImplementedError(
-                "mode='orthogonal' is not ported yet (ROADMAP queue 1 item 4, "
-                "embedding modes)")
-        raise ValueError(f"unknown power-loop mode {mode!r} (expected 'pic')")
-    _t, v, t_cols, done, status = _power_loop(op, v0, eps, max_iter)
+    _t, v, t_cols, done, _snaps, status = _power_loop(
+        op, v0, eps, max_iter, mode, qr_every, residual_tol=residual_tol)
     if return_status:
         return v, t_cols, done, status
     return v, t_cols, done
 
 
-def run_power_embedding(op, v0, eps, max_iter, *, embedding="pic"):
+def default_snapshot_iters(max_iter, n_snapshots=4):
+    """Geometrically spaced diffusion times max_iter/2^(S-1-j), ascending,
+    deduplicated — the default ensemble schedule."""
+    iters: list[int] = []
+    for j in range(n_snapshots):
+        t = max(1, max_iter // (2 ** (n_snapshots - 1 - j)))
+        if not iters or t > iters[-1]:
+            iters.append(t)
+    return tuple(iters)
+
+
+def backfill_snapshots(snaps, v):
+    """The (n, r, S) stack of the snapshots, with the slots the loop never
+    reached (it stopped before their diffusion time) filled with the final
+    frozen block."""
+    return torch.stack([v if s is None else s for s in snaps], dim=2)
+
+
+def ensemble_power_iteration(op, v0, eps, max_iter, *,
+                             snapshot_iters: Sequence[int] | None = None):
+    """Diffusion-time ensemble: the classic mode='pic' loop, with the block
+    captured after each of ``snapshot_iters`` sweeps (ascending; default
+    geometric in ``max_iter``). Snapshots past an early exit are the final
+    (frozen) block — no extra sweeps.
+
+    Returns (snaps, t_cols, done, v, status): the (n, r, S) snapshot stack,
+    the per-column stats, the loop's final state and the (r,) COL_* mask.
+    """
+    snapshot_iters = tuple(
+        int(s) for s in (snapshot_iters if snapshot_iters is not None
+                         else default_snapshot_iters(max_iter)))
+    if not snapshot_iters or list(snapshot_iters) != sorted(set(snapshot_iters)):
+        raise ValueError(
+            f"snapshot_iters must be non-empty strictly ascending ints, "
+            f"got {snapshot_iters!r}")
+    if snapshot_iters[0] < 1 or snapshot_iters[-1] > max_iter:
+        raise ValueError(
+            f"snapshot_iters {snapshot_iters!r} must lie in [1, max_iter="
+            f"{max_iter}]")
+    _t, v, t_cols, done, snaps, status = _power_loop(
+        op, v0, eps, max_iter, "pic", 1, snapshot_iters)
+    return backfill_snapshots(snaps, v), t_cols, done, v, status
+
+
+def ensemble_embedding(snaps):
+    """Flatten an (n, r, S) snapshot stack to the (n, r*S) k-means
+    embedding, column order c*S + s (the reference's layout)."""
+    return snaps.reshape(snaps.shape[0], -1)
+
+
+def run_power_embedding(op, v0, eps, max_iter, *, embedding="pic", qr_every=1,
+                        snapshot_iters=None, residual_tol=None):
     """Run the engine in the requested embedding mode. Returns
     (v, t_cols, done, emb, status): the final (n, r) state, the per-column
-    stats, the matrix to cluster (the state itself for 'pic') and the (r,)
+    stats, the matrix to cluster (the state itself for 'pic' and
+    'orthogonal', the (n, r*S) snapshot stack for 'ensemble') and the (r,)
     int32 COL_* health mask."""
     if embedding not in EMBEDDINGS:
         raise ValueError(
             f"unknown embedding {embedding!r} (expected one of {EMBEDDINGS})")
-    if embedding != "pic":
-        raise NotImplementedError(
-            f"embedding={embedding!r} is not ported yet (ROADMAP queue 1 "
-            "item 4, embedding modes)")
+    if residual_tol is not None and embedding != "orthogonal":
+        raise ValueError(
+            "residual_tol arms the subspace residual stopping rule of "
+            "embedding='orthogonal' only")
+    if embedding == "ensemble":
+        snaps, t_cols, done, v, status = ensemble_power_iteration(
+            op, v0, eps, max_iter, snapshot_iters=snapshot_iters)
+        return v, t_cols, done, ensemble_embedding(snaps), status
     v, t_cols, done, status = batched_power_iteration(
-        op, v0, eps, max_iter, return_status=True)
+        op, v0, eps, max_iter, mode=embedding, qr_every=qr_every,
+        residual_tol=residual_tol, return_status=True)
     return v, t_cols, done, v, status
 
 

@@ -5,8 +5,8 @@ GPIC has no learned weights. The state that crosses is:
   - the features, as a numpy array (``run_gpic`` takes it as is);
   - the configuration: :func:`config_from_reference` takes the reference
     ``GPICConfig``'s fields as plain values (dtypes as strings, the
-    affinity spec as a dict of its fields) and returns the port's
-    ``GPICConfig``;
+    affinity spec as a dict of its fields, snapshot times as a sequence of
+    ints) and returns the port's ``GPICConfig``;
   - random draws, as numpy: k-means start centroids go in through
     ``kmeans(init=...)`` and extra power start columns as the ``v0`` of
     ``batched_power_iteration`` (the two packages' generators differ).
@@ -34,9 +34,6 @@ _NO_EFFECT = ("use_pallas", "retry_on_fallback", "block_sparse", "overlap",
 #: "off"; any other value raises NotImplementedError
 _UNROUTED_DEFAULTS = {
     "mesh": None,                 # ROADMAP queue 1 item 10, multi-GPU
-    "qr_every": 1,                # item 4, embedding modes
-    "residual_tol": None,         # item 4
-    "snapshot_iters": None,       # item 4
     "fold_shift": False,          # item 10 (sharded explicit engine only)
     "row_reorder": False,         # item 7, block-sparse and row reorder
     "checkpoint_every": None,     # item 9, resumable execution
@@ -58,6 +55,8 @@ def config_from_reference(ref_fields: dict) -> GPICConfig:
                 value = getattr(torch, str(value))
             elif name == "affinity" and value is not None:
                 value = AffinitySpec(**value)
+            elif name == "snapshot_iters" and value is not None:
+                value = tuple(int(t) for t in value)
             out[name] = value
         elif name in _UNROUTED_DEFAULTS:
             if value != _UNROUTED_DEFAULTS[name]:

@@ -26,9 +26,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("affinity", "power_step", "kmeans_assign")
+SOURCES = ("affinity", "power_step", "kmeans_assign", "streaming", "gram")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: the ops whose launches are counted, one per kernel entry point
+OPS = ("affinity_and_degree", "degree_normalized_matmat", "kmeans_assign",
+       "streaming_matmat", "streaming_degree", "gram")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -124,9 +128,7 @@ def launch(op: str, lib_name: str, fn_name: str, argtypes, *args) -> None:
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per op since the last :func:`reset_launch_counts`."""
-    return {op: _COUNTS[op] for op in ("affinity_and_degree",
-                                       "degree_normalized_matmat",
-                                       "kmeans_assign")}
+    return {op: _COUNTS[op] for op in OPS}
 
 
 def reset_launch_counts() -> None:

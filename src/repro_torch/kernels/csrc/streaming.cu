@@ -1,0 +1,160 @@
+// Streaming (A-free) power sweep and degree for Hopper (sm_90a).
+//
+// Replaces: src/repro/kernels/streaming.py::affinity_matmat (the Pallas TPU
+// kernel _streaming_kernel) and ::affinity_degree_streaming
+// (_streaming_degree_kernel), dense fixed-bandwidth specs. Neither stores
+// A: each masked tile is rebuilt from the features (affinity_tile.cuh)
+// and folded at once into
+//     U = (A V) / max(d, 1e-30)     (d = nullptr: the unnormalized A V)
+//     D = A 1.
+// Both are stripe-general: rows x (R, m) against columns xc (C, m) at the
+// global offsets that place the diagonal.
+//
+// Bound on an H100: the operations. The inputs are O(n (m + r)) bytes, but
+// every sweep rebuilds n^2 entries: 2m for the dot product, about 6 for the
+// rbf transform (one expf), 2r for the product with V. At n = 45,000, m = 2,
+// r = 1 that is 2.4e10 f32 operations, 0.36 ms at 67 TFLOP/s, against the
+// 2.42 ms that reading a stored A would take.
+//
+// Design:
+//  * The block shape of affinity.cu: TN = 256 threads own TM rows and walk
+//    all column tiles in order, thread t owning column c0 + t. The tile
+//    entries come from the same tile::masked_tile as the stored A.
+//  * The mat-mat folds each entry into TM x RT register partials with
+//    fmaf(a, v[col][c], acc) and reduces them with the warp tree and then
+//    the 8 warps in order, then the floored divide of power_step.cu. Thread
+//    t thus adds columns t, t + 256, ... in order, exactly as power_step.cu
+//    does over a stored row, so U is bitwise equal to the explicit engine's
+//    U for the same x, V and d. The masked diagonal is multiplied in (a 0
+//    times V), as power_step.cu multiplies A's 0 diagonal, so a NaN/Inf in
+//    V still reaches the loop's health latches; columns past the edge are
+//    skipped (power_step.cu never visits them) and V is never read there.
+//  * TM follows RT so that the TM * RT partials stay near 64 registers;
+//    no row's summation order depends on TM.
+//  * The degree is affinity.cu's loop without the store: the same TM = 16,
+//    the same per-thread row sums over the tiles, the same reduction, so
+//    the streamed D is bitwise equal to affinity_and_degree's D.
+
+#include "affinity_tile.cuh"
+
+namespace {
+
+using tile::TN;
+
+__host__ __device__ constexpr int tm_for(int rt) { return rt >= 32 ? 2 : rt >= 16 ? 4 : rt >= 8 ? 8 : 16; }
+
+template <int RT>
+__global__ void __launch_bounds__(TN) streaming_matmat_kernel(
+    const float* __restrict__ xr, const float* __restrict__ xc,
+    const float* __restrict__ v, const float* __restrict__ d, float* __restrict__ u,
+    int n_rows, int n_cols, int m, int r, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq) {
+    constexpr int TM = tm_for(RT);
+    extern __shared__ float smem[];
+    float* s_xc = smem;
+    float* s_xr = smem + TN * (min(m, tile::MC) + 1);
+    __shared__ float s_sqr[TM];
+    __shared__ float s_red[tile::NWARPS * TM * RT];
+
+    const int row0 = blockIdx.x * TM;
+    tile::row_sq_norms<TM>(xr, n_rows, m, row0, kind == tile::RBF, s_sqr);
+
+    float acc[TM * RT];
+#pragma unroll
+    for (int e = 0; e < TM * RT; ++e) acc[e] = 0.f;
+
+    for (int c0 = 0; c0 < n_cols; c0 += TN) {
+        const int col = c0 + threadIdx.x;
+        const bool inside = col < n_cols;
+        float vv[RT];
+#pragma unroll
+        for (int c = 0; c < RT; ++c)
+            vv[c] = inside && c < r ? v[static_cast<size_t>(col) * r + c] : 0.f;
+        tile::masked_tile<TM>(xr, xc, s_xc, s_xr, s_sqr, row0, c0, n_rows, n_cols, m,
+                              row_offset, col_offset, kind, inv_two_sigma_sq,
+                              [&](int i, float a) {
+            if (inside) {
+#pragma unroll
+                for (int c = 0; c < RT; ++c)
+                    if (c < r) acc[i * RT + c] = fmaf(a, vv[c], acc[i * RT + c]);
+            }
+        });
+    }
+
+    const float s = tile::block_reduce_fixed<TM * RT>(acc, s_red);
+    const int i = threadIdx.x / RT, c = threadIdx.x - i * RT;
+    const int row = row0 + i;
+    if (threadIdx.x < TM * RT && c < r && row < n_rows)
+        u[static_cast<size_t>(row) * r + c] =
+            d == nullptr ? s : __fdiv_rn(s, nan_max(d[row], 1e-30f));
+}
+
+constexpr int TM_DEG = 16;  // affinity.cu's TM
+
+__global__ void __launch_bounds__(TN) streaming_degree_kernel(
+    const float* __restrict__ xr, const float* __restrict__ xc, float* __restrict__ d,
+    int n_rows, int n_cols, int m, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq) {
+    extern __shared__ float smem[];
+    float* s_xc = smem;
+    float* s_xr = smem + TN * (min(m, tile::MC) + 1);
+    __shared__ float s_sqr[TM_DEG];
+    __shared__ float s_red[tile::NWARPS * TM_DEG];
+
+    const int row0 = blockIdx.x * TM_DEG;
+    tile::row_sq_norms<TM_DEG>(xr, n_rows, m, row0, kind == tile::RBF, s_sqr);
+
+    float rowsum[TM_DEG];
+#pragma unroll
+    for (int r = 0; r < TM_DEG; ++r) rowsum[r] = 0.f;
+
+    for (int c0 = 0; c0 < n_cols; c0 += TN)
+        tile::masked_tile<TM_DEG>(xr, xc, s_xc, s_xr, s_sqr, row0, c0, n_rows, n_cols, m,
+                                  row_offset, col_offset, kind, inv_two_sigma_sq,
+                                  [&](int r, float a) { rowsum[r] += a; });
+
+    const float s = tile::block_reduce_fixed<TM_DEG>(rowsum, s_red);
+    if (threadIdx.x < TM_DEG && row0 + threadIdx.x < n_rows) d[row0 + threadIdx.x] = s;
+}
+
+template <int RT>
+void launch_matmat(const float* xr, const float* xc, const float* v, const float* d,
+                   float* u, int n_rows, int n_cols, int m, int r, int row_offset,
+                   int col_offset, int kind, float inv_two_sigma_sq, cudaStream_t stream) {
+    constexpr int TM = tm_for(RT);
+    const int grid = (n_rows + TM - 1) / TM;
+    streaming_matmat_kernel<RT><<<grid, TN, tile::smem_bytes(TM, m), stream>>>(
+        xr, xc, v, d, u, n_rows, n_cols, m, r, row_offset, col_offset, kind,
+        inv_two_sigma_sq);
+}
+
+}  // namespace
+
+// d may be null: U is then the unnormalized A V.
+extern "C" int gpic_streaming_matmat(
+    const float* xr, const float* xc, const float* v, const float* d, float* u,
+    int n_rows, int n_cols, int m, int r, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq, cudaStream_t stream) {
+#define GPIC_LAUNCH(RT) launch_matmat<RT>(xr, xc, v, d, u, n_rows, n_cols, m, r, row_offset, \
+                                          col_offset, kind, inv_two_sigma_sq, stream)
+    if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
+    else if (r <= 1) GPIC_LAUNCH(1);
+    else if (r <= 2) GPIC_LAUNCH(2);
+    else if (r <= 4) GPIC_LAUNCH(4);
+    else if (r <= 8) GPIC_LAUNCH(8);
+    else if (r <= 16) GPIC_LAUNCH(16);
+    else if (r <= 32) GPIC_LAUNCH(32);
+    else return static_cast<int>(cudaErrorInvalidValue);
+#undef GPIC_LAUNCH
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gpic_streaming_degree(
+    const float* xr, const float* xc, float* d,
+    int n_rows, int n_cols, int m, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq, cudaStream_t stream) {
+    const int grid = (n_rows + TM_DEG - 1) / TM_DEG;
+    streaming_degree_kernel<<<grid, TN, tile::smem_bytes(TM_DEG, m), stream>>>(
+        xr, xc, d, n_rows, n_cols, m, row_offset, col_offset, kind, inv_two_sigma_sq);
+    return static_cast<int>(cudaGetLastError());
+}

@@ -60,6 +60,48 @@ def degree_normalized_matmat_ref(a: torch.Tensor, v: torch.Tensor,
     return _floored_degree_divide(u, d[:, None])
 
 
+def affinity_matmat_ref(
+    x: torch.Tensor,
+    v: torch.Tensor,
+    d: torch.Tensor | None = None,
+    xc: torch.Tensor | None = None,
+    *,
+    kind: str = "cosine_shifted",
+    sigma: float = 1.0,
+    row_offset: int = 0,
+    col_offset: int = 0,
+) -> torch.Tensor:
+    """(A V) / d for the masked stripe A of ``x`` against ``xc`` (built
+    dense here); ``d=None`` leaves the product unnormalized."""
+    a, _ = affinity_and_degree_ref(x, xc, kind=kind, sigma=sigma,
+                                   row_offset=row_offset, col_offset=col_offset)
+    u = a @ v.float()
+    if d is None:
+        return u
+    return _floored_degree_divide(u, d[:, None])
+
+
+def affinity_degree_streaming_ref(
+    x: torch.Tensor,
+    xc: torch.Tensor | None = None,
+    *,
+    kind: str = "cosine_shifted",
+    sigma: float = 1.0,
+    row_offset: int = 0,
+    col_offset: int = 0,
+) -> torch.Tensor:
+    """D = A 1 for the masked stripe A of ``x`` against ``xc``."""
+    _, deg = affinity_and_degree_ref(x, xc, kind=kind, sigma=sigma,
+                                     row_offset=row_offset, col_offset=col_offset)
+    return deg
+
+
+def gram_ref(v: torch.Tensor) -> torch.Tensor:
+    """G = V^T V in f32."""
+    v32 = v.float()
+    return v32.T @ v32
+
+
 def kmeans_assign_ref(x: torch.Tensor, cents: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """(labels (n,) int32, squared distances (n,) f32): nearest centroid,

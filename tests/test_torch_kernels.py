@@ -12,6 +12,10 @@ value <= 1); D rtol 1e-5 relative to the row's absolute mass sum|A_ij|
 (the row sum of raw cosine entries can cancel to ~0, where a plain
 relative bound means nothing); U rtol 1e-5 with atol 1e-7 (sums of a few
 hundred products in two orders); k-means labels exact, distances rtol 1e-5.
+The streamed U (no stored A) is held to rtol 1e-5 plus 1e-7 max|U_ref|
+(the same sums; the atol scales with U, whose entries are ~1/n once
+normalized and unbounded when ``d=None``); the streamed D to the D rule;
+the Gram to rtol 1e-5 relative to max|G_ref| (sums of n products).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch import AffinitySpec
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 
@@ -32,6 +37,7 @@ A_ATOL = 1e-6
 D_RTOL = 1e-5
 U_RTOL, U_ATOL = 1e-5, 1e-7
 DIST_RTOL = 1e-5
+G_RTOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
@@ -122,18 +128,109 @@ def test_kmeans_assign_matches_pallas_with_planted_tie(k):
     assert int(lab_t[7]) == 0         # ties go to the first index
 
 
+#: (rows, cols, row_offset, col_offset) of the streamed stripes: the square
+#: self-stripe, and an off-diagonal stripe the global diagonal crosses
+STRIPES = [(slice(0, 200), None, 0, 0), (slice(40, 160), slice(100, 300), 40, 100)]
+STRIPE_IDS = ["square", "stripe"]
+
+
+def _stripe(kind, stripe):
+    rows, cols, ro, co = stripe
+    x = _features(300, 16, kind, seed=13)
+    xc = None if cols is None else np.ascontiguousarray(x[cols])
+    return np.ascontiguousarray(x[rows]), xc, ro, co
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+@pytest.mark.parametrize("r", [1, 4])
+@pytest.mark.parametrize("normalized", [True, False], ids=["d", "d_none"])
+@pytest.mark.parametrize("stripe", STRIPES, ids=STRIPE_IDS)
+@pytest.mark.parametrize("kind", ["cosine", "cosine_shifted", "rbf"])
+def test_streaming_matmat_matches_pallas(kind, stripe, normalized, r):
+    x, xc, ro, co = _stripe(kind, stripe)
+    n_cols = x.shape[0] if xc is None else xc.shape[0]
+    v = np.random.default_rng(r).random((n_cols, r)).astype(np.float32)
+    d = None
+    if normalized:
+        d = np.array(jops.streaming_degree(_j(x), _j(xc), kind=kind, sigma=0.8,
+                                           row_offset=ro, col_offset=co, mode="reference"))
+    u_j = np.asarray(jops.streaming_matmat(_j(x), jnp.asarray(v), _j(d), _j(xc), kind=kind,
+                                           sigma=0.8, row_offset=ro, col_offset=co))
+    u_t = tops.streaming_matmat(_t(x), torch.from_numpy(v), _t(d), _t(xc), kind=kind,
+                                sigma=0.8, row_offset=ro, col_offset=co).numpy()
+    assert u_t.shape == (x.shape[0], r) and u_t.dtype == np.float32
+    np.testing.assert_allclose(u_t, u_j, rtol=U_RTOL, atol=U_ATOL * np.abs(u_j).max())
+
+
+@pytest.mark.parametrize("stripe", STRIPES, ids=STRIPE_IDS)
+@pytest.mark.parametrize("kind", ["cosine", "cosine_shifted", "rbf"])
+def test_streaming_degree_matches_pallas(kind, stripe):
+    x, xc, ro, co = _stripe(kind, stripe)
+    d_j = np.asarray(jops.streaming_degree(_j(x), _j(xc), kind=kind, sigma=0.8,
+                                           row_offset=ro, col_offset=co))
+    d_t = tops.streaming_degree(_t(x), _t(xc), kind=kind, sigma=0.8,
+                                row_offset=ro, col_offset=co)
+    a_ref, _ = jops.affinity_and_degree(_j(x), _j(xc), kind=kind, sigma=0.8, row_offset=ro,
+                                        col_offset=co, mode="reference")
+    mass = np.abs(np.asarray(a_ref)).sum(axis=1)
+    assert d_t.shape == (x.shape[0],)
+    assert np.all(np.abs(d_t.numpy() - d_j) <= D_RTOL * mass)
+
+
+@pytest.mark.parametrize("n,c", [(300, 1), (300, 4), (1037, 3), (1037, 8)])
+def test_gram_matches_pallas(n, c):
+    v = np.random.default_rng(n + c).normal(size=(n, c)).astype(np.float32)
+    g_j = np.asarray(jops.gram(jnp.asarray(v), mode="pallas"))
+    g_t = tops.gram(torch.from_numpy(v)).numpy()
+    assert g_t.shape == (c, c)
+    np.testing.assert_allclose(g_t, g_j, rtol=0, atol=G_RTOL * np.abs(g_j).max())
+
+
+@pytest.mark.parametrize("op,policy", [
+    (op, policy) for op in ("affinity", "streaming_matmat", "streaming_degree")
+    for policy in ("knn", "adaptive", "operand") if (op, policy) != ("affinity", "operand")])
+def test_graph_policies_raise_not_implemented(op, policy):
+    """A spec with a graph policy, or a policy operand, must not lose the
+    policy on its way to a dense kernel."""
+    x = torch.from_numpy(_features(20, 2, "rbf", seed=5))
+    kw = {"operand": dict(thr=torch.zeros(20)),
+          "knn": dict(spec=AffinitySpec(kind="rbf", sigma=0.5, knn_k=3)),
+          "adaptive": dict(spec=AffinitySpec(kind="rbf", bandwidth="adaptive"))}[policy]
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+        if op == "affinity":
+            tops.affinity_and_degree(x, **kw)
+        elif op == "streaming_matmat":
+            tops.streaming_matmat(x, torch.ones((20, 1)), **kw)
+        else:
+            tops.streaming_degree(x, **kw)
+
+
 def test_cpu_calls_launch_no_kernel():
     _build.reset_launch_counts()
     x = torch.from_numpy(_features(50, 2, "rbf", seed=3))
     a, d = tops.affinity_and_degree(x, kind="rbf")
     tops.degree_normalized_matmat(a, (d / d.sum())[:, None], d)
     tops.kmeans_assign(x, x[:3])
+    d_s = tops.streaming_degree(x, kind="rbf")
+    u = tops.streaming_matmat(x, (d_s / d_s.sum())[:, None], d_s, kind="rbf")
+    tops.gram(torch.cat([u, u], dim=1))
     assert tops.launch_counts() == {"affinity_and_degree": 0,
                                     "degree_normalized_matmat": 0,
-                                    "kmeans_assign": 0}
+                                    "kmeans_assign": 0,
+                                    "streaming_matmat": 0,
+                                    "streaming_degree": 0,
+                                    "gram": 0}
 
 
-@pytest.mark.parametrize("op", ["affinity", "matmat", "assign"])
+@pytest.mark.parametrize("op", ["affinity", "matmat", "assign", "streaming_matmat",
+                                "streaming_degree", "gram"])
 def test_non_cpu_tensor_never_takes_the_plain_version(op):
     """Off the CPU a wrapper launches its kernel or raises: a tensor on a
     device that is not CUDA is rejected before any pointer reaches C."""
@@ -144,6 +241,12 @@ def test_non_cpu_tensor_never_takes_the_plain_version(op):
         elif op == "matmat":
             tops.degree_normalized_matmat(torch.empty((8, 8), device="meta"), x,
                                           torch.empty((8,), device="meta"))
+        elif op == "streaming_matmat":
+            tops.streaming_matmat(x, x, torch.empty((8,), device="meta"))
+        elif op == "streaming_degree":
+            tops.streaming_degree(x)
+        elif op == "gram":
+            tops.gram(x)
         else:
             tops.kmeans_assign(x, x[:2])
 

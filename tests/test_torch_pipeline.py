@@ -240,26 +240,66 @@ def test_run_gpic_needs_cuda_unless_cpu_is_asked_for():
         run_gpic(x, k, device="cuda")
 
 
+def _port_override(override):
+    """A reference override as the port's GPICConfig takes it."""
+    out = dict(override)
+    if "affinity" in out:
+        out["affinity"] = AffinitySpec(**dataclasses.asdict(override["affinity"]))
+    if "a_dtype" in out:
+        out["a_dtype"] = torch.bfloat16
+    return out
+
+
 @pytest.mark.parametrize("override", [
-    dict(engine="streaming"), dict(engine="matrix_free"),
-    dict(embedding="orthogonal"), dict(embedding="ensemble"),
+    dict(engine="matrix_free"),
     dict(affinity=jcore.AffinitySpec(kind="rbf", sigma=0.3, knn_k=5)),
     dict(affinity=jcore.AffinitySpec(kind="rbf", bandwidth="adaptive")),
     dict(a_dtype=jnp.bfloat16), dict(tile=128), dict(n_vectors=33),
-], ids=["streaming", "matrix_free", "orthogonal", "ensemble", "knn", "adaptive",
-        "bf16", "tile", "n_vectors_past_kernel_limit"])
+], ids=["matrix_free", "knn", "adaptive", "bf16", "tile", "n_vectors_past_kernel_limit"])
 def test_unported_settings_raise_not_implemented(override):
     ref_cfg = jcore.GPICConfig(**override)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         config_from_reference(_plain_fields(ref_cfg))
     x, _, k = dataset_by_name("gaussians", 40, seed=0)
-    port_override = dict(override)
-    if "affinity" in port_override:
-        port_override["affinity"] = AffinitySpec(**dataclasses.asdict(override["affinity"]))
-    if "a_dtype" in port_override:
-        port_override["a_dtype"] = torch.bfloat16
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_gpic(x, k, GPICConfig(**port_override), device="cpu")
+        run_gpic(x, k, GPICConfig(**_port_override(override)), device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    dict(engine="streaming"), dict(embedding="orthogonal", n_vectors=2),
+    dict(embedding="ensemble"),
+], ids=["streaming", "orthogonal", "ensemble"])
+def test_settings_this_port_routes_run(override):
+    """Settings an earlier slice refused: the port accepts the reference's
+    config and runs it on the CPU."""
+    ref_cfg = jcore.GPICConfig(affinity_kind="rbf", sigma=0.3, **override)
+    cfg = config_from_reference(_plain_fields(ref_cfg))
+    assert cfg == GPICConfig(affinity_kind="rbf", sigma=0.3, **override)
+    x, y, k = dataset_by_name("gaussians", 120, seed=0)
+    res = run_gpic(x, k, cfg, device="cpu")
+    assert res.labels.shape == (120,) and res.embedding_mode == cfg.embedding
+    assert adjusted_rand_index(y, res.labels.numpy()) == 1.0
+
+
+@pytest.mark.parametrize("override", [
+    dict(qr_every=0), dict(qr_every=3),
+    dict(snapshot_iters=(5, 10)), dict(embedding="orthogonal", residual_tol=1e-3),
+    dict(embedding="orthogonal", n_vectors=2, residual_tol=0.0),
+    dict(embedding="pic", residual_tol=1e-3, n_vectors=2),
+    dict(engine="streaming", a_dtype=jnp.bfloat16),
+], ids=["qr_every_0", "qr_every_outside_orthogonal", "snapshot_iters_outside_ensemble",
+        "residual_tol_with_r1", "residual_tol_0", "residual_tol_outside_orthogonal",
+        "streaming_bf16"])
+def test_front_door_value_errors_match_the_reference(override):
+    x, _, k = dataset_by_name("gaussians", 40, seed=0)
+    with pytest.raises(ValueError) as ref_err:
+        jcore.run_gpic(jnp.asarray(x), k, jcore.GPICConfig(use_pallas=False, **override))
+    with pytest.raises(ValueError) as port_err:
+        run_gpic(x, k, GPICConfig(**_port_override(override)), device="cpu")
+    assert str(port_err.value) == str(ref_err.value)
+    ref_fields = _plain_fields(jcore.GPICConfig(**override))
+    with pytest.raises(ValueError):
+        config_from_reference(ref_fields)
 
 
 def test_config_from_reference_defaults_and_rejections():
