@@ -16,7 +16,15 @@ Phases (any failure exits non-zero before the last line is printed):
                 kernel, the plain version and, where one exists, the one
                 PyTorch call that computes the same function. The streamed
                 D and U must be bitwise the explicit kernels' D and U, and
-                the Gram the same bits on every call.
+                the Gram the same bits on every call. The row top-k (pass 1
+                of the graph policies) must equal torch.topk of the plain
+                scores at the main shape for K = 1..64, both stats, with and
+                without adaptive scales; with the kNN and adaptive operands
+                of E1 and E2, A must be bitwise its plain version's, the
+                streamed D and U bitwise the explicit kernels', the
+                column-thresholded product the transpose of the stored A,
+                and every row must keep knn_k entries (more only on a tie
+                at its threshold).
   3. end to end run_gpic on each path, with the launch counters reset just
                 before it and read just after:
                 - explicit, gaussians: n = 2,000 on the card against the
@@ -36,10 +44,19 @@ Phases (any failure exits non-zero before the last line is printed):
                   both, the ARI floor, the Gram once per QR sweep plus once
                   per residual check;
                 - ensemble, streaming, gaussians: ARI >= 0.99, an (n, S)
-                  embedding.
+                  embedding;
+                - the graph specs, orthogonal r = 2, block_sparse=False:
+                  E1 (rbf 0.3, knn_k=10) at n = 480 over the reference's
+                  ARI floor of 0.95, then E1 and E2 (adaptive, scale_k=7,
+                  knn_k=10) at n = 45,000 on both engines with the same
+                  labels, sweeps and components, the row top-k once (E1)
+                  or twice (E2), the probe's sweeps counted apart; E3
+                  (adaptive dense, pic, explicit: pass 1a only, no probe);
+                  two_moons with knn_k=64, reported only.
   4. profile    one more n = 45,000 run of each engine under torch.profiler:
                 the device's busy share of the wall time and device time by
-                kernel.
+                kernel; and one of E1 on the explicit engine, cut into its
+                stages (pass 1, build, sweeps, k-means, probe, idle).
 
 The last lines are one JSON object with every kernel's numbers, the card's
 name and power limit from nvidia-smi, and the result object
@@ -67,7 +84,11 @@ ORTHO_ARI_FLOOR = 0.90  # the reference's floor for three_circles, orthogonal
 MEM_LIMIT = 1e9         # peak device bytes of a streaming run
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM
+KNN_K = 10              # the reference's blobs kNN spec (TestKnnSpecQuality)
+SCALE_K = 7             # the reference's adaptive scale rank
+BLOBS_ARI_FLOOR = 0.95  # the reference's floor for blobs under knn_k=10, at its n = 480
 A_ATOL = 1e-6           # affinity entries
+SQD_RTOL = 1e-6         # neg_sqdist scores, relative to max |x|^2
 D_RTOL = 1e-5           # degrees, relative to the row's absolute mass
 U_RTOL, U_ATOL = 1e-5, 1e-7  # power-sweep output; atol scales with max|U_ref|
 KM_RTOL = 1e-5          # assignment distances (labels must be exact)
@@ -151,8 +172,11 @@ def phase_build() -> float:
           f"into {_build.build_dir()}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                print(f"[build] {name}: {entry.group(1)}")
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name}:   {line.strip()}")
     return sec
 
 
@@ -489,6 +513,231 @@ def phase_streaming(report):
                                       library_ms=None)
 
 
+def _stripe_scores(x, k, stat, scale, stripe=4096):
+    """The plain row top-k over row stripes: yields (r0, r1, values)."""
+    from repro_torch.kernels import ref
+    n = x.shape[0]
+    for r0 in range(0, n, stripe):
+        r1 = min(r0 + stripe, n)
+        yield r0, r1, ref.row_topk_ref(
+            x[r0:r1], x, k=k, stat=stat, kind="rbf", sigma=SIGMA, row_offset=r0,
+            scale_r=None if scale is None else scale[r0:r1], scale_c=scale)
+
+
+def _topk_error(got, want):
+    """Max |got - want| over the finite entries; inf if the -inf padding
+    differs."""
+    if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+        return float("inf")
+    fin = torch.isfinite(want)
+    return float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def topk_flops(rows: int, cols: int, m: int, stat: str, adaptive: bool) -> float:
+    """Operations of one row top-k call: per entry 2m for the dot product,
+    then neg_sqdist's d2 (add, 2*dot, subtract) and clamp, or the rbf
+    transform (6, one more for the adaptive product of the scales), and
+    one compare with the row's running K-th score. The selection's
+    insertions are not counted (a few hundred per row, data-dependent)."""
+    per_entry = 2 * m + (4 if stat == "neg_sqdist" else 6 + (1 if adaptive else 0)) + 1
+    return rows * cols * per_entry + 2 * m * (rows + cols)
+
+
+def phase_row_topk(report):
+    """Kernel #7 against its plain version: at the main shape bit for bit
+    (the scores are the build's entries, the plain version's arithmetic);
+    at ragged shapes with m = 16 within the stated tolerances."""
+    from repro_torch.core.graph import scales_from_topk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.row_topk import row_topk
+    feats, _, _ = _features(N_MAIN)
+    x = feats["rbf"]
+    n, m = x.shape
+    scale = scales_from_topk(row_topk(x, k=SCALE_K, stat="neg_sqdist", kind="rbf",
+                                      sigma=SIGMA)).contiguous()
+    worst = 0.0
+    cases = [("neg_sqdist", k, None) for k in (1, 7, 64)]
+    cases += [("similarity", k, sc) for k in (10, 30, 64) for sc in (None, scale)]
+    times = {}
+    for stat, k, sc in cases:
+        tag = f"{stat} K={k}{' adaptive' if sc is not None else ''}"
+        out = row_topk(x, k=k, stat=stat, kind="rbf", sigma=SIGMA, scale_r=sc, scale_c=sc)
+        torch.cuda.synchronize()
+        same, err = True, 0.0
+        for r0, r1, want in _stripe_scores(x, k, stat, sc):
+            same = same and torch.equal(out[r0:r1], want)
+            err = max(err, _topk_error(out[r0:r1], want))
+        print(f"[row_topk] n={n} m={m} {tag}: equal to the plain version={same} "
+              f"max|err|={err:.3e}", flush=True)
+        check(same, f"row_topk {tag} is not the plain version's top-k")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: row_topk(x, k=k, stat=stat, kind="rbf", sigma=SIGMA,
+                                      scale_r=sc, scale_c=sc), 5)
+        b, by = bound_ms(4.0 * (n * m + n * k + (2 * n if sc is not None else 0)),
+                         topk_flops(n, n, m, stat, sc is not None))
+        times[tag] = dict(ms=ms, bound_ms=b, bound_by=by)
+        print(f"[row_topk] {tag}: kernel_ms={ms:.4f} bound_ms={b:.4f} ({by})", flush=True)
+    del out
+
+    # the plain version on the main path's call (similarity, K = knn_k), and
+    # the torch.topk share of it on the stored (n, n) scores
+    main = times[f"similarity K={KNN_K}"]
+    main["plain_ms"] = cuda_ms(lambda: list(_stripe_scores(x, KNN_K, "similarity", None)), 2)
+    scores = torch.empty((n, n), device="cuda")
+    for r0 in range(0, n, 4096):
+        r1 = min(r0 + 4096, n)
+        scores[r0:r1] = ref._affinity_scores_ref(x[r0:r1], x, kind="rbf", sigma=SIGMA)
+        scores[torch.arange(r0, r1), torch.arange(r0, r1)] = -torch.inf
+    main["plain_topk_only_ms"] = cuda_ms(lambda: torch.topk(scores, KNN_K, dim=1), 3)
+    del scores
+    torch.cuda.empty_cache()
+    print(f"[row_topk] similarity K={KNN_K}: plain_ms={main['plain_ms']:.4f} (4,096-row "
+          f"stripes: scores, mask, torch.topk); torch.topk alone on the stored (n, n) "
+          f"scores: {main['plain_topk_only_ms']:.4f} ms", flush=True)
+
+    # ragged rows, wide features, a stripe off the diagonal with offsets
+    g = torch.Generator(device="cuda").manual_seed(6)
+    xs = torch.randn((1037, 16), generator=g, device="cuda") * 0.25
+    sq_max = float((xs * xs).sum(dim=1).max())
+    for rows, cols, ro, co in ((slice(None), None, 0, 0),
+                               (slice(100, 400), slice(300, None), 100, 300)):
+        xr = xs[rows].contiguous()
+        xc = None if cols is None else xs[cols].contiguous()
+        for stat in ("neg_sqdist", "similarity"):
+            for k in (7, 64):
+                out = row_topk(xr, xc, k=k, stat=stat, kind="rbf", sigma=1.1,
+                               row_offset=ro, col_offset=co)
+                want = ref.row_topk_ref(xr, xc, k=k, stat=stat, kind="rbf", sigma=1.1,
+                                        row_offset=ro, col_offset=co)
+                err = _topk_error(out, want)
+                tol = SQD_RTOL * sq_max if stat == "neg_sqdist" else A_ATOL
+                check(err <= tol, f"ragged row_topk {stat} K={k} {tuple(xr.shape)} disagrees")
+                worst = max(worst, err)
+        print(f"[row_topk] ragged {tuple(xr.shape)} m=16 offsets=({ro},{co}) both stats "
+              f"K=7,64: agree", flush=True)
+    report["row_topk"] = dict(main, max_abs_err=worst, library_ms=None, cases=times)
+
+
+def phase_policy(report):
+    """Kernels #1, #5 and #6 with the policy operands of E1 (kNN) and E2
+    (adaptive + kNN): A bitwise its plain version's, the streamed D and U
+    bitwise the explicit kernels', the column-thresholded product the
+    transpose of the stored truncated A, and every row keeping knn_k
+    entries (more only on a tie at its threshold)."""
+    from repro_torch.core.affinity import AffinitySpec
+    from repro_torch.core.graph import affinity_stats
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.affinity import affinity_and_degree
+    from repro_torch.kernels.power_step import degree_normalized_matmat
+    from repro_torch.kernels.streaming import affinity_degree_streaming, affinity_matmat
+    feats, _, _ = _features(N_MAIN)
+    x = feats["rbf"]
+    n, m = x.shape
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for tag, spec in (("knn", AffinitySpec(kind="rbf", sigma=SIGMA, knn_k=KNN_K)),
+                      ("adaptive_knn", AffinitySpec(kind="rbf", bandwidth="adaptive",
+                                                    scale_k=SCALE_K, knn_k=KNN_K))):
+        sc, thr = affinity_stats(x, spec)
+        pol = dict(kind="rbf", sigma=SIGMA, scale_r=sc, scale_c=sc)
+        a, d = affinity_and_degree(x, thr=thr, **pol)
+        torch.cuda.synchronize()
+        err_a = 0.0
+        for r0 in range(0, n, 4096):
+            a_ref, _ = ref.affinity_and_degree_ref(
+                x[r0:r0 + 4096], x, row_offset=r0, thr=thr[r0:r0 + 4096],
+                **dict(pol, scale_r=None if sc is None else sc[r0:r0 + 4096]))
+            err_a = max(err_a, float((a[r0:r0 + 4096] - a_ref).abs().max()))
+            del a_ref
+        check(err_a == 0.0, f"{tag}: A is not bitwise the plain version's ({err_a:.3e})")
+        kept = (a != 0).sum(dim=1)
+        at_thr = (a == thr[:, None]).sum(dim=1)
+        over = kept > KNN_K
+        ties = int(over.sum())
+        check(bool((kept >= KNN_K).all()), f"{tag}: a row keeps fewer than {KNN_K} entries")
+        check(bool((at_thr[over] > 1).all()),
+              f"{tag}: a row keeps more than {KNN_K} entries without a tie at its threshold")
+        d_s = affinity_degree_streaming(x, thr=thr, **pol)
+        torch.cuda.synchronize()
+        check(torch.equal(d_s, d), f"{tag}: the streamed D is not bitwise the stored D")
+        v1 = (d / d.sum())[:, None].contiguous()
+        v2 = torch.cat([v1, torch.rand((n, 1), generator=g, device="cuda") / n], dim=1)
+        for v in (v1, v2):
+            u_s = affinity_matmat(x, v, d, thr=thr, **pol)
+            u_e = degree_normalized_matmat(a, v, d)
+            torch.cuda.synchronize()
+            check(torch.equal(u_s, u_e),
+                  f"{tag} r={v.shape[1]}: the streamed U is not bitwise the explicit U")
+        # the probe's transpose product, on an indicator and on V
+        ind = torch.zeros((n, 1), device="cuda")
+        ind[::997] = 1.0
+        worst_t = 0.0
+        for w in (ind, v2):
+            u_t = affinity_matmat(x, w, None, thr_c=thr, **pol)
+            want = a.T @ w
+            torch.cuda.synchronize()
+            check(torch.equal(u_t > 0, want > 0),
+                  f"{tag}: the thr_c product's positivity is not that of A^T V")
+            abs_err, excess = _u_errors(u_t, want)
+            check(excess <= 0.0, f"{tag}: the thr_c product disagrees with A^T V")
+            worst_t = max(worst_t, abs_err)
+        times = dict(
+            affinity_ms=cuda_ms(lambda: affinity_and_degree(x, thr=thr, **pol), 5),
+            degree_ms=cuda_ms(lambda: affinity_degree_streaming(x, thr=thr, **pol), 10),
+            matmat_r2_ms=cuda_ms(lambda: affinity_matmat(x, v2, d, thr=thr, **pol), 10),
+            matmat_thr_c_ms=cuda_ms(lambda: affinity_matmat(x, ind, None, thr_c=thr, **pol), 10),
+            sweep_stored_r2_ms=cuda_ms(lambda: degree_normalized_matmat(a, v2, d), 10))
+        # the dense work plus, per entry, the threshold compare and, with
+        # adaptive scales, the product of the scales (the divide replaces
+        # the multiply); the operands add 4 bytes a row or column each
+        extra = n * n * (1 + (1 if sc is not None else 0))
+        op_bytes = 4.0 * n * (1 + (2 if sc is not None else 0))
+        bounds = dict(
+            affinity=bound_ms(4.0 * (n * m + n * n + n) + op_bytes,
+                              affinity_flops(n, n, m, "rbf") + extra),
+            degree=bound_ms(4.0 * (n * m + n) + op_bytes, streaming_flops(n, n, m, None) + extra),
+            matmat_r2=bound_ms(4.0 * (n * m + 2 * n * 2 + n) + op_bytes,
+                               streaming_flops(n, n, m, 2) + extra),
+            matmat_thr_c=bound_ms(4.0 * (n * m + 2 * n) + op_bytes,
+                                  streaming_flops(n, n, m, 1) + extra))
+        times.update({f"{key}_bound_ms": b for key, (b, _) in bounds.items()})
+        print(f"[policy] {tag} n={n}: A bitwise the plain version's; streamed D and U "
+              f"(r=1,2) bitwise the explicit kernels'; thr_c product = A^T V in positivity, "
+              f"max|err|={worst_t:.3e}; kept per row min={int(kept.min())} "
+              f"max={int(kept.max())}, rows over {KNN_K} (ties at the threshold)={ties}; "
+              + " ".join(f"{key}={val:.4f}" for key, val in times.items()), flush=True)
+        out[tag] = dict(times, tie_rows=ties, max_abs_err_thr_c=worst_t)
+        del a, d, d_s
+        torch.cuda.empty_cache()
+
+    # ragged rows, wide features, off-diagonal stripes, every operand
+    xs = torch.randn((1037, 16), generator=g, device="cuda") * 0.25
+    scs = torch.rand((1037,), generator=g, device="cuda") * 0.7 + 0.3
+    thr_all = torch.rand((1037,), generator=g, device="cuda") * 0.5 + 0.3
+    for rows, cols, ro, co in ((slice(None), slice(None), 0, 0),
+                               (slice(100, 400), slice(300, None), 100, 300)):
+        xr, xc = xs[rows].contiguous(), xs[cols].contiguous()
+        kw = dict(kind="rbf", sigma=1.1, row_offset=ro, col_offset=co,
+                  scale_r=scs[rows].contiguous(), scale_c=scs[cols].contiguous())
+        thr_r, thr_c = thr_all[rows].contiguous(), thr_all[cols].contiguous()
+        a, d = affinity_and_degree(xr, xc, thr=thr_r, **kw)
+        a_ref, d_ref = ref.affinity_and_degree_ref(xr, xc, thr=thr_r, **kw)
+        # the scales are given alike, so d2's error carries through 1/(s_i s_j)
+        atol = A_ATOL + SQD_RTOL * float((xs * xs).sum(1).max()) / float(scs.min()) ** 2
+        check(float((a - a_ref).abs().max()) <= atol, f"ragged policy A ({ro},{co}) disagrees")
+        v = torch.rand((xc.shape[0], 4), generator=g, device="cuda")
+        for kw_t in (dict(thr=thr_r), dict(thr_c=thr_c)):
+            u = affinity_matmat(xr, v, None, xc, **kw_t, **kw)
+            u_ref = ref.affinity_matmat_ref(xr, v, None, xc, **kw_t, **kw)
+            check(float((u - u_ref).abs().max()) <= U_RTOL * float(u_ref.abs().max())
+                  + xc.shape[0] * atol, f"ragged policy U {list(kw_t)} ({ro},{co}) disagrees")
+        dd = affinity_degree_streaming(xr, xc, thr=thr_r, **kw)
+        check(torch.equal(dd, d), f"ragged policy D ({ro},{co}) is not the build's D")
+    print("[policy] ragged (1037, 16) square and (300, 737) off-diagonal stripes, "
+          "scales + thr / thr_c: agree", flush=True)
+    report["policy"] = out
+
+
 def phase_gram(report):
     from repro_torch.kernels import ref
     from repro_torch.kernels.gram import gram
@@ -707,9 +956,112 @@ def phase_ensemble(report):
                                   embedding_shape=list(res.embeddings.shape), launches=counts)
 
 
+def _graph_cfg(spec_kw, **kw):
+    from repro_torch import AffinitySpec, GPICConfig
+    base = dict(affinity=AffinitySpec(**spec_kw), max_iter=400, block_sparse=False)
+    return GPICConfig(**dict(base, **kw))
+
+
+E1_SPEC = dict(kind="rbf", sigma=SIGMA, knn_k=KNN_K)
+E2_SPEC = dict(kind="rbf", bandwidth="adaptive", scale_k=SCALE_K, knn_k=KNN_K)
+E3_SPEC = dict(kind="rbf", bandwidth="adaptive", scale_k=SCALE_K)
+SWEEP_OP = {"explicit": "degree_normalized_matmat", "streaming": "streaming_matmat"}
+
+
+def _graph_run(tag, x, y, k, cfg):
+    """One counted run of a graph spec: its numbers, with the sweeps of the
+    power loop and those of the component probe apart (the probe runs the
+    engine's sweep op too: one forward sweep a hop, plus the streamed
+    transpose product on the streaming engine)."""
+    from repro_torch import adjusted_rand_index
+    res, labels, wall, counts, peak = _counted_run(x, k, cfg)
+    cols = res.n_iter_cols.tolist()
+    sweeps = max(cols)
+    ari = adjusted_rand_index(y, labels)
+    probe = counts[SWEEP_OP[cfg.engine]] - sweeps
+    n_comp = int(res.health.n_components)
+    print(f"[e2e] {tag} {cfg.engine} n={len(y)}: wall_s={wall:.4f} n_iter_cols={cols} "
+          f"ARI={ari:.4f} n_components={n_comp} probe_sweeps={probe} "
+          f"peak_mem_GB={peak / 1e9:.3f} launches={counts}", flush=True)
+    check(labels.shape == (len(y),) and bool(torch.isfinite(res.embeddings).all()),
+          f"{tag} {cfg.engine}: the result has the wrong shape or is not finite")
+    check(counts["gram"] == (sweeps if cfg.embedding == "orthogonal" else 0),
+          f"{tag}: gram launched {counts['gram']} times for {sweeps} QR sweeps")
+    check(counts["kmeans_assign"] == cfg.kmeans_iters + 1, f"{tag}: assignment {counts}")
+    return dict(engine=cfg.engine, wall_s=wall, n_iter_cols=cols, ari=ari, n_components=n_comp,
+                probe_sweeps=probe, peak_mem_bytes=peak, launches=counts), res, labels
+
+
+def phase_graph_e2e(report):
+    """E1-E3 and the report-only two_moons run at the paper's size. E1's
+    quality floor is the reference's, at the reference's n = 480: there
+    both engines on the card (with the same labels) and the plain versions
+    on the CPU (other random draws) must reach it."""
+    from repro_torch import adjusted_rand_index, dataset_by_name, run_gpic
+    xs, ys, ks = dataset_by_name("gaussians", 480, seed=0)
+    small = {}
+    for engine in ("explicit", "streaming"):
+        cfg = _graph_cfg(E1_SPEC, engine=engine, embedding="orthogonal", n_vectors=2)
+        small[engine] = run_gpic(xs, ks, cfg).labels.cpu().numpy()
+    small["cpu"] = run_gpic(xs, ks, _graph_cfg(E1_SPEC, embedding="orthogonal", n_vectors=2),
+                            device="cpu").labels.numpy()
+    aris = {key: adjusted_rand_index(ys, lab) for key, lab in small.items()}
+    print(f"[e2e] E1 n=480: ARI {aris}", flush=True)
+    check(min(aris.values()) >= BLOBS_ARI_FLOOR
+          and bool((small["explicit"] == small["streaming"]).all()),
+          f"E1 at n=480: ARI {aris} under the reference's floor {BLOBS_ARI_FLOOR}, or the "
+          "engines' labels differ")
+    x, y, k = dataset_by_name("gaussians", N_MAIN, seed=0)
+    runs = {"E1_n480_ari": aris}
+    for tag, spec, n_topk in (("E1", E1_SPEC, 1), ("E2", E2_SPEC, 2)):
+        out = {}
+        for engine in ("explicit", "streaming"):
+            cfg = _graph_cfg(spec, engine=engine, embedding="orthogonal", n_vectors=2)
+            rec, res, labels = _graph_run(tag, x, y, k, cfg)
+            c = rec["launches"]
+            check(c["row_topk"] == n_topk, f"{tag} {engine}: row_topk launched {c['row_topk']}")
+            if engine == "explicit":
+                check(c["affinity_and_degree"] == 1 and c["streaming_matmat"] == 0
+                      and c["streaming_degree"] == 0, f"{tag} explicit launches {c}")
+            else:
+                check(c["streaming_degree"] == 1 and c["affinity_and_degree"] == 0
+                      and c["degree_normalized_matmat"] == 0, f"{tag} streaming launches {c}")
+            check(rec["n_components"] >= 1 and rec["probe_sweeps"] > 0,
+                  f"{tag} {engine}: the component probe did not run")
+            out[engine] = (rec, res, labels)
+        (re_, rese, labe), (rs, ress, labs) = out["explicit"], out["streaming"]
+        check(bool((labe == labs).all()) and re_["n_iter_cols"] == rs["n_iter_cols"]
+              and re_["n_components"] == rs["n_components"]
+              and torch.equal(rese.health.components, ress.health.components),
+              f"{tag}: the engines disagree on labels, sweeps or components")
+        # the streaming probe runs a transpose product beside each forward sweep
+        check(rs["probe_sweeps"] == 2 * re_["probe_sweeps"],
+              f"{tag}: probe sweeps {re_['probe_sweeps']} explicit, {rs['probe_sweeps']} "
+              "streaming")
+        runs[tag] = [re_, rs]
+        del out, rese, ress
+
+    # E3: adaptive dense, classic, explicit: pass 1a only, no probe
+    rec, res, _ = _graph_run("E3", x, y, k, _graph_cfg(E3_SPEC, engine="explicit"))
+    c = rec["launches"]
+    check(c["row_topk"] == 1 and rec["probe_sweeps"] == 0 and rec["n_components"] == -1,
+          f"E3: launches {c}, n_components {rec['n_components']}")
+    runs["E3"] = [rec]
+
+    # report only: two_moons under the widest kNN the kernel takes
+    xm, ym, km = dataset_by_name("two_moons", N_MAIN, seed=0)
+    rec, _, _ = _graph_run("moons_knn64", xm, ym, km,
+                           _graph_cfg(dict(kind="rbf", sigma=0.25, knn_k=64),
+                                      engine="streaming", embedding="orthogonal", n_vectors=2))
+    runs["moons_knn64"] = [rec]
+    report["e2e_graph"] = runs
+    return runs
+
+
 #: device-event names of this port's kernels (always listed by the profile)
 KERNEL_LABELS = ("affinity_kernel", "power_step_kernel", "kmeans_assign_kernel",
-                 "streaming_matmat_kernel", "streaming_degree_kernel", "gram_")
+                 "streaming_matmat_kernel", "streaming_degree_kernel", "gram_",
+                 "row_topk_kernel")
 
 
 def _kernel_label(name: str) -> str:
@@ -718,47 +1070,91 @@ def _kernel_label(name: str) -> str:
     return name.split("(")[0][:90]
 
 
-def phase_profile(report, out_dir, engine):
+def _busy_us(spans, lo=float("-inf"), hi=float("inf")):
+    """Microseconds of the union of the device spans, clipped to [lo, hi)."""
+    busy, reach = 0.0, float("-inf")
+    for start, end, _ in spans:
+        start, end = max(start, lo, reach), min(end, hi)
+        if end > start:
+            busy += end - start
+        reach = max(reach, min(end, hi))
+    return busy
+
+
+def _stages(spans):
+    """Device busy ms of a graph run's stages, cut at kernel boundaries of
+    the timeline: pass 1 (to the last row_topk launch), the build (to the
+    end of the affinity build), the power sweeps (to the last sweep before
+    the first k-means assignment), k-means (to the last assignment) and the
+    component probe (the rest)."""
+    def last_end(label, before=float("inf")):
+        ends = [e for st, e, lab in spans if lab.startswith(label) and st < before]
+        return max(ends) if ends else None
+    km = [st for st, _, lab in spans if lab.startswith("kmeans_assign_kernel")]
+    t0 = spans[0][0]
+    cuts = [("pass1", last_end("row_topk_kernel") or t0),
+            ("build", last_end("affinity_kernel")),
+            ("sweeps", last_end("power_step_kernel", before=min(km))),
+            ("kmeans", last_end("kmeans_assign_kernel")),
+            ("probe", spans[-1][1] + 1.0)]
+    out, lo = {}, t0
+    for name, hi in cuts:
+        out[name] = _busy_us(spans, lo, hi) / 1e3
+        lo = hi
+    return out
+
+
+def phase_profile(report, out_dir, engine, tag="classic", cfg=None):
     """One more main-path run of ``engine`` under torch.profiler, after the
     counted one: device busy share of the wall time and device time by
-    kernel. The trace goes to chiprun_out/e2e_<engine>_trace.json."""
+    kernel, and for a graph run the time of each stage. The trace of a
+    classic run goes to chiprun_out/e2e_<engine>_trace.json; a graph run's
+    (tens of thousands of events, past what chiprun_out may carry back) is
+    summarized only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import GPICConfig, dataset_by_name, run_gpic
     x, _, k = dataset_by_name("gaussians", N_MAIN, seed=0)
-    cfg = GPICConfig(engine=engine, affinity_kind="rbf", sigma=SIGMA, max_iter=400)
+    if cfg is None:
+        cfg = GPICConfig(engine=engine, affinity_kind="rbf", sigma=SIGMA, max_iter=400)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_gpic(x, k, cfg).labels.cpu()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(os.path.join(out_dir, f"e2e_{engine}_trace.json"))
+    name = engine if tag == "classic" else f"{tag}_{engine}"
+    if tag == "classic":
+        prof.export_chrome_trace(os.path.join(out_dir, f"e2e_{name}_trace.json"))
     spans = sorted((ev.time_range.start, ev.time_range.end, _kernel_label(ev.name))
                    for ev in prof.events() if ev.device_type == DeviceType.CUDA)
-    busy_us, reach = 0.0, float("-inf")
+    busy_us = _busy_us(spans)
     by_name: dict[str, list] = {}
     for start, end, label in spans:
-        busy_us += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
         entry = by_name.setdefault(label, [0, 0.0])
         entry[0] += 1
         entry[1] += (end - start) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     top = [(label, v) for i, (label, v) in enumerate(ranked)
            if i < 10 or label.startswith(KERNEL_LABELS)]
+    key = f"profile_{name}"
     if not spans:
-        print(f"[profile] {engine} wall_ms={wall_ms:.3f}: the profiler recorded no device "
-              "events; device time not measured", flush=True)
-    else:
-        print(f"[profile] {engine} wall_ms={wall_ms:.3f} device_busy_ms={busy_us / 1e3:.3f} "
-              f"busy_share={busy_us / 1e3 / wall_ms:.4f} device_events={len(spans)}",
-              flush=True)
-        for label, (count, ms) in top:
-            print(f"[profile]   {ms:9.3f} ms  x{count:<4d} {label}")
-    report[f"profile_{engine}"] = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
-                             device_events=len(spans),
-                             top=[dict(name=l, launches=c, ms=ms) for l, (c, ms) in top])
+        print(f"[profile] {tag} {engine} wall_ms={wall_ms:.3f}: the profiler recorded no "
+              "device events; device time not measured", flush=True)
+        report[key] = dict(wall_ms=wall_ms, device_busy_ms=None)
+        return
+    print(f"[profile] {tag} {engine} wall_ms={wall_ms:.3f} device_busy_ms={busy_us / 1e3:.3f} "
+          f"busy_share={busy_us / 1e3 / wall_ms:.4f} device_events={len(spans)}", flush=True)
+    for label, (count, ms) in top:
+        print(f"[profile]   {ms:9.3f} ms  x{count:<4d} {label}")
+    stages = _stages(spans) if tag != "classic" else None
+    if stages is not None:
+        stages["idle"] = wall_ms - busy_us / 1e3
+        print("[profile] " + tag + " stages (device busy ms; idle = wall - busy): "
+              + " ".join(f"{name}={ms:.3f}" for name, ms in stages.items()), flush=True)
+    report[key] = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3, device_events=len(spans),
+                       stages=stages,
+                       top=[dict(name=l, launches=c, ms=ms) for l, (c, ms) in top])
 
 
 SOURCES = {
@@ -773,6 +1169,8 @@ SOURCES = {
     "streaming_degree": ("src/repro_torch/kernels/csrc/streaming.cu",
                          "src/repro/kernels/streaming.py:277"),
     "gram": ("src/repro_torch/kernels/csrc/gram.cu", "src/repro/kernels/gram.py:41"),
+    "row_topk": ("src/repro_torch/kernels/csrc/row_topk.cu",
+                 "src/repro/kernels/row_topk.py:126"),
 }
 
 
@@ -787,6 +1185,8 @@ def main() -> int:
     phase_kmeans_assign(kernels)
     phase_streaming(kernels)
     phase_gram(kernels)
+    phase_row_topk(kernels)
+    phase_policy(kernels)
     # each kernel's launches come from the run of the path that uses it
     explicit = phase_end_to_end(report)
     counts = {name: explicit[0][name] for name in
@@ -797,11 +1197,16 @@ def main() -> int:
     phase_past_memory(report)
     counts["gram"] = phase_orthogonal(report)
     phase_ensemble(report)
+    graph = phase_graph_e2e(report)
+    counts["row_topk"] = graph["E1"][0]["launches"]["row_topk"]
     check(all(counts[name] > 0 for name in SOURCES), f"a kernel was never launched: {counts}")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     phase_profile(report, out_dir, "explicit")
     phase_profile(report, out_dir, "streaming")
+    phase_profile(report, out_dir, "explicit", tag="E1",
+                  cfg=_graph_cfg(E1_SPEC, engine="explicit", embedding="orthogonal",
+                                 n_vectors=2))
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": counts[name],

@@ -6,11 +6,20 @@ Three affinity kinds:
 - ``cosine_shifted``  (1 + cos) / 2, non-negative
 - ``rbf``             exp(-||x - y||^2 / (2 sigma^2))
 
-:class:`AffinitySpec` also names the graph-construction policies of the
-reference package (adaptive bandwidth, kNN truncation). This slice of the
-port builds only the dense fixed-bandwidth graph; the operators raise
-``NotImplementedError`` for the other policies. All kinds zero the
-diagonal (no self-loops).
+:class:`AffinitySpec` also selects the graph-construction policies:
+
+- bandwidth ``'adaptive'`` (rbf only): sigma_i is the distance to the
+  ``scale_k``-th nearest neighbour and A_ij = exp(-d_ij^2 / (sigma_i
+  sigma_j));
+- ``knn_k``: each row keeps the entries >= its ``knn_k``-th largest
+  similarity (the directed kNN graph).
+
+All kinds zero the diagonal (no self-loops). This module holds the plain
+PyTorch semantics, the oracles of the tests (``affinity_matrix``,
+``local_scales``, ``knn_thresholds``); the kernels realize them in two
+passes (``core/graph.py``: the streamed row top-k gives the per-row
+statistics, the affinity and streaming kernels apply scale and mask in the
+tile).
 """
 from __future__ import annotations
 
@@ -23,6 +32,10 @@ AffinityKind = Literal["cosine", "cosine_shifted", "rbf"]
 
 AFFINITY_KINDS = ("cosine", "cosine_shifted", "rbf")
 BANDWIDTHS = ("fixed", "adaptive")
+
+#: floor for adaptive local scales (duplicated points have a zero k-th
+#: neighbor distance; the floor keeps sigma_i * sigma_j away from 0)
+SCALE_FLOOR = 1e-6
 
 
 @dataclass(frozen=True)
@@ -82,6 +95,12 @@ class AffinitySpec:
         """True for the classic build: global bandwidth, no truncation."""
         return not (self.adaptive or self.truncated)
 
+    @property
+    def factorable(self) -> bool:
+        """True when A V factors through the features (the matrix-free
+        engine): cosine kinds only, without scaling or truncation."""
+        return self.kind in ("cosine", "cosine_shifted") and self.dense_fixed
+
     def validate_for_n(self, n: int) -> None:
         """Reject neighbor ranks that don't exist among the n-1 off-diagonal
         entries of a row."""
@@ -119,3 +138,97 @@ def row_normalize_features(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """L2-normalize each row (unit-norm embeddings for cosine affinity)."""
     nrm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
     return x / torch.clamp_min(nrm, eps)
+
+
+def rbf_bandwidth_heuristic(x: torch.Tensor, sample: int = 512) -> torch.Tensor:
+    """Median pairwise distance of a strided sample of at most ``sample``
+    rows (the stride spans the whole row range, so a cluster-ordered input
+    is sampled in every cluster), floored at 1e-6. The median of an even
+    count is the midpoint of the two middle values, as in the reference."""
+    n = x.shape[0]
+    take = min(sample, n)
+    s = x[:: max(-(-n // take), 1)][:take]
+    sq = torch.sum(s * s, dim=1)
+    d2 = torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * (s @ s.T), 0.0)
+    dist = torch.sqrt(d2 + torch.eye(s.shape[0], dtype=x.dtype, device=x.device) * 1e9)
+    flat = torch.sort(dist.reshape(-1)).values
+    mid = flat.numel() // 2
+    med = flat[mid] if flat.numel() % 2 else (flat[mid - 1] + flat[mid]) * 0.5
+    return torch.clamp_min(med, 1e-6)
+
+
+def _zero_diag(a: torch.Tensor) -> torch.Tensor:
+    n = a.shape[0]
+    return a * (1.0 - torch.eye(n, dtype=a.dtype, device=a.device))
+
+
+def pairwise_sq_dists(x: torch.Tensor, xc: torch.Tensor | None = None) -> torch.Tensor:
+    """Dense (R, C) squared euclidean distances (clamped at 0)."""
+    c = x if xc is None else xc
+    sqr = torch.sum(x * x, dim=1)
+    sqc = torch.sum(c * c, dim=1)
+    return torch.clamp_min(sqr[:, None] + sqc[None, :] - 2.0 * (x @ c.T), 0.0)
+
+
+def local_scales(x: torch.Tensor, scale_k: int) -> torch.Tensor:
+    """Per-row adaptive bandwidth: the distance to the scale_k-th nearest
+    neighbor (self excluded), floored at ``SCALE_FLOOR``. Dense plain
+    reference of the streamed two-pass build."""
+    n = x.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=x.device)
+    d2 = torch.where(eye, torch.inf, pairwise_sq_dists(x))
+    kth = -torch.topk(-d2, scale_k, dim=1).values[:, -1]     # k-th smallest d2
+    return torch.clamp_min(torch.sqrt(kth), SCALE_FLOOR)
+
+
+def knn_thresholds(a: torch.Tensor, knn_k: int) -> torch.Tensor:
+    """Per-row truncation threshold: the knn_k-th largest off-diagonal
+    similarity of each row of the (diagonal-zeroed) dense A."""
+    n = a.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=a.device)
+    return torch.topk(torch.where(eye, -torch.inf, a), knn_k, dim=1).values[:, -1]
+
+
+def affinity_matrix(
+    x: torch.Tensor,
+    kind: AffinityKind = "cosine_shifted",
+    sigma: float | torch.Tensor | None = None,
+    *,
+    spec: AffinitySpec | None = None,
+) -> torch.Tensor:
+    """Dense (n, n) affinity matrix, the plain oracle of the kernels.
+
+    ``spec`` selects the whole graph policy (adaptive scales, kNN
+    truncation); without it ``kind``/``sigma`` build the dense
+    fixed-bandwidth graph, and ``sigma=None`` on rbf takes the strided
+    median heuristic.
+    """
+    if spec is not None:
+        spec.validate_for_n(x.shape[0])
+        if spec.kind in ("cosine", "cosine_shifted"):
+            xn = row_normalize_features(x)
+            a = xn @ xn.T
+            if spec.kind == "cosine_shifted":
+                a = 0.5 * (1.0 + a)
+        elif spec.adaptive:
+            scl = local_scales(x, spec.scale_k)
+            a = torch.exp(-pairwise_sq_dists(x) / (scl[:, None] * scl[None, :]))
+        else:
+            a = torch.exp(-pairwise_sq_dists(x) / (2.0 * spec.sigma * spec.sigma))
+        a = _zero_diag(a)
+        if spec.truncated:
+            thr = knn_thresholds(a, spec.knn_k)
+            a = _zero_diag(torch.where(a >= thr[:, None], a, 0.0))
+        return a
+
+    if kind in ("cosine", "cosine_shifted"):
+        xn = row_normalize_features(x)
+        a = xn @ xn.T
+        if kind == "cosine_shifted":
+            a = 0.5 * (1.0 + a)
+        return _zero_diag(a)
+    if kind == "rbf":
+        sig = rbf_bandwidth_heuristic(x) if sigma is None else torch.as_tensor(sigma)
+        a = torch.exp(-pairwise_sq_dists(x) / (2.0 * sig * sig))
+        return _zero_diag(a)
+    raise ValueError(f"unknown affinity kind {kind!r}")

@@ -13,7 +13,9 @@ then k-means on the embedding (kernels.ops.kmeans_assign per Lloyd step).
 ``engine='streaming'`` stores no A: kernels.ops.streaming_degree builds D
 once and kernels.ops.streaming_matmat rebuilds A's tiles inside every
 sweep. Every embedding mode runs on either engine ('orthogonal' prices its
-QR with kernels.ops.gram).
+QR with kernels.ops.gram). An adaptive or kNN spec adds pass 1
+(kernels.ops.row_topk) before the build, and a kNN spec the component
+probe after the run (core/health.py).
 
 Prefer the ``run_gpic``/``GPICConfig`` front door (core/pipeline.py).
 """
@@ -27,14 +29,14 @@ from .affinity import (
     as_affinity_spec,
     row_normalize_features,
 )
-from .health import HealthReport, count_bad_rows
+from .health import HealthReport, count_bad_rows, graph_component_probe
 from .kmeans import kmeans
 from .operators import explicit_operator, streaming_operator
 from .pic import PICResult, make_pic_result
 from .power import init_power_vectors, run_power_embedding, standardize_columns
 
 
-def _build_engine_operator(x, spec, *, engine, a_dtype=torch.float32):
+def _build_engine_operator(x, spec, *, engine, a_dtype=torch.float32, block_sparse=True):
     """Normalize features per the spec's kind and bind the engine: the
     cosine kinds take row-normalized input, rbf the raw features."""
     if engine == "matrix_free":
@@ -45,8 +47,8 @@ def _build_engine_operator(x, spec, *, engine, a_dtype=torch.float32):
                          "(expected 'explicit' or 'streaming')")
     inp = x if spec.kind == "rbf" else row_normalize_features(x)
     if engine == "explicit":
-        return explicit_operator(inp, spec=spec, a_dtype=a_dtype)
-    return streaming_operator(inp, spec=spec)
+        return explicit_operator(inp, spec=spec, a_dtype=a_dtype, block_sparse=block_sparse)
+    return streaming_operator(inp, spec=spec, block_sparse=block_sparse)
 
 
 def gpic(
@@ -67,19 +69,24 @@ def gpic(
     qr_every: int = 1,
     snapshot_iters: tuple | None = None,
     residual_tol: float | None = None,
+    probe_components: bool = True,
+    block_sparse: bool = True,
 ) -> PICResult:
     """Accelerated PIC via the multi-vector power engine, on the device of
     ``x``. ``affinity`` (an :class:`AffinitySpec`) takes precedence over the
     ``affinity_kind``/``sigma`` shorthand. ``generator`` draws the extra
     power columns and then the kmeans++ seeds. ``qr_every`` and
     ``residual_tol`` tune embedding='orthogonal', ``snapshot_iters``
-    embedding='ensemble'."""
+    embedding='ensemble'. ``probe_components`` runs the component probe
+    on a truncated graph; ``block_sparse=True`` (the reference's route for
+    a truncated spec) is not ported and raises for one."""
     n = x.shape[0]
     if eps is None:
         eps = 1e-5 / n
     spec = as_affinity_spec(affinity, kind=affinity_kind, sigma=sigma)
     spec.validate_for_n(n)
-    op = _build_engine_operator(x, spec, engine=engine, a_dtype=a_dtype)
+    op = _build_engine_operator(x, spec, engine=engine, a_dtype=a_dtype,
+                                block_sparse=block_sparse)
 
     v0 = init_power_vectors(op.degree, n_vectors, generator=generator)
     v, t_cols, done, emb_raw, status = run_power_embedding(
@@ -87,11 +94,19 @@ def gpic(
         snapshot_iters=snapshot_iters, residual_tol=residual_tol)
     emb = standardize_columns(emb_raw)
     labels, _ = kmeans(emb, k, iters=kmeans_iters, generator=generator)
-    # a dense graph disconnects only by underflow, which the isolated-row
-    # count surfaces: the component probe (truncated specs) does not arm
-    health = HealthReport(
-        col_status=status, isolated_rows=count_bad_rows(op.degree),
-        n_components=torch.tensor(-1, dtype=torch.int32, device=x.device),
-        components=torch.full((n,), -1, dtype=torch.int32, device=x.device))
+    health = _local_health(op, status, n, spec, probe_components=probe_components)
     return make_pic_result(labels, v, t_cols, done, embedding=embedding,
                            embeddings=emb_raw, health=health)
+
+
+def _local_health(op, status, n, spec, *, probe_components=True):
+    """The HealthReport of a local run: isolated rows from the operator's
+    degrees, and the component probe when the spec truncates (a dense graph
+    disconnects only by underflow, which the isolated-row count shows)."""
+    if probe_components and spec.truncated:
+        n_comp, comp = graph_component_probe(op, n)
+    else:
+        n_comp = torch.tensor(-1, dtype=torch.int32, device=op.degree.device)
+        comp = torch.full((n,), -1, dtype=torch.int32, device=op.degree.device)
+    return HealthReport(col_status=status, isolated_rows=count_bad_rows(op.degree),
+                        n_components=n_comp, components=comp)

@@ -8,8 +8,8 @@ with a typed, actionable error, never silent garbage:
     ``InvalidInputError`` doubles as a ``ValueError``.
   - :class:`HealthReport` and the ``COL_*`` per-column status codes, carried
     on ``PICResult.health``.
-  - :func:`count_bad_rows`, :func:`validate_features` and
-    :func:`raise_for_health`.
+  - :func:`count_bad_rows`, :func:`graph_component_probe`,
+    :func:`validate_features` and :func:`raise_for_health`.
 
 The loop-side latches (zero-column, non-finite, stall) live in
 ``core/power.py``; this module defines the vocabulary they share.
@@ -120,6 +120,59 @@ def count_bad_rows(d: torch.Tensor) -> torch.Tensor:
     """() int32 count of rows whose degree cannot anchor them (not > 0:
     zero and non-finite degrees both count)."""
     return torch.sum(~(d > 0)).to(torch.int32)
+
+
+def graph_component_probe(op, n_total: int, *, max_components: int = 8,
+                          max_sweeps: int = 32):
+    """Component check of the (truncated) affinity graph on the device.
+
+    Reachability expansion from an indicator on the lowest-index unvisited
+    row: one ``op.matmat`` sweep (with one ``op.matmat_t`` sweep when the
+    operator binds it) adds every row with a nonzero entry toward the
+    reached set, until a fixed point or ``max_sweeps`` hops; that set is one
+    component, and the next seed is the lowest unvisited row, up to
+    ``max_components`` seeds. If rows remain unvisited after them, the
+    count is ``max_components + 1`` ("at least").
+
+    The kNN graph is directed, so a truncated spec's operator binds
+    ``matmat_t`` and the expansion walks A + A^T: the weakly connected
+    components, along which power-iteration mass can move. For a
+    nonnegative A and a {0, 1} indicator the positivity of A v does not
+    depend on the summation order, so the result is exact on either engine
+    and on either device.
+
+    The reference runs the two loops on the device (``while_loop``); here
+    the host reads one flag per hop. Returns ``(n_components () int32,
+    components (n,) int32)``, ids in discovery order, -1 for rows never
+    reached.
+    """
+    n_local = op.degree.shape[0]
+    if n_local != n_total:
+        raise ValueError(f"the probe of one device covers all {n_total} rows, "
+                         f"the operator has {n_local}")
+    device = op.degree.device
+    comp = torch.full((n_local,), -1, dtype=torch.int32, device=device)
+    visited = torch.zeros((n_local,), dtype=torch.bool, device=device)
+    count = 0
+    while count < max_components and not bool(visited.all()):
+        # the lowest unvisited index: argmax returns the first maximum
+        reached = torch.zeros_like(visited)
+        reached[torch.argmax((~visited).to(torch.int32))] = True
+        for _ in range(max_sweeps):
+            ind = reached.to(torch.float32)[:, None]
+            new = reached | (op.matmat(ind)[:, 0] > 0)
+            if op.matmat_t is not None:
+                new = new | (op.matmat_t(ind)[:, 0] > 0)
+            grew = bool((new & ~reached).any())
+            reached = new
+            if not grew:
+                break
+        comp = torch.where(reached & (comp < 0), count, comp)
+        visited = visited | reached
+        count += 1
+    leftover = 0 if bool(visited.all()) else 1
+    return (torch.tensor(count + leftover, dtype=torch.int32, device=device),
+            comp.to(torch.int32))
 
 
 def validate_features(x: torch.Tensor, k: int, *, sanitize: bool = False):

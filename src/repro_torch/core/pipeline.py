@@ -6,9 +6,11 @@
 
 ``run_gpic`` runs on the CUDA card unless the caller asks for another
 device (the tests pass ``device="cpu"``, which runs the kernels' plain
-versions). The port routes the local explicit and streaming engines with a
-dense fixed-bandwidth affinity and every embedding mode; the settings a
-later slice brings raise ``NotImplementedError`` naming the ROADMAP item.
+versions). The port routes the local explicit and streaming engines with
+every affinity spec (dense, adaptive bandwidth, kNN truncation on the
+dense-storage route ``block_sparse=False``) and every embedding mode; the
+settings a later slice brings raise ``NotImplementedError`` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,9 +20,11 @@ import numpy as np
 import torch
 
 from ..kernels.power_step import MAX_R
+from ..kernels.row_topk import check_k
 from .affinity import AffinityKind, AffinitySpec, as_affinity_spec
 from .gpic import gpic
 from .health import raise_for_health, validate_features
+from .operators import check_block_sparse
 from .pic import PICResult
 from .power import EMBEDDINGS
 
@@ -54,6 +58,14 @@ class GPICConfig:
       a_dtype:      A storage dtype ('explicit'); the port stores float32.
       tile:         kernel tile override; this slice's kernels have fixed
                     tiles, so it must stay None.
+      block_sparse: the route of a truncated (kNN) spec. True, the
+                    reference's default, is its block-CSR route, not ported
+                    yet (raises); False stores and sweeps the truncated
+                    graph densely after the two-pass build. No effect on
+                    dense specs.
+      component_probe: run the component probe on a truncated graph; the
+                    count lands in ``PICResult.health.n_components``. False
+                    skips the probe's sweeps.
       seed:         seeds the ``torch.Generator`` for the k-means init and
                     the extra power vectors when ``run_gpic`` isn't handed
                     one.
@@ -75,8 +87,10 @@ class GPICConfig:
     kmeans_iters: int = 25
     a_dtype: torch.dtype = torch.float32
     tile: int | None = None
+    block_sparse: bool = True
     seed: int = 0
     sanitize: bool = False
+    component_probe: bool = True
 
     def with_(self, **updates) -> "GPICConfig":
         """Functional update (``dataclasses.replace`` with a shorter name)."""
@@ -93,11 +107,13 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def check_config(cfg: GPICConfig) -> AffinitySpec:
+def check_config(cfg: GPICConfig, n: int | None = None) -> AffinitySpec:
     """The front-door checks: first the reference's ValueErrors for a bad
     value or combination, in the reference's order, so a config the
-    reference refuses raises the same class here; then NotImplementedError
-    for a setting a later slice routes. Returns the resolved affinity spec."""
+    reference refuses raises the same class here (the neighbor ranks of the
+    spec are checked against ``n`` when it is given); then
+    NotImplementedError for a setting a later slice routes. Returns the
+    resolved affinity spec."""
     if cfg.engine not in ENGINES:
         raise ValueError(
             f"unknown engine {cfg.engine!r} (expected one of {ENGINES})")
@@ -137,6 +153,23 @@ def check_config(cfg: GPICConfig) -> AffinitySpec:
             "affinity_kind/sigma shorthand, not both")
     spec = as_affinity_spec(cfg.affinity, kind=cfg.affinity_kind,
                             sigma=cfg.sigma)
+    if n is not None:
+        spec.validate_for_n(n)
+    if cfg.engine == "matrix_free":
+        dropped = [name for name, bad in (
+            ("tile", cfg.tile is not None),
+            ("a_dtype", cfg.a_dtype != torch.float32),
+        ) if bad]
+        if dropped:
+            raise ValueError(
+                f"engine='matrix_free' does not use {dropped} (the factored "
+                "jnp sweep has no A storage or Pallas tiles)")
+        if not spec.factorable:
+            raise ValueError(
+                "engine='matrix_free' needs a factorable affinity spec "
+                "(cosine kinds, fixed bandwidth, no truncation); got "
+                f"{spec} — use the explicit or streaming engine for "
+                "adaptive/kNN graphs")
     if cfg.engine == "streaming" and cfg.a_dtype != torch.float32:
         raise ValueError(
             "a_dtype (O4) selects the A *storage* dtype; the streaming "
@@ -150,10 +183,11 @@ def check_config(cfg: GPICConfig) -> AffinitySpec:
         raise NotImplementedError(
             f"n_vectors={cfg.n_vectors}: the power-step kernel takes at most "
             f"{MAX_R} columns (ROADMAP queue 2, kernel 2 follow-up)")
-    if not spec.dense_fixed:
-        raise NotImplementedError(
-            "adaptive-bandwidth and kNN-truncated affinity specs are not "
-            f"ported yet (ROADMAP queue 1 item 5, graph policies); got {spec}")
+    check_block_sparse(spec, cfg.block_sparse)
+    if spec.adaptive:
+        check_k(spec.scale_k)
+    if spec.truncated:
+        check_k(spec.knn_k)
     if cfg.a_dtype != torch.float32:
         raise NotImplementedError(
             f"a_dtype={cfg.a_dtype} is not ported yet (ROADMAP queue 1 item "
@@ -192,14 +226,14 @@ def run_gpic(
     cfg = config or GPICConfig()
     if overrides:
         cfg = cfg.with_(**overrides)
-    spec = check_config(cfg)
+    shape = np.shape(x)
+    spec = check_config(cfg, shape[0] if shape else None)
     dev = _resolve_device(device)
     if isinstance(x, torch.Tensor):
         x = x.to(device=dev, dtype=torch.float32)
     else:
         x = torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
     x, notes = validate_features(x, k, sanitize=cfg.sanitize)
-    spec.validate_for_n(x.shape[0])
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
     res = gpic(x.contiguous(), k, generator=generator,
@@ -208,7 +242,8 @@ def run_gpic(
                n_vectors=cfg.n_vectors, engine=cfg.engine,
                a_dtype=cfg.a_dtype, embedding=cfg.embedding,
                qr_every=cfg.qr_every, residual_tol=cfg.residual_tol,
-               snapshot_iters=cfg.snapshot_iters)
+               snapshot_iters=cfg.snapshot_iters,
+               probe_components=cfg.component_probe, block_sparse=cfg.block_sparse)
     if notes:
         res = replace(res, health=replace(res.health,
                                           notes=res.health.notes + notes))

@@ -60,10 +60,13 @@ class PowerOperator:
         None for a bare callable).
       gram: maps an (n, c) block to its (c, c) Gram V^T V (the
         re-orthonormalization and the subspace residual).
+      matmat_t: maps V to the unnormalized A^T V, for the component probe
+        of a directed (kNN-truncated) graph; None where A is symmetric.
     """
     matmat: Callable[[torch.Tensor], torch.Tensor]
     degree: torch.Tensor | None = None
     gram: Callable[[torch.Tensor], torch.Tensor] = field(default=_gram_plain)
+    matmat_t: Callable[[torch.Tensor], torch.Tensor] | None = None
 
 
 def as_operator(op) -> PowerOperator:

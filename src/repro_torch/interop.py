@@ -25,10 +25,11 @@ from .core.pic import PICResult
 from .core.pipeline import GPICConfig, check_config
 
 #: reference fields that select HOW the reference computes (kernel vs jnp
-#: oracle, a fallback policy, knobs of routes that a dense single-device
-#: run never takes) and not WHAT: the port accepts any value and ignores it
-_NO_EFFECT = ("use_pallas", "retry_on_fallback", "block_sparse", "overlap",
-              "component_probe", "shard_axes", "max_retries", "backoff")
+#: oracle, a fallback policy, knobs of the mesh and the retry supervisor,
+#: which a single-device run never takes) and not WHAT: the port accepts
+#: any value and ignores it
+_NO_EFFECT = ("use_pallas", "retry_on_fallback", "overlap", "shard_axes",
+              "max_retries", "backoff")
 
 #: reference fields this slice does not route, with the value that means
 #: "off"; any other value raises NotImplementedError
@@ -43,10 +44,12 @@ _UNROUTED_DEFAULTS = {
 }
 
 
-def config_from_reference(ref_fields: dict) -> GPICConfig:
+def config_from_reference(ref_fields: dict, n: int | None = None) -> GPICConfig:
     """The port's :class:`GPICConfig` for the reference config whose fields
-    are given as plain values. Raises ValueError for an unknown field and
-    NotImplementedError for a setting this slice does not route."""
+    are given as plain values. Raises ValueError for an unknown field or a
+    value the reference refuses (the spec's neighbor ranks against ``n``,
+    the number of points, when it is given) and NotImplementedError for a
+    setting this slice does not route."""
     kept = {f.name for f in fields(GPICConfig)}
     out = {}
     for name, value in ref_fields.items():
@@ -66,7 +69,7 @@ def config_from_reference(ref_fields: dict) -> GPICConfig:
         elif name not in _NO_EFFECT:
             raise ValueError(f"unknown GPICConfig field {name!r}")
     cfg = GPICConfig(**out)
-    check_config(cfg)
+    check_config(cfg, n)
     return cfg
 
 

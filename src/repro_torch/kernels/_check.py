@@ -19,3 +19,23 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must have {ndim} dimensions, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_adaptive(kind: str, scale_r, scale_c) -> None:
+    """Raise unless adaptive scales come as a pair on an rbf kind (the
+    reference kernels' check)."""
+    if scale_r is not None and (kind != "rbf" or scale_c is None):
+        raise ValueError("adaptive scaling needs kind='rbf' and both "
+                         "scale_r and scale_c")
+
+
+def operand_ptr(name: str, t: torch.Tensor | None, length: int,
+                device: torch.device) -> int | None:
+    """The device pointer of a (length,) f32 policy operand (a scale or a
+    threshold vector), or None when the operand is not given."""
+    if t is None:
+        return None
+    check_cuda_tensor(name, t, torch.float32, 1, device=device)
+    if t.shape[0] != length:
+        raise ValueError(f"{name} has {t.shape[0]} entries, expected {length}")
+    return t.data_ptr()

@@ -1,8 +1,9 @@
 """Wrapper of the fused affinity + degree kernel (``csrc/affinity.cu``).
 
-Counterpart of ``repro/kernels/affinity.py::affinity_and_degree`` for the
-dense fixed-bandwidth specs (cosine, cosine_shifted, rbf). For the cosine
-kinds pass L2-row-normalized features, for rbf the raw features.
+Counterpart of ``repro/kernels/affinity.py::affinity_and_degree``: the
+kinds cosine, cosine_shifted and rbf, with the graph-policy operands
+(adaptive scales ``scale_r``/``scale_c``, the row threshold ``thr``). For
+the cosine kinds pass L2-row-normalized features, for rbf the raw features.
 """
 from __future__ import annotations
 
@@ -11,11 +12,11 @@ import ctypes
 import torch
 
 from . import _build, ref
-from ._check import check_cuda_tensor
+from ._check import check_adaptive, check_cuda_tensor, operand_ptr
 
 KINDS = {"cosine": 0, "cosine_shifted": 1, "rbf": 2}
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def affinity_and_degree(
@@ -26,16 +27,23 @@ def affinity_and_degree(
     sigma: float = 1.0,
     row_offset: int = 0,
     col_offset: int = 0,
+    scale_r: torch.Tensor | None = None,
+    scale_c: torch.Tensor | None = None,
+    thr: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(A (R, C) f32, D (R,) f32) for the stripe of ``xn`` (R, m) against
     ``xc`` (C, m) at the global offsets; ``xc=None`` is the square
-    self-affinity. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    self-affinity. ``scale_r``/``scale_c`` (R,)/(C,) switch rbf to
+    exp(-d2 / (s_i s_j)); ``thr`` (R,) zeroes each row's entries below its
+    threshold. A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel or raises."""
     if kind not in KINDS:
         raise ValueError(f"unknown affinity kind {kind!r} (expected one of {tuple(KINDS)})")
+    check_adaptive(kind, scale_r, scale_c)
     if xn.device.type == "cpu":
         return ref.affinity_and_degree_ref(xn, xc, kind=kind, sigma=sigma,
-                                           row_offset=row_offset, col_offset=col_offset)
+                                           row_offset=row_offset, col_offset=col_offset,
+                                           scale_r=scale_r, scale_c=scale_c, thr=thr)
     cols = xn if xc is None else xc
     check_cuda_tensor("xn", xn, torch.float32, 2)
     check_cuda_tensor("xc", cols, torch.float32, 2, device=xn.device)
@@ -45,6 +53,9 @@ def affinity_and_degree(
         raise ValueError(f"xn and xc feature widths differ: {m} vs {cols.shape[1]}")
     if m == 0:
         raise ValueError("affinity_and_degree needs at least one feature")
+    pol = (operand_ptr("scale_r", scale_r, n_rows, xn.device),
+           operand_ptr("scale_c", scale_c, n_cols, xn.device),
+           operand_ptr("thr", thr, n_rows, xn.device))
     a = torch.empty((n_rows, n_cols), dtype=torch.float32, device=xn.device)
     d = torch.empty((n_rows,), dtype=torch.float32, device=xn.device)
     if n_rows == 0 or n_cols == 0:
@@ -54,7 +65,7 @@ def affinity_and_degree(
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch(
             "affinity_and_degree", "affinity", "gpic_affinity_and_degree", _ARGTYPES,
-            xn.data_ptr(), cols.data_ptr(), a.data_ptr(), d.data_ptr(),
+            xn.data_ptr(), cols.data_ptr(), *pol, a.data_ptr(), d.data_ptr(),
             n_rows, n_cols, m, int(row_offset), int(col_offset), KINDS[kind],
             float(1.0 / (2.0 * sigma * sigma)), stream)
     return a, d

@@ -2,7 +2,10 @@
 //
 // Replaces: src/repro/kernels/streaming.py::affinity_matmat (the Pallas TPU
 // kernel _streaming_kernel) and ::affinity_degree_streaming
-// (_streaming_degree_kernel), dense fixed-bandwidth specs. Neither stores
+// (_streaming_degree_kernel), with the graph-policy operands (adaptive
+// scales scale_r / scale_c, the row threshold thr and, for the mat-mat,
+// the column threshold thr_c that makes it the transpose product of the
+// component probe; null pointers for the dense fixed spec). Neither stores
 // A: each masked tile is rebuilt from the features (affinity_tile.cuh)
 // and folded at once into
 //     U = (A V) / max(d, 1e-30)     (d = nullptr: the unnormalized A V)
@@ -10,11 +13,18 @@
 // Both are stripe-general: rows x (R, m) against columns xc (C, m) at the
 // global offsets that place the diagonal.
 //
+// With thr_c (and thr null) the tile keeps S_ij where S_ij >= thr_c[j],
+// which is A^T's entry (i, j) = A_ji = S_ji kept where S_ji >= thr[j]:
+// the scores are symmetric bit for bit (affinity_tile.cuh), so the
+// column mask is the exact transpose pattern, and no A^T is stored.
+//
 // Bound on an H100: the operations. The inputs are O(n (m + r)) bytes, but
 // every sweep rebuilds n^2 entries: 2m for the dot product, about 6 for the
 // rbf transform (one expf), 2r for the product with V. At n = 45,000, m = 2,
 // r = 1 that is 2.4e10 f32 operations, 0.36 ms at 67 TFLOP/s, against the
-// 2.42 ms that reading a stored A would take.
+// 2.42 ms that reading a stored A would take. A threshold adds a compare,
+// adaptive scales a multiply, per entry; a truncated tile is rebuilt in
+// full (skipping dead tiles is the block-sparse kernels' work).
 //
 // Design:
 //  * The block shape of affinity.cu: TN = 256 threads own TM rows and walk
@@ -43,9 +53,9 @@ using tile::TN;
 
 __host__ __device__ constexpr int tm_for(int rt) { return rt >= 32 ? 2 : rt >= 16 ? 4 : rt >= 8 ? 8 : 16; }
 
-template <int RT>
+template <int RT, bool POLICY>
 __global__ void __launch_bounds__(TN) streaming_matmat_kernel(
-    const float* __restrict__ xr, const float* __restrict__ xc,
+    const float* __restrict__ xr, const float* __restrict__ xc, tile::Policy pol,
     const float* __restrict__ v, const float* __restrict__ d, float* __restrict__ u,
     int n_rows, int n_cols, int m, int r, int row_offset, int col_offset,
     int kind, float inv_two_sigma_sq) {
@@ -53,11 +63,11 @@ __global__ void __launch_bounds__(TN) streaming_matmat_kernel(
     extern __shared__ float smem[];
     float* s_xc = smem;
     float* s_xr = smem + TN * (min(m, tile::MC) + 1);
-    __shared__ float s_sqr[TM];
+    __shared__ tile::Rows<TM> s_rows;
     __shared__ float s_red[tile::NWARPS * TM * RT];
 
     const int row0 = blockIdx.x * TM;
-    tile::row_sq_norms<TM>(xr, n_rows, m, row0, kind == tile::RBF, s_sqr);
+    tile::load_rows<TM>(xr, n_rows, m, row0, kind == tile::RBF, pol, s_rows);
 
     float acc[TM * RT];
 #pragma unroll
@@ -70,9 +80,9 @@ __global__ void __launch_bounds__(TN) streaming_matmat_kernel(
 #pragma unroll
         for (int c = 0; c < RT; ++c)
             vv[c] = inside && c < r ? v[static_cast<size_t>(col) * r + c] : 0.f;
-        tile::masked_tile<TM>(xr, xc, s_xc, s_xr, s_sqr, row0, c0, n_rows, n_cols, m,
-                              row_offset, col_offset, kind, inv_two_sigma_sq,
-                              [&](int i, float a) {
+        tile::masked_tile<TM, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, c0, n_rows, n_cols,
+                                      m, row_offset, col_offset, kind, inv_two_sigma_sq, pol,
+                                      [&](int i, float a) {
             if (inside) {
 #pragma unroll
                 for (int c = 0; c < RT; ++c)
@@ -91,52 +101,65 @@ __global__ void __launch_bounds__(TN) streaming_matmat_kernel(
 
 constexpr int TM_DEG = 16;  // affinity.cu's TM
 
+template <bool POLICY>
 __global__ void __launch_bounds__(TN) streaming_degree_kernel(
-    const float* __restrict__ xr, const float* __restrict__ xc, float* __restrict__ d,
-    int n_rows, int n_cols, int m, int row_offset, int col_offset,
+    const float* __restrict__ xr, const float* __restrict__ xc, tile::Policy pol,
+    float* __restrict__ d, int n_rows, int n_cols, int m, int row_offset, int col_offset,
     int kind, float inv_two_sigma_sq) {
     extern __shared__ float smem[];
     float* s_xc = smem;
     float* s_xr = smem + TN * (min(m, tile::MC) + 1);
-    __shared__ float s_sqr[TM_DEG];
+    __shared__ tile::Rows<TM_DEG> s_rows;
     __shared__ float s_red[tile::NWARPS * TM_DEG];
 
     const int row0 = blockIdx.x * TM_DEG;
-    tile::row_sq_norms<TM_DEG>(xr, n_rows, m, row0, kind == tile::RBF, s_sqr);
+    tile::load_rows<TM_DEG>(xr, n_rows, m, row0, kind == tile::RBF, pol, s_rows);
 
     float rowsum[TM_DEG];
 #pragma unroll
     for (int r = 0; r < TM_DEG; ++r) rowsum[r] = 0.f;
 
     for (int c0 = 0; c0 < n_cols; c0 += TN)
-        tile::masked_tile<TM_DEG>(xr, xc, s_xc, s_xr, s_sqr, row0, c0, n_rows, n_cols, m,
-                                  row_offset, col_offset, kind, inv_two_sigma_sq,
-                                  [&](int r, float a) { rowsum[r] += a; });
+        tile::masked_tile<TM_DEG, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, c0, n_rows,
+                                          n_cols, m, row_offset, col_offset, kind,
+                                          inv_two_sigma_sq, pol,
+                                          [&](int r, float a) { rowsum[r] += a; });
 
     const float s = tile::block_reduce_fixed<TM_DEG>(rowsum, s_red);
     if (threadIdx.x < TM_DEG && row0 + threadIdx.x < n_rows) d[row0 + threadIdx.x] = s;
 }
 
 template <int RT>
-void launch_matmat(const float* xr, const float* xc, const float* v, const float* d,
-                   float* u, int n_rows, int n_cols, int m, int r, int row_offset,
-                   int col_offset, int kind, float inv_two_sigma_sq, cudaStream_t stream) {
+void launch_matmat(const float* xr, const float* xc, const tile::Policy& pol,
+                   const float* v, const float* d, float* u, int n_rows, int n_cols,
+                   int m, int r, int row_offset, int col_offset, int kind,
+                   float inv_two_sigma_sq, cudaStream_t stream) {
     constexpr int TM = tm_for(RT);
     const int grid = (n_rows + TM - 1) / TM;
-    streaming_matmat_kernel<RT><<<grid, TN, tile::smem_bytes(TM, m), stream>>>(
-        xr, xc, v, d, u, n_rows, n_cols, m, r, row_offset, col_offset, kind,
-        inv_two_sigma_sq);
+    const size_t smem = tile::smem_bytes(TM, m);
+    if (tile::has_policy(pol))
+        streaming_matmat_kernel<RT, true><<<grid, TN, smem, stream>>>(
+            xr, xc, pol, v, d, u, n_rows, n_cols, m, r, row_offset, col_offset, kind,
+            inv_two_sigma_sq);
+    else
+        streaming_matmat_kernel<RT, false><<<grid, TN, smem, stream>>>(
+            xr, xc, pol, v, d, u, n_rows, n_cols, m, r, row_offset, col_offset, kind,
+            inv_two_sigma_sq);
 }
 
 }  // namespace
 
-// d may be null: U is then the unnormalized A V.
+// d may be null: U is then the unnormalized A V. scale_r / scale_c / thr /
+// thr_c may be null (policy off).
 extern "C" int gpic_streaming_matmat(
-    const float* xr, const float* xc, const float* v, const float* d, float* u,
+    const float* xr, const float* xc, const float* scale_r, const float* scale_c,
+    const float* thr, const float* thr_c, const float* v, const float* d, float* u,
     int n_rows, int n_cols, int m, int r, int row_offset, int col_offset,
     int kind, float inv_two_sigma_sq, cudaStream_t stream) {
-#define GPIC_LAUNCH(RT) launch_matmat<RT>(xr, xc, v, d, u, n_rows, n_cols, m, r, row_offset, \
-                                          col_offset, kind, inv_two_sigma_sq, stream)
+    const tile::Policy pol{scale_r, scale_c, thr, thr_c};
+#define GPIC_LAUNCH(RT) launch_matmat<RT>(xr, xc, pol, v, d, u, n_rows, n_cols, m, r, \
+                                          row_offset, col_offset, kind, inv_two_sigma_sq, \
+                                          stream)
     if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
     else if (r <= 1) GPIC_LAUNCH(1);
     else if (r <= 2) GPIC_LAUNCH(2);
@@ -149,12 +172,22 @@ extern "C" int gpic_streaming_matmat(
     return static_cast<int>(cudaGetLastError());
 }
 
+// scale_r / scale_c / thr may be null (policy off).
 extern "C" int gpic_streaming_degree(
-    const float* xr, const float* xc, float* d,
+    const float* xr, const float* xc, const float* scale_r, const float* scale_c,
+    const float* thr, float* d,
     int n_rows, int n_cols, int m, int row_offset, int col_offset,
     int kind, float inv_two_sigma_sq, cudaStream_t stream) {
     const int grid = (n_rows + TM_DEG - 1) / TM_DEG;
-    streaming_degree_kernel<<<grid, TN, tile::smem_bytes(TM_DEG, m), stream>>>(
-        xr, xc, d, n_rows, n_cols, m, row_offset, col_offset, kind, inv_two_sigma_sq);
+    const tile::Policy pol{scale_r, scale_c, thr, nullptr};
+    const size_t smem = tile::smem_bytes(TM_DEG, m);
+    if (tile::has_policy(pol))
+        streaming_degree_kernel<true><<<grid, TN, smem, stream>>>(
+            xr, xc, pol, d, n_rows, n_cols, m, row_offset, col_offset, kind,
+            inv_two_sigma_sq);
+    else
+        streaming_degree_kernel<false><<<grid, TN, smem, stream>>>(
+            xr, xc, pol, d, n_rows, n_cols, m, row_offset, col_offset, kind,
+            inv_two_sigma_sq);
     return static_cast<int>(cudaGetLastError());
 }

@@ -7,10 +7,11 @@ kernel that cannot build or launch raises. Nothing falls back quietly.
 ``reset_launch_counts()``.
 
 The entry points that take ``spec=`` (an AffinitySpec) read its kind and
-sigma. The port builds dense fixed-bandwidth tiles only, so a spec with an
-adaptive bandwidth or a kNN truncation, and the streaming operands that
-realize those policies (``scale_r``, ``scale_c``, ``thr``, ``thr_c``),
-raise NotImplementedError instead of losing the policy without a word.
+sigma; the graph policies travel as operands, as in the reference:
+``scale_r``/``scale_c`` (adaptive scales, from ``row_topk`` with
+``stat='neg_sqdist'``), ``thr`` (the kNN row thresholds, from ``row_topk``
+with ``stat='similarity'``) and ``thr_c`` (column thresholds: the
+transpose product of the component probe).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from .affinity import affinity_and_degree as _affinity_and_degree
 from .gram import gram
 from .kmeans_assign import kmeans_assign
 from .power_step import degree_normalized_matmat
+from .row_topk import row_topk as _row_topk
 from .streaming import affinity_degree_streaming, affinity_matmat
 
 __all__ = [
@@ -28,32 +30,26 @@ __all__ = [
     "kmeans_assign",
     "launch_counts",
     "reset_launch_counts",
+    "row_topk",
     "streaming_degree",
     "streaming_matmat",
 ]
 
 
-def _dense_kind_sigma(spec, kind, sigma, **policy_operands):
-    """(kind, sigma) from ``spec`` when given; raise NotImplementedError for
-    a graph policy this slice does not build."""
-    given = sorted(name for name, value in policy_operands.items() if value is not None)
-    if spec is not None and not spec.dense_fixed:
-        given.append(f"spec={spec}")
-    if given:
-        raise NotImplementedError(
-            f"adaptive-bandwidth and kNN-truncated tiles are not ported yet "
-            f"(ROADMAP queue 1 item 5, graph policies); got {', '.join(given)}")
+def _spec_kind_sigma(spec, kind, sigma):
+    """(kind, sigma) from ``spec`` when given, else the keywords."""
     if spec is not None:
         return spec.kind, float(spec.sigma)
     return kind, sigma
 
 
-def affinity_and_degree(xn, xc=None, *, kind="cosine_shifted", sigma=1.0,
-                        spec=None, row_offset=0, col_offset=0):
+def affinity_and_degree(xn, xc=None, *, kind="cosine_shifted", sigma=1.0, spec=None,
+                        scale_r=None, scale_c=None, thr=None, row_offset=0, col_offset=0):
     """Fused A + D build. See kernels/affinity.py."""
-    kind, sigma = _dense_kind_sigma(spec, kind, sigma)
-    return _affinity_and_degree(xn, xc, kind=kind, sigma=sigma,
-                                row_offset=row_offset, col_offset=col_offset)
+    kind, sigma = _spec_kind_sigma(spec, kind, sigma)
+    return _affinity_and_degree(xn, xc, kind=kind, sigma=sigma, row_offset=row_offset,
+                                col_offset=col_offset, scale_r=scale_r, scale_c=scale_c,
+                                thr=thr)
 
 
 def streaming_matmat(x, v, d=None, xc=None, *, kind="cosine_shifted", sigma=1.0,
@@ -63,17 +59,26 @@ def streaming_matmat(x, v, d=None, xc=None, *, kind="cosine_shifted", sigma=1.0,
     given, the stripe at (row_offset, col_offset) against the column
     features xc; ``d=None`` leaves the product unnormalized. See
     kernels/streaming.py."""
-    kind, sigma = _dense_kind_sigma(spec, kind, sigma, scale_r=scale_r, scale_c=scale_c,
-                                    thr=thr, thr_c=thr_c)
-    return affinity_matmat(x, v, d, xc, kind=kind, sigma=sigma,
-                           row_offset=row_offset, col_offset=col_offset)
+    kind, sigma = _spec_kind_sigma(spec, kind, sigma)
+    return affinity_matmat(x, v, d, xc, kind=kind, sigma=sigma, row_offset=row_offset,
+                           col_offset=col_offset, scale_r=scale_r, scale_c=scale_c,
+                           thr=thr, thr_c=thr_c)
 
 
 def streaming_degree(x, xc=None, *, kind="cosine_shifted", sigma=1.0, spec=None,
                      scale_r=None, scale_c=None, thr=None, row_offset=0, col_offset=0):
     """Degree vector D = A 1 in one streamed sweep (the row sums of
     ``affinity_and_degree`` without A). See kernels/streaming.py."""
-    kind, sigma = _dense_kind_sigma(spec, kind, sigma, scale_r=scale_r,
-                                    scale_c=scale_c, thr=thr)
-    return affinity_degree_streaming(x, xc, kind=kind, sigma=sigma,
-                                     row_offset=row_offset, col_offset=col_offset)
+    kind, sigma = _spec_kind_sigma(spec, kind, sigma)
+    return affinity_degree_streaming(x, xc, kind=kind, sigma=sigma, row_offset=row_offset,
+                                     col_offset=col_offset, scale_r=scale_r,
+                                     scale_c=scale_c, thr=thr)
+
+
+def row_topk(x, xc=None, *, k, stat="similarity", kind="cosine_shifted", sigma=1.0,
+             spec=None, scale_r=None, scale_c=None, row_offset=0, col_offset=0):
+    """(R, k) per-row descending top-k scores, streamed: pass 1 of the
+    two-pass graph build. See kernels/row_topk.py."""
+    kind, sigma = _spec_kind_sigma(spec, kind, sigma)
+    return _row_topk(x, xc, k=k, stat=stat, kind=kind, sigma=sigma, row_offset=row_offset,
+                     col_offset=col_offset, scale_r=scale_r, scale_c=scale_c)

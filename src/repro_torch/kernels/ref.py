@@ -4,7 +4,10 @@ They are the kernels' references: a wrapper returns them for a tensor on
 the CPU, and ``chip_smoke.py`` holds each CUDA kernel against them on the
 card. Each mirrors its counterpart in ``repro/kernels/ref.py`` operation
 for operation, stripe-general like it (``xc``, ``row_offset``,
-``col_offset``).
+``col_offset``), with the graph-policy operands: ``scale_r``/``scale_c``
+the (R,)/(C,) adaptive local scales (rbf only: exp(-d2 / (s_i s_j))),
+``thr`` the (R,) row thresholds of a kNN truncation (entries below are
+zeroed) and ``thr_c`` the (C,) column thresholds of the transpose product.
 """
 from __future__ import annotations
 
@@ -12,8 +15,10 @@ import torch
 
 
 def _affinity_scores_ref(x: torch.Tensor, c: torch.Tensor, *, kind: str,
-                         sigma: float) -> torch.Tensor:
-    """Dense (R, C) similarity scores before any masking (fixed bandwidth)."""
+                         sigma: float, scale_r: torch.Tensor | None = None,
+                         scale_c: torch.Tensor | None = None) -> torch.Tensor:
+    """Dense (R, C) similarity scores before any masking (fixed or adaptive
+    bandwidth)."""
     if kind in ("cosine", "cosine_shifted"):
         a = x @ c.T
         if kind == "cosine_shifted":
@@ -23,8 +28,17 @@ def _affinity_scores_ref(x: torch.Tensor, c: torch.Tensor, *, kind: str,
         sqr = torch.sum(x * x, dim=1)
         sqc = torch.sum(c * c, dim=1)
         d2 = torch.clamp_min(sqr[:, None] + sqc[None, :] - 2.0 * (x @ c.T), 0.0)
+        if scale_r is not None:
+            return torch.exp(-d2 / (scale_r.float()[:, None] * scale_c.float()[None, :]))
         return torch.exp(-d2 / (2.0 * sigma * sigma))
     raise ValueError(kind)
+
+
+def _off_diagonal(shape, row_offset, col_offset, device) -> torch.Tensor:
+    """(R, C) bool: True off the global diagonal of the stripe."""
+    grows = row_offset + torch.arange(shape[0], device=device)[:, None]
+    gcols = col_offset + torch.arange(shape[1], device=device)[None, :]
+    return grows != gcols
 
 
 def affinity_and_degree_ref(
@@ -35,16 +49,54 @@ def affinity_and_degree_ref(
     sigma: float = 1.0,
     row_offset: int = 0,
     col_offset: int = 0,
+    scale_r: torch.Tensor | None = None,
+    scale_c: torch.Tensor | None = None,
+    thr: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(A (R, C), D (R,)): the masked affinity stripe of ``xn`` against
     ``xc`` (``None``: itself) at global offsets, and its row sums."""
     x = xn.float()
     c = x if xc is None else xc.float()
-    a = _affinity_scores_ref(x, c, kind=kind, sigma=sigma)
-    grows = row_offset + torch.arange(a.shape[0], device=a.device)[:, None]
-    gcols = col_offset + torch.arange(a.shape[1], device=a.device)[None, :]
-    a = torch.where(grows != gcols, a, 0.0)
+    a = _affinity_scores_ref(x, c, kind=kind, sigma=sigma, scale_r=scale_r, scale_c=scale_c)
+    valid = _off_diagonal(a.shape, row_offset, col_offset, a.device)
+    if thr is not None:
+        valid = valid & (a >= thr.float()[:, None])
+    a = torch.where(valid, a, 0.0)
     return a, torch.sum(a, dim=1)
+
+
+def row_topk_ref(
+    x: torch.Tensor,
+    xc: torch.Tensor | None = None,
+    *,
+    k: int,
+    stat: str = "similarity",
+    kind: str = "cosine_shifted",
+    sigma: float = 1.0,
+    scale_r: torch.Tensor | None = None,
+    scale_c: torch.Tensor | None = None,
+    row_offset: int = 0,
+    col_offset: int = 0,
+) -> torch.Tensor:
+    """(R, k) per-row descending top-k of the stripe's scores over its
+    valid entries (global diagonal excluded): the affinity value
+    (``stat='similarity'``) or -max(d2, 0) (``stat='neg_sqdist'``, any
+    kind). Rows with fewer than k valid entries pad with -inf."""
+    x = x.float()
+    c = x if xc is None else xc.float()
+    if stat == "similarity":
+        s = _affinity_scores_ref(x, c, kind=kind, sigma=sigma, scale_r=scale_r,
+                                 scale_c=scale_c)
+    elif stat == "neg_sqdist":
+        sqr = torch.sum(x * x, dim=1)
+        sqc = torch.sum(c * c, dim=1)
+        s = -torch.clamp_min(sqr[:, None] + sqc[None, :] - 2.0 * (x @ c.T), 0.0)
+    else:
+        raise ValueError(f"unknown stat {stat!r}")
+    s = torch.where(_off_diagonal(s.shape, row_offset, col_offset, s.device), s, -torch.inf)
+    if k > s.shape[1]:
+        s = torch.cat([s, s.new_full((s.shape[0], k - s.shape[1]), -torch.inf)], dim=1)
+    return torch.topk(s, k, dim=1).values
 
 
 def _floored_degree_divide(u: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -70,11 +122,20 @@ def affinity_matmat_ref(
     sigma: float = 1.0,
     row_offset: int = 0,
     col_offset: int = 0,
+    scale_r: torch.Tensor | None = None,
+    scale_c: torch.Tensor | None = None,
+    thr: torch.Tensor | None = None,
+    thr_c: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(A V) / d for the masked stripe A of ``x`` against ``xc`` (built
-    dense here); ``d=None`` leaves the product unnormalized."""
-    a, _ = affinity_and_degree_ref(x, xc, kind=kind, sigma=sigma,
-                                   row_offset=row_offset, col_offset=col_offset)
+    dense here); ``d=None`` leaves the product unnormalized. ``thr_c``
+    zeroes each column's entries below its own threshold (the transpose
+    product of the component probe)."""
+    a, _ = affinity_and_degree_ref(x, xc, kind=kind, sigma=sigma, row_offset=row_offset,
+                                   col_offset=col_offset, scale_r=scale_r, scale_c=scale_c,
+                                   thr=thr)
+    if thr_c is not None:
+        a = torch.where(a >= thr_c.float()[None, :], a, 0.0)
     u = a @ v.float()
     if d is None:
         return u
@@ -89,10 +150,14 @@ def affinity_degree_streaming_ref(
     sigma: float = 1.0,
     row_offset: int = 0,
     col_offset: int = 0,
+    scale_r: torch.Tensor | None = None,
+    scale_c: torch.Tensor | None = None,
+    thr: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """D = A 1 for the masked stripe A of ``x`` against ``xc``."""
-    _, deg = affinity_and_degree_ref(x, xc, kind=kind, sigma=sigma,
-                                     row_offset=row_offset, col_offset=col_offset)
+    _, deg = affinity_and_degree_ref(x, xc, kind=kind, sigma=sigma, row_offset=row_offset,
+                                     col_offset=col_offset, scale_r=scale_r,
+                                     scale_c=scale_c, thr=thr)
     return deg
 
 

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core as jcore
 from repro.kernels import ops as jops
 from repro_torch import AffinitySpec
 from repro_torch.kernels import _build
@@ -196,20 +197,73 @@ def test_gram_matches_pallas(n, c):
 @pytest.mark.parametrize("op,policy", [
     (op, policy) for op in ("affinity", "streaming_matmat", "streaming_degree")
     for policy in ("knn", "adaptive", "operand") if (op, policy) != ("affinity", "operand")])
-def test_graph_policies_raise_not_implemented(op, policy):
-    """A spec with a graph policy, or a policy operand, must not lose the
-    policy on its way to a dense kernel."""
-    x = torch.from_numpy(_features(20, 2, "rbf", seed=5))
-    kw = {"operand": dict(thr=torch.zeros(20)),
-          "knn": dict(spec=AffinitySpec(kind="rbf", sigma=0.5, knn_k=3)),
-          "adaptive": dict(spec=AffinitySpec(kind="rbf", bandwidth="adaptive"))}[policy]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        if op == "affinity":
-            tops.affinity_and_degree(x, **kw)
-        elif op == "streaming_matmat":
-            tops.streaming_matmat(x, torch.ones((20, 1)), **kw)
-        else:
-            tops.streaming_degree(x, **kw)
+def test_graph_policies_match_the_reference(op, policy):
+    """A graph policy reaches the kernel as its operands. For a spec, pass 1
+    (core/graph.py::affinity_stats) gives the port the reference's
+    statistics within their rules (squared scales: 1e-6 max|x|^2, the
+    neg_sqdist rule; thresholds: A_ATOL plus that error carried through
+    exp(-d2 / (2 sigma^2))), and each package's kernel, on its own
+    statistics, gives the other's result: the same kept entries (a
+    threshold is one of the package's own scores, so each package is
+    consistent with itself), values within A_ATOL plus the d2 and scale
+    errors carried through exp(-d2 / (s_i s_j)). 'operand' passes given
+    thresholds (row, and column for the transpose product)."""
+    from repro.core.graph import affinity_stats as ref_affinity_stats
+    from repro_torch.core.graph import affinity_stats
+    x = _features(200, 2, "rbf", seed=5)
+    eps = 1e-6 * float(np.max(np.sum(x.astype(np.float64) ** 2, axis=1)))
+    fields = {"knn": dict(kind="rbf", sigma=0.5, knn_k=5),
+              "adaptive": dict(kind="rbf", bandwidth="adaptive", scale_k=7),
+              "operand": dict(kind="rbf", sigma=0.5)}[policy]
+    jspec = jcore.AffinitySpec(**fields)
+    scale, thr = (np.asarray(s) if s is not None else None
+                  for s in ref_affinity_stats(jnp.asarray(x), jspec))
+    t_scale, t_thr = affinity_stats(torch.from_numpy(x), AffinitySpec(**fields))
+    assert (t_scale is None) == (scale is None) and (t_thr is None) == (thr is None)
+    if scale is not None:
+        assert np.all(np.abs(t_scale.numpy().astype(np.float64) ** 2 - scale ** 2.0) <= eps)
+    if thr is not None:
+        assert np.all(np.abs(t_thr.numpy() - thr) <= A_ATOL + eps / (2 * 0.5 ** 2))
+    thr_c = None
+    if policy == "operand":
+        thr = np.full(200, 0.5, np.float32)
+        thr_c = np.full(200, 0.6, np.float32)
+        t_thr = torch.from_numpy(thr)
+    # |dA| <= A_ATOL + eps c (1 + 1/e): c = 1/(s_i s_j) <= 1/min(s)^2, and
+    # each squared scale carries eps as well
+    atol = A_ATOL if scale is None else A_ATOL + 2 * eps / float(np.min(scale)) ** 2
+    # a sum of up to 200 entries: the D and U rules, plus 200 atol where the
+    # scales differ
+    sum_atol = 0.0 if scale is None else 200 * atol
+    pol = dict(scale_r=scale, scale_c=scale, thr=thr)
+    t_pol = dict(scale_r=t_scale, scale_c=t_scale, thr=t_thr)
+    if op == "affinity":
+        a_j, d_j = jops.affinity_and_degree(jnp.asarray(x), spec=jspec, mode="pallas",
+                                            **{k: _j(v) for k, v in pol.items()})
+        a_t, d_t = tops.affinity_and_degree(torch.from_numpy(x), spec=AffinitySpec(**fields),
+                                            **t_pol)
+        a_j = np.asarray(a_j)
+        assert np.all(np.abs(a_t.numpy() - a_j) <= atol)
+        assert np.all(np.abs(d_t.numpy() - np.asarray(d_j))
+                      <= D_RTOL * np.abs(a_j).sum(axis=1) + sum_atol)
+        if thr is not None:
+            np.testing.assert_array_equal(a_t.numpy() != 0, a_j != 0)
+    elif op == "streaming_matmat":
+        v = np.random.default_rng(6).random((200, 2)).astype(np.float32)
+        u_j = np.asarray(jops.streaming_matmat(jnp.asarray(x), jnp.asarray(v), None,
+                                               spec=jspec, thr_c=_j(thr_c),
+                                               **{k: _j(w) for k, w in pol.items()}))
+        u_t = tops.streaming_matmat(torch.from_numpy(x), torch.from_numpy(v), None,
+                                    spec=AffinitySpec(**fields), thr_c=_t(thr_c),
+                                    **t_pol).numpy()
+        np.testing.assert_allclose(u_t, u_j, rtol=U_RTOL,
+                                   atol=U_ATOL * np.abs(u_j).max() + sum_atol)
+    else:
+        d_j = np.asarray(jops.streaming_degree(jnp.asarray(x), spec=jspec,
+                                               **{k: _j(v) for k, v in pol.items()}))
+        d_t = tops.streaming_degree(torch.from_numpy(x), spec=AffinitySpec(**fields),
+                                    **t_pol).numpy()
+        np.testing.assert_allclose(d_t, d_j, rtol=D_RTOL, atol=sum_atol)
 
 
 def test_cpu_calls_launch_no_kernel():
@@ -221,16 +275,18 @@ def test_cpu_calls_launch_no_kernel():
     d_s = tops.streaming_degree(x, kind="rbf")
     u = tops.streaming_matmat(x, (d_s / d_s.sum())[:, None], d_s, kind="rbf")
     tops.gram(torch.cat([u, u], dim=1))
+    tops.row_topk(x, k=3, stat="neg_sqdist", kind="rbf")
     assert tops.launch_counts() == {"affinity_and_degree": 0,
                                     "degree_normalized_matmat": 0,
                                     "kmeans_assign": 0,
                                     "streaming_matmat": 0,
                                     "streaming_degree": 0,
-                                    "gram": 0}
+                                    "gram": 0,
+                                    "row_topk": 0}
 
 
 @pytest.mark.parametrize("op", ["affinity", "matmat", "assign", "streaming_matmat",
-                                "streaming_degree", "gram"])
+                                "streaming_degree", "gram", "row_topk"])
 def test_non_cpu_tensor_never_takes_the_plain_version(op):
     """Off the CPU a wrapper launches its kernel or raises: a tensor on a
     device that is not CUDA is rejected before any pointer reaches C."""
@@ -247,6 +303,8 @@ def test_non_cpu_tensor_never_takes_the_plain_version(op):
             tops.streaming_degree(x)
         elif op == "gram":
             tops.gram(x)
+        elif op == "row_topk":
+            tops.row_topk(x, k=3)
         else:
             tops.kmeans_assign(x, x[:2])
 

@@ -241,28 +241,47 @@ def test_run_gpic_needs_cuda_unless_cpu_is_asked_for():
 
 
 def _port_override(override):
-    """A reference override as the port's GPICConfig takes it."""
+    """A reference override as the port's GPICConfig takes it (a spec given
+    as a dict of fields is built here, where its constructor may raise)."""
     out = dict(override)
     if "affinity" in out:
-        out["affinity"] = AffinitySpec(**dataclasses.asdict(override["affinity"]))
+        spec = override["affinity"]
+        out["affinity"] = AffinitySpec(**(spec if isinstance(spec, dict)
+                                          else dataclasses.asdict(spec)))
     if "a_dtype" in out:
         out["a_dtype"] = torch.bfloat16
     return out
 
 
-@pytest.mark.parametrize("override", [
-    dict(engine="matrix_free"),
-    dict(affinity=jcore.AffinitySpec(kind="rbf", sigma=0.3, knn_k=5)),
-    dict(affinity=jcore.AffinitySpec(kind="rbf", bandwidth="adaptive")),
-    dict(a_dtype=jnp.bfloat16), dict(tile=128), dict(n_vectors=33),
-], ids=["matrix_free", "knn", "adaptive", "bf16", "tile", "n_vectors_past_kernel_limit"])
-def test_unported_settings_raise_not_implemented(override):
-    ref_cfg = jcore.GPICConfig(**override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def _ref_override(override):
+    """The override as the reference's GPICConfig takes it."""
+    out = dict(override)
+    if isinstance(out.get("affinity"), dict):
+        out["affinity"] = jcore.AffinitySpec(**out["affinity"])
+    return out
+
+
+@pytest.mark.parametrize("override,names", [
+    (dict(engine="matrix_free"), "item 8"),
+    (dict(affinity=dict(kind="rbf", sigma=0.3, knn_k=5)), "item 7"),
+    (dict(affinity=dict(kind="rbf", bandwidth="adaptive", scale_k=65)), "K > 64"),
+    (dict(affinity=dict(kind="rbf", sigma=0.3, knn_k=65), block_sparse=False), "K > 64"),
+    (dict(a_dtype=jnp.bfloat16), "item 13"), (dict(tile=128), "item 1"),
+    (dict(n_vectors=33), "kernel 2 follow-up"),
+], ids=["matrix_free", "knn_block_sparse", "scale_k_past_kernel_limit",
+        "knn_k_past_kernel_limit", "bf16", "tile", "n_vectors_past_kernel_limit"])
+def test_unported_settings_raise_not_implemented(override, names):
+    """Each names its ROADMAP entry: among them a truncated spec on the
+    reference's default block-sparse route (item 7) and neighbor ranks past
+    the row top-k kernel's 64."""
+    ref_cfg = jcore.GPICConfig(**_ref_override(override))
+    with pytest.raises(NotImplementedError, match="ROADMAP") as map_err:
         config_from_reference(_plain_fields(ref_cfg))
-    x, _, k = dataset_by_name("gaussians", 40, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    x, _, k = dataset_by_name("gaussians", 100, seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP") as port_err:
         run_gpic(x, k, GPICConfig(**_port_override(override)), device="cpu")
+    assert str(port_err.value) == str(map_err.value)
+    assert names in str(port_err.value)
 
 
 @pytest.mark.parametrize("override", [
@@ -287,19 +306,67 @@ def test_settings_this_port_routes_run(override):
     dict(embedding="orthogonal", n_vectors=2, residual_tol=0.0),
     dict(embedding="pic", residual_tol=1e-3, n_vectors=2),
     dict(engine="streaming", a_dtype=jnp.bfloat16),
+    dict(affinity=dict(kind="rbf", sigma=0.3, knn_k=40), block_sparse=False),
+    dict(affinity=dict(kind="rbf", sigma=0.3, knn_k=0)),
+    dict(affinity=dict(kind="rbf", bandwidth="adaptive", scale_k=40)),
+    dict(affinity=dict(kind="rbf", bandwidth="adaptive", scale_k=0)),
+    dict(affinity=dict(kind="cosine", bandwidth="adaptive")),
+    dict(engine="matrix_free", affinity=dict(kind="cosine_shifted", knn_k=5)),
 ], ids=["qr_every_0", "qr_every_outside_orthogonal", "snapshot_iters_outside_ensemble",
         "residual_tol_with_r1", "residual_tol_0", "residual_tol_outside_orthogonal",
-        "streaming_bf16"])
+        "streaming_bf16", "knn_k_not_below_n", "knn_k_0", "scale_k_not_below_n", "scale_k_0",
+        "adaptive_cosine", "matrix_free_knn"])
 def test_front_door_value_errors_match_the_reference(override):
+    """The same class and message in both packages. The spec's own checks
+    run where it is built; the neighbor ranks against n = 40 at the front
+    door, before the feature checks, and through ``config_from_reference``
+    when it is given n."""
     x, _, k = dataset_by_name("gaussians", 40, seed=0)
     with pytest.raises(ValueError) as ref_err:
-        jcore.run_gpic(jnp.asarray(x), k, jcore.GPICConfig(use_pallas=False, **override))
+        jcore.run_gpic(jnp.asarray(x), k,
+                       jcore.GPICConfig(use_pallas=False, **_ref_override(override)))
     with pytest.raises(ValueError) as port_err:
         run_gpic(x, k, GPICConfig(**_port_override(override)), device="cpu")
     assert str(port_err.value) == str(ref_err.value)
-    ref_fields = _plain_fields(jcore.GPICConfig(**override))
-    with pytest.raises(ValueError):
-        config_from_reference(ref_fields)
+    plain = {key: val for key, val in override.items() if key != "affinity"}
+    ref_fields = _plain_fields(jcore.GPICConfig(**plain))
+    if "affinity" in override:
+        ref_fields["affinity"] = override["affinity"]
+    with pytest.raises(ValueError) as map_err:
+        config_from_reference(ref_fields, n=40)
+    assert str(map_err.value) == str(ref_err.value)
+
+
+def test_graph_spec_config_maps_from_reference():
+    """A kNN spec on the dense-storage route maps to the port's equal
+    config, which runs it: the component probe finds the reference's four
+    blobs."""
+    spec = jcore.AffinitySpec(kind="rbf", sigma=0.3, knn_k=10)
+    ref_cfg = jcore.GPICConfig(affinity=spec, block_sparse=False, use_pallas=False)
+    cfg = config_from_reference(_plain_fields(ref_cfg))
+    assert cfg == GPICConfig(affinity=AffinitySpec(kind="rbf", sigma=0.3, knn_k=10),
+                             block_sparse=False)
+    x, y, k = dataset_by_name("gaussians", 200, seed=0)
+    ref = jcore.run_gpic(jnp.asarray(x), k, ref_cfg, key=jax.random.key(1))
+    res = run_gpic(x, k, cfg, device="cpu")
+    assert int(res.health.n_components) == int(ref.health.n_components) == 4
+    np.testing.assert_array_equal(res.health.components.numpy(),
+                                  np.asarray(ref.health.components))
+    assert adjusted_rand_index(y, res.labels.numpy()) == 1.0
+
+
+def test_component_probe_off_leaves_no_count():
+    spec = jcore.AffinitySpec(kind="rbf", sigma=0.3, knn_k=10)
+    ref_cfg = jcore.GPICConfig(affinity=spec, block_sparse=False, component_probe=False,
+                               use_pallas=False)
+    cfg = config_from_reference(_plain_fields(ref_cfg))
+    assert cfg.component_probe is False
+    x, _, k = dataset_by_name("gaussians", 200, seed=0)
+    ref = jcore.run_gpic(jnp.asarray(x), k, ref_cfg, key=jax.random.key(1))
+    res = run_gpic(x, k, cfg, device="cpu")
+    assert int(res.health.n_components) == int(ref.health.n_components) == -1
+    assert (res.health.components.numpy() == -1).all()
+    assert res.health.to_dict() == ref.health.to_dict()
 
 
 def test_config_from_reference_defaults_and_rejections():
