@@ -25,6 +25,11 @@ Phases (any failure exits non-zero before the last line is printed):
                 column-thresholded product the transpose of the stored A,
                 and every row must keep knn_k entries (more only on a tie
                 at its threshold).
+                The block-sparse kernels (#8-#11) with E1's and E2's operands:
+                the live map equal to dense_block_live of the thresholded A,
+                the sweeps and the degree bitwise their dense twins (#2, #5,
+                #6, #1's D), the fused one-pass build bitwise the two-pass
+                build; ragged and off-diagonal stripes at m = 16; a NaN in V.
   3. end to end run_gpic on each path, with the launch counters reset just
                 before it and read just after:
                 - explicit, gaussians: n = 2,000 on the card against the
@@ -52,11 +57,24 @@ Phases (any failure exits non-zero before the last line is printed):
                   labels, sweeps and components, the row top-k once (E1)
                   or twice (E2), the probe's sweeps counted apart; E3
                   (adaptive dense, pic, explicit: pass 1a only, no probe);
-                  two_moons with knn_k=64, reported only.
+                  two_moons with knn_k=64, reported only;
+                - E1 and E2 with block_sparse=True (the default) on both
+                  engines: the block_sparse=False runs bit for bit, with
+                  the block-sparse launches (explicit: #1 once, #2 once for
+                  the fused build's degree, #9 per sweep and probe hop;
+                  streaming: #7, #8, #11 once, #10 per sweep and hop, #5
+                  per probe transpose);
+                - the row reorder: E1's live fraction on sorted, shuffled
+                  and reordered rows, E1 on shuffled rows with and without
+                  row_reorder, and the round trip of a reordered run
+                  (shuffled against sorted rows, un-permuted), bit for bit
+                  wherever the two canonical arrays are equal, on the dense
+                  spec and on knn_k=64.
   4. profile    one more n = 45,000 run of each engine under torch.profiler:
                 the device's busy share of the wall time and device time by
-                kernel; and one of E1 on the explicit engine, cut into its
-                stages (pass 1, build, sweeps, k-means, probe, idle).
+                kernel; and the graph runs E1 (explicit, block_sparse=False)
+                and E1 and E2 block-sparse on both engines, each cut into
+                its stages (pass 1, build, sweeps, k-means, probe, idle).
 
 The last lines are one JSON object with every kernel's numbers, the card's
 name and power limit from nvidia-smi, and the result object
@@ -75,6 +93,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 N_MAIN = 45_000         # the paper's dataset size
@@ -777,6 +796,416 @@ def phase_gram(report):
                           host_paced_ms=host)
 
 
+def _plan_entries(live, n_rows: int, n_cols: int) -> float:
+    """Entries of the stripe inside the plan's live tiles (ragged edge
+    tiles counted at their real size): the work of a block-sparse call."""
+    n_i, n_j = live.shape
+    rows = (n_rows - 16 * torch.arange(n_i, device=live.device)).clamp(max=16).double()
+    cols = (n_cols - 256 * torch.arange(n_j, device=live.device)).clamp(max=256).double()
+    return float(rows @ live.double() @ cols)
+
+
+def _bs_plain_stripes(x, v, d, counts, col_idx, pol, stripe=4096):
+    """The plain block-sparse streamed U (``v`` given) or D over row
+    stripes (a multiple of the plan's 16 rows), against the whole x."""
+    from repro_torch.kernels import ref
+    out = []
+    for r0 in range(0, x.shape[0], stripe):
+        r1 = min(r0 + stripe, x.shape[0])
+        plan = dict(counts=counts[r0 // 16:-(-r1 // 16)], col_idx=col_idx[r0 // 16:-(-r1 // 16)],
+                    tm=16, tn=256)
+        kw = dict(pol, row_offset=r0, thr=pol["thr"][r0:r1],
+                  scale_r=None if pol["scale_r"] is None else pol["scale_r"][r0:r1])
+        if v is None:
+            out.append((r0, r1, ref.block_sparse_streaming_degree_ref(x[r0:r1], x, **plan, **kw)))
+        else:
+            out.append((r0, r1, ref.block_sparse_streaming_matmat_ref(
+                x[r0:r1], v, None if d is None else d[r0:r1], x, **plan, **kw)))
+    return out
+
+
+def phase_block_sparse(report):
+    """Kernels #8-#11 at the main path's shape with E1's and E2's operands:
+    the liveness map equal to dense_block_live of kernel #1's thresholded A;
+    #9 bitwise #2 (r = 1, 2), #10 bitwise #5 (d given and None), #11
+    bitwise #6 and #1's D; the fused build's A, D and thresholds bitwise
+    the two-pass build's; each against its plain version. Then ragged and
+    off-diagonal stripes at m = 16, and a NaN in V."""
+    from repro_torch.core.affinity import AffinitySpec, block_plan, dense_block_live
+    from repro_torch.core.graph import affinity_stats, fused_affinity_build
+    from repro_torch.core.power import batched_power_iteration
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.affinity import affinity_and_degree
+    from repro_torch.kernels.block_sparse import (block_liveness, block_sparse_matmat,
+                                                  block_sparse_streaming_degree,
+                                                  block_sparse_streaming_matmat)
+    from repro_torch.kernels.power_step import degree_normalized_matmat
+    from repro_torch.kernels.row_topk import row_topk, topk_thresholds_from_scores
+    from repro_torch.kernels.streaming import affinity_degree_streaming, affinity_matmat
+    feats, _, _ = _features(N_MAIN)
+    x = feats["rbf"]
+    n, m = x.shape
+    g = torch.Generator(device="cuda").manual_seed(8)
+    worst = dict.fromkeys(("block_liveness", "block_sparse_matmat",
+                           "block_sparse_streaming_matmat", "block_sparse_streaming_degree"), 0.0)
+    out = {}
+    for tag, spec_kw in (("knn", E1_SPEC), ("adaptive_knn", E2_SPEC)):
+        spec = AffinitySpec(**spec_kw)
+        sc, thr = affinity_stats(x, spec)
+        pol = dict(kind="rbf", sigma=SIGMA, scale_r=sc, scale_c=sc, thr=thr)
+        a, d = affinity_and_degree(x, **pol)
+        live = block_liveness(x, **pol)
+        torch.cuda.synchronize()
+        check(torch.equal(live.bool(), dense_block_live(a, 16, 256)),
+              f"{tag}: #8's live map is not dense_block_live of #1's A")
+        counts, col_idx, _ = block_plan(live)
+        frac = float(live.float().mean())
+        entries = _plan_entries(live, n, n)
+        v1 = (d / d.sum())[:, None].contiguous()
+        v2 = torch.cat([v1, torch.rand((n, 1), generator=g, device="cuda") / n], dim=1)
+        plan = dict(counts=counts, col_idx=col_idx)
+        for v in (v1, v2):
+            r = v.shape[1]
+            u_d = degree_normalized_matmat(a, v, d)
+            u_b = block_sparse_matmat(a, v, d, counts, col_idx)
+            u_s = block_sparse_streaming_matmat(x, v, d, **plan, **pol)
+            u_n = block_sparse_streaming_matmat(x, v, None, **plan, **pol)
+            u_n5 = affinity_matmat(x, v, None, **pol)
+            torch.cuda.synchronize()
+            check(torch.equal(u_b, u_d), f"{tag} r={r}: #9 is not bitwise #2")
+            check(torch.equal(u_s, u_d), f"{tag} r={r}: #10 is not bitwise #2 (and #5)")
+            check(torch.equal(u_n, u_n5), f"{tag} r={r}: #10 with d=None is not bitwise #5")
+        d_b = block_sparse_streaming_degree(x, **plan, **pol)
+        d_6 = affinity_degree_streaming(x, **pol)
+        torch.cuda.synchronize()
+        check(torch.equal(d_b, d) and torch.equal(d_b, d_6),
+              f"{tag}: #11 is not bitwise #1's D and #6")
+        # against the plain versions: #9 on the whole A, #10 and #11 on stripes
+        u_ref = ref.block_sparse_matmat_ref(a, v2, d, counts, col_idx, tm=16, tn=256)
+        err9, exc9 = _u_errors(block_sparse_matmat(a, v2, d, counts, col_idx), u_ref)
+        del u_ref
+        stripes_u = _bs_plain_stripes(x, v2, d, counts, col_idx, pol)
+        u_s = block_sparse_streaming_matmat(x, v2, d, **plan, **pol)
+        err10, exc10 = _u_errors(torch.cat([u_s[r0:r1] for r0, r1, _ in stripes_u]),
+                                 torch.cat([u for *_, u in stripes_u]))
+        del stripes_u
+        stripes_d = _bs_plain_stripes(x, None, None, counts, col_idx, pol)
+        mass = d.abs().clamp_min(1e-30)                    # A >= 0 for rbf
+        err11 = max(float(((d_b[r0:r1] - dr).abs() / mass[r0:r1]).max())
+                    for r0, r1, dr in stripes_d)
+        check(exc9 <= 0.0 and exc10 <= 0.0 and err11 <= D_RTOL,
+              f"{tag}: a block-sparse kernel disagrees with its plain version")
+        worst["block_sparse_matmat"] = max(worst["block_sparse_matmat"], err9)
+        worst["block_sparse_streaming_matmat"] = max(worst["block_sparse_streaming_matmat"], err10)
+        worst["block_sparse_streaming_degree"] = max(
+            worst["block_sparse_streaming_degree"],
+            max(float((d_b[r0:r1] - dr).abs().max()) for r0, r1, dr in stripes_d))
+        live_ref = torch.cat([ref.block_liveness_ref(x[r0:r0 + 4096], x, tm=16, tn=256,
+                                                     row_offset=r0,
+                                                     **dict(pol, thr=thr[r0:r0 + 4096],
+                                                            scale_r=None if sc is None
+                                                            else sc[r0:r0 + 4096]))
+                              for r0 in range(0, n, 4096)])
+        check(torch.equal(live_ref, live), f"{tag}: #8 is not its plain version's map")
+        # the fused build of the explicit block-sparse route: the two-pass bits
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        a_f, d_f, thr_f = fused_affinity_build(x, spec=spec, scale_r=sc, scale_c=sc)
+        torch.cuda.synchronize()
+        fused_extra = torch.cuda.max_memory_allocated() - base
+        check(torch.equal(a_f, a) and torch.equal(d_f, d) and torch.equal(thr_f, thr),
+              f"{tag}: the fused build's A, D or thresholds are not the two-pass build's")
+        del a_f, d_f, thr_f
+        rec = dict(live_fraction=frac, live_entries=entries,
+                   fused_build_extra_bytes=fused_extra, max_abs_err=dict(
+                       block_sparse_matmat=err9, block_sparse_streaming_matmat=err10,
+                       block_sparse_streaming_degree_rel=err11))
+        if tag == "knn":
+            a_raw, _ = affinity_and_degree(x, kind="rbf", sigma=SIGMA)
+            rec.update(
+                fused_build_ms=cuda_ms(lambda: fused_affinity_build(x, spec=spec), 3),
+                two_pass_build_ms=cuda_ms(lambda: affinity_and_degree(
+                    x, kind="rbf", sigma=SIGMA, thr=row_topk(
+                        x, k=KNN_K, kind="rbf", sigma=SIGMA)[:, -1].contiguous()), 3),
+                thresholds_from_scores_ms=cuda_ms(
+                    lambda: topk_thresholds_from_scores(a_raw, k=KNN_K), 3),
+                row_topk_ms=cuda_ms(lambda: row_topk(x, k=KNN_K, kind="rbf", sigma=SIGMA), 5))
+            del a_raw
+            r = 2
+            op_bytes = 4.0 * n                             # the thresholds
+            plan_bytes = 4.0 * (counts.numel() + float(counts.sum()))
+            times = dict(
+                block_liveness=dict(
+                    ms=cuda_ms(lambda: block_liveness(x, **pol), 10),
+                    plain_ms=cuda_ms(lambda: [ref.block_liveness_ref(
+                        x[r0:r0 + 4096], x, tm=16, tn=256, row_offset=r0,
+                        **dict(pol, thr=thr[r0:r0 + 4096])) for r0 in range(0, n, 4096)], 2),
+                    library_ms=None,
+                    bound=bound_ms(4.0 * (n * m + live.numel()) + op_bytes,
+                                   affinity_flops(n, n, m, "rbf") + 2.0 * n * n)),
+                block_sparse_matmat=dict(
+                    ms=cuda_ms(lambda: block_sparse_matmat(a, v2, d, counts, col_idx), 20),
+                    plain_ms=cuda_ms(lambda: ref.block_sparse_matmat_ref(
+                        a, v2, d, counts, col_idx, tm=16, tn=256), 3),
+                    library_ms=cuda_ms(lambda: torch.matmul(a, v2) / d.clamp_min(1e-30)[:, None],
+                                       20),
+                    r1_ms=cuda_ms(lambda: block_sparse_matmat(a, v1, d, counts, col_idx), 20),
+                    dense_ms=cuda_ms(lambda: degree_normalized_matmat(a, v2, d), 20),
+                    bound=bound_ms(4.0 * (entries + 2 * n * r + n) + plan_bytes,
+                                   2.0 * r * entries)),
+                block_sparse_streaming_matmat=dict(
+                    ms=cuda_ms(lambda: block_sparse_streaming_matmat(x, v2, d, **plan, **pol), 20),
+                    plain_ms=cuda_ms(lambda: _bs_plain_stripes(x, v2, d, counts, col_idx, pol), 2),
+                    library_ms=None,
+                    r1_ms=cuda_ms(lambda: block_sparse_streaming_matmat(x, v1, d, **plan, **pol),
+                                  20),
+                    dense_ms=cuda_ms(lambda: affinity_matmat(x, v2, d, **pol), 20),
+                    bound=bound_ms(4.0 * (n * m + 2 * n * r + n) + op_bytes + plan_bytes,
+                                   entries * (2 * m + 6 + 2 * r + 1))),
+                block_sparse_streaming_degree=dict(
+                    ms=cuda_ms(lambda: block_sparse_streaming_degree(x, **plan, **pol), 20),
+                    plain_ms=cuda_ms(lambda: _bs_plain_stripes(x, None, None, counts, col_idx,
+                                                               pol), 2),
+                    library_ms=None,
+                    dense_ms=cuda_ms(lambda: affinity_degree_streaming(x, **pol), 20),
+                    bound=bound_ms(4.0 * (n * m + n) + op_bytes + plan_bytes,
+                                   entries * (2 * m + 7 + 1))))
+            for name, t in times.items():
+                b, by = t.pop("bound")
+                t.update(bound_ms=b, bound_by=by)
+                report[name] = dict(t)
+            rec["times"] = times
+            # a NaN in V: the dense sweep reaches every row, the block-sparse
+            # sweep the rows whose live tiles hold its column; the loop's
+            # latch reads the same
+            v_nan = v2.clone()
+            v_nan[7, 1] = float("nan")
+            bad_d = int((~torch.isfinite(degree_normalized_matmat(a, v_nan, d))).any(1).sum())
+            bad_b = int((~torch.isfinite(block_sparse_matmat(a, v_nan, d, counts,
+                                                             col_idx))).any(1).sum())
+            eps = 1e-5 / n
+            st_d = batched_power_iteration(lambda v: degree_normalized_matmat(a, v, d), v_nan,
+                                           eps, 3, return_status=True)[3]
+            st_b = batched_power_iteration(lambda v: block_sparse_matmat(a, v, d, counts,
+                                                                         col_idx),
+                                           v_nan, eps, 3, return_status=True)[3]
+            check(torch.equal(st_d, st_b) and bool(st_b[1] != 0),
+                  f"a NaN in V latches differently: dense {st_d.tolist()} block-sparse "
+                  f"{st_b.tolist()}")
+            rec.update(nan_rows_dense=bad_d, nan_rows_block_sparse=bad_b,
+                       nan_col_status=st_b.tolist())
+        print(f"[block_sparse] {tag} n={n}: #8 = dense_block_live of #1's A, live fraction "
+              f"{frac:.4f}; #9 = #2, #10 = #2 and #5 (d=None), #11 = #1's D and #6, r=1,2, "
+              f"bitwise; fused build = two-pass build bitwise, its own peak "
+              f"{fused_extra / 1e9:.3f} GB beside x; vs plain: #9 {err9:.3e} #10 {err10:.3e} "
+              f"#11 rel {err11:.3e}" + "".join(
+                  f"; {key}={val}" for key, val in rec.items()
+                  if key.endswith("_ms") or key.startswith("nan_")), flush=True)
+        out[tag] = rec
+        del a, d, d_b, d_6
+        torch.cuda.empty_cache()
+    for name, t in out["knn"]["times"].items():
+        print(f"[block_sparse] {name}: kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+              f"library_ms={t['library_ms']} bound_ms={t['bound_ms']:.4f} ({t['bound_by']})"
+              + "".join(f" {key}={val:.4f}" for key, val in t.items()
+                        if key in ("r1_ms", "dense_ms")), flush=True)
+
+    # ragged rows, wide features, off-diagonal stripes, every operand
+    xs = torch.randn((1037, 16), generator=g, device="cuda") * 0.25
+    scs = torch.rand((1037,), generator=g, device="cuda") * 0.7 + 0.3
+    thr_all = torch.rand((1037,), generator=g, device="cuda") * 0.5 + 0.3
+    atol = A_ATOL + SQD_RTOL * float((xs * xs).sum(1).max()) / float(scs.min()) ** 2
+    for rows, cols, ro, co in ((slice(None), slice(None), 0, 0),
+                               (slice(100, 400), slice(300, None), 100, 300)):
+        xr, xc = xs[rows].contiguous(), xs[cols].contiguous()
+        kw = dict(kind="rbf", sigma=1.1, row_offset=ro, col_offset=co,
+                  scale_r=scs[rows].contiguous(), scale_c=scs[cols].contiguous(),
+                  thr=thr_all[rows].contiguous())
+        a, d = affinity_and_degree(xr, xc, **kw)
+        live = block_liveness(xr, xc, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(live.bool(), dense_block_live(a, 16, 256)),
+              f"ragged ({ro},{co}): #8 is not dense_block_live of #1's A")
+        counts, col_idx, _ = block_plan(live)
+        plan = dict(counts=counts, col_idx=col_idx)
+        for r in (4, 32):
+            v = torch.rand((xc.shape[0], r), generator=g, device="cuda")
+            check(torch.equal(block_sparse_matmat(a, v, d, counts, col_idx),
+                              degree_normalized_matmat(a, v, d)),
+                  f"ragged ({ro},{co}) r={r}: #9 is not bitwise #2")
+            for dn in (d, None):
+                u = block_sparse_streaming_matmat(xr, v, dn, xc, **plan, **kw)
+                check(torch.equal(u, affinity_matmat(xr, v, dn, xc, **kw)),
+                      f"ragged ({ro},{co}) r={r}: #10 is not bitwise #5")
+                u_ref = ref.block_sparse_streaming_matmat_ref(xr, v, dn, xc, tm=16, tn=256,
+                                                              **plan, **kw)
+                check(float((u - u_ref).abs().max()) <= U_RTOL * float(u_ref.abs().max())
+                      + xc.shape[0] * atol, f"ragged ({ro},{co}) r={r}: #10 vs plain")
+                worst["block_sparse_streaming_matmat"] = max(
+                    worst["block_sparse_streaming_matmat"], float((u - u_ref).abs().max()))
+        d_b = block_sparse_streaming_degree(xr, xc, **plan, **kw)
+        check(torch.equal(d_b, d), f"ragged ({ro},{co}): #11 is not #1's D")
+        # the fused build on the stripe: the two-pass bits
+        spec = AffinitySpec(kind="rbf", sigma=1.1, knn_k=KNN_K)
+        pol = dict(kind="rbf", sigma=1.1, row_offset=ro, col_offset=co)
+        a_f, d_f, thr_f = fused_affinity_build(xr, xc, spec=spec, row_offset=ro, col_offset=co)
+        thr_2 = row_topk(xr, xc, k=KNN_K, **pol)[:, -1].contiguous()
+        a_2, d_2 = affinity_and_degree(xr, xc, thr=thr_2, **pol)
+        check(torch.equal(thr_f, thr_2) and torch.equal(a_f, a_2) and torch.equal(d_f, d_2),
+              f"ragged ({ro},{co}): the fused build is not the two-pass build")
+    print("[block_sparse] ragged (1037, 16) square and (300, 737) off-diagonal stripes, scales "
+          "+ thr: #8 = dense_block_live, #9 = #2, #10 = #5, #11 = #1's D bitwise, r=4,32; "
+          "the fused build = the two-pass build", flush=True)
+    for name, err in worst.items():
+        report[name]["max_abs_err"] = err
+    report["block_sparse"] = out
+
+
+def phase_block_sparse_e2e(report, dense_runs):
+    """E1 and E2 with block_sparse=True on both engines: the results of the
+    block_sparse=False runs (``dense_runs``, from phase_graph_e2e) bit for
+    bit, with each route's launches."""
+    from repro_torch import dataset_by_name
+    x, y, k = dataset_by_name("gaussians", N_MAIN, seed=0)
+    runs = {}
+    for tag, spec, n_topk in (("E1", E1_SPEC, 1), ("E2", E2_SPEC, 2)):
+        hops = {}
+        for engine in ("explicit", "streaming"):
+            cfg = _graph_cfg(spec, engine=engine, embedding="orthogonal", n_vectors=2,
+                             block_sparse=True)
+            rec, res, labels = _graph_run(f"{tag} block_sparse", x, y, k, cfg)
+            dense = dense_runs[(tag, engine)]
+            bitwise = (torch.equal(res.labels, dense.labels)
+                       and torch.equal(res.n_iter_cols, dense.n_iter_cols)
+                       and torch.equal(res.embeddings, dense.embeddings)
+                       and torch.equal(res.health.components, dense.health.components)
+                       and int(res.health.n_components) == int(dense.health.n_components))
+            check(bitwise, f"{tag} {engine}: the block-sparse run is not the dense-storage "
+                  "run bit for bit")
+            c, sweeps = rec["launches"], max(rec["n_iter_cols"])
+            hops[engine] = rec["probe_sweeps"]
+            if engine == "explicit":
+                check(c["affinity_and_degree"] == 1 and c["degree_normalized_matmat"] == 1
+                      and c["row_topk"] == n_topk - 1 and c["block_liveness"] == 0
+                      and c["streaming_matmat"] == 0 and c["streaming_degree"] == 0
+                      and c["block_sparse_streaming_matmat"] == 0, f"{tag} explicit {c}")
+            else:
+                check(c["row_topk"] == n_topk and c["block_liveness"] == 1
+                      and c["block_sparse_streaming_degree"] == 1
+                      and c["streaming_matmat"] == rec["probe_sweeps"]
+                      and c["affinity_and_degree"] == 0 and c["block_sparse_matmat"] == 0
+                      and c["streaming_degree"] == 0, f"{tag} streaming {c}")
+            check(rec["probe_sweeps"] > 0, f"{tag} {engine}: the probe did not run")
+            rec["bitwise_dense_storage"] = bitwise
+            runs.setdefault(tag, []).append(rec)
+        check(hops["explicit"] == hops["streaming"], f"{tag}: probe hops {hops}")
+    report["e2e_block_sparse"] = runs
+    return runs
+
+
+def _tie_keeping(p, score):
+    """The shuffle ``p`` with the rows of each group of equal content scores
+    put back in their original relative order: the row reorder's stable
+    sort then sees the same order of ties in both inputs."""
+    q = p.copy()
+    _, group = np.unique(score, return_inverse=True)
+    sizes = np.bincount(group)
+    for gid in np.flatnonzero(sizes > 1):
+        pos = np.flatnonzero(group[p] == gid)          # where the group's rows landed
+        q[pos] = np.sort(p[pos])
+    return q
+
+
+def phase_reorder(report):
+    """The row reorder at n = 45,000: E1's live fraction on sorted,
+    shuffled and reordered rows, E1 on shuffled rows with and without
+    row_reorder, and the round trip: a reordered run of the shuffled rows,
+    un-permuted, against one of the sorted rows, bit for bit wherever the
+    two canonical arrays are the same."""
+    from repro_torch import AffinitySpec, GPICConfig, adjusted_rand_index, dataset_by_name
+    from repro_torch import run_gpic
+    from repro_torch.core.graph import (affinity_stats, content_row_score,
+                                        graph_reorder_permutation)
+    from repro_torch.data import shuffle_points
+    from repro_torch.kernels.block_sparse import block_liveness
+    x, y, k = dataset_by_name("gaussians", N_MAIN, seed=0)
+    xs, ys = shuffle_points(x, y, seed=0)
+    spec = AffinitySpec(**E1_SPEC)
+
+    def live_fraction(xt):
+        _, thr = affinity_stats(xt, spec)
+        return float(block_liveness(xt, kind="rbf", sigma=SIGMA, thr=thr).float().mean())
+
+    xs_t = torch.as_tensor(xs, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    perm = graph_reorder_permutation(xs_t, spec)
+    torch.cuda.synchronize()
+    perm_s = time.perf_counter() - t0
+    fractions = dict(sorted=live_fraction(torch.as_tensor(x, device="cuda")),
+                     shuffled=live_fraction(xs_t), reordered=live_fraction(xs_t[perm]))
+    cfg = _graph_cfg(E1_SPEC, engine="explicit", embedding="orthogonal", n_vectors=2,
+                     block_sparse=True)
+    runs = {}
+    for name, c in (("shuffled", cfg), ("shuffled_row_reorder", cfg.with_(row_reorder=True))):
+        res, labels, wall, counts, peak = _counted_run(xs, k, c)
+        runs[name] = dict(wall_s=wall, n_iter_cols=res.n_iter_cols.tolist(),
+                          ari=adjusted_rand_index(ys, labels),
+                          n_components=int(res.health.n_components), peak_mem_bytes=peak,
+                          launches=counts)
+        check(bool(torch.isfinite(res.embeddings).all()), f"E1 {name}: non-finite embedding")
+    check("row_reorder" in res.health.notes, "the reordered run does not note the pass")
+    print(f"[reorder] E1 n={N_MAIN}: live fraction {fractions}; the permutation "
+          f"{perm_s:.4f} s; " + "; ".join(
+              f"{name}: wall_s={r['wall_s']:.4f} n_iter_cols={r['n_iter_cols']} "
+              f"ARI={r['ari']:.4f} n_components={r['n_components']}"
+              for name, r in runs.items()), flush=True)
+
+    # the round trip: the plain shuffle (shuffle_points' permutation) and
+    # one that keeps tied content scores in order
+    score = content_row_score(torch.as_tensor(x, device="cuda")).cpu().numpy()
+    p = np.random.default_rng(0).permutation(N_MAIN)
+    shuffles = {"shuffle": p, "tie_keeping_shuffle": _tie_keeping(p, score)}
+    n_tied = int(N_MAIN - np.unique(score).size)
+    trips = {}
+    for name, spec_kw, extra in (
+            ("dense", dict(kind="rbf", sigma=SIGMA), dict(max_iter=400)),
+            ("knn64", dict(kind="rbf", sigma=SIGMA, knn_k=64),
+             dict(max_iter=400, embedding="orthogonal", n_vectors=2))):
+        c = GPICConfig(affinity=AffinitySpec(**spec_kw), row_reorder=True, **extra)
+        x_t = torch.as_tensor(x, device="cuda")
+        canon = x_t[graph_reorder_permutation(x_t, c.affinity)]
+        res_a, _, wall_a, _, _ = _counted_run(x, k, c)
+        for sname, q in shuffles.items():
+            xq = torch.as_tensor(x[q], device="cuda")
+            same_canon = torch.equal(canon, xq[graph_reorder_permutation(xq, c.affinity)])
+            res_b, _, wall_b, _, _ = _counted_run(x[q], k, c)
+            qt = torch.as_tensor(q, device="cuda")
+            bitwise = (torch.equal(res_a.labels[qt], res_b.labels)
+                       and torch.equal(res_a.embedding[qt], res_b.embedding)
+                       and torch.equal(res_a.embeddings[qt], res_b.embeddings)
+                       and torch.equal(res_a.health.components[qt], res_b.health.components))
+            if same_canon:
+                check(bitwise, f"round trip {name} {sname}: the canonical arrays are equal "
+                      "but the un-permuted results differ")
+            trips[f"{name}_{sname}"] = dict(
+                canonical_equal=same_canon, bitwise=bitwise, wall_s=[wall_a, wall_b],
+                n_components=int(res_b.health.n_components),
+                n_iter_cols=res_b.n_iter_cols.tolist(),
+                agree_ari=adjusted_rand_index(res_a.labels[qt].cpu().numpy(),
+                                              res_b.labels.cpu().numpy()))
+        check(name != "dense" or trips["dense_tie_keeping_shuffle"]["canonical_equal"],
+              "the dense spec's canonical order depends on the input order beyond ties")
+    print(f"[reorder] round trip at n={N_MAIN} ({n_tied} content scores tied): " + "; ".join(
+        f"{key}: canonical equal={t['canonical_equal']} bitwise={t['bitwise']} "
+        f"n_components={t['n_components']} n_iter_cols={t['n_iter_cols']} "
+        f"ARI between={t['agree_ari']:.4f} wall_s={t['wall_s'][1]:.4f}"
+        for key, t in trips.items()), flush=True)
+    report["reorder"] = dict(live_fraction=fractions, permutation_s=perm_s, runs=runs,
+                             tied_scores=n_tied, round_trip=trips)
+
+
 def _counted_run(x, k, cfg):
     """run_gpic with the launch counters set to 0 just before and read
     just after, and the peak device memory of the run. Returns (result,
@@ -966,6 +1395,12 @@ E1_SPEC = dict(kind="rbf", sigma=SIGMA, knn_k=KNN_K)
 E2_SPEC = dict(kind="rbf", bandwidth="adaptive", scale_k=SCALE_K, knn_k=KNN_K)
 E3_SPEC = dict(kind="rbf", bandwidth="adaptive", scale_k=SCALE_K)
 SWEEP_OP = {"explicit": "degree_normalized_matmat", "streaming": "streaming_matmat"}
+BS_SWEEP_OP = {"explicit": "block_sparse_matmat", "streaming": "block_sparse_streaming_matmat"}
+
+
+def _sweep_op(cfg):
+    """The op of a graph run's power sweeps (n > 256 throughout)."""
+    return (BS_SWEEP_OP if cfg.block_sparse else SWEEP_OP)[cfg.engine]
 
 
 def _graph_run(tag, x, y, k, cfg):
@@ -978,7 +1413,7 @@ def _graph_run(tag, x, y, k, cfg):
     cols = res.n_iter_cols.tolist()
     sweeps = max(cols)
     ari = adjusted_rand_index(y, labels)
-    probe = counts[SWEEP_OP[cfg.engine]] - sweeps
+    probe = counts[_sweep_op(cfg)] - sweeps
     n_comp = int(res.health.n_components)
     print(f"[e2e] {tag} {cfg.engine} n={len(y)}: wall_s={wall:.4f} n_iter_cols={cols} "
           f"ARI={ari:.4f} n_components={n_comp} probe_sweeps={probe} "
@@ -1003,6 +1438,11 @@ def phase_graph_e2e(report):
     for engine in ("explicit", "streaming"):
         cfg = _graph_cfg(E1_SPEC, engine=engine, embedding="orthogonal", n_vectors=2)
         small[engine] = run_gpic(xs, ks, cfg).labels.cpu().numpy()
+        cfg_bs = _graph_cfg(E1_SPEC, engine=engine, embedding="orthogonal", n_vectors=2,
+                            block_sparse=True)
+        small[f"{engine}_block_sparse"] = run_gpic(xs, ks, cfg_bs).labels.cpu().numpy()
+        check(bool((small[f"{engine}_block_sparse"] == small[engine]).all()),
+              f"E1 at n=480 {engine}: block_sparse=True gives other labels")
     small["cpu"] = run_gpic(xs, ks, _graph_cfg(E1_SPEC, embedding="orthogonal", n_vectors=2),
                             device="cpu").labels.numpy()
     aris = {key: adjusted_rand_index(ys, lab) for key, lab in small.items()}
@@ -1013,6 +1453,7 @@ def phase_graph_e2e(report):
           "engines' labels differ")
     x, y, k = dataset_by_name("gaussians", N_MAIN, seed=0)
     runs = {"E1_n480_ari": aris}
+    dense_runs = {}
     for tag, spec, n_topk in (("E1", E1_SPEC, 1), ("E2", E2_SPEC, 2)):
         out = {}
         for engine in ("explicit", "streaming"):
@@ -1029,6 +1470,7 @@ def phase_graph_e2e(report):
             check(rec["n_components"] >= 1 and rec["probe_sweeps"] > 0,
                   f"{tag} {engine}: the component probe did not run")
             out[engine] = (rec, res, labels)
+            dense_runs[(tag, engine)] = res
         (re_, rese, labe), (rs, ress, labs) = out["explicit"], out["streaming"]
         check(bool((labe == labs).all()) and re_["n_iter_cols"] == rs["n_iter_cols"]
               and re_["n_components"] == rs["n_components"]
@@ -1055,13 +1497,16 @@ def phase_graph_e2e(report):
                                       engine="streaming", embedding="orthogonal", n_vectors=2))
     runs["moons_knn64"] = [rec]
     report["e2e_graph"] = runs
-    return runs
+    return runs, dense_runs
 
 
 #: device-event names of this port's kernels (always listed by the profile)
 KERNEL_LABELS = ("affinity_kernel", "power_step_kernel", "kmeans_assign_kernel",
                  "streaming_matmat_kernel", "streaming_degree_kernel", "gram_",
-                 "row_topk_kernel")
+                 "row_topk_kernel", "liveness_kernel", "bs_matmat_kernel",
+                 "bs_streaming_matmat_kernel", "bs_streaming_degree_kernel")
+#: the power loop's sweeps of an r = 2 run, on either engine and route
+SWEEP_R2 = re.compile(r"(power_step|bs_matmat|streaming_matmat|bs_streaming_matmat)_kernel<2")
 
 
 def _kernel_label(name: str) -> str:
@@ -1084,17 +1529,17 @@ def _busy_us(spans, lo=float("-inf"), hi=float("inf")):
 def _stages(spans):
     """Device busy ms of a graph run's stages, cut at kernel boundaries of
     the timeline: pass 1 (to the last row_topk launch), the build (to the
-    end of the affinity build), the power sweeps (to the last sweep before
-    the first k-means assignment), k-means (to the last assignment) and the
+    first r = 2 sweep, the power loop's first), the power sweeps (to the
+    first k-means assignment), k-means (to the last assignment) and the
     component probe (the rest)."""
-    def last_end(label, before=float("inf")):
-        ends = [e for st, e, lab in spans if lab.startswith(label) and st < before]
+    def last_end(label):
+        ends = [e for _, e, lab in spans if lab.startswith(label)]
         return max(ends) if ends else None
     km = [st for st, _, lab in spans if lab.startswith("kmeans_assign_kernel")]
     t0 = spans[0][0]
     cuts = [("pass1", last_end("row_topk_kernel") or t0),
-            ("build", last_end("affinity_kernel")),
-            ("sweeps", last_end("power_step_kernel", before=min(km))),
+            ("build", min(st for st, _, lab in spans if SWEEP_R2.match(lab))),
+            ("sweeps", min(km)),
             ("kmeans", last_end("kmeans_assign_kernel")),
             ("probe", spans[-1][1] + 1.0)]
     out, lo = {}, t0
@@ -1171,6 +1616,14 @@ SOURCES = {
     "gram": ("src/repro_torch/kernels/csrc/gram.cu", "src/repro/kernels/gram.py:41"),
     "row_topk": ("src/repro_torch/kernels/csrc/row_topk.cu",
                  "src/repro/kernels/row_topk.py:126"),
+    "block_liveness": ("src/repro_torch/kernels/csrc/block_sparse.cu",
+                       "src/repro/kernels/block_sparse.py:436"),
+    "block_sparse_matmat": ("src/repro_torch/kernels/csrc/block_sparse.cu",
+                            "src/repro/kernels/block_sparse.py:105"),
+    "block_sparse_streaming_matmat": ("src/repro_torch/kernels/csrc/block_sparse.cu",
+                                      "src/repro/kernels/block_sparse.py:210"),
+    "block_sparse_streaming_degree": ("src/repro_torch/kernels/csrc/block_sparse.cu",
+                                      "src/repro/kernels/block_sparse.py:339"),
 }
 
 
@@ -1187,6 +1640,7 @@ def main() -> int:
     phase_gram(kernels)
     phase_row_topk(kernels)
     phase_policy(kernels)
+    phase_block_sparse(kernels)
     # each kernel's launches come from the run of the path that uses it
     explicit = phase_end_to_end(report)
     counts = {name: explicit[0][name] for name in
@@ -1197,9 +1651,16 @@ def main() -> int:
     phase_past_memory(report)
     counts["gram"] = phase_orthogonal(report)
     phase_ensemble(report)
-    graph = phase_graph_e2e(report)
+    graph, dense_runs = phase_graph_e2e(report)
     counts["row_topk"] = graph["E1"][0]["launches"]["row_topk"]
+    bs_runs = phase_block_sparse_e2e(report, dense_runs)
+    del dense_runs
+    explicit_e1, streaming_e1 = (rec["launches"] for rec in bs_runs["E1"])
+    counts["block_sparse_matmat"] = explicit_e1["block_sparse_matmat"]
+    counts.update({name: streaming_e1[name] for name in (
+        "block_liveness", "block_sparse_streaming_matmat", "block_sparse_streaming_degree")})
     check(all(counts[name] > 0 for name in SOURCES), f"a kernel was never launched: {counts}")
+    phase_reorder(report)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     phase_profile(report, out_dir, "explicit")
@@ -1207,6 +1668,11 @@ def main() -> int:
     phase_profile(report, out_dir, "explicit", tag="E1",
                   cfg=_graph_cfg(E1_SPEC, engine="explicit", embedding="orthogonal",
                                  n_vectors=2))
+    for tag, spec in (("E1", E1_SPEC), ("E2", E2_SPEC)):
+        for engine in ("explicit", "streaming"):
+            phase_profile(report, out_dir, engine, tag=f"{tag}_block_sparse",
+                          cfg=_graph_cfg(spec, engine=engine, embedding="orthogonal",
+                                         n_vectors=2, block_sparse=True))
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": counts[name],

@@ -232,3 +232,65 @@ def affinity_matrix(
         a = torch.exp(-pairwise_sq_dists(x) / (2.0 * sig * sig))
         return _zero_diag(a)
     raise ValueError(f"unknown affinity kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Block-index planning for truncated specs (the block-sparse route)
+# ---------------------------------------------------------------------------
+
+def block_plan(live: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(counts, col_idx, max_b) block-CSR plan from an (nI, nJ) live map.
+
+    ``live[i, j] != 0`` iff column tile j of row block i holds a surviving
+    entry. ``counts[i]`` (int32) is the number of live tiles of row block i;
+    ``col_idx[i]`` (int32) lists the live tile ids in ascending order, then
+    the dead ids in ascending order (the sweeps visit only the first
+    ``counts[i]``, in the order the dense kernels visit them, which keeps
+    the two routes bitwise equal); ``max_b`` is max(counts) clamped to at
+    least 1, a 0-d int32 tensor (the kernels loop ``counts[i]`` themselves,
+    so nothing needs it on the host). The reference builds the same values
+    from prefix sums only to dodge a jax 0.4 miscompile of a sort."""
+    live = live != 0
+    counts = live.sum(dim=1, dtype=torch.int32)
+    col_idx = torch.argsort((~live).to(torch.uint8), dim=1, stable=True).to(torch.int32)
+    max_b = torch.clamp_min(counts.max(), 1) if counts.numel() else counts.new_tensor(1)
+    return counts, col_idx.contiguous(), max_b
+
+
+def plan_to_live(counts: torch.Tensor, col_idx: torch.Tensor) -> torch.Tensor:
+    """The (nI, nJ) bool live map a plan came from (the tests' oracle):
+    True at the first ``counts[i]`` ids of ``col_idx[i]``."""
+    n_i, n_j = col_idx.shape
+    slot_live = torch.arange(n_j, device=col_idx.device)[None, :] < counts[:, None]
+    # uint8: the card's scatter has no bool form
+    live = torch.zeros((n_i, n_j), dtype=torch.uint8, device=col_idx.device)
+    return live.scatter_reduce(1, col_idx.long(), slot_live.to(torch.uint8),
+                               reduce="amax").bool()
+
+
+def dense_block_live(a: torch.Tensor, tm: int, tn: int, *, stripe: int = 4096) -> torch.Tensor:
+    """(nI, nJ) bool live map of a stored matrix on the (tm, tn) tile grid:
+    a tile is live iff it holds a nonzero entry (NaN counts as nonzero);
+    the rows and columns are zero-padded up to tile multiples, so padding
+    never makes a tile live. Works on about ``stripe`` rows at a time, so it
+    adds O(stripe C) memory beside A."""
+    n_rows, n_cols = a.shape
+    n_i, n_j = -(-n_rows // tm), -(-n_cols // tn)
+    live = torch.empty((n_i, n_j), dtype=torch.bool, device=a.device)
+    step = max(stripe // tm, 1)
+    for b0 in range(0, n_i, step):
+        blk = a[b0 * tm:(b0 + step) * tm]
+        nb = -(-blk.shape[0] // tm)
+        nz = torch.zeros((nb * tm, n_j * tn), dtype=torch.bool, device=a.device)
+        nz[:blk.shape[0], :n_cols] = blk != 0
+        live[b0:b0 + nb] = nz.reshape(nb, tm, n_j, tn).any(dim=3).any(dim=1)
+    return live
+
+
+def invert_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """inv with inv[perm[i]] = i: if a run clustered ``x[perm]``, then
+    ``labels[inv]`` lines up with the caller's rows again. Index arithmetic
+    only, so permuting and un-permuting is exact."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+    return inv

@@ -12,8 +12,10 @@ The paper's six CUDA kernels map onto two fused kernels plus O(n) epilogues:
 then k-means on the embedding (kernels.ops.kmeans_assign per Lloyd step).
 ``engine='streaming'`` stores no A: kernels.ops.streaming_degree builds D
 once and kernels.ops.streaming_matmat rebuilds A's tiles inside every
-sweep. Every embedding mode runs on either engine ('orthogonal' prices its
-QR with kernels.ops.gram). An adaptive or kNN spec adds pass 1
+sweep. A kNN spec's default block-sparse route sweeps only the live tiles
+(kernels.ops.block_sparse_matmat on the stored A, or the block-sparse
+streaming kernels after kernels.ops.block_liveness). Every embedding mode
+runs on either engine ('orthogonal' prices its QR with kernels.ops.gram). An adaptive or kNN spec adds pass 1
 (kernels.ops.row_topk) before the build, and a kNN spec the component
 probe after the run (core/health.py).
 
@@ -78,8 +80,8 @@ def gpic(
     power columns and then the kmeans++ seeds. ``qr_every`` and
     ``residual_tol`` tune embedding='orthogonal', ``snapshot_iters``
     embedding='ensemble'. ``probe_components`` runs the component probe
-    on a truncated graph; ``block_sparse=True`` (the reference's route for
-    a truncated spec) is not ported and raises for one."""
+    on a truncated graph; ``block_sparse`` picks a truncated spec's route
+    (the live tiles of a block plan, or the dense storage)."""
     n = x.shape[0]
     if eps is None:
         eps = 1e-5 / n

@@ -15,9 +15,15 @@ binds ``matmat_t``, the transpose product that the component probe walks
 (the kNN graph is directed): ``A^T V`` on the stored A (explicit), or the
 streaming kernel with the column thresholds (streaming, still A-free).
 
-The reference stores and sweeps a truncated graph block-sparse by default
-(``block_sparse=True``); that route is not ported yet, and this module
-raises for it rather than take the dense route that was not asked for.
+A truncated spec takes the block-sparse route by default
+(``block_sparse=True``, as in the reference): the sweeps visit only the
+live tiles of a block plan on the (16, 256) grid (``core/affinity.py``).
+The explicit engine builds A in one pass (``core/graph.py::
+fused_affinity_build``) and plans from the stored A; the streaming engine
+runs pass 1, then the A-free liveness kernel, and takes its degrees and
+sweeps from the block-sparse streaming kernels. Both give the dense route's
+results bit for bit on the card. A grid of a single column tile (n <= 256)
+has nothing to skip and keeps the dense route, as in the reference.
 
 Both engines bind the Gram kernel for the block algebra of the orthogonal
 mode.
@@ -27,20 +33,16 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops
-from .affinity import AffinityKind, AffinitySpec, as_affinity_spec
-from .graph import affinity_stats
+from .affinity import (AffinityKind, AffinitySpec, as_affinity_spec, block_plan,
+                       dense_block_live)
+from .graph import adaptive_scales, affinity_stats, fused_affinity_build
 from .power import PowerOperator
 
 
-def check_block_sparse(spec: AffinitySpec, block_sparse: bool) -> None:
-    """Raise for the block-sparse route of a truncated spec (a dense spec
-    has no block-sparse route and ignores the flag, as in the reference)."""
-    if block_sparse and spec.truncated:
-        raise NotImplementedError(
-            "the block-sparse route of a kNN-truncated spec (block_sparse=True, the "
-            "reference's default) is not ported yet (ROADMAP queue 1 item 7, "
-            "block-sparse and row reorder); pass block_sparse=False for the "
-            f"dense-storage two-pass route; got {spec}")
+def uses_block_sparse(n: int, spec: AffinitySpec, block_sparse: bool) -> bool:
+    """Whether a run of n points takes the block-sparse route: a truncated
+    spec with ``block_sparse`` on more than one column tile."""
+    return block_sparse and spec.truncated and n > ops.TN
 
 
 def explicit_operator(inp: torch.Tensor, *, spec: AffinitySpec | None = None,
@@ -50,19 +52,28 @@ def explicit_operator(inp: torch.Tensor, *, spec: AffinitySpec | None = None,
                       block_sparse: bool = True) -> PowerOperator:
     """Paper-faithful: build A once, then fused degree-normalized mat-mat
     sweeps. ``inp`` is row-normalized features for the cosine kinds, raw
-    features for rbf."""
+    features for rbf. On the block-sparse route A is built in one pass
+    (the thresholds from its stored scores) and the sweeps read only its
+    live tiles; the probe's transpose product is ``A.T @ v`` either way."""
     spec = as_affinity_spec(spec, kind=kind, sigma=sigma)
-    check_block_sparse(spec, block_sparse)
     if a_dtype != torch.float32:
         raise NotImplementedError(
             f"A storage in {a_dtype} is not ported yet (ROADMAP queue 1 "
             "item 13, bf16 A storage); this slice stores A in float32")
     inp = inp.contiguous()
-    scale, thr = affinity_stats(inp, spec)
-    a, d = ops.affinity_and_degree(inp, spec=spec, scale_r=scale, scale_c=scale, thr=thr)
+    if uses_block_sparse(inp.shape[0], spec, block_sparse):
+        scale = adaptive_scales(inp, spec)
+        a, d, _ = fused_affinity_build(inp, spec=spec, scale_r=scale, scale_c=scale)
+        counts, col_idx, _ = block_plan(dense_block_live(a, ops.PLAN_TM, ops.TN))
 
-    def matmat(v):
-        return ops.degree_normalized_matmat(a, v.contiguous(), d)
+        def matmat(v):
+            return ops.block_sparse_matmat(a, v.contiguous(), d, counts, col_idx)
+    else:
+        scale, thr = affinity_stats(inp, spec)
+        a, d = ops.affinity_and_degree(inp, spec=spec, scale_r=scale, scale_c=scale, thr=thr)
+
+        def matmat(v):
+            return ops.degree_normalized_matmat(a, v.contiguous(), d)
 
     matmat_t = None
     if spec.truncated:
@@ -79,18 +90,27 @@ def streaming_operator(inp: torch.Tensor, *, spec: AffinitySpec | None = None,
                        sigma: float = 1.0,
                        block_sparse: bool = True) -> PowerOperator:
     """A-free: the degrees in one streamed pass, then every sweep rebuilds
-    the affinity tiles from the feature rows. Same input convention as
+    the affinity tiles from the feature rows (on the block-sparse route
+    only the live ones, after one liveness pass). Same input convention as
     :func:`explicit_operator`; the same degrees and sweep outputs, bitwise,
-    on the card."""
+    on the card. The probe's transpose product stays the dense-grid
+    column-thresholded stream on either route, as in the reference."""
     spec = as_affinity_spec(spec, kind=kind, sigma=sigma)
-    check_block_sparse(spec, block_sparse)
     inp = inp.contiguous()
     scale, thr = affinity_stats(inp, spec)
-    d = ops.streaming_degree(inp, spec=spec, scale_r=scale, scale_c=scale, thr=thr)
+    pol = dict(spec=spec, scale_r=scale, scale_c=scale, thr=thr)
+    if uses_block_sparse(inp.shape[0], spec, block_sparse):
+        counts, col_idx, _ = block_plan(ops.block_liveness(inp, **pol))
+        d = ops.block_sparse_streaming_degree(inp, counts=counts, col_idx=col_idx, **pol)
 
-    def matmat(v):
-        return ops.streaming_matmat(inp, v.contiguous(), d, spec=spec, scale_r=scale,
-                                    scale_c=scale, thr=thr)
+        def matmat(v):
+            return ops.block_sparse_streaming_matmat(inp, v.contiguous(), d, counts=counts,
+                                                     col_idx=col_idx, **pol)
+    else:
+        d = ops.streaming_degree(inp, **pol)
+
+        def matmat(v):
+            return ops.streaming_matmat(inp, v.contiguous(), d, **pol)
 
     matmat_t = None
     if spec.truncated:

@@ -8,9 +8,9 @@
 device (the tests pass ``device="cpu"``, which runs the kernels' plain
 versions). The port routes the local explicit and streaming engines with
 every affinity spec (dense, adaptive bandwidth, kNN truncation on the
-dense-storage route ``block_sparse=False``) and every embedding mode; the
-settings a later slice brings raise ``NotImplementedError`` naming the
-ROADMAP item.
+block-sparse route, the default, or the dense-storage one), every
+embedding mode and the row reorder; the settings a later slice brings
+raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -19,12 +19,13 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..kernels.block_sparse import TN
 from ..kernels.power_step import MAX_R
 from ..kernels.row_topk import check_k
-from .affinity import AffinityKind, AffinitySpec, as_affinity_spec
+from .affinity import AffinityKind, AffinitySpec, as_affinity_spec, invert_permutation
 from .gpic import gpic
+from .graph import graph_reorder_permutation
 from .health import raise_for_health, validate_features
-from .operators import check_block_sparse
 from .pic import PICResult
 from .power import EMBEDDINGS
 
@@ -59,10 +60,18 @@ class GPICConfig:
       tile:         kernel tile override; this slice's kernels have fixed
                     tiles, so it must stay None.
       block_sparse: the route of a truncated (kNN) spec. True, the
-                    reference's default, is its block-CSR route, not ported
-                    yet (raises); False stores and sweeps the truncated
-                    graph densely after the two-pass build. No effect on
-                    dense specs.
+                    default, sweeps only the live tiles of a block plan
+                    (explicit: A built in one pass, thresholds from its
+                    stored scores; streaming: one liveness pass); False
+                    stores and sweeps the truncated graph densely after the
+                    two-pass build. The same results on the card. No effect
+                    on dense specs, nor at n <= 256 (one column tile).
+      row_reorder:  cluster ``x[perm]`` for a permutation computed from row
+                    content only (content scores, grouped by the component
+                    probe's components for a truncated spec), and map every
+                    per-row output back: shuffled and sorted inputs give
+                    the same (re-aligned) result where the probe converges,
+                    and the block plan sees neighbouring rows together.
       component_probe: run the component probe on a truncated graph; the
                     count lands in ``PICResult.health.n_components``. False
                     skips the probe's sweeps.
@@ -88,6 +97,7 @@ class GPICConfig:
     a_dtype: torch.dtype = torch.float32
     tile: int | None = None
     block_sparse: bool = True
+    row_reorder: bool = False
     seed: int = 0
     sanitize: bool = False
     component_probe: bool = True
@@ -183,10 +193,14 @@ def check_config(cfg: GPICConfig, n: int | None = None) -> AffinitySpec:
         raise NotImplementedError(
             f"n_vectors={cfg.n_vectors}: the power-step kernel takes at most "
             f"{MAX_R} columns (ROADMAP queue 2, kernel 2 follow-up)")
-    check_block_sparse(spec, cfg.block_sparse)
     if spec.adaptive:
         check_k(spec.scale_k)
-    if spec.truncated:
+    # the kNN thresholds come from the row top-k kernel on every route but
+    # the explicit block-sparse one (n > 256), which selects them from its
+    # stored scores; the reorder's probe runs the dense-grid streaming
+    # operator
+    if spec.truncated and (cfg.engine == "streaming" or cfg.row_reorder
+                           or not cfg.block_sparse or (n is not None and n <= TN)):
         check_k(spec.knn_k)
     if cfg.a_dtype != torch.float32:
         raise NotImplementedError(
@@ -234,6 +248,12 @@ def run_gpic(
     else:
         x = torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
     x, notes = validate_features(x, k, sanitize=cfg.sanitize)
+    inv = None
+    if cfg.row_reorder:
+        perm = graph_reorder_permutation(x, spec)
+        inv = invert_permutation(perm)
+        x = x[perm]
+        notes = tuple(notes) + ("row_reorder",)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
     res = gpic(x.contiguous(), k, generator=generator,
@@ -244,8 +264,21 @@ def run_gpic(
                qr_every=cfg.qr_every, residual_tol=cfg.residual_tol,
                snapshot_iters=cfg.snapshot_iters,
                probe_components=cfg.component_probe, block_sparse=cfg.block_sparse)
+    if inv is not None:
+        res = _unpermute_result(res, inv)
     if notes:
         res = replace(res, health=replace(res.health,
                                           notes=res.health.notes + notes))
     raise_for_health(res.health, x.shape[0])
     return res
+
+
+def _unpermute_result(res: PICResult, inv: torch.Tensor) -> PICResult:
+    """Map every per-row output of a run on ``x[perm]`` back to the
+    caller's row order: the labels, the column-0 embedding, the clustered
+    block and the component ids. Indexing only, hence exact."""
+    health = res.health
+    if health is not None:
+        health = replace(health, components=health.components[inv])
+    return replace(res, labels=res.labels[inv], embedding=res.embedding[inv],
+                   embeddings=res.embeddings[inv], health=health)

@@ -36,7 +36,6 @@ _NO_EFFECT = ("use_pallas", "retry_on_fallback", "overlap", "shard_axes",
 _UNROUTED_DEFAULTS = {
     "mesh": None,                 # ROADMAP queue 1 item 10, multi-GPU
     "fold_shift": False,          # item 10 (sharded explicit engine only)
-    "row_reorder": False,         # item 7, block-sparse and row reorder
     "checkpoint_every": None,     # item 9, resumable execution
     "ckpt_dir": None,             # item 9
     "straggler_timeout": None,    # item 9

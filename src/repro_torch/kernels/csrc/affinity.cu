@@ -62,8 +62,8 @@ __global__ void __launch_bounds__(TN) affinity_kernel(
 
     for (int c0 = 0; c0 < n_cols; c0 += TN) {
         const int col = c0 + col_t;
-        tile::masked_tile<TM, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, c0, n_rows, n_cols, m,
-                              row_offset, col_offset, kind, inv_two_sigma_sq, pol,
+        tile::masked_tile<TM, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, c0, c0 == 0, n_rows,
+                              n_cols, m, row_offset, col_offset, kind, inv_two_sigma_sq, pol,
                               [&](int r, float v) {
             const int row = row0 + r;
             if (row < n_rows && col < n_cols) a[static_cast<size_t>(row) * n_cols + col] = v;

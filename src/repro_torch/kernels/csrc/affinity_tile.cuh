@@ -4,14 +4,16 @@
 // (src/repro/kernels/streaming.py) and of the row-top-k kernel's scoring
 // (src/repro/kernels/row_topk.py): affinity.cu writes the tile to A,
 // streaming.cu folds it into the power sweep or the degree without storing
-// it, and row_topk.cu ranks its scores. All call the functions below with
+// it, row_topk.cu ranks its scores, and block_sparse.cu folds or tests the
+// live tiles of a block plan. All call the functions below with
 // the same thread-to-column layout, so a streamed tile entry is the stored
 // one, and a row-top-k score is the entry that the build compares with the
 // threshold, bit for bit, by construction.
 //
 // Layout: a block of TN = 256 threads owns TM consecutive rows and walks
-// the column tiles c0 = 0, TN, 2 TN, ... in order; thread t owns column
-// c0 + t of each tile. Feature slabs are staged in shared memory in chunks
+// the column tiles c0 = 0, TN, 2 TN, ... in order (a block-sparse kernel
+// only the live ones, in the same order); thread t owns column c0 + t of
+// each tile. Feature slabs are staged in shared memory in chunks
 // of at most MC features, so any m works.
 //
 // Arithmetic, one rounding per step as the plain PyTorch version rounds:
@@ -70,6 +72,12 @@ struct Rows {
     float thr[TM];   // thresholds (+inf without)
 };
 
+// Rows per block of the streamed sweep with r <= RT columns: TM * RT
+// register partials stay near 64 registers (streaming.cu, block_sparse.cu).
+__host__ __device__ constexpr int tm_for(int rt) {
+    return rt >= 32 ? 2 : rt >= 16 ? 4 : rt >= 8 ? 8 : 16;
+}
+
 // Dynamic shared memory of a block of tm rows: s_xc[TN][kmax + 1] (padded:
 // conflict-free column reads), then s_xr[tm][kmax].
 inline size_t smem_bytes(int tm, int m) {
@@ -117,14 +125,17 @@ __device__ __forceinline__ float transform(int kind, float dot, float sqr, float
 }
 
 // The scores of rows row0 .. row0 + TM - 1 at this thread's column
-// c0 + threadIdx.x: emit(r, s, valid) receives each score as soon as it is
+// c0 + threadIdx.x (first: this is the first tile the block visits, so the
+// row slab must be staged even when all features fit in one chunk; the
+// dense kernels visit c0 = 0 first, the block-sparse ones their first live
+// tile): emit(r, s, valid) receives each score as soon as it is
 // made (the affinity value for SIMILARITY, -max(d2, 0) for NEG_SQDIST) with
 // valid = inside the stripe and off the global diagonal. Every thread of
 // the block must call it for every tile (it synchronizes the block).
 template <int TM, bool POLICY, typename Emit>
 __device__ __forceinline__ void tile_scores(
     const float* __restrict__ xr, const float* __restrict__ xc,
-    float* s_xc, float* s_xr, const Rows<TM>& rows, int row0, int c0,
+    float* s_xc, float* s_xr, const Rows<TM>& rows, int row0, int c0, bool first,
     int n_rows, int n_cols, int m, int row_offset, int col_offset,
     int kind, int stat, float inv_two_sigma_sq, const Policy& pol, Emit emit) {
     const int tid = threadIdx.x;
@@ -142,7 +153,7 @@ __device__ __forceinline__ void tile_scores(
         const int kc = min(MC, m - k0);
         __syncthreads();  // the previous chunk has been consumed
         // the row slab changes only with the feature chunk
-        if (m > MC || c0 == 0) {
+        if (m > MC || first) {
             for (int e = tid; e < TM * kc; e += TN) {
                 const int r = e / kc, k = e - r * kc;
                 const int row = row0 + r;
@@ -196,13 +207,13 @@ __device__ __forceinline__ void tile_scores(
 template <int TM, bool POLICY, typename Emit>
 __device__ __forceinline__ void masked_tile(
     const float* __restrict__ xr, const float* __restrict__ xc,
-    float* s_xc, float* s_xr, const Rows<TM>& rows, int row0, int c0,
+    float* s_xc, float* s_xr, const Rows<TM>& rows, int row0, int c0, bool first,
     int n_rows, int n_cols, int m, int row_offset, int col_offset,
     int kind, float inv_two_sigma_sq, const Policy& pol, Emit emit) {
     const int col = c0 + threadIdx.x;
     const float thr_c = POLICY && pol.thr_c != nullptr && col < n_cols ? pol.thr_c[col]
                                                                       : INFINITY;
-    tile_scores<TM, POLICY>(xr, xc, s_xc, s_xr, rows, row0, c0, n_rows, n_cols, m,
+    tile_scores<TM, POLICY>(xr, xc, s_xc, s_xr, rows, row0, c0, first, n_rows, n_cols, m,
                             row_offset, col_offset, kind, SIMILARITY, inv_two_sigma_sq, pol,
                             [&](int r, float a, bool valid) {
         bool keep = valid;

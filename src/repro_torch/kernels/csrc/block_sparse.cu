@@ -1,0 +1,336 @@
+// Block-CSR sweeps over the live tiles of a truncated affinity graph, and
+// the A-free liveness pass that plans them, for Hopper (sm_90a).
+//
+// Replaces: src/repro/kernels/block_sparse.py, its four Pallas TPU kernels:
+//   block_liveness                 (_liveness_kernel)
+//   block_sparse_matmat            (_bs_matmat_kernel)
+//   block_sparse_streaming_matmat  (_bs_streaming_kernel)
+//   block_sparse_streaming_degree  (_bs_degree_kernel)
+// A kNN-truncated A keeps ~knn_k entries a row. On cluster-sorted rows
+// whole tiles of it are zero, and these kernels visit only the tiles that
+// are not: the stored sweep reads only the live tiles of A, the streamed
+// sweep and degree rebuild only the live tiles from the features.
+//
+// The plan (core/affinity.py::block_plan) is the port's own grid, not the
+// reference's: row blocks of PLAN_TM = 16 rows, column tiles of TN = 256
+// columns (affinity_tile.cuh), on the device as int32:
+//   counts  (nI,)     live tiles of row block i
+//   col_idx (nI, nJ)  their ids in ascending order first (then the dead ids)
+// Every kernel's row block divides PLAN_TM (one row for the stored sweep,
+// tm_for(RT) in {16, 8, 4, 2} rows for the streamed one, 16 for the degree
+// and the liveness pass), reads plan row row0 / PLAN_TM and loops its
+// counts itself: a sweep needs neither max_b nor a host sync. An id at or
+// past nJ, or a count past nJ, is ignored (a plan from outside cannot read
+// out of bounds).
+//
+// Bitwise: each kernel is its dense twin with the column loop replaced by
+// the walk over the live tiles in ascending order. A dead tile holds only
+// zeros, and fmaf(0, v, acc) == acc for a finite v, so skipping it leaves
+// every partial as it was: U and D are bit for bit those of
+// power_step.cu and streaming.cu (up to the sign of an exact zero result,
+// which a skipped -0 partial could flip). A NaN or Inf of V in a dead tile
+// is not multiplied in, so, unlike the dense kernels, it reaches only the
+// rows whose live tiles hold its column.
+//
+// Bound on an H100: the stored sweep, the live tiles' bytes of A (at
+// n = 45,000 a quarter of the 8.1 GB on cluster-sorted blobs, about 0.6 ms
+// at 3.35 TB/s); the streamed sweep and degree, the live tiles' operations
+// (streaming.cu's count scaled by the live fraction); the liveness pass,
+// every tile's operations, like the streamed degree, since it must score
+// them all to find the live ones.
+//
+// Design:
+//  * The stored sweep is power_step.cu's block (one row, 256 threads, four
+//    loads in flight, the streaming cache hint), its reduction the fixed
+//    warp tree and warp order of tile::block_reduce_fixed, the same bits as
+//    power_step.cu's, and its epilogue the same floored __fdiv_rn.
+//  * The streamed sweep and degree are streaming.cu's kernels with the
+//    first visited tile staging the row slab (tile_scores' first flag).
+//  * The liveness pass is affinity.cu's block over every column tile with
+//    the store replaced by a block-wide OR (__syncthreads_or) of
+//    "entry != 0": a tile is live iff the build would store a nonzero (or
+//    NaN) entry in it; padding rows and columns emit 0 and never count.
+
+#include "affinity_tile.cuh"
+
+namespace {
+
+using tile::TN;
+using tile::tm_for;
+constexpr int PLAN_TM = 16;  // rows of a plan row block
+constexpr int UNROLL = 4;    // live tiles in flight per thread (stored sweep)
+
+// The live tiles of the plan row holding row0: (ids, count).
+__device__ __forceinline__ int plan_row(const int* __restrict__ counts,
+                                        const int* __restrict__ col_idx, int row0,
+                                        int n_j, const int** ids) {
+    const int rb = row0 / PLAN_TM;
+    *ids = col_idx + static_cast<size_t>(rb) * n_j;
+    return min(counts[rb], n_j);
+}
+
+template <int RT>
+__global__ void __launch_bounds__(TN) bs_matmat_kernel(
+    const float* __restrict__ a, const float* __restrict__ v,
+    const float* __restrict__ d, const int* __restrict__ counts,
+    const int* __restrict__ col_idx, float* __restrict__ u,
+    int n_cols, int n_j, int r) {
+    __shared__ float s_red[tile::NWARPS * RT];
+    const int row = blockIdx.x;
+    const int tid = threadIdx.x;
+    const float* arow = a + static_cast<size_t>(row) * n_cols;
+    const int* ids;
+    const int nb = plan_row(counts, col_idx, row, n_j, &ids);
+
+    float acc[RT];
+#pragma unroll
+    for (int c = 0; c < RT; ++c) acc[c] = 0.f;
+
+    // thread t adds columns id * 256 + t of the live tiles in ascending
+    // order: power_step.cu's order with the dead tiles left out
+    for (int b = 0; b < nb; b += UNROLL) {
+        int jj[UNROLL];
+        float av[UNROLL];
+#pragma unroll
+        for (int q = 0; q < UNROLL; ++q) {
+            const int id = b + q < nb ? ids[b + q] : n_j;
+            jj[q] = id < n_j ? id * TN + tid : n_cols;
+            av[q] = jj[q] < n_cols ? __ldcs(arow + jj[q]) : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < UNROLL; ++q) {
+            if (jj[q] < n_cols) {
+                const float* vrow = v + static_cast<size_t>(jj[q]) * r;
+#pragma unroll
+                for (int c = 0; c < RT; ++c)
+                    if (c < r) acc[c] = fmaf(av[q], vrow[c], acc[c]);
+            }
+        }
+    }
+
+    const float s = tile::block_reduce_fixed<RT>(acc, s_red);
+    if (tid < r)
+        u[static_cast<size_t>(row) * r + tid] = __fdiv_rn(s, nan_max(d[row], 1e-30f));
+}
+
+template <int RT, bool POLICY>
+__global__ void __launch_bounds__(TN) bs_streaming_matmat_kernel(
+    const float* __restrict__ xr, const float* __restrict__ xc, tile::Policy pol,
+    const float* __restrict__ v, const float* __restrict__ d,
+    const int* __restrict__ counts, const int* __restrict__ col_idx, float* __restrict__ u,
+    int n_rows, int n_cols, int m, int r, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq) {
+    constexpr int TM = tm_for(RT);
+    extern __shared__ float smem[];
+    float* s_xc = smem;
+    float* s_xr = smem + TN * (min(m, tile::MC) + 1);
+    __shared__ tile::Rows<TM> s_rows;
+    __shared__ float s_red[tile::NWARPS * TM * RT];
+
+    const int row0 = blockIdx.x * TM;
+    const int n_j = (n_cols + TN - 1) / TN;
+    const int* ids;
+    const int nb = plan_row(counts, col_idx, row0, n_j, &ids);
+    tile::load_rows<TM>(xr, n_rows, m, row0, kind == tile::RBF, pol, s_rows);
+
+    float acc[TM * RT];
+#pragma unroll
+    for (int e = 0; e < TM * RT; ++e) acc[e] = 0.f;
+
+    bool first = true;
+    for (int b = 0; b < nb; ++b) {
+        const int id = ids[b];
+        if (id >= n_j) continue;
+        const int c0 = id * TN;
+        const int col = c0 + threadIdx.x;
+        const bool inside = col < n_cols;
+        float vv[RT];
+#pragma unroll
+        for (int c = 0; c < RT; ++c)
+            vv[c] = inside && c < r ? v[static_cast<size_t>(col) * r + c] : 0.f;
+        tile::masked_tile<TM, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, c0, first, n_rows,
+                                      n_cols, m, row_offset, col_offset, kind,
+                                      inv_two_sigma_sq, pol, [&](int i, float a) {
+            if (inside) {
+#pragma unroll
+                for (int c = 0; c < RT; ++c)
+                    if (c < r) acc[i * RT + c] = fmaf(a, vv[c], acc[i * RT + c]);
+            }
+        });
+        first = false;
+    }
+
+    const float s = tile::block_reduce_fixed<TM * RT>(acc, s_red);
+    const int i = threadIdx.x / RT, c = threadIdx.x - i * RT;
+    const int row = row0 + i;
+    if (threadIdx.x < TM * RT && c < r && row < n_rows)
+        u[static_cast<size_t>(row) * r + c] =
+            d == nullptr ? s : __fdiv_rn(s, nan_max(d[row], 1e-30f));
+}
+
+template <bool POLICY>
+__global__ void __launch_bounds__(TN) bs_streaming_degree_kernel(
+    const float* __restrict__ xr, const float* __restrict__ xc, tile::Policy pol,
+    const int* __restrict__ counts, const int* __restrict__ col_idx, float* __restrict__ d,
+    int n_rows, int n_cols, int m, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq) {
+    extern __shared__ float smem[];
+    float* s_xc = smem;
+    float* s_xr = smem + TN * (min(m, tile::MC) + 1);
+    __shared__ tile::Rows<PLAN_TM> s_rows;
+    __shared__ float s_red[tile::NWARPS * PLAN_TM];
+
+    const int row0 = blockIdx.x * PLAN_TM;
+    const int n_j = (n_cols + TN - 1) / TN;
+    const int* ids;
+    const int nb = plan_row(counts, col_idx, row0, n_j, &ids);
+    tile::load_rows<PLAN_TM>(xr, n_rows, m, row0, kind == tile::RBF, pol, s_rows);
+
+    float rowsum[PLAN_TM];
+#pragma unroll
+    for (int r = 0; r < PLAN_TM; ++r) rowsum[r] = 0.f;
+
+    bool first = true;
+    for (int b = 0; b < nb; ++b) {
+        const int id = ids[b];
+        if (id >= n_j) continue;
+        tile::masked_tile<PLAN_TM, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, id * TN, first,
+                                           n_rows, n_cols, m, row_offset, col_offset, kind,
+                                           inv_two_sigma_sq, pol,
+                                           [&](int r, float a) { rowsum[r] += a; });
+        first = false;
+    }
+
+    const float s = tile::block_reduce_fixed<PLAN_TM>(rowsum, s_red);
+    if (threadIdx.x < PLAN_TM && row0 + threadIdx.x < n_rows) d[row0 + threadIdx.x] = s;
+}
+
+template <bool POLICY>
+__global__ void __launch_bounds__(TN) liveness_kernel(
+    const float* __restrict__ xr, const float* __restrict__ xc, tile::Policy pol,
+    int* __restrict__ live, int n_rows, int n_cols, int m, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq) {
+    extern __shared__ float smem[];
+    float* s_xc = smem;
+    float* s_xr = smem + TN * (min(m, tile::MC) + 1);
+    __shared__ tile::Rows<PLAN_TM> s_rows;
+
+    const int row0 = blockIdx.x * PLAN_TM;
+    const int n_j = (n_cols + TN - 1) / TN;
+    tile::load_rows<PLAN_TM>(xr, n_rows, m, row0, kind == tile::RBF, pol, s_rows);
+
+    for (int cj = 0; cj < n_j; ++cj) {
+        bool any = false;
+        tile::masked_tile<PLAN_TM, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, cj * TN, cj == 0,
+                                           n_rows, n_cols, m, row_offset, col_offset, kind,
+                                           inv_two_sigma_sq, pol,
+                                           [&](int, float a) { any = any || a != 0.f; });
+        const int tile_live = __syncthreads_or(any);
+        if (threadIdx.x == 0) live[static_cast<size_t>(blockIdx.x) * n_j + cj] = tile_live != 0;
+    }
+}
+
+template <int RT>
+void launch_bs_matmat(const float* a, const float* v, const float* d, const int* counts,
+                      const int* col_idx, float* u, int n_rows, int n_cols, int r,
+                      cudaStream_t stream) {
+    const int n_j = (n_cols + TN - 1) / TN;
+    bs_matmat_kernel<RT><<<n_rows, TN, 0, stream>>>(a, v, d, counts, col_idx, u, n_cols,
+                                                     n_j, r);
+}
+
+template <int RT>
+void launch_bs_streaming(const float* xr, const float* xc, const tile::Policy& pol,
+                         const float* v, const float* d, const int* counts,
+                         const int* col_idx, float* u, int n_rows, int n_cols, int m, int r,
+                         int row_offset, int col_offset, int kind, float inv_two_sigma_sq,
+                         cudaStream_t stream) {
+    constexpr int TM = tm_for(RT);
+    const int grid = (n_rows + TM - 1) / TM;
+    const size_t smem = tile::smem_bytes(TM, m);
+    if (tile::has_policy(pol))
+        bs_streaming_matmat_kernel<RT, true><<<grid, TN, smem, stream>>>(
+            xr, xc, pol, v, d, counts, col_idx, u, n_rows, n_cols, m, r, row_offset,
+            col_offset, kind, inv_two_sigma_sq);
+    else
+        bs_streaming_matmat_kernel<RT, false><<<grid, TN, smem, stream>>>(
+            xr, xc, pol, v, d, counts, col_idx, u, n_rows, n_cols, m, r, row_offset,
+            col_offset, kind, inv_two_sigma_sq);
+}
+
+}  // namespace
+
+extern "C" int gpic_block_sparse_matmat(
+    const float* a, const float* v, const float* d, const int* counts, const int* col_idx,
+    float* u, int n_rows, int n_cols, int r, cudaStream_t stream) {
+    if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
+    else if (r <= 1) launch_bs_matmat<1>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
+    else if (r <= 2) launch_bs_matmat<2>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
+    else if (r <= 4) launch_bs_matmat<4>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
+    else if (r <= 8) launch_bs_matmat<8>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
+    else if (r <= 16) launch_bs_matmat<16>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
+    else if (r <= 32) launch_bs_matmat<32>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
+    else return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// d may be null: U is then the unnormalized A V. scale_r / scale_c / thr
+// may be null (policy off).
+extern "C" int gpic_block_sparse_streaming_matmat(
+    const float* xr, const float* xc, const float* scale_r, const float* scale_c,
+    const float* thr, const float* v, const float* d, const int* counts, const int* col_idx,
+    float* u, int n_rows, int n_cols, int m, int r, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq, cudaStream_t stream) {
+    const tile::Policy pol{scale_r, scale_c, thr, nullptr};
+#define GPIC_LAUNCH(RT) launch_bs_streaming<RT>(xr, xc, pol, v, d, counts, col_idx, u, n_rows, \
+                                                n_cols, m, r, row_offset, col_offset, kind, \
+                                                inv_two_sigma_sq, stream)
+    if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
+    else if (r <= 1) GPIC_LAUNCH(1);
+    else if (r <= 2) GPIC_LAUNCH(2);
+    else if (r <= 4) GPIC_LAUNCH(4);
+    else if (r <= 8) GPIC_LAUNCH(8);
+    else if (r <= 16) GPIC_LAUNCH(16);
+    else if (r <= 32) GPIC_LAUNCH(32);
+    else return static_cast<int>(cudaErrorInvalidValue);
+#undef GPIC_LAUNCH
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gpic_block_sparse_streaming_degree(
+    const float* xr, const float* xc, const float* scale_r, const float* scale_c,
+    const float* thr, const int* counts, const int* col_idx, float* d,
+    int n_rows, int n_cols, int m, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq, cudaStream_t stream) {
+    const int grid = (n_rows + PLAN_TM - 1) / PLAN_TM;
+    const tile::Policy pol{scale_r, scale_c, thr, nullptr};
+    const size_t smem = tile::smem_bytes(PLAN_TM, m);
+    if (tile::has_policy(pol))
+        bs_streaming_degree_kernel<true><<<grid, TN, smem, stream>>>(
+            xr, xc, pol, counts, col_idx, d, n_rows, n_cols, m, row_offset, col_offset, kind,
+            inv_two_sigma_sq);
+    else
+        bs_streaming_degree_kernel<false><<<grid, TN, smem, stream>>>(
+            xr, xc, pol, counts, col_idx, d, n_rows, n_cols, m, row_offset, col_offset, kind,
+            inv_two_sigma_sq);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// live is (ceil(n_rows / 16), ceil(n_cols / 256)) int32.
+extern "C" int gpic_block_liveness(
+    const float* xr, const float* xc, const float* scale_r, const float* scale_c,
+    const float* thr, int* live, int n_rows, int n_cols, int m, int row_offset,
+    int col_offset, int kind, float inv_two_sigma_sq, cudaStream_t stream) {
+    const int grid = (n_rows + PLAN_TM - 1) / PLAN_TM;
+    const tile::Policy pol{scale_r, scale_c, thr, nullptr};
+    const size_t smem = tile::smem_bytes(PLAN_TM, m);
+    if (tile::has_policy(pol))
+        liveness_kernel<true><<<grid, TN, smem, stream>>>(
+            xr, xc, pol, live, n_rows, n_cols, m, row_offset, col_offset, kind,
+            inv_two_sigma_sq);
+    else
+        liveness_kernel<false><<<grid, TN, smem, stream>>>(
+            xr, xc, pol, live, n_rows, n_cols, m, row_offset, col_offset, kind,
+            inv_two_sigma_sq);
+    return static_cast<int>(cudaGetLastError());
+}

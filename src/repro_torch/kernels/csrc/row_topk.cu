@@ -92,7 +92,7 @@ __global__ void __launch_bounds__(TN) row_topk_kernel(
     // tile_scores synchronizes the block before it emits anything
 
     for (int c0 = 0; c0 < n_cols; c0 += TN) {
-        tile::tile_scores<TM, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, c0, n_rows, n_cols,
+        tile::tile_scores<TM, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, c0, c0 == 0, n_rows, n_cols,
                                       m, row_offset, col_offset, kind, stat,
                                       inv_two_sigma_sq, pol, [&](int r, float s, bool valid) {
             if (valid && s > s_kth[r]) s_cand[r * TN + atomicAdd(&s_ncand[r], 1)] = s;

@@ -50,8 +50,7 @@
 namespace {
 
 using tile::TN;
-
-__host__ __device__ constexpr int tm_for(int rt) { return rt >= 32 ? 2 : rt >= 16 ? 4 : rt >= 8 ? 8 : 16; }
+using tile::tm_for;
 
 template <int RT, bool POLICY>
 __global__ void __launch_bounds__(TN) streaming_matmat_kernel(
@@ -80,8 +79,9 @@ __global__ void __launch_bounds__(TN) streaming_matmat_kernel(
 #pragma unroll
         for (int c = 0; c < RT; ++c)
             vv[c] = inside && c < r ? v[static_cast<size_t>(col) * r + c] : 0.f;
-        tile::masked_tile<TM, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, c0, n_rows, n_cols,
-                                      m, row_offset, col_offset, kind, inv_two_sigma_sq, pol,
+        tile::masked_tile<TM, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, c0, c0 == 0, n_rows,
+                                      n_cols, m, row_offset, col_offset, kind, inv_two_sigma_sq,
+                                      pol,
                                       [&](int i, float a) {
             if (inside) {
 #pragma unroll
@@ -120,7 +120,7 @@ __global__ void __launch_bounds__(TN) streaming_degree_kernel(
     for (int r = 0; r < TM_DEG; ++r) rowsum[r] = 0.f;
 
     for (int c0 = 0; c0 < n_cols; c0 += TN)
-        tile::masked_tile<TM_DEG, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, c0, n_rows,
+        tile::masked_tile<TM_DEG, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, c0, c0 == 0, n_rows,
                                           n_cols, m, row_offset, col_offset, kind,
                                           inv_two_sigma_sq, pol,
                                           [&](int r, float a) { rowsum[r] += a; });

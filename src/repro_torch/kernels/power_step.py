@@ -44,3 +44,17 @@ def degree_normalized_matmat(a: torch.Tensor, v: torch.Tensor,
             _ARGTYPES, a.data_ptr(), v.data_ptr(), d.data_ptr(), u.data_ptr(),
             n_rows, n_cols, r, stream)
     return u
+
+
+def stored_degree(a: torch.Tensor) -> torch.Tensor:
+    """D (R,) f32 = A 1 of a stored A, summed in ``affinity_and_degree``'s
+    row-sum order. On the card this is the sweep kernel with V = 1 and
+    d = 1: thread t adds columns t, t + 256, ... and the block reduces with
+    the build's tree, and fmaf(a, 1, acc) == acc + a, so D is bit for bit
+    the D the build kernel makes of the same entries. On the CPU it is the
+    plain build's ``torch.sum``."""
+    if a.device.type == "cpu":
+        return torch.sum(a.float(), dim=1)
+    ones = torch.ones((a.shape[0],), dtype=torch.float32, device=a.device)
+    v = torch.ones((a.shape[1], 1), dtype=torch.float32, device=a.device)
+    return degree_normalized_matmat(a, v, ones)[:, 0]

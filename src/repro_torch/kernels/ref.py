@@ -8,10 +8,14 @@ for operation, stripe-general like it (``xc``, ``row_offset``,
 the (R,)/(C,) adaptive local scales (rbf only: exp(-d2 / (s_i s_j))),
 ``thr`` the (R,) row thresholds of a kNN truncation (entries below are
 zeroed) and ``thr_c`` the (C,) column thresholds of the transpose product.
+The block-sparse versions take a plan (``counts``, ``col_idx``) on a
+(``tm``, ``tn``) tile grid, and its dead tiles contribute nothing.
 """
 from __future__ import annotations
 
 import torch
+
+from ..core.affinity import dense_block_live, plan_to_live
 
 
 def _affinity_scores_ref(x: torch.Tensor, c: torch.Tensor, *, kind: str,
@@ -177,3 +181,96 @@ def kmeans_assign_ref(x: torch.Tensor, cents: torch.Tensor
     cc = torch.sum(c * c, dim=1)[None, :]
     d2 = xx + cc - 2.0 * (x @ c.T)
     return torch.argmin(d2, dim=1).to(torch.int32), torch.amin(d2, dim=1)
+
+
+def _apply_plan_ref(a: torch.Tensor, counts: torch.Tensor, col_idx: torch.Tensor,
+                    tm: int, tn: int) -> torch.Tensor:
+    """``a`` with every tile that the plan marks dead zeroed (the (tm, tn)
+    grid padded to tile multiples, as the kernels pad)."""
+    n_rows, n_cols = a.shape
+    live = plan_to_live(counts, col_idx)
+    mask = live.repeat_interleave(tm, dim=0).repeat_interleave(tn, dim=1)
+    return torch.where(mask[:n_rows, :n_cols], a, 0.0)
+
+
+def block_sparse_matmat_ref(a: torch.Tensor, v: torch.Tensor, d: torch.Tensor,
+                            counts: torch.Tensor, col_idx: torch.Tensor, *, tm: int,
+                            tn: int) -> torch.Tensor:
+    """``degree_normalized_matmat_ref`` with the plan's dead tiles of A
+    contributing nothing."""
+    return degree_normalized_matmat_ref(_apply_plan_ref(a.float(), counts, col_idx, tm, tn),
+                                        v, d)
+
+
+def block_sparse_streaming_matmat_ref(
+    x: torch.Tensor,
+    v: torch.Tensor,
+    d: torch.Tensor | None = None,
+    xc: torch.Tensor | None = None,
+    *,
+    counts: torch.Tensor,
+    col_idx: torch.Tensor,
+    tm: int,
+    tn: int,
+    kind: str = "cosine_shifted",
+    sigma: float = 1.0,
+    row_offset: int = 0,
+    col_offset: int = 0,
+    scale_r: torch.Tensor | None = None,
+    scale_c: torch.Tensor | None = None,
+    thr: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(A V) / d over the plan's live tiles of the masked stripe (built
+    dense here); ``d=None`` leaves the product unnormalized."""
+    a, _ = affinity_and_degree_ref(x, xc, kind=kind, sigma=sigma, row_offset=row_offset,
+                                   col_offset=col_offset, scale_r=scale_r, scale_c=scale_c,
+                                   thr=thr)
+    u = _apply_plan_ref(a, counts, col_idx, tm, tn) @ v.float()
+    if d is None:
+        return u
+    return _floored_degree_divide(u, d[:, None])
+
+
+def block_sparse_streaming_degree_ref(
+    x: torch.Tensor,
+    xc: torch.Tensor | None = None,
+    *,
+    counts: torch.Tensor,
+    col_idx: torch.Tensor,
+    tm: int,
+    tn: int,
+    kind: str = "cosine_shifted",
+    sigma: float = 1.0,
+    row_offset: int = 0,
+    col_offset: int = 0,
+    scale_r: torch.Tensor | None = None,
+    scale_c: torch.Tensor | None = None,
+    thr: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """D = A 1 over the plan's live tiles of the masked stripe."""
+    a, _ = affinity_and_degree_ref(x, xc, kind=kind, sigma=sigma, row_offset=row_offset,
+                                   col_offset=col_offset, scale_r=scale_r, scale_c=scale_c,
+                                   thr=thr)
+    return torch.sum(_apply_plan_ref(a, counts, col_idx, tm, tn), dim=1)
+
+
+def block_liveness_ref(
+    x: torch.Tensor,
+    xc: torch.Tensor | None = None,
+    *,
+    tm: int,
+    tn: int,
+    kind: str = "cosine_shifted",
+    sigma: float = 1.0,
+    row_offset: int = 0,
+    col_offset: int = 0,
+    scale_r: torch.Tensor | None = None,
+    scale_c: torch.Tensor | None = None,
+    thr: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(nI, nJ) int32: 1 where a (tm, tn) tile of the masked stripe holds
+    a nonzero entry, padding tiles dead."""
+    a, _ = affinity_and_degree_ref(x, xc, kind=kind, sigma=sigma, row_offset=row_offset,
+                                   col_offset=col_offset, scale_r=scale_r, scale_c=scale_c,
+                                   thr=thr)
+    return dense_block_live(a, tm, tn).to(torch.int32)

@@ -112,12 +112,20 @@ def topk_thresholds_from_scores(
     k: int,
     row_offset: int = 0,
     col_offset: int = 0,
+    stripe: int = 4096,
 ) -> torch.Tensor:
     """(R,) per-row k-th largest score of an unmasked score stripe, the
     global diagonal excluded by index (never by value: raw cosine scores
     can be negative, so a written 0 could outrank real entries). An exact
-    selection, so it equals the k-th score that ``row_topk`` keeps."""
-    grows = row_offset + torch.arange(scores.shape[0], device=scores.device)[:, None]
-    gcols = col_offset + torch.arange(scores.shape[1], device=scores.device)[None, :]
-    s = torch.where(grows == gcols, -torch.inf, scores.float())
-    return -torch.kthvalue(-s, k, dim=1).values
+    selection, so it equals the k-th score that ``row_topk`` keeps. Works
+    on ``stripe`` rows at a time, so it adds O(stripe C) memory, not a
+    copy of the (R, C) scores."""
+    n_rows, n_cols = scores.shape
+    gcols = col_offset + torch.arange(n_cols, device=scores.device)[None, :]
+    out = torch.empty((n_rows,), dtype=torch.float32, device=scores.device)
+    for r0 in range(0, n_rows, stripe):
+        r1 = min(r0 + stripe, n_rows)
+        grows = row_offset + torch.arange(r0, r1, device=scores.device)[:, None]
+        s = torch.where(grows == gcols, -torch.inf, scores[r0:r1].float())
+        out[r0:r1] = torch.topk(s, k, dim=1).values[:, -1]
+    return out

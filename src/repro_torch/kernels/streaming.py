@@ -37,7 +37,7 @@ def _check_features(x, xc):
     if cols.shape[1] != x.shape[1]:
         raise ValueError(f"x and xc feature widths differ: {x.shape[1]} vs {cols.shape[1]}")
     if x.shape[1] == 0:
-        raise ValueError("the streaming kernels need at least one feature")
+        raise ValueError("the affinity kernels need at least one feature")
     return cols
 
 

@@ -31,6 +31,7 @@ import torch
 import repro.core as jcore
 from repro.kernels import ops as jops
 from repro_torch import AffinitySpec
+from repro_torch.core.affinity import block_plan
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 
@@ -276,13 +277,22 @@ def test_cpu_calls_launch_no_kernel():
     u = tops.streaming_matmat(x, (d_s / d_s.sum())[:, None], d_s, kind="rbf")
     tops.gram(torch.cat([u, u], dim=1))
     tops.row_topk(x, k=3, stat="neg_sqdist", kind="rbf")
+    tops.stored_degree(a)
+    plan = block_plan(tops.block_liveness(x, kind="rbf"))
+    tops.block_sparse_matmat(a, u, d, plan[0], plan[1])
+    tops.block_sparse_streaming_degree(x, counts=plan[0], col_idx=plan[1], kind="rbf")
+    tops.block_sparse_streaming_matmat(x, u, d, counts=plan[0], col_idx=plan[1], kind="rbf")
     assert tops.launch_counts() == {"affinity_and_degree": 0,
                                     "degree_normalized_matmat": 0,
                                     "kmeans_assign": 0,
                                     "streaming_matmat": 0,
                                     "streaming_degree": 0,
                                     "gram": 0,
-                                    "row_topk": 0}
+                                    "row_topk": 0,
+                                    "block_liveness": 0,
+                                    "block_sparse_matmat": 0,
+                                    "block_sparse_streaming_matmat": 0,
+                                    "block_sparse_streaming_degree": 0}
 
 
 @pytest.mark.parametrize("op", ["affinity", "matmat", "assign", "streaming_matmat",

@@ -263,17 +263,15 @@ def _ref_override(override):
 
 @pytest.mark.parametrize("override,names", [
     (dict(engine="matrix_free"), "item 8"),
-    (dict(affinity=dict(kind="rbf", sigma=0.3, knn_k=5)), "item 7"),
     (dict(affinity=dict(kind="rbf", bandwidth="adaptive", scale_k=65)), "K > 64"),
     (dict(affinity=dict(kind="rbf", sigma=0.3, knn_k=65), block_sparse=False), "K > 64"),
     (dict(a_dtype=jnp.bfloat16), "item 13"), (dict(tile=128), "item 1"),
     (dict(n_vectors=33), "kernel 2 follow-up"),
-], ids=["matrix_free", "knn_block_sparse", "scale_k_past_kernel_limit",
+], ids=["matrix_free", "scale_k_past_kernel_limit",
         "knn_k_past_kernel_limit", "bf16", "tile", "n_vectors_past_kernel_limit"])
 def test_unported_settings_raise_not_implemented(override, names):
-    """Each names its ROADMAP entry: among them a truncated spec on the
-    reference's default block-sparse route (item 7) and neighbor ranks past
-    the row top-k kernel's 64."""
+    """Each names its ROADMAP entry: among them neighbor ranks past the row
+    top-k kernel's 64 on a route that runs it."""
     ref_cfg = jcore.GPICConfig(**_ref_override(override))
     with pytest.raises(NotImplementedError, match="ROADMAP") as map_err:
         config_from_reference(_plain_fields(ref_cfg))
@@ -353,6 +351,52 @@ def test_graph_spec_config_maps_from_reference():
     np.testing.assert_array_equal(res.health.components.numpy(),
                                   np.asarray(ref.health.components))
     assert adjusted_rand_index(y, res.labels.numpy()) == 1.0
+
+
+def test_knn_spec_runs_on_the_default_block_sparse_route():
+    """The reference's default route for a kNN spec (block_sparse=True)
+    maps to the port's equal config, which runs it: the reference's four
+    blobs and partition."""
+    spec = jcore.AffinitySpec(kind="rbf", sigma=0.3, knn_k=10)
+    ref_cfg = jcore.GPICConfig(affinity=spec, use_pallas=False)
+    cfg = config_from_reference(_plain_fields(ref_cfg))
+    assert cfg == GPICConfig(affinity=AffinitySpec(kind="rbf", sigma=0.3, knn_k=10))
+    assert cfg.block_sparse
+    x, y, k = dataset_by_name("gaussians", 400, seed=0)
+    ref = jcore.run_gpic(jnp.asarray(x), k, ref_cfg, key=jax.random.key(1))
+    for engine in ("explicit", "streaming"):
+        res = run_gpic(x, k, cfg.with_(engine=engine), device="cpu")
+        assert int(res.health.n_components) == int(ref.health.n_components) == 4
+        np.testing.assert_array_equal(res.health.components.numpy(),
+                                      np.asarray(ref.health.components))
+        assert adjusted_rand_index(np.asarray(ref.labels), res.labels.numpy()) == 1.0
+
+
+@pytest.mark.parametrize("override,n,raises", [
+    (dict(), 400, False), (dict(engine="streaming"), 400, True),
+    (dict(block_sparse=False), 400, True), (dict(row_reorder=True), 400, True),
+    (dict(), 256, True),
+], ids=["explicit_block_sparse", "streaming", "dense_storage", "row_reorder",
+        "single_column_tile"])
+def test_knn_k_past_the_row_topk_kernel_by_route(override, n, raises):
+    """knn_k = 65: the explicit block-sparse route selects the thresholds
+    from its stored scores and runs, as the reference does; every route
+    that takes them from the row top-k kernel raises NotImplementedError
+    (the streaming engine, the dense storage, the reorder's probe on the
+    dense-grid streaming operator, and a single column tile, which keeps
+    the dense route)."""
+    spec = dict(kind="rbf", sigma=0.3, knn_k=65)
+    x, y, k = dataset_by_name("gaussians", n, seed=0)
+    cfg = GPICConfig(affinity=AffinitySpec(**spec), **override)
+    if raises:
+        with pytest.raises(NotImplementedError, match="K > 64"):
+            run_gpic(x, k, cfg, device="cpu")
+        return
+    res = run_gpic(x, k, cfg, device="cpu")
+    ref = jcore.run_gpic(jnp.asarray(x), k, jcore.GPICConfig(
+        affinity=jcore.AffinitySpec(**spec), use_pallas=False), key=jax.random.key(1))
+    assert int(res.health.n_components) == int(ref.health.n_components)
+    assert adjusted_rand_index(np.asarray(ref.labels), res.labels.numpy()) == 1.0
 
 
 def test_component_probe_off_leaves_no_count():
