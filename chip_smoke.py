@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of GPIC on one CUDA card, end to end.
+"""Drive the PyTorch/CUDA port of GPIC, and of its LM substrate's dense
+serving path, on one CUDA card, end to end.
 
     python3 chip_smoke.py
 
@@ -30,6 +31,11 @@ Phases (any failure exits non-zero before the last line is printed):
                 the sweeps and the degree bitwise their dense twins (#2, #5,
                 #6, #1's D), the fused one-pass build bitwise the two-pass
                 build; ragged and off-diagonal stripes at m = 16; a NaN in V.
+                Flash attention (#12) at the serve shape (b h = 128,
+                s = 2,048, d = 80, causal, f32 q over bf16 K and V, also as
+                strided views of a cache), ragged s = 1,000, GQA rep 4
+                d = 120, MQA rep 48 d = 128, full (non-causal) and all-bf16,
+                timed beside torch's scaled_dot_product_attention.
   3. end to end run_gpic on each path, with the launch counters reset just
                 before it and read just after:
                 - explicit, gaussians: n = 2,000 on the card against the
@@ -69,7 +75,16 @@ Phases (any failure exits non-zero before the last line is printed):
                   row_reorder, and the round trip of a reordered run
                   (shuffled against sorted rows, un-permuted), bit for bit
                   wherever the two canonical arrays are equal, on the dense
-                  spec and on knn_k=64.
+                  spec and on knn_k=64;
+                - the dense LM serve path (launch/serve.py): stablelm-3b at
+                  full width cut to 2 layers, batch 2, a prompt of 100, on
+                  the card against the CPU from the same weights (prefill and
+                  8 decode steps fed the same tokens: logits within 1e-2 of
+                  max|logits|, greedy tokens equal past a near-tie); then
+                  the full 32-layer model, 4 requests of 2,048 prompt tokens
+                  and 32 generated tokens each: flash attention launched 32
+                  times in prefill and 0 in decode, its prefill and 4 decode
+                  steps profiled.
   4. profile    one more n = 45,000 run of each engine under torch.profiler:
                 the device's busy share of the wall time and device time by
                 kernel; and the graph runs E1 (explicit, block_sparse=False)
@@ -1500,6 +1515,259 @@ def phase_graph_e2e(report):
     return runs, dense_runs
 
 
+# --- the LM substrate: kernel 12 and the dense serve path ------------------
+
+FA_F32_TOL = (2e-6, 1e-5)   # (atol, rtol) f32 out: the reference's kernel test
+FA_BF16_TOL = (2e-2, 2e-2)  # bf16 out: the reference's bf16 test
+SERVE_ARCH = "stablelm-3b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+# card against CPU, 2 layers at full width, relative to max|logits|: both
+# compute kernel 12's f32 function, and where a sum in another order puts a
+# K, V or attention-output value on the other side of a bf16 rounding,
+# that value moves by 2**-8 of itself
+SERVE_LOGIT_RTOL = 1e-2
+
+
+def _fa_case(b, h, kv, s, d, q_dtype, kv_dtype, seed, strided=False):
+    """q, k, v (normal * 0.5, the reference's test inputs) in the (bh, s, d)
+    layout or, ``strided``, as (b, h, s, d) views of the model's (b, s, h, d)
+    activation and of a (b, S, kv, d) cache (S = s + 32), as the serve path
+    passes them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if not strided:
+        return tuple((torch.randn((n, s, d), generator=g, device="cuda") * 0.5).to(dt)
+                     for n, dt in ((b * h, q_dtype), (b * kv, kv_dtype), (b * kv, kv_dtype)))
+    q = (torch.randn((b, s, h, d), generator=g, device="cuda") * 0.5).to(q_dtype)
+    cache = (torch.randn((2, b, s + 32, kv, d), generator=g, device="cuda") * 0.5).to(kv_dtype)
+    return q.transpose(1, 2), cache[0, :, :s].transpose(1, 2), cache[1, :, :s].transpose(1, 2)
+
+
+def flash_bound(q, k, v, causal) -> tuple[float, str]:
+    """Bytes: q, k, v read once and the output written once. Operations:
+    the two products, 2 d each per visible (query, key) pair and head
+    (s (s + 1) / 2 pairs causal, s^2 full); the softmax's few operations per
+    pair are left out."""
+    s, d = q.shape[-2:]
+    heads = q.numel() // (s * d)
+    pairs = s * (s + 1) / 2 if causal else s * s
+    n_bytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    return bound_ms(n_bytes, 4.0 * d * pairs * heads)
+
+
+def phase_flash_attention(report):
+    """Kernel 12 against its plain version at the serve path's shape and
+    layout, and at ragged, GQA, MQA, full and bf16 ones; timed at the serve
+    shape beside SDPA (a yardstick; the port never calls it)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # tag, (b, h, kv, s, d), q type, k/v type, causal, strided
+        ("serve", (4, 32, 32, 2048, 80), f32, bf16, True, False),
+        ("serve, strided cache views", (4, 32, 32, 2048, 80), f32, bf16, True, True),
+        ("ragged s=1000", (4, 32, 32, 1000, 80), f32, bf16, True, False),
+        ("GQA rep 4 d=120", (2, 32, 8, 2048, 120), f32, f32, True, False),
+        ("MQA rep 48 d=128", (2, 48, 1, 1024, 128), f32, f32, True, False),
+        ("non-causal", (4, 32, 32, 2048, 80), f32, bf16, False, False),
+        ("all-bf16", (4, 32, 32, 2048, 80), bf16, bf16, True, False),
+        ("smoke d=24 s=17", (2, 4, 4, 17, 24), f32, bf16, True, True),
+    ]
+    worst = 0.0
+    for i, (tag, (b, h, kv, s, d), qt, kt, causal, strided) in enumerate(cases):
+        q, k, v = _fa_case(b, h, kv, s, d, qt, kt, seed=40 + i, strided=strided)
+        out = flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        atol, rtol = FA_BF16_TOL if qt == bf16 else FA_F32_TOL
+        diff = (out.float() - want.float()).abs()
+        err = float(diff.max())
+        excess = float((diff - atol - rtol * want.float().abs()).max())
+        print(f"[flash] {tag} q {tuple(q.shape)} {qt} k/v {tuple(k.shape)} {kt} "
+              f"causal={causal}: max|o-o_ref|={err:.3e} max|o_ref|="
+              f"{float(want.float().abs().max()):.3e} (atol {atol}, rtol {rtol})", flush=True)
+        check(out.shape == want.shape and out.dtype == want.dtype,
+              f"flash_attention gives the wrong shape or type ({tag})")
+        check(bool(torch.isfinite(out).all()) and excess <= 0.0,
+              f"flash_attention disagrees with its plain version ({tag})")
+        worst = max(worst, err)
+        del q, k, v, out, want, diff
+    b, h, kv, s, d = 4, 32, 32, 2048, 80
+    q, k, v = _fa_case(b, h, kv, s, d, f32, bf16, seed=40, strided=True)
+    k32, v32 = k.float(), v.float()                 # SDPA takes one type
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fns = {"ms": lambda: flash_attention(q, k, v),
+           "plain_ms": lambda: ref.flash_attention_ref(q, k, v),
+           "library_ms": lambda: sdpa(q, k32, v32, is_causal=True, enable_gqa=True)}
+    times = {key: cuda_ms(fn, 10) for key, fn in fns.items()}
+    lib_err = float((fns["library_ms"]() - ref.flash_attention_ref(q, k, v)).abs().max())
+    bnd, by = flash_bound(q, k, v, True)
+    print(f"[flash] serve shape bh={b * h} s={s} d={d} causal, f32 q, bf16 cache views: "
+          f"kernel_ms={times['ms']:.4f} plain_ms={times['plain_ms']:.4f} "
+          f"library_ms={times['library_ms']:.4f} (SDPA on f32 copies of k, v; "
+          f"max|sdpa-plain|={lib_err:.3e}) bound_ms={bnd:.4f} ({by})", flush=True)
+    report["flash_attention"] = dict(times, bound_ms=bnd, bound_by=by, max_abs_err=worst)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _top2_margin(logits):
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def phase_serve_parity(report):
+    """stablelm-3b at full width cut to 2 layers, batch 2, a ragged prompt
+    of 100: prefill and 8 decode steps on the card against the same calls on
+    the CPU (the plain versions), from the same weights. The decode steps
+    are fed the CPU's greedy tokens, so each step compares the same inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api, make_train_batch
+    cfg = get_config(SERVE_ARCH).replace(n_layers=2)
+    api = get_api(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    params_gpu = _tree_to(params, "cuda")
+    tokens = make_train_batch(cfg, 2, 100, torch.Generator().manual_seed(1))["tokens"]
+    kw = dict(compute_dtype=torch.float32)
+    max_len, steps = 100 + 8, 8
+    runs = {}
+    for dev, p in (("cpu", params), ("cuda", params_gpu)):
+        logits, cache = api.prefill(p, cfg, {"tokens": tokens.to(dev)}, max_len, **kw)
+        runs[dev] = [logits[:, :, :cfg.vocab_size].float().cpu()], cache
+    worst, flips, compared = 0.0, 0, 0
+    for i in range(steps + 1):
+        want, got = runs["cpu"][0][i], runs["cuda"][0][i]
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        margin = _top2_margin(want[:, -1])
+        clear = margin > SERVE_LOGIT_RTOL * scale
+        same = got[:, -1].argmax(-1) == want[:, -1].argmax(-1)
+        flips += int((~same & clear).sum())
+        compared += int(clear.sum())
+        worst = max(worst, err / scale)
+        print(f"[serve-parity] {'prefill' if i == 0 else f'decode {i}'}: "
+              f"max|dlogits|={err:.4e} max|logits|={scale:.4f} greedy same "
+              f"{same.tolist()} top-2 margin {[round(float(m), 4) for m in margin]}",
+              flush=True)
+        if i == steps:
+            break
+        tok = want[:, -1].argmax(-1).to(torch.int32)[:, None]
+        for dev in ("cpu", "cuda"):
+            logits, _ = api.decode_step(params if dev == "cpu" else params_gpu, cfg,
+                                        tok.to(dev), runs[dev][1], 100 + i, **kw)
+            runs[dev][0].append(logits[:, :, :cfg.vocab_size].float().cpu())
+    cache_same = {name: float((runs["cuda"][1][name].cpu() == runs["cpu"][1][name])
+                              .float().mean()) for name in ("k", "v")}
+    wall = time.perf_counter() - t0
+    print(f"[serve-parity] {SERVE_ARCH} 2 layers, batch 2, prompt 100, {steps} decode "
+          f"steps: max|dlogits|/max|logits|={worst:.4e} (limit {SERVE_LOGIT_RTOL}), "
+          f"greedy tokens compared past a near-tie {compared}, differing {flips}; "
+          f"bf16 cache entries equal {cache_same}; {wall:.1f} s", flush=True)
+    check(worst <= SERVE_LOGIT_RTOL, "the card and the CPU disagree on the serve logits")
+    check(flips == 0, "the card's greedy tokens differ from the CPU's past a near-tie")
+    report["serve_parity"] = dict(max_rel_logit_err=worst, greedy_compared=compared,
+                                  greedy_flips=flips, cache_equal_fraction=cache_same,
+                                  wall_s=wall)
+
+
+def phase_serve(report):
+    """The full 32-layer stablelm-3b through launch/serve.py's ``serve``
+    with weights drawn on the card from seed 0: 4 requests of 2,048 prompt
+    tokens, 32 generated tokens each, counted; then a second call on the
+    same weights, for times without the first call's one-time costs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import get_api
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = get_api(cfg).init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    kw = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=0,
+              device="cuda", params=params)
+    ops.reset_launch_counts()
+    res = serve.serve(cfg, **kw)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    again = serve.serve(cfg, **kw)
+    check(torch.equal(again.tokens, res.tokens), "a second serve call gives other tokens")
+    times = {tag: dict(prefill_ms=r.prefill_s * 1e3,
+                       decode_ms_per_token=r.decode_s / (SERVE_GEN - 1) * 1e3)
+             for tag, r in (("first", res), ("second", again))}
+    print(f"[serve] {SERVE_ARCH} full ({cfg.n_layers} layers, d_model {cfg.d_model}), "
+          f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, gen {SERVE_GEN}: "
+          + "; ".join(f"{tag} call prefill_ms={t['prefill_ms']:.3f} decode_ms_per_token="
+                      f"{t['decode_ms_per_token']:.3f}" for tag, t in times.items())
+          + f"; peak_mem_GB={peak / 1e9:.3f}; flash_attention launches: prefill "
+          f"{res.prefill_launches['flash_attention']}, decode "
+          f"{res.decode_launches['flash_attention']}", flush=True)
+    for i in range(2):
+        print(f"[serve]   seq{i}: {res.tokens[i].tolist()}", flush=True)
+    check(tuple(res.tokens.shape) == (SERVE_BATCH, SERVE_GEN)
+          and int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab_size,
+          "the serve path's tokens have the wrong shape or range")
+    check(bool(torch.isfinite(res.prefill_logits).all()), "the prefill logits are not finite")
+    check(res.prefill_launches["flash_attention"] == cfg.n_layers
+          and res.decode_launches["flash_attention"] == 0
+          and counts["flash_attention"] == cfg.n_layers,
+          f"flash_attention launches: prefill {res.prefill_launches}, decode "
+          f"{res.decode_launches}")
+    report["serve"] = dict(times, peak_mem_bytes=peak, launches=counts,
+                           first_tokens=res.tokens[:2].tolist(),
+                           profile=_serve_profile(cfg, params, res.tokens))
+    return counts
+
+
+def _profiled(fn, top_n=6):
+    """Wall ms of ``fn`` under torch.profiler, the device's busy ms in it
+    and its top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = _device_spans(prof)
+    top = _by_kernel(spans)[:top_n]
+    return dict(wall_ms=wall_ms, device_busy_ms=_busy_us(spans) / 1e3 if spans else None,
+                top=[dict(name=l, launches=c, ms=ms) for l, (c, ms) in top])
+
+
+def _serve_profile(cfg, params, tokens):
+    """The serve path's prefill and 4 decode steps under torch.profiler."""
+    from repro_torch.models import make_train_batch
+    from repro_torch.train.train_step import build_decode_step, build_prefill
+    max_len = SERVE_PROMPT + SERVE_GEN
+    data = make_train_batch(cfg, SERVE_BATCH, SERVE_PROMPT, torch.Generator().manual_seed(0))
+    data = {"tokens": data["tokens"].to("cuda")}
+    prefill = build_prefill(cfg, max_len, compute_dtype=torch.float32)
+    decode = build_decode_step(cfg, compute_dtype=torch.float32)
+    state = {}
+
+    def run_prefill():
+        state["cache"] = prefill(params, data)[1]
+
+    def run_decode():
+        for i in range(4):
+            decode(params, tokens[:, i:i + 1], state["cache"], SERVE_PROMPT + i)
+
+    out = {"prefill": _profiled(run_prefill), "decode_4_steps": _profiled(run_decode)}
+    for tag, rec in out.items():
+        busy = rec["device_busy_ms"]
+        print(f"[serve-profile] {tag}: wall_ms={rec['wall_ms']:.3f} device_busy_ms="
+              + (f"{busy:.3f} busy_share={busy / rec['wall_ms']:.4f}" if busy is not None
+                 else "not measured (no device events)"), flush=True)
+        for t in rec["top"]:
+            print(f"[serve-profile]   {t['ms']:9.3f} ms  x{t['launches']:<5d} {t['name']}")
+    return out
+
 #: device-event names of this port's kernels (always listed by the profile)
 KERNEL_LABELS = ("affinity_kernel", "power_step_kernel", "kmeans_assign_kernel",
                  "streaming_matmat_kernel", "streaming_degree_kernel", "gram_",
@@ -1524,6 +1792,24 @@ def _busy_us(spans, lo=float("-inf"), hi=float("inf")):
             busy += end - start
         reach = max(reach, min(end, hi))
     return busy
+
+
+def _device_spans(prof):
+    """(start, end, kernel label) of a profile's device events, in time
+    order."""
+    from torch.autograd import DeviceType
+    return sorted((ev.time_range.start, ev.time_range.end, _kernel_label(ev.name))
+                  for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+
+
+def _by_kernel(spans):
+    """[(label, [launches, device ms]), ...], the most device time first."""
+    by_name: dict[str, list] = {}
+    for start, end, label in spans:
+        entry = by_name.setdefault(label, [0, 0.0])
+        entry[0] += 1
+        entry[1] += (end - start) / 1e3
+    return sorted(by_name.items(), key=lambda kv: -kv[1][1])
 
 
 def _stages(spans):
@@ -1556,7 +1842,6 @@ def phase_profile(report, out_dir, engine, tag="classic", cfg=None):
     classic run goes to chiprun_out/e2e_<engine>_trace.json; a graph run's
     (tens of thousands of events, past what chiprun_out may carry back) is
     summarized only."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import GPICConfig, dataset_by_name, run_gpic
@@ -1571,16 +1856,9 @@ def phase_profile(report, out_dir, engine, tag="classic", cfg=None):
     name = engine if tag == "classic" else f"{tag}_{engine}"
     if tag == "classic":
         prof.export_chrome_trace(os.path.join(out_dir, f"e2e_{name}_trace.json"))
-    spans = sorted((ev.time_range.start, ev.time_range.end, _kernel_label(ev.name))
-                   for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+    spans = _device_spans(prof)
     busy_us = _busy_us(spans)
-    by_name: dict[str, list] = {}
-    for start, end, label in spans:
-        entry = by_name.setdefault(label, [0, 0.0])
-        entry[0] += 1
-        entry[1] += (end - start) / 1e3
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    top = [(label, v) for i, (label, v) in enumerate(ranked)
+    top = [(label, v) for i, (label, v) in enumerate(_by_kernel(spans))
            if i < 10 or label.startswith(KERNEL_LABELS)]
     key = f"profile_{name}"
     if not spans:
@@ -1624,6 +1902,8 @@ SOURCES = {
                                       "src/repro/kernels/block_sparse.py:210"),
     "block_sparse_streaming_degree": ("src/repro_torch/kernels/csrc/block_sparse.cu",
                                       "src/repro/kernels/block_sparse.py:339"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:80"),
 }
 
 
@@ -1641,6 +1921,7 @@ def main() -> int:
     phase_row_topk(kernels)
     phase_policy(kernels)
     phase_block_sparse(kernels)
+    phase_flash_attention(kernels)
     # each kernel's launches come from the run of the path that uses it
     explicit = phase_end_to_end(report)
     counts = {name: explicit[0][name] for name in
@@ -1659,8 +1940,10 @@ def main() -> int:
     counts["block_sparse_matmat"] = explicit_e1["block_sparse_matmat"]
     counts.update({name: streaming_e1[name] for name in (
         "block_liveness", "block_sparse_streaming_matmat", "block_sparse_streaming_degree")})
-    check(all(counts[name] > 0 for name in SOURCES), f"a kernel was never launched: {counts}")
     phase_reorder(report)
+    phase_serve_parity(report)
+    counts["flash_attention"] = phase_serve(report)["flash_attention"]
+    check(all(counts[name] > 0 for name in SOURCES), f"a kernel was never launched: {counts}")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     phase_profile(report, out_dir, "explicit")

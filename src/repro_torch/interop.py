@@ -11,6 +11,10 @@ GPIC has no learned weights. The state that crosses is:
     ``kmeans(init=...)`` and extra power start columns as the ``v0`` of
     ``batched_power_iteration`` (the two packages' generators differ).
 
+The LM substrate has weights: :func:`lm_params_from_reference` turns the
+reference's parameter tree, as numpy arrays, into the port's parameter
+dict, so that both packages compute with the same weights.
+
 :func:`result_to_numpy` turns a result into numpy arrays for comparisons.
 """
 from __future__ import annotations
@@ -70,6 +74,28 @@ def config_from_reference(ref_fields: dict, n: int | None = None) -> GPICConfig:
     cfg = GPICConfig(**out)
     check_config(cfg, n)
     return cfg
+
+
+def lm_params_from_reference(tree: dict, cfg) -> dict:
+    """The port's dense-LM parameters from the reference's parameter tree
+    as numpy (``jax.tree.map(np.asarray, params)``): ``embed.{tok,head}``,
+    ``layers.*`` stacked on a leading (n_layers, ...) axis, ``ln_f``. The
+    (in, out) weight layout is kept; the stacked layers become a list of
+    per-layer dicts. CPU tensors in the arrays' float type."""
+    def tensor(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, copy=True))
+
+    def layer(node, i):
+        if isinstance(node, dict):
+            return {name: layer(sub, i) for name, sub in node.items()}
+        if node.shape[0] != cfg.n_layers:
+            raise ValueError(f"stacked layer weights have {node.shape[0]} layers, the "
+                             f"config {cfg.n_layers}")
+        return tensor(node[i])
+
+    return {"embed": {name: tensor(a) for name, a in tree["embed"].items()},
+            "layers": [layer(tree["layers"], i) for i in range(cfg.n_layers)],
+            "ln_f": tensor(tree["ln_f"])}
 
 
 def result_to_numpy(res: PICResult) -> dict[str, np.ndarray]:

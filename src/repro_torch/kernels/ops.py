@@ -13,7 +13,8 @@ sigma; the graph policies travel as operands, as in the reference:
 with ``stat='similarity'``) and ``thr_c`` (column thresholds: the
 transpose product of the component probe). The block-sparse entry points
 take a plan (``counts``, ``col_idx`` from ``core/affinity.py::block_plan``)
-on the (16, 256) grid of ``kernels/block_sparse.py``.
+on the (16, 256) grid of ``kernels/block_sparse.py``. ``flash_attention``
+is the LM's: causal grouped-query attention (kernels/flash_attention.py).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from .block_sparse import PLAN_TM, TN, block_sparse_matmat
 from .block_sparse import block_liveness as _block_liveness
 from .block_sparse import block_sparse_streaming_degree as _bs_streaming_degree
 from .block_sparse import block_sparse_streaming_matmat as _bs_streaming_matmat
+from .flash_attention import flash_attention
 from .gram import gram
 from .kmeans_assign import kmeans_assign
 from .power_step import degree_normalized_matmat, stored_degree
@@ -38,6 +40,7 @@ __all__ = [
     "block_sparse_streaming_degree",
     "block_sparse_streaming_matmat",
     "degree_normalized_matmat",
+    "flash_attention",
     "gram",
     "kmeans_assign",
     "launch_counts",

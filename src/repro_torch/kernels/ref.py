@@ -13,6 +13,8 @@ The block-sparse versions take a plan (``counts``, ``col_idx``) on a
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.affinity import dense_block_live, plan_to_live
@@ -169,6 +171,23 @@ def gram_ref(v: torch.Tensor) -> torch.Tensor:
     """G = V^T V in f32."""
     v32 = v.float()
     return v32.T @ v32
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """Oracle for kernels/flash_attention.py: q (bh, s, d), k/v (bkv, s, d),
+    or the 4-D form (b, h, s, d), (b, kv, s, d). The kv heads are repeated,
+    the softmax taken in f32 and the result cast to q's type."""
+    s, d = q.shape[-2:]
+    rep = q.shape[-3] // k.shape[-3]
+    kk = k.repeat_interleave(rep, dim=-3).float()
+    vv = v.repeat_interleave(rep, dim=-3).float()
+    logits = torch.einsum("...hsd,...htd->...hst", q.float(), kk) / math.sqrt(d)
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, -torch.inf)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("...hst,...htd->...hsd", probs, vv).to(q.dtype)
 
 
 def kmeans_assign_ref(x: torch.Tensor, cents: torch.Tensor

@@ -282,6 +282,7 @@ def test_cpu_calls_launch_no_kernel():
     tops.block_sparse_matmat(a, u, d, plan[0], plan[1])
     tops.block_sparse_streaming_degree(x, counts=plan[0], col_idx=plan[1], kind="rbf")
     tops.block_sparse_streaming_matmat(x, u, d, counts=plan[0], col_idx=plan[1], kind="rbf")
+    tops.flash_attention(x[None, :, :2], x[None, :, :2], x[None, :, :2])
     assert tops.launch_counts() == {"affinity_and_degree": 0,
                                     "degree_normalized_matmat": 0,
                                     "kmeans_assign": 0,
@@ -292,7 +293,8 @@ def test_cpu_calls_launch_no_kernel():
                                     "block_liveness": 0,
                                     "block_sparse_matmat": 0,
                                     "block_sparse_streaming_matmat": 0,
-                                    "block_sparse_streaming_degree": 0}
+                                    "block_sparse_streaming_degree": 0,
+                                    "flash_attention": 0}
 
 
 @pytest.mark.parametrize("op", ["affinity", "matmat", "assign", "streaming_matmat",

@@ -429,7 +429,9 @@ def test_config_from_reference_defaults_and_rejections():
 
 def test_port_imports_no_jax_and_nothing_of_the_reference():
     code = ("import sys, repro_torch, repro_torch.interop, repro_torch.core, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.models, repro_torch.configs, "
+            "repro_torch.train, repro_torch.train.train_step, repro_torch.launch, "
+            "repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
             "sys.exit(1 if bad else 0)")
