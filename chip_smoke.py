@@ -13,7 +13,8 @@ Phases (any failure exits non-zero before the last line is printed):
                 card, at the main path's shapes (n = 45,000 points of the
                 paper's 2-D gaussians, m = 2, r = 1 or 2, k = 4 on a 1-D
                 embedding) and at ragged ones (n = 1,037, m = 16, r up to
-                32, off-diagonal stripes, planted k-means ties); time the
+                32, off-diagonal stripes, planted k-means ties); the power
+                sweep's cp.async ring bitwise its plain-load template; time the
                 kernel, the plain version and, where one exists, the one
                 PyTorch call that computes the same function. The streamed
                 D and U must be bitwise the explicit kernels' D and U, and
@@ -34,8 +35,13 @@ Phases (any failure exits non-zero before the last line is printed):
                 Flash attention (#12) at the serve shape (b h = 128,
                 s = 2,048, d = 80, causal, f32 q over bf16 K and V, also as
                 strided views of a cache), ragged s = 1,000, GQA rep 4
-                d = 120, MQA rep 48 d = 128, full (non-causal) and all-bf16,
-                timed beside torch's scaled_dot_product_attention.
+                d = 120, MQA rep 48 d = 128, full (non-causal), all-bf16,
+                rows off 16-byte alignment (d = 17, the scalar-staging
+                template) and b h = 70,000, timed beside torch's
+                scaled_dot_product_attention; its bounds with the products
+                on the f32 FMA units and as the split-TF32 terms it runs on
+                the tensor cores, and each template's registers (no spills
+                at d = 80 and 128).
   3. end to end run_gpic on each path, with the launch counters reset just
                 before it and read just after:
                 - explicit, gaussians: n = 2,000 on the card against the
@@ -118,6 +124,7 @@ ORTHO_ARI_FLOOR = 0.90  # the reference's floor for three_circles, orthogonal
 MEM_LIMIT = 1e9         # peak device bytes of a streaming run
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM
+H100_TF32_FLOPS = 495e12     # TF32 on the tensor cores, dense, H100 SXM
 KNN_K = 10              # the reference's blobs kNN spec (TestKnnSpecQuality)
 SCALE_K = 7             # the reference's adaptive scale rank
 BLOBS_ARI_FLOOR = 0.95  # the reference's floor for blobs under knn_k=10, at its n = 480
@@ -197,7 +204,9 @@ def phase_device() -> str:
     return smi.splitlines()[0]
 
 
-def phase_build() -> float:
+def phase_build() -> tuple[float, dict[str, str]]:
+    """Seconds to build every kernel library, and nvcc's ``-Xptxas -v``
+    report of each library built (empty where it was built before)."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build()
@@ -211,7 +220,7 @@ def phase_build() -> float:
                 print(f"[build] {name}: {entry.group(1)}")
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name}:   {line.strip()}")
-    return sec
+    return sec, logs
 
 
 def _features(n: int, seed: int = 0):
@@ -335,7 +344,19 @@ def phase_power_step(report):
     b, by = bound_ms(4.0 * (n * n + 2 * n + n), 2.0 * n * n)
     print(f"[power_step] n={n} r=1: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
           f"library_ms={lib:.4f} bound_ms={b:.4f} ({by})", flush=True)
-    del a, d, u, u_ref
+    # the same A 4 bytes off 16-byte alignment takes the plain-load template:
+    # the same bits as the cp.async ring's, at r = 1 and 2
+    shifted = torch.empty(n * n + 1, device="cuda")[1:].view(n, n)
+    shifted.copy_(a)
+    for r in (1, 2):
+        vr = torch.rand((n, r), device="cuda") if r > 1 else v
+        ring_u = degree_normalized_matmat(a, vr, d)
+        check(bool(torch.equal(degree_normalized_matmat(shifted, vr, d), ring_u)),
+              f"the power step's ring and plain-load templates differ at r={r}")
+    plain_load = cuda_ms(lambda: degree_normalized_matmat(shifted, v, d), 10)
+    print(f"[power_step] n={n}: ring and plain-load templates bitwise equal at r=1, 2; "
+          f"plain-load template (unaligned A) {plain_load:.4f} ms at r=1", flush=True)
+    del a, d, u, u_ref, shifted
     torch.cuda.empty_cache()
 
     # ragged rows, r up to the kernel's limit, a stripe, a zero-degree row
@@ -346,10 +367,11 @@ def phase_power_step(report):
     d[5] = 0.0
     for r in (4, 32):
         vs = torch.rand((1037, r), generator=g, device="cuda")
-        for rows in (slice(None), slice(100, 400)):
-            ar, dr = a[rows].contiguous(), d[rows].contiguous()
-            u = degree_normalized_matmat(ar, vs, dr)
-            u_ref = ref.degree_normalized_matmat_ref(ar, vs, dr)
+        for rows, cols in ((slice(None), 1037), (slice(100, 400), 1037), (slice(None), 1036)):
+            # 1,036 columns start every row on 16 bytes: the ring, ending mid-stage
+            ar, dr, vr = a[rows, :cols].contiguous(), d[rows].contiguous(), vs[:cols]
+            u = degree_normalized_matmat(ar, vr, dr)
+            u_ref = ref.degree_normalized_matmat_ref(ar, vr, dr)
             abs_err, excess = _u_errors(u, u_ref)
             print(f"[power_step] ragged a{tuple(ar.shape)} r={r}: max|U-U_ref|={abs_err:.3e} "
                   f"excess over tolerance={excess:.3e}")
@@ -359,7 +381,7 @@ def phase_power_step(report):
               "a zero-degree row must give an exact zero")
     report["degree_normalized_matmat"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                               bound_ms=b, bound_by=by, max_abs_err=worst,
-                                              main_shape=main_err)
+                                              main_shape=main_err, plain_load_ms=plain_load)
 
 
 def phase_kmeans_assign(report):
@@ -1542,24 +1564,76 @@ def _fa_case(b, h, kv, s, d, q_dtype, kv_dtype, seed, strided=False):
     return q.transpose(1, 2), cache[0, :, :s].transpose(1, 2), cache[1, :, :s].transpose(1, 2)
 
 
-def flash_bound(q, k, v, causal) -> tuple[float, str]:
-    """Bytes: q, k, v read once and the output written once. Operations:
-    the two products, 2 d each per visible (query, key) pair and head
-    (s (s + 1) / 2 pairs causal, s^2 full); the softmax's few operations per
-    pair are left out."""
+def _flash_work(q, k, causal) -> tuple[float, float]:
+    """(bytes, operations) of one call: q, k, v read once and the output
+    written once; the two products, 2 d each per visible (query, key) pair
+    and head (s (s + 1) / 2 pairs causal, s^2 full). The softmax's few
+    operations per pair are left out."""
     s, d = q.shape[-2:]
     heads = q.numel() // (s * d)
     pairs = s * (s + 1) / 2 if causal else s * s
     n_bytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
-    return bound_ms(n_bytes, 4.0 * d * pairs * heads)
+    return n_bytes, 4.0 * d * pairs * heads
 
 
-def phase_flash_attention(report):
+def flash_bound(q, k, v, causal) -> tuple[float, str]:
+    """The function's bound with its products on the f32 FMA units."""
+    return bound_ms(*_flash_work(q, k, causal))
+
+
+def flash_tensor_bound(q, k, v, causal) -> tuple[float, str]:
+    """The bound of the arithmetic kernel 12 runs: each product as its
+    split-TF32 terms at the TF32 tensor rate (q k^T: 1 term for bf16 q and
+    K, 2 for f32 q over bf16 K, 3 over f32 K; p v: 2 over bf16 V, 3 over f32
+    V), or the bytes if they take longer."""
+    n_bytes, n_ops = _flash_work(q, k, causal)
+    kv_f32 = k.dtype == torch.float32
+    terms = (3 if kv_f32 else 2 if q.dtype == torch.float32 else 1) + (3 if kv_f32 else 2)
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = terms / 2 * n_ops / H100_TF32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_registers(log: str) -> dict[str, str]:
+    """Registers and spills of each kernel-12 template in nvcc's report:
+    ``{"<q type>/<k, v type> NT=<d / 8> <async|scalar>": "R registers, S
+    bytes spilled"}``."""
+    types = {"f": "f32", "13__nv_bfloat16": "bf16", "S1_": "bf16"}
+    out, tmpl, spill = {}, None, "?"
+    for line in log.splitlines():
+        entry = re.search(r"flash_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S1_)Li(\d+)ELb(\d)",
+                          line)
+        spilled = re.search(r"(\d+) bytes spill stores", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if entry:
+            stage = "async" if entry.group(4) == "1" else "scalar"
+            tmpl = (f"{types[entry.group(1)]}/{types[entry.group(2)]} NT={entry.group(3)} "
+                    f"{stage}")
+        elif spilled:
+            spill = spilled.group(1)
+        elif regs and tmpl:
+            out[tmpl] = f"{regs.group(1)} registers, {spill} bytes spilled"
+            tmpl = None
+    return out
+
+
+def phase_flash_attention(report, build_log=""):
     """Kernel 12 against its plain version at the serve path's shape and
-    layout, and at ragged, GQA, MQA, full and bf16 ones; timed at the serve
-    shape beside SDPA (a yardstick; the port never calls it)."""
+    layout, and at ragged, GQA, MQA, full, bf16, unaligned (the
+    scalar-staging template) and b h > 65,535 ones; timed at the serve shape
+    beside SDPA (a yardstick; the port never calls it). ``build_log`` is
+    nvcc's report of flash_attention.cu: no template may spill at d = 80
+    (NT = 10) or d = 128 (NT = 16)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
+    registers = flash_registers(build_log)
+    for tmpl, line in registers.items():
+        print(f"[flash] {tmpl}: {line}")
+    spills = [f"{tmpl}: {line}" for tmpl, line in registers.items()
+              if tmpl.split()[1] in ("NT=10", "NT=16") and not line.endswith(" 0 bytes spilled")]
+    check(not spills, f"flash_attention spills at d = 80 or 128: {spills}")
+    if not registers:
+        print("[flash] flash_attention.cu was built before this run: no register report")
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # tag, (b, h, kv, s, d), q type, k/v type, causal, strided
         ("serve", (4, 32, 32, 2048, 80), f32, bf16, True, False),
@@ -1570,6 +1644,9 @@ def phase_flash_attention(report):
         ("non-causal", (4, 32, 32, 2048, 80), f32, bf16, False, False),
         ("all-bf16", (4, 32, 32, 2048, 80), bf16, bf16, True, False),
         ("smoke d=24 s=17", (2, 4, 4, 17, 24), f32, bf16, True, True),
+        ("unaligned rows d=17", (2, 4, 2, 200, 17), f32, f32, True, False),
+        ("unaligned rows d=17, cache views, full", (2, 4, 2, 200, 17), f32, bf16, False, True),
+        ("b h = 70,000 > 65,535, GQA rep 5", (2, 35000, 7000, 40, 16), f32, bf16, True, False),
     ]
     worst = 0.0
     for i, (tag, (b, h, kv, s, d), qt, kt, causal, strided) in enumerate(cases):
@@ -1599,12 +1676,17 @@ def phase_flash_attention(report):
            "library_ms": lambda: sdpa(q, k32, v32, is_causal=True, enable_gqa=True)}
     times = {key: cuda_ms(fn, 10) for key, fn in fns.items()}
     lib_err = float((fns["library_ms"]() - ref.flash_attention_ref(q, k, v)).abs().max())
-    bnd, by = flash_bound(q, k, v, True)
+    bnd, by = flash_tensor_bound(q, k, v, True)
+    fma_bnd, fma_by = flash_bound(q, k, v, True)
     print(f"[flash] serve shape bh={b * h} s={s} d={d} causal, f32 q, bf16 cache views: "
           f"kernel_ms={times['ms']:.4f} plain_ms={times['plain_ms']:.4f} "
           f"library_ms={times['library_ms']:.4f} (SDPA on f32 copies of k, v; "
-          f"max|sdpa-plain|={lib_err:.3e}) bound_ms={bnd:.4f} ({by})", flush=True)
-    report["flash_attention"] = dict(times, bound_ms=bnd, bound_by=by, max_abs_err=worst)
+          f"max|sdpa-plain|={lib_err:.3e}) bound_ms={bnd:.4f} ({by}: the kernel's two "
+          f"split-TF32 terms a product at {H100_TF32_FLOPS / 1e12:.0f} TFLOP/s) "
+          f"f32_fma_bound_ms={fma_bnd:.4f} ({fma_by}: the products at "
+          f"{H100_F32_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
+    report["flash_attention"] = dict(times, bound_ms=bnd, bound_by=by, max_abs_err=worst,
+                                     f32_fma_bound_ms=fma_bnd, registers=registers)
 
 
 def _tree_to(tree, device):
@@ -1911,7 +1993,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     report = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0)}
-    report["build_s"] = phase_build()
+    report["build_s"], logs = phase_build()
     kernels = {}
     phase_affinity(kernels)
     phase_power_step(kernels)
@@ -1921,7 +2003,7 @@ def main() -> int:
     phase_row_topk(kernels)
     phase_policy(kernels)
     phase_block_sparse(kernels)
-    phase_flash_attention(kernels)
+    phase_flash_attention(kernels, logs.get("flash_attention", ""))
     # each kernel's launches come from the run of the path that uses it
     explicit = phase_end_to_end(report)
     counts = {name: explicit[0][name] for name in

@@ -26,7 +26,7 @@ _PAIRS = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
           (torch.bfloat16, torch.bfloat16))
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
-             + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -53,6 +53,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         f"q {q.dtype}, k {k.dtype}, v {v.dtype}")
 
 
+def _rows_aligned16(t: torch.Tensor) -> bool:
+    """Whether every (s, d) row of the 4-D ``t`` starts on 16 bytes and its
+    d elements fill whole 16-byte chunks, so the kernel can copy it with
+    16-byte ``cp.async``; otherwise it stages element by element."""
+    es = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] * es % 16 == 0
+            and all(st * es % 16 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """softmax(q k^T / sqrt(d) [causal mask]) v in q's type, f32 inside.
@@ -70,13 +79,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     q4, k4, v4, o4 = (t if t.ndim == 4 else t.unsqueeze(0) for t in (q, k, v, out))
     b, h, s, d = q4.shape
-    if b * h > 65535:
-        raise ValueError(f"the flash-attention kernel takes at most 65535 heads, got {b * h}")
+    async_copy = all(_rows_aligned16(t) for t in (q4, k4, v4))
     strides = [st for t in (q4, k4, v4, o4) for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch("flash_attention", "flash_attention", "gpic_flash_attention",
                       _ARGTYPES, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
                       _CODES[q.dtype], _CODES[k.dtype], b, h, k4.shape[1], s, d, *strides,
-                      int(causal), 1.0 / math.sqrt(d), stream)
+                      int(causal), 1.0 / math.sqrt(d), int(async_copy), stream)
     return out

@@ -15,7 +15,7 @@ from ._check import check_cuda_tensor
 #: widest V the kernel takes (its per-thread partials live in registers)
 MAX_R = 32
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def degree_normalized_matmat(a: torch.Tensor, v: torch.Tensor,
@@ -37,12 +37,14 @@ def degree_normalized_matmat(a: torch.Tensor, v: torch.Tensor,
     u = torch.empty((n_rows, r), dtype=torch.float32, device=a.device)
     if n_rows == 0:
         return u
+    # rows that start on 16 bytes stream through the kernel's cp.async ring
+    ring = a.data_ptr() % 16 == 0 and n_cols % 4 == 0
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch(
             "degree_normalized_matmat", "power_step", "gpic_degree_normalized_matmat",
             _ARGTYPES, a.data_ptr(), v.data_ptr(), d.data_ptr(), u.data_ptr(),
-            n_rows, n_cols, r, stream)
+            n_rows, n_cols, r, int(ring), stream)
     return u
 
 

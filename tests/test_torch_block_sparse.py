@@ -37,6 +37,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+# one torch thread a process: the test run starts several processes at once,
+# and torch using every core in each of them slows all of them down
+torch.set_num_threads(1)
+
 from hypothesis import given, settings
 from hypothesis import strategies as st
 

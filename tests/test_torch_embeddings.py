@@ -33,6 +33,10 @@ import numpy as np
 import pytest
 import torch
 
+# one torch thread a process: the test run starts several processes at once,
+# and torch using every core in each of them slows all of them down
+torch.set_num_threads(1)
+
 import repro.core as jcore
 from repro.core import power as jpower
 from repro_torch import GPICConfig, dataset_by_name

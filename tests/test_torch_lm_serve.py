@@ -36,6 +36,10 @@ import numpy as np
 import pytest
 import torch
 
+# one torch thread a process: the test run starts several processes at once,
+# and torch using every core in each of them slows all of them down
+torch.set_num_threads(1)
+
 from repro import configs as jconfigs
 from repro.models import get_api as jget_api
 from repro.models import make_train_batch as jmake_train_batch

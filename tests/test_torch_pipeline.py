@@ -32,6 +32,10 @@ import numpy as np
 import pytest
 import torch
 
+# one torch thread a process: the test run starts several processes at once,
+# and torch using every core in each of them slows all of them down
+torch.set_num_threads(1)
+
 import repro.core as jcore
 from repro.data import dataset_by_name as ref_dataset_by_name
 from repro_torch import (AffinitySpec, GPICConfig, adjusted_rand_index, dataset_by_name,
