@@ -32,6 +32,18 @@ Phases (any failure exits non-zero before the last line is printed):
                 the sweeps and the degree bitwise their dense twins (#2, #5,
                 #6, #1's D), the fused one-pass build bitwise the two-pass
                 build; ragged and off-diagonal stripes at m = 16; a NaN in V.
+                The streamed sweeps (#5, #10) have a register template
+                (m <= 2) beside the staged-slab one (any m): x must give
+                the same bits as x with zero feature columns appended to
+                m = 3, which takes the staged template, at the main shape
+                (r = 1, 2, d given and None, thr, thr_c) and at ragged
+                stripes (rows after the columns too, row counts off TM, at
+                m = 16 and 2), and both are timed in the same run, with
+                each template's registers from nvcc's report, kept beside
+                each library (it fails on a spill of a register template
+                at r <= 2, or where the report names none). The kernels that
+                take one expf an entry (#1, #5-#8, #10, #11) print a second
+                floor beside their bound: entries / (SMs x 16 MUFU x clock).
                 Flash attention (#12) at the serve shape (b h = 128,
                 s = 2,048, d = 80, causal, f32 q over bf16 K and V, also as
                 strided views of a cache), ragged s = 1,000, GQA rep 4
@@ -104,6 +116,8 @@ chiprun_out/chip_smoke_report.json, the traces to chiprun_out/e2e_*.json.
 """
 from __future__ import annotations
 
+import functools
+import itertools
 import json
 import os
 import re
@@ -125,6 +139,7 @@ MEM_LIMIT = 1e9         # peak device bytes of a streaming run
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, H100 SXM
 H100_TF32_FLOPS = 495e12     # TF32 on the tensor cores, dense, H100 SXM
+MUFU_PER_CLOCK = 16          # MUFU (expf's EX2) results per clock per SM, Hopper
 KNN_K = 10              # the reference's blobs kNN spec (TestKnnSpecQuality)
 SCALE_K = 7             # the reference's adaptive scale rank
 BLOBS_ARI_FLOOR = 0.95  # the reference's floor for blobs under knn_k=10, at its n = 480
@@ -174,12 +189,51 @@ def device_ms(fn, reps: int) -> float:
     return sum(spans) / 1e3 / reps
 
 
+def register_m() -> int:
+    """tile::MR, the widest feature count of #5's and #10's register
+    templates, as csrc/affinity_tile.cuh defines it: a wider x takes the
+    staged template."""
+    with open(os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
+                           "affinity_tile.cuh")) as f:
+        hit = re.search(r"constexpr int MR = (\d+);", f.read())
+    check(hit is not None, "affinity_tile.cuh defines no MR")
+    return int(hit.group(1))
+
+
+def staged(x):
+    """x (None stays None) with zero feature columns appended up to
+    register_m() + 1, which sends #5 and #10 to their staged template. A
+    zero feature changes no fmaf chain or norm beyond the sign of an exact
+    zero, which torch.equal ignores, so the two templates must agree bit for
+    bit on x and on staged(x)."""
+    if x is None:
+        return None
+    return torch.nn.functional.pad(x, (0, max(0, register_m() + 1 - x.shape[1])))
+
+
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
     """Least time on an H100 SXM for the work: bytes over the memory rate
     or f32 operations over the f32 rate, whichever is larger."""
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = n_flops / H100_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@functools.lru_cache(maxsize=None)
+def _mufu_per_s() -> float:
+    """The card's MUFU rate: SMs x MUFU_PER_CLOCK x the SM's maximum clock
+    (nvidia-smi clocks.max.sm)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * MUFU_PER_CLOCK * float(mhz) * 1e6
+
+
+def mufu_bound_ms(entries: float) -> float:
+    """The second floor of a kernel that takes one expf (one MUFU.EX2) per
+    entry it makes: entries / (SMs x 16 x clock)."""
+    return entries / _mufu_per_s() * 1e3
 
 
 def affinity_flops(rows: int, cols: int, m: int, kind: str) -> float:
@@ -206,13 +260,14 @@ def phase_device() -> str:
 
 def phase_build() -> tuple[float, dict[str, str]]:
     """Seconds to build every kernel library, and nvcc's ``-Xptxas -v``
-    report of each library built (empty where it was built before)."""
+    report of each library (kept beside it where it was built before)."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    logs = _build.build()
+    built = _build.build()
     sec = time.perf_counter() - t0
-    print(f"[build] {len(logs)} kernel libraries built in {sec:.2f} s "
+    print(f"[build] {len(built)} kernel libraries built in {sec:.2f} s "
           f"into {_build.build_dir()}", flush=True)
+    logs = {name: _build.report(name) for name in _build.SOURCES}
     for name, log in logs.items():
         for line in log.splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -279,9 +334,11 @@ def phase_affinity(report):
             ms = cuda_ms(lambda: affinity_and_degree(x, kind=kind, sigma=SIGMA), 5)
             plain = cuda_ms(lambda: _plain_affinity_stripes(x, kind, SIGMA), 2)
             b, by = bound_ms(4.0 * (n * m + n * n + n), affinity_flops(n, n, m, kind))
-            main = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+            main = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                        mufu_bound_ms=mufu_bound_ms(n * n))
             print(f"[affinity] n={n} rbf: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-                  f"library_ms=null bound_ms={b:.4f} ({by})", flush=True)
+                  f"library_ms=null bound_ms={b:.4f} ({by}) "
+                  f"mufu_bound_ms={main['mufu_bound_ms']:.4f}", flush=True)
         else:
             del a, d
         torch.cuda.empty_cache()
@@ -478,13 +535,33 @@ def streaming_flops(rows: int, cols: int, m: int, r: int | None) -> float:
     return rows * cols * (2 * m + 6 + (1 if r is None else 2 * r))
 
 
-def phase_streaming(report):
+#: (rows, cols, row_offset, col_offset) of the ragged stripes of a 1,037-row
+#: x: the square self-stripe; an off-diagonal stripe of 300 rows the
+#: diagonal crosses; one whose 337 rows come after its columns, crossed at
+#: an offset gap (700) that is no multiple of 16 or 256
+RAGGED_STRIPES = ((slice(None), slice(None), 0, 0),
+                  (slice(100, 400), slice(300, None), 100, 300),
+                  (slice(700, None), slice(0, 900), 700, 0))
+#: the ragged checks' r: TM = 16 rows a block up to r = 4, 2 at r = 32
+RAGGED_R = (1, 4, 32)
+
+
+def phase_streaming(report, build_log=""):
+    """Kernels #5 and #6 against the explicit kernels (bitwise) and their
+    plain versions; #5's register template bitwise its staged template at
+    the main shape and at ragged ones. ``build_log`` is nvcc's report of
+    streaming.cu: no register template of the main path may spill."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.affinity import affinity_and_degree
     from repro_torch.kernels.power_step import degree_normalized_matmat
     from repro_torch.kernels.streaming import affinity_degree_streaming, affinity_matmat
+    registers = sweep_registers(build_log, block_sparse=False)
+    for tmpl, line in registers.items():
+        print(f"[streaming] streaming_matmat_kernel {tmpl}: {line}")
+    check_no_spill("#5", registers)
     feats, _, _ = _features(N_MAIN)
     x = feats["rbf"]
+    x_st = staged(x)
     n, m = x.shape
     a, d = affinity_and_degree(x, kind="rbf", sigma=SIGMA)
     d_s = affinity_degree_streaming(x, kind="rbf", sigma=SIGMA)
@@ -501,6 +578,11 @@ def phase_streaming(report):
         u_e = degree_normalized_matmat(a, v, d)
         torch.cuda.synchronize()
         check(torch.equal(u_s, u_e), f"r={r}: the streamed U is not bitwise the explicit U")
+        for dn in (d, None):
+            check(torch.equal(affinity_matmat(x, v, dn, kind="rbf", sigma=SIGMA),
+                              affinity_matmat(x_st, v, dn, kind="rbf", sigma=SIGMA)),
+                  f"r={r} d={'given' if dn is not None else 'None'}: #5's register "
+                  "template is not bitwise its staged template")
         abs_err, excess, err_d, abs_d = _stripe_u_d_errors(
             u_s, d_s, _plain_streaming_stripes(x, v, d, "rbf", SIGMA))
         print(f"[streaming] n={n} m={m} rbf r={r}: D and U bitwise the explicit kernels'; "
@@ -510,63 +592,73 @@ def phase_streaming(report):
         worst_u, worst_d = max(worst_u, abs_err), max(worst_d, err_d)
         worst_d_abs = max(worst_d_abs, abs_d)
         ms = cuda_ms(lambda: affinity_matmat(x, v, d, kind="rbf", sigma=SIGMA), 10)
+        staged_ms = cuda_ms(lambda: affinity_matmat(x_st, v, d, kind="rbf", sigma=SIGMA), 10)
         plain = cuda_ms(lambda: _plain_matmat_stripes(x, v, d, "rbf", SIGMA), 2)
         b, by = bound_ms(4.0 * (n * m + 2 * n * r + n), streaming_flops(n, n, m, r))
-        print(f"[streaming] matmat n={n} r={r}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-              f"library_ms=null bound_ms={b:.4f} ({by}); explicit sweep on stored A: "
+        mufu = mufu_bound_ms(n * n)
+        print(f"[streaming] matmat n={n} r={r}: kernel_ms={ms:.4f} staged_template_ms="
+              f"{staged_ms:.4f} plain_ms={plain:.4f} library_ms=null bound_ms={b:.4f} ({by}) "
+              f"mufu_bound_ms={mufu:.4f}; explicit sweep on stored A: "
               f"{cuda_ms(lambda: degree_normalized_matmat(a, v, d), 10):.4f} ms", flush=True)
-        main[r] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+        main[r] = dict(ms=ms, staged_ms=staged_ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                       mufu_bound_ms=mufu)
     ms_d = cuda_ms(lambda: affinity_degree_streaming(x, kind="rbf", sigma=SIGMA), 10)
     plain_d = cuda_ms(lambda: _plain_degree_stripes(x, "rbf", SIGMA), 2)
     b_d, by_d = bound_ms(4.0 * (n * m + n), streaming_flops(n, n, m, None))
     print(f"[streaming] degree n={n}: kernel_ms={ms_d:.4f} plain_ms={plain_d:.4f} "
-          f"library_ms=null bound_ms={b_d:.4f} ({by_d})", flush=True)
+          f"library_ms=null bound_ms={b_d:.4f} ({by_d}) mufu_bound_ms={mufu:.4f}", flush=True)
     del a, d, d_s
     torch.cuda.empty_cache()
 
-    # ragged rows, wide features, all kinds, off-diagonal stripes, d=None
-    xs = torch.randn((1037, 16), generator=g, device="cuda") * 0.25
-    xs_n = xs / xs.norm(dim=1, keepdim=True)
-    for kind in ("cosine", "cosine_shifted", "rbf"):
-        x = xs if kind == "rbf" else xs_n
-        for rows, cols, ro, co in ((slice(None), None, 0, 0),
-                                   (slice(100, 400), slice(300, None), 100, 300)):
-            xr = x[rows].contiguous()
-            xc = None if cols is None else x[cols].contiguous()
-            n_cols = x.shape[0] if xc is None else xc.shape[0]
-            dd = affinity_degree_streaming(xr, xc, kind=kind, sigma=1.1, row_offset=ro,
-                                           col_offset=co)
-            a_ref, d_ref = ref.affinity_and_degree_ref(xr, xc, kind=kind, sigma=1.1,
-                                                       row_offset=ro, col_offset=co)
-            err_d = float(((dd - d_ref).abs() / a_ref.abs().sum(1).clamp_min(1e-30)).max())
-            check(err_d <= D_RTOL, f"ragged streamed degree {kind} disagrees")
-            worst_d = max(worst_d, err_d)
-            worst_d_abs = max(worst_d_abs, float((dd - d_ref).abs().max()))
-            for r in (4, 32):
-                vs = torch.rand((n_cols, r), generator=g, device="cuda")
-                for dn in (dd, None):
-                    u = affinity_matmat(xr, vs, dn, xc, kind=kind, sigma=1.1,
-                                        row_offset=ro, col_offset=co)
-                    u_ref = ref.affinity_matmat_ref(xr, vs, dn, xc, kind=kind, sigma=1.1,
-                                                    row_offset=ro, col_offset=co)
-                    mass = a_ref.abs() @ vs
-                    if dn is not None:      # the kernel's floored divide
-                        mass = mass / dn.clamp_min(1e-30)[:, None]
-                    abs_err, excess = _u_errors(u, u_ref, mass)
-                    check(excess <= 0.0, f"ragged streaming {kind} r={r} "
-                          f"d={'given' if dn is not None else 'None'} disagrees")
-                    # raw cosine degrees can be negative, where the floored
-                    # divide scales U by 1e30: its absolute error says nothing
-                    if dn is None or kind != "cosine":
-                        worst_u = max(worst_u, abs_err)
-            print(f"[streaming] ragged {tuple(xr.shape)}x{n_cols} m=16 {kind} "
-                  f"offsets=({ro},{co}) r=4,32 d=given,None: agree; "
-                  f"max|D-D_ref|/mass={err_d:.3e}")
+    # ragged rows, wide features (the staged template) and the register
+    # template's width, all kinds, off-diagonal stripes (rows after the
+    # columns too), d=None
+    xw = torch.randn((1037, 16), generator=g, device="cuda") * 0.25
+    for m, kind, (rows, cols, ro, co) in itertools.product(
+            (16, register_m()), ("cosine", "cosine_shifted", "rbf"), RAGGED_STRIPES):
+        xs = xw[:, :m].contiguous()
+        x = xs if kind == "rbf" else xs / xs.norm(dim=1, keepdim=True)
+        xr = x[rows].contiguous()
+        xc = None if ro == co == 0 else x[cols].contiguous()   # the square: xc=None
+        n_cols = x.shape[0] if xc is None else xc.shape[0]
+        dd = affinity_degree_streaming(xr, xc, kind=kind, sigma=1.1, row_offset=ro,
+                                       col_offset=co)
+        a_ref, d_ref = ref.affinity_and_degree_ref(xr, xc, kind=kind, sigma=1.1,
+                                                   row_offset=ro, col_offset=co)
+        err_d = float(((dd - d_ref).abs() / a_ref.abs().sum(1).clamp_min(1e-30)).max())
+        check(err_d <= D_RTOL, f"ragged streamed degree {kind} disagrees")
+        worst_d = max(worst_d, err_d)
+        worst_d_abs = max(worst_d_abs, float((dd - d_ref).abs().max()))
+        for r in RAGGED_R:
+            vs = torch.rand((n_cols, r), generator=g, device="cuda")
+            for dn in (dd, None):
+                u = affinity_matmat(xr, vs, dn, xc, kind=kind, sigma=1.1,
+                                    row_offset=ro, col_offset=co)
+                check(torch.equal(u, affinity_matmat(
+                    staged(xr), vs, dn, staged(xc), kind=kind, sigma=1.1, row_offset=ro,
+                    col_offset=co)),
+                      f"ragged streaming m={m} {kind} ({ro},{co}) r={r}: the register "
+                      "template is not bitwise the staged template")
+                u_ref = ref.affinity_matmat_ref(xr, vs, dn, xc, kind=kind, sigma=1.1,
+                                                row_offset=ro, col_offset=co)
+                mass = a_ref.abs() @ vs
+                if dn is not None:      # the kernel's floored divide
+                    mass = mass / dn.clamp_min(1e-30)[:, None]
+                abs_err, excess = _u_errors(u, u_ref, mass)
+                check(excess <= 0.0, f"ragged streaming {kind} r={r} "
+                      f"d={'given' if dn is not None else 'None'} disagrees")
+                # raw cosine degrees can be negative, where the floored
+                # divide scales U by 1e30: its absolute error says nothing
+                if dn is None or kind != "cosine":
+                    worst_u = max(worst_u, abs_err)
+        print(f"[streaming] ragged {tuple(xr.shape)}x{n_cols} m={m} {kind} "
+              f"offsets=({ro},{co}) r=1,4,32 d=given,None: agree, register template = "
+              f"staged template; max|D-D_ref|/mass={err_d:.3e}")
     report["streaming_matmat"] = dict(main[1], max_abs_err=worst_u, library_ms=None,
-                                      r2=main[2])
+                                      r2=main[2], registers=registers)
     report["streaming_degree"] = dict(ms=ms_d, plain_ms=plain_d, bound_ms=b_d, bound_by=by_d,
-                                      max_abs_err=worst_d_abs, max_rel_err_d=worst_d,
-                                      library_ms=None)
+                                      mufu_bound_ms=mufu, max_abs_err=worst_d_abs,
+                                      max_rel_err_d=worst_d, library_ms=None)
 
 
 def _stripe_scores(x, k, stat, scale, stripe=4096):
@@ -631,8 +723,11 @@ def phase_row_topk(report):
                                       scale_r=sc, scale_c=sc), 5)
         b, by = bound_ms(4.0 * (n * m + n * k + (2 * n if sc is not None else 0)),
                          topk_flops(n, n, m, stat, sc is not None))
-        times[tag] = dict(ms=ms, bound_ms=b, bound_by=by)
-        print(f"[row_topk] {tag}: kernel_ms={ms:.4f} bound_ms={b:.4f} ({by})", flush=True)
+        # the similarity score takes one expf an entry; neg_sqdist none
+        mufu = mufu_bound_ms(n * n) if stat == "similarity" else None
+        times[tag] = dict(ms=ms, bound_ms=b, bound_by=by, mufu_bound_ms=mufu)
+        print(f"[row_topk] {tag}: kernel_ms={ms:.4f} bound_ms={b:.4f} ({by}) "
+              f"mufu_bound_ms={mufu}", flush=True)
     del out
 
     # the plain version on the main path's call (similarity, K = knn_k), and
@@ -688,6 +783,7 @@ def phase_policy(report):
     from repro_torch.kernels.streaming import affinity_degree_streaming, affinity_matmat
     feats, _, _ = _features(N_MAIN)
     x = feats["rbf"]
+    x_st = staged(x)
     n, m = x.shape
     g = torch.Generator(device="cuda").manual_seed(7)
     out = {}
@@ -724,6 +820,12 @@ def phase_policy(report):
             torch.cuda.synchronize()
             check(torch.equal(u_s, u_e),
                   f"{tag} r={v.shape[1]}: the streamed U is not bitwise the explicit U")
+            for kw_t in (dict(thr=thr), dict(thr_c=thr)):
+                for dn in (d, None):
+                    check(torch.equal(affinity_matmat(x, v, dn, **kw_t, **pol),
+                                      affinity_matmat(x_st, v, dn, **kw_t, **pol)),
+                          f"{tag} r={v.shape[1]} {list(kw_t)} d={dn is not None}: #5's "
+                          "register template is not bitwise its staged template")
         # the probe's transpose product, on an indicator and on V
         ind = torch.zeros((n, 1), device="cuda")
         ind[::997] = 1.0
@@ -741,7 +843,11 @@ def phase_policy(report):
             affinity_ms=cuda_ms(lambda: affinity_and_degree(x, thr=thr, **pol), 5),
             degree_ms=cuda_ms(lambda: affinity_degree_streaming(x, thr=thr, **pol), 10),
             matmat_r2_ms=cuda_ms(lambda: affinity_matmat(x, v2, d, thr=thr, **pol), 10),
+            matmat_r2_staged_ms=cuda_ms(
+                lambda: affinity_matmat(x_st, v2, d, thr=thr, **pol), 10),
             matmat_thr_c_ms=cuda_ms(lambda: affinity_matmat(x, ind, None, thr_c=thr, **pol), 10),
+            matmat_thr_c_staged_ms=cuda_ms(
+                lambda: affinity_matmat(x_st, ind, None, thr_c=thr, **pol), 10),
             sweep_stored_r2_ms=cuda_ms(lambda: degree_normalized_matmat(a, v2, d), 10))
         # the dense work plus, per entry, the threshold compare and, with
         # adaptive scales, the product of the scales (the divide replaces
@@ -757,6 +863,7 @@ def phase_policy(report):
             matmat_thr_c=bound_ms(4.0 * (n * m + 2 * n) + op_bytes,
                                   streaming_flops(n, n, m, 1) + extra))
         times.update({f"{key}_bound_ms": b for key, (b, _) in bounds.items()})
+        times["mufu_bound_ms"] = mufu_bound_ms(n * n)     # every kernel here: n^2 expf
         print(f"[policy] {tag} n={n}: A bitwise the plain version's; streamed D and U "
               f"(r=1,2) bitwise the explicit kernels'; thr_c product = A^T V in positivity, "
               f"max|err|={worst_t:.3e}; kept per row min={int(kept.min())} "
@@ -766,12 +873,13 @@ def phase_policy(report):
         del a, d, d_s
         torch.cuda.empty_cache()
 
-    # ragged rows, wide features, off-diagonal stripes, every operand
-    xs = torch.randn((1037, 16), generator=g, device="cuda") * 0.25
+    # ragged rows, wide features and the register template's width,
+    # off-diagonal stripes (rows after the columns too), every operand
+    xw = torch.randn((1037, 16), generator=g, device="cuda") * 0.25
     scs = torch.rand((1037,), generator=g, device="cuda") * 0.7 + 0.3
     thr_all = torch.rand((1037,), generator=g, device="cuda") * 0.5 + 0.3
-    for rows, cols, ro, co in ((slice(None), slice(None), 0, 0),
-                               (slice(100, 400), slice(300, None), 100, 300)):
+    for m_s, (rows, cols, ro, co) in itertools.product((16, register_m()), RAGGED_STRIPES):
+        xs = xw[:, :m_s].contiguous()
         xr, xc = xs[rows].contiguous(), xs[cols].contiguous()
         kw = dict(kind="rbf", sigma=1.1, row_offset=ro, col_offset=co,
                   scale_r=scs[rows].contiguous(), scale_c=scs[cols].contiguous())
@@ -781,16 +889,20 @@ def phase_policy(report):
         # the scales are given alike, so d2's error carries through 1/(s_i s_j)
         atol = A_ATOL + SQD_RTOL * float((xs * xs).sum(1).max()) / float(scs.min()) ** 2
         check(float((a - a_ref).abs().max()) <= atol, f"ragged policy A ({ro},{co}) disagrees")
-        v = torch.rand((xc.shape[0], 4), generator=g, device="cuda")
-        for kw_t in (dict(thr=thr_r), dict(thr_c=thr_c)):
+        for r, kw_t in itertools.product(RAGGED_R, (dict(thr=thr_r), dict(thr_c=thr_c))):
+            v = torch.rand((xc.shape[0], r), generator=g, device="cuda")
             u = affinity_matmat(xr, v, None, xc, **kw_t, **kw)
+            check(torch.equal(u, affinity_matmat(staged(xr), v, None, staged(xc), **kw_t, **kw)),
+                  f"ragged policy m={m_s} r={r} {list(kw_t)} ({ro},{co}): the register "
+                  "template is not bitwise the staged template")
             u_ref = ref.affinity_matmat_ref(xr, v, None, xc, **kw_t, **kw)
             check(float((u - u_ref).abs().max()) <= U_RTOL * float(u_ref.abs().max())
                   + xc.shape[0] * atol, f"ragged policy U {list(kw_t)} ({ro},{co}) disagrees")
         dd = affinity_degree_streaming(xr, xc, thr=thr_r, **kw)
         check(torch.equal(dd, d), f"ragged policy D ({ro},{co}) is not the build's D")
-    print("[policy] ragged (1037, 16) square and (300, 737) off-diagonal stripes, "
-          "scales + thr / thr_c: agree", flush=True)
+    print(f"[policy] ragged (1037, m) square, (300, 737) off-diagonal and (337, 900) "
+          f"below-diagonal stripes, m=16,{register_m()}, r=1,4,32, scales + thr / thr_c: "
+          "agree, register template = staged template", flush=True)
     report["policy"] = out
 
 
@@ -861,13 +973,16 @@ def _bs_plain_stripes(x, v, d, counts, col_idx, pol, stripe=4096):
     return out
 
 
-def phase_block_sparse(report):
+def phase_block_sparse(report, build_log=""):
     """Kernels #8-#11 at the main path's shape with E1's and E2's operands:
     the liveness map equal to dense_block_live of kernel #1's thresholded A;
-    #9 bitwise #2 (r = 1, 2), #10 bitwise #5 (d given and None), #11
-    bitwise #6 and #1's D; the fused build's A, D and thresholds bitwise
-    the two-pass build's; each against its plain version. Then ragged and
-    off-diagonal stripes at m = 16, and a NaN in V."""
+    #9 bitwise #2 (r = 1, 2), #10 bitwise #5 (d given and None) and its
+    staged template, #11 bitwise #6 and #1's D; the fused build's A, D and
+    thresholds bitwise the two-pass build's; each against its plain
+    version. Then ragged and off-diagonal stripes at m = 16 and at the
+    register template's width, and a NaN in V. ``build_log`` is nvcc's
+    report of block_sparse.cu: no register template of the main path may
+    spill."""
     from repro_torch.core.affinity import AffinitySpec, block_plan, dense_block_live
     from repro_torch.core.graph import affinity_stats, fused_affinity_build
     from repro_torch.core.power import batched_power_iteration
@@ -879,8 +994,13 @@ def phase_block_sparse(report):
     from repro_torch.kernels.power_step import degree_normalized_matmat
     from repro_torch.kernels.row_topk import row_topk, topk_thresholds_from_scores
     from repro_torch.kernels.streaming import affinity_degree_streaming, affinity_matmat
+    registers = sweep_registers(build_log, block_sparse=True)
+    for tmpl, line in registers.items():
+        print(f"[block_sparse] bs_streaming_matmat_kernel {tmpl}: {line}")
+    check_no_spill("#10", registers)
     feats, _, _ = _features(N_MAIN)
     x = feats["rbf"]
+    x_st = staged(x)
     n, m = x.shape
     g = torch.Generator(device="cuda").manual_seed(8)
     worst = dict.fromkeys(("block_liveness", "block_sparse_matmat",
@@ -912,6 +1032,10 @@ def phase_block_sparse(report):
             check(torch.equal(u_b, u_d), f"{tag} r={r}: #9 is not bitwise #2")
             check(torch.equal(u_s, u_d), f"{tag} r={r}: #10 is not bitwise #2 (and #5)")
             check(torch.equal(u_n, u_n5), f"{tag} r={r}: #10 with d=None is not bitwise #5")
+            for dn, u10 in ((d, u_s), (None, u_n)):
+                check(torch.equal(u10, block_sparse_streaming_matmat(
+                    x_st, v, dn, **plan, **pol)), f"{tag} r={r} d={dn is not None}: #10's "
+                      "register template is not bitwise its staged template")
         d_b = block_sparse_streaming_degree(x, **plan, **pol)
         d_6 = affinity_degree_streaming(x, **pol)
         torch.cuda.synchronize()
@@ -974,6 +1098,7 @@ def phase_block_sparse(report):
             plan_bytes = 4.0 * (counts.numel() + float(counts.sum()))
             times = dict(
                 block_liveness=dict(
+                    mufu_bound_ms=mufu_bound_ms(n * n),
                     ms=cuda_ms(lambda: block_liveness(x, **pol), 10),
                     plain_ms=cuda_ms(lambda: [ref.block_liveness_ref(
                         x[r0:r0 + 4096], x, tm=16, tn=256, row_offset=r0,
@@ -992,15 +1117,21 @@ def phase_block_sparse(report):
                     bound=bound_ms(4.0 * (entries + 2 * n * r + n) + plan_bytes,
                                    2.0 * r * entries)),
                 block_sparse_streaming_matmat=dict(
+                    mufu_bound_ms=mufu_bound_ms(entries),
                     ms=cuda_ms(lambda: block_sparse_streaming_matmat(x, v2, d, **plan, **pol), 20),
+                    staged_ms=cuda_ms(lambda: block_sparse_streaming_matmat(
+                        x_st, v2, d, **plan, **pol), 20),
                     plain_ms=cuda_ms(lambda: _bs_plain_stripes(x, v2, d, counts, col_idx, pol), 2),
                     library_ms=None,
                     r1_ms=cuda_ms(lambda: block_sparse_streaming_matmat(x, v1, d, **plan, **pol),
                                   20),
+                    staged_r1_ms=cuda_ms(lambda: block_sparse_streaming_matmat(
+                        x_st, v1, d, **plan, **pol), 20),
                     dense_ms=cuda_ms(lambda: affinity_matmat(x, v2, d, **pol), 20),
                     bound=bound_ms(4.0 * (n * m + 2 * n * r + n) + op_bytes + plan_bytes,
                                    entries * (2 * m + 6 + 2 * r + 1))),
                 block_sparse_streaming_degree=dict(
+                    mufu_bound_ms=mufu_bound_ms(entries),
                     ms=cuda_ms(lambda: block_sparse_streaming_degree(x, **plan, **pol), 20),
                     plain_ms=cuda_ms(lambda: _bs_plain_stripes(x, None, None, counts, col_idx,
                                                                pol), 2),
@@ -1046,15 +1177,17 @@ def phase_block_sparse(report):
         print(f"[block_sparse] {name}: kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
               f"library_ms={t['library_ms']} bound_ms={t['bound_ms']:.4f} ({t['bound_by']})"
               + "".join(f" {key}={val:.4f}" for key, val in t.items()
-                        if key in ("r1_ms", "dense_ms")), flush=True)
+                        if key in ("r1_ms", "dense_ms", "staged_ms", "staged_r1_ms",
+                                   "mufu_bound_ms")), flush=True)
 
-    # ragged rows, wide features, off-diagonal stripes, every operand
-    xs = torch.randn((1037, 16), generator=g, device="cuda") * 0.25
+    # ragged rows, wide features and the register template's width,
+    # off-diagonal stripes (rows after the columns too), every operand
+    xw = torch.randn((1037, 16), generator=g, device="cuda") * 0.25
     scs = torch.rand((1037,), generator=g, device="cuda") * 0.7 + 0.3
     thr_all = torch.rand((1037,), generator=g, device="cuda") * 0.5 + 0.3
-    atol = A_ATOL + SQD_RTOL * float((xs * xs).sum(1).max()) / float(scs.min()) ** 2
-    for rows, cols, ro, co in ((slice(None), slice(None), 0, 0),
-                               (slice(100, 400), slice(300, None), 100, 300)):
+    for m_s, (rows, cols, ro, co) in itertools.product((16, register_m()), RAGGED_STRIPES):
+        xs = xw[:, :m_s].contiguous()
+        atol = A_ATOL + SQD_RTOL * float((xs * xs).sum(1).max()) / float(scs.min()) ** 2
         xr, xc = xs[rows].contiguous(), xs[cols].contiguous()
         kw = dict(kind="rbf", sigma=1.1, row_offset=ro, col_offset=co,
                   scale_r=scs[rows].contiguous(), scale_c=scs[cols].contiguous(),
@@ -1066,7 +1199,7 @@ def phase_block_sparse(report):
               f"ragged ({ro},{co}): #8 is not dense_block_live of #1's A")
         counts, col_idx, _ = block_plan(live)
         plan = dict(counts=counts, col_idx=col_idx)
-        for r in (4, 32):
+        for r in RAGGED_R:
             v = torch.rand((xc.shape[0], r), generator=g, device="cuda")
             check(torch.equal(block_sparse_matmat(a, v, d, counts, col_idx),
                               degree_normalized_matmat(a, v, d)),
@@ -1075,6 +1208,9 @@ def phase_block_sparse(report):
                 u = block_sparse_streaming_matmat(xr, v, dn, xc, **plan, **kw)
                 check(torch.equal(u, affinity_matmat(xr, v, dn, xc, **kw)),
                       f"ragged ({ro},{co}) r={r}: #10 is not bitwise #5")
+                check(torch.equal(u, block_sparse_streaming_matmat(
+                    staged(xr), v, dn, staged(xc), **plan, **kw)), f"ragged m={m_s} ({ro},{co}) r={r}: #10's "
+                      "register template is not bitwise its staged template")
                 u_ref = ref.block_sparse_streaming_matmat_ref(xr, v, dn, xc, tm=16, tn=256,
                                                               **plan, **kw)
                 check(float((u - u_ref).abs().max()) <= U_RTOL * float(u_ref.abs().max())
@@ -1091,11 +1227,13 @@ def phase_block_sparse(report):
         a_2, d_2 = affinity_and_degree(xr, xc, thr=thr_2, **pol)
         check(torch.equal(thr_f, thr_2) and torch.equal(a_f, a_2) and torch.equal(d_f, d_2),
               f"ragged ({ro},{co}): the fused build is not the two-pass build")
-    print("[block_sparse] ragged (1037, 16) square and (300, 737) off-diagonal stripes, scales "
-          "+ thr: #8 = dense_block_live, #9 = #2, #10 = #5, #11 = #1's D bitwise, r=4,32; "
-          "the fused build = the two-pass build", flush=True)
+    print(f"[block_sparse] ragged (1037, m) square, (300, 737) off-diagonal and (337, 900) "
+          f"below-diagonal stripes, m=16,{register_m()}, scales + thr: #8 = dense_block_live, "
+          "#9 = #2, #10 = #5 and its staged template, #11 = #1's D bitwise, r=1,4,32; the "
+          "fused build = the two-pass build", flush=True)
     for name, err in worst.items():
         report[name]["max_abs_err"] = err
+    report["block_sparse_streaming_matmat"]["registers"] = registers
     report["block_sparse"] = out
 
 
@@ -1594,27 +1732,58 @@ def flash_tensor_bound(q, k, v, causal) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_registers(log: str) -> dict[str, str]:
-    """Registers and spills of each kernel-12 template in nvcc's report:
-    ``{"<q type>/<k, v type> NT=<d / 8> <async|scalar>": "R registers, S
-    bytes spilled"}``."""
-    types = {"f": "f32", "13__nv_bfloat16": "bf16", "S1_": "bf16"}
+def ptxas_registers(log: str, entry_re: str, label) -> dict[str, str]:
+    """Registers and spills of each kernel entry in nvcc's ``-Xptxas -v``
+    report whose mangled name matches ``entry_re``: ``{label(match): "R
+    registers, S bytes spilled"}``."""
     out, tmpl, spill = {}, None, "?"
     for line in log.splitlines():
-        entry = re.search(r"flash_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S1_)Li(\d+)ELb(\d)",
-                          line)
+        entry = re.search(entry_re, line) if "Compiling entry function" in line else None
         spilled = re.search(r"(\d+) bytes spill stores", line)
         regs = re.search(r"Used (\d+) registers", line)
         if entry:
-            stage = "async" if entry.group(4) == "1" else "scalar"
-            tmpl = (f"{types[entry.group(1)]}/{types[entry.group(2)]} NT={entry.group(3)} "
-                    f"{stage}")
+            tmpl = label(entry)
         elif spilled:
             spill = spilled.group(1)
         elif regs and tmpl:
             out[tmpl] = f"{regs.group(1)} registers, {spill} bytes spilled"
             tmpl = None
     return out
+
+
+def flash_registers(log: str) -> dict[str, str]:
+    """Registers and spills of each kernel-12 template in nvcc's report:
+    ``{"<q type>/<k, v type> NT=<d / 8> <async|scalar>": "R registers, S
+    bytes spilled"}``."""
+    types = {"f": "f32", "13__nv_bfloat16": "bf16", "S1_": "bf16"}
+    return ptxas_registers(
+        log, r"flash_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S1_)Li(\d+)ELb(\d)",
+        lambda e: (f"{types[e.group(1)]}/{types[e.group(2)]} NT={e.group(3)} "
+                   f"{'async' if e.group(4) == '1' else 'scalar'}"))
+
+
+def sweep_registers(log: str, block_sparse: bool) -> dict[str, str]:
+    """Registers and spills of each template of the streamed mat-mat (#5,
+    ``block_sparse``: #10) in nvcc's report: ``{"RT=<r bucket> <fixed|policy>
+    <register|staged>": ...}`` (the register template is the kernel named
+    ``*_reg_kernel``)."""
+    name = "bs_streaming_matmat" if block_sparse else "streaming_matmat"
+    return ptxas_registers(
+        log, rf"\d+{name}(_reg)?_kernelILi(\d+)ELb(\d)E",
+        lambda e: (f"RT={e.group(2)} {'policy' if e.group(3) == '1' else 'fixed'} "
+                   f"{'register' if e.group(1) else 'staged'}"))
+
+
+def check_no_spill(tag: str, registers: dict[str, str]) -> None:
+    """Fail on a spill in a register template of the main path (r <= 2),
+    and where the report names no such template."""
+    main = {tmpl: line for tmpl, line in registers.items()
+            if tmpl.split()[0] in ("RT=1", "RT=2") and tmpl.endswith("register")}
+    check({t.split()[0] for t in main} == {"RT=1", "RT=2"},
+          f"nvcc's report names no register template of {tag} at r = 1 and 2: {registers}")
+    spills = [f"{tmpl}: {line}" for tmpl, line in main.items()
+              if not line.endswith(" 0 bytes spilled")]
+    check(not spills, f"{tag}'s register template spills on the main path: {spills}")
 
 
 def phase_flash_attention(report, build_log=""):
@@ -1629,11 +1798,13 @@ def phase_flash_attention(report, build_log=""):
     registers = flash_registers(build_log)
     for tmpl, line in registers.items():
         print(f"[flash] {tmpl}: {line}")
-    spills = [f"{tmpl}: {line}" for tmpl, line in registers.items()
-              if tmpl.split()[1] in ("NT=10", "NT=16") and not line.endswith(" 0 bytes spilled")]
+    main = {tmpl: line for tmpl, line in registers.items()
+            if tmpl.split()[1] in ("NT=10", "NT=16")}
+    check({t.split()[1] for t in main} == {"NT=10", "NT=16"},
+          f"nvcc's report names no flash_attention template at d = 80 and 128: {registers}")
+    spills = [f"{tmpl}: {line}" for tmpl, line in main.items()
+              if not line.endswith(" 0 bytes spilled")]
     check(not spills, f"flash_attention spills at d = 80 or 128: {spills}")
-    if not registers:
-        print("[flash] flash_attention.cu was built before this run: no register report")
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # tag, (b, h, kv, s, d), q type, k/v type, causal, strided
         ("serve", (4, 32, 32, 2048, 80), f32, bf16, True, False),
@@ -1852,11 +2023,14 @@ def _serve_profile(cfg, params, tokens):
 
 #: device-event names of this port's kernels (always listed by the profile)
 KERNEL_LABELS = ("affinity_kernel", "power_step_kernel", "kmeans_assign_kernel",
-                 "streaming_matmat_kernel", "streaming_degree_kernel", "gram_",
-                 "row_topk_kernel", "liveness_kernel", "bs_matmat_kernel",
-                 "bs_streaming_matmat_kernel", "bs_streaming_degree_kernel")
-#: the power loop's sweeps of an r = 2 run, on either engine and route
-SWEEP_R2 = re.compile(r"(power_step|bs_matmat|streaming_matmat|bs_streaming_matmat)_kernel<2")
+                 "streaming_matmat_kernel", "streaming_matmat_reg_kernel",
+                 "streaming_degree_kernel", "gram_", "row_topk_kernel", "liveness_kernel",
+                 "bs_matmat_kernel", "bs_streaming_matmat_kernel",
+                 "bs_streaming_matmat_reg_kernel", "bs_streaming_degree_kernel")
+#: the power loop's sweeps of an r = 2 run, on either engine and route (the
+#: streamed ones in their register or staged template)
+SWEEP_R2 = re.compile(
+    r"(power_step|bs_matmat|streaming_matmat(_reg)?|bs_streaming_matmat(_reg)?)_kernel<2")
 
 
 def _kernel_label(name: str) -> str:
@@ -1998,12 +2172,12 @@ def main() -> int:
     phase_affinity(kernels)
     phase_power_step(kernels)
     phase_kmeans_assign(kernels)
-    phase_streaming(kernels)
+    phase_streaming(kernels, logs["streaming"])
     phase_gram(kernels)
     phase_row_topk(kernels)
     phase_policy(kernels)
-    phase_block_sparse(kernels)
-    phase_flash_attention(kernels, logs.get("flash_attention", ""))
+    phase_block_sparse(kernels, logs["block_sparse"])
+    phase_flash_attention(kernels, logs["flash_attention"])
     # each kernel's launches come from the run of the path that uses it
     explicit = phase_end_to_end(report)
     counts = {name: explicit[0][name] for name in

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with :mod:`ctypes`. The
 build runs at first use into ``build/repro_torch_kernels/<hash>/`` at the
 root of the checkout, keyed by a hash of every source and the compiler
-flags, so an edited kernel never loads a stale library. A failed build
-raises with nvcc's output; nothing falls back to the plain version.
+flags, so an edited kernel never loads a stale library. nvcc's register
+report is kept beside each library (:func:`report`). A failed build raises
+with nvcc's output; nothing falls back to the plain version.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises when that is not 0 and otherwise adds one to the
@@ -65,13 +66,24 @@ def _lib_path(name: str) -> Path:
     return build_dir() / f"lib{name}.so"
 
 
+def _report_path(name: str) -> Path:
+    return build_dir() / f"lib{name}.ptxas.txt"
+
+
+def report(name: str) -> str:
+    """nvcc's output (the ``-Xptxas -v`` register and shared-memory report)
+    from the build of library ``name``, kept beside it; raises
+    FileNotFoundError if the library is not built."""
+    return _report_path(name).read_text()
+
+
 def build(names=SOURCES) -> dict[str, str]:
     """Compile the named sources that are not built yet, one ``nvcc`` per
-    source, all started together. Returns ``{name: compiler output}`` (the
-    ``-Xptxas -v`` register and shared-memory report) for what it built;
-    raises RuntimeError with nvcc's output if any build fails."""
+    source, all started together. Returns ``{name: compiler output}`` for
+    what it built (:func:`report` reads it back later); raises RuntimeError
+    with nvcc's output if any build fails."""
     out_dir = build_dir()
-    todo = [n for n in names if not _lib_path(n).exists()]
+    todo = [n for n in names if not (_lib_path(n).exists() and _report_path(n).exists())]
     if not todo:
         return {}
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -96,6 +108,7 @@ def build(names=SOURCES) -> dict[str, str]:
             failed.append(f"--- nvcc {name}.cu (exit {proc.returncode}) ---\n{log}")
             os.unlink(tmp)
         else:
+            _report_path(name).write_text(log)
             os.replace(tmp, _lib_path(name))
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

@@ -14,7 +14,9 @@
 // the column tiles c0 = 0, TN, 2 TN, ... in order (a block-sparse kernel
 // only the live ones, in the same order); thread t owns column c0 + t of
 // each tile. Feature slabs are staged in shared memory in chunks
-// of at most MC features, so any m works.
+// of at most MC features, so any m works. The streamed sweeps also have a
+// register template for m <= MR (below): no staging and no barrier per
+// tile, the same entries in the same order, the same bits.
 //
 // Arithmetic, one rounding per step as the plain PyTorch version rounds:
 //  * squared norms (rbf, and the neg_sqdist score of any kind):
@@ -201,6 +203,27 @@ __device__ __forceinline__ void tile_scores(
     }
 }
 
+// Which thresholds a policy gives, where a loop knows it at compile time:
+// the row thresholds only, the column thresholds only, or THR_ANY (tested
+// at run time: both, or neither).
+enum Thr { THR_ANY = 0, THR_ROW = 1, THR_COL = 2 };
+
+// The stored entry of score a: a where it is kept (valid, and at or above
+// the row's and the column's thresholds where the policy gives them), else
+// 0. transform() and this are the per-entry function of every loop below,
+// the staged one and the register ones alike. Each threshold is read only
+// where the policy has it; THR says which it has, or THR_ANY to test.
+template <bool POLICY, int THR = THR_ANY>
+__device__ __forceinline__ float keep_entry(float a, bool valid, const Policy& pol,
+                                            const float& thr_r, const float& thr_c) {
+    bool keep = valid;
+    if constexpr (POLICY) {
+        if (THR == THR_ROW || (THR == THR_ANY && pol.thr != nullptr)) keep = keep && a >= thr_r;
+        if (THR == THR_COL || (THR == THR_ANY && pol.thr_c != nullptr)) keep = keep && a >= thr_c;
+    }
+    return keep ? a : 0.f;
+}
+
 // The masked affinity entries (0 where dropped) of the block's rows at this
 // thread's column: emit(r, a) receives each one as soon as it is made, so
 // the caller's store or fold interleaves with the transform.
@@ -216,18 +239,219 @@ __device__ __forceinline__ void masked_tile(
     tile_scores<TM, POLICY>(xr, xc, s_xc, s_xr, rows, row0, c0, first, n_rows, n_cols, m,
                             row_offset, col_offset, kind, SIMILARITY, inv_two_sigma_sq, pol,
                             [&](int r, float a, bool valid) {
-        bool keep = valid;
-        if constexpr (POLICY) {
-            if (pol.thr != nullptr) keep = keep && a >= rows.thr[r];
-            if (pol.thr_c != nullptr) keep = keep && a >= thr_c;
-        }
-        emit(r, keep ? a : 0.f);
+        emit(r, keep_entry<POLICY>(a, valid, pol, rows.thr[r], thr_c));
     });
 }
 
 // Whether a kernel needs the POLICY form for these operands.
 inline bool has_policy(const Policy& pol) {
     return pol.scale_r != nullptr || pol.thr != nullptr || pol.thr_c != nullptr;
+}
+
+// ---------------------------------------------------------------------------
+// The register templates of the streamed sweeps (streaming.cu's and
+// block_sparse.cu's mat-mat) for m <= MR features: no slab in shared memory
+// and no barrier per tile.
+//
+// The block stages its TM rows once (their features in RowFeats, their
+// norms, scales and thresholds in Rows). Each thread then reads its own
+// column's features, V row, scale and threshold straight from global
+// memory into a Col, one tile ahead of the tile it folds, so the loads
+// of the next tile overlap this tile's arithmetic. A warp whose 32 columns
+// and the block's TM rows all lie inside the stripe, off the global
+// diagonal, folds without the validity test; only the ragged tiles and the
+// warps the diagonal crosses take the masked form. Both forms make every
+// entry with transform() and keep_entry() from the same operands in the
+// same order as the staged loop (the dot product's fmaf chain over the
+// features in order, from 0; the column norm the same __fadd_rn /
+// __fmul_rn chain), and fold it at once with fmaf(a, v, acc): the register
+// templates give the staged template's bits.
+
+constexpr int MR = 2;  // widest feature count of the register templates (the paper's m)
+
+// Blocks an SM each register template is compiled for: two (128 registers
+// a thread) where its partials, rows and double-buffered column operands
+// fit in them without a spill (ptxas -v: r <= 2, and r = 8, 16, where TM x
+// RT = 64), else one (r = 3, 4: TM = 16 rows of 4 partials; r > 16: 2 x 32
+// V values in flight).
+__host__ __device__ constexpr int reg_blocks_per_sm(int rt) {
+    return rt == 4 || rt >= 32 ? 1 : 2;
+}
+
+// The block's row features, feature-major: feature k of row row0 + i at
+// x[k][i], 0 past m or past the stripe's rows.
+template <int TM>
+struct __align__(16) RowFeats {
+    float x[MR][TM];
+};
+
+// Load the block's row features into rf. The caller synchronizes before
+// the first tile reads them.
+template <int TM>
+__device__ __forceinline__ void load_row_feats(const float* __restrict__ xr, int n_rows, int m,
+                                               int row0, RowFeats<TM>& rf) {
+    for (int e = threadIdx.x; e < MR * TM; e += TN) {
+        const int k = e / TM, i = e - k * TM;
+        const int row = row0 + i;
+        rf.x[k][i] = k < m && row < n_rows ? xr[static_cast<size_t>(row) * m + k] : 0.f;
+    }
+}
+
+// One thread's operands of one column; 0, 1 or +inf past the stripe.
+template <int RT>
+struct Col {
+    float x[MR];  // features (0 past m)
+    float v[RT];  // the column's row of V (0 past r)
+    float scl;    // adaptive scale_c (1 without)
+    float thr;    // column threshold thr_c (+inf without)
+};
+
+template <int RT, bool POLICY>
+__device__ __forceinline__ void load_col(const float* __restrict__ xc,
+                                         const float* __restrict__ v, const Policy& pol,
+                                         int col, int n_cols, int m, int r, Col<RT>& c) {
+    const bool inside = col < n_cols;
+#pragma unroll
+    for (int k = 0; k < MR; ++k)
+        c.x[k] = inside && k < m ? xc[static_cast<size_t>(col) * m + k] : 0.f;
+#pragma unroll
+    for (int j = 0; j < RT; ++j)
+        c.v[j] = inside && j < r ? v[static_cast<size_t>(col) * r + j] : 0.f;
+    c.scl = POLICY && pol.scale_r != nullptr && inside ? pol.scale_c[col] : 1.f;
+    c.thr = POLICY && pol.thr_c != nullptr && inside ? pol.thr_c[col] : INFINITY;
+}
+
+// Whether this thread's warp folds the tile at c0 without the mask: its 32
+// columns and the TM rows inside the stripe, and no (i, j) of them on the
+// global diagonal row_offset + row0 + i == col_offset + w0 + j, i.e. the
+// offset gap delta outside (-TM, 32). The same for every lane of the warp.
+template <int TM>
+__device__ __forceinline__ bool clean_warp(int row0, int c0, int n_rows, int n_cols,
+                                           int row_offset, int col_offset) {
+    const int w0 = c0 + (threadIdx.x & ~31);
+    const int delta = (row_offset + row0) - (col_offset + w0);
+    return row0 + TM <= n_rows && w0 + 32 <= n_cols && (delta >= 32 || delta <= -TM);
+}
+
+// Policy row operands of the register templates (thresholds, adaptive
+// scales): G = min(TM, 4) rows at a time, read from shared memory where the
+// entries use them by a vector load in asm, which the compiler neither
+// hoists out of the tile loop nor keeps in registers across it. The rows'
+// features and norms stay in registers; these would push the policy forms
+// past the 128 registers of two blocks an SM. p is 4 G-byte aligned (the
+// caller's Rows is 16-byte aligned).
+template <int G>
+__device__ __forceinline__ void lds_group(const float* p, float (&out)[G]) {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    if constexpr (G == 4)
+        asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                     : "=f"(out[0]), "=f"(out[1]), "=f"(out[2]), "=f"(out[3]) : "r"(a));
+    else
+        asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(out[0]), "=f"(out[1]) : "r"(a));
+}
+
+// A score form fixed at compile time: the kind, whether the scales are
+// adaptive, and which thresholds the policy gives (Thr).
+template <int KIND_, bool ADAPTIVE_, int THR_>
+struct Form {
+    static constexpr int KIND = KIND_;
+    static constexpr bool ADAPTIVE = ADAPTIVE_;
+    static constexpr int THR = THR_;
+};
+
+// Fold this thread's column col (operands c) into the TM x RT partials:
+// the column's TM entries, each folded at once into acc[i * RT + j] with
+// fmaf(a, v[j], acc), the staged template's fold. The score form F is
+// fixed, so no entry chooses it. MASKED applies the stripe's edges and
+// the global diagonal: a column past the edge folds nothing (the staged
+// template skips it too), a masked entry folds a 0.
+template <int TM, int RT, typename F, bool POLICY, bool MASKED>
+__device__ __forceinline__ void fold_col(const Col<RT>& c, const RowFeats<TM>& rf,
+                                         const Rows<TM>& rows, int m, float inv_two_sigma_sq,
+                                         const Policy& pol, int row0, int col, int n_rows,
+                                         int n_cols, int row_offset, int col_offset,
+                                         float (&acc)[TM * RT]) {
+    constexpr int KIND = F::KIND;
+    constexpr bool ADAPTIVE = F::ADAPTIVE;
+    constexpr bool ROW_THR = F::THR == THR_ROW;
+    if (MASKED && col >= n_cols) return;
+    float dot[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) dot[i] = 0.f;
+    float sqc = 0.f;
+#pragma unroll
+    for (int k = 0; k < MR; ++k) {
+        if (k < m) {
+            if (KIND == RBF) sqc = __fadd_rn(sqc, __fmul_rn(c.x[k], c.x[k]));
+#pragma unroll
+            for (int i = 0; i < TM; ++i) dot[i] = fmaf(rf.x[k][i], c.x[k], dot[i]);
+        }
+    }
+    constexpr int G = TM < 4 ? TM : 4;
+    float thr[G], scl[G];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+        if (i % G == 0) {
+            if (POLICY && (ROW_THR || (F::THR == THR_ANY && pol.thr != nullptr)))
+                lds_group<G>(rows.thr + i, thr);
+            if (ADAPTIVE) lds_group<G>(rows.sclr + i, scl);
+        }
+        const float s = transform(KIND, dot[i], rows.sqr[i], sqc, inv_two_sigma_sq, ADAPTIVE,
+                                  ADAPTIVE ? scl[i % G] : 1.f, ADAPTIVE ? c.scl : 1.f);
+        const bool valid = !MASKED || (row0 + i < n_rows
+                                       && row_offset + row0 + i != col_offset + col);
+        const float a = keep_entry<POLICY, F::THR>(s, valid, pol, thr[i % G], c.thr);
+#pragma unroll
+        for (int j = 0; j < RT; ++j) acc[i * RT + j] = fmaf(a, c.v[j], acc[i * RT + j]);
+    }
+}
+
+// Fold one tile of column c0 (operands c) with the warp's form of fold_col.
+template <int TM, int RT, typename F, bool POLICY>
+__device__ __forceinline__ void fold_tile(const Col<RT>& c, const RowFeats<TM>& rf,
+                                          const Rows<TM>& rows, int m, float inv_two_sigma_sq,
+                                          const Policy& pol, int row0, int c0, int n_rows,
+                                          int n_cols, int row_offset, int col_offset,
+                                          float (&acc)[TM * RT]) {
+    const int col = c0 + threadIdx.x;
+    if (clean_warp<TM>(row0, c0, n_rows, n_cols, row_offset, col_offset))
+        fold_col<TM, RT, F, POLICY, false>(
+            c, rf, rows, m, inv_two_sigma_sq, pol, row0, col, n_rows, n_cols, row_offset,
+            col_offset, acc);
+    else
+        fold_col<TM, RT, F, POLICY, true>(
+            c, rf, rows, m, inv_two_sigma_sq, pol, row0, col, n_rows, n_cols, row_offset,
+            col_offset, acc);
+}
+
+template <int KIND, bool ADAPTIVE, typename F>
+__device__ __forceinline__ void with_thr(const Policy& pol, F& f) {
+    if (pol.thr != nullptr && pol.thr_c == nullptr) f(Form<KIND, ADAPTIVE, THR_ROW>{});
+    else if (pol.thr == nullptr && pol.thr_c != nullptr) f(Form<KIND, ADAPTIVE, THR_COL>{});
+    else f(Form<KIND, ADAPTIVE, THR_ANY>{});
+}
+
+// Call f(Form<...>{}) with the operands' score form, so that a register
+// template's tile loop is compiled once per form and chooses none per
+// entry. Adaptive scales exist only for rbf and only in the POLICY form.
+// The thresholds are told apart for fixed-bandwidth rbf, the default kNN
+// route's form (the sweep's row thresholds, the probe's column
+// thresholds); with adaptive scales, whose divide dominates an entry,
+// more forms measured slower on the card (registers, fewer blocks an SM).
+template <bool POLICY, typename F>
+__device__ __forceinline__ void with_form(int kind, const Policy& pol, F&& f) {
+    if (kind == RBF) {
+        if constexpr (POLICY) {
+            if (pol.scale_r != nullptr) f(Form<RBF, true, THR_ANY>{});
+            else with_thr<RBF, false>(pol, f);
+        } else {
+            f(Form<RBF, false, THR_ANY>{});
+        }
+    } else if (kind == COSINE_SHIFTED) {
+        f(Form<COSINE_SHIFTED, false, THR_ANY>{});
+    } else {
+        f(Form<COSINE, false, THR_ANY>{});
+    }
 }
 
 // Fixed-order block reduction of K per-thread partials: a warp tree

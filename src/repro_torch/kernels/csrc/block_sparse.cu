@@ -35,7 +35,8 @@
 // Bound on an H100: the stored sweep, the live tiles' bytes of A (at
 // n = 45,000 a quarter of the 8.1 GB on cluster-sorted blobs, about 0.6 ms
 // at 3.35 TB/s); the streamed sweep and degree, the live tiles' operations
-// (streaming.cu's count scaled by the live fraction); the liveness pass,
+// (streaming.cu's count scaled by the live fraction, and its MUFU and
+// issue floors likewise); the liveness pass,
 // every tile's operations, like the streamed degree, since it must score
 // them all to find the live ones.
 //
@@ -46,6 +47,10 @@
 //    power_step.cu's, and its epilogue the same floored __fdiv_rn.
 //  * The streamed sweep and degree are streaming.cu's kernels with the
 //    first visited tile staging the row slab (tile_scores' first flag).
+//    The streamed sweep has streaming.cu's two templates; the register one
+//    walks the plan two ids ahead, so that the load of ids[b + 2] and of
+//    tile b + 1's column operands are in flight while tile b folds: no
+//    live tile waits on the chain id -> column -> V.
 //  * The liveness pass is affinity.cu's block over every column tile with
 //    the store replaced by a block-wide OR (__syncthreads_or) of
 //    "entry != 0": a tile is live iff the build would store a nonzero (or
@@ -168,6 +173,66 @@ __global__ void __launch_bounds__(TN) bs_streaming_matmat_kernel(
             d == nullptr ? s : __fdiv_rn(s, nan_max(d[row], 1e-30f));
 }
 
+// streaming.cu's register template over the live tiles (m <= tile::MR),
+// walking the plan two ids ahead: while tile b folds, the id of tile b + 2
+// and the column operands of tile b + 1 are in flight.
+template <int RT, bool POLICY>
+__global__ void __launch_bounds__(TN, tile::reg_blocks_per_sm(RT)) bs_streaming_matmat_reg_kernel(
+    const float* __restrict__ xr, const float* __restrict__ xc, tile::Policy pol,
+    const float* __restrict__ v, const float* __restrict__ d,
+    const int* __restrict__ counts, const int* __restrict__ col_idx, float* __restrict__ u,
+    int n_rows, int n_cols, int m, int r, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq) {
+    constexpr int TM = tm_for(RT);
+    __shared__ __align__(16) tile::Rows<TM> s_rows;
+    __shared__ tile::RowFeats<TM> s_rf;
+    __shared__ float s_red[tile::NWARPS * TM * RT];
+
+    const int row0 = blockIdx.x * TM;
+    const int n_j = (n_cols + TN - 1) / TN;
+    const int* ids;
+    const int nb = plan_row(counts, col_idx, row0, n_j, &ids);
+    tile::load_rows<TM>(xr, n_rows, m, row0, kind == tile::RBF, pol, s_rows);
+    tile::load_row_feats<TM>(xr, n_rows, m, row0, s_rf);
+    __syncthreads();
+
+    float acc[TM * RT];
+#pragma unroll
+    for (int e = 0; e < TM * RT; ++e) acc[e] = 0.f;
+
+    // the first column of live tile id for this thread (n_cols, which
+    // loads nothing, for an id outside [0, nJ))
+    const auto first_col = [&](int id) {
+        return static_cast<unsigned>(id) < static_cast<unsigned>(n_j)
+            ? id * TN + static_cast<int>(threadIdx.x) : n_cols;
+    };
+    tile::with_form<POLICY>(kind, pol, [&](auto form) {
+        using Form = decltype(form);
+        int id = nb > 0 ? ids[0] : n_j;
+        int id_next = nb > 1 ? ids[1] : n_j;
+        tile::Col<RT> cur, nxt;
+        tile::load_col<RT, POLICY>(xc, v, pol, first_col(id), n_cols, m, r, cur);
+        for (int b = 0; b < nb; ++b) {
+            const int id_after = b + 2 < nb ? ids[b + 2] : n_j;
+            tile::load_col<RT, POLICY>(xc, v, pol, first_col(id_next), n_cols, m, r, nxt);
+            if (static_cast<unsigned>(id) < static_cast<unsigned>(n_j))
+                tile::fold_tile<TM, RT, Form, POLICY>(
+                    cur, s_rf, s_rows, m, inv_two_sigma_sq, pol, row0, id * TN, n_rows, n_cols,
+                    row_offset, col_offset, acc);
+            cur = nxt;
+            id = id_next;
+            id_next = id_after;
+        }
+    });
+
+    const float s = tile::block_reduce_fixed<TM * RT>(acc, s_red);
+    const int i = threadIdx.x / RT, c = threadIdx.x - i * RT;
+    const int row = row0 + i;
+    if (threadIdx.x < TM * RT && c < r && row < n_rows)
+        u[static_cast<size_t>(row) * r + c] =
+            d == nullptr ? s : __fdiv_rn(s, nan_max(d[row], 1e-30f));
+}
+
 template <bool POLICY>
 __global__ void __launch_bounds__(TN) bs_streaming_degree_kernel(
     const float* __restrict__ xr, const float* __restrict__ xc, tile::Policy pol,
@@ -247,15 +312,18 @@ void launch_bs_streaming(const float* xr, const float* xc, const tile::Policy& p
                          cudaStream_t stream) {
     constexpr int TM = tm_for(RT);
     const int grid = (n_rows + TM - 1) / TM;
-    const size_t smem = tile::smem_bytes(TM, m);
-    if (tile::has_policy(pol))
-        bs_streaming_matmat_kernel<RT, true><<<grid, TN, smem, stream>>>(
-            xr, xc, pol, v, d, counts, col_idx, u, n_rows, n_cols, m, r, row_offset,
-            col_offset, kind, inv_two_sigma_sq);
-    else
-        bs_streaming_matmat_kernel<RT, false><<<grid, TN, smem, stream>>>(
-            xr, xc, pol, v, d, counts, col_idx, u, n_rows, n_cols, m, r, row_offset,
-            col_offset, kind, inv_two_sigma_sq);
+    const bool policy = tile::has_policy(pol);
+#define GPIC_ARGS xr, xc, pol, v, d, counts, col_idx, u, n_rows, n_cols, m, r, row_offset, \
+                  col_offset, kind, inv_two_sigma_sq
+    if (m > tile::MR) {
+        const size_t smem = tile::smem_bytes(TM, m);
+        if (policy) bs_streaming_matmat_kernel<RT, true><<<grid, TN, smem, stream>>>(GPIC_ARGS);
+        else bs_streaming_matmat_kernel<RT, false><<<grid, TN, smem, stream>>>(GPIC_ARGS);
+    } else {
+        if (policy) bs_streaming_matmat_reg_kernel<RT, true><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+        else bs_streaming_matmat_reg_kernel<RT, false><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+    }
+#undef GPIC_ARGS
 }
 
 }  // namespace

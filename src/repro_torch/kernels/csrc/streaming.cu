@@ -22,14 +22,31 @@
 // every sweep rebuilds n^2 entries: 2m for the dot product, about 6 for the
 // rbf transform (one expf), 2r for the product with V. At n = 45,000, m = 2,
 // r = 1 that is 2.4e10 f32 operations, 0.36 ms at 67 TFLOP/s, against the
-// 2.42 ms that reading a stored A would take. A threshold adds a compare,
+// 2.42 ms that reading a stored A would take. Each expf also takes one
+// MUFU.EX2, of which an SM makes 16 a clock: n^2 / (132 x 16 x 1.98 GHz) =
+// 0.48 ms, a second floor above the first. What the card issues is the
+// limit in practice: about 17 instructions an entry at m = 2, r = 1 (the
+// dot product 2, d2 3, the clamp 2, the scale 1, expf 8, the fold 1), at
+// 128 lanes a clock per SM about 1.1 ms. A threshold adds a compare,
 // adaptive scales a multiply, per entry; a truncated tile is rebuilt in
 // full (skipping dead tiles is the block-sparse kernels' work).
 //
 // Design:
 //  * The block shape of affinity.cu: TN = 256 threads own TM rows and walk
-//    all column tiles in order, thread t owning column c0 + t. The tile
-//    entries come from the same tile::masked_tile as the stored A.
+//    all column tiles in order, thread t owning column c0 + t.
+//  * Two templates make the same entries. The staged one (any m) takes
+//    them from tile::masked_tile, as the stored A does: per tile it stages
+//    the column slab in shared memory between two barriers and tests every
+//    entry's mask. The register one (m <= tile::MR, the paper's m = 2)
+//    stages the block's rows once; each thread loads its own column's
+//    features, V row and policy operands one tile ahead into registers, so
+//    a tile costs no barrier and its loads overlap the previous tile's
+//    arithmetic; only the warps on a ragged edge or on the global diagonal
+//    test the mask (tile::fold_tile). The score form (kind, adaptive) is
+//    fixed per compiled loop, not chosen per entry. Both call
+//    tile::transform and tile::keep_entry and fold in the same order, so
+//    they give the same bits: the card check holds x against x with zero
+//    feature columns appended past tile::MR, which takes the staged one.
 //  * The mat-mat folds each entry into TM x RT register partials with
 //    fmaf(a, v[col][c], acc) and reduces them with the warp tree and then
 //    the 8 warps in order, then the floored divide of power_step.cu. Thread
@@ -99,6 +116,51 @@ __global__ void __launch_bounds__(TN) streaming_matmat_kernel(
             d == nullptr ? s : __fdiv_rn(s, nan_max(d[row], 1e-30f));
 }
 
+// The register template (m <= tile::MR): the rows staged once, each
+// thread's column operands loaded one tile ahead, no barrier in the tile
+// loop (affinity_tile.cuh); streaming_matmat_kernel above is the staged
+// template (any m). The two give the same bits.
+template <int RT, bool POLICY>
+__global__ void __launch_bounds__(TN, tile::reg_blocks_per_sm(RT)) streaming_matmat_reg_kernel(
+    const float* __restrict__ xr, const float* __restrict__ xc, tile::Policy pol,
+    const float* __restrict__ v, const float* __restrict__ d, float* __restrict__ u,
+    int n_rows, int n_cols, int m, int r, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq) {
+    constexpr int TM = tm_for(RT);
+    __shared__ __align__(16) tile::Rows<TM> s_rows;
+    __shared__ tile::RowFeats<TM> s_rf;
+    __shared__ float s_red[tile::NWARPS * TM * RT];
+
+    const int row0 = blockIdx.x * TM;
+    tile::load_rows<TM>(xr, n_rows, m, row0, kind == tile::RBF, pol, s_rows);
+    tile::load_row_feats<TM>(xr, n_rows, m, row0, s_rf);
+    __syncthreads();
+
+    float acc[TM * RT];
+#pragma unroll
+    for (int e = 0; e < TM * RT; ++e) acc[e] = 0.f;
+
+    tile::with_form<POLICY>(kind, pol, [&](auto form) {
+        using Form = decltype(form);
+        tile::Col<RT> cur, nxt;
+        tile::load_col<RT, POLICY>(xc, v, pol, threadIdx.x, n_cols, m, r, cur);
+        for (int c0 = 0; c0 < n_cols; c0 += TN) {
+            tile::load_col<RT, POLICY>(xc, v, pol, c0 + TN + threadIdx.x, n_cols, m, r, nxt);
+            tile::fold_tile<TM, RT, Form, POLICY>(
+                cur, s_rf, s_rows, m, inv_two_sigma_sq, pol, row0, c0, n_rows, n_cols,
+                row_offset, col_offset, acc);
+            cur = nxt;
+        }
+    });
+
+    const float s = tile::block_reduce_fixed<TM * RT>(acc, s_red);
+    const int i = threadIdx.x / RT, c = threadIdx.x - i * RT;
+    const int row = row0 + i;
+    if (threadIdx.x < TM * RT && c < r && row < n_rows)
+        u[static_cast<size_t>(row) * r + c] =
+            d == nullptr ? s : __fdiv_rn(s, nan_max(d[row], 1e-30f));
+}
+
 constexpr int TM_DEG = 16;  // affinity.cu's TM
 
 template <bool POLICY>
@@ -136,15 +198,18 @@ void launch_matmat(const float* xr, const float* xc, const tile::Policy& pol,
                    float inv_two_sigma_sq, cudaStream_t stream) {
     constexpr int TM = tm_for(RT);
     const int grid = (n_rows + TM - 1) / TM;
-    const size_t smem = tile::smem_bytes(TM, m);
-    if (tile::has_policy(pol))
-        streaming_matmat_kernel<RT, true><<<grid, TN, smem, stream>>>(
-            xr, xc, pol, v, d, u, n_rows, n_cols, m, r, row_offset, col_offset, kind,
-            inv_two_sigma_sq);
-    else
-        streaming_matmat_kernel<RT, false><<<grid, TN, smem, stream>>>(
-            xr, xc, pol, v, d, u, n_rows, n_cols, m, r, row_offset, col_offset, kind,
-            inv_two_sigma_sq);
+    const bool policy = tile::has_policy(pol);
+#define GPIC_ARGS xr, xc, pol, v, d, u, n_rows, n_cols, m, r, row_offset, col_offset, kind, \
+                  inv_two_sigma_sq
+    if (m > tile::MR) {
+        const size_t smem = tile::smem_bytes(TM, m);
+        if (policy) streaming_matmat_kernel<RT, true><<<grid, TN, smem, stream>>>(GPIC_ARGS);
+        else streaming_matmat_kernel<RT, false><<<grid, TN, smem, stream>>>(GPIC_ARGS);
+    } else {
+        if (policy) streaming_matmat_reg_kernel<RT, true><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+        else streaming_matmat_reg_kernel<RT, false><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+    }
+#undef GPIC_ARGS
 }
 
 }  // namespace

@@ -108,9 +108,12 @@ def _assert_scores_close(got, want, atol):
 
 
 #: (rows, cols, row_offset, col_offset) of the stripes: the square
-#: self-stripe and an off-diagonal stripe that crosses the diagonal
+#: self-stripe, an off-diagonal stripe that crosses the diagonal, and one
+#: whose rows come after its columns, crossed at an offset gap (280) that
+#: is no multiple of 16 or 256, over 180 rows (no multiple of 16 either)
 STRIPES = {"square": (slice(None), None, 0, 0),
-           "offdiag": (slice(100, 400), slice(250, N), 100, 250)}
+           "offdiag": (slice(100, 400), slice(250, N), 100, 250),
+           "below": (slice(300, N), slice(20, 420), 300, 20)}
 
 
 def _stripe(x, stripe):
