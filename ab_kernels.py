@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""Time the Gram (#4) and the row top-k (#7) from two checkouts on one CUDA
+card, in turns, to read each kernel's before and after on the same card.
+
+    python3 ab_kernels.py BASE_DIR
+
+BASE_DIR holds another checkout of this repository, for example the parent
+commit unpacked with ``git archive`` into a directory that ``.gitignore``
+lists. Each checkout runs in a process of its own (the two have packages of
+the same name), in the order base, this checkout, this checkout, base, so
+that a drift of the card between the turns shows as a difference between
+the two runs of one checkout. Every turn times its own checkout's kernels
+with the same code (below), at the shapes of ``chip_smoke.py``'s phase 2:
+the Gram of V (45,000, 2) and of [V | U] (45,000, 4) by the device time
+torch.profiler records (beside ``v.T @ v``), and by CUDA events over
+back-to-back calls (the host-paced time); the row top-k at n = 45,000,
+m = 2 for each case of ``phase_row_topk`` by CUDA events. Correctness is
+``chip_smoke.py``'s to check. Prints one line per turn and writes all of
+them to ``chiprun_out/ab_kernels.json``; exits non-zero if a turn fails.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+_TURN = r'''
+import json, os, sys
+root = sys.argv[1]
+os.chdir(root)
+sys.path.insert(0, root)
+import chip_smoke as cs
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+cs.phase_device()
+cs.phase_build()
+from repro_torch.core.graph import scales_from_topk
+from repro_torch.kernels.gram import gram
+from repro_torch.kernels.row_topk import row_topk
+
+
+def device_ms(fn, reps):
+    """Device ms a call: the profiler's device events over reps calls, the
+    trace opened by a marker kernel (the profiler can miss a trace's first
+    kernel), which is left out."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA and "spin_kernel" not in ev.name]
+    return sum(spans) / 1e3 / reps, len(spans)
+
+
+report = {}
+g = torch.Generator(device="cuda").manual_seed(5)
+n = cs.N_MAIN
+v = torch.rand((n, 2), generator=g, device="cuda")
+v = v / v.sum(dim=0, keepdim=True)
+vu = torch.cat([v, v * (1.0 + 0.01 * torch.rand((n, 2), generator=g, device="cuda"))], dim=1)
+for vv in (v, vu):
+    ms, events = device_ms(lambda: gram(vv), 50)
+    report[f"gram c={vv.shape[1]}"] = dict(
+        ms=ms, device_events_per_call=events / 50,
+        library_ms=device_ms(lambda: vv.T @ vv, 50)[0],
+        host_paced_ms=cs.cuda_ms(lambda: gram(vv), 50))
+feats, _, _ = cs._features(n)
+x = feats["rbf"]
+scale = scales_from_topk(row_topk(x, k=cs.SCALE_K, stat="neg_sqdist", kind="rbf",
+                                  sigma=cs.SIGMA)).contiguous()
+cases = [("neg_sqdist", k, None) for k in (1, 7, 64)]
+cases += [("similarity", k, sc) for k in (10, 30, 64) for sc in (None, scale)]
+for stat, k, sc in cases:
+    tag = f"row_topk {stat} K={k}{' adaptive' if sc is not None else ''}"
+    report[tag] = dict(ms=cs.cuda_ms(lambda: row_topk(x, k=k, stat=stat, kind="rbf",
+                                                      sigma=cs.SIGMA, scale_r=sc,
+                                                      scale_c=sc), 5))
+print("AB_REPORT " + json.dumps(report))
+'''
+
+
+def run_turn(tag: str, root: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", _TURN, root], capture_output=True, text=True)
+    lines = proc.stdout.splitlines()
+    reports = [json.loads(line[len("AB_REPORT "):]) for line in lines
+               if line.startswith("AB_REPORT ")]
+    device = next((line for line in lines if line.startswith("[device]")), "[device] ?")
+    if proc.returncode != 0 or not reports:
+        raise SystemExit(f"ab_kernels: turn {tag} ({root}) failed with exit "
+                         f"{proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    print(f"[{tag}] {device}", flush=True)
+    times = " ".join(f"{name}: {rec['ms']:.6f} ms;" for name, rec in reports[0].items())
+    print(f"[{tag}] {times}", flush=True)
+    return dict(reports[0], device=device)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("base", help="another checkout of this repository")
+    base = os.path.abspath(ap.parse_args().base)
+    turns = [("base-1", base), ("this-1", ROOT), ("this-2", ROOT), ("base-2", base)]
+    out = {tag: run_turn(tag, root) for tag, root in turns}
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "ab_kernels.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"ab_kernels: {len(turns)} turns written to {out_dir}/ab_kernels.json")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,11 +17,19 @@ Phases (any failure exits non-zero before the last line is printed):
                 sweep's cp.async ring bitwise its plain-load template; time the
                 kernel, the plain version and, where one exists, the one
                 PyTorch call that computes the same function. The streamed
-                D and U must be bitwise the explicit kernels' D and U, and
-                the Gram the same bits on every call. The row top-k (pass 1
+                D and U must be bitwise the explicit kernels' D and U. The
+                Gram (#4) must give the same bits on every call, be exactly
+                symmetric and take one kernel launch a call (the profiler's
+                device events), at the loop's V (45,000, 2) and [V | U]
+                (45,000, 4), both timed, and at ragged n = 255, 256, 257 and
+                1,037. The row top-k (#7, pass 1
                 of the graph policies) must equal torch.topk of the plain
                 scores at the main shape for K = 1..64, both stats, with and
-                without adaptive scales; with the kNN and adaptive operands
+                without adaptive scales, and its register template (m <= 2,
+                each warp owning 8 rows and their lists) must give its
+                staged template's bits (x with a zero feature column) there
+                and at ragged and below-diagonal stripes, both timed, with
+                no spill in nvcc's report; with the kNN and adaptive operands
                 of E1 and E2, A must be bitwise its plain version's, the
                 streamed D and U bitwise the explicit kernels', the
                 column-thresholded product the transpose of the stored A,
@@ -171,26 +179,36 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call of ``fn`` over ``reps`` calls after
-    one warm-up call: the summed durations of the device events that
-    torch.profiler records, so host time between launches is left out."""
+def device_events(fn, reps: int) -> list[tuple[str, float]]:
+    """(name, device ms) of every device event that torch.profiler records
+    over ``reps`` calls of ``fn``, after one warm-up call. The trace opens
+    with a marker kernel (torch.cuda._sleep's spin_kernel, left out of the
+    result): the profiler can miss the first kernel of a trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA]
+    return [(ev.name, ev.time_range.elapsed_us() / 1e3) for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA and "spin_kernel" not in ev.name]
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of ``fn`` over ``reps`` calls after
+    one warm-up call: the summed durations of the device events that
+    torch.profiler records, so host time between launches is left out."""
+    spans = device_events(fn, reps)
     check(bool(spans), "the profiler recorded no device events")
-    return sum(spans) / 1e3 / reps
+    return sum(ms for _, ms in spans) / reps
 
 
 def register_m() -> int:
-    """tile::MR, the widest feature count of #5's and #10's register
+    """tile::MR, the widest feature count of #5's, #7's and #10's register
     templates, as csrc/affinity_tile.cuh defines it: a wider x takes the
     staged template."""
     with open(os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
@@ -202,7 +220,7 @@ def register_m() -> int:
 
 def staged(x):
     """x (None stays None) with zero feature columns appended up to
-    register_m() + 1, which sends #5 and #10 to their staged template. A
+    register_m() + 1, which sends #5, #7 and #10 to their staged template. A
     zero feature changes no fmaf chain or norm beyond the sign of an exact
     zero, which torch.equal ignores, so the two templates must agree bit for
     bit on x and on staged(x)."""
@@ -691,15 +709,37 @@ def topk_flops(rows: int, cols: int, m: int, stat: str, adaptive: bool) -> float
     return rows * cols * per_entry + 2 * m * (rows + cols)
 
 
+def topk_registers(log: str) -> dict[str, str]:
+    """Registers and spills of #7's templates in nvcc's report:
+    ``{"register" | "staged <fixed|policy>": ...}`` (the register template
+    is ``row_topk_reg_kernel``)."""
+    return ptxas_registers(
+        log, r"\d+row_topk_(reg_kernel|kernelILb(\d)E)",
+        lambda e: ("register" if e.group(1) == "reg_kernel"
+                   else f"staged {'policy' if e.group(2) == '1' else 'fixed'}"))
+
+
 def phase_row_topk(report):
     """Kernel #7 against its plain version: at the main shape bit for bit
     (the scores are the build's entries, the plain version's arithmetic);
-    at ragged shapes with m = 16 within the stated tolerances."""
+    at ragged shapes with m = 16, 2 and 1 within the stated tolerances. Its
+    register template (m <= 2) bitwise its staged template, reached by x
+    with a zero feature column appended (staged()), at the main shape and
+    at ragged, off-diagonal and below-diagonal stripes; both timed. Fails
+    where nvcc's report (kept beside the library) shows the register
+    template spilling, or names none."""
     from repro_torch.core.graph import scales_from_topk
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.row_topk import row_topk
+    registers = topk_registers(_build.report("row_topk"))
+    print(f"[row_topk] templates: {registers}", flush=True)
+    check("register" in registers,
+          f"nvcc's report names no register template of #7: {registers}")
+    check(registers["register"].endswith(" 0 bytes spilled"),
+          f"#7's register template spills: {registers['register']}")
     feats, _, _ = _features(N_MAIN)
     x = feats["rbf"]
+    x_st = staged(x)
     n, m = x.shape
     scale = scales_from_topk(row_topk(x, k=SCALE_K, stat="neg_sqdist", kind="rbf",
                                       sigma=SIGMA)).contiguous()
@@ -709,26 +749,32 @@ def phase_row_topk(report):
     times = {}
     for stat, k, sc in cases:
         tag = f"{stat} K={k}{' adaptive' if sc is not None else ''}"
-        out = row_topk(x, k=k, stat=stat, kind="rbf", sigma=SIGMA, scale_r=sc, scale_c=sc)
+        kw = dict(k=k, stat=stat, kind="rbf", sigma=SIGMA, scale_r=sc, scale_c=sc)
+        out = row_topk(x, **kw)
+        out_st = row_topk(x_st, **kw)
         torch.cuda.synchronize()
         same, err = True, 0.0
         for r0, r1, want in _stripe_scores(x, k, stat, sc):
             same = same and torch.equal(out[r0:r1], want)
             err = max(err, _topk_error(out[r0:r1], want))
         print(f"[row_topk] n={n} m={m} {tag}: equal to the plain version={same} "
-              f"max|err|={err:.3e}", flush=True)
+              f"max|err|={err:.3e}; register template = staged template: "
+              f"{torch.equal(out, out_st)}", flush=True)
         check(same, f"row_topk {tag} is not the plain version's top-k")
+        check(torch.equal(out, out_st),
+              f"row_topk {tag}: the register template is not bitwise the staged template")
         worst = max(worst, err)
-        ms = cuda_ms(lambda: row_topk(x, k=k, stat=stat, kind="rbf", sigma=SIGMA,
-                                      scale_r=sc, scale_c=sc), 5)
+        ms = cuda_ms(lambda: row_topk(x, **kw), 5)
+        staged_ms = cuda_ms(lambda: row_topk(x_st, **kw), 5)
         b, by = bound_ms(4.0 * (n * m + n * k + (2 * n if sc is not None else 0)),
                          topk_flops(n, n, m, stat, sc is not None))
         # the similarity score takes one expf an entry; neg_sqdist none
         mufu = mufu_bound_ms(n * n) if stat == "similarity" else None
-        times[tag] = dict(ms=ms, bound_ms=b, bound_by=by, mufu_bound_ms=mufu)
-        print(f"[row_topk] {tag}: kernel_ms={ms:.4f} bound_ms={b:.4f} ({by}) "
-              f"mufu_bound_ms={mufu}", flush=True)
-    del out
+        times[tag] = dict(ms=ms, staged_ms=staged_ms, bound_ms=b, bound_by=by,
+                          mufu_bound_ms=mufu)
+        print(f"[row_topk] {tag}: kernel_ms={ms:.4f} staged_template_ms={staged_ms:.4f} "
+              f"bound_ms={b:.4f} ({by}) mufu_bound_ms={mufu}", flush=True)
+    del out, out_st
 
     # the plain version on the main path's call (similarity, K = knn_k), and
     # the torch.topk share of it on the stored (n, n) scores
@@ -746,27 +792,47 @@ def phase_row_topk(report):
           f"stripes: scores, mask, torch.topk); torch.topk alone on the stored (n, n) "
           f"scores: {main['plain_topk_only_ms']:.4f} ms", flush=True)
 
-    # ragged rows, wide features, a stripe off the diagonal with offsets
+    # ragged rows, wide features (the staged template) and the register
+    # template's widths (m = 2 and 1), stripes off the diagonal (rows after
+    # the columns too), adaptive scales; at m <= 2 the register template
+    # bitwise the staged one
     g = torch.Generator(device="cuda").manual_seed(6)
-    xs = torch.randn((1037, 16), generator=g, device="cuda") * 0.25
-    sq_max = float((xs * xs).sum(dim=1).max())
-    for rows, cols, ro, co in ((slice(None), None, 0, 0),
-                               (slice(100, 400), slice(300, None), 100, 300)):
+    xw = torch.randn((1037, 16), generator=g, device="cuda") * 0.25
+    sc_w = 0.3 + 0.7 * torch.rand((1037,), generator=g, device="cuda")
+    for mm, (rows, cols, ro, co) in itertools.product((16, register_m(), 1), RAGGED_STRIPES):
+        xs = xw[:, :mm].contiguous()
+        sq_max = float((xs * xs).sum(dim=1).max())
         xr = xs[rows].contiguous()
-        xc = None if cols is None else xs[cols].contiguous()
-        for stat in ("neg_sqdist", "similarity"):
-            for k in (7, 64):
-                out = row_topk(xr, xc, k=k, stat=stat, kind="rbf", sigma=1.1,
-                               row_offset=ro, col_offset=co)
-                want = ref.row_topk_ref(xr, xc, k=k, stat=stat, kind="rbf", sigma=1.1,
-                                        row_offset=ro, col_offset=co)
-                err = _topk_error(out, want)
-                tol = SQD_RTOL * sq_max if stat == "neg_sqdist" else A_ATOL
-                check(err <= tol, f"ragged row_topk {stat} K={k} {tuple(xr.shape)} disagrees")
-                worst = max(worst, err)
-        print(f"[row_topk] ragged {tuple(xr.shape)} m=16 offsets=({ro},{co}) both stats "
-              f"K=7,64: agree", flush=True)
-    report["row_topk"] = dict(main, max_abs_err=worst, library_ms=None, cases=times)
+        xc = None if ro == co == 0 else xs[cols].contiguous()
+        sr = sc_w[rows].contiguous()
+        scc = sc_w if xc is None else sc_w[cols].contiguous()
+        for stat, k, adaptive in itertools.product(("neg_sqdist", "similarity"), (7, 64),
+                                                   (False, True)):
+            if stat == "neg_sqdist" and adaptive:
+                continue
+            kw = dict(k=k, stat=stat, kind="rbf", sigma=1.1, row_offset=ro, col_offset=co,
+                      scale_r=sr if adaptive else None, scale_c=scc if adaptive else None)
+            out = row_topk(xr, xc, **kw)
+            want = ref.row_topk_ref(xr, xc, **kw)
+            err = _topk_error(out, want)
+            # adaptive: d2's error carried through exp(-d2 / (s_i s_j))
+            tol = (SQD_RTOL * sq_max if stat == "neg_sqdist"
+                   else A_ATOL + (SQD_RTOL * sq_max / float(sc_w.min()) ** 2 if adaptive
+                                  else 0.0))
+            tag = f"{stat} K={k}{' adaptive' if adaptive else ''}"
+            check(err <= tol, f"ragged row_topk {tag} {tuple(xr.shape)} m={mm} "
+                              f"({ro},{co}) disagrees")
+            if mm <= register_m():
+                check(torch.equal(out, row_topk(staged(xr), staged(xc), **kw)),
+                      f"ragged row_topk {tag} {tuple(xr.shape)} ({ro},{co}): the register "
+                      "template is not bitwise the staged template")
+            worst = max(worst, err)
+        print(f"[row_topk] ragged {tuple(xr.shape)} m={mm} offsets=({ro},{co}) both stats, "
+              f"adaptive too, K=7,64: agree"
+              + (", register template = staged template" if mm <= register_m() else ""),
+              flush=True)
+    report["row_topk"] = dict(main, max_abs_err=worst, library_ms=None, cases=times,
+                              registers=registers)
 
 
 def phase_policy(report):
@@ -907,6 +973,12 @@ def phase_policy(report):
 
 
 def phase_gram(report):
+    """Kernel #4 against its plain version, within G_RTOL of max|G_ref|, at
+    the power loop's shapes (V (45,000, 2) of the QR, [V | U] (45,000, 4)
+    of the residual rule) and ragged ones (n = 255, 256, 257 across the
+    256-row block edge; n = 1,037 at c = 1, 3, 64): the same bits on a
+    second call, G exactly symmetric, and one kernel launch a call (the
+    profiler's device events). Timed at c = 2 and 4 beside v.T @ v."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.gram import gram
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -916,8 +988,9 @@ def phase_gram(report):
     vu = torch.cat([v, v * (1.0 + 0.01 * torch.rand((n, 2), generator=g, device="cuda"))],
                    dim=1)
     cases = [("V", v), ("[V|U]", vu)]
-    cases += [(f"ragged c={c}", torch.randn((1037, c), generator=g, device="cuda"))
-              for c in (1, 3, 64)]
+    cases += [(f"ragged n={rows} c={c}", torch.randn((rows, c), generator=g, device="cuda"))
+              for rows, c in ((255, 2), (256, 2), (257, 4),
+                              *itertools.product((255, 256, 257, 1037), (1, 3, 64)))]
     worst = 0.0
     for tag, vv in cases:
         gk = gram(vv)
@@ -926,23 +999,31 @@ def phase_gram(report):
         torch.cuda.synchronize()
         err = float((gk - g_ref).abs().max())
         scale = float(g_ref.abs().max())
+        events = device_events(lambda: gram(vv), 5)
         print(f"[gram] {tag} {tuple(vv.shape)}: max|G-G_ref|={err:.3e} max|G_ref|={scale:.3e} "
-              f"same bits on a second call={torch.equal(gk, again)}", flush=True)
+              f"same bits on a second call={torch.equal(gk, again)} "
+              f"symmetric={torch.equal(gk, gk.T)} device events in 5 calls="
+              f"{[_kernel_label(name) for name, _ in events]}", flush=True)
         check(err <= G_RTOL * scale, f"gram disagrees ({tag})")
         check(torch.equal(gk, again), f"gram gives other bits on a second call ({tag})")
+        check(torch.equal(gk, gk.T), f"gram is not exactly symmetric ({tag})")
+        check(len(events) == 5 and all("gram_kernel" in name for name, _ in events),
+              f"gram is not one kernel launch a call ({tag}): {events}")
         worst = max(worst, err)
-    fns = {"ms": lambda: gram(v), "plain_ms": lambda: ref.gram_ref(v),
-           "library_ms": lambda: v.T @ v}
-    times = {key: device_ms(fn, 50) for key, fn in fns.items()}
-    host = {key: cuda_ms(fn, 50) for key, fn in fns.items()}
-    c = v.shape[1]
-    b, by = bound_ms(4.0 * (n * c + c * c), 2.0 * n * c * c)
-    print(f"[gram] n={n} c={c}: device kernel_ms={times['ms']:.6f} "
-          f"plain_ms={times['plain_ms']:.6f} library_ms={times['library_ms']:.6f} "
-          f"bound_ms={b:.6f} ({by}); host-paced per call: kernel {host['ms']:.4f} "
-          f"plain {host['plain_ms']:.4f} library {host['library_ms']:.4f}", flush=True)
-    report["gram"] = dict(times, bound_ms=b, bound_by=by, max_abs_err=worst,
-                          host_paced_ms=host)
+    out = {}
+    for vv in (v, vu):
+        c = vv.shape[1]
+        fns = {"ms": lambda: gram(vv), "plain_ms": lambda: ref.gram_ref(vv),
+               "library_ms": lambda: vv.T @ vv}
+        times = {key: device_ms(fn, 50) for key, fn in fns.items()}
+        host = {key: cuda_ms(fn, 50) for key, fn in fns.items()}
+        b, by = bound_ms(4.0 * (n * c + c * c), 2.0 * n * c * c)
+        print(f"[gram] n={n} c={c}: device kernel_ms={times['ms']:.6f} "
+              f"plain_ms={times['plain_ms']:.6f} library_ms={times['library_ms']:.6f} "
+              f"bound_ms={b:.6f} ({by}); host-paced per call: kernel {host['ms']:.4f} "
+              f"plain {host['plain_ms']:.4f} library {host['library_ms']:.4f}", flush=True)
+        out[c] = dict(times, bound_ms=b, bound_by=by, host_paced_ms=host)
+    report["gram"] = dict(out[2], max_abs_err=worst, c4=out[4])
 
 
 def _plan_entries(live, n_rows: int, n_cols: int) -> float:
@@ -2024,7 +2105,7 @@ def _serve_profile(cfg, params, tokens):
 #: device-event names of this port's kernels (always listed by the profile)
 KERNEL_LABELS = ("affinity_kernel", "power_step_kernel", "kmeans_assign_kernel",
                  "streaming_matmat_kernel", "streaming_matmat_reg_kernel",
-                 "streaming_degree_kernel", "gram_", "row_topk_kernel", "liveness_kernel",
+                 "streaming_degree_kernel", "gram_", "row_topk_", "liveness_kernel",
                  "bs_matmat_kernel", "bs_streaming_matmat_kernel",
                  "bs_streaming_matmat_reg_kernel", "bs_streaming_degree_kernel")
 #: the power loop's sweeps of an r = 2 run, on either engine and route (the
@@ -2079,7 +2160,7 @@ def _stages(spans):
         return max(ends) if ends else None
     km = [st for st, _, lab in spans if lab.startswith("kmeans_assign_kernel")]
     t0 = spans[0][0]
-    cuts = [("pass1", last_end("row_topk_kernel") or t0),
+    cuts = [("pass1", last_end("row_topk_") or t0),
             ("build", min(st for st, _, lab in spans if SWEEP_R2.match(lab))),
             ("sweeps", min(km)),
             ("kmeans", last_end("kmeans_assign_kernel")),

@@ -39,6 +39,7 @@ OPS = ("affinity_and_degree", "degree_normalized_matmat", "kmeans_assign",
        "block_sparse_streaming_degree", "flash_attention")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[tuple[str, str], object] = {}   # the typed C entry points
 _LOCK = threading.Lock()
 _COUNTS: Counter = Counter()
 
@@ -129,15 +130,18 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def launch(op: str, lib_name: str, fn_name: str, argtypes, *args) -> None:
-    """Call the C entry point ``fn_name`` of ``lib_name``, raise if it
-    reports a CUDA error, and count the launch under ``op``."""
-    lib = library(lib_name)
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """Call the C entry point ``fn_name`` of ``lib_name`` (typed with
+    ``argtypes`` at its first call), raise if it reports a CUDA error, and
+    count the launch under ``op``."""
+    fn = _FNS.get((lib_name, fn_name))
+    if fn is None:
+        fn = getattr(library(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[(lib_name, fn_name)] = fn
     err = fn(*args)
     if err != 0:
-        msg = lib.gpic_error_string(err).decode()
+        msg = library(lib_name).gpic_error_string(err).decode()
         raise RuntimeError(f"{fn_name} failed to launch: CUDA error {err} ({msg})")
     _COUNTS[op] += 1
 

@@ -16,7 +16,9 @@
 // each tile. Feature slabs are staged in shared memory in chunks
 // of at most MC features, so any m works. The streamed sweeps also have a
 // register template for m <= MR (below): no staging and no barrier per
-// tile, the same entries in the same order, the same bits.
+// tile, the same entries in the same order, the same bits. row_topk.cu's
+// register template makes its scores from the same pieces (Col,
+// load_col, clean_span, transform), each warp owning rows of its own.
 //
 // Arithmetic, one rounding per step as the plain PyTorch version rounds:
 //  * squared norms (rbf, and the neg_sqdist score of any kind):
@@ -321,16 +323,26 @@ __device__ __forceinline__ void load_col(const float* __restrict__ xc,
     c.thr = POLICY && pol.thr_c != nullptr && inside ? pol.thr_c[col] : INFINITY;
 }
 
-// Whether this thread's warp folds the tile at c0 without the mask: its 32
-// columns and the TM rows inside the stripe, and no (i, j) of them on the
-// global diagonal row_offset + row0 + i == col_offset + w0 + j, i.e. the
-// offset gap delta outside (-TM, 32). The same for every lane of the warp.
+// Whether the TM rows from row0 and the 32 columns from w0 all lie inside
+// the stripe with no (i, j) of them on the global diagonal
+// row_offset + row0 + i == col_offset + w0 + j, i.e. the offset gap delta
+// outside (-TM, 32): a warp that owns those entries can make them without
+// the mask.
+template <int TM>
+__device__ __forceinline__ bool clean_span(int row0, int w0, int n_rows, int n_cols,
+                                           int row_offset, int col_offset) {
+    const int delta = (row_offset + row0) - (col_offset + w0);
+    return row0 + TM <= n_rows && w0 + 32 <= n_cols && (delta >= 32 || delta <= -TM);
+}
+
+// Whether this thread's warp folds the tile at c0 without the mask (its 32
+// columns of the tile and the block's TM rows: clean_span). The same for
+// every lane of the warp.
 template <int TM>
 __device__ __forceinline__ bool clean_warp(int row0, int c0, int n_rows, int n_cols,
                                            int row_offset, int col_offset) {
-    const int w0 = c0 + (threadIdx.x & ~31);
-    const int delta = (row_offset + row0) - (col_offset + w0);
-    return row0 + TM <= n_rows && w0 + 32 <= n_cols && (delta >= 32 || delta <= -TM);
+    return clean_span<TM>(row0, c0 + (threadIdx.x & ~31), n_rows, n_cols, row_offset,
+                          col_offset);
 }
 
 // Policy row operands of the register templates (thresholds, adaptive

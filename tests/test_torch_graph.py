@@ -193,6 +193,43 @@ def test_row_topk_keeps_tied_scores(stat):
     _assert_scores_close(got, want, atol)
 
 
+@pytest.mark.parametrize("stripe", sorted(STRIPES))
+@pytest.mark.parametrize("stat,adaptive", [("neg_sqdist", False), ("similarity", False),
+                                           ("similarity", True)],
+                         ids=["neg_sqdist", "similarity", "similarity_adaptive"])
+def test_row_topk_same_bits_with_a_zero_feature_column(stat, adaptive, stripe):
+    """x and x with a zero feature column appended give the same top-k bits:
+    the zero feature changes no dot product, norm or score. The card check
+    relies on it to hold the kernel's register template (m <= 2) against
+    its staged template (m = 3)."""
+    xr, xc, ro, co = _stripe(_x(N, 2, seed=9), stripe)
+    n_cols = xr.shape[0] if xc is None else xc.shape[0]
+    scale_r = _t(_positive(xr.shape[0], seed=1)) if adaptive else None
+    scale_c = (scale_r if xc is None else _t(_positive(n_cols, seed=2))) if adaptive else None
+    kw = dict(k=64, stat=stat, kind="rbf", sigma=SIGMA, row_offset=ro, col_offset=co,
+              scale_r=scale_r, scale_c=scale_c)
+    pad = lambda a: None if a is None else np.pad(a, ((0, 0), (0, 1)))  # noqa: E731
+    got = tops.row_topk(_t(xr), _t(xc), **kw)
+    assert torch.equal(got, tops.row_topk(_t(pad(xr)), _t(pad(xc)), **kw))
+
+
+@pytest.mark.parametrize("stat", ["neg_sqdist", "similarity"])
+def test_row_topk_k64_ties_across_a_tile_edge(stat):
+    """K = 64 over 600 columns, every point three times over (at j, j + 200
+    and j + 400), so equal scores lie on both sides of the 256-column tile
+    edge: the values kept are the reference's, ties and all."""
+    base = _x(200, 2, seed=10)
+    x = np.ascontiguousarray(np.concatenate([base, base, base]))
+    kw = dict(k=64, stat=stat, kind="rbf", sigma=SIGMA)
+    want = np.asarray(jops.row_topk(jnp.asarray(x), mode="pallas", **kw))
+    got = tops.row_topk(torch.from_numpy(x), **kw).numpy()
+    # the row's two copies of its own point, then groups of three equal scores
+    assert (got[:, 0] == got[:, 1]).all()
+    assert (got[:, 2:62:3] == got[:, 3:63:3]).all() and (got[:, 3:63:3] == got[:, 4:64:3]).all()
+    atol = SQD_RTOL * _sq_norm_max(x) if stat == "neg_sqdist" else A_ATOL
+    _assert_scores_close(got, want, atol)
+
+
 def test_row_topk_refuses_ranks_past_the_kernel():
     x = torch.from_numpy(_x(100, 2, seed=6))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):

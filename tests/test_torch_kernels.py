@@ -213,7 +213,11 @@ def test_streaming_degree_matches_pallas(kind, stripe):
     assert np.all(np.abs(d_t.numpy() - d_j) <= D_RTOL * mass)
 
 
-@pytest.mark.parametrize("n,c", [(300, 1), (300, 4), (1037, 3), (1037, 8)])
+@pytest.mark.parametrize("n,c", [(300, 1), (300, 4), (1037, 3), (1037, 8),
+                                 # across the kernel's 256-row block edge
+                                 (255, 2), (256, 2), (257, 4),
+                                 # the power loop's V and [V | U] at the paper's n
+                                 (45_000, 2), (45_000, 4)])
 def test_gram_matches_pallas(n, c):
     v = np.random.default_rng(n + c).normal(size=(n, c)).astype(np.float32)
     g_j = np.asarray(jops.gram(jnp.asarray(v), mode="pallas"))
