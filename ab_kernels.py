@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the Gram (#4) and the row top-k (#7) from two checkouts on one CUDA
-card, in turns, to read each kernel's before and after on the same card.
+"""Time the Gram (#4), the row top-k (#7), the streamed degree (#6) and the
+liveness pass (#8) from two checkouts on one CUDA card, in turns, to read
+each kernel's before and after on the same card.
 
     python3 ab_kernels.py BASE_DIR
 
@@ -14,7 +15,9 @@ with the same code (below), at the shapes of ``chip_smoke.py``'s phase 2:
 the Gram of V (45,000, 2) and of [V | U] (45,000, 4) by the device time
 torch.profiler records (beside ``v.T @ v``), and by CUDA events over
 back-to-back calls (the host-paced time); the row top-k at n = 45,000,
-m = 2 for each case of ``phase_row_topk`` by CUDA events. Correctness is
+m = 2 for each case of ``phase_row_topk``, the streamed degree (dense, and
+with E1's and E2's kNN operands) and the liveness pass (E1's and E2's)
+at n = 45,000, m = 2 by CUDA events. Correctness is
 ``chip_smoke.py``'s to check. Prints one line per turn and writes all of
 them to ``chiprun_out/ab_kernels.json``; exits non-zero if a turn fails.
 """
@@ -39,9 +42,12 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 cs.phase_device()
 cs.phase_build()
-from repro_torch.core.graph import scales_from_topk
+from repro_torch.core.affinity import AffinitySpec
+from repro_torch.core.graph import affinity_stats, scales_from_topk
+from repro_torch.kernels.block_sparse import block_liveness
 from repro_torch.kernels.gram import gram
 from repro_torch.kernels.row_topk import row_topk
+from repro_torch.kernels.streaming import affinity_degree_streaming
 
 
 def device_ms(fn, reps):
@@ -84,6 +90,15 @@ for stat, k, sc in cases:
     report[tag] = dict(ms=cs.cuda_ms(lambda: row_topk(x, k=k, stat=stat, kind="rbf",
                                                       sigma=cs.SIGMA, scale_r=sc,
                                                       scale_c=sc), 5))
+report["degree dense"] = dict(ms=cs.cuda_ms(
+    lambda: affinity_degree_streaming(x, kind="rbf", sigma=cs.SIGMA), 10))
+for tag, spec in (("E1", AffinitySpec(kind="rbf", sigma=cs.SIGMA, knn_k=cs.KNN_K)),
+                  ("E2", AffinitySpec(kind="rbf", bandwidth="adaptive", scale_k=cs.SCALE_K,
+                                      knn_k=cs.KNN_K))):
+    sc, thr = affinity_stats(x, spec)
+    pol = dict(kind="rbf", sigma=cs.SIGMA, scale_r=sc, scale_c=sc, thr=thr)
+    report[f"degree {tag}"] = dict(ms=cs.cuda_ms(lambda: affinity_degree_streaming(x, **pol), 10))
+    report[f"liveness {tag}"] = dict(ms=cs.cuda_ms(lambda: block_liveness(x, **pol), 10))
 print("AB_REPORT " + json.dumps(report))
 '''
 

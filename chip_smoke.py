@@ -40,18 +40,25 @@ Phases (any failure exits non-zero before the last line is printed):
                 the sweeps and the degree bitwise their dense twins (#2, #5,
                 #6, #1's D), the fused one-pass build bitwise the two-pass
                 build; ragged and off-diagonal stripes at m = 16; a NaN in V.
-                The streamed sweeps (#5, #10) have a register template
+                The streamed sweeps (#5, #10), the streamed degree (#6)
+                and the liveness pass (#8) have a register template
                 (m <= 2) beside the staged-slab one (any m): x must give
                 the same bits as x with zero feature columns appended to
                 m = 3, which takes the staged template, at the main shape
-                (r = 1, 2, d given and None, thr, thr_c) and at ragged
-                stripes (rows after the columns too, row counts off TM, at
-                m = 16 and 2), and both are timed in the same run, with
-                each template's registers from nvcc's report, kept beside
-                each library (it fails on a spill of a register template
-                at r <= 2, or where the report names none). The kernels that
-                take one expf an entry (#1, #5-#8, #10, #11) print a second
-                floor beside their bound: entries / (SMs x 16 MUFU x clock).
+                (r = 1, 2, d given and None, thr, thr_c; #6 dense, E1 and
+                E2, #8 E1 and E2) and at ragged stripes (rows after the
+                columns too, row counts off TM, at m = 16 and 2; #6 and #8
+                also with kNN thresholds at entries of their rows), and
+                both are timed in the same run, with each template's
+                registers from nvcc's report, kept beside each library (it
+                fails on a spill of a register template at r <= 2, or of
+                #6's or #8's, or where the report names none). The kernels
+                that take one expf an entry (#1, #5-#8, #10, #11) print a
+                second floor beside their bound: entries / (SMs x 16 MUFU x
+                clock). #6's and #8's register templates skip the expf of
+                entries provably under their row's threshold: the share
+                they still make with it is counted from the stored A, and
+                their bound and floor count that work.
                 Flash attention (#12) at the serve shape (b h = 128,
                 s = 2,048, d = 80, causal, f32 q over bf16 K and V, also as
                 strided views of a cache), ragged s = 1,000, GQA rep 4
@@ -208,7 +215,7 @@ def device_ms(fn, reps: int) -> float:
 
 
 def register_m() -> int:
-    """tile::MR, the widest feature count of #5's, #7's and #10's register
+    """tile::MR, the widest feature count of #5's-#8's and #10's register
     templates, as csrc/affinity_tile.cuh defines it: a wider x takes the
     staged template."""
     with open(os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
@@ -220,7 +227,7 @@ def register_m() -> int:
 
 def staged(x):
     """x (None stays None) with zero feature columns appended up to
-    register_m() + 1, which sends #5, #7 and #10 to their staged template. A
+    register_m() + 1, which sends #5-#8 and #10 to their staged template. A
     zero feature changes no fmaf chain or norm beyond the sign of an exact
     zero, which torch.equal ignores, so the two templates must agree bit for
     bit on x and on staged(x)."""
@@ -252,6 +259,38 @@ def mufu_bound_ms(entries: float) -> float:
     """The second floor of a kernel that takes one expf (one MUFU.EX2) per
     entry it makes: entries / (SMs x 16 x clock)."""
     return entries / _mufu_per_s() * 1e3
+
+
+def expf_shares(a_raw, thr, stripe=4096) -> tuple[float, float]:
+    """(passing, made): the shares of the stripe's entries whose exponent
+    the skip test of #6's and #8's register templates cannot drop, and of
+    those the kernel makes with their expf, counted from the unthresholded
+    A ``a_raw`` and the row thresholds ``thr``. An entry passes where it is
+    at or above thr_i exp(-2^-16 (|ln thr_i| + 1)), the test's cutoff (to
+    within the test's own margins); the kernel makes all 32 entries of a
+    row in a warp (32 columns from column 0) where one passes."""
+    n_rows, n_cols = a_raw.shape
+    log_thr = thr.double().log()
+    floor = (log_thr - (log_thr.abs() + 1.0) * 2.0 ** -16).exp().float()
+    passing = made = 0.0
+    for r0 in range(0, n_rows, stripe):
+        need = (a_raw[r0:r0 + stripe] >= floor[r0:r0 + stripe, None]).to(torch.uint8)
+        passing += float(need.sum(dtype=torch.float64))
+        need = torch.nn.functional.pad(need, (0, -n_cols % 32))
+        made += 32.0 * float(need.view(need.shape[0], -1, 32).amax(dim=2).sum(
+            dtype=torch.float64))
+    return passing / (n_rows * n_cols), made / (n_rows * n_cols)
+
+
+def skip_flops(rows: int, cols: int, m: int, made: float, adaptive: bool) -> float:
+    """Operations of #6's and #8's register templates with the skip test,
+    where the ``made`` share of the entries is made exactly: per entry
+    the dot product (2m), d2 (3) and the test (1; with adaptive scales 2,
+    the row's bound times the column's scale); per entry made, the clamp,
+    the scale (adaptive: the product of the scales, then the divide), the
+    expf, the threshold compare and the sum or OR (5; adaptive 6)."""
+    a = 1 if adaptive else 0
+    return rows * cols * (2 * m + 4 + a + made * (5 + a))
 
 
 def affinity_flops(rows: int, cols: int, m: int, kind: str) -> float:
@@ -564,11 +603,23 @@ RAGGED_STRIPES = ((slice(None), slice(None), 0, 0),
 RAGGED_R = (1, 4, 32)
 
 
+def _ragged_knn(xr, xc, ro, co, scale_r=None, scale_c=None):
+    """E1's (no scales) or E2's (``scale_r``, ``scale_c``) operands on a
+    ragged stripe, rbf at sigma 1.1: the row thresholds are each row's
+    KNN_K-th entry (#7), entries the skip test of #6's and #8's register
+    templates must keep."""
+    from repro_torch.kernels.row_topk import row_topk
+    kw = dict(kind="rbf", sigma=1.1, row_offset=ro, col_offset=co, scale_r=scale_r,
+              scale_c=scale_c)
+    return dict(kw, thr=row_topk(xr, xc, k=KNN_K, **kw)[:, -1].contiguous())
+
+
 def phase_streaming(report, build_log=""):
     """Kernels #5 and #6 against the explicit kernels (bitwise) and their
-    plain versions; #5's register template bitwise its staged template at
-    the main shape and at ragged ones. ``build_log`` is nvcc's report of
-    streaming.cu: no register template of the main path may spill."""
+    plain versions; #5's and #6's register templates bitwise their staged
+    templates at the main shape and at ragged ones. ``build_log`` is
+    nvcc's report of streaming.cu: no register template of the main path
+    may spill."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.affinity import affinity_and_degree
     from repro_torch.kernels.power_step import degree_normalized_matmat
@@ -577,6 +628,10 @@ def phase_streaming(report, build_log=""):
     for tmpl, line in registers.items():
         print(f"[streaming] streaming_matmat_kernel {tmpl}: {line}")
     check_no_spill("#5", registers)
+    deg_registers = entry_registers(build_log, "streaming_degree")
+    for tmpl, line in deg_registers.items():
+        print(f"[streaming] streaming_degree_kernel {tmpl}: {line}")
+    check_no_entry_spill("#6", deg_registers)
     feats, _, _ = _features(N_MAIN)
     x = feats["rbf"]
     x_st = staged(x)
@@ -585,6 +640,8 @@ def phase_streaming(report, build_log=""):
     d_s = affinity_degree_streaming(x, kind="rbf", sigma=SIGMA)
     torch.cuda.synchronize()
     check(torch.equal(d_s, d), "the streamed D is not bitwise the stored D")
+    check(torch.equal(d_s, affinity_degree_streaming(x_st, kind="rbf", sigma=SIGMA)),
+          "#6's register template is not bitwise its staged template")
     g = torch.Generator(device="cuda").manual_seed(4)
     v1 = (d / d.sum())[:, None].contiguous()             # the main path's v0
     v2 = torch.cat([v1, torch.rand((n, 1), generator=g, device="cuda") / n], dim=1)
@@ -621,10 +678,12 @@ def phase_streaming(report, build_log=""):
         main[r] = dict(ms=ms, staged_ms=staged_ms, plain_ms=plain, bound_ms=b, bound_by=by,
                        mufu_bound_ms=mufu)
     ms_d = cuda_ms(lambda: affinity_degree_streaming(x, kind="rbf", sigma=SIGMA), 10)
+    staged_d = cuda_ms(lambda: affinity_degree_streaming(x_st, kind="rbf", sigma=SIGMA), 10)
     plain_d = cuda_ms(lambda: _plain_degree_stripes(x, "rbf", SIGMA), 2)
     b_d, by_d = bound_ms(4.0 * (n * m + n), streaming_flops(n, n, m, None))
-    print(f"[streaming] degree n={n}: kernel_ms={ms_d:.4f} plain_ms={plain_d:.4f} "
-          f"library_ms=null bound_ms={b_d:.4f} ({by_d}) mufu_bound_ms={mufu:.4f}", flush=True)
+    print(f"[streaming] degree n={n}: kernel_ms={ms_d:.4f} staged_template_ms={staged_d:.4f} "
+          f"plain_ms={plain_d:.4f} library_ms=null bound_ms={b_d:.4f} ({by_d}) "
+          f"mufu_bound_ms={mufu:.4f}", flush=True)
     del a, d, d_s
     torch.cuda.empty_cache()
 
@@ -645,6 +704,13 @@ def phase_streaming(report, build_log=""):
                                                    row_offset=ro, col_offset=co)
         err_d = float(((dd - d_ref).abs() / a_ref.abs().sum(1).clamp_min(1e-30)).max())
         check(err_d <= D_RTOL, f"ragged streamed degree {kind} disagrees")
+        check(torch.equal(dd, affinity_degree_streaming(
+            staged(xr), staged(xc), kind=kind, sigma=1.1, row_offset=ro, col_offset=co)),
+              f"ragged streamed degree m={m} {kind} ({ro},{co}): the register template is "
+              "not bitwise the staged template")
+        check(torch.equal(dd, affinity_and_degree(xr, xc, kind=kind, sigma=1.1, row_offset=ro,
+                                                  col_offset=co)[1]),
+              f"ragged streamed degree m={m} {kind} ({ro},{co}) is not bitwise #1's D")
         worst_d = max(worst_d, err_d)
         worst_d_abs = max(worst_d_abs, float((dd - d_ref).abs().max()))
         for r in RAGGED_R:
@@ -671,12 +737,13 @@ def phase_streaming(report, build_log=""):
                     worst_u = max(worst_u, abs_err)
         print(f"[streaming] ragged {tuple(xr.shape)}x{n_cols} m={m} {kind} "
               f"offsets=({ro},{co}) r=1,4,32 d=given,None: agree, register template = "
-              f"staged template; max|D-D_ref|/mass={err_d:.3e}")
+              f"staged template (#5 and #6), D = #1's D; max|D-D_ref|/mass={err_d:.3e}")
     report["streaming_matmat"] = dict(main[1], max_abs_err=worst_u, library_ms=None,
                                       r2=main[2], registers=registers)
-    report["streaming_degree"] = dict(ms=ms_d, plain_ms=plain_d, bound_ms=b_d, bound_by=by_d,
-                                      mufu_bound_ms=mufu, max_abs_err=worst_d_abs,
-                                      max_rel_err_d=worst_d, library_ms=None)
+    report["streaming_degree"] = dict(ms=ms_d, staged_ms=staged_d, plain_ms=plain_d,
+                                      bound_ms=b_d, bound_by=by_d, mufu_bound_ms=mufu,
+                                      max_abs_err=worst_d_abs, max_rel_err_d=worst_d,
+                                      library_ms=None, registers=deg_registers)
 
 
 def _stripe_scores(x, k, stat, scale, stripe=4096):
@@ -838,9 +905,11 @@ def phase_row_topk(report):
 def phase_policy(report):
     """Kernels #1, #5 and #6 with the policy operands of E1 (kNN) and E2
     (adaptive + kNN): A bitwise its plain version's, the streamed D and U
-    bitwise the explicit kernels', the column-thresholded product the
-    transpose of the stored truncated A, and every row keeping knn_k
-    entries (more only on a tie at its threshold)."""
+    bitwise the explicit kernels' and their staged templates', the
+    column-thresholded product the transpose of the stored truncated A,
+    and every row keeping knn_k entries (more only on a tie at its
+    threshold); the share of entries #6's register template makes with
+    their expf, and its bound for that work."""
     from repro_torch.core.affinity import AffinitySpec
     from repro_torch.core.graph import affinity_stats
     from repro_torch.kernels import ref
@@ -878,6 +947,8 @@ def phase_policy(report):
         d_s = affinity_degree_streaming(x, thr=thr, **pol)
         torch.cuda.synchronize()
         check(torch.equal(d_s, d), f"{tag}: the streamed D is not bitwise the stored D")
+        check(torch.equal(d_s, affinity_degree_streaming(x_st, thr=thr, **pol)),
+              f"{tag}: #6's register template is not bitwise its staged template")
         v1 = (d / d.sum())[:, None].contiguous()
         v2 = torch.cat([v1, torch.rand((n, 1), generator=g, device="cuda") / n], dim=1)
         for v in (v1, v2):
@@ -905,9 +976,13 @@ def phase_policy(report):
             abs_err, excess = _u_errors(u_t, want)
             check(excess <= 0.0, f"{tag}: the thr_c product disagrees with A^T V")
             worst_t = max(worst_t, abs_err)
+        a_raw, _ = affinity_and_degree(x, **pol)
+        passing, made = expf_shares(a_raw, thr)
+        del a_raw
         times = dict(
             affinity_ms=cuda_ms(lambda: affinity_and_degree(x, thr=thr, **pol), 5),
             degree_ms=cuda_ms(lambda: affinity_degree_streaming(x, thr=thr, **pol), 10),
+            degree_staged_ms=cuda_ms(lambda: affinity_degree_streaming(x_st, thr=thr, **pol), 10),
             matmat_r2_ms=cuda_ms(lambda: affinity_matmat(x, v2, d, thr=thr, **pol), 10),
             matmat_r2_staged_ms=cuda_ms(
                 lambda: affinity_matmat(x_st, v2, d, thr=thr, **pol), 10),
@@ -923,19 +998,24 @@ def phase_policy(report):
         bounds = dict(
             affinity=bound_ms(4.0 * (n * m + n * n + n) + op_bytes,
                               affinity_flops(n, n, m, "rbf") + extra),
-            degree=bound_ms(4.0 * (n * m + n) + op_bytes, streaming_flops(n, n, m, None) + extra),
+            degree=bound_ms(4.0 * (n * m + n) + op_bytes,
+                            skip_flops(n, n, m, made, sc is not None)),
             matmat_r2=bound_ms(4.0 * (n * m + 2 * n * 2 + n) + op_bytes,
                                streaming_flops(n, n, m, 2) + extra),
             matmat_thr_c=bound_ms(4.0 * (n * m + 2 * n) + op_bytes,
                                   streaming_flops(n, n, m, 1) + extra))
         times.update({f"{key}_bound_ms": b for key, (b, _) in bounds.items()})
-        times["mufu_bound_ms"] = mufu_bound_ms(n * n)     # every kernel here: n^2 expf
+        times["mufu_bound_ms"] = mufu_bound_ms(n * n)     # #1 and #5: n^2 expf
+        times["degree_mufu_bound_ms"] = mufu_bound_ms(made * n * n)
         print(f"[policy] {tag} n={n}: A bitwise the plain version's; streamed D and U "
               f"(r=1,2) bitwise the explicit kernels'; thr_c product = A^T V in positivity, "
               f"max|err|={worst_t:.3e}; kept per row min={int(kept.min())} "
               f"max={int(kept.max())}, rows over {KNN_K} (ties at the threshold)={ties}; "
+              f"#6 = its staged template; share of entries #6 and #8 make without expf "
+              f"{1.0 - made:.6f} (with it {made:.6f}; past the skip test {passing:.6f}); "
               + " ".join(f"{key}={val:.4f}" for key, val in times.items()), flush=True)
-        out[tag] = dict(times, tie_rows=ties, max_abs_err_thr_c=worst_t)
+        out[tag] = dict(times, tie_rows=ties, max_abs_err_thr_c=worst_t,
+                        expf_passing=passing, expf_made=made)
         del a, d, d_s
         torch.cuda.empty_cache()
 
@@ -966,9 +1046,21 @@ def phase_policy(report):
                   + xc.shape[0] * atol, f"ragged policy U {list(kw_t)} ({ro},{co}) disagrees")
         dd = affinity_degree_streaming(xr, xc, thr=thr_r, **kw)
         check(torch.equal(dd, d), f"ragged policy D ({ro},{co}) is not the build's D")
+        check(torch.equal(dd, affinity_degree_streaming(staged(xr), staged(xc), thr=thr_r, **kw)),
+              f"ragged policy m={m_s} ({ro},{co}): #6's register template is not bitwise "
+              "its staged template")
+        # E1's and E2's forms, thresholds at entries of the rows (#7)
+        for scales in ((None, None), (kw["scale_r"], kw["scale_c"])):
+            kw_k = _ragged_knn(xr, xc, ro, co, *scales)
+            dd = affinity_degree_streaming(xr, xc, **kw_k)
+            check(torch.equal(dd, affinity_and_degree(xr, xc, **kw_k)[1])
+                  and torch.equal(dd, affinity_degree_streaming(staged(xr), staged(xc), **kw_k)),
+                  f"ragged kNN m={m_s} ({ro},{co}) scales={scales[0] is not None}: #6 is not "
+                  "bitwise #1's D and its staged template")
     print(f"[policy] ragged (1037, m) square, (300, 737) off-diagonal and (337, 900) "
           f"below-diagonal stripes, m=16,{register_m()}, r=1,4,32, scales + thr / thr_c: "
-          "agree, register template = staged template", flush=True)
+          "agree, register template = staged template (#5, #6); kNN thresholds with and "
+          "without scales: #6 = #1's D = its staged template", flush=True)
     report["policy"] = out
 
 
@@ -1060,10 +1152,11 @@ def phase_block_sparse(report, build_log=""):
     #9 bitwise #2 (r = 1, 2), #10 bitwise #5 (d given and None) and its
     staged template, #11 bitwise #6 and #1's D; the fused build's A, D and
     thresholds bitwise the two-pass build's; each against its plain
-    version. Then ragged and off-diagonal stripes at m = 16 and at the
-    register template's width, and a NaN in V. ``build_log`` is nvcc's
-    report of block_sparse.cu: no register template of the main path may
-    spill."""
+    version; #8's register template's map its staged template's, both
+    timed at E1 and E2. Then ragged and off-diagonal stripes at m = 16
+    and at the register template's width (with E1's and E2's kNN
+    thresholds too), and a NaN in V. ``build_log`` is nvcc's report of
+    block_sparse.cu: no register template of the main path may spill."""
     from repro_torch.core.affinity import AffinitySpec, block_plan, dense_block_live
     from repro_torch.core.graph import affinity_stats, fused_affinity_build
     from repro_torch.core.power import batched_power_iteration
@@ -1079,6 +1172,10 @@ def phase_block_sparse(report, build_log=""):
     for tmpl, line in registers.items():
         print(f"[block_sparse] bs_streaming_matmat_kernel {tmpl}: {line}")
     check_no_spill("#10", registers)
+    live_registers = entry_registers(build_log, "liveness")
+    for tmpl, line in live_registers.items():
+        print(f"[block_sparse] liveness_kernel {tmpl}: {line}")
+    check_no_entry_spill("#8", live_registers)
     feats, _, _ = _features(N_MAIN)
     x = feats["rbf"]
     x_st = staged(x)
@@ -1096,6 +1193,16 @@ def phase_block_sparse(report, build_log=""):
         torch.cuda.synchronize()
         check(torch.equal(live.bool(), dense_block_live(a, 16, 256)),
               f"{tag}: #8's live map is not dense_block_live of #1's A")
+        check(torch.equal(live, block_liveness(x_st, **pol)),
+              f"{tag}: #8's register template's map is not its staged template's")
+        # #8's work: every entry's skip test, the made share of them exactly
+        made = report["policy"][tag]["expf_made"]
+        live_times = dict(
+            ms=cuda_ms(lambda: block_liveness(x, **pol), 10),
+            staged_ms=cuda_ms(lambda: block_liveness(x_st, **pol), 10),
+            mufu_bound_ms=mufu_bound_ms(made * n * n),
+            bound=bound_ms(4.0 * (n * m + live.numel() + n * (3 if sc is not None else 1)),
+                           skip_flops(n, n, m, made, sc is not None)))
         counts, col_idx, _ = block_plan(live)
         frac = float(live.float().mean())
         entries = _plan_entries(live, n, n)
@@ -1160,6 +1267,9 @@ def phase_block_sparse(report, build_log=""):
               f"{tag}: the fused build's A, D or thresholds are not the two-pass build's")
         del a_f, d_f, thr_f
         rec = dict(live_fraction=frac, live_entries=entries,
+                   liveness_ms=live_times["ms"], liveness_staged_ms=live_times["staged_ms"],
+                   liveness_bound_ms=live_times["bound"][0],
+                   liveness_mufu_bound_ms=live_times["mufu_bound_ms"],
                    fused_build_extra_bytes=fused_extra, max_abs_err=dict(
                        block_sparse_matmat=err9, block_sparse_streaming_matmat=err10,
                        block_sparse_streaming_degree_rel=err11))
@@ -1179,14 +1289,11 @@ def phase_block_sparse(report, build_log=""):
             plan_bytes = 4.0 * (counts.numel() + float(counts.sum()))
             times = dict(
                 block_liveness=dict(
-                    mufu_bound_ms=mufu_bound_ms(n * n),
-                    ms=cuda_ms(lambda: block_liveness(x, **pol), 10),
+                    live_times,
                     plain_ms=cuda_ms(lambda: [ref.block_liveness_ref(
                         x[r0:r0 + 4096], x, tm=16, tn=256, row_offset=r0,
                         **dict(pol, thr=thr[r0:r0 + 4096])) for r0 in range(0, n, 4096)], 2),
-                    library_ms=None,
-                    bound=bound_ms(4.0 * (n * m + live.numel()) + op_bytes,
-                                   affinity_flops(n, n, m, "rbf") + 2.0 * n * n)),
+                    library_ms=None),
                 block_sparse_matmat=dict(
                     ms=cuda_ms(lambda: block_sparse_matmat(a, v2, d, counts, col_idx), 20),
                     plain_ms=cuda_ms(lambda: ref.block_sparse_matmat_ref(
@@ -1278,6 +1385,23 @@ def phase_block_sparse(report, build_log=""):
         torch.cuda.synchronize()
         check(torch.equal(live.bool(), dense_block_live(a, 16, 256)),
               f"ragged ({ro},{co}): #8 is not dense_block_live of #1's A")
+        # #8's register template against its staged template and #1's map:
+        # E2's and E1's forms with the stripe's thresholds, and with
+        # thresholds at entries of the rows (#7); against its plain version
+        # with the stripe's thresholds only (no entry sits at one, where the
+        # plain version's other rounding could tip it)
+        kw_e1 = dict(kw, scale_r=None, scale_c=None)
+        for kw_l, plain in ((kw, True), (kw_e1, True), (_ragged_knn(xr, xc, ro, co), False),
+                            (_ragged_knn(xr, xc, ro, co, kw["scale_r"], kw["scale_c"]), False)):
+            live_l = block_liveness(xr, xc, **kw_l)
+            check(torch.equal(live_l, block_liveness(staged(xr), staged(xc), **kw_l))
+                  and torch.equal(live_l.bool(), dense_block_live(
+                      affinity_and_degree(xr, xc, **kw_l)[0], 16, 256))
+                  and (not plain or torch.equal(
+                      live_l, ref.block_liveness_ref(xr, xc, tm=16, tn=256, **kw_l))),
+                  f"ragged m={m_s} ({ro},{co}) scales={kw_l['scale_r'] is not None} "
+                  f"kNN={not plain}: #8 is not its staged template's and #1's map"
+                  + (", and its plain version's" if plain else ""))
         counts, col_idx, _ = block_plan(live)
         plan = dict(counts=counts, col_idx=col_idx)
         for r in RAGGED_R:
@@ -1311,10 +1435,12 @@ def phase_block_sparse(report, build_log=""):
     print(f"[block_sparse] ragged (1037, m) square, (300, 737) off-diagonal and (337, 900) "
           f"below-diagonal stripes, m=16,{register_m()}, scales + thr: #8 = dense_block_live, "
           "#9 = #2, #10 = #5 and its staged template, #11 = #1's D bitwise, r=1,4,32; the "
-          "fused build = the two-pass build", flush=True)
+          "fused build = the two-pass build; #8 = its staged template = dense_block_live "
+          "(= its plain version) in E1's and E2's forms, with kNN thresholds too", flush=True)
     for name, err in worst.items():
         report[name]["max_abs_err"] = err
     report["block_sparse_streaming_matmat"]["registers"] = registers
+    report["block_liveness"]["registers"] = live_registers
     report["block_sparse"] = out
 
 
@@ -1855,6 +1981,28 @@ def sweep_registers(log: str, block_sparse: bool) -> dict[str, str]:
                    f"{'register' if e.group(1) else 'staged'}"))
 
 
+def entry_registers(log: str, name: str) -> dict[str, str]:
+    """Registers and spills of each template of #6 (``name`` =
+    ``streaming_degree``) or #8 (``liveness``) in nvcc's report:
+    ``{"<fixed|policy> <register|staged>": ...}`` (the register template is
+    the kernel named ``*_reg_kernel``)."""
+    return ptxas_registers(
+        log, rf"\d+{name}(_reg)?_kernelILb(\d)E",
+        lambda e: (f"{'policy' if e.group(2) == '1' else 'fixed'} "
+                   f"{'register' if e.group(1) else 'staged'}"))
+
+
+def check_no_entry_spill(tag: str, registers: dict[str, str]) -> None:
+    """Fail on a spill in #6's or #8's register template, in either form,
+    and where the report names no such template."""
+    reg = {tmpl: line for tmpl, line in registers.items() if tmpl.endswith("register")}
+    check(set(reg) == {"fixed register", "policy register"},
+          f"nvcc's report names no register template of {tag} in both forms: {registers}")
+    spills = [f"{tmpl}: {line}" for tmpl, line in reg.items()
+              if not line.endswith(" 0 bytes spilled")]
+    check(not spills, f"{tag}'s register template spills: {spills}")
+
+
 def check_no_spill(tag: str, registers: dict[str, str]) -> None:
     """Fail on a spill in a register template of the main path (r <= 2),
     and where the report names no such template."""
@@ -2105,8 +2253,8 @@ def _serve_profile(cfg, params, tokens):
 #: device-event names of this port's kernels (always listed by the profile)
 KERNEL_LABELS = ("affinity_kernel", "power_step_kernel", "kmeans_assign_kernel",
                  "streaming_matmat_kernel", "streaming_matmat_reg_kernel",
-                 "streaming_degree_kernel", "gram_", "row_topk_", "liveness_kernel",
-                 "bs_matmat_kernel", "bs_streaming_matmat_kernel",
+                 "streaming_degree_kernel", "streaming_degree_reg_kernel", "gram_", "row_topk_",
+                 "liveness_kernel", "liveness_reg_kernel", "bs_matmat_kernel", "bs_streaming_matmat_kernel",
                  "bs_streaming_matmat_reg_kernel", "bs_streaming_degree_kernel")
 #: the power loop's sweeps of an r = 2 run, on either engine and route (the
 #: streamed ones in their register or staged template)

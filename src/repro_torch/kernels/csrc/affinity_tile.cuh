@@ -118,14 +118,20 @@ __device__ __forceinline__ float sq_dist(float dot, float sqr, float sqc) {
     return __fsub_rn(__fadd_rn(sqr, sqc), __fmul_rn(2.0f, dot));
 }
 
+// The argument of the rbf transform's expf, from d2 = sq_dist(...).
+__device__ __forceinline__ float rbf_exponent(float d2, float inv_two_sigma_sq, bool adaptive,
+                                              float sclr, float sclc) {
+    const float neg_d2 = -nan_max(d2, 0.f);
+    if (adaptive) return __fdiv_rn(neg_d2, __fmul_rn(sclr, sclc));
+    return __fmul_rn(neg_d2, inv_two_sigma_sq);
+}
+
 __device__ __forceinline__ float transform(int kind, float dot, float sqr, float sqc,
                                            float inv_two_sigma_sq, bool adaptive,
                                            float sclr, float sclc) {
     if (kind == COSINE) return dot;
     if (kind == COSINE_SHIFTED) return __fmul_rn(0.5f, __fadd_rn(1.0f, dot));
-    const float neg_d2 = -nan_max(sq_dist(dot, sqr, sqc), 0.f);
-    if (adaptive) return expf(__fdiv_rn(neg_d2, __fmul_rn(sclr, sclc)));
-    return expf(__fmul_rn(neg_d2, inv_two_sigma_sq));
+    return expf(rbf_exponent(sq_dist(dot, sqr, sqc), inv_two_sigma_sq, adaptive, sclr, sclc));
 }
 
 // The scores of rows row0 .. row0 + TM - 1 at this thread's column
@@ -464,6 +470,174 @@ __device__ __forceinline__ void with_form(int kind, const Policy& pol, F&& f) {
     } else {
         f(Form<COSINE, false, THR_ANY>{});
     }
+}
+
+// ---------------------------------------------------------------------------
+// The register templates of the streamed degree (streaming.cu) and the
+// liveness pass (block_sparse.cu): the entries alone, no V.
+//
+// Both use the sweeps' pieces above (RowFeats, Col loaded a tile ahead,
+// clean_span, with_form) and hand each entry, made with transform()'s
+// arithmetic and keep_entry(), to the caller's emit(i, a): the degree adds
+// it to its row sum (the staged loop's rowsum[i] += a), the liveness pass
+// ORs a != 0.
+//
+// Both skip the exponent where an entry is provably dropped. With the row
+// thresholds (rbf, POLICY form) an entry is kept only if expf(x) >= thr_i,
+// x its exponent. exp_cutoff(thr_i) gives a c_i with x < c_i =>
+// expf(x) < thr_i, and skip_bound turns c_i into a bound on the squared
+// distance, d2 > b_i (adaptive: d2 > b_i scale_c[j]) => x < c_i, so the
+// test needs neither the clamp, the scale, the divide nor the expf. A warp
+// whose 32 columns the test drops for all TM rows emits nothing for the
+// tile (every entry is 0); any other warp votes again row by row and makes
+// exactly the entries of each row that the test keeps somewhere in the
+// warp. The degree then adds nothing where it would add +0, which leaves a
+// row sum that is never -0 as it was, so D keeps the staged template's
+// bits; the live map is the same map.
+
+// A c with x < c => expf(x) < thr for every float x. expf is within 2 ulp
+// and logf within 1 ulp (no fast math): in the exponent, with the rounding
+// of c, under 2^-22 (|logf(thr)| + 1) together, and the margin is 64 times
+// that, 2^-16 (|logf(thr)| + 1). A thr that is not a normal positive float
+// (<= 0, subnormal, NaN: no row threshold) gives -inf, which skips nothing;
+// thr = +inf (a padding row) gives +inf, which skips every entry of the
+// row, none of which is kept.
+__device__ __forceinline__ float exp_cutoff(float thr) {
+    if (!(thr >= 0x1p-126f)) return -INFINITY;
+    if (thr == INFINITY) return INFINITY;
+    const float l = logf(thr);
+    return l - (fabsf(l) + 1.f) * 0x1p-16f;
+}
+
+// Scales inside [2^-50, 2^50] keep every product of the adaptive test a
+// normal float, so each rounding is relative (2^-24).
+__device__ __forceinline__ bool scale_in_range(float s) {
+    return s >= 0x1p-50f && s <= 0x1p50f;
+}
+
+// The row's bound b of the skip test on the squared distance d2 (a float
+// never compares above +inf: +inf skips nothing, -inf every entry but a
+// NaN). With c = exp_cutoff(thr) in [-88.8, -2^-16]:
+//  * fixed bandwidth, x = RN(-d2 inv): b = RN(RN(-c / inv) (1 + 2^-18)),
+//    at least (-c / inv) (1 + 2^-20), so d2 > b gives -d2 inv <
+//    c (1 + 2^-20) and x <= RN(c (1 + 2^-20)) < c;
+//  * adaptive, x = RN(-d2 / RN(s_i s_j)): b = RN(RN(-c (1 + 2^-18)) s_i),
+//    tested as d2 > RN(b s_j): then d2 / RN(s_i s_j) > -c (1 + 2^-19) and
+//    x < c, with s_i and s_j in range (an out-of-range column makes its
+//    entries exactly: col_entries).
+// Anything outside those ranges (c > -2^-16, i.e. thr > 1, which no rbf
+// entry reaches; inv not positive and finite; an out-of-range s_i; a b
+// that is not a normal float) skips nothing.
+__device__ __forceinline__ float skip_bound(float thr, bool adaptive, float inv_two_sigma_sq,
+                                            float sclr) {
+    const float c = exp_cutoff(thr);
+    if (c == INFINITY) return -INFINITY;
+    if (!(c <= -0x1p-16f) || c == -INFINITY) return INFINITY;
+    if (adaptive)
+        return scale_in_range(sclr) ? __fmul_rn(__fmul_rn(-c, 1.f + 0x1p-18f), sclr) : INFINITY;
+    if (!(inv_two_sigma_sq > 0.f && inv_two_sigma_sq < INFINITY)) return INFINITY;
+    const float b = __fmul_rn(__fdiv_rn(-c, inv_two_sigma_sq), 1.f + 0x1p-18f);
+    return b >= 0x1p-126f ? b : INFINITY;
+}
+
+// Each row's skip bound into bound (16-byte aligned, TM floats), from the
+// rows' thresholds and scales, which the same thread wrote in load_rows;
+// +inf where the policy gives no row thresholds. The caller synchronizes
+// before the first tile reads them.
+template <int TM>
+__device__ __forceinline__ void load_skip_bounds(const Policy& pol, const Rows<TM>& rows,
+                                                 float inv_two_sigma_sq, float* bound) {
+    const int i = threadIdx.x;
+    if (i < TM)
+        bound[i] = pol.thr != nullptr ? skip_bound(rows.thr[i], pol.scale_r != nullptr,
+                                                   inv_two_sigma_sq, rows.sclr[i])
+                                      : INFINITY;
+}
+
+// The TM entries of this thread's column col (operands c), each handed to
+// emit(i, a) in row order. MASKED as in fold_col: a column past the edge
+// emits nothing, a masked entry a 0. Every lane of the warp calls it with
+// the same MASKED (the skip is a warp vote).
+template <int TM, typename F, bool POLICY, bool MASKED, typename Emit>
+__device__ __forceinline__ void col_entries(const Col<1>& c, const RowFeats<TM>& rf,
+                                            const Rows<TM>& rows, const float* bound, int m,
+                                            float inv_two_sigma_sq, const Policy& pol, int row0,
+                                            int col, int n_rows, int n_cols, int row_offset,
+                                            int col_offset, Emit emit) {
+    constexpr int KIND = F::KIND;
+    constexpr bool ADAPTIVE = F::ADAPTIVE;
+    constexpr bool SKIP = POLICY && KIND == RBF && F::THR != THR_COL;
+    const bool inside = !MASKED || col < n_cols;
+    float s[TM];  // the dot products, then (rbf) the squared distances
+#pragma unroll
+    for (int i = 0; i < TM; ++i) s[i] = 0.f;
+    float sqc = 0.f;
+#pragma unroll
+    for (int k = 0; k < MR; ++k) {
+        if (k < m) {
+            if (KIND == RBF) sqc = __fadd_rn(sqc, __fmul_rn(c.x[k], c.x[k]));
+#pragma unroll
+            for (int i = 0; i < TM; ++i) s[i] = fmaf(rf.x[k][i], c.x[k], s[i]);
+        }
+    }
+    if (KIND == RBF) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) s[i] = sq_dist(s[i], rows.sqr[i], sqc);
+    }
+    constexpr int G = TM < 4 ? TM : 4;
+    float g[G], h[G], b[G];
+    // the test of entry i: false where it drops the entry (never a NaN d2's)
+    const auto may_keep = [&](int i) {
+        return !(s[i] > (ADAPTIVE ? __fmul_rn(b[i % G], c.scl) : b[i % G]));
+    };
+    // a column whose entries are all made exactly (a scale out of range)
+    const bool col_exact = ADAPTIVE && !scale_in_range(c.scl);
+    if constexpr (SKIP) {
+        bool need = col_exact;
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+            if (i % G == 0) lds_group<G>(bound + i, b);
+            need |= may_keep(i);
+        }
+        if (!__any_sync(0xffffffffu, inside && need)) return;
+    }
+    // then each row by a vote of its own (every lane reaches each vote): a
+    // row none of whose 32 entries the test keeps emits nothing
+    const bool row_thr = POLICY && (F::THR == THR_ROW || (F::THR == THR_ANY && pol.thr != nullptr));
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+        if (i % G == 0) {
+            if (SKIP) lds_group<G>(bound + i, b);
+            if (row_thr) lds_group<G>(rows.thr + i, g);
+            if (ADAPTIVE) lds_group<G>(rows.sclr + i, h);
+        }
+        if (SKIP && !__any_sync(0xffffffffu, inside && (col_exact || may_keep(i)))) continue;
+        if (!inside) continue;
+        const float a = KIND == RBF
+            ? expf(rbf_exponent(s[i], inv_two_sigma_sq, ADAPTIVE, ADAPTIVE ? h[i % G] : 1.f,
+                                ADAPTIVE ? c.scl : 1.f))
+            : transform(KIND, s[i], 0.f, 0.f, 0.f, false, 1.f, 1.f);
+        const bool valid = !MASKED || (row0 + i < n_rows
+                                       && row_offset + row0 + i != col_offset + col);
+        emit(i, keep_entry<POLICY, F::THR>(a, valid, pol, g[i % G], c.thr));
+    }
+}
+
+// The entries of one tile of column c0 (operands c) with the warp's form
+// of col_entries.
+template <int TM, typename F, bool POLICY, typename Emit>
+__device__ __forceinline__ void tile_entries(const Col<1>& c, const RowFeats<TM>& rf,
+                                             const Rows<TM>& rows, const float* bound, int m,
+                                             float inv_two_sigma_sq, const Policy& pol, int row0,
+                                             int c0, int n_rows, int n_cols, int row_offset,
+                                             int col_offset, Emit emit) {
+    const int col = c0 + threadIdx.x;
+    if (clean_warp<TM>(row0, c0, n_rows, n_cols, row_offset, col_offset))
+        col_entries<TM, F, POLICY, false>(c, rf, rows, bound, m, inv_two_sigma_sq, pol, row0,
+                                          col, n_rows, n_cols, row_offset, col_offset, emit);
+    else
+        col_entries<TM, F, POLICY, true>(c, rf, rows, bound, m, inv_two_sigma_sq, pol, row0,
+                                         col, n_rows, n_cols, row_offset, col_offset, emit);
 }
 
 // Fixed-order block reduction of K per-thread partials: a warp tree

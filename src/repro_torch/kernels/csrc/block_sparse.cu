@@ -55,6 +55,10 @@
 //    the store replaced by a block-wide OR (__syncthreads_or) of
 //    "entry != 0": a tile is live iff the build would store a nonzero (or
 //    NaN) entry in it; padding rows and columns emit 0 and never count.
+//    Its register template (m <= tile::MR) makes the entries as the
+//    streamed degree's does (no expf where a warp's entries are provably
+//    below their thresholds), ORs them per warp with a vote and writes
+//    only the 1s into the zeroed map: no barrier a tile.
 
 #include "affinity_tile.cuh"
 
@@ -295,6 +299,50 @@ __global__ void __launch_bounds__(TN) liveness_kernel(
     }
 }
 
+// The liveness pass's register template (m <= tile::MR): each thread makes
+// its column's PLAN_TM entries from the sweeps' pieces (column operands a
+// tile ahead, the mask only on ragged and diagonal warps, no expf where an
+// entry is provably dropped: tile::col_entries) and ORs entry != 0 (a NaN
+// counts); a warp vote replaces the block barrier, and a warp that finds a
+// live entry writes 1. The map comes zeroed from the wrapper and every
+// writer writes the same 1, so it is liveness_kernel's map with no barrier
+// and no ordering. With no partials to keep it fits 64 registers, four
+// blocks an SM (two, as the degree takes, measured slower on the card).
+template <bool POLICY>
+__global__ void __launch_bounds__(TN, 4) liveness_reg_kernel(
+    const float* __restrict__ xr, const float* __restrict__ xc, tile::Policy pol,
+    int* __restrict__ live, int n_rows, int n_cols, int m, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq) {
+    __shared__ __align__(16) tile::Rows<PLAN_TM> s_rows;
+    __shared__ tile::RowFeats<PLAN_TM> s_rf;
+    __shared__ __align__(16) float s_bound[PLAN_TM];
+
+    const int row0 = blockIdx.x * PLAN_TM;
+    const int n_j = (n_cols + TN - 1) / TN;
+    tile::load_rows<PLAN_TM>(xr, n_rows, m, row0, kind == tile::RBF, pol, s_rows);
+    tile::load_row_feats<PLAN_TM>(xr, n_rows, m, row0, s_rf);
+    tile::load_skip_bounds<PLAN_TM>(pol, s_rows, inv_two_sigma_sq, s_bound);
+    __syncthreads();
+    int* live_row = live + static_cast<size_t>(blockIdx.x) * n_j;
+
+    tile::with_form<POLICY>(kind, pol, [&](auto form) {
+        using Form = decltype(form);
+        tile::Col<1> cur, nxt;  // r = 0: the features and scale alone
+        tile::load_col<1, POLICY>(xc, nullptr, pol, threadIdx.x, n_cols, m, 0, cur);
+        for (int cj = 0; cj < n_j; ++cj) {
+            const int c0 = cj * TN;
+            tile::load_col<1, POLICY>(xc, nullptr, pol, c0 + TN + threadIdx.x, n_cols, m, 0,
+                                      nxt);
+            bool any = false;
+            tile::tile_entries<PLAN_TM, Form, POLICY>(
+                cur, s_rf, s_rows, s_bound, m, inv_two_sigma_sq, pol, row0, c0, n_rows, n_cols,
+                row_offset, col_offset, [&](int, float a) { any |= a != 0.f; });
+            if (__any_sync(0xffffffffu, any) && (threadIdx.x & 31) == 0) live_row[cj] = 1;
+            cur = nxt;
+        }
+    });
+}
+
 template <int RT>
 void launch_bs_matmat(const float* a, const float* v, const float* d, const int* counts,
                       const int* col_idx, float* u, int n_rows, int n_cols, int r,
@@ -384,21 +432,25 @@ extern "C" int gpic_block_sparse_streaming_degree(
     return static_cast<int>(cudaGetLastError());
 }
 
-// live is (ceil(n_rows / 16), ceil(n_cols / 256)) int32.
+// live is (ceil(n_rows / 16), ceil(n_cols / 256)) int32, zeroed by the
+// caller (the register template writes only the live tiles' 1s).
 extern "C" int gpic_block_liveness(
     const float* xr, const float* xc, const float* scale_r, const float* scale_c,
     const float* thr, int* live, int n_rows, int n_cols, int m, int row_offset,
     int col_offset, int kind, float inv_two_sigma_sq, cudaStream_t stream) {
     const int grid = (n_rows + PLAN_TM - 1) / PLAN_TM;
     const tile::Policy pol{scale_r, scale_c, thr, nullptr};
-    const size_t smem = tile::smem_bytes(PLAN_TM, m);
-    if (tile::has_policy(pol))
-        liveness_kernel<true><<<grid, TN, smem, stream>>>(
-            xr, xc, pol, live, n_rows, n_cols, m, row_offset, col_offset, kind,
-            inv_two_sigma_sq);
-    else
-        liveness_kernel<false><<<grid, TN, smem, stream>>>(
-            xr, xc, pol, live, n_rows, n_cols, m, row_offset, col_offset, kind,
-            inv_two_sigma_sq);
+    const bool policy = tile::has_policy(pol);
+#define GPIC_ARGS xr, xc, pol, live, n_rows, n_cols, m, row_offset, col_offset, kind, \
+                  inv_two_sigma_sq
+    if (m > tile::MR) {
+        const size_t smem = tile::smem_bytes(PLAN_TM, m);
+        if (policy) liveness_kernel<true><<<grid, TN, smem, stream>>>(GPIC_ARGS);
+        else liveness_kernel<false><<<grid, TN, smem, stream>>>(GPIC_ARGS);
+    } else {
+        if (policy) liveness_reg_kernel<true><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+        else liveness_reg_kernel<false><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+    }
+#undef GPIC_ARGS
     return static_cast<int>(cudaGetLastError());
 }

@@ -60,7 +60,12 @@
 //    no row's summation order depends on TM.
 //  * The degree is affinity.cu's loop without the store: the same TM = 16,
 //    the same per-thread row sums over the tiles, the same reduction, so
-//    the streamed D is bitwise equal to affinity_and_degree's D.
+//    the streamed D is bitwise equal to affinity_and_degree's D. It has
+//    the mat-mat's two templates; the register one adds each entry to its
+//    row sum where the mat-mat folds it with V, and with row thresholds
+//    skips the expf of a warp's tile whose entries are all provably below
+//    them (tile::col_entries): on a kNN graph most tiles, so the MUFU
+//    floor then counts only the entries near a threshold.
 
 #include "affinity_tile.cuh"
 
@@ -191,6 +196,51 @@ __global__ void __launch_bounds__(TN) streaming_degree_kernel(
     if (threadIdx.x < TM_DEG && row0 + threadIdx.x < n_rows) d[row0 + threadIdx.x] = s;
 }
 
+// The degree's register template (m <= tile::MR): #5's register template
+// with each entry added to its row sum, the staged loop's rowsum[i] += a,
+// in place of the fold with V (no V is loaded); TM_DEG = tm_for(1) rows, so
+// the same per-thread sums and the same reduction: the staged template's
+// bits. Where the row thresholds exist, a warp's tile whose entries are
+// all provably dropped takes no expf and adds nothing (tile::col_entries).
+template <bool POLICY>
+__global__ void __launch_bounds__(TN, tile::reg_blocks_per_sm(1)) streaming_degree_reg_kernel(
+    const float* __restrict__ xr, const float* __restrict__ xc, tile::Policy pol,
+    float* __restrict__ d, int n_rows, int n_cols, int m, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq) {
+    static_assert(tm_for(1) == TM_DEG, "the degree's rows are the r = 1 sweep's");
+    __shared__ __align__(16) tile::Rows<TM_DEG> s_rows;
+    __shared__ tile::RowFeats<TM_DEG> s_rf;
+    __shared__ __align__(16) float s_bound[TM_DEG];
+    __shared__ float s_red[tile::NWARPS * TM_DEG];
+
+    const int row0 = blockIdx.x * TM_DEG;
+    tile::load_rows<TM_DEG>(xr, n_rows, m, row0, kind == tile::RBF, pol, s_rows);
+    tile::load_row_feats<TM_DEG>(xr, n_rows, m, row0, s_rf);
+    tile::load_skip_bounds<TM_DEG>(pol, s_rows, inv_two_sigma_sq, s_bound);
+    __syncthreads();
+
+    float rowsum[TM_DEG];
+#pragma unroll
+    for (int r = 0; r < TM_DEG; ++r) rowsum[r] = 0.f;
+
+    tile::with_form<POLICY>(kind, pol, [&](auto form) {
+        using Form = decltype(form);
+        tile::Col<1> cur, nxt;  // r = 0: the features and scale alone
+        tile::load_col<1, POLICY>(xc, nullptr, pol, threadIdx.x, n_cols, m, 0, cur);
+        for (int c0 = 0; c0 < n_cols; c0 += TN) {
+            tile::load_col<1, POLICY>(xc, nullptr, pol, c0 + TN + threadIdx.x, n_cols, m, 0,
+                                      nxt);
+            tile::tile_entries<TM_DEG, Form, POLICY>(
+                cur, s_rf, s_rows, s_bound, m, inv_two_sigma_sq, pol, row0, c0, n_rows, n_cols,
+                row_offset, col_offset, [&](int i, float a) { rowsum[i] += a; });
+            cur = nxt;
+        }
+    });
+
+    const float s = tile::block_reduce_fixed<TM_DEG>(rowsum, s_red);
+    if (threadIdx.x < TM_DEG && row0 + threadIdx.x < n_rows) d[row0 + threadIdx.x] = s;
+}
+
 template <int RT>
 void launch_matmat(const float* xr, const float* xc, const tile::Policy& pol,
                    const float* v, const float* d, float* u, int n_rows, int n_cols,
@@ -245,14 +295,16 @@ extern "C" int gpic_streaming_degree(
     int kind, float inv_two_sigma_sq, cudaStream_t stream) {
     const int grid = (n_rows + TM_DEG - 1) / TM_DEG;
     const tile::Policy pol{scale_r, scale_c, thr, nullptr};
-    const size_t smem = tile::smem_bytes(TM_DEG, m);
-    if (tile::has_policy(pol))
-        streaming_degree_kernel<true><<<grid, TN, smem, stream>>>(
-            xr, xc, pol, d, n_rows, n_cols, m, row_offset, col_offset, kind,
-            inv_two_sigma_sq);
-    else
-        streaming_degree_kernel<false><<<grid, TN, smem, stream>>>(
-            xr, xc, pol, d, n_rows, n_cols, m, row_offset, col_offset, kind,
-            inv_two_sigma_sq);
+    const bool policy = tile::has_policy(pol);
+#define GPIC_ARGS xr, xc, pol, d, n_rows, n_cols, m, row_offset, col_offset, kind, inv_two_sigma_sq
+    if (m > tile::MR) {
+        const size_t smem = tile::smem_bytes(TM_DEG, m);
+        if (policy) streaming_degree_kernel<true><<<grid, TN, smem, stream>>>(GPIC_ARGS);
+        else streaming_degree_kernel<false><<<grid, TN, smem, stream>>>(GPIC_ARGS);
+    } else {
+        if (policy) streaming_degree_reg_kernel<true><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+        else streaming_degree_reg_kernel<false><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+    }
+#undef GPIC_ARGS
     return static_cast<int>(cudaGetLastError());
 }

@@ -353,6 +353,89 @@ def test_dead_tiles_contribute_nothing():
     torch.testing.assert_close(u, (a_cut @ v) / d.clamp_min(1e-30)[:, None], rtol=0, atol=0)
 
 
+#: (rows, cols, row_offset, col_offset) of tests/test_torch_kernels.py's
+#: streamed stripes of a 300-point x: the square self-stripe, an
+#: off-diagonal stripe the global diagonal crosses, and one whose rows come
+#: after its columns, crossed at an offset gap (170) that is no multiple of
+#: 16 or 256
+STRIPES = [(slice(0, 200), None, 0, 0), (slice(40, 160), slice(100, 300), 40, 100),
+           (slice(170, 300), slice(0, 230), 170, 0)]
+STRIPE_IDS = ["square", "stripe", "below"]
+#: the streamed degree's and the liveness pass's forms: E1's row
+#: thresholds, E2's adaptive scales with row thresholds, and cosine with
+#: no threshold, where a negative entry is a live one
+STRIPE_FORMS = ["knn", "adaptive_knn", "cosine"]
+
+
+def _stripe_operands(form, stripe):
+    """(rows, columns or None for the square, keyword operands) of a stripe
+    of a 300-point x, as numpy. rbf: the cluster-sorted gaussians, the
+    reference's adaptive scales, thresholds between the reference's scores
+    of the whole row at rank knn_k, so a row can keep nothing in the
+    stripe. cosine: unit vectors near angle 0 up to point 100 and near pi
+    after it, so the off-diagonal stripe's first row blocks meet only
+    negative entries."""
+    n = 300
+    rows, cols, ro, co = stripe
+    if form == "cosine":
+        ang = np.where(np.arange(n) < 100, 0.0, np.pi)
+        ang = ang + 0.3 * np.random.default_rng(3).standard_normal(n)
+        x = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+        kw = dict(kind="cosine", sigma=1.0)
+        scale = thr = None
+    else:
+        x, _, _ = dataset_by_name("gaussians", n, seed=1)
+        jspec = jcore.AffinitySpec(**SPECS[form])
+        scale, _ = jgraph.affinity_stats(jnp.asarray(x), jspec)
+        scores, _ = jops.affinity_and_degree(jnp.asarray(x), spec=jspec, scale_r=scale,
+                                             scale_c=scale, mode="reference")
+        thr = _midpoint_thresholds(scores, jspec.knn_k)
+        scale = None if scale is None else np.asarray(scale)
+        kw = dict(kind="rbf", sigma=jspec.sigma)
+    cols_or_rows = rows if cols is None else cols
+    part = lambda a, at: None if a is None else np.ascontiguousarray(a[at])  # noqa: E731
+    kw.update(row_offset=ro, col_offset=co, scale_r=part(scale, rows),
+              scale_c=part(scale, cols_or_rows), thr=part(thr, rows))
+    return part(x, rows), None if cols is None else part(x, cols), kw
+
+
+def _as(convert, kw):
+    return {k: convert(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("stripe", STRIPES, ids=STRIPE_IDS)
+@pytest.mark.parametrize("form", STRIPE_FORMS)
+def test_block_liveness_matches_pallas_on_stripes(form, stripe):
+    """The live map against the reference's Pallas ``block_liveness`` in
+    interpret mode on the port's (16, 256) grid, exactly, at the streamed
+    stripes: the map that the card check holds #8's templates to."""
+    xr, xc, kw = _stripe_operands(form, stripe)
+    got = tops.block_liveness(_t(xr), _t(xc), **_as(_t, kw))
+    want = jops.block_liveness(jnp.asarray(xr), _j(xc), tm=TM, tn=TN, mode="pallas",
+                               **_as(_j, kw))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.dtype == torch.int32
+    if form == "cosine":
+        assert bool(got.all()), "a tile of negative entries is live"
+        if stripe[2] == 40:
+            a, _ = tops.affinity_and_degree(_t(xr), _t(xc), **_as(_t, kw))
+            assert bool((a[:TM] < 0).all()), "the first row block meets positive entries"
+
+
+@pytest.mark.parametrize("stripe", STRIPES, ids=STRIPE_IDS)
+@pytest.mark.parametrize("form", STRIPE_FORMS)
+def test_degree_and_liveness_same_bits_with_a_zero_feature_column(form, stripe):
+    """x and x with a zero feature column appended give the same D and live
+    map: the zero feature changes no dot product or norm. The card check
+    relies on it to hold #6's and #8's register templates (m <= 2) against
+    their staged templates (m = 3)."""
+    xr, xc, kw = _stripe_operands(form, stripe)
+    pad = lambda a: None if a is None else np.pad(a, ((0, 0), (0, 1)))  # noqa: E731
+    kw = _as(_t, kw)
+    for op in (tops.streaming_degree, tops.block_liveness):
+        assert torch.equal(op(_t(xr), _t(xc), **kw), op(_t(pad(xr)), _t(pad(xc)), **kw))
+
+
 # ---------------------------------------------------------------------------
 # the fused one-pass build (core/graph.py::fused_affinity_build)
 # ---------------------------------------------------------------------------
