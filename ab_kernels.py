@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the Gram (#4), the row top-k (#7), the streamed degree (#6) and the
-liveness pass (#8) from two checkouts on one CUDA card, in turns, to read
-each kernel's before and after on the same card.
+"""Time the affinity build (#1), the Gram (#4), the row top-k (#7), the
+streamed degrees (#6, #11) and the liveness pass (#8) from two checkouts on
+one CUDA card, in turns, to read each kernel's before and after on the
+same card.
 
     python3 ab_kernels.py BASE_DIR
 
@@ -16,8 +17,12 @@ the Gram of V (45,000, 2) and of [V | U] (45,000, 4) by the device time
 torch.profiler records (beside ``v.T @ v``), and by CUDA events over
 back-to-back calls (the host-paced time); the row top-k at n = 45,000,
 m = 2 for each case of ``phase_row_topk``, the streamed degree (dense, and
-with E1's and E2's kNN operands) and the liveness pass (E1's and E2's)
-at n = 45,000, m = 2 by CUDA events. Correctness is
+with E1's and E2's kNN operands), the liveness pass and the block-sparse
+degree on its plan (E1's and E2's), and the affinity build (dense rbf, the
+main path's and E1's fused build's call; E1's and E2's thresholded
+two-pass calls; E2's scales alone, its fused build's call), each 8.1 GB A
+freed before the next is built, at n = 45,000, m = 2 by CUDA events.
+Correctness is
 ``chip_smoke.py``'s to check. Prints one line per turn and writes all of
 them to ``chiprun_out/ab_kernels.json``; exits non-zero if a turn fails.
 """
@@ -42,9 +47,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 cs.phase_device()
 cs.phase_build()
-from repro_torch.core.affinity import AffinitySpec
+from repro_torch.core.affinity import AffinitySpec, block_plan
 from repro_torch.core.graph import affinity_stats, scales_from_topk
-from repro_torch.kernels.block_sparse import block_liveness
+from repro_torch.kernels.affinity import affinity_and_degree
+from repro_torch.kernels.block_sparse import block_liveness, block_sparse_streaming_degree
 from repro_torch.kernels.gram import gram
 from repro_torch.kernels.row_topk import row_topk
 from repro_torch.kernels.streaming import affinity_degree_streaming
@@ -92,6 +98,9 @@ for stat, k, sc in cases:
                                                       scale_c=sc), 5))
 report["degree dense"] = dict(ms=cs.cuda_ms(
     lambda: affinity_degree_streaming(x, kind="rbf", sigma=cs.SIGMA), 10))
+# each call's A (8.1 GB) is dropped as it returns, before the next call
+report["affinity dense"] = dict(ms=cs.cuda_ms(
+    lambda: affinity_and_degree(x, kind="rbf", sigma=cs.SIGMA), 5))
 for tag, spec in (("E1", AffinitySpec(kind="rbf", sigma=cs.SIGMA, knn_k=cs.KNN_K)),
                   ("E2", AffinitySpec(kind="rbf", bandwidth="adaptive", scale_k=cs.SCALE_K,
                                       knn_k=cs.KNN_K))):
@@ -99,6 +108,14 @@ for tag, spec in (("E1", AffinitySpec(kind="rbf", sigma=cs.SIGMA, knn_k=cs.KNN_K
     pol = dict(kind="rbf", sigma=cs.SIGMA, scale_r=sc, scale_c=sc, thr=thr)
     report[f"degree {tag}"] = dict(ms=cs.cuda_ms(lambda: affinity_degree_streaming(x, **pol), 10))
     report[f"liveness {tag}"] = dict(ms=cs.cuda_ms(lambda: block_liveness(x, **pol), 10))
+    counts, col_idx, _ = block_plan(block_liveness(x, **pol))
+    report[f"bs degree {tag}"] = dict(ms=cs.cuda_ms(lambda: block_sparse_streaming_degree(
+        x, counts=counts, col_idx=col_idx, **pol), 20))
+    report[f"affinity {tag} thr"] = dict(ms=cs.cuda_ms(lambda: affinity_and_degree(x, **pol), 5))
+    if sc is not None:
+        report[f"affinity {tag} fused form"] = dict(ms=cs.cuda_ms(
+            lambda: affinity_and_degree(x, **dict(pol, thr=None)), 5))
+    torch.cuda.empty_cache()
 print("AB_REPORT " + json.dumps(report))
 '''
 

@@ -40,25 +40,29 @@ Phases (any failure exits non-zero before the last line is printed):
                 the sweeps and the degree bitwise their dense twins (#2, #5,
                 #6, #1's D), the fused one-pass build bitwise the two-pass
                 build; ragged and off-diagonal stripes at m = 16; a NaN in V.
-                The streamed sweeps (#5, #10), the streamed degree (#6)
-                and the liveness pass (#8) have a register template
-                (m <= 2) beside the staged-slab one (any m): x must give
-                the same bits as x with zero feature columns appended to
-                m = 3, which takes the staged template, at the main shape
-                (r = 1, 2, d given and None, thr, thr_c; #6 dense, E1 and
-                E2, #8 E1 and E2) and at ragged stripes (rows after the
-                columns too, row counts off TM, at m = 16 and 2; #6 and #8
-                also with kNN thresholds at entries of their rows), and
-                both are timed in the same run, with each template's
-                registers from nvcc's report, kept beside each library (it
-                fails on a spill of a register template at r <= 2, or of
-                #6's or #8's, or where the report names none). The kernels
-                that take one expf an entry (#1, #5-#8, #10, #11) print a
-                second floor beside their bound: entries / (SMs x 16 MUFU x
-                clock). #6's and #8's register templates skip the expf of
-                entries provably under their row's threshold: the share
-                they still make with it is counted from the stored A, and
-                their bound and floor count that work.
+                The affinity build (#1), the streamed sweeps (#5, #10),
+                the streamed degrees (#6, #11) and the liveness pass (#8)
+                have a register template (m <= 2) beside the staged-slab
+                one (any m): x must give the same bits as x with zero
+                feature columns appended to m = 3, which takes the staged
+                template, at the main shape (r = 1, 2, d given and None,
+                thr, thr_c; #1 dense in every kind, E1's and E2's thr and
+                E2's scales alone, the fused build's form; #6 dense, E1
+                and E2; #8 and #11 E1 and E2) and at ragged stripes (rows
+                after the columns too, row counts off TM, at m = 16 and 2;
+                #1, #6, #8 and #11 also with kNN thresholds at entries of
+                their rows), and both are timed in the same run, with each
+                template's registers from nvcc's report, kept beside each
+                library (it fails on a spill of a register template at
+                r <= 2, or of #1's, #6's, #8's or #11's, or where the
+                report names none). The kernels that take one expf an
+                entry (#1, #5-#8, #10, #11) print a second floor beside
+                their bound: entries / (SMs x 16 MUFU x clock). The
+                register templates of #1, #6, #8 and #11 skip the expf of
+                entries provably under their row's threshold (#1 stores
+                them as 0): the share they still make with it is counted
+                from the stored A (over the live tiles for #11), and their
+                bound and floor count that work.
                 Flash attention (#12) at the serve shape (b h = 128,
                 s = 2,048, d = 80, causal, f32 q over bf16 K and V, also as
                 strided views of a cache), ragged s = 1,000, GQA rep 4
@@ -215,8 +219,8 @@ def device_ms(fn, reps: int) -> float:
 
 
 def register_m() -> int:
-    """tile::MR, the widest feature count of #5's-#8's and #10's register
-    templates, as csrc/affinity_tile.cuh defines it: a wider x takes the
+    """tile::MR, the widest feature count of the register templates of #1,
+    #5-#8, #10 and #11, as csrc/affinity_tile.cuh defines it: a wider x takes the
     staged template."""
     with open(os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
                            "affinity_tile.cuh")) as f:
@@ -227,7 +231,8 @@ def register_m() -> int:
 
 def staged(x):
     """x (None stays None) with zero feature columns appended up to
-    register_m() + 1, which sends #5-#8 and #10 to their staged template. A
+    register_m() + 1, which sends #1, #5-#8, #10 and #11 to their staged
+    template. A
     zero feature changes no fmaf chain or norm beyond the sign of an exact
     zero, which torch.equal ignores, so the two templates must agree bit for
     bit on x and on staged(x)."""
@@ -261,36 +266,44 @@ def mufu_bound_ms(entries: float) -> float:
     return entries / _mufu_per_s() * 1e3
 
 
-def expf_shares(a_raw, thr, stripe=4096) -> tuple[float, float]:
-    """(passing, made): the shares of the stripe's entries whose exponent
-    the skip test of #6's and #8's register templates cannot drop, and of
-    those the kernel makes with their expf, counted from the unthresholded
-    A ``a_raw`` and the row thresholds ``thr``. An entry passes where it is
-    at or above thr_i exp(-2^-16 (|ln thr_i| + 1)), the test's cutoff (to
-    within the test's own margins); the kernel makes all 32 entries of a
-    row in a warp (32 columns from column 0) where one passes."""
+def expf_shares(a_raw, thr, stripe=4096, live=None) -> tuple[float, float]:
+    """(passing, made): the shares of the stripe's entries (``live``, an
+    (nI, nJ) map on the (16, 256) grid: of the entries in its live tiles)
+    whose exponent the skip test of the register templates of #1, #6, #8
+    and #11 cannot drop, and of those the kernel makes with their expf,
+    counted from the unthresholded A ``a_raw`` and the row thresholds
+    ``thr``. An entry passes where it is at or above thr_i exp(-2^-16
+    (|ln thr_i| + 1)), the test's cutoff (to within the test's own
+    margins); the kernel makes all 32 entries of a row in a warp (32
+    columns from column 0) where one passes."""
     n_rows, n_cols = a_raw.shape
     log_thr = thr.double().log()
     floor = (log_thr - (log_thr.abs() + 1.0) * 2.0 ** -16).exp().float()
+    tile_of_warp = torch.arange(-(-n_cols // 32), device=a_raw.device) // 8
     passing = made = 0.0
     for r0 in range(0, n_rows, stripe):
         need = (a_raw[r0:r0 + stripe] >= floor[r0:r0 + stripe, None]).to(torch.uint8)
-        passing += float(need.sum(dtype=torch.float64))
         need = torch.nn.functional.pad(need, (0, -n_cols % 32))
-        made += 32.0 * float(need.view(need.shape[0], -1, 32).amax(dim=2).sum(
-            dtype=torch.float64))
-    return passing / (n_rows * n_cols), made / (n_rows * n_cols)
+        need = need.view(need.shape[0], -1, 32)
+        if live is not None:      # a multiple of 16 rows a stripe
+            rows_live = live[r0 // 16:-(-(r0 + need.shape[0]) // 16)].repeat_interleave(16, 0)
+            need = need * rows_live[:need.shape[0], tile_of_warp, None].to(torch.uint8)
+        passing += float(need.sum(dtype=torch.float64))
+        made += 32.0 * float(need.amax(dim=2).sum(dtype=torch.float64))
+    entries = n_rows * n_cols if live is None else _plan_entries(live, n_rows, n_cols)
+    return passing / entries, made / entries
 
 
-def skip_flops(rows: int, cols: int, m: int, made: float, adaptive: bool) -> float:
-    """Operations of #6's and #8's register templates with the skip test,
-    where the ``made`` share of the entries is made exactly: per entry
-    the dot product (2m), d2 (3) and the test (1; with adaptive scales 2,
-    the row's bound times the column's scale); per entry made, the clamp,
-    the scale (adaptive: the product of the scales, then the divide), the
-    expf, the threshold compare and the sum or OR (5; adaptive 6)."""
+def skip_flops(entries: float, m: int, made: float, adaptive: bool) -> float:
+    """Operations of the register templates of #1, #6, #8 and #11 with the
+    skip test over ``entries`` entries, of which the ``made`` share is made
+    exactly: per entry the dot product (2m), d2 (3) and the test (1; with
+    adaptive scales 2, the row's bound times the column's scale); per entry
+    made, the clamp, the scale (adaptive: the product of the scales, then
+    the divide), the expf, the threshold compare and the sum or OR (5;
+    adaptive 6)."""
     a = 1 if adaptive else 0
-    return rows * cols * (2 * m + 4 + a + made * (5 + a))
+    return entries * (2 * m + 4 + a + made * (5 + a))
 
 
 def affinity_flops(rows: int, cols: int, m: int, kind: str) -> float:
@@ -367,9 +380,18 @@ def _plain_affinity_stripes(x, kind, sigma, stripe=4096):
                                     row_offset=r0)
 
 
-def phase_affinity(report):
+def phase_affinity(report, build_log=""):
+    """Kernel #1 against its plain version (A bitwise) at the main shape in
+    every kind, its register template (m <= 2) bitwise its staged template
+    there (A and D; both timed for rbf, the main path's call), and ragged
+    stripes at m = 16. ``build_log`` is nvcc's report of affinity.cu: the
+    register template may not spill."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.affinity import affinity_and_degree
+    registers = entry_registers(build_log, "affinity")
+    for tmpl, line in registers.items():
+        print(f"[affinity] affinity_kernel {tmpl}: {line}")
+    check_no_entry_spill("#1", registers, ("fixed", "policy", "fixed bulk", "policy bulk"))
     feats, _, _ = _features(N_MAIN)
     n, m = feats["rbf"].shape
     worst_a = worst_d = 0.0
@@ -379,26 +401,33 @@ def phase_affinity(report):
         a, d = affinity_and_degree(x, kind=kind, sigma=SIGMA)
         torch.cuda.synchronize()
         err_a, err_d = _stripe_errors(a, d, x, kind, SIGMA)
+        a_st, d_st = affinity_and_degree(staged(x), kind=kind, sigma=SIGMA)
+        same = torch.equal(a, a_st) and torch.equal(d, d_st)
+        del a_st, d_st
         print(f"[affinity] n={n} m={m} {kind}: max|A-A_ref|={err_a:.3e} "
-              f"max|D-D_ref|/mass={err_d:.3e}", flush=True)
+              f"max|D-D_ref|/mass={err_d:.3e}; register template = staged template: {same}",
+              flush=True)
         check(err_a <= A_ATOL and err_d <= D_RTOL, f"affinity {kind} disagrees")
         # the shared tile code (affinity_tile.cuh) rounds as the plain
         # version does, one step at a time: A is its bits exactly
         check(err_a == 0.0, f"affinity {kind}: A is not bitwise the plain version's")
+        check(same, f"affinity {kind}: the register template's A and D are not bitwise the "
+              "staged template's")
         worst_a, worst_d = max(worst_a, err_a), max(worst_d, err_d)
+        del a, d
+        torch.cuda.empty_cache()
         if kind == "rbf":
-            del a, d
             ms = cuda_ms(lambda: affinity_and_degree(x, kind=kind, sigma=SIGMA), 5)
+            x_st = staged(x)
+            staged_ms = cuda_ms(lambda: affinity_and_degree(x_st, kind=kind, sigma=SIGMA), 5)
             plain = cuda_ms(lambda: _plain_affinity_stripes(x, kind, SIGMA), 2)
             b, by = bound_ms(4.0 * (n * m + n * n + n), affinity_flops(n, n, m, kind))
-            main = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            main = dict(ms=ms, staged_ms=staged_ms, plain_ms=plain, bound_ms=b, bound_by=by,
                         mufu_bound_ms=mufu_bound_ms(n * n))
-            print(f"[affinity] n={n} rbf: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-                  f"library_ms=null bound_ms={b:.4f} ({by}) "
+            print(f"[affinity] n={n} rbf: kernel_ms={ms:.4f} staged_template_ms={staged_ms:.4f} "
+                  f"plain_ms={plain:.4f} library_ms=null bound_ms={b:.4f} ({by}) "
                   f"mufu_bound_ms={main['mufu_bound_ms']:.4f}", flush=True)
-        else:
-            del a, d
-        torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
 
     # ragged edge, wide features, and an off-diagonal stripe
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -421,7 +450,7 @@ def phase_affinity(report):
             check(err_a <= A_ATOL and err_d <= D_RTOL, f"ragged affinity {kind} disagrees")
             worst_a, worst_d = max(worst_a, err_a), max(worst_d, err_d)
     report["affinity_and_degree"] = dict(main, max_abs_err=worst_a, max_rel_err_d=worst_d,
-                                         library_ms=None)
+                                         library_ms=None, registers=registers)
 
 
 def _u_errors(u, u_ref, mass=None):
@@ -708,9 +737,16 @@ def phase_streaming(report, build_log=""):
             staged(xr), staged(xc), kind=kind, sigma=1.1, row_offset=ro, col_offset=co)),
               f"ragged streamed degree m={m} {kind} ({ro},{co}): the register template is "
               "not bitwise the staged template")
-        check(torch.equal(dd, affinity_and_degree(xr, xc, kind=kind, sigma=1.1, row_offset=ro,
-                                                  col_offset=co)[1]),
+        kw1 = dict(kind=kind, sigma=1.1, row_offset=ro, col_offset=co)
+        a1, d1 = affinity_and_degree(xr, xc, **kw1)
+        check(torch.equal(dd, d1),
               f"ragged streamed degree m={m} {kind} ({ro},{co}) is not bitwise #1's D")
+        a1_st, d1_st = affinity_and_degree(staged(xr), staged(xc), **kw1)
+        check(torch.equal(a1, a1_st) and torch.equal(d1, d1_st),
+              f"ragged affinity m={m} {kind} ({ro},{co}): #1's register template is not "
+              "bitwise its staged template")
+        check(float((a1 - a_ref).abs().max()) <= A_ATOL,
+              f"ragged affinity m={m} {kind} ({ro},{co}) disagrees with its plain version")
         worst_d = max(worst_d, err_d)
         worst_d_abs = max(worst_d_abs, float((dd - d_ref).abs().max()))
         for r in RAGGED_R:
@@ -737,7 +773,7 @@ def phase_streaming(report, build_log=""):
                     worst_u = max(worst_u, abs_err)
         print(f"[streaming] ragged {tuple(xr.shape)}x{n_cols} m={m} {kind} "
               f"offsets=({ro},{co}) r=1,4,32 d=given,None: agree, register template = "
-              f"staged template (#5 and #6), D = #1's D; max|D-D_ref|/mass={err_d:.3e}")
+              f"staged template (#1, #5 and #6), D = #1's D; max|D-D_ref|/mass={err_d:.3e}")
     report["streaming_matmat"] = dict(main[1], max_abs_err=worst_u, library_ms=None,
                                       r2=main[2], registers=registers)
     report["streaming_degree"] = dict(ms=ms_d, staged_ms=staged_d, plain_ms=plain_d,
@@ -902,15 +938,32 @@ def phase_row_topk(report):
                               registers=registers)
 
 
+def _policy_a_error(a, x, pol, thr):
+    """Max |A - A_ref| of #1's A against its plain version over row stripes,
+    with the policy operands ``pol`` and the row thresholds ``thr`` (or
+    None)."""
+    from repro_torch.kernels import ref
+    sc, n, err = pol["scale_r"], x.shape[0], 0.0
+    for r0 in range(0, n, 4096):
+        a_ref, _ = ref.affinity_and_degree_ref(
+            x[r0:r0 + 4096], x, row_offset=r0, thr=None if thr is None else thr[r0:r0 + 4096],
+            **dict(pol, scale_r=None if sc is None else sc[r0:r0 + 4096]))
+        err = max(err, float((a[r0:r0 + 4096] - a_ref).abs().max()))
+        del a_ref
+    return err
+
+
 def phase_policy(report):
     """Kernels #1, #5 and #6 with the policy operands of E1 (kNN) and E2
-    (adaptive + kNN): A bitwise its plain version's, the streamed D and U
-    bitwise the explicit kernels' and their staged templates', the
-    column-thresholded product the transpose of the stored truncated A,
-    and every row keeping knn_k entries (more only on a tie at its
-    threshold); the share of entries #6's register template makes with
-    their expf, and its bound for that work."""
-    from repro_torch.core.affinity import AffinitySpec
+    (adaptive + kNN): A bitwise its plain version's, #1's, #5's and #6's
+    register templates bitwise their staged templates (#1 also with E2's
+    scales alone, the fused build's form), the streamed D and U bitwise
+    the explicit kernels', the column-thresholded product the transpose of
+    the stored truncated A, and every row keeping knn_k entries (more only
+    on a tie at its threshold); the share of entries the register
+    templates of #1, #6 and #8 make with their expf (and #11's, over the
+    live tiles), and their bounds for that work."""
+    from repro_torch.core.affinity import AffinitySpec, dense_block_live
     from repro_torch.core.graph import affinity_stats
     from repro_torch.kernels import ref
     from repro_torch.kernels.affinity import affinity_and_degree
@@ -929,14 +982,12 @@ def phase_policy(report):
         pol = dict(kind="rbf", sigma=SIGMA, scale_r=sc, scale_c=sc)
         a, d = affinity_and_degree(x, thr=thr, **pol)
         torch.cuda.synchronize()
-        err_a = 0.0
-        for r0 in range(0, n, 4096):
-            a_ref, _ = ref.affinity_and_degree_ref(
-                x[r0:r0 + 4096], x, row_offset=r0, thr=thr[r0:r0 + 4096],
-                **dict(pol, scale_r=None if sc is None else sc[r0:r0 + 4096]))
-            err_a = max(err_a, float((a[r0:r0 + 4096] - a_ref).abs().max()))
-            del a_ref
+        err_a = _policy_a_error(a, x, pol, thr)
         check(err_a == 0.0, f"{tag}: A is not bitwise the plain version's ({err_a:.3e})")
+        a_st, d_st = affinity_and_degree(x_st, thr=thr, **pol)
+        check(torch.equal(a, a_st) and torch.equal(d, d_st),
+              f"{tag}: #1's register template's A and D are not bitwise its staged template's")
+        del a_st, d_st
         kept = (a != 0).sum(dim=1)
         at_thr = (a == thr[:, None]).sum(dim=1)
         over = kept > KNN_K
@@ -976,11 +1027,10 @@ def phase_policy(report):
             abs_err, excess = _u_errors(u_t, want)
             check(excess <= 0.0, f"{tag}: the thr_c product disagrees with A^T V")
             worst_t = max(worst_t, abs_err)
-        a_raw, _ = affinity_and_degree(x, **pol)
-        passing, made = expf_shares(a_raw, thr)
-        del a_raw
+        live = dense_block_live(a, 16, 256)
         times = dict(
             affinity_ms=cuda_ms(lambda: affinity_and_degree(x, thr=thr, **pol), 5),
+            affinity_staged_ms=cuda_ms(lambda: affinity_and_degree(x_st, thr=thr, **pol), 5),
             degree_ms=cuda_ms(lambda: affinity_degree_streaming(x, thr=thr, **pol), 10),
             degree_staged_ms=cuda_ms(lambda: affinity_degree_streaming(x_st, thr=thr, **pol), 10),
             matmat_r2_ms=cuda_ms(lambda: affinity_matmat(x, v2, d, thr=thr, **pol), 10),
@@ -990,6 +1040,28 @@ def phase_policy(report):
             matmat_thr_c_staged_ms=cuda_ms(
                 lambda: affinity_matmat(x_st, ind, None, thr_c=thr, **pol), 10),
             sweep_stored_r2_ms=cuda_ms(lambda: degree_normalized_matmat(a, v2, d), 10))
+        del a   # each 8.1 GB A freed before the next is built
+        torch.cuda.empty_cache()
+        # the unthresholded A: E1's is the dense build; E2's, with the
+        # scales alone, the fused build's call of #1
+        a_raw, d_raw = affinity_and_degree(x, **pol)
+        passing, made = expf_shares(a_raw, thr)
+        passing_live, made_live = expf_shares(a_raw, thr, live=live)
+        if sc is not None:
+            err_f = _policy_a_error(a_raw, x, pol, None)
+            check(err_f == 0.0,
+                  f"{tag}: the fused form's A is not bitwise the plain version's ({err_f:.3e})")
+            a_st, d_st = affinity_and_degree(x_st, **pol)
+            check(torch.equal(a_raw, a_st) and torch.equal(d_raw, d_st),
+                  f"{tag}: #1's register template is not bitwise its staged template in the "
+                  "fused form (scales, no thr)")
+            del a_st, d_st
+        del a_raw, d_raw
+        torch.cuda.empty_cache()
+        if sc is not None:
+            times.update(
+                fused_form_ms=cuda_ms(lambda: affinity_and_degree(x, **pol), 5),
+                fused_form_staged_ms=cuda_ms(lambda: affinity_and_degree(x_st, **pol), 5))
         # the dense work plus, per entry, the threshold compare and, with
         # adaptive scales, the product of the scales (the divide replaces
         # the multiply); the operands add 4 bytes a row or column each
@@ -999,24 +1071,31 @@ def phase_policy(report):
             affinity=bound_ms(4.0 * (n * m + n * n + n) + op_bytes,
                               affinity_flops(n, n, m, "rbf") + extra),
             degree=bound_ms(4.0 * (n * m + n) + op_bytes,
-                            skip_flops(n, n, m, made, sc is not None)),
+                            skip_flops(n * n, m, made, sc is not None)),
             matmat_r2=bound_ms(4.0 * (n * m + 2 * n * 2 + n) + op_bytes,
                                streaming_flops(n, n, m, 2) + extra),
             matmat_thr_c=bound_ms(4.0 * (n * m + 2 * n) + op_bytes,
                                   streaming_flops(n, n, m, 1) + extra))
+        if sc is not None:     # the fused form: every entry's transform, scaled
+            bounds["fused_form"] = bound_ms(4.0 * (n * m + n * n + 3 * n),
+                                            affinity_flops(n, n, m, "rbf") + n * n)
         times.update({f"{key}_bound_ms": b for key, (b, _) in bounds.items()})
-        times["mufu_bound_ms"] = mufu_bound_ms(n * n)     # #1 and #5: n^2 expf
-        times["degree_mufu_bound_ms"] = mufu_bound_ms(made * n * n)
+        times["mufu_bound_ms"] = mufu_bound_ms(n * n)     # #5 and #1's fused form: n^2 expf
+        # #1, #6 and #8 with the skip test: the entries made exactly
+        times["skip_mufu_bound_ms"] = mufu_bound_ms(made * n * n)
         print(f"[policy] {tag} n={n}: A bitwise the plain version's; streamed D and U "
               f"(r=1,2) bitwise the explicit kernels'; thr_c product = A^T V in positivity, "
               f"max|err|={worst_t:.3e}; kept per row min={int(kept.min())} "
               f"max={int(kept.max())}, rows over {KNN_K} (ties at the threshold)={ties}; "
-              f"#6 = its staged template; share of entries #6 and #8 make without expf "
-              f"{1.0 - made:.6f} (with it {made:.6f}; past the skip test {passing:.6f}); "
+              f"#1 and #6 = their staged templates; share of entries #1, #6 and #8 make "
+              f"without expf {1.0 - made:.6f} (with it {made:.6f}; past the skip test "
+              f"{passing:.6f}), of the live tiles' entries #11 makes with it {made_live:.6f} "
+              f"(past the test {passing_live:.6f}); "
               + " ".join(f"{key}={val:.4f}" for key, val in times.items()), flush=True)
         out[tag] = dict(times, tie_rows=ties, max_abs_err_thr_c=worst_t,
-                        expf_passing=passing, expf_made=made)
-        del a, d, d_s
+                        expf_passing=passing, expf_made=made, expf_passing_live=passing_live,
+                        expf_made_live=made_live)
+        del d, d_s
         torch.cuda.empty_cache()
 
     # ragged rows, wide features and the register template's width,
@@ -1035,6 +1114,17 @@ def phase_policy(report):
         # the scales are given alike, so d2's error carries through 1/(s_i s_j)
         atol = A_ATOL + SQD_RTOL * float((xs * xs).sum(1).max()) / float(scs.min()) ** 2
         check(float((a - a_ref).abs().max()) <= atol, f"ragged policy A ({ro},{co}) disagrees")
+        # #1 with the stripe's thresholds, and with the scales alone (the
+        # fused build's form): its register template's A and D its staged
+        # template's
+        for kw_1 in (dict(kw, thr=thr_r), kw):
+            a_1, d_1 = affinity_and_degree(xr, xc, **kw_1)
+            a_1st, d_1st = affinity_and_degree(staged(xr), staged(xc), **kw_1)
+            check(torch.equal(a_1, a_1st) and torch.equal(d_1, d_1st),
+                  f"ragged policy m={m_s} ({ro},{co}) thr={'thr' in kw_1}: #1's register "
+                  "template is not bitwise its staged template")
+        check(float((a_1 - ref.affinity_and_degree_ref(xr, xc, **kw)[0]).abs().max()) <= atol,
+              f"ragged policy A ({ro},{co}) with the scales alone disagrees")
         for r, kw_t in itertools.product(RAGGED_R, (dict(thr=thr_r), dict(thr_c=thr_c))):
             v = torch.rand((xc.shape[0], r), generator=g, device="cuda")
             u = affinity_matmat(xr, v, None, xc, **kw_t, **kw)
@@ -1053,14 +1143,20 @@ def phase_policy(report):
         for scales in ((None, None), (kw["scale_r"], kw["scale_c"])):
             kw_k = _ragged_knn(xr, xc, ro, co, *scales)
             dd = affinity_degree_streaming(xr, xc, **kw_k)
-            check(torch.equal(dd, affinity_and_degree(xr, xc, **kw_k)[1])
+            a_k, d_k = affinity_and_degree(xr, xc, **kw_k)
+            a_kst, d_kst = affinity_and_degree(staged(xr), staged(xc), **kw_k)
+            check(torch.equal(dd, d_k)
                   and torch.equal(dd, affinity_degree_streaming(staged(xr), staged(xc), **kw_k)),
                   f"ragged kNN m={m_s} ({ro},{co}) scales={scales[0] is not None}: #6 is not "
                   "bitwise #1's D and its staged template")
+            check(torch.equal(a_k, a_kst) and torch.equal(d_k, d_kst),
+                  f"ragged kNN m={m_s} ({ro},{co}) scales={scales[0] is not None}: #1's "
+                  "register template is not bitwise its staged template")
     print(f"[policy] ragged (1037, m) square, (300, 737) off-diagonal and (337, 900) "
           f"below-diagonal stripes, m=16,{register_m()}, r=1,4,32, scales + thr / thr_c: "
-          "agree, register template = staged template (#5, #6); kNN thresholds with and "
-          "without scales: #6 = #1's D = its staged template", flush=True)
+          "agree, register template = staged template (#1 with thr and with the scales "
+          "alone, #5, #6); kNN thresholds with and without scales: #6 = #1's D, #1 and #6 = "
+          "their staged templates", flush=True)
     report["policy"] = out
 
 
@@ -1150,13 +1246,14 @@ def phase_block_sparse(report, build_log=""):
     """Kernels #8-#11 at the main path's shape with E1's and E2's operands:
     the liveness map equal to dense_block_live of kernel #1's thresholded A;
     #9 bitwise #2 (r = 1, 2), #10 bitwise #5 (d given and None) and its
-    staged template, #11 bitwise #6 and #1's D; the fused build's A, D and
-    thresholds bitwise the two-pass build's; each against its plain
-    version; #8's register template's map its staged template's, both
-    timed at E1 and E2. Then ragged and off-diagonal stripes at m = 16
-    and at the register template's width (with E1's and E2's kNN
-    thresholds too), and a NaN in V. ``build_log`` is nvcc's report of
-    block_sparse.cu: no register template of the main path may spill."""
+    staged template, #11 bitwise #6, #1's D and its staged template; the
+    fused build's A, D and thresholds bitwise the two-pass build's; each
+    against its plain version; #8's register template's map its staged
+    template's; #8 and #11 timed in both templates at E1 and E2. Then
+    ragged and off-diagonal stripes at m = 16 and at the register
+    template's width (with E1's and E2's kNN thresholds too), and a NaN in
+    V. ``build_log`` is nvcc's report of block_sparse.cu: no register
+    template of the main path may spill."""
     from repro_torch.core.affinity import AffinitySpec, block_plan, dense_block_live
     from repro_torch.core.graph import affinity_stats, fused_affinity_build
     from repro_torch.core.power import batched_power_iteration
@@ -1176,6 +1273,10 @@ def phase_block_sparse(report, build_log=""):
     for tmpl, line in live_registers.items():
         print(f"[block_sparse] liveness_kernel {tmpl}: {line}")
     check_no_entry_spill("#8", live_registers)
+    deg_registers = entry_registers(build_log, "bs_streaming_degree")
+    for tmpl, line in deg_registers.items():
+        print(f"[block_sparse] bs_streaming_degree_kernel {tmpl}: {line}")
+    check_no_entry_spill("#11", deg_registers)
     feats, _, _ = _features(N_MAIN)
     x = feats["rbf"]
     x_st = staged(x)
@@ -1202,7 +1303,7 @@ def phase_block_sparse(report, build_log=""):
             staged_ms=cuda_ms(lambda: block_liveness(x_st, **pol), 10),
             mufu_bound_ms=mufu_bound_ms(made * n * n),
             bound=bound_ms(4.0 * (n * m + live.numel() + n * (3 if sc is not None else 1)),
-                           skip_flops(n, n, m, made, sc is not None)))
+                           skip_flops(n * n, m, made, sc is not None)))
         counts, col_idx, _ = block_plan(live)
         frac = float(live.float().mean())
         entries = _plan_entries(live, n, n)
@@ -1229,6 +1330,18 @@ def phase_block_sparse(report, build_log=""):
         torch.cuda.synchronize()
         check(torch.equal(d_b, d) and torch.equal(d_b, d_6),
               f"{tag}: #11 is not bitwise #1's D and #6")
+        check(torch.equal(d_b, block_sparse_streaming_degree(x_st, **plan, **pol)),
+              f"{tag}: #11's register template is not bitwise its staged template")
+        # #11's work: every live entry's skip test, the share of them made
+        # exactly (counted over the live tiles of the stored A)
+        made_live = report["policy"][tag]["expf_made_live"]
+        deg_times = dict(
+            ms=cuda_ms(lambda: block_sparse_streaming_degree(x, **plan, **pol), 20),
+            staged_ms=cuda_ms(lambda: block_sparse_streaming_degree(x_st, **plan, **pol), 20),
+            mufu_bound_ms=mufu_bound_ms(made_live * entries),
+            bound=bound_ms(4.0 * (n * m + n * (2 if sc is not None else 0) + n)
+                           + 4.0 * n + 4.0 * (counts.numel() + float(counts.sum())),
+                           skip_flops(entries, m, made_live, sc is not None)))
         # against the plain versions: #9 on the whole A, #10 and #11 on stripes
         u_ref = ref.block_sparse_matmat_ref(a, v2, d, counts, col_idx, tm=16, tn=256)
         err9, exc9 = _u_errors(block_sparse_matmat(a, v2, d, counts, col_idx), u_ref)
@@ -1270,20 +1383,25 @@ def phase_block_sparse(report, build_log=""):
                    liveness_ms=live_times["ms"], liveness_staged_ms=live_times["staged_ms"],
                    liveness_bound_ms=live_times["bound"][0],
                    liveness_mufu_bound_ms=live_times["mufu_bound_ms"],
+                   degree_ms=deg_times["ms"], degree_staged_ms=deg_times["staged_ms"],
+                   degree_bound_ms=deg_times["bound"][0],
+                   degree_mufu_bound_ms=deg_times["mufu_bound_ms"],
                    fused_build_extra_bytes=fused_extra, max_abs_err=dict(
                        block_sparse_matmat=err9, block_sparse_streaming_matmat=err10,
                        block_sparse_streaming_degree_rel=err11))
         if tag == "knn":
-            a_raw, _ = affinity_and_degree(x, kind="rbf", sigma=SIGMA)
             rec.update(
                 fused_build_ms=cuda_ms(lambda: fused_affinity_build(x, spec=spec), 3),
                 two_pass_build_ms=cuda_ms(lambda: affinity_and_degree(
                     x, kind="rbf", sigma=SIGMA, thr=row_topk(
                         x, k=KNN_K, kind="rbf", sigma=SIGMA)[:, -1].contiguous()), 3),
-                thresholds_from_scores_ms=cuda_ms(
-                    lambda: topk_thresholds_from_scores(a_raw, k=KNN_K), 3),
                 row_topk_ms=cuda_ms(lambda: row_topk(x, k=KNN_K, kind="rbf", sigma=SIGMA), 5))
+            # built after the timed builds above, so at most two A's live
+            a_raw, _ = affinity_and_degree(x, kind="rbf", sigma=SIGMA)
+            rec["thresholds_from_scores_ms"] = cuda_ms(
+                lambda: topk_thresholds_from_scores(a_raw, k=KNN_K), 3)
             del a_raw
+            torch.cuda.empty_cache()
             r = 2
             op_bytes = 4.0 * n                             # the thresholds
             plan_bytes = 4.0 * (counts.numel() + float(counts.sum()))
@@ -1319,14 +1437,11 @@ def phase_block_sparse(report, build_log=""):
                     bound=bound_ms(4.0 * (n * m + 2 * n * r + n) + op_bytes + plan_bytes,
                                    entries * (2 * m + 6 + 2 * r + 1))),
                 block_sparse_streaming_degree=dict(
-                    mufu_bound_ms=mufu_bound_ms(entries),
-                    ms=cuda_ms(lambda: block_sparse_streaming_degree(x, **plan, **pol), 20),
+                    deg_times,
                     plain_ms=cuda_ms(lambda: _bs_plain_stripes(x, None, None, counts, col_idx,
                                                                pol), 2),
                     library_ms=None,
-                    dense_ms=cuda_ms(lambda: affinity_degree_streaming(x, **pol), 20),
-                    bound=bound_ms(4.0 * (n * m + n) + op_bytes + plan_bytes,
-                                   entries * (2 * m + 7 + 1))))
+                    dense_ms=cuda_ms(lambda: affinity_degree_streaming(x, **pol), 20)))
             for name, t in times.items():
                 b, by = t.pop("bound")
                 t.update(bound_ms=b, bound_by=by)
@@ -1394,14 +1509,23 @@ def phase_block_sparse(report, build_log=""):
         for kw_l, plain in ((kw, True), (kw_e1, True), (_ragged_knn(xr, xc, ro, co), False),
                             (_ragged_knn(xr, xc, ro, co, kw["scale_r"], kw["scale_c"]), False)):
             live_l = block_liveness(xr, xc, **kw_l)
+            a_l, d_l = affinity_and_degree(xr, xc, **kw_l)
+            form = (f"ragged m={m_s} ({ro},{co}) scales={kw_l['scale_r'] is not None} "
+                    f"kNN={not plain}")
             check(torch.equal(live_l, block_liveness(staged(xr), staged(xc), **kw_l))
-                  and torch.equal(live_l.bool(), dense_block_live(
-                      affinity_and_degree(xr, xc, **kw_l)[0], 16, 256))
+                  and torch.equal(live_l.bool(), dense_block_live(a_l, 16, 256))
                   and (not plain or torch.equal(
                       live_l, ref.block_liveness_ref(xr, xc, tm=16, tn=256, **kw_l))),
-                  f"ragged m={m_s} ({ro},{co}) scales={kw_l['scale_r'] is not None} "
-                  f"kNN={not plain}: #8 is not its staged template's and #1's map"
+                  f"{form}: #8 is not its staged template's and #1's map"
                   + (", and its plain version's" if plain else ""))
+            # #11 on the form's own plan: its staged template's D, #6's, #1's
+            plan_l = dict(zip(("counts", "col_idx"), block_plan(live_l)[:2]))
+            d_11 = block_sparse_streaming_degree(xr, xc, **plan_l, **kw_l)
+            check(torch.equal(d_11, block_sparse_streaming_degree(staged(xr), staged(xc),
+                                                                  **plan_l, **kw_l))
+                  and torch.equal(d_11, affinity_degree_streaming(xr, xc, **kw_l))
+                  and torch.equal(d_11, d_l),
+                  f"{form}: #11 is not bitwise its staged template, #6 and #1's D")
         counts, col_idx, _ = block_plan(live)
         plan = dict(counts=counts, col_idx=col_idx)
         for r in RAGGED_R:
@@ -1436,11 +1560,13 @@ def phase_block_sparse(report, build_log=""):
           f"below-diagonal stripes, m=16,{register_m()}, scales + thr: #8 = dense_block_live, "
           "#9 = #2, #10 = #5 and its staged template, #11 = #1's D bitwise, r=1,4,32; the "
           "fused build = the two-pass build; #8 = its staged template = dense_block_live "
-          "(= its plain version) in E1's and E2's forms, with kNN thresholds too", flush=True)
+          "(= its plain version) and #11 = its staged template = #6 = #1's D in E1's and "
+          "E2's forms, with kNN thresholds too", flush=True)
     for name, err in worst.items():
         report[name]["max_abs_err"] = err
     report["block_sparse_streaming_matmat"]["registers"] = registers
     report["block_liveness"]["registers"] = live_registers
+    report["block_sparse_streaming_degree"]["registers"] = deg_registers
     report["block_sparse"] = out
 
 
@@ -1982,22 +2108,26 @@ def sweep_registers(log: str, block_sparse: bool) -> dict[str, str]:
 
 
 def entry_registers(log: str, name: str) -> dict[str, str]:
-    """Registers and spills of each template of #6 (``name`` =
-    ``streaming_degree``) or #8 (``liveness``) in nvcc's report:
-    ``{"<fixed|policy> <register|staged>": ...}`` (the register template is
-    the kernel named ``*_reg_kernel``)."""
+    """Registers and spills of each template of #1 (``name`` = ``affinity``),
+    #6 (``streaming_degree``), #8 (``liveness``) or #11
+    (``bs_streaming_degree``) in nvcc's report: ``{"<fixed|policy>[ bulk]
+    <register|staged>": ...}`` (the register template is the kernel named
+    ``*_reg_kernel``; #1's takes a second flag, its bulk-copy stores)."""
     return ptxas_registers(
-        log, rf"\d+{name}(_reg)?_kernelILb(\d)E",
-        lambda e: (f"{'policy' if e.group(2) == '1' else 'fixed'} "
+        log, rf"\d+{name}(_reg)?_kernelILb(\d)E(Lb(\d)E)?",
+        lambda e: (f"{'policy' if e.group(2) == '1' else 'fixed'}"
+                   f"{' bulk' if e.group(4) == '1' else ''} "
                    f"{'register' if e.group(1) else 'staged'}"))
 
 
-def check_no_entry_spill(tag: str, registers: dict[str, str]) -> None:
-    """Fail on a spill in #6's or #8's register template, in either form,
-    and where the report names no such template."""
+def check_no_entry_spill(tag: str, registers: dict[str, str],
+                         forms=("fixed", "policy")) -> None:
+    """Fail on a spill in the register template of #1, #6, #8 or #11, in
+    any of its ``forms``, and where the report names no such template."""
     reg = {tmpl: line for tmpl, line in registers.items() if tmpl.endswith("register")}
-    check(set(reg) == {"fixed register", "policy register"},
-          f"nvcc's report names no register template of {tag} in both forms: {registers}")
+    check(set(reg) == {f"{form} register" for form in forms},
+          f"nvcc's report names no register template of {tag} in the forms {forms}: "
+          f"{registers}")
     spills = [f"{tmpl}: {line}" for tmpl, line in reg.items()
               if not line.endswith(" 0 bytes spilled")]
     check(not spills, f"{tag}'s register template spills: {spills}")
@@ -2251,11 +2381,12 @@ def _serve_profile(cfg, params, tokens):
     return out
 
 #: device-event names of this port's kernels (always listed by the profile)
-KERNEL_LABELS = ("affinity_kernel", "power_step_kernel", "kmeans_assign_kernel",
-                 "streaming_matmat_kernel", "streaming_matmat_reg_kernel",
+KERNEL_LABELS = ("affinity_kernel", "affinity_reg_kernel", "power_step_kernel",
+                 "kmeans_assign_kernel", "streaming_matmat_kernel", "streaming_matmat_reg_kernel",
                  "streaming_degree_kernel", "streaming_degree_reg_kernel", "gram_", "row_topk_",
-                 "liveness_kernel", "liveness_reg_kernel", "bs_matmat_kernel", "bs_streaming_matmat_kernel",
-                 "bs_streaming_matmat_reg_kernel", "bs_streaming_degree_kernel")
+                 "liveness_kernel", "liveness_reg_kernel", "bs_matmat_kernel",
+                 "bs_streaming_matmat_kernel", "bs_streaming_matmat_reg_kernel",
+                 "bs_streaming_degree_kernel", "bs_streaming_degree_reg_kernel")
 #: the power loop's sweeps of an r = 2 run, on either engine and route (the
 #: streamed ones in their register or staged template)
 SWEEP_R2 = re.compile(
@@ -2398,7 +2529,7 @@ def main() -> int:
     report = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0)}
     report["build_s"], logs = phase_build()
     kernels = {}
-    phase_affinity(kernels)
+    phase_affinity(kernels, logs["affinity"])
     phase_power_step(kernels)
     phase_kmeans_assign(kernels)
     phase_streaming(kernels, logs["streaming"])

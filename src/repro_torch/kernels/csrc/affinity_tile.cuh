@@ -14,9 +14,9 @@
 // the column tiles c0 = 0, TN, 2 TN, ... in order (a block-sparse kernel
 // only the live ones, in the same order); thread t owns column c0 + t of
 // each tile. Feature slabs are staged in shared memory in chunks
-// of at most MC features, so any m works. The streamed sweeps also have a
-// register template for m <= MR (below): no staging and no barrier per
-// tile, the same entries in the same order, the same bits. row_topk.cu's
+// of at most MC features, so any m works. Every kernel of the family also
+// has a register template for m <= MR (below): no staging and no barrier
+// per tile, the same entries in the same order, the same bits. row_topk.cu's
 // register template makes its scores from the same pieces (Col,
 // load_col, clean_span, transform), each warp owning rows of its own.
 //
@@ -212,9 +212,10 @@ __device__ __forceinline__ void tile_scores(
 }
 
 // Which thresholds a policy gives, where a loop knows it at compile time:
-// the row thresholds only, the column thresholds only, or THR_ANY (tested
-// at run time: both, or neither).
-enum Thr { THR_ANY = 0, THR_ROW = 1, THR_COL = 2 };
+// the row thresholds only, the column thresholds only, THR_ANY (tested at
+// run time: both, or neither), or THR_NONE (neither; with_form never gives
+// it, affinity.cu takes it for adaptive scales alone).
+enum Thr { THR_ANY = 0, THR_ROW = 1, THR_COL = 2, THR_NONE = 3 };
 
 // The stored entry of score a: a where it is kept (valid, and at or above
 // the row's and the column's thresholds where the policy gives them), else
@@ -473,16 +474,17 @@ __device__ __forceinline__ void with_form(int kind, const Policy& pol, F&& f) {
 }
 
 // ---------------------------------------------------------------------------
-// The register templates of the streamed degree (streaming.cu) and the
-// liveness pass (block_sparse.cu): the entries alone, no V.
+// The register templates of the stored build (affinity.cu), the streamed
+// degrees (streaming.cu, block_sparse.cu) and the liveness pass
+// (block_sparse.cu): the entries alone, no V.
 //
-// Both use the sweeps' pieces above (RowFeats, Col loaded a tile ahead,
+// All use the sweeps' pieces above (RowFeats, Col loaded a tile ahead,
 // clean_span, with_form) and hand each entry, made with transform()'s
-// arithmetic and keep_entry(), to the caller's emit(i, a): the degree adds
-// it to its row sum (the staged loop's rowsum[i] += a), the liveness pass
-// ORs a != 0.
+// arithmetic and keep_entry(), to the caller's emit(i, a): the build stores
+// it and adds it to its row sum, the degrees add it to their row sums (the
+// staged loop's rowsum[i] += a), the liveness pass ORs a != 0.
 //
-// Both skip the exponent where an entry is provably dropped. With the row
+// All skip the exponent where an entry is provably dropped. With the row
 // thresholds (rbf, POLICY form) an entry is kept only if expf(x) >= thr_i,
 // x its exponent. exp_cutoff(thr_i) gives a c_i with x < c_i =>
 // expf(x) < thr_i, and skip_bound turns c_i into a bound on the squared
@@ -493,7 +495,9 @@ __device__ __forceinline__ void with_form(int kind, const Policy& pol, F&& f) {
 // exactly the entries of each row that the test keeps somewhere in the
 // warp. The degree then adds nothing where it would add +0, which leaves a
 // row sum that is never -0 as it was, so D keeps the staged template's
-// bits; the live map is the same map.
+// bits; the live map is the same map. The stored build must still write
+// the dropped entries: with ZEROS, col_entries hands it each of them as
+// emit(i, 0.f), the staged loop's +0, without making it.
 
 // A c with x < c => expf(x) < thr for every float x. expf is within 2 ulp
 // and logf within 1 ulp (no fast math): in the exponent, with the rounding
@@ -557,8 +561,9 @@ __device__ __forceinline__ void load_skip_bounds(const Policy& pol, const Rows<T
 // The TM entries of this thread's column col (operands c), each handed to
 // emit(i, a) in row order. MASKED as in fold_col: a column past the edge
 // emits nothing, a masked entry a 0. Every lane of the warp calls it with
-// the same MASKED (the skip is a warp vote).
-template <int TM, typename F, bool POLICY, bool MASKED, typename Emit>
+// the same MASKED (the skip is a warp vote). An entry the skip test drops
+// is emitted as 0 with ZEROS, and not at all without.
+template <int TM, typename F, bool POLICY, bool MASKED, bool ZEROS, typename Emit>
 __device__ __forceinline__ void col_entries(const Col<1>& c, const RowFeats<TM>& rf,
                                             const Rows<TM>& rows, const float* bound, int m,
                                             float inv_two_sigma_sq, const Policy& pol, int row0,
@@ -566,7 +571,7 @@ __device__ __forceinline__ void col_entries(const Col<1>& c, const RowFeats<TM>&
                                             int col_offset, Emit emit) {
     constexpr int KIND = F::KIND;
     constexpr bool ADAPTIVE = F::ADAPTIVE;
-    constexpr bool SKIP = POLICY && KIND == RBF && F::THR != THR_COL;
+    constexpr bool SKIP = POLICY && KIND == RBF && (F::THR == THR_ROW || F::THR == THR_ANY);
     const bool inside = !MASKED || col < n_cols;
     float s[TM];  // the dot products, then (rbf) the squared distances
 #pragma unroll
@@ -599,10 +604,16 @@ __device__ __forceinline__ void col_entries(const Col<1>& c, const RowFeats<TM>&
             if (i % G == 0) lds_group<G>(bound + i, b);
             need |= may_keep(i);
         }
-        if (!__any_sync(0xffffffffu, inside && need)) return;
+        if (!__any_sync(0xffffffffu, inside && need)) {
+            if (ZEROS && inside) {
+#pragma unroll
+                for (int i = 0; i < TM; ++i) emit(i, 0.f);
+            }
+            return;
+        }
     }
     // then each row by a vote of its own (every lane reaches each vote): a
-    // row none of whose 32 entries the test keeps emits nothing
+    // row none of whose 32 entries the test keeps emits nothing (ZEROS: 0s)
     const bool row_thr = POLICY && (F::THR == THR_ROW || (F::THR == THR_ANY && pol.thr != nullptr));
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -611,7 +622,10 @@ __device__ __forceinline__ void col_entries(const Col<1>& c, const RowFeats<TM>&
             if (row_thr) lds_group<G>(rows.thr + i, g);
             if (ADAPTIVE) lds_group<G>(rows.sclr + i, h);
         }
-        if (SKIP && !__any_sync(0xffffffffu, inside && (col_exact || may_keep(i)))) continue;
+        if (SKIP && !__any_sync(0xffffffffu, inside && (col_exact || may_keep(i)))) {
+            if (ZEROS && inside) emit(i, 0.f);
+            continue;
+        }
         if (!inside) continue;
         const float a = KIND == RBF
             ? expf(rbf_exponent(s[i], inv_two_sigma_sq, ADAPTIVE, ADAPTIVE ? h[i % G] : 1.f,
@@ -625,7 +639,7 @@ __device__ __forceinline__ void col_entries(const Col<1>& c, const RowFeats<TM>&
 
 // The entries of one tile of column c0 (operands c) with the warp's form
 // of col_entries.
-template <int TM, typename F, bool POLICY, typename Emit>
+template <int TM, typename F, bool POLICY, bool ZEROS = false, typename Emit>
 __device__ __forceinline__ void tile_entries(const Col<1>& c, const RowFeats<TM>& rf,
                                              const Rows<TM>& rows, const float* bound, int m,
                                              float inv_two_sigma_sq, const Policy& pol, int row0,
@@ -633,11 +647,13 @@ __device__ __forceinline__ void tile_entries(const Col<1>& c, const RowFeats<TM>
                                              int col_offset, Emit emit) {
     const int col = c0 + threadIdx.x;
     if (clean_warp<TM>(row0, c0, n_rows, n_cols, row_offset, col_offset))
-        col_entries<TM, F, POLICY, false>(c, rf, rows, bound, m, inv_two_sigma_sq, pol, row0,
-                                          col, n_rows, n_cols, row_offset, col_offset, emit);
+        col_entries<TM, F, POLICY, false, ZEROS>(c, rf, rows, bound, m, inv_two_sigma_sq, pol,
+                                                 row0, col, n_rows, n_cols, row_offset,
+                                                 col_offset, emit);
     else
-        col_entries<TM, F, POLICY, true>(c, rf, rows, bound, m, inv_two_sigma_sq, pol, row0,
-                                         col, n_rows, n_cols, row_offset, col_offset, emit);
+        col_entries<TM, F, POLICY, true, ZEROS>(c, rf, rows, bound, m, inv_two_sigma_sq, pol,
+                                                row0, col, n_rows, n_cols, row_offset,
+                                                col_offset, emit);
 }
 
 // Fixed-order block reduction of K per-thread partials: a warp tree

@@ -36,9 +36,12 @@
 // n = 45,000 a quarter of the 8.1 GB on cluster-sorted blobs, about 0.6 ms
 // at 3.35 TB/s); the streamed sweep and degree, the live tiles' operations
 // (streaming.cu's count scaled by the live fraction, and its MUFU and
-// issue floors likewise); the liveness pass,
-// every tile's operations, like the streamed degree, since it must score
-// them all to find the live ones.
+// issue floors likewise; the degree's register template with row
+// thresholds makes only the live entries near a threshold with their
+// expf, so its operations are every live entry's dot product, d2 and skip
+// test, its MUFU floor that share); the liveness pass, every tile's
+// operations, like the streamed degree, since it must score them all to
+// find the live ones.
 //
 // Design:
 //  * The stored sweep is power_step.cu's block (one row, 256 threads, four
@@ -47,10 +50,16 @@
 //    power_step.cu's, and its epilogue the same floored __fdiv_rn.
 //  * The streamed sweep and degree are streaming.cu's kernels with the
 //    first visited tile staging the row slab (tile_scores' first flag).
-//    The streamed sweep has streaming.cu's two templates; the register one
-//    walks the plan two ids ahead, so that the load of ids[b + 2] and of
-//    tile b + 1's column operands are in flight while tile b folds: no
-//    live tile waits on the chain id -> column -> V.
+//    Each has streaming.cu's two templates: the staged one (any m) and the
+//    register one (m <= tile::MR: rows staged once, column operands in
+//    registers, the mask only on ragged and diagonal warps, no barrier a
+//    tile). The register ones walk the plan two ids ahead, so that the load
+//    of ids[b + 2] and of tile b + 1's column operands are in flight while
+//    tile b is made: no live tile waits on the chain id -> column -> V. The
+//    degree's register template, like streaming.cu's, skips the clamp,
+//    scale, divide and expf of the entries of a live tile that lie provably
+//    below their row's threshold (tile::col_entries) and adds nothing for
+//    them, where the staged loop adds +0: the same D.
 //  * The liveness pass is affinity.cu's block over every column tile with
 //    the store replaced by a block-wide OR (__syncthreads_or) of
 //    "entry != 0": a tile is live iff the build would store a nonzero (or
@@ -274,6 +283,66 @@ __global__ void __launch_bounds__(TN) bs_streaming_degree_kernel(
     if (threadIdx.x < PLAN_TM && row0 + threadIdx.x < n_rows) d[row0 + threadIdx.x] = s;
 }
 
+// The degree's register template over the live tiles (m <= tile::MR):
+// streaming.cu's streaming_degree_reg_kernel (the same PLAN_TM = 16 rows,
+// row sums, skip test and reduction) walking the plan as
+// bs_streaming_matmat_reg_kernel does, two ids ahead, ids outside [0, nJ)
+// ignored. bs_streaming_degree_kernel above is the staged template (any m);
+// the two give the same bits.
+template <bool POLICY>
+__global__ void __launch_bounds__(TN, tile::reg_blocks_per_sm(1)) bs_streaming_degree_reg_kernel(
+    const float* __restrict__ xr, const float* __restrict__ xc, tile::Policy pol,
+    const int* __restrict__ counts, const int* __restrict__ col_idx, float* __restrict__ d,
+    int n_rows, int n_cols, int m, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq) {
+    static_assert(tm_for(1) == PLAN_TM, "the degree's rows are the r = 1 sweep's");
+    __shared__ __align__(16) tile::Rows<PLAN_TM> s_rows;
+    __shared__ tile::RowFeats<PLAN_TM> s_rf;
+    __shared__ __align__(16) float s_bound[PLAN_TM];
+    __shared__ float s_red[tile::NWARPS * PLAN_TM];
+
+    const int row0 = blockIdx.x * PLAN_TM;
+    const int n_j = (n_cols + TN - 1) / TN;
+    const int* ids;
+    const int nb = plan_row(counts, col_idx, row0, n_j, &ids);
+    tile::load_rows<PLAN_TM>(xr, n_rows, m, row0, kind == tile::RBF, pol, s_rows);
+    tile::load_row_feats<PLAN_TM>(xr, n_rows, m, row0, s_rf);
+    tile::load_skip_bounds<PLAN_TM>(pol, s_rows, inv_two_sigma_sq, s_bound);
+    __syncthreads();
+
+    float rowsum[PLAN_TM];
+#pragma unroll
+    for (int r = 0; r < PLAN_TM; ++r) rowsum[r] = 0.f;
+
+    // the first column of live tile id for this thread (n_cols, which
+    // loads nothing, for an id outside [0, nJ))
+    const auto first_col = [&](int id) {
+        return static_cast<unsigned>(id) < static_cast<unsigned>(n_j)
+            ? id * TN + static_cast<int>(threadIdx.x) : n_cols;
+    };
+    tile::with_form<POLICY>(kind, pol, [&](auto form) {
+        using Form = decltype(form);
+        int id = nb > 0 ? ids[0] : n_j;
+        int id_next = nb > 1 ? ids[1] : n_j;
+        tile::Col<1> cur, nxt;  // r = 0: the features and scale alone
+        tile::load_col<1, POLICY>(xc, nullptr, pol, first_col(id), n_cols, m, 0, cur);
+        for (int b = 0; b < nb; ++b) {
+            const int id_after = b + 2 < nb ? ids[b + 2] : n_j;
+            tile::load_col<1, POLICY>(xc, nullptr, pol, first_col(id_next), n_cols, m, 0, nxt);
+            if (static_cast<unsigned>(id) < static_cast<unsigned>(n_j))
+                tile::tile_entries<PLAN_TM, Form, POLICY>(
+                    cur, s_rf, s_rows, s_bound, m, inv_two_sigma_sq, pol, row0, id * TN, n_rows,
+                    n_cols, row_offset, col_offset, [&](int i, float a) { rowsum[i] += a; });
+            cur = nxt;
+            id = id_next;
+            id_next = id_after;
+        }
+    });
+
+    const float s = tile::block_reduce_fixed<PLAN_TM>(rowsum, s_red);
+    if (threadIdx.x < PLAN_TM && row0 + threadIdx.x < n_rows) d[row0 + threadIdx.x] = s;
+}
+
 template <bool POLICY>
 __global__ void __launch_bounds__(TN) liveness_kernel(
     const float* __restrict__ xr, const float* __restrict__ xc, tile::Policy pol,
@@ -420,15 +489,18 @@ extern "C" int gpic_block_sparse_streaming_degree(
     int kind, float inv_two_sigma_sq, cudaStream_t stream) {
     const int grid = (n_rows + PLAN_TM - 1) / PLAN_TM;
     const tile::Policy pol{scale_r, scale_c, thr, nullptr};
-    const size_t smem = tile::smem_bytes(PLAN_TM, m);
-    if (tile::has_policy(pol))
-        bs_streaming_degree_kernel<true><<<grid, TN, smem, stream>>>(
-            xr, xc, pol, counts, col_idx, d, n_rows, n_cols, m, row_offset, col_offset, kind,
-            inv_two_sigma_sq);
-    else
-        bs_streaming_degree_kernel<false><<<grid, TN, smem, stream>>>(
-            xr, xc, pol, counts, col_idx, d, n_rows, n_cols, m, row_offset, col_offset, kind,
-            inv_two_sigma_sq);
+    const bool policy = tile::has_policy(pol);
+#define GPIC_ARGS xr, xc, pol, counts, col_idx, d, n_rows, n_cols, m, row_offset, col_offset, \
+                  kind, inv_two_sigma_sq
+    if (m > tile::MR) {
+        const size_t smem = tile::smem_bytes(PLAN_TM, m);
+        if (policy) bs_streaming_degree_kernel<true><<<grid, TN, smem, stream>>>(GPIC_ARGS);
+        else bs_streaming_degree_kernel<false><<<grid, TN, smem, stream>>>(GPIC_ARGS);
+    } else {
+        if (policy) bs_streaming_degree_reg_kernel<true><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+        else bs_streaming_degree_reg_kernel<false><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+    }
+#undef GPIC_ARGS
     return static_cast<int>(cudaGetLastError());
 }
 

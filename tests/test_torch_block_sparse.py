@@ -18,7 +18,10 @@ Tolerances (the rules of tests/test_torch_graph.py):
     permutations exactly;
   - D: 1e-5 of the row's absolute mass; U: rtol 1e-5 + 1e-7 max|U|; the
     fused build's D against the reference's: 1e-6 of the row mass (the
-    same entries summed in two orders);
+    same entries summed in two orders); the block-sparse D against the
+    reference's Pallas kernel on the stripes: 1e-5 of the row mass plus
+    what d2's rounding (1e-6 max|x|^2, the kernel forms d2 in its own
+    order) carries through each kept entry exp(-d2 c), eps c a_ij;
   - content scores: 1e-6 relative (m = 16 sums in two orders; at m = 2
     they agree exactly);
   - whole runs: identical labels, health and components, ``n_iter_cols``
@@ -66,6 +69,7 @@ A_ATOL = 1e-6
 D_RTOL = 1e-5
 U_RTOL, U_ATOL = 1e-5, 1e-7
 SCORE_RTOL = 1e-6
+SQD_RTOL = 1e-6           # squared distances, relative to max |x|^2
 N = 520                   # three column tiles of the port's grid
 RUN_N = 480               # tests/test_torch_graph.py's whole runs
 TM, TN = tops.PLAN_TM, tops.TN
@@ -424,16 +428,66 @@ def test_block_liveness_matches_pallas_on_stripes(form, stripe):
 
 @pytest.mark.parametrize("stripe", STRIPES, ids=STRIPE_IDS)
 @pytest.mark.parametrize("form", STRIPE_FORMS)
-def test_degree_and_liveness_same_bits_with_a_zero_feature_column(form, stripe):
-    """x and x with a zero feature column appended give the same D and live
-    map: the zero feature changes no dot product or norm. The card check
-    relies on it to hold #6's and #8's register templates (m <= 2) against
-    their staged templates (m = 3)."""
+def test_block_sparse_streaming_degree_matches_pallas_on_stripes(form, stripe):
+    """The block-sparse degree against the reference's Pallas
+    ``block_sparse_streaming_degree`` in interpret mode on the port's
+    (16, 256) grid, planned from the stripe's own live map, within D_RTOL
+    of the row's absolute mass, at the streamed stripes: the D that the
+    card check holds #11's templates to."""
     xr, xc, kw = _stripe_operands(form, stripe)
+    live = tops.block_liveness(_t(xr), _t(xc), **_as(_t, kw))
+    counts, col_idx, max_b = taff.block_plan(live)
+    got = tops.block_sparse_streaming_degree(_t(xr), _t(xc), counts=counts, col_idx=col_idx,
+                                             **_as(_t, kw))
+    plan_j = dict(counts=jnp.asarray(counts.numpy()), col_idx=jnp.asarray(col_idx.numpy()),
+                  tm=TM, tn=TN)
+    want = jops.block_sparse_streaming_degree(jnp.asarray(xr), _j(xc), mode="streaming",
+                                              max_b=jnp.asarray(int(max_b)), **plan_j,
+                                              **_as(_j, kw))
+    oracle = jref.block_sparse_streaming_degree_ref(jnp.asarray(xr), _j(xc), **plan_j,
+                                                    **_as(_j, kw))
+    a_ref = np.abs(np.asarray(jref.affinity_and_degree_ref(jnp.asarray(xr), _j(xc),
+                                                           **_as(_j, kw))[0]))
+    mass = np.maximum(a_ref.sum(axis=1), 1e-30)
+    carried = 0.0
+    if kw["kind"] == "rbf":
+        cols = xr if xc is None else xc
+        eps = SQD_RTOL * max(float((xr * xr).sum(1).max()), float((cols * cols).sum(1).max()))
+        c = (1.0 / (2.0 * kw["sigma"] ** 2) if kw["scale_r"] is None
+             else 1.0 / np.outer(kw["scale_r"], kw["scale_c"]))
+        carried = eps * (c * a_ref).sum(axis=1)
+    assert got.dtype == torch.float32 and got.shape == (xr.shape[0],)
+    assert np.all(np.abs(got.numpy() - np.asarray(oracle)) <= D_RTOL * mass)
+    assert np.all(np.abs(got.numpy() - np.asarray(want)) <= D_RTOL * mass + carried)
+
+
+#: the forms of the zero-feature-column identity: the streamed ones and E2's
+#: scales without thresholds, the fused build's call of #1
+ZERO_COLUMN_FORMS = STRIPE_FORMS + ["adaptive"]
+
+
+@pytest.mark.parametrize("stripe", STRIPES, ids=STRIPE_IDS)
+@pytest.mark.parametrize("form", ZERO_COLUMN_FORMS)
+@pytest.mark.parametrize("op", ["affinity_and_degree", "streaming_degree", "block_liveness",
+                                "block_sparse_streaming_degree"])
+def test_degree_and_liveness_same_bits_with_a_zero_feature_column(op, form, stripe):
+    """x and x with a zero feature column appended give the same A and D,
+    live map and block-sparse D (on the stripe's own plan): the zero
+    feature changes no dot product or norm. The card check relies on it to
+    hold the register templates (m <= 2) of #1, #6, #8 and #11 against
+    their staged templates (m = 3)."""
+    xr, xc, kw = _stripe_operands("adaptive_knn" if form == "adaptive" else form, stripe)
+    if form == "adaptive":
+        kw["thr"] = None
     pad = lambda a: None if a is None else np.pad(a, ((0, 0), (0, 1)))  # noqa: E731
     kw = _as(_t, kw)
-    for op in (tops.streaming_degree, tops.block_liveness):
-        assert torch.equal(op(_t(xr), _t(xc), **kw), op(_t(pad(xr)), _t(pad(xc)), **kw))
+    if op == "block_sparse_streaming_degree":
+        counts, col_idx, _ = taff.block_plan(tops.block_liveness(_t(xr), _t(xc), **kw))
+        kw.update(counts=counts, col_idx=col_idx)
+    fn = getattr(tops, op)
+    got, want = fn(_t(xr), _t(xc), **kw), fn(_t(pad(xr)), _t(pad(xc)), **kw)
+    for g, w in zip(*((got, want) if op == "affinity_and_degree" else ((got,), (want,)))):
+        assert torch.equal(g, w)
 
 
 # ---------------------------------------------------------------------------
