@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the affinity build (#1), the Gram (#4), the row top-k (#7), the
-streamed degrees (#6, #11) and the liveness pass (#8) from two checkouts on
-one CUDA card, in turns, to read each kernel's before and after on the
-same card.
+"""Time the affinity build (#1), the k-means assignment (#3), the Gram
+(#4), the row top-k (#7), the streamed degrees (#6, #11) and the liveness
+pass (#8) from two checkouts on one CUDA card, in turns, to read each
+kernel's before and after on the same card.
 
     python3 ab_kernels.py BASE_DIR
 
@@ -15,16 +15,25 @@ the two runs of one checkout. Every turn times its own checkout's kernels
 with the same code (below), at the shapes of ``chip_smoke.py``'s phase 2:
 the Gram of V (45,000, 2) and of [V | U] (45,000, 4) by the device time
 torch.profiler records (beside ``v.T @ v``), and by CUDA events over
-back-to-back calls (the host-paced time); the row top-k at n = 45,000,
+back-to-back calls (the host-paced time); the k-means assignment at
+n = 45,000, k = 4, dim 1, 2 and 4 by device time, with a hash of its
+labels' and distances' bits, which must be the same in every turn, and
+at k = 256, dim 128 (where a checkout whose kernel refuses that many
+centroids records its ValueError), beside the launch floor (the device
+time of fill_ on one float), and the k-means stage of three profiled
+runs of explicit classic gaussians (device busy ms from the first
+assignment to the last, as ``chip_smoke.py``'s profile cuts it); the
+row top-k at n = 45,000,
 m = 2 for each case of ``phase_row_topk``, the streamed degree (dense, and
 with E1's and E2's kNN operands), the liveness pass and the block-sparse
 degree on its plan (E1's and E2's), and the affinity build (dense rbf, the
 main path's and E1's fused build's call; E1's and E2's thresholded
 two-pass calls; E2's scales alone, its fused build's call), each 8.1 GB A
 freed before the next is built, at n = 45,000, m = 2 by CUDA events.
-Correctness is
-``chip_smoke.py``'s to check. Prints one line per turn and writes all of
-them to ``chiprun_out/ab_kernels.json``; exits non-zero if a turn fails.
+Correctness is ``chip_smoke.py``'s to check, apart from the bits hashes.
+Prints one line per turn and writes all of them to
+``chiprun_out/ab_kernels.json``; exits non-zero if a turn fails or a hash
+differs between turns.
 """
 from __future__ import annotations
 
@@ -37,7 +46,7 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 _TURN = r'''
-import json, os, sys
+import hashlib, json, os, sys
 root = sys.argv[1]
 os.chdir(root)
 sys.path.insert(0, root)
@@ -52,6 +61,7 @@ from repro_torch.core.graph import affinity_stats, scales_from_topk
 from repro_torch.kernels.affinity import affinity_and_degree
 from repro_torch.kernels.block_sparse import block_liveness, block_sparse_streaming_degree
 from repro_torch.kernels.gram import gram
+from repro_torch.kernels.kmeans_assign import kmeans_assign
 from repro_torch.kernels.row_topk import row_topk
 from repro_torch.kernels.streaming import affinity_degree_streaming
 
@@ -85,6 +95,40 @@ for vv in (v, vu):
         ms=ms, device_events_per_call=events / 50,
         library_ms=device_ms(lambda: vv.T @ vv, 50)[0],
         host_paced_ms=cs.cuda_ms(lambda: gram(vv), 50))
+one = torch.zeros((1,), device="cuda")
+report["launch floor"] = dict(ms=device_ms(lambda: one.fill_(0), 200)[0])
+gk = torch.Generator(device="cuda").manual_seed(3)
+for dim in (1, 2, 4):
+    xd = torch.randn((n, dim), generator=gk, device="cuda")
+    cd = xd[torch.randperm(n, generator=gk, device="cuda")[:4]].contiguous()
+    lab, dist = kmeans_assign(xd, cd)
+    bits = hashlib.sha256(lab.cpu().numpy().tobytes() + dist.cpu().numpy().tobytes())
+    ms, events = device_ms(lambda: kmeans_assign(xd, cd), 200)
+    report[f"kmeans_assign dim={dim}"] = dict(ms=ms, device_events_per_call=events / 200,
+                                              bits=bits.hexdigest()[:16])
+cg = torch.randn((256, 128), generator=gk, device="cuda")
+xg = cg[torch.randint(0, 256, (n,), generator=gk, device="cuda")]
+xg = xg + 0.7 * torch.randn((n, 128), generator=gk, device="cuda")
+try:
+    ms, events = device_ms(lambda: kmeans_assign(xg, cg), 50)
+    report["kmeans_assign k=256 dim=128"] = dict(ms=ms, device_events_per_call=events / 50)
+except ValueError as e:          # a kernel with a centroid budget refuses k = 256
+    report["kmeans_assign k=256 dim=128"] = dict(ms=None, raises=str(e))
+# the k-means stage of explicit classic gaussians, as chip_smoke.py's
+# profile cuts it: device busy ms from the first assignment to the last
+from repro_torch import GPICConfig, dataset_by_name, run_gpic
+xk, _, kk = dataset_by_name("gaussians", n, seed=0)
+cfg = GPICConfig(engine="explicit", affinity_kind="rbf", sigma=cs.SIGMA, max_iter=400)
+run_gpic(xk, kk, cfg).labels.cpu()
+stage = []
+for _ in range(3):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_gpic(xk, kk, cfg).labels.cpu()
+    spans = cs._device_spans(prof)
+    km = [(st, e) for st, e, lab in spans if lab.startswith("kmeans_assign_")]
+    stage.append(cs._busy_us(spans, min(st for st, _ in km), max(e for _, e in km)) / 1e3)
+report["kmeans stage, explicit gaussians"] = dict(ms=sum(stage) / len(stage), runs=stage)
+torch.cuda.empty_cache()
 feats, _, _ = cs._features(n)
 x = feats["rbf"]
 scale = scales_from_topk(row_topk(x, k=cs.SCALE_K, stat="neg_sqdist", kind="rbf",
@@ -130,7 +174,8 @@ def run_turn(tag: str, root: str) -> dict:
         raise SystemExit(f"ab_kernels: turn {tag} ({root}) failed with exit "
                          f"{proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     print(f"[{tag}] {device}", flush=True)
-    times = " ".join(f"{name}: {rec['ms']:.6f} ms;" for name, rec in reports[0].items())
+    times = " ".join(f"{name}: {rec['ms']:.6f} ms;" if rec["ms"] is not None
+                     else f"{name}: raises;" for name, rec in reports[0].items())
     print(f"[{tag}] {times}", flush=True)
     return dict(reports[0], device=device)
 
@@ -141,6 +186,13 @@ def main() -> int:
     base = os.path.abspath(ap.parse_args().base)
     turns = [("base-1", base), ("this-1", ROOT), ("this-2", ROOT), ("base-2", base)]
     out = {tag: run_turn(tag, root) for tag, root in turns}
+    # a redesign keeps its bits: an entry that hashes them must agree in every turn
+    for name, rec in out["this-1"].items():
+        if isinstance(rec, dict) and "bits" in rec:
+            got = {tag: out[tag][name]["bits"] for tag in out}
+            print(f"ab_kernels: {name} bits {got}", flush=True)
+            if len(set(got.values())) != 1:
+                raise SystemExit(f"ab_kernels: {name} gives other bits in another turn: {got}")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "ab_kernels.json"), "w") as f:

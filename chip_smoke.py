@@ -22,7 +22,13 @@ Phases (any failure exits non-zero before the last line is printed):
                 symmetric and take one kernel launch a call (the profiler's
                 device events), at the loop's V (45,000, 2) and [V | U]
                 (45,000, 4), both timed, and at ragged n = 255, 256, 257 and
-                1,037. The row top-k (#7, pass 1
+                1,037. The k-means assignment (#3) also on a NaN centroid
+                (the first NaN wins, with its NaN), a NaN point, Inf
+                points, x off 16-byte alignment, dim 2 and 4 at n = 45,000
+                and k = 256 of dim 128: its small form (dim <= 8) must give
+                its general form's bits (zero feature columns appended),
+                and it is timed beside the launch floor (the device time
+                of fill_ on one float). The row top-k (#7, pass 1
                 of the graph policies) must equal torch.topk of the plain
                 scores at the main shape for K = 1..64, both stats, with and
                 without adaptive scales, and its register template (m <= 2,
@@ -124,9 +130,10 @@ Phases (any failure exits non-zero before the last line is printed):
                   steps profiled.
   4. profile    one more n = 45,000 run of each engine under torch.profiler:
                 the device's busy share of the wall time and device time by
-                kernel; and the graph runs E1 (explicit, block_sparse=False)
-                and E1 and E2 block-sparse on both engines, each cut into
-                its stages (pass 1, build, sweeps, k-means, probe, idle).
+                kernel and the k-means stage; and the graph runs E1
+                (explicit, block_sparse=False) and E1 and E2 block-sparse
+                on both engines, each cut into its stages (pass 1, build,
+                sweeps, k-means, probe, idle).
 
 The last lines are one JSON object with every kernel's numbers, the card's
 name and power limit from nvidia-smi, and the result object
@@ -229,16 +236,21 @@ def register_m() -> int:
     return int(hit.group(1))
 
 
+def widened(x, width):
+    """x with zero feature columns appended up to ``width``. A zero feature
+    changes no fmaf chain or norm beyond the sign of an exact zero, which
+    torch.equal ignores, so a kernel must give the same bits on x and on
+    widened(x): #3 past small_dim() takes its general form (16-byte rows
+    at width % 4 == 0, its cp.async16 staging, else the 4-byte one);
+    staged() sends the affinity family to its staged template."""
+    return torch.nn.functional.pad(x, (0, max(0, width - x.shape[1])))
+
+
 def staged(x):
-    """x (None stays None) with zero feature columns appended up to
-    register_m() + 1, which sends #1, #5-#8, #10 and #11 to their staged
-    template. A
-    zero feature changes no fmaf chain or norm beyond the sign of an exact
-    zero, which torch.equal ignores, so the two templates must agree bit for
-    bit on x and on staged(x)."""
-    if x is None:
-        return None
-    return torch.nn.functional.pad(x, (0, max(0, register_m() + 1 - x.shape[1])))
+    """x (None stays None) widened to register_m() + 1, which sends #1,
+    #5-#8, #10 and #11 to their staged template: the two templates must
+    agree bit for bit on x and on staged(x)."""
+    return None if x is None else widened(x, register_m() + 1)
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -527,33 +539,162 @@ def phase_power_step(report):
                                               main_shape=main_err, plain_load_ms=plain_load)
 
 
-def phase_kmeans_assign(report):
+def small_dim() -> int:
+    """SMALL_DIM, the widest dim of #3's small form, as
+    csrc/kmeans_assign.cu defines it: a wider x takes the general form."""
+    with open(os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
+                           "kmeans_assign.cu")) as f:
+        hit = re.search(r"constexpr int SMALL_DIM = (\d+);", f.read())
+    check(hit is not None, "kmeans_assign.cu defines no SMALL_DIM")
+    return int(hit.group(1))
+
+
+def _same_bits(a, b) -> bool:
+    """a and b equal element for element, NaN where the other is NaN."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0)))
+
+
+def _km_errors(xx, cc, lab, dist, terms):
+    """(labels agree, NaN and +-Inf in the same places, max|dist - ref| over
+    the finite entries, the most by which it exceeds KM_RTOL x scale, the
+    points whose labels differ) of #3 against its plain version. The scale
+    is |ref|, and with ``terms`` also |x|^2 + |c_label|^2: the expansion's
+    three terms round relative to their own size, so where d2 cancels far
+    under them its error scales with them. Labels must be equal; with
+    ``terms``, a point may take another centroid where the two lie within
+    that tolerance of each other (a tie at the rounding level, which two
+    orders of summation can resolve either way): the exact (f64) distance
+    of the kernel's choice must then lie within the tolerance of the exact
+    minimum."""
+    from repro_torch.kernels import ref
+    lab_ref, dist_ref = ref.kmeans_assign_ref(xx, cc)
+    fin = torch.isfinite(dist_ref)
+    same_odd = bool(torch.equal(torch.isfinite(dist), fin)) and _same_bits(dist[~fin],
+                                                                           dist_ref[~fin])
+    scale = dist_ref.abs().double()
+    if terms:
+        scale = scale + (xx.double() ** 2).sum(1) + (cc.double() ** 2).sum(1)[lab_ref.long()]
+    differ = (lab != lab_ref).nonzero()[:, 0]
+    labels_ok = differ.numel() == 0
+    if terms and not labels_ok:
+        exact = ((xx[differ].double()[:, None, :] - cc.double()[None]) ** 2).sum(-1)
+        gap = exact.gather(1, lab[differ].long()[:, None])[:, 0] - exact.min(1).values
+        labels_ok = bool((gap <= KM_RTOL * scale[differ]).all())
+    if not bool(fin.any()):
+        return labels_ok, same_odd, 0.0, 0.0, differ.numel()
+    diff = (dist - dist_ref).abs()[fin]
+    return (labels_ok, same_odd, float(diff.max()),
+            float((diff.double() - KM_RTOL * scale[fin]).max()), differ.numel())
+
+
+def km_registers(log: str) -> dict[str, str]:
+    """Registers and spills of each template of #3 in nvcc's report:
+    ``{"small d=<dim> <float4|scalar>" or "general <float4|scalar>": ...}``."""
+    return ptxas_registers(
+        log, r"kmeans_assign_(small|general)_kernelI(?:Li(\d+)E)?Lb(\d)E",
+        lambda e: (f"{e.group(1)}{' d=' + e.group(2) if e.group(2) else ''} "
+                   f"{'float4' if e.group(3) == '1' else 'scalar'}"))
+
+
+def phase_kmeans_assign(report, build_log=""):
+    """#3 against its plain version: labels exact (on all but the first
+    three cases, up to ties at the rounding level, _km_errors), distances
+    within KM_RTOL (relative to |d2| on the first three cases, also to the
+    expansion's terms on the others), NaN and +-Inf in the same places: the
+    main shape, ragged rows, planted ties, a NaN centroid (the first NaN
+    wins, with its NaN), a NaN point, Inf points, x off 16-byte alignment,
+    dim 2 and 4 at n = 45,000, and k = 256 of dim 128. The small form
+    (dim <= small_dim()) must give the general form's bits (widened()),
+    and one launch a call; no template may spill (nvcc's report). Timed by
+    device events beside the launch floor, the device time of the smallest
+    kernel torch launches."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.kmeans_assign import kmeans_assign
+    registers = km_registers(build_log)
+    for tmpl, line in sorted(registers.items()):
+        print(f"[kmeans_assign] {tmpl}: {line}")
+    check({"small d=1 float4", "general float4"} <= set(registers),
+          f"nvcc's report names no small (d = 1) or general template of #3: {registers}")
+    spills = [f"{t}: {line}" for t, line in registers.items()
+              if not line.endswith(" 0 bytes spilled")]
+    check(not spills, f"a template of #3 spills: {spills}")
     g = torch.Generator(device="cuda").manual_seed(3)
     n, dim, k = N_MAIN, 1, 4
     x = torch.randn((n, dim), generator=g, device="cuda")
     cents = x[torch.randperm(n, generator=g, device="cuda")[:k]].contiguous()
     worst = 0.0
-    cases = [("main", x, cents)]
+    cases = [("main", x, cents, False)]
     xs = torch.randn((1037, 4), generator=g, device="cuda")
-    cases.append(("ragged d=4 k=5", xs, torch.randn((5, 4), generator=g, device="cuda")))
+    cases.append(("ragged d=4 k=5", xs, torch.randn((5, 4), generator=g, device="cuda"), False))
     zeros = torch.zeros((1037, 2), device="cuda")
     tie_c = torch.tensor([[3.0, 0.0], [1.0, 0.0], [0.0, 1.0], [-1.0, 0.0], [0.0, -1.0]],
                          device="cuda")
-    cases.append(("planted ties", zeros, tie_c))
-    for tag, xx, cc in cases:
+    cases.append(("planted ties", zeros, tie_c, False))
+    nan, inf = float("nan"), float("inf")
+    probe_x = torch.tensor([[0, 0], [1, 1], [nan, 0], [inf, 0], [-inf, 1]], device="cuda")
+    probe_c = torch.tensor([[5, 5], [nan, 0], [0.1, 0.1], [1, 1]], device="cuda")
+    cases.append(("NaN centroid, probe", probe_x, probe_c, True))
+    xn = torch.randn((n, 2), generator=g, device="cuda")
+    cn = torch.randn((4, 2), generator=g, device="cuda")
+    cn[2, 1] = nan
+    cases.append(("NaN centroid", xn, cn, True))
+    xp = torch.randn((1037, 2), generator=g, device="cuda")
+    xp[7, 1] = nan
+    xp[500, 0] = nan
+    cases.append(("NaN point", xp, torch.randn((5, 2), generator=g, device="cuda"), True))
+    xi = torch.randn((1037, 2), generator=g, device="cuda")
+    xi[11] = torch.tensor([inf, 0.0])
+    xi[12] = torch.tensor([-inf, 1.0])
+    xi[13] = torch.tensor([inf, inf])
+    cases.append(("Inf points", xi, torch.randn((5, 2), generator=g, device="cuda"), True))
+    cases.append(("unaligned x", x[1:], cents, False))     # 4 bytes off 16: scalar loads
+    wide = {}
+    for d in (2, 4):
+        xd = torch.randn((n, d), generator=g, device="cuda")
+        wide[d] = (xd, xd[torch.randperm(n, generator=g, device="cuda")[:k]].contiguous())
+        cases.append((f"dim={d}", *wide[d], True))
+    cg = torch.randn((256, 128), generator=g, device="cuda")
+    own = torch.randint(0, 256, (n,), generator=g, device="cuda")
+    xg = cg[own] + 0.7 * torch.randn((n, 128), generator=g, device="cuda")
+    cases.append(("k=256 dim=128", xg, cg, True))
+    sd = small_dim()
+    gen_w = -(-(sd + 1) // 4) * 4        # past the small form, rows of 16 bytes
+    for tag, xx, cc, terms in cases:
         lab, dist = kmeans_assign(xx, cc)
-        lab_ref, dist_ref = ref.kmeans_assign_ref(xx, cc)
-        same = bool((lab == lab_ref).all())
-        err = float((dist - dist_ref).abs().max())
-        rel = float(((dist - dist_ref).abs() - KM_RTOL * dist_ref.abs()).max())
+        same, same_odd, err, excess, ties = _km_errors(xx, cc, lab, dist, terms)
+        odd = int((~torch.isfinite(dist)).sum())
         print(f"[kmeans_assign] {tag} n={xx.shape[0]} d={xx.shape[1]} k={cc.shape[0]}: "
-              f"labels equal={same} max|dist-dist_ref|={err:.3e}", flush=True)
-        check(same and rel <= 0.0, f"kmeans_assign disagrees ({tag})")
+              f"labels agree={same} (differing at {ties} rounding-level ties) "
+              f"NaN/Inf in the same places={same_odd} ({odd} entries) "
+              f"max|dist-dist_ref|={err:.3e} excess over tolerance={excess:.3e}", flush=True)
+        check(same and same_odd and excess <= 0.0, f"kmeans_assign disagrees ({tag})")
         worst = max(worst, err)
+        # small against general (both stagings); general float4 against scalar
+        widths = (sd + 1, gen_w) if xx.shape[1] <= sd else (xx.shape[1] + 1,)
+        for w in widths:
+            lab_w, dist_w = kmeans_assign(widened(xx, w), widened(cc, w))
+            check(torch.equal(lab_w, lab) and _same_bits(dist_w, dist),
+                  f"kmeans_assign at d={xx.shape[1]} and widened to {w} differ ({tag})")
+        print(f"[kmeans_assign] {tag}: the same bits widened to d={list(widths)}", flush=True)
         if tag == "planted ties":
             check(bool((lab == 1).all()), "ties must resolve to the first index")
+        if tag == "NaN centroid, probe":
+            check(lab.tolist() == [1, 1, 0, 0, 1] and bool(dist.isnan().all()),
+                  f"the first NaN must win with its NaN: {lab.tolist()} {dist.tolist()}")
+        if tag == "NaN centroid":
+            check(bool((lab == 2).all()) and bool(dist.isnan().all()),
+                  "every point must take the NaN centroid 2 with a NaN distance")
+        if tag == "k=256 dim=128":
+            check(torch.equal(lab.long(), own), "k=256: a point left its own centroid")
+    for xx, cc, form in ((x, cents, "small"), (xg, cg, "general")):
+        names = [_kernel_label(name) for name, _ in device_events(
+            lambda: kmeans_assign(xx, cc), 5)]
+        print(f"[kmeans_assign] d={xx.shape[1]} k={cc.shape[0]}: device events in 5 calls "
+              f"{names}", flush=True)
+        check(len(names) == 5 and all(f"kmeans_assign_{form}_kernel" in nm for nm in names),
+              f"kmeans_assign is not one launch of its {form} form a call: {names}")
     # a launch is a few microseconds on the device, far under the host's
     # cost of one wrapper call, so the times are device times per call;
     # the host-paced rate of back-to-back calls is kept beside them
@@ -562,13 +703,35 @@ def phase_kmeans_assign(report):
            "library_ms": lambda: torch.cdist(x, cents).argmin(1)}
     times = {key: device_ms(fn, 50) for key, fn in fns.items()}
     host = {key: cuda_ms(fn, 50) for key, fn in fns.items()}
-    b, by = bound_ms(4.0 * (n * dim + k * dim + 2 * n), n * k * (2.0 * dim + 3) + 2.0 * n * dim)
+    one = torch.zeros((1,), device="cuda")
+    floor = device_ms(lambda: one.fill_(0), 50)
+
+    def km_bound(rows, d, kk):
+        return bound_ms(4.0 * (rows * d + kk * d + 2 * rows),
+                        rows * kk * (2.0 * d + 3) + 2.0 * rows * d)
+    b, by = km_bound(n, dim, k)
     print(f"[kmeans_assign] n={n} d={dim} k={k}: device kernel_ms={times['ms']:.6f} "
           f"plain_ms={times['plain_ms']:.6f} library_ms={times['library_ms']:.6f} "
-          f"bound_ms={b:.6f} ({by}); host-paced per call: kernel {host['ms']:.4f} "
-          f"plain {host['plain_ms']:.4f} library {host['library_ms']:.4f}", flush=True)
-    report["kmeans_assign"] = dict(times, bound_ms=b, bound_by=by, max_abs_err=worst,
-                                   host_paced_ms=host)
+          f"bound_ms={b:.6f} ({by}) launch floor (fill_ of one float) {floor:.6f} ms; "
+          f"host-paced per call: kernel {host['ms']:.4f} plain {host['plain_ms']:.4f} "
+          f"library {host['library_ms']:.4f}", flush=True)
+    forms = {}
+    for tag, xx, cc in (("dim=2", *wide[2]), ("dim=4", *wide[4]),
+                        (f"general form, main widened to d={gen_w}",
+                         widened(x, gen_w), widened(cents, gen_w)),
+                        ("k=256 dim=128", xg, cg)):
+        rec = dict(ms=device_ms(lambda: kmeans_assign(xx, cc), 50))
+        if tag == "k=256 dim=128":
+            rec["plain_ms"] = device_ms(lambda: ref.kmeans_assign_ref(xx, cc), 20)
+            rec["library_ms"] = device_ms(lambda: torch.cdist(xx, cc).argmin(1), 20)
+        rec["bound_ms"], rec["bound_by"] = km_bound(*xx.shape, cc.shape[0])
+        forms[tag] = rec
+        print(f"[kmeans_assign] {tag}: " + " ".join(
+            f"{key}={val:.6f}" if isinstance(val, float) else f"{key}={val}"
+            for key, val in rec.items()), flush=True)
+    report["kmeans_assign"] = dict(times, bound_ms=b, bound_by=by, launch_floor_ms=floor,
+                                   max_abs_err=worst, host_paced_ms=host, forms=forms,
+                                   registers=registers)
 
 
 def _plain_streaming_stripes(x, v, d, kind, sigma, stripe=4096, rows=None):
@@ -2382,7 +2545,7 @@ def _serve_profile(cfg, params, tokens):
 
 #: device-event names of this port's kernels (always listed by the profile)
 KERNEL_LABELS = ("affinity_kernel", "affinity_reg_kernel", "power_step_kernel",
-                 "kmeans_assign_kernel", "streaming_matmat_kernel", "streaming_matmat_reg_kernel",
+                 "kmeans_assign_", "streaming_matmat_kernel", "streaming_matmat_reg_kernel",
                  "streaming_degree_kernel", "streaming_degree_reg_kernel", "gram_", "row_topk_",
                  "liveness_kernel", "liveness_reg_kernel", "bs_matmat_kernel",
                  "bs_streaming_matmat_kernel", "bs_streaming_matmat_reg_kernel",
@@ -2428,6 +2591,16 @@ def _by_kernel(spans):
     return sorted(by_name.items(), key=lambda kv: -kv[1][1])
 
 
+def _kmeans_ms(spans):
+    """Device busy ms of the k-means stage, cut as in _stages: from the
+    first assignment's start to the last one's end, the Lloyd updates
+    between them included (None where no assignment ran)."""
+    km = [(st, e) for st, e, lab in spans if lab.startswith("kmeans_assign_")]
+    if not km:
+        return None
+    return _busy_us(spans, min(st for st, _ in km), max(e for _, e in km)) / 1e3
+
+
 def _stages(spans):
     """Device busy ms of a graph run's stages, cut at kernel boundaries of
     the timeline: pass 1 (to the last row_topk launch), the build (to the
@@ -2437,12 +2610,12 @@ def _stages(spans):
     def last_end(label):
         ends = [e for _, e, lab in spans if lab.startswith(label)]
         return max(ends) if ends else None
-    km = [st for st, _, lab in spans if lab.startswith("kmeans_assign_kernel")]
+    km = [st for st, _, lab in spans if lab.startswith("kmeans_assign_")]
     t0 = spans[0][0]
     cuts = [("pass1", last_end("row_topk_") or t0),
             ("build", min(st for st, _, lab in spans if SWEEP_R2.match(lab))),
             ("sweeps", min(km)),
-            ("kmeans", last_end("kmeans_assign_kernel")),
+            ("kmeans", last_end("kmeans_assign_")),
             ("probe", spans[-1][1] + 1.0)]
     out, lo = {}, t0
     for name, hi in cuts:
@@ -2486,13 +2659,16 @@ def phase_profile(report, out_dir, engine, tag="classic", cfg=None):
           f"busy_share={busy_us / 1e3 / wall_ms:.4f} device_events={len(spans)}", flush=True)
     for label, (count, ms) in top:
         print(f"[profile]   {ms:9.3f} ms  x{count:<4d} {label}")
+    kmeans_ms = _kmeans_ms(spans)
+    print(f"[profile] {tag} {engine} k-means stage (device busy ms, first to last "
+          f"assignment): {kmeans_ms:.3f}", flush=True)
     stages = _stages(spans) if tag != "classic" else None
     if stages is not None:
         stages["idle"] = wall_ms - busy_us / 1e3
         print("[profile] " + tag + " stages (device busy ms; idle = wall - busy): "
               + " ".join(f"{name}={ms:.3f}" for name, ms in stages.items()), flush=True)
     report[key] = dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3, device_events=len(spans),
-                       stages=stages,
+                       kmeans_ms=kmeans_ms, stages=stages,
                        top=[dict(name=l, launches=c, ms=ms) for l, (c, ms) in top])
 
 
@@ -2531,7 +2707,7 @@ def main() -> int:
     kernels = {}
     phase_affinity(kernels, logs["affinity"])
     phase_power_step(kernels)
-    phase_kmeans_assign(kernels)
+    phase_kmeans_assign(kernels, logs["kmeans_assign"])
     phase_streaming(kernels, logs["streaming"])
     phase_gram(kernels)
     phase_row_topk(kernels)
@@ -2577,7 +2753,9 @@ def main() -> int:
          "replaces": SOURCES[name][1], "launches": counts[name],
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
-         "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"]}
+         "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"],
+         **({"launch_floor_ms": kernels[name]["launch_floor_ms"]}
+            if "launch_floor_ms" in kernels[name] else {})}
         for name in SOURCES]}
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

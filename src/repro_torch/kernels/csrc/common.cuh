@@ -20,6 +20,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(a), "l"(src),
                  "r"(src_bytes));
 }
+// The same for 4 bytes (cp.async.ca): src_bytes 0 zero-fills. Both
+// addresses 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+    const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(a), "l"(src),
+                 "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

@@ -11,7 +11,9 @@ transform with one rounding per step, so they differ by a few ulps of a
 value <= 1); D rtol 1e-5 relative to the row's absolute mass sum|A_ij|
 (the row sum of raw cosine entries can cancel to ~0, where a plain
 relative bound means nothing); U rtol 1e-5 with atol 1e-7 (sums of a few
-hundred products in two orders); k-means labels exact, distances rtol 1e-5.
+hundred products in two orders); k-means labels exact, distances rtol 1e-5
+(NaN and Inf in the same places; on the NaN/Inf cases relative to
+|d2| + |x|^2 + |c|^2, the expansion's terms, where d2 cancels).
 The streamed U (no stored A) is held to rtol 1e-5 plus 1e-7 max|U_ref|
 (the same sums; the atol scales with U, whose entries are ~1/n once
 normalized and unbounded when ``d=None``); the streamed D to the D rule;
@@ -132,6 +134,65 @@ def test_kmeans_assign_matches_pallas_with_planted_tie(k):
     np.testing.assert_array_equal(lab_t.numpy(), np.asarray(lab_j))
     np.testing.assert_allclose(dist_t.numpy(), np.asarray(dist_j), rtol=DIST_RTOL, atol=0)
     assert int(lab_t[7]) == 0         # ties go to the first index
+
+
+def _nan_inf_case(case):
+    """(x, cents) of one NaN/Inf case, and {point: label} where argmin's
+    rule gives the label without the arithmetic."""
+    rng = np.random.default_rng(17)
+    if case == "nan centroid":
+        # points (0,0), (1,1), (NaN,0), an Inf point; centroid 1 holds a NaN
+        x = np.array([[0, 0], [1, 1], [np.nan, 0], [np.inf, 0], [-np.inf, 1]], np.float32)
+        cents = np.array([[5, 5], [np.nan, 0], [0.1, 0.1], [1, 1]], np.float32)
+        return x, cents, {0: 1, 1: 1, 2: 0, 3: 0, 4: 1}
+    x = rng.normal(size=(300, 2)).astype(np.float32)
+    cents = rng.normal(size=(5, 2)).astype(np.float32)
+    if case == "nan point":
+        x[7, 1] = np.nan                  # every distance NaN: label 0
+        return x, cents, {7: 0}
+    x[11] = (np.inf, 0.0)
+    x[12] = (-np.inf, 1.0)
+    x[13] = (np.inf, np.inf)
+    return x, cents, {}
+
+
+@pytest.mark.parametrize("case", ["nan centroid", "nan point", "inf point"])
+def test_kmeans_assign_matches_pallas_on_nan_and_inf(case):
+    """The first NaN distance wins with its NaN (argmin's and min's rule);
+    a point whose distances are all NaN gets label 0."""
+    x, cents, known = _nan_inf_case(case)
+    lab_j, dist_j = jops.kmeans_assign(jnp.asarray(x), jnp.asarray(cents), mode="pallas")
+    lab_t, dist_t = tops.kmeans_assign(torch.from_numpy(x), torch.from_numpy(cents))
+    lab_j, dist_j = np.asarray(lab_j), np.asarray(dist_j)
+    np.testing.assert_array_equal(lab_t.numpy(), lab_j)
+    dist_t = dist_t.numpy()
+    np.testing.assert_array_equal(np.isnan(dist_t), np.isnan(dist_j))
+    fin = np.isfinite(dist_j)
+    np.testing.assert_array_equal(dist_t[~fin], dist_j[~fin])     # NaN and +-Inf alike
+    # the expansion's three terms each round relative to their own size, so
+    # where d2 cancels far under |x|^2 + |c|^2 its error scales with those
+    terms = ((x[fin].astype(np.float64) ** 2).sum(1)
+             + (cents[lab_j[fin]].astype(np.float64) ** 2).sum(1))
+    assert np.all(np.abs(dist_t[fin] - dist_j[fin])
+                  <= DIST_RTOL * (np.abs(dist_j[fin]) + terms))
+    for i, want in known.items():
+        assert int(lab_t[i]) == want
+    assert np.isnan(dist_j).any()
+
+
+def test_kmeans_assign_matches_pallas_past_the_old_centroid_budget():
+    """k = 100 centroids of dim 128 (past the 12,288 floats the card's kernel
+    once held in shared memory), well separated: each point lies near its
+    own centroid."""
+    rng = np.random.default_rng(100)
+    cents = rng.normal(size=(100, 128)).astype(np.float32)
+    own = rng.integers(0, 100, size=300)
+    x = (cents[own] + 0.7 * rng.normal(size=(300, 128))).astype(np.float32)
+    lab_j, dist_j = jops.kmeans_assign(jnp.asarray(x), jnp.asarray(cents), mode="pallas")
+    lab_t, dist_t = tops.kmeans_assign(torch.from_numpy(x), torch.from_numpy(cents))
+    np.testing.assert_array_equal(lab_t.numpy(), np.asarray(lab_j))
+    np.testing.assert_array_equal(lab_t.numpy(), own)
+    np.testing.assert_allclose(dist_t.numpy(), np.asarray(dist_j), rtol=DIST_RTOL, atol=0)
 
 
 #: (rows, cols, row_offset, col_offset) of the streamed stripes: the square
