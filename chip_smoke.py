@@ -14,7 +14,10 @@ Phases (any failure exits non-zero before the last line is printed):
                 paper's 2-D gaussians, m = 2, r = 1 or 2, k = 4 on a 1-D
                 embedding) and at ragged ones (n = 1,037, m = 16, r up to
                 32, off-diagonal stripes, planted k-means ties); the power
-                sweep's cp.async ring bitwise its plain-load template; time the
+                sweep's cp.async ring bitwise its plain-load template, and
+                its single-vector wrappers (degree_normalized_matvec
+                bitwise column 0 of the mat-mat, power_step against its
+                plain version, each launching #2 once); time the
                 kernel, the plain version and, where one exists, the one
                 PyTorch call that computes the same function. The streamed
                 D and U must be bitwise the explicit kernels' D and U. The
@@ -99,6 +102,27 @@ Phases (any failure exits non-zero before the last line is printed):
                   per residual check;
                 - ensemble, streaming, gaussians: ARI >= 0.99, an (n, S)
                   embedding;
+                - the paper-faithful oracle path on the main config:
+                  pic_reference (plain A and W on the card, W @ V in
+                  cuBLAS) and pic_from_affinity on #1's A against the
+                  explicit run (sweeps within 1, max|dv|/max|v| <= 1e-4,
+                  ARI >= 0.99, #3 the only kernel, 26 times), its peak
+                  memory printed; affinity_chunked (4,096-row stripes)
+                  within A_ATOL of #1's A;
+                - the matrix-free engine (cosine_shifted gaussians): its
+                  factored product against #1's stored A times V at
+                  n = 45,000, r = 1, 2 (the reference test's 2e-4 / 1e-4,
+                  scaled by max|A V|); run_gpic on it against the explicit
+                  engine there (sweeps within 1, embedding within atol
+                  1e-6 rtol 1e-4); quickstart's n = 100,000, k = 3,
+                  max_iter=50 as pic and as the orthogonal r = 2 block:
+                  peak memory under 1 GB, #3 kmeans_iters + 1 times, #4
+                  once a QR sweep, no other kernel;
+                - the paper's Table 2 comparison at n = 10,000: serial
+                  float64 numpy PIC (its stage times) against run_gpic on
+                  the card (its wall), the ratio printed; the serial
+                  embedding within 1e-4 of max|v| of pic_from_affinity's,
+                  ARI >= 0.99 for both;
                 - the graph specs, orthogonal r = 2, block_sparse=False:
                   E1 (rbf 0.3, knn_k=10) at n = 480 over the reference's
                   ARI floor of 0.95, then E1 and E2 (adaptive, scale_k=7,
@@ -159,6 +183,8 @@ import torch  # noqa: E402
 
 N_MAIN = 45_000         # the paper's dataset size
 N_BIG = 150_000         # past the card: A would need n^2 * 4 B = 90 GB
+N_MF = 100_000          # examples/quickstart.py's matrix-free run
+N_SERIAL = 10_000       # serial PIC: its float64 A and W take 1.6 GB of host memory
 SIGMA = 0.3             # the paper's bandwidth for gaussians
 ORTHO_ARI_FLOOR = 0.90  # the reference's floor for three_circles, orthogonal
 MEM_LIMIT = 1e9         # peak device bytes of a streaming run
@@ -511,6 +537,7 @@ def phase_power_step(report):
     plain_load = cuda_ms(lambda: degree_normalized_matmat(shifted, v, d), 10)
     print(f"[power_step] n={n}: ring and plain-load templates bitwise equal at r=1, 2; "
           f"plain-load template (unaligned A) {plain_load:.4f} ms at r=1", flush=True)
+    wrappers = _single_vector_wrappers(a, v[:, 0].contiguous(), d, u)
     del a, d, u, u_ref, shifted
     torch.cuda.empty_cache()
 
@@ -536,7 +563,34 @@ def phase_power_step(report):
               "a zero-degree row must give an exact zero")
     report["degree_normalized_matmat"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                               bound_ms=b, bound_by=by, max_abs_err=worst,
-                                              main_shape=main_err, plain_load_ms=plain_load)
+                                              main_shape=main_err, plain_load_ms=plain_load,
+                                              single_vector=wrappers)
+
+
+def _single_vector_wrappers(a, v, d, u):
+    """The paper's single-vector wrappers of #2 at the main shape:
+    degree_normalized_matvec must be column 0 of the mat-mat ``u`` (made
+    from v as an (n, 1) block) bit for bit, power_step its plain version
+    within #2's tolerance, and each must launch #2 once."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.power_step import degree_normalized_matvec, power_step
+    ops.reset_launch_counts()
+    u1 = degree_normalized_matvec(a, v, d)
+    after_matvec = ops.launch_counts()["degree_normalized_matmat"]
+    step = power_step(a, v, d)
+    after_step = ops.launch_counts()["degree_normalized_matmat"]
+    bitwise = torch.equal(u1, u[:, 0])
+    abs_err, excess = _u_errors(step, ref.power_step_ref(a, v, d))
+    print(f"[power_step] n={a.shape[0]} single vector: degree_normalized_matvec bitwise "
+          f"column 0 of the mat-mat={bitwise}; power_step max|V-V_ref|={abs_err:.3e} "
+          f"excess over tolerance={excess:.3e}; #2 launches after matvec {after_matvec}, "
+          f"after power_step {after_step}", flush=True)
+    check(bitwise, "degree_normalized_matvec is not column 0 of the mat-mat bit for bit")
+    check(excess <= 0.0, "power_step disagrees with its plain version")
+    check(after_matvec == 1 and after_step == 2,
+          f"the single-vector wrappers launched #2 {after_matvec}, {after_step} times")
+    return dict(matvec_bitwise=bitwise, power_step_max_abs_err=abs_err,
+                power_step_excess=excess, launches=after_step)
 
 
 def small_dim() -> int:
@@ -1877,22 +1931,27 @@ def phase_reorder(report):
                              tied_scores=n_tied, round_trip=trips)
 
 
-def _counted_run(x, k, cfg):
-    """run_gpic with the launch counters set to 0 just before and read
-    just after, and the peak device memory of the run. Returns (result,
-    labels as numpy, wall seconds, counts, peak bytes)."""
-    from repro_torch import run_gpic
+def _counted(fn):
+    """``fn()`` (a PICResult) with the launch counters set to 0 just before
+    and read just after, and the peak device memory of the call. Returns
+    (result, labels as numpy, wall seconds, counts, peak bytes)."""
     from repro_torch.kernels import ops
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = run_gpic(x, k, cfg)
+    res = fn()
     labels = res.labels.cpu().numpy()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     return res, labels, wall, counts, torch.cuda.max_memory_allocated()
+
+
+def _counted_run(x, k, cfg):
+    """run_gpic through :func:`_counted`."""
+    from repro_torch import run_gpic
+    return _counted(lambda: run_gpic(x, k, cfg))
 
 
 def phase_end_to_end(report):
@@ -2054,6 +2113,174 @@ def phase_ensemble(report):
     check(ari >= 0.99, f"ensemble ARI {ari:.4f} < 0.99")
     report["e2e_ensemble"] = dict(wall_s=wall, sweeps=int(res.n_iter), ari=ari,
                                   embedding_shape=list(res.embeddings.shape), launches=counts)
+
+
+def _launched_only(counts, expected):
+    """Whether the run launched each kernel of ``expected`` as many times
+    as it gives, and every other kernel never."""
+    return all(counts[name] == expected.get(name, 0) for name in counts)
+
+
+def _embedding_rel(res, res_e):
+    """max|v - v_e| / max|v_e| of two results' column-0 embeddings."""
+    return float((res.embedding - res_e.embedding).abs().max() / res_e.embedding.abs().max())
+
+
+def phase_pic_reference(report, explicit):
+    """The paper-faithful oracle path on the main path's config (rbf sigma
+    0.3, gaussians, n = 45,000, max_iter=400): pic_reference (A by the
+    plain affinity_matrix, W = D^-1 A stored, W @ V in cuBLAS, k-means on
+    #3) against phase 3's explicit run; affinity_chunked against #1's A;
+    pic_from_affinity on #1's A against the explicit run too."""
+    from repro_torch import adjusted_rand_index, dataset_by_name
+    from repro_torch.core import affinity_chunked, pic_from_affinity, pic_reference
+    from repro_torch.kernels.affinity import affinity_and_degree
+    _, res_e, _ = explicit
+    x, y, k = dataset_by_name("gaussians", N_MAIN, seed=0)
+    out = {}
+
+    def held(tag, res, labels, wall, counts, peak):
+        sweeps, rel = int(res.n_iter), _embedding_rel(res, res_e)
+        ari = adjusted_rand_index(y, labels)
+        print(f"[e2e] {tag} gaussians n={N_MAIN} rbf sigma={SIGMA}: wall_s={wall:.4f} "
+              f"sweeps={sweeps} (explicit {int(res_e.n_iter)}) max|dv|/max|v|={rel:.3e} "
+              f"ARI={ari:.4f} peak_mem_GB={peak / 1e9:.3f} launches={counts} "
+              f"health: {res.health.summary()}", flush=True)
+        check(bool(torch.isfinite(res.embedding).all()) and labels.shape == (N_MAIN,),
+              f"{tag}: the result has the wrong shape or is not finite")
+        check(abs(sweeps - int(res_e.n_iter)) <= 1 and rel <= 1e-4,
+              f"{tag} disagrees with the explicit run")
+        check(ari >= 0.99, f"{tag} ARI {ari:.4f} < 0.99")
+        check(_launched_only(counts, {"kmeans_assign": 26}), f"{tag} launches {counts}")
+        out[tag] = dict(wall_s=wall, sweeps=sweeps, rel_err=rel, ari=ari, peak_mem_bytes=peak,
+                        launches=counts)
+
+    gen = torch.Generator(device="cuda")
+    held("pic_reference", *_counted(lambda: pic_reference(
+        x, k, affinity_kind="rbf", sigma=SIGMA, max_iter=400, generator=gen.manual_seed(0))))
+    xt = torch.as_tensor(x, device="cuda")
+    a, _ = affinity_and_degree(xt, kind="rbf", sigma=SIGMA)
+    chunked = affinity_chunked(xt, "rbf", sigma=SIGMA, chunk=4096)
+    err = max(float((chunked[r0:r0 + 4096] - a[r0:r0 + 4096]).abs().max())
+              for r0 in range(0, N_MAIN, 4096))
+    del chunked
+    print(f"[e2e] affinity_chunked (chunk 4,096) vs #1's A: max|A-A_1|={err:.3e}", flush=True)
+    check(err <= A_ATOL, "affinity_chunked disagrees with #1's A")
+    held("pic_from_affinity", *_counted(lambda: pic_from_affinity(
+        a, k, max_iter=400, generator=gen.manual_seed(0))))
+    del a
+    torch.cuda.empty_cache()
+    report["e2e_pic_reference"] = dict(out, affinity_chunked_max_abs_err=err)
+
+
+def phase_matrix_free(report):
+    """The matrix-free engine: its factored product against #1's stored
+    cosine_shifted A at n = 45,000 (r = 1, 2), run_gpic on it against the
+    explicit engine there, then quickstart's n = 100,000 run (k = 3,
+    max_iter=50) as pic and as the orthogonal r = 2 block: no affinity,
+    sweep or streaming kernel, #3 kmeans_iters + 1 times, #4 once a QR
+    sweep, peak memory under 1 GB."""
+    from repro_torch import GPICConfig, dataset_by_name
+    from repro_torch.core import matmat_matrix_free, row_normalize_features
+    from repro_torch.kernels.affinity import affinity_and_degree
+    x, _, k = dataset_by_name("gaussians", N_MAIN, seed=0)
+    xn = row_normalize_features(torch.as_tensor(x, device="cuda"))
+    a, _ = affinity_and_degree(xn, kind="cosine_shifted")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    products = {}
+    for r in (1, 2):
+        v = torch.rand((N_MAIN, r), generator=g, device="cuda")
+        got, want = matmat_matrix_free(xn, v), torch.matmul(a, v)
+        diff = (got - want).abs()
+        scale = float(want.abs().max())
+        # the reference test's atol 2e-4 and rtol 1e-4, scaled by max|A V|
+        excess = float((diff - 1e-4 * want.abs()).max()) - 2e-4 * scale
+        ms = cuda_ms(lambda: matmat_matrix_free(xn, v), 10)
+        print(f"[matrix_free] n={N_MAIN} r={r}: max|AV_mf - A V|={float(diff.max()):.3e} "
+              f"max|A V|={scale:.3e} excess over tolerance={excess:.3e}; "
+              f"product {ms:.4f} ms", flush=True)
+        check(excess <= 0.0, f"the matrix-free product disagrees with #1's A at r={r}")
+        products[r] = dict(max_abs_err=float(diff.max()), scale=scale, excess=excess, ms=ms)
+    del a
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for engine in ("explicit", "matrix_free"):
+        res, labels, wall, counts, peak = _counted_run(x, k, GPICConfig(engine=engine,
+                                                                          max_iter=400))
+        runs[engine] = res
+        print(f"[e2e] {engine} gaussians n={N_MAIN} cosine_shifted: wall_s={wall:.4f} "
+              f"sweeps={int(res.n_iter)} peak_mem_GB={peak / 1e9:.3f} launches={counts}",
+              flush=True)
+        report[f"e2e_{engine}_cosine_shifted"] = dict(wall_s=wall, sweeps=int(res.n_iter),
+                                                      peak_mem_bytes=peak, launches=counts)
+    mf, ex = runs["matrix_free"], runs["explicit"]
+    # the reference's rule for the two engines (tests/test_gpic.py)
+    emb_ok = bool(torch.allclose(mf.embedding, ex.embedding, atol=1e-6, rtol=1e-4))
+    print(f"[e2e] matrix_free vs explicit n={N_MAIN}: sweeps {int(mf.n_iter)} vs "
+          f"{int(ex.n_iter)}, max|dv|={float((mf.embedding - ex.embedding).abs().max()):.3e}, "
+          f"embedding within atol 1e-6 rtol 1e-4: {emb_ok}", flush=True)
+    check(abs(int(mf.n_iter) - int(ex.n_iter)) <= 1 and emb_ok,
+          "the matrix-free and explicit engines disagree")
+    del runs, mf, ex
+
+    x, _, _ = dataset_by_name("gaussians", N_MF, seed=0)
+    big = []
+    for cfg in (GPICConfig(engine="matrix_free", max_iter=50),
+                GPICConfig(engine="matrix_free", max_iter=50, n_vectors=2,
+                           embedding="orthogonal")):
+        res, labels, wall, counts, peak = _counted_run(x, 3, cfg)
+        cols = res.n_iter_cols.tolist()
+        qr_sweeps = max(cols) if cfg.embedding == "orthogonal" else 0
+        print(f"[e2e] matrix_free gaussians n={N_MF} k=3 {cfg.embedding} r={cfg.n_vectors}: "
+              f"wall_s={wall:.4f} n_iter_cols={cols} peak_mem_GB={peak / 1e9:.3f} "
+              f"launches={counts}", flush=True)
+        check(bool(torch.isfinite(res.embeddings).all()) and labels.shape == (N_MF,),
+              f"the n={N_MF} matrix-free result has the wrong shape or is not finite")
+        check(peak < MEM_LIMIT, f"matrix-free n={N_MF} peak memory {peak / 1e9:.3f} GB >= 1 GB")
+        expected = {"kmeans_assign": cfg.kmeans_iters + 1}
+        if qr_sweeps:
+            expected["gram"] = qr_sweeps       # no residual rule: no residual checks
+        check(_launched_only(counts, expected),
+              f"matrix-free n={N_MF} launches {counts}, expected {expected}")
+        big.append(dict(embedding=cfg.embedding, n_vectors=cfg.n_vectors, wall_s=wall,
+                        n_iter_cols=cols, peak_mem_bytes=peak, launches=counts))
+    report["matrix_free"] = dict(products=products, quickstart=big)
+
+
+def phase_serial_vs_gpic(report):
+    """The paper's Table 2 comparison at one n: the serial float64 numpy
+    PIC (row loops) against run_gpic on the card, same features (gaussians,
+    rbf sigma 0.3, max_iter=50). The serial embedding must be
+    pic_from_affinity's within 1e-4 of max|v|, and both partitions at
+    ARI >= 0.99."""
+    from repro_torch import GPICConfig, adjusted_rand_index, dataset_by_name
+    from repro_torch.core import affinity_matrix, pic_from_affinity, pic_serial_numpy
+    x, y, k = dataset_by_name("gaussians", N_SERIAL, seed=0)
+    labels_s, v_s, tim = pic_serial_numpy(x, k, affinity_kind="rbf", sigma=SIGMA, max_iter=50,
+                                          return_timings=True)
+    cfg = GPICConfig(affinity_kind="rbf", sigma=SIGMA, max_iter=50)
+    _counted_run(x, k, cfg)                                    # warm-up at this n
+    res, labels, wall, counts, peak = _counted_run(x, k, cfg)
+    a = affinity_matrix(torch.as_tensor(x, device="cuda"), "rbf", sigma=SIGMA)
+    res_pa = pic_from_affinity(a, k, max_iter=50,
+                               generator=torch.Generator(device="cuda").manual_seed(0))
+    del a
+    v_pa = res_pa.embedding.double().cpu().numpy()
+    rel = float(np.abs(v_s - v_pa).max() / np.abs(v_s).max())
+    ari_s, ari_g = adjusted_rand_index(y, labels_s), adjusted_rand_index(y, labels)
+    ratio = tim["total_s"] / wall
+    print(f"[serial] gaussians n={N_SERIAL} rbf sigma={SIGMA}: serial numpy (float64) "
+          + " ".join(f"{key}={val:.4f}" for key, val in tim.items() if key != "n_iter")
+          + f" sweeps={tim['n_iter']} ARI={ari_s:.4f}; GPIC on the card wall_s={wall:.4f} "
+          f"sweeps={int(res.n_iter)} ARI={ari_g:.4f} launches={counts}; serial/GPIC = "
+          f"{ratio:.1f}; serial vs pic_from_affinity max|dv|/max|v|={rel:.3e} "
+          f"(sweeps {tim['n_iter']} vs {int(res_pa.n_iter)})", flush=True)
+    check(rel <= 1e-4, "the serial embedding disagrees with pic_from_affinity's")
+    check(min(ari_s, ari_g) >= 0.99, f"serial ARI {ari_s:.4f}, GPIC ARI {ari_g:.4f} < 0.99")
+    report["serial_vs_gpic"] = dict(n=N_SERIAL, serial=tim, serial_ari=ari_s, gpic_wall_s=wall,
+                                    gpic_sweeps=int(res.n_iter), gpic_ari=ari_g,
+                                    gpic_launches=counts, ratio=ratio, rel_err=rel)
 
 
 def _graph_cfg(spec_kw, **kw):
@@ -2720,10 +2947,13 @@ def main() -> int:
               ("affinity_and_degree", "degree_normalized_matmat", "kmeans_assign")}
     streaming = phase_streaming_e2e(report, explicit)
     counts.update({name: streaming[name] for name in ("streaming_matmat", "streaming_degree")})
+    phase_pic_reference(report, explicit)
     del explicit
     phase_past_memory(report)
     counts["gram"] = phase_orthogonal(report)
     phase_ensemble(report)
+    phase_matrix_free(report)
+    phase_serial_vs_gpic(report)
     graph, dense_runs = phase_graph_e2e(report)
     counts["row_topk"] = graph["E1"][0]["launches"]["row_topk"]
     bs_runs = phase_block_sparse_e2e(report, dense_runs)

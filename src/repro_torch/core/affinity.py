@@ -15,11 +15,12 @@ Three affinity kinds:
   similarity (the directed kNN graph).
 
 All kinds zero the diagonal (no self-loops). This module holds the plain
-PyTorch semantics, the oracles of the tests (``affinity_matrix``,
-``local_scales``, ``knn_thresholds``); the kernels realize them in two
-passes (``core/graph.py``: the streamed row top-k gives the per-row
-statistics, the affinity and streaming kernels apply scale and mask in the
-tile).
+PyTorch semantics, the oracles of the tests (``affinity_matrix`` and its
+row-striped ``affinity_chunked``, ``local_scales``, ``knn_thresholds``);
+the kernels realize them in two passes (``core/graph.py``: the streamed
+row top-k gives the per-row statistics, the affinity and streaming kernels
+apply scale and mask in the tile). The factorable specs also have the
+matrix-free product (``matmat_matrix_free``), which never forms A.
 """
 from __future__ import annotations
 
@@ -232,6 +233,87 @@ def affinity_matrix(
         a = torch.exp(-pairwise_sq_dists(x) / (2.0 * sig * sig))
         return _zero_diag(a)
     raise ValueError(f"unknown affinity kind {kind!r}")
+
+
+def affinity_chunked(
+    x: torch.Tensor,
+    kind: AffinityKind = "cosine_shifted",
+    sigma: float | None = None,
+    chunk: int = 4096,
+) -> torch.Tensor:
+    """The dense affinity built in row stripes of ``chunk`` rows (the
+    paper's host-to-device chunking), so the temporaries are (chunk, n)
+    instead of (n, n). ``sigma=None`` on rbf takes the strided median
+    heuristic."""
+    n = x.shape[0]
+    cols = torch.arange(n, device=x.device)[None, :]
+    if kind in ("cosine", "cosine_shifted"):
+        x = row_normalize_features(x)
+
+        def stripe(xc, i0):
+            a = xc @ x.T
+            if kind == "cosine_shifted":
+                a = 0.5 * (1.0 + a)
+            rows = i0 + torch.arange(xc.shape[0], device=x.device)[:, None]
+            return a * (cols != rows)
+
+    else:
+        sig = rbf_bandwidth_heuristic(x) if sigma is None else torch.as_tensor(sigma)
+        sq = torch.sum(x * x, dim=1)
+
+        def stripe(xc, i0):
+            sqc = torch.sum(xc * xc, dim=1)
+            d2 = torch.clamp_min(sqc[:, None] + sq[None, :] - 2.0 * (xc @ x.T), 0.0)
+            a = torch.exp(-d2 / (2.0 * sig * sig))
+            rows = i0 + torch.arange(xc.shape[0], device=x.device)[:, None]
+            return a * (cols != rows)
+
+    return torch.cat([stripe(x[i0:i0 + chunk], i0) for i0 in range(0, n, chunk)], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# The matrix-free product (factorable specs)
+# ---------------------------------------------------------------------------
+
+def matmat_matrix_free(xn: torch.Tensor, v: torch.Tensor,
+                       kind: AffinityKind | AffinitySpec = "cosine_shifted") -> torch.Tensor:
+    """A V without A, for V (n,) or (n, r): the factored product shares the
+    two O(n m r) skinny matmuls among all r columns.
+
+        cosine:          A V = X (X^T V) - V              (diag of X X^T is 1)
+        cosine_shifted:  A V = (sum V + X (X^T V)) / 2 - V
+
+    ``xn`` must be row-normalized. ``kind`` may be an :class:`AffinitySpec`,
+    which must be factorable (scaling and truncation break the low-rank
+    plus diagonal structure). The reference's ``psum`` hook, which finishes
+    the sums over a sharded matrix's row chunks, belongs to the multi-GPU
+    slice (ROADMAP queue 1 item 10) and is left out: this is one chunk.
+    """
+    if isinstance(kind, AffinitySpec):
+        if not kind.factorable:
+            raise ValueError(
+                "matrix-free path needs a factorable spec (cosine kinds, "
+                f"fixed bandwidth, no truncation); got {kind}")
+        kind = kind.kind
+    if kind == "cosine":
+        return xn @ (xn.T @ v) - v
+    if kind == "cosine_shifted":
+        vsum = torch.sum(v, dim=0)
+        return 0.5 * (vsum + xn @ (xn.T @ v)) - v
+    raise ValueError(f"matrix-free path supports cosine affinities, got {kind!r}")
+
+
+def matvec_matrix_free(xn: torch.Tensor, v: torch.Tensor,
+                       kind: AffinityKind | AffinitySpec = "cosine_shifted") -> torch.Tensor:
+    """Single-vector alias of :func:`matmat_matrix_free`."""
+    return matmat_matrix_free(xn, v, kind)
+
+
+def degree_matrix_free(xn: torch.Tensor,
+                       kind: AffinityKind | AffinitySpec = "cosine_shifted") -> torch.Tensor:
+    """Row sums of A (the degree vector) without A."""
+    ones = torch.ones((xn.shape[0],), dtype=xn.dtype, device=xn.device)
+    return matvec_matrix_free(xn, ones, kind)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,10 @@ sweep. A kNN spec's default block-sparse route sweeps only the live tiles
 streaming kernels after kernels.ops.block_liveness). Every embedding mode
 runs on either engine ('orthogonal' prices its QR with kernels.ops.gram). An adaptive or kNN spec adds pass 1
 (kernels.ops.row_topk) before the build, and a kNN spec the component
-probe after the run (core/health.py).
+probe after the run (core/health.py). ``gpic_matrix_free`` runs the
+factorable specs without A: two plain matmuls a sweep
+(core/operators.py::matrix_free_operator), the Gram and k-means on the
+kernels as above.
 
 Prefer the ``run_gpic``/``GPICConfig`` front door (core/pipeline.py).
 """
@@ -33,20 +36,18 @@ from .affinity import (
 )
 from .health import HealthReport, count_bad_rows, graph_component_probe
 from .kmeans import kmeans
-from .operators import explicit_operator, streaming_operator
+from .operators import explicit_operator, matrix_free_operator, streaming_operator
 from .pic import PICResult, make_pic_result
 from .power import init_power_vectors, run_power_embedding, standardize_columns
 
 
 def _build_engine_operator(x, spec, *, engine, a_dtype=torch.float32, block_sparse=True):
-    """Normalize features per the spec's kind and bind the engine: the
-    cosine kinds take row-normalized input, rbf the raw features."""
+    """Normalize features per the spec's kind and bind the engine
+    ('explicit', 'streaming' or 'matrix_free', which the callers check):
+    the cosine kinds take row-normalized input, rbf the raw features; the
+    matrix-free engine always takes row-normalized features."""
     if engine == "matrix_free":
-        raise NotImplementedError(
-            "engine='matrix_free' is not ported yet (ROADMAP queue 1 item 8)")
-    if engine not in ("explicit", "streaming"):
-        raise ValueError(f"unknown engine {engine!r} "
-                         "(expected 'explicit' or 'streaming')")
+        return matrix_free_operator(row_normalize_features(x), spec=spec)
     inp = x if spec.kind == "rbf" else row_normalize_features(x)
     if engine == "explicit":
         return explicit_operator(inp, spec=spec, a_dtype=a_dtype, block_sparse=block_sparse)
@@ -87,6 +88,9 @@ def gpic(
         eps = 1e-5 / n
     spec = as_affinity_spec(affinity, kind=affinity_kind, sigma=sigma)
     spec.validate_for_n(n)
+    if engine not in ("explicit", "streaming"):
+        raise ValueError(f"unknown engine {engine!r} "
+                         "(expected 'explicit' or 'streaming')")
     op = _build_engine_operator(x, spec, engine=engine, a_dtype=a_dtype,
                                 block_sparse=block_sparse)
 
@@ -97,6 +101,44 @@ def gpic(
     emb = standardize_columns(emb_raw)
     labels, _ = kmeans(emb, k, iters=kmeans_iters, generator=generator)
     health = _local_health(op, status, n, spec, probe_components=probe_components)
+    return make_pic_result(labels, v, t_cols, done, embedding=embedding,
+                           embeddings=emb_raw, health=health)
+
+
+def gpic_matrix_free(
+    x: torch.Tensor,
+    k: int,
+    *,
+    generator: torch.Generator | None = None,
+    eps: float | None = None,
+    max_iter: int = 50,
+    kmeans_iters: int = 25,
+    affinity_kind: AffinityKind = "cosine_shifted",
+    affinity: AffinitySpec | None = None,
+    n_vectors: int = 1,
+    embedding: str = "pic",
+    qr_every: int = 1,
+    snapshot_iters: tuple | None = None,
+    residual_tol: float | None = None,
+) -> PICResult:
+    """PIC without A (the reference's O2), on the device of ``x``, for the
+    factorable specs (cosine kinds, no scaling or truncation): O(n m r)
+    work a sweep and O(n m) memory, the explicit path's function on the
+    same engine state. ``generator`` draws as in :func:`gpic`."""
+    n = x.shape[0]
+    if eps is None:
+        eps = 1e-5 / n
+    spec = as_affinity_spec(affinity, kind=affinity_kind)
+    op = _build_engine_operator(x, spec, engine="matrix_free")
+
+    v0 = init_power_vectors(op.degree, n_vectors, generator=generator)
+    v, t_cols, done, emb_raw, status = run_power_embedding(
+        op, v0, eps, max_iter, embedding=embedding, qr_every=qr_every,
+        snapshot_iters=snapshot_iters, residual_tol=residual_tol)
+    emb = standardize_columns(emb_raw)
+    labels, _ = kmeans(emb, k, iters=kmeans_iters, generator=generator)
+    # a factorable spec is never truncated: the probe cannot arm
+    health = _local_health(op, status, n, spec, probe_components=False)
     return make_pic_result(labels, v, t_cols, done, embedding=embedding,
                            embeddings=emb_raw, health=health)
 

@@ -9,7 +9,10 @@ with a typed, actionable error, never silent garbage:
   - :class:`HealthReport` and the ``COL_*`` per-column status codes, carried
     on ``PICResult.health``.
   - :func:`count_bad_rows`, :func:`graph_component_probe`,
-    :func:`validate_features` and :func:`raise_for_health`.
+    :func:`validate_features`, :func:`raise_for_health`, and the
+    reference's utilities :func:`empty_health` and :func:`degree_guard`;
+  - :func:`resolve_device` and :func:`as_f32`, the entry points' device
+    rule and input conversion.
 
 The loop-side latches (zero-column, non-finite, stall) live in
 ``core/power.py``; this module defines the vocabulary they share.
@@ -116,6 +119,36 @@ class HealthReport:
         return "GPIC health: " + " ".join(parts)
 
 
+def empty_health(r: int, n: int, *, device=None) -> HealthReport:
+    """An all-OK report (for paths that compute no diagnostics), on
+    ``device`` (None: the CUDA card, as :func:`resolve_device` says)."""
+    dev = resolve_device(device, "empty_health")
+    return HealthReport(
+        col_status=torch.zeros((r,), dtype=torch.int32, device=dev),
+        isolated_rows=torch.tensor(0, dtype=torch.int32, device=dev),
+        n_components=torch.tensor(-1, dtype=torch.int32, device=dev),
+        components=torch.full((n,), -1, dtype=torch.int32, device=dev),
+    )
+
+
+def degree_guard(u: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """(A V) / d with the rows of non-positive or non-finite degree masked
+    to an exact zero, for callers outside the sweep. ``u`` is (n, r) or
+    (n,), ``d`` (n,).
+
+    The sweeps keep the floored ``u / max(d, 1e-30)`` divide, which is
+    already zero-degree safe (d = 0 means the nonnegative A row, hence u,
+    is an exact 0) and lets a NaN degree reach the loop's COL_NONFINITE
+    latch; this masked form is not substituted into the sweep, as in the
+    reference.
+    """
+    ok = d > 0
+    safe = torch.where(ok, d, 1.0)
+    if u.ndim == 2:
+        return torch.where(ok[:, None], u / safe[:, None], 0.0)
+    return torch.where(ok, u / safe, 0.0)
+
+
 def count_bad_rows(d: torch.Tensor) -> torch.Tensor:
     """() int32 count of rows whose degree cannot anchor them (not > 0:
     zero and non-finite degrees both count)."""
@@ -173,6 +206,25 @@ def graph_component_probe(op, n_total: int, *, max_components: int = 8,
     leftover = 0 if bool(visited.all()) else 1
     return (torch.tensor(count + leftover, dtype=torch.int32, device=device),
             comp.to(torch.int32))
+
+
+def resolve_device(device, entry: str) -> torch.device:
+    """The device an entry point runs on: ``None`` means the CUDA card,
+    which must then exist (``entry`` names the caller in the error)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{entry} runs on a CUDA device and none is available; pass "
+            "device='cpu' to run the kernels' plain versions on the CPU")
+    return dev
+
+
+def as_f32(x, dev: torch.device) -> torch.Tensor:
+    """A numpy array or a tensor as float32 on ``dev`` (no copy when it
+    is one already)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
 
 
 def validate_features(x: torch.Tensor, k: int, *, sanitize: bool = False):

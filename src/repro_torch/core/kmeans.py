@@ -79,3 +79,9 @@ def kmeans(x: torch.Tensor, k: int, iters: int = 25, *,
                             sums / torch.clamp_min(counts, 1.0)[:, None]).contiguous()
     labels, _ = ops.kmeans_assign(x, cents)
     return _canonicalize(labels, cents, k)
+
+
+def kmeans_objective(x: torch.Tensor, labels: torch.Tensor,
+                     cents: torch.Tensor) -> torch.Tensor:
+    """Sum of squared distances to the assigned centroids (inertia)."""
+    return torch.sum(torch.sum((x - cents[labels.long()]) ** 2, dim=1))

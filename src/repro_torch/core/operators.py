@@ -1,12 +1,15 @@
 """PowerOperator builders: each GPIC engine as one binding of the loop.
 
-The two local engines, for every affinity spec:
+The three local engines (matrix-free: the factorable specs only):
 
   explicit   build A and its degrees once with the fused affinity kernel,
              then one degree-normalized mat-mat kernel per sweep;
   streaming  never store A: one streamed degree kernel, then one streaming
              mat-mat kernel per sweep that rebuilds every tile from the
              features. Peak memory O(n m + n r).
+  matrix_free  the factored product A V = f(X (X^T V)) - V of the cosine
+             kinds (``core/affinity.py::matmat_matrix_free``): two skinny
+             f32 matmuls a sweep, O(n m r) work, no A and no sweep kernel.
 
 A spec with a graph policy first runs pass 1 (``core/graph.py``: the
 streamed row top-k for the adaptive scales and the kNN thresholds), and
@@ -25,7 +28,7 @@ sweeps from the block-sparse streaming kernels. Both give the dense route's
 results bit for bit on the card. A grid of a single column tile (n <= 256)
 has nothing to skip and keeps the dense route, as in the reference.
 
-Both engines bind the Gram kernel for the block algebra of the orthogonal
+Every engine binds the Gram kernel for the block algebra of the orthogonal
 mode.
 """
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 
 from ..kernels import ops
 from .affinity import (AffinityKind, AffinitySpec, as_affinity_spec, block_plan,
-                       dense_block_live)
+                       dense_block_live, matmat_matrix_free)
 from .graph import adaptive_scales, affinity_stats, fused_affinity_build
 from .power import PowerOperator
 
@@ -119,3 +122,20 @@ def streaming_operator(inp: torch.Tensor, *, spec: AffinitySpec | None = None,
                                         scale_r=scale, scale_c=scale, thr_c=thr)
 
     return PowerOperator(matmat=matmat, degree=d, gram=ops.gram, matmat_t=matmat_t)
+
+
+def matrix_free_operator(xn: torch.Tensor, *, spec: AffinitySpec | None = None,
+                         kind: AffinityKind = "cosine_shifted") -> PowerOperator:
+    """The factored sweep (A V) / max(d, 1e-30) with d = A 1, both from
+    :func:`~repro_torch.core.affinity.matmat_matrix_free`: factorable specs
+    only (the rejection lives there). ``xn`` must be row-normalized. The
+    sweep is two plain f32 matmuls, as in the reference, which has no
+    kernel for it; the Gram is the kernel's."""
+    spec = as_affinity_spec(spec, kind=kind)
+    n = xn.shape[0]
+    d = matmat_matrix_free(xn, torch.ones((n,), dtype=xn.dtype, device=xn.device), spec)
+
+    def matmat(v):
+        return matmat_matrix_free(xn, v, spec) / torch.clamp_min(d, 1e-30)[:, None]
+
+    return PowerOperator(matmat=matmat, degree=d, gram=ops.gram)

@@ -8,9 +8,10 @@
 device (the tests pass ``device="cpu"``, which runs the kernels' plain
 versions). The port routes the local explicit and streaming engines with
 every affinity spec (dense, adaptive bandwidth, kNN truncation on the
-block-sparse route, the default, or the dense-storage one), every
-embedding mode and the row reorder; the settings a later slice brings
-raise ``NotImplementedError`` naming the ROADMAP item.
+block-sparse route, the default, or the dense-storage one), the
+matrix-free engine with the factorable specs, every embedding mode and
+the row reorder; the settings a later slice brings raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -23,9 +24,9 @@ from ..kernels.block_sparse import TN
 from ..kernels.power_step import MAX_R
 from ..kernels.row_topk import check_k
 from .affinity import AffinityKind, AffinitySpec, as_affinity_spec, invert_permutation
-from .gpic import gpic
+from .gpic import gpic, gpic_matrix_free
 from .graph import graph_reorder_permutation
-from .health import raise_for_health, validate_features
+from .health import as_f32, raise_for_health, resolve_device, validate_features
 from .pic import PICResult
 from .power import EMBEDDINGS
 
@@ -36,9 +37,12 @@ ENGINES = ("explicit", "streaming", "matrix_free")
 class GPICConfig:
     """Everything that selects and tunes a GPIC run, in one hashable value.
 
-      engine:       'explicit' (paper-faithful A build) or 'streaming'
+      engine:       'explicit' (paper-faithful A build), 'streaming'
                     (A never stored: tiles rebuilt from the features in
-                    every sweep). 'matrix_free' is not ported yet.
+                    every sweep) or 'matrix_free' (A never formed: the
+                    factored product of the cosine kinds, factorable
+                    specs only; ``tile`` and ``a_dtype`` must stay
+                    unset).
       affinity:     an :class:`AffinitySpec`; None derives the dense fixed
                     spec from affinity_kind/sigma. Rejected alongside
                     non-default affinity_kind/sigma.
@@ -105,16 +109,6 @@ class GPICConfig:
     def with_(self, **updates) -> "GPICConfig":
         """Functional update (``dataclasses.replace`` with a shorter name)."""
         return replace(self, **updates)
-
-
-def _resolve_device(device) -> torch.device:
-    """``None`` means the CUDA card, which must then exist."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "run_gpic runs on a CUDA device and none is available; pass "
-            "device='cpu' to run the kernels' plain versions on the CPU")
-    return dev
 
 
 def check_config(cfg: GPICConfig, n: int | None = None) -> AffinitySpec:
@@ -186,9 +180,8 @@ def check_config(cfg: GPICConfig, n: int | None = None) -> AffinitySpec:
             "engine never stores A")
     if cfg.n_vectors < 1:
         raise ValueError(f"n_vectors must be >= 1, got {cfg.n_vectors}")
-    if cfg.engine == "matrix_free":
-        raise NotImplementedError(
-            "engine='matrix_free' is not ported yet (ROADMAP queue 1 item 8)")
+    # the cap holds for the matrix-free engine too: its Gram kernel takes
+    # the residual rule's [V | U] up to 2 MAX_R columns
     if cfg.n_vectors > MAX_R:
         raise NotImplementedError(
             f"n_vectors={cfg.n_vectors}: the power-step kernel takes at most "
@@ -242,11 +235,8 @@ def run_gpic(
         cfg = cfg.with_(**overrides)
     shape = np.shape(x)
     spec = check_config(cfg, shape[0] if shape else None)
-    dev = _resolve_device(device)
-    if isinstance(x, torch.Tensor):
-        x = x.to(device=dev, dtype=torch.float32)
-    else:
-        x = torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
+    dev = resolve_device(device, "run_gpic")
+    x = as_f32(x, dev)
     x, notes = validate_features(x, k, sanitize=cfg.sanitize)
     inv = None
     if cfg.row_reorder:
@@ -256,14 +246,17 @@ def run_gpic(
         notes = tuple(notes) + ("row_reorder",)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
-    res = gpic(x.contiguous(), k, generator=generator,
-               eps=cfg.eps_scale / x.shape[0], max_iter=cfg.max_iter,
-               kmeans_iters=cfg.kmeans_iters, affinity=spec,
-               n_vectors=cfg.n_vectors, engine=cfg.engine,
-               a_dtype=cfg.a_dtype, embedding=cfg.embedding,
-               qr_every=cfg.qr_every, residual_tol=cfg.residual_tol,
-               snapshot_iters=cfg.snapshot_iters,
-               probe_components=cfg.component_probe, block_sparse=cfg.block_sparse)
+    common = dict(generator=generator, eps=cfg.eps_scale / x.shape[0],
+                  max_iter=cfg.max_iter, kmeans_iters=cfg.kmeans_iters, affinity=spec,
+                  n_vectors=cfg.n_vectors, embedding=cfg.embedding,
+                  qr_every=cfg.qr_every, residual_tol=cfg.residual_tol,
+                  snapshot_iters=cfg.snapshot_iters)
+    if cfg.engine == "matrix_free":
+        res = gpic_matrix_free(x.contiguous(), k, **common)
+    else:
+        res = gpic(x.contiguous(), k, engine=cfg.engine, a_dtype=cfg.a_dtype,
+                   probe_components=cfg.component_probe, block_sparse=cfg.block_sparse,
+                   **common)
     if inv is not None:
         res = _unpermute_result(res, inv)
     if notes:

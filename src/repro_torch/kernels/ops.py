@@ -27,7 +27,8 @@ from .block_sparse import block_sparse_streaming_matmat as _bs_streaming_matmat
 from .flash_attention import flash_attention
 from .gram import gram
 from .kmeans_assign import kmeans_assign
-from .power_step import degree_normalized_matmat, stored_degree
+from .power_step import (degree_normalized_matmat, degree_normalized_matvec, power_step,
+                         stored_degree)
 from .row_topk import row_topk as _row_topk
 from .streaming import affinity_degree_streaming, affinity_matmat
 
@@ -40,10 +41,12 @@ __all__ = [
     "block_sparse_streaming_degree",
     "block_sparse_streaming_matmat",
     "degree_normalized_matmat",
+    "degree_normalized_matvec",
     "flash_attention",
     "gram",
     "kmeans_assign",
     "launch_counts",
+    "power_step",
     "reset_launch_counts",
     "row_topk",
     "stored_degree",

@@ -1,7 +1,9 @@
 """Wrapper of the degree-normalized mat-mat kernel (``csrc/power_step.cu``).
 
-Counterpart of ``repro/kernels/power_step.py::degree_normalized_matmat``:
-U = (A V) / max(d, 1e-30) in one read of A for all r columns of V.
+Counterpart of ``repro/kernels/power_step.py``: ``degree_normalized_matmat``,
+U = (A V) / max(d, 1e-30) in one read of A for all r columns of V, and the
+paper's single-vector ``degree_normalized_matvec`` and ``power_step``,
+which launch it with r = 1 (or r columns).
 """
 from __future__ import annotations
 
@@ -46,6 +48,23 @@ def degree_normalized_matmat(a: torch.Tensor, v: torch.Tensor,
             _ARGTYPES, a.data_ptr(), v.data_ptr(), d.data_ptr(), u.data_ptr(),
             n_rows, n_cols, r, int(ring), stream)
     return u
+
+
+def degree_normalized_matvec(a: torch.Tensor, v: torch.Tensor,
+                             d: torch.Tensor) -> torch.Tensor:
+    """u (R,) = (A v) / max(d, 1e-30): the r = 1 column of
+    :func:`degree_normalized_matmat`, on either device."""
+    return degree_normalized_matmat(a, v[:, None], d)[:, 0]
+
+
+def power_step(a: torch.Tensor, v: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The paper's full power step V_{t+1} = (W V) / ||W V||_1 with
+    W = D^-1 A, for v of shape (n,) or (n, r) (the L1 norm per column)."""
+    if v.ndim == 1:
+        u = degree_normalized_matvec(a, v, d)
+        return u / torch.clamp_min(torch.sum(torch.abs(u)), 1e-30)
+    u = degree_normalized_matmat(a, v, d)
+    return u / torch.clamp_min(torch.sum(torch.abs(u), dim=0, keepdim=True), 1e-30)
 
 
 def stored_degree(a: torch.Tensor) -> torch.Tensor:

@@ -111,6 +111,13 @@ def _floored_degree_divide(u: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return u / torch.clamp_min(d.float(), 1e-30)
 
 
+def degree_normalized_matvec_ref(a: torch.Tensor, v: torch.Tensor,
+                                 d: torch.Tensor) -> torch.Tensor:
+    """u = (A v) / d for a single vector v (C,)."""
+    u = a.float() @ v.float()
+    return _floored_degree_divide(u, d)
+
+
 def degree_normalized_matmat_ref(a: torch.Tensor, v: torch.Tensor,
                                  d: torch.Tensor) -> torch.Tensor:
     """U = (A V) / d[:, None] for V of shape (C, r)."""
@@ -171,6 +178,12 @@ def gram_ref(v: torch.Tensor) -> torch.Tensor:
     """G = V^T V in f32."""
     v32 = v.float()
     return v32.T @ v32
+
+
+def power_step_ref(a: torch.Tensor, v: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The paper's power step on one vector: u / ||u||_1 with u = (A v) / d."""
+    u = degree_normalized_matvec_ref(a, v, d)
+    return u / torch.clamp_min(torch.sum(torch.abs(u)), 1e-30)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

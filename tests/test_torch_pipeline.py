@@ -58,6 +58,23 @@ CASES = RBF_CASES + [("gaussians", "cosine_shifted", 1.0)]
 IDS = [f"{d}-{k}" for d, k, _ in CASES]
 
 
+def direction_clusters(n: int, seed: int, *, m: int = 8, noise: float = 0.02):
+    """(x, y, k): three clusters of n/2, 3n/10 and the rest of the points
+    along three orthogonal directions in m = 8 (disjoint pairs of
+    coordinates), at magnitudes drawn from [0.5, 2], plus |noise| in every
+    coordinate: nonnegative features that the cosine affinity separates,
+    for the matrix-free engine, which takes the cosine kinds only (the 2-D
+    sets give it no partition to hold)."""
+    rng = np.random.default_rng(seed)
+    sizes = [n // 2, 3 * n // 10]
+    y = np.repeat(np.arange(3), sizes + [n - sum(sizes)]).astype(np.int32)
+    dirs = np.zeros((3, m))
+    for c in range(3):
+        dirs[c, 2 * c:2 * c + 2] = np.sqrt(0.5)
+    x = dirs[y] * rng.uniform(0.5, 2.0, (n, 1)) + noise * np.abs(rng.standard_normal((n, m)))
+    return x.astype(np.float32), y, 3
+
+
 def _plain_fields(cfg) -> dict:
     """A reference GPICConfig as plain values (dtype as a string)."""
     out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
@@ -266,12 +283,11 @@ def _ref_override(override):
 
 
 @pytest.mark.parametrize("override,names", [
-    (dict(engine="matrix_free"), "item 8"),
     (dict(affinity=dict(kind="rbf", bandwidth="adaptive", scale_k=65)), "K > 64"),
     (dict(affinity=dict(kind="rbf", sigma=0.3, knn_k=65), block_sparse=False), "K > 64"),
     (dict(a_dtype=jnp.bfloat16), "item 13"), (dict(tile=128), "item 1"),
     (dict(n_vectors=33), "kernel 2 follow-up"),
-], ids=["matrix_free", "scale_k_past_kernel_limit",
+], ids=["scale_k_past_kernel_limit",
         "knn_k_past_kernel_limit", "bf16", "tile", "n_vectors_past_kernel_limit"])
 def test_unported_settings_raise_not_implemented(override, names):
     """Each names its ROADMAP entry: among them neighbor ranks past the row
@@ -288,15 +304,20 @@ def test_unported_settings_raise_not_implemented(override, names):
 
 @pytest.mark.parametrize("override", [
     dict(engine="streaming"), dict(embedding="orthogonal", n_vectors=2),
-    dict(embedding="ensemble"),
-], ids=["streaming", "orthogonal", "ensemble"])
+    dict(embedding="ensemble"), dict(engine="matrix_free", affinity_kind="cosine"),
+], ids=["streaming", "orthogonal", "ensemble", "matrix_free"])
 def test_settings_this_port_routes_run(override):
     """Settings an earlier slice refused: the port accepts the reference's
-    config and runs it on the CPU."""
-    ref_cfg = jcore.GPICConfig(affinity_kind="rbf", sigma=0.3, **override)
+    config and runs it on the CPU. The matrix-free engine takes a cosine
+    kind, on the direction clusters."""
+    override = {"affinity_kind": "rbf", "sigma": 0.3, **override}
+    ref_cfg = jcore.GPICConfig(**override)
     cfg = config_from_reference(_plain_fields(ref_cfg))
-    assert cfg == GPICConfig(affinity_kind="rbf", sigma=0.3, **override)
-    x, y, k = dataset_by_name("gaussians", 120, seed=0)
+    assert cfg == GPICConfig(**override)
+    if cfg.engine == "matrix_free":
+        x, y, k = direction_clusters(120, 0)
+    else:
+        x, y, k = dataset_by_name("gaussians", 120, seed=0)
     res = run_gpic(x, k, cfg, device="cpu")
     assert res.labels.shape == (120,) and res.embedding_mode == cfg.embedding
     assert adjusted_rand_index(y, res.labels.numpy()) == 1.0
