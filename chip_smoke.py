@@ -82,6 +82,19 @@ Phases (any failure exits non-zero before the last line is printed):
                 on the f32 FMA units and as the split-TF32 terms it runs on
                 the tensor cores, and each template's registers (no spills
                 at d = 80 and 128).
+                bf16 A storage (the reference's a_dtype=bfloat16, O4) in
+                #1, #2 and #9, at the main shape and on ragged stripes
+                (m = 16 and 2, 1,037, 1,032, 900 and 737 columns: the bulk
+                stores and the cp.async ring need n_cols % 8 == 0 in bf16):
+                #1's bf16 A bitwise its f32 A rounded and its plain
+                version's (within one bf16 ulp at m = 16, whose f32
+                entries differ by rounding), its D bitwise the f32 call's
+                D, dense and with E1's thresholds; #2's and #9's U bitwise the same kernel on
+                a.float(), #2's ring bitwise its plain-load template, #9
+                bitwise #2 on the same bf16 A, each within its tolerance of
+                its plain version; the bf16 A's live tiles those of the f32
+                A; no spill in a bf16 template of #2 or #9 at r <= 2; each
+                timed against its bf16 bound (A at 2 bytes an entry).
   3. end to end run_gpic on each path, with the launch counters reset just
                 before it and read just after:
                 - explicit, gaussians: n = 2,000 on the card against the
@@ -102,6 +115,15 @@ Phases (any failure exits non-zero before the last line is printed):
                   per residual check;
                 - ensemble, streaming, gaussians: ARI >= 0.99, an (n, S)
                   embedding;
+                - the resumable supervisor on the explicit run's config
+                  (checkpoint_every=5): a fault injected at sweep 10 and a
+                  kill followed by a fresh call both give the explicit
+                  run's result bit for bit (notes retry, resumed:10); a
+                  straggler timeout raises StragglerTimeout; the
+                  supervised and monolithic walls; the checkpoint overhead
+                  at the reference robustness job's shape (n = 1,024,
+                  50 sweeps, a snapshot every 25), recorded against its 5%
+                  budget;
                 - the paper-faithful oracle path on the main config:
                   pic_reference (plain A and W on the card, W @ V in
                   cuBLAS) and pic_from_affinity on #1's A against the
@@ -137,6 +159,13 @@ Phases (any failure exits non-zero before the last line is printed):
                   the fused build's degree, #9 per sweep and probe hop;
                   streaming: #7, #8, #11 once, #10 per sweep and hop, #5
                   per probe transpose);
+                - bf16 A (a_dtype=torch.bfloat16): explicit gaussians at
+                  n = 45,000, ARI >= 0.99, sweeps within one of the f32
+                  run's, peak memory at most 0.55 of the f32 run's, #1 once
+                  and #2 once a sweep; E1 block-sparse: the bf16 fused
+                  build's live tiles and D those of the f32 build (its
+                  transient peak printed), the components of the f32 run,
+                  #9 once a sweep and probe hop;
                 - the row reorder: E1's live fraction on sorted, shuffled
                   and reordered rows, E1 on shuffled rows with and without
                   row_reorder, and the round trip of a reordered run
@@ -159,8 +188,10 @@ Phases (any failure exits non-zero before the last line is printed):
                 on both engines, each cut into its stages (pass 1, build,
                 sweeps, k-means, probe, idle).
 
-The last lines are one JSON object with every kernel's numbers, the card's
-name and power limit from nvidia-smi, and the result object
+The last lines are one JSON object with every kernel's numbers (rows 1, 2
+and 9 with their bf16 forms' too: ``bf16_ms``, ``bf16_bound_ms``,
+``bf16_launches`` from the bf16 runs, ...), the card's name and power
+limit from nvidia-smi, and the result object
 ``{"ok": true, "device": {...}}``. The full report also goes to
 chiprun_out/chip_smoke_report.json, the traces to chiprun_out/e2e_*.json.
 """
@@ -429,7 +460,9 @@ def phase_affinity(report, build_log=""):
     registers = entry_registers(build_log, "affinity")
     for tmpl, line in registers.items():
         print(f"[affinity] affinity_kernel {tmpl}: {line}")
-    check_no_entry_spill("#1", registers, ("fixed", "policy", "fixed bulk", "policy bulk"))
+    check_no_entry_spill("#1", registers, tuple(
+        f"{form}{dtype}" for form in ("fixed", "policy", "fixed bulk", "policy bulk")
+        for dtype in ("", " bf16")))
     feats, _, _ = _features(N_MAIN)
     n, m = feats["rbf"].shape
     worst_a = worst_d = 0.0
@@ -1829,6 +1862,396 @@ def phase_block_sparse_e2e(report, dense_runs):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# bf16 A storage (#1, #2, #9; the reference's a_dtype=bfloat16, its O4) and
+# the resumable supervisor
+# ---------------------------------------------------------------------------
+
+#: columns of the bf16 ragged stripes: the bulk stores and the cp.async ring
+#: need 16-byte rows, n_cols % 8 == 0 in bf16 (1,032); 1,037, 900 (a
+#: multiple of 4, not of 8) and 737 take #1's register stores and #2's
+#: plain loads
+BF16_COLS = (1037, 1032, 900, 737)
+#: the bf16 run's peak device memory against the f32 run's: A is half
+PEAK_HALF = 0.55
+
+
+def bf16_registers(log: str, kernel: str) -> dict[str, str]:
+    """Registers and spills of the bf16 templates of #2 (``power_step``:
+    ``{"RT=<r bucket> <ring|plain>": ...}``) or #9 (``bs_matmat``:
+    ``{"RT=<r bucket>": ...}``) in nvcc's report."""
+    if kernel == "power_step":
+        return ptxas_registers(
+            log, r"power_step_kernelILi(\d+)ELb(\d)E13__nv_bfloat16",
+            lambda e: f"RT={e.group(1)} {'ring' if e.group(2) == '1' else 'plain'}")
+    return ptxas_registers(log, r"bs_matmat_kernelILi(\d+)E13__nv_bfloat16",
+                           lambda e: f"RT={e.group(1)}")
+
+
+def check_bf16_no_spill(tag: str, registers: dict[str, str]) -> None:
+    """Fail on a spill of a bf16 template at r <= 2 (the main path), and
+    where the report names none."""
+    main = {t: line for t, line in registers.items() if t.split()[0] in ("RT=1", "RT=2")}
+    check({t.split()[0] for t in main} == {"RT=1", "RT=2"},
+          f"nvcc's report names no bf16 template of {tag} at r = 1 and 2: {registers}")
+    spills = [f"{t}: {line}" for t, line in main.items() if not line.endswith(" 0 bytes spilled")]
+    check(not spills, f"{tag}'s bf16 template spills on the main path: {spills}")
+
+
+def bf16_ulps(a, b) -> int:
+    """The most bf16 ulps by which two bf16 tensors differ entrywise (the
+    bit patterns as ordered integers, +0 and -0 both 0)."""
+    def ordered(t):
+        bits = t.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _plain_bf16_affinity_stripes(x, thr, stripe=4096):
+    from repro_torch.kernels import ref
+    for r0 in range(0, x.shape[0], stripe):
+        ref.affinity_and_degree_ref(x[r0:r0 + stripe], x, kind="rbf", sigma=SIGMA,
+                                    row_offset=r0, out_dtype=torch.bfloat16,
+                                    thr=None if thr is None else thr[r0:r0 + stripe])
+
+
+def phase_bf16_kernels(kernels, logs):
+    """bf16 A through #1, #2 and #9 at the main path's shape (gaussians,
+    n = 45,000, rbf sigma 0.3) and on ragged stripes (m = 16 and 2,
+    ``BF16_COLS``, rows 100..400 off the diagonal too): #1's bf16 A bitwise
+    its f32 A rounded (``.to(torch.bfloat16)``, round to nearest even) and
+    its D bitwise the f32 call's D, dense and with E1's thresholds, and
+    bitwise its plain version at m = 2 (within one bf16 ulp of it at
+    m = 16, where the f32 entries differ by f32 rounding); #2's and #9's U
+    on a bf16 A bitwise the
+    same kernel on ``a.float()``, #2's ring bitwise its plain-load template
+    (A shifted 2 bytes off 16), #9 bitwise #2 on the same bf16 A, each
+    within its tolerance of its plain version; the bf16 A's live tiles
+    (``dense_block_live``) those of the f32 A. Each timed beside its plain
+    version and its bf16 bound (A's bytes at 2 a entry). ``logs`` holds
+    nvcc's reports: no bf16 template of #2 or #9 may spill at r <= 2."""
+    from repro_torch.core.affinity import AffinitySpec, block_plan, dense_block_live
+    from repro_torch.core.graph import affinity_stats
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.affinity import affinity_and_degree
+    from repro_torch.kernels.block_sparse import block_sparse_matmat
+    from repro_torch.kernels.power_step import degree_normalized_matmat
+    bf = torch.bfloat16
+    for tag, log, kernel in (("#2", logs["power_step"], "power_step"),
+                             ("#9", logs["block_sparse"], "bs_matmat")):
+        registers = bf16_registers(log, kernel)
+        for tmpl, line in registers.items():
+            print(f"[bf16] {tag} {tmpl}: {line}")
+        check_bf16_no_spill(tag, registers)
+    feats, _, _ = _features(N_MAIN)
+    x = feats["rbf"]
+    n, m = x.shape
+    g = torch.Generator(device="cuda").manual_seed(23)
+    _, thr = affinity_stats(x, AffinitySpec(**E1_SPEC))
+    made = kernels["policy"]["knn"]["expf_made"]
+    rec1, stored = {}, {}
+    for tag, t in (("dense", None), ("E1", thr)):
+        a, d = affinity_and_degree(x, kind="rbf", sigma=SIGMA, thr=t)
+        ab, db = affinity_and_degree(x, kind="rbf", sigma=SIGMA, thr=t, out_dtype=bf)
+        torch.cuda.synchronize()
+        check(torch.equal(ab, a.to(bf)), f"#1 bf16 {tag}: A is not the f32 A rounded")
+        check(torch.equal(db, d), f"#1 bf16 {tag}: D is not the f32 call's D")
+        live32 = dense_block_live(a, 16, 256) if t is not None else None
+        del a
+        err = 0.0
+        for r0 in range(0, n, 4096):
+            a_ref, _ = ref.affinity_and_degree_ref(
+                x[r0:r0 + 4096], x, kind="rbf", sigma=SIGMA, row_offset=r0, out_dtype=bf,
+                thr=None if t is None else t[r0:r0 + 4096])
+            err = max(err, float((ab[r0:r0 + 4096].float() - a_ref.float()).abs().max()))
+            del a_ref
+        check(err == 0.0, f"#1 bf16 {tag}: A is not bitwise its plain version's")
+        ms = cuda_ms(lambda: affinity_and_degree(x, kind="rbf", sigma=SIGMA, thr=t,
+                                                 out_dtype=bf), 5)
+        plain = cuda_ms(lambda: _plain_bf16_affinity_stripes(x, t), 2)
+        ops = (affinity_flops(n, n, m, "rbf") if t is None
+               else skip_flops(n * n, m, made, False))
+        b, by = bound_ms(4.0 * (n * m + n + (0 if t is None else n)) + 2.0 * n * n, ops)
+        mufu = mufu_bound_ms(n * n * (1.0 if t is None else made))
+        rec1[tag] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, mufu_bound_ms=mufu,
+                         max_abs_err=err)
+        print(f"[bf16] #1 n={n} rbf {tag}: A bitwise the f32 A rounded and the plain "
+              f"version's, D bitwise the f32 D; kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"bound_ms={b:.4f} ({by}) mufu_bound_ms={mufu:.4f}", flush=True)
+        stored[tag] = (ab, db, live32)
+        torch.cuda.empty_cache()
+
+    # #2 on the dense bf16 A: the f32 upcast's bits, the ring's bits off 16 bytes
+    a, d, _ = stored.pop("dense")
+    af = a.float()
+    v1 = (d / d.sum())[:, None].contiguous()
+    v2 = torch.cat([v1, torch.rand((n, 1), generator=g, device="cuda") / n], dim=1)
+    shifted = torch.empty(n * n + 1, dtype=bf, device="cuda")[1:].view(n, n)
+    shifted.copy_(a)
+    for v in (v1, v2):
+        u = degree_normalized_matmat(a, v, d)
+        check(torch.equal(u, degree_normalized_matmat(af, v, d)),
+              f"#2 bf16 r={v.shape[1]}: U is not #2's U on the f32 upcast")
+        check(torch.equal(u, degree_normalized_matmat(shifted, v, d)),
+              f"#2 bf16 r={v.shape[1]}: the ring and plain-load templates differ")
+    del af
+    err2, exc2 = _u_errors(degree_normalized_matmat(a, v1, d),
+                           ref.degree_normalized_matmat_ref(a, v1, d))
+    check(exc2 <= 0.0, "#2 bf16 disagrees with its plain version")
+    ms = cuda_ms(lambda: degree_normalized_matmat(a, v1, d), 10)
+    plain = cuda_ms(lambda: ref.degree_normalized_matmat_ref(a, v1, d), 5)
+    plain_load = cuda_ms(lambda: degree_normalized_matmat(shifted, v1, d), 10)
+    ms2 = cuda_ms(lambda: degree_normalized_matmat(a, v2, d), 10)
+    b, by = bound_ms(2.0 * n * n + 4.0 * (n + n + n), 2.0 * n * n)
+    rec2 = dict(ms=ms, r2_ms=ms2, plain_ms=plain, plain_load_ms=plain_load, bound_ms=b,
+                bound_by=by, max_abs_err=err2)
+    print(f"[bf16] #2 n={n}: U bitwise #2 on a.float() and across its ring and plain-load "
+          f"templates (r = 1, 2); max|U-U_ref|={err2:.3e}; kernel_ms={ms:.4f} (r=2 "
+          f"{ms2:.4f}) plain_load_ms={plain_load:.4f} plain_ms={plain:.4f} bound_ms={b:.4f} "
+          f"({by})", flush=True)
+    del a, d, shifted
+    torch.cuda.empty_cache()
+
+    # #9 on E1's bf16 A: its live set is the f32 build's; #9 bitwise its upcast and #2
+    a, d, live32 = stored.pop("E1")
+    live = dense_block_live(a, 16, 256)
+    check(torch.equal(live, live32), "E1: the bf16 A's live tiles are not the f32 A's")
+    counts, col_idx, _ = block_plan(live)
+    entries = _plan_entries(live, n, n)
+    af = a.float()
+    v1 = (d / d.sum())[:, None].contiguous()
+    v2 = torch.cat([v1, torch.rand((n, 1), generator=g, device="cuda") / n], dim=1)
+    for v in (v1, v2):
+        u = block_sparse_matmat(a, v, d, counts, col_idx)
+        check(torch.equal(u, block_sparse_matmat(af, v, d, counts, col_idx)),
+              f"#9 bf16 r={v.shape[1]}: U is not #9's U on the f32 upcast")
+        check(torch.equal(u, degree_normalized_matmat(a, v, d)),
+              f"#9 bf16 r={v.shape[1]}: U is not #2's on the same bf16 A")
+    del af
+    err9, exc9 = _u_errors(block_sparse_matmat(a, v2, d, counts, col_idx),
+                           ref.block_sparse_matmat_ref(a, v2, d, counts, col_idx, tm=16, tn=256))
+    check(exc9 <= 0.0, "#9 bf16 disagrees with its plain version")
+    ms = cuda_ms(lambda: block_sparse_matmat(a, v2, d, counts, col_idx), 20)
+    ms1 = cuda_ms(lambda: block_sparse_matmat(a, v1, d, counts, col_idx), 20)
+    plain = cuda_ms(lambda: ref.block_sparse_matmat_ref(a, v2, d, counts, col_idx, tm=16,
+                                                        tn=256), 3)
+    plan_bytes = 4.0 * (counts.numel() + float(counts.sum()))
+    b, by = bound_ms(2.0 * entries + 4.0 * (2 * n * 2 + n) + plan_bytes, 2.0 * 2 * entries)
+    rec9 = dict(ms=ms, r1_ms=ms1, plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=err9,
+                live_fraction=float(live.float().mean()))
+    print(f"[bf16] #9 E1 n={n}: live tiles equal to the f32 A's ({rec9['live_fraction']:.4f}); "
+          f"U bitwise #9 on a.float() and #2 on the bf16 A (r = 1, 2); max|U-U_ref|={err9:.3e}; "
+          f"kernel_ms={ms:.4f} (r=1 {ms1:.4f}) plain_ms={plain:.4f} bound_ms={b:.4f} ({by})",
+          flush=True)
+    del a, d
+    torch.cuda.empty_cache()
+
+    # ragged stripes: each bf16 form against the f32 call and its plain version
+    xs = torch.randn((1037, 16), generator=g, device="cuda") * 0.25
+    worst = dict.fromkeys(("#1", "#2", "#9"), 0.0)
+    for xx in (xs, xs[:, :2].contiguous()):
+        for rows, ro in ((slice(None), 0), (slice(100, 400), 100)):
+            for cols in BF16_COLS:
+                xr, xc = xx[rows].contiguous(), xx[:cols].contiguous()
+                a, d = affinity_and_degree(xr, xc, kind="rbf", sigma=1.1, row_offset=ro)
+                ab, db = affinity_and_degree(xr, xc, kind="rbf", sigma=1.1, row_offset=ro,
+                                             out_dtype=bf)
+                a_ref, _ = ref.affinity_and_degree_ref(xr, xc, kind="rbf", sigma=1.1,
+                                                       row_offset=ro, out_dtype=bf)
+                shape = f"{tuple(ab.shape)} m={xx.shape[1]}"
+                check(torch.equal(ab, a.to(bf)) and torch.equal(db, d),
+                      f"#1 bf16 ragged {shape}: not the f32 call rounded")
+                # at m = 16 the f32 entries differ from the plain version's by
+                # f32 rounding (A_ATOL), so the rounded ones by at most one ulp
+                err1 = float((ab.float() - a_ref.float()).abs().max())
+                ulps = bf16_ulps(ab, a_ref)
+                check(ulps <= 1, f"#1 bf16 ragged {shape} is {ulps} bf16 ulps from its plain "
+                      "version")
+                live = dense_block_live(ab, 16, 256)
+                cnt, idx, _ = block_plan(live)
+                for r in (4, 32):
+                    v = torch.rand((cols, r), generator=g, device="cuda")
+                    u = degree_normalized_matmat(ab, v, d)
+                    check(torch.equal(u, degree_normalized_matmat(ab.float(), v, d)),
+                          f"#2 bf16 ragged {shape} r={r}: not #2 on the f32 upcast")
+                    check(torch.equal(block_sparse_matmat(ab, v, d, cnt, idx), u),
+                          f"#9 bf16 ragged {shape} r={r}: not #2 on the same A")
+                    err_u, exc = _u_errors(u, ref.degree_normalized_matmat_ref(ab, v, d))
+                    check(exc <= 0.0, f"#2 bf16 ragged {shape} r={r} disagrees with plain")
+                    worst["#2"] = worst["#9"] = max(worst["#2"], err_u)
+                worst["#1"] = max(worst["#1"], err1)
+                print(f"[bf16] ragged a{shape} offsets=({ro},0): #1 bitwise the f32 call "
+                      f"rounded, {ulps} bf16 ulp(s) from the plain version "
+                      f"(max|A-A_ref|={err1:.3e}); #2 and #9 bitwise (r = 4, 32)")
+    for rec, key in ((rec1["dense"], "#1"), (rec2, "#2"), (rec9, "#9")):
+        rec["max_abs_err"] = max(rec["max_abs_err"], worst[key])
+    kernels["affinity_and_degree"]["bf16"] = rec1
+    kernels["degree_normalized_matmat"]["bf16"] = rec2
+    kernels["block_sparse_matmat"]["bf16"] = rec9
+
+
+def phase_bf16_e2e(report):
+    """run_gpic with a_dtype=bfloat16 on the explicit engine: gaussians
+    (rbf sigma 0.3, n = 45,000): ARI >= 0.99, column 0's sweeps within one
+    of the f32 run's, peak memory at most PEAK_HALF of the f32 run's, #1
+    once, #2 once a sweep; E1 block-sparse (orthogonal r = 2): the bf16
+    fused build's live tiles and D those of the f32 build, its transient
+    peak (f32 and bf16 A together), and the run's component count that of
+    the f32 block-sparse run. Returns the launches of the two runs."""
+    from repro_torch import GPICConfig, adjusted_rand_index, dataset_by_name
+    from repro_torch.core.affinity import AffinitySpec, dense_block_live
+    from repro_torch.core.graph import fused_affinity_build
+    bf = torch.bfloat16
+    f32 = report["e2e"]
+    x, y, k = dataset_by_name("gaussians", N_MAIN, seed=0)
+    cfg = GPICConfig(affinity_kind="rbf", sigma=SIGMA, max_iter=400, a_dtype=bf)
+    res, labels, wall, counts, peak = _counted_run(x, k, cfg)
+    sweeps, ari = int(res.n_iter), adjusted_rand_index(y, labels)
+    print(f"[e2e] explicit gaussians bf16 A n={N_MAIN}: wall_s={wall:.4f} sweeps={sweeps} "
+          f"(f32 {f32['sweeps']}) ARI={ari:.4f} peak_mem_GB={peak / 1e9:.3f} (f32 "
+          f"{f32['peak_mem_bytes'] / 1e9:.3f}) launches={counts}", flush=True)
+    check(labels.shape == (N_MAIN,) and bool(torch.isfinite(res.embedding).all()),
+          "the bf16 result has the wrong shape or is not finite")
+    check(ari >= 0.99, f"bf16 ARI {ari:.4f} < 0.99")
+    check(abs(sweeps - f32["sweeps"]) <= 1, f"bf16 sweeps {sweeps} vs f32 {f32['sweeps']}")
+    check(peak <= PEAK_HALF * f32["peak_mem_bytes"],
+          f"bf16 peak {peak / 1e9:.3f} GB is not about half the f32 run's")
+    check(counts["affinity_and_degree"] == 1 and counts["degree_normalized_matmat"] == sweeps
+          and counts["kmeans_assign"] == cfg.kmeans_iters + 1, f"bf16 launches {counts}")
+    out = dict(gaussians=dict(n=N_MAIN, wall_s=wall, sweeps=sweeps, ari=ari,
+                              peak_mem_bytes=peak, launches=counts))
+
+    xt = torch.as_tensor(x, device="cuda")
+    spec = AffinitySpec(**E1_SPEC)
+    a32, d32, _ = fused_affinity_build(xt, spec=spec)
+    live32 = dense_block_live(a32, 16, 256)
+    del a32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ab, db, _ = fused_affinity_build(xt, spec=spec, a_dtype=bf)
+    torch.cuda.synchronize()
+    fused_peak = torch.cuda.max_memory_allocated() - base
+    live = dense_block_live(ab, 16, 256)
+    check(torch.equal(live, live32) and torch.equal(db, d32),
+          "E1: the bf16 fused build's live tiles or D are not the f32 build's")
+    del ab, db, d32, xt
+    torch.cuda.empty_cache()
+    cfg_e1 = _graph_cfg(E1_SPEC, engine="explicit", embedding="orthogonal", n_vectors=2,
+                        block_sparse=True, a_dtype=bf)
+    rec, res_e1, _ = _graph_run("E1 block_sparse bf16 A", x, y, k, cfg_e1)
+    c = rec["launches"]
+    f32_e1 = report["e2e_block_sparse"]["E1"][0]
+    check(c["affinity_and_degree"] == 1 and c["degree_normalized_matmat"] == 1
+          and c["block_sparse_matmat"] > max(rec["n_iter_cols"]), f"E1 bf16 launches {c}")
+    # the same kept entries: the same graph, components and probe hops
+    check(rec["n_components"] == f32_e1["n_components"]
+          and rec["probe_sweeps"] == f32_e1["probe_sweeps"],
+          f"E1 bf16 components and probe hops {rec['n_components']}, {rec['probe_sweeps']} "
+          f"vs f32 {f32_e1['n_components']}, {f32_e1['probe_sweeps']}")
+    print(f"[e2e] E1 block_sparse bf16 A: live fraction {float(live.float().mean()):.4f} "
+          f"(the f32 build's tiles); the fused build's transient peak "
+          f"{fused_peak / 1e9:.3f} GB above its input; n_iter_cols {rec['n_iter_cols']} "
+          f"(f32 {f32_e1['n_iter_cols']}); run peak {rec['peak_mem_bytes'] / 1e9:.3f} GB "
+          f"(f32 {f32_e1['peak_mem_bytes'] / 1e9:.3f})", flush=True)
+    out["E1_block_sparse"] = dict(rec, live_fraction=float(live.float().mean()),
+                                  fused_build_peak_bytes=fused_peak)
+    report["e2e_bf16"] = out
+    return counts, c
+
+
+def phase_resume(report, explicit):
+    """The resumable supervisor on the main path's config (explicit
+    gaussians, n = 45,000, ``checkpoint_every=5``): a fault injected at
+    sweep 10 gives the uninterrupted run's labels, embedding, sweeps,
+    convergence and health bit for bit, with the notes retry and resumed:10;
+    a run killed there (max_retries=0) leaves snapshots a fresh call resumes
+    from, bitwise; a straggler timeout raises StragglerTimeout. Walls of the
+    supervised and monolithic runs; the checkpoint overhead at the
+    reference robustness job's shape (benchmarks/bench_robustness.py:
+    n = 1,024 2-D normal points, k = 3, max_iter=50, eps_scale=1e-9,
+    ``checkpoint_every=25``; the median of 11 interleaved pairs; its 5%
+    budget is recorded, not gated). Snapshots go under build/."""
+    import shutil
+    from repro_torch import GPICConfig, dataset_by_name, run_gpic
+    from repro_torch.core.health import StragglerTimeout
+    from repro_torch.train.fault_tolerance import FailureInjector, SimulatedFailure
+    _, base, _ = explicit
+    root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = GPICConfig(affinity_kind="rbf", sigma=SIGMA, max_iter=400)
+    x, _, k = dataset_by_name("gaussians", N_MAIN, seed=0)
+
+    def same(res):
+        return (all(torch.equal(getattr(res, f), getattr(base, f))
+                    for f in ("labels", "embeddings", "n_iter_cols", "converged_cols"))
+                and torch.equal(res.health.col_status, base.health.col_status)
+                and int(res.health.isolated_rows) == int(base.health.isolated_rows))
+
+    sup = cfg.with_(checkpoint_every=5, ckpt_dir=os.path.join(root, "fault"))
+    inj = FailureInjector(fail_at_steps=(10,))
+    res, _, wall_fault, counts, _ = _counted(
+        lambda: run_gpic(x, k, sup, segment_injector=inj.maybe_fail))
+    check(same(res), "the resumed run is not the uninterrupted run bit for bit")
+    check(res.health.notes == ("retry:1:SimulatedFailure", "resumed:10"),
+          f"resumed run notes {res.health.notes}")
+    kill = cfg.with_(checkpoint_every=5, ckpt_dir=os.path.join(root, "kill"), max_retries=0)
+    try:
+        run_gpic(x, k, kill, segment_injector=FailureInjector(fail_at_steps=(10,)).maybe_fail)
+        check(False, "a run with max_retries=0 survived an injected fault")
+    except SimulatedFailure:
+        pass
+    res = run_gpic(x, k, kill)
+    check(same(res) and "resumed:10" in res.health.notes,
+          f"the fresh call did not resume bitwise: {res.health.notes}")
+    try:
+        run_gpic(x, k, cfg.with_(straggler_timeout=1e-9, max_retries=0))
+        check(False, "a segment over its straggler_timeout did not raise")
+    except StragglerTimeout:
+        pass
+    _, _, wall_mono, _, _ = _counted(lambda: run_gpic(x, k, cfg))
+    _, _, wall_sup, _, _ = _counted(lambda: run_gpic(
+        x, k, cfg.with_(checkpoint_every=5, ckpt_dir=os.path.join(root, "timed"))))
+    print(f"[resume] explicit gaussians n={N_MAIN} checkpoint_every=5: a fault at sweep 10 "
+          f"and a kill then a fresh call both bitwise the uninterrupted run; "
+          f"StragglerTimeout raised; walls: monolithic {wall_mono:.4f} s, supervised "
+          f"{wall_sup:.4f} s, with the fault {wall_fault:.4f} s; launches with the fault "
+          f"{counts}", flush=True)
+
+    xo = np.random.default_rng(3).normal(size=(1024, 2)).astype(np.float32)
+    ocfg = GPICConfig(max_iter=50, eps_scale=1e-9)
+    ock = ocfg.with_(checkpoint_every=25, ckpt_dir=os.path.join(root, "overhead"))
+
+    def run_plain():
+        return run_gpic(xo, 3, ocfg).labels.cpu()
+
+    def run_ckpt():
+        # a fresh directory a call: an old snapshot would resume past the loop
+        shutil.rmtree(ock.ckpt_dir, ignore_errors=True)
+        return run_gpic(xo, 3, ock).labels.cpu()
+
+    check(torch.equal(run_ckpt(), run_plain()),
+          "the supervised robustness-shape run differs from the monolithic one")
+    pairs = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        run_ckpt()
+        on = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_plain()
+        off = time.perf_counter() - t0
+        pairs.append((100.0 * (on - off) / off, on, off))
+    pct, on, off = sorted(pairs)[len(pairs) // 2]
+    print(f"[resume] checkpoint overhead at n=1024 (50 sweeps, every 25): {pct:.2f}% "
+          f"({on * 1e3:.3f} ms vs {off * 1e3:.3f} ms, median of 11 pairs; the reference's "
+          f"budget 5%, recorded)", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    report["resume"] = dict(n=N_MAIN, wall_monolithic_s=wall_mono, wall_supervised_s=wall_sup,
+                            wall_with_fault_s=wall_fault, overhead_pct=pct,
+                            overhead_on_ms=on * 1e3, overhead_off_ms=off * 1e3)
+
+
 def _tie_keeping(p, score):
     """The shuffle ``p`` with the rows of each group of equal content scores
     put back in their original relative order: the row reorder's stable
@@ -2500,13 +2923,15 @@ def sweep_registers(log: str, block_sparse: bool) -> dict[str, str]:
 def entry_registers(log: str, name: str) -> dict[str, str]:
     """Registers and spills of each template of #1 (``name`` = ``affinity``),
     #6 (``streaming_degree``), #8 (``liveness``) or #11
-    (``bs_streaming_degree``) in nvcc's report: ``{"<fixed|policy>[ bulk]
-    <register|staged>": ...}`` (the register template is the kernel named
-    ``*_reg_kernel``; #1's takes a second flag, its bulk-copy stores)."""
+    (``bs_streaming_degree``) in nvcc's report: ``{"<fixed|policy>[ bulk][
+    bf16] <register|staged>": ...}`` (the register template is the kernel
+    named ``*_reg_kernel``; #1's takes a second flag, its bulk-copy stores,
+    and the type it stores A in)."""
     return ptxas_registers(
-        log, rf"\d+{name}(_reg)?_kernelILb(\d)E(Lb(\d)E)?",
+        log, rf"\d+{name}(_reg)?_kernelILb(\d)E(Lb(\d)E)?(13__nv_bfloat16)?",
         lambda e: (f"{'policy' if e.group(2) == '1' else 'fixed'}"
-                   f"{' bulk' if e.group(4) == '1' else ''} "
+                   f"{' bulk' if e.group(4) == '1' else ''}"
+                   f"{' bf16' if e.group(5) else ''} "
                    f"{'register' if e.group(1) else 'staged'}"))
 
 
@@ -2926,6 +3351,18 @@ SOURCES = {
 }
 
 
+def _bf16_keys(rec, launches) -> dict:
+    """A kernel row's bf16 numbers (#1's dense form, #2 at r = 1, #9 at
+    r = 2): time, plain time, bound and the bf16 path's launches; no one
+    PyTorch call reads a bf16 A with an f32 V at f32 accumulation, so no
+    library time."""
+    rec = rec.get("dense", rec)
+    return {"bf16_ms": rec["ms"], "bf16_plain_ms": rec["plain_ms"],
+            "bf16_bound_ms": rec["bound_ms"], "bf16_bound_by": rec["bound_by"],
+            "bf16_max_abs_err": rec["max_abs_err"], "bf16_launches": launches,
+            "bf16_library_ms": None}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2940,6 +3377,7 @@ def main() -> int:
     phase_row_topk(kernels)
     phase_policy(kernels)
     phase_block_sparse(kernels, logs["block_sparse"])
+    phase_bf16_kernels(kernels, logs)
     phase_flash_attention(kernels, logs["flash_attention"])
     # each kernel's launches come from the run of the path that uses it
     explicit = phase_end_to_end(report)
@@ -2948,6 +3386,7 @@ def main() -> int:
     streaming = phase_streaming_e2e(report, explicit)
     counts.update({name: streaming[name] for name in ("streaming_matmat", "streaming_degree")})
     phase_pic_reference(report, explicit)
+    phase_resume(report, explicit)
     del explicit
     phase_past_memory(report)
     counts["gram"] = phase_orthogonal(report)
@@ -2962,10 +3401,16 @@ def main() -> int:
     counts["block_sparse_matmat"] = explicit_e1["block_sparse_matmat"]
     counts.update({name: streaming_e1[name] for name in (
         "block_liveness", "block_sparse_streaming_matmat", "block_sparse_streaming_degree")})
+    bf16_gaussians, bf16_e1 = phase_bf16_e2e(report)
+    bf16_counts = {"affinity_and_degree": bf16_gaussians["affinity_and_degree"],
+                   "degree_normalized_matmat": bf16_gaussians["degree_normalized_matmat"],
+                   "block_sparse_matmat": bf16_e1["block_sparse_matmat"]}
     phase_reorder(report)
     phase_serve_parity(report)
     counts["flash_attention"] = phase_serve(report)["flash_attention"]
     check(all(counts[name] > 0 for name in SOURCES), f"a kernel was never launched: {counts}")
+    check(all(c > 0 for c in bf16_counts.values()),
+          f"a bf16 form was never launched on its path: {bf16_counts}")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     phase_profile(report, out_dir, "explicit")
@@ -2985,7 +3430,9 @@ def main() -> int:
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"],
          **({"launch_floor_ms": kernels[name]["launch_floor_ms"]}
-            if "launch_floor_ms" in kernels[name] else {})}
+            if "launch_floor_ms" in kernels[name] else {}),
+         **(_bf16_keys(kernels[name]["bf16"], bf16_counts[name])
+            if name in bf16_counts else {})}
         for name in SOURCES]}
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

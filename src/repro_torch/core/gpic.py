@@ -22,6 +22,14 @@ factorable specs without A: two plain matmuls a sweep
 (core/operators.py::matrix_free_operator), the Gram and k-means on the
 kernels as above.
 
+The segmented entry points (``gpic_segment_start``, ``gpic_segment``,
+``gpic_segment_finalize``) run the same pipeline as bounded segments of
+sweeps over a :class:`~repro_torch.core.power.PowerCarry`, for the
+resumable supervisor (core/pipeline.py). Each call rebuilds the operator
+from the features; the kernels sum in fixed orders with no float atomics,
+so a rebuilt A is the same A and the segments make the monolithic run's
+sweeps bit for bit.
+
 Prefer the ``run_gpic``/``GPICConfig`` front door (core/pipeline.py).
 """
 from __future__ import annotations
@@ -38,7 +46,16 @@ from .health import HealthReport, count_bad_rows, graph_component_probe
 from .kmeans import kmeans
 from .operators import explicit_operator, matrix_free_operator, streaming_operator
 from .pic import PICResult, make_pic_result
-from .power import init_power_vectors, run_power_embedding, standardize_columns
+from .power import (
+    backfill_snapshots,
+    ensemble_embedding,
+    finalize_power_carry,
+    init_power_carry,
+    init_power_vectors,
+    power_iteration_segment,
+    run_power_embedding,
+    standardize_columns,
+)
 
 
 def _build_engine_operator(x, spec, *, engine, a_dtype=torch.float32, block_sparse=True):
@@ -143,14 +160,81 @@ def gpic_matrix_free(
                            embeddings=emb_raw, health=health)
 
 
+def _components(n, spec, device, build_op, probe_components=True):
+    """(n_components, components): the component probe's on a truncated
+    spec (a dense graph disconnects only by underflow, which the
+    isolated-row count shows), on the operator ``build_op()`` returns, called
+    only then; -1 and -1s where the probe does not run."""
+    if probe_components and spec.truncated:
+        return graph_component_probe(build_op(), n)
+    return (torch.tensor(-1, dtype=torch.int32, device=device),
+            torch.full((n,), -1, dtype=torch.int32, device=device))
+
+
 def _local_health(op, status, n, spec, *, probe_components=True):
     """The HealthReport of a local run: isolated rows from the operator's
-    degrees, and the component probe when the spec truncates (a dense graph
-    disconnects only by underflow, which the isolated-row count shows)."""
-    if probe_components and spec.truncated:
-        n_comp, comp = graph_component_probe(op, n)
-    else:
-        n_comp = torch.tensor(-1, dtype=torch.int32, device=op.degree.device)
-        comp = torch.full((n,), -1, dtype=torch.int32, device=op.degree.device)
+    degrees, and the component probe when the spec truncates."""
+    n_comp, comp = _components(n, spec, status.device, lambda: op, probe_components)
     return HealthReport(col_status=status, isolated_rows=count_bad_rows(op.degree),
                         n_components=n_comp, components=comp)
+
+
+def gpic_segment_start(x, stop: int, *, generator, eps: float, affinity: AffinitySpec,
+                       engine: str = "explicit", a_dtype: torch.dtype = torch.float32,
+                       block_sparse: bool = True, n_vectors: int = 1, mode: str = "pic",
+                       qr_every: int = 1, snapshot_iters: tuple = (),
+                       residual_tol: float | None = None):
+    """Build the operator, draw the start block from ``generator`` as
+    :func:`gpic` does, and run the first segment to ``stop`` sweeps.
+    Returns ``(carry, isolated_rows)``: the count goes with the snapshots,
+    so a resumed run needs no degree pass for it. ``mode`` is the loop's
+    ('pic' or 'orthogonal'; the ensemble is 'pic' with
+    ``snapshot_iters``)."""
+    op = _build_engine_operator(x, affinity, engine=engine, a_dtype=a_dtype,
+                                block_sparse=block_sparse)
+    v0 = init_power_vectors(op.degree, n_vectors, generator=generator)
+    carry = power_iteration_segment(
+        op, init_power_carry(v0, len(snapshot_iters)), eps, stop, mode=mode,
+        qr_every=qr_every, snapshot_iters=snapshot_iters, residual_tol=residual_tol)
+    return carry, count_bad_rows(op.degree)
+
+
+def gpic_segment(x, carry, stop: int, *, eps: float, affinity: AffinitySpec,
+                 engine: str = "explicit", a_dtype: torch.dtype = torch.float32,
+                 block_sparse: bool = True, mode: str = "pic", qr_every: int = 1,
+                 snapshot_iters: tuple = (), residual_tol: float | None = None):
+    """Advance a carry (restored, or from the previous segment) to ``stop``
+    sweeps on an operator rebuilt from the features."""
+    op = _build_engine_operator(x, affinity, engine=engine, a_dtype=a_dtype,
+                                block_sparse=block_sparse)
+    return power_iteration_segment(op, carry, eps, stop, mode=mode, qr_every=qr_every,
+                                   snapshot_iters=snapshot_iters, residual_tol=residual_tol)
+
+
+def gpic_segment_finalize(x, carry, isolated_rows, k: int, *, generator,
+                          kmeans_iters: int = 25, affinity: AffinitySpec,
+                          engine: str = "explicit", a_dtype: torch.dtype = torch.float32,
+                          block_sparse: bool = True, embedding: str = "pic",
+                          snapshot_iters: tuple = (),
+                          probe_components: bool = True) -> PICResult:
+    """Close a finished carry into :func:`gpic`'s result: COL_MAXITER, the
+    ensemble's backfill, standardize, k-means (drawing from ``generator``)
+    and the health report. The operator is rebuilt only for the component
+    probe of a truncated spec."""
+    n = x.shape[0]
+    t, v, t_cols, done, snaps, status = finalize_power_carry(carry)
+    emb_raw = v
+    if embedding == "ensemble":
+        emb_raw = ensemble_embedding(backfill_snapshots(snaps, v, t, snapshot_iters))
+    emb = standardize_columns(emb_raw)
+    labels, _ = kmeans(emb, k, iters=kmeans_iters, generator=generator)
+    n_comp, comp = _components(
+        n, affinity, status.device,
+        lambda: _build_engine_operator(x, affinity, engine=engine, a_dtype=a_dtype,
+                                       block_sparse=block_sparse), probe_components)
+    health = HealthReport(
+        col_status=status,
+        isolated_rows=torch.as_tensor(isolated_rows, dtype=torch.int32, device=status.device),
+        n_components=n_comp, components=comp)
+    return make_pic_result(labels, v, t_cols, done, embedding=embedding,
+                           embeddings=emb_raw, health=health)

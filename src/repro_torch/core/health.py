@@ -4,8 +4,10 @@ Every GPIC entry point either succeeds with a diagnosable result or fails
 with a typed, actionable error, never silent garbage:
 
   - The :class:`GPICError` hierarchy: the exceptions the front door
-    (``run_gpic``) raises for degenerate inputs and unusable runs.
-    ``InvalidInputError`` doubles as a ``ValueError``.
+    (``run_gpic``) raises for degenerate inputs and unusable runs, and the
+    two the resumable supervisor classifies (a corrupt snapshot, a
+    straggling segment). ``InvalidInputError`` doubles as a
+    ``ValueError``.
   - :class:`HealthReport` and the ``COL_*`` per-column status codes, carried
     on ``PICResult.health``.
   - :func:`count_bad_rows`, :func:`graph_component_probe`,
@@ -47,6 +49,19 @@ class PowerDivergenceError(GPICError):
     there is no embedding left to cluster."""
 
 
+class CheckpointCorruptError(GPICError):
+    """A convergence-carry snapshot failed its integrity check (per-leaf
+    checksum mismatch, truncated or missing leaf file, unreadable
+    manifest). The supervisor quarantines it and falls back to the
+    previous valid snapshot (noted ``checkpoint_skipped:<dir>``)."""
+
+
+class StragglerTimeout(GPICError):
+    """A bounded segment of sweeps exceeded ``GPICConfig.straggler_timeout``
+    seconds of wall clock; the supervisor retries it from the last
+    snapshot."""
+
+
 # Per-column status codes (bitmask — a column can stall AND hit max_iter)
 COL_OK = 0          #: converged by the acceleration rule
 COL_MAXITER = 1     #: ran to the iteration cap without converging
@@ -61,6 +76,20 @@ _STATUS_NAMES = (
     (COL_NONFINITE, "nonfinite"),
     (COL_ZERO, "zero"),
 )
+
+#: note prefixes that record a recovery (the supervisor resumed, retried or
+#: skipped a corrupt snapshot), not damage to the result: a run whose only
+#: notes are these and whose arrays are clean is 'recovered', not
+#: 'degraded'. The reference's two kernel-fallback prefixes have no place
+#: here: the port has no fallback.
+RECOVERY_NOTE_PREFIXES = ("resumed:", "retry:", "straggler:", "checkpoint_skipped:")
+
+
+def is_recovery_note(note: str) -> bool:
+    """True when ``note`` records a supervisor recovery (resume, retry,
+    corrupt-snapshot skip), not damage to the result."""
+    return note.startswith(RECOVERY_NOTE_PREFIXES)
+
 
 def describe_status(code: int) -> tuple[str, ...]:
     """Human-readable flag names for one column's status bitmask."""
@@ -82,14 +111,21 @@ class HealthReport:
 
     def to_dict(self) -> dict:
         """Host-side dict view, laid out as the reference's. ``status``
-        classifies the whole run: 'ok' (clean arrays, no notes) or
-        'degraded' (bad columns, isolated rows, or a note). The reference's
-        'recovered' status and ``recovery`` notes come from its retry
-        supervisor, which is not ported: here ``recovery`` is always empty."""
+        classifies the whole run: 'ok' (clean arrays, no notes),
+        'recovered' (clean arrays, and only the supervisor's recovery notes:
+        it resumed, retried or skipped a corrupt snapshot on the way) or
+        'degraded' (bad columns, isolated rows, or any other note, such as
+        sanitization)."""
         codes = self.col_status.cpu().tolist()
         bad_columns = sum(1 for c in codes if c != COL_OK)
         iso = int(self.isolated_rows)
-        run_status = "degraded" if bad_columns or iso or self.notes else "ok"
+        recovery = [n for n in self.notes if is_recovery_note(n)]
+        if bad_columns or iso or len(recovery) < len(self.notes):
+            run_status = "degraded"
+        elif recovery:
+            run_status = "recovered"
+        else:
+            run_status = "ok"
         return {
             "status": run_status,
             "col_status": [describe_status(c) for c in codes],
@@ -97,7 +133,7 @@ class HealthReport:
             "isolated_rows": iso,
             "n_components": int(self.n_components),
             "notes": list(self.notes),
-            "recovery": [],
+            "recovery": recovery,
         }
 
     def summary(self) -> str:

@@ -53,27 +53,28 @@ def explicit_operator(inp: torch.Tensor, *, spec: AffinitySpec | None = None,
                       sigma: float = 1.0,
                       a_dtype: torch.dtype = torch.float32,
                       block_sparse: bool = True) -> PowerOperator:
-    """Paper-faithful: build A once, then fused degree-normalized mat-mat
-    sweeps. ``inp`` is row-normalized features for the cosine kinds, raw
-    features for rbf. On the block-sparse route A is built in one pass
-    (the thresholds from its stored scores) and the sweeps read only its
-    live tiles; the probe's transpose product is ``A.T @ v`` either way."""
+    """Paper-faithful: build A once, stored in ``a_dtype`` (f32, or bf16:
+    the reference's O4, half the memory and the sweep's bytes; D stays
+    f32), then fused degree-normalized mat-mat sweeps, which widen each
+    entry to f32 as they read it. ``inp`` is row-normalized features for
+    the cosine kinds, raw features for rbf. On the block-sparse route A is
+    built in one pass (the thresholds from its stored scores) and the
+    sweeps read only its live tiles; the probe's transpose product is
+    ``A^T v`` either way."""
     spec = as_affinity_spec(spec, kind=kind, sigma=sigma)
-    if a_dtype != torch.float32:
-        raise NotImplementedError(
-            f"A storage in {a_dtype} is not ported yet (ROADMAP queue 1 "
-            "item 13, bf16 A storage); this slice stores A in float32")
     inp = inp.contiguous()
     if uses_block_sparse(inp.shape[0], spec, block_sparse):
         scale = adaptive_scales(inp, spec)
-        a, d, _ = fused_affinity_build(inp, spec=spec, scale_r=scale, scale_c=scale)
+        a, d, _ = fused_affinity_build(inp, spec=spec, scale_r=scale, scale_c=scale,
+                                       a_dtype=a_dtype)
         counts, col_idx, _ = block_plan(dense_block_live(a, ops.PLAN_TM, ops.TN))
 
         def matmat(v):
             return ops.block_sparse_matmat(a, v.contiguous(), d, counts, col_idx)
     else:
         scale, thr = affinity_stats(inp, spec)
-        a, d = ops.affinity_and_degree(inp, spec=spec, scale_r=scale, scale_c=scale, thr=thr)
+        a, d = ops.affinity_and_degree(inp, spec=spec, scale_r=scale, scale_c=scale, thr=thr,
+                                       out_dtype=a_dtype)
 
         def matmat(v):
             return ops.degree_normalized_matmat(a, v.contiguous(), d)
@@ -81,11 +82,25 @@ def explicit_operator(inp: torch.Tensor, *, spec: AffinitySpec | None = None,
     matmat_t = None
     if spec.truncated:
         def matmat_t(v):
-            # probe-frequency work (a few hundred products at most), plain
-            # torch as the reference leaves it to XLA
-            return a.T @ v.float()
+            return transpose_matmat(a, v)
 
     return PowerOperator(matmat=matmat, degree=d, gram=ops.gram, matmat_t=matmat_t)
+
+
+def transpose_matmat(a: torch.Tensor, v: torch.Tensor, *, stripe: int = 4096) -> torch.Tensor:
+    """A^T V in f32 for a stored A: the component probe's transpose product,
+    probe-frequency work (a few hundred products at most), plain torch as
+    the reference leaves it to XLA. An f32 A takes one ``a.T @ v``; a bf16
+    A is upcast ``stripe`` rows at a time (the sum of the stripes' A_s^T
+    V_s), so the f32 temporary is one stripe (0.74 GB at n = 45,000), not
+    a second A."""
+    v = v.float()
+    if a.dtype == torch.float32:
+        return a.T @ v
+    out = torch.zeros((a.shape[1], v.shape[1]), dtype=torch.float32, device=a.device)
+    for r0 in range(0, a.shape[0], stripe):
+        out += a[r0:r0 + stripe].float().T @ v[r0:r0 + stripe]
+    return out
 
 
 def streaming_operator(inp: torch.Tensor, *, spec: AffinitySpec | None = None,

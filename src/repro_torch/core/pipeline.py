@@ -9,13 +9,18 @@ device (the tests pass ``device="cpu"``, which runs the kernels' plain
 versions). The port routes the local explicit and streaming engines with
 every affinity spec (dense, adaptive bandwidth, kNN truncation on the
 block-sparse route, the default, or the dense-storage one), the
-matrix-free engine with the factorable specs, every embedding mode and
-the row reorder; the settings a later slice brings raise
-``NotImplementedError`` naming the ROADMAP item.
+matrix-free engine with the factorable specs, every embedding mode, the
+row reorder, A stored in bf16 (``a_dtype``) and the resumable supervisor
+(``checkpoint_every``, ``straggler_timeout``, ``segment_injector``); the
+settings a later slice brings raise ``NotImplementedError`` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
+import os
+import time
 from dataclasses import dataclass, replace
+from typing import Callable
 
 import numpy as np
 import torch
@@ -24,11 +29,12 @@ from ..kernels.block_sparse import TN
 from ..kernels.power_step import MAX_R
 from ..kernels.row_topk import check_k
 from .affinity import AffinityKind, AffinitySpec, as_affinity_spec, invert_permutation
-from .gpic import gpic, gpic_matrix_free
+from .gpic import gpic, gpic_matrix_free, gpic_segment, gpic_segment_finalize, gpic_segment_start
 from .graph import graph_reorder_permutation
-from .health import as_f32, raise_for_health, resolve_device, validate_features
+from .health import (GPICError, StragglerTimeout, as_f32, raise_for_health, resolve_device,
+                     validate_features)
 from .pic import PICResult
-from .power import EMBEDDINGS
+from .power import EMBEDDINGS, power_carry_like, random_start_vectors, resolve_snapshot_iters
 
 ENGINES = ("explicit", "streaming", "matrix_free")
 
@@ -60,7 +66,9 @@ class GPICConfig:
                     = geometric in max_iter).
       eps_scale:    convergence threshold numerator (eps = eps_scale / n).
       max_iter / kmeans_iters: loop caps.
-      a_dtype:      A storage dtype ('explicit'); the port stores float32.
+      a_dtype:      A storage dtype ('explicit'): float32, or bfloat16
+                    (the reference's O4: half of A's memory and of the
+                    sweep's bytes; D and the sums stay f32).
       tile:         kernel tile override; this slice's kernels have fixed
                     tiles, so it must stay None.
       block_sparse: the route of a truncated (kNN) spec. True, the
@@ -85,6 +93,27 @@ class GPICConfig:
       sanitize:     zero-fill non-finite feature values at the front door
                     (recorded in ``PICResult.health.notes``) instead of
                     raising :class:`~repro_torch.core.health.NonFiniteInputError`.
+
+    Resumable execution (one device; see :func:`_run_supervised`):
+      checkpoint_every: run the power loop in segments of this many sweeps
+                    and snapshot the loop's carry after each. A segment
+                    boundary moves only where the loop stops, so a run
+                    interrupted at any sweep and resumed is bitwise the
+                    uninterrupted run. Set with ckpt_dir (both or neither).
+      ckpt_dir:     the snapshots' directory. If it holds a valid snapshot
+                    (an earlier call died), the run resumes from it (note
+                    ``resumed:<sweep>``); a corrupt snapshot is quarantined
+                    and the one before it used (``checkpoint_skipped:<dir>``).
+      max_retries:  restarts after a retryable failure (a GPICError: an
+                    injected fault, a straggler timeout) before it is
+                    raised; each resumes from the last snapshot (note
+                    ``retry:<n>:<ErrorClass>``).
+      backoff:      base seconds of the exponential wait between retries
+                    (backoff * 2^(retry - 1); 0: none).
+      straggler_timeout: wall-clock seconds a segment may take; a slower one
+                    raises :class:`~repro_torch.core.health.StragglerTimeout`
+                    (note ``straggler:<sweep>:<sec>``), which is retried.
+                    Works without snapshots (the run is then one segment).
     """
     engine: str = "explicit"
     affinity: AffinitySpec | None = None
@@ -105,6 +134,11 @@ class GPICConfig:
     seed: int = 0
     sanitize: bool = False
     component_probe: bool = True
+    checkpoint_every: int | None = None
+    ckpt_dir: str | None = None
+    max_retries: int = 3
+    backoff: float = 0.0
+    straggler_timeout: float | None = None
 
     def with_(self, **updates) -> "GPICConfig":
         """Functional update (``dataclasses.replace`` with a shorter name)."""
@@ -178,6 +212,23 @@ def check_config(cfg: GPICConfig, n: int | None = None) -> AffinitySpec:
         raise ValueError(
             "a_dtype (O4) selects the A *storage* dtype; the streaming "
             "engine never stores A")
+    if (cfg.checkpoint_every is None) != (cfg.ckpt_dir is None):
+        raise ValueError(
+            "checkpoint_every and ckpt_dir come as a pair (a snapshot "
+            "cadence needs a directory and vice versa); set both or "
+            "neither")
+    if cfg.checkpoint_every is not None and cfg.checkpoint_every < 1:
+        raise ValueError(
+            f"checkpoint_every must be >= 1 (a period in sweeps), got "
+            f"{cfg.checkpoint_every}")
+    if cfg.max_retries < 0:
+        raise ValueError(f"max_retries must be >= 0, got {cfg.max_retries}")
+    if cfg.backoff < 0:
+        raise ValueError(f"backoff must be >= 0 seconds, got {cfg.backoff}")
+    if cfg.straggler_timeout is not None and not cfg.straggler_timeout > 0:
+        raise ValueError(
+            f"straggler_timeout must be > 0 seconds, got "
+            f"{cfg.straggler_timeout}")
     if cfg.n_vectors < 1:
         raise ValueError(f"n_vectors must be >= 1, got {cfg.n_vectors}")
     # the cap holds for the matrix-free engine too: its Gram kernel takes
@@ -195,11 +246,10 @@ def check_config(cfg: GPICConfig, n: int | None = None) -> AffinitySpec:
     if spec.truncated and (cfg.engine == "streaming" or cfg.row_reorder
                            or not cfg.block_sparse or (n is not None and n <= TN)):
         check_k(spec.knn_k)
-    if cfg.a_dtype != torch.float32:
+    if cfg.a_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
-            f"a_dtype={cfg.a_dtype} is not ported yet (ROADMAP queue 1 item "
-            "13, bf16 A storage: the reference's a_dtype through kernel 1's "
-            "out_dtype and kernel 2's upcast)")
+            f"a_dtype={cfg.a_dtype}: kernels 1, 2 and 9 store and read A as "
+            "float32 or bfloat16 (ROADMAP queue 2, kernel 1 follow-up)")
     if cfg.tile is not None:
         raise NotImplementedError(
             "tile overrides are not ported yet (ROADMAP queue 1 item 1, the "
@@ -214,6 +264,7 @@ def run_gpic(
     *,
     device=None,
     generator: torch.Generator | None = None,
+    segment_injector: Callable[[int], None] | None = None,
     **overrides,
 ) -> PICResult:
     """Run GPIC as described by ``config`` (plus keyword overrides).
@@ -229,6 +280,12 @@ def run_gpic(
     (non-finite features unless ``sanitize``, n < k, constant rows) or after
     the run (every row isolated, every power column dead); anything less
     total returns with the damage described in ``result.health``.
+
+    ``segment_injector`` is the fault-injection hook of the resumable path:
+    called with the sweep count at every segment boundary, it may raise (a
+    GPICError is retried from the last snapshot). Passing it, or setting
+    ``checkpoint_every`` or ``straggler_timeout``, runs the supervised
+    segments, bitwise the monolithic run.
     """
     cfg = config or GPICConfig()
     if overrides:
@@ -251,7 +308,12 @@ def run_gpic(
                   n_vectors=cfg.n_vectors, embedding=cfg.embedding,
                   qr_every=cfg.qr_every, residual_tol=cfg.residual_tol,
                   snapshot_iters=cfg.snapshot_iters)
-    if cfg.engine == "matrix_free":
+    if (cfg.checkpoint_every is not None or cfg.straggler_timeout is not None
+            or segment_injector is not None):
+        res, sup_notes = _run_supervised(x.contiguous(), k, cfg, generator=generator,
+                                         spec=spec, segment_injector=segment_injector)
+        notes = tuple(notes) + sup_notes
+    elif cfg.engine == "matrix_free":
         res = gpic_matrix_free(x.contiguous(), k, **common)
     else:
         res = gpic(x.contiguous(), k, engine=cfg.engine, a_dtype=cfg.a_dtype,
@@ -275,3 +337,117 @@ def _unpermute_result(res: PICResult, inv: torch.Tensor) -> PICResult:
         health = replace(health, components=health.components[inv])
     return replace(res, labels=res.labels[inv], embedding=res.embedding[inv],
                    embeddings=res.embeddings[inv], health=health)
+
+
+def _segment_plan(cfg: GPICConfig):
+    """The loop arguments of the segmented engines, so that the segments'
+    trajectory is the monolithic one: 'ensemble' is the classic 'pic' loop
+    with its snapshot schedule (resolved as ``ensemble_power_iteration``
+    resolves it), the other embeddings pass through. Returns (mode,
+    qr_every, snapshot_iters, residual_tol)."""
+    if cfg.embedding != "ensemble":
+        return cfg.embedding, cfg.qr_every, (), cfg.residual_tol
+    return "pic", 1, resolve_snapshot_iters(cfg.snapshot_iters, cfg.max_iter), None
+
+
+def _run_supervised(x: torch.Tensor, k: int, cfg: GPICConfig, *, generator: torch.Generator,
+                    spec: AffinitySpec, segment_injector):
+    """The resumable supervisor of one device.
+
+    Runs the power loop in segments of ``checkpoint_every`` sweeps
+    (``max_iter`` without snapshots) through the segmented entry points of
+    core/gpic.py, snapshots the carry after each (``train/checkpoint.py``,
+    written on a background thread), and retries a
+    :class:`~repro_torch.core.health.GPICError` (an injected fault, a
+    straggler timeout) from the newest valid snapshot, up to
+    ``max_retries`` times with exponential backoff. A segment boundary
+    moves only where the loop stops, so a resumed run is bitwise the
+    uninterrupted one.
+
+    The random stream: the monolithic run draws the extra start columns,
+    then the k-means seeds, from one generator. Every attempt starts from
+    the generator's state at entry; a fresh one draws the start columns,
+    a resumed one draws them too and drops them, so k-means always draws
+    from the state the uninterrupted run reaches.
+
+    The port has no kernel fallback (a kernel that fails raises), so the
+    reference's fallback resume has no counterpart here. Returns (result,
+    notes): ``resumed:<sweep>``, ``retry:<n>:<ErrorClass>``,
+    ``checkpoint_skipped:<dir>``, ``straggler:<sweep>:<sec>``.
+    """
+    from ..train import checkpoint as ckpt  # train imports core
+
+    n, dev = x.shape[0], x.device
+    mode, qr_every, si, residual_tol = _segment_plan(cfg)
+    every = cfg.checkpoint_every or cfg.max_iter
+    saver = ckpt.AsyncCheckpointer() if cfg.ckpt_dir is not None else None
+    notes: list[str] = []
+    build = dict(affinity=spec, engine=cfg.engine, a_dtype=cfg.a_dtype,
+                 block_sparse=cfg.block_sparse)
+    loop = dict(eps=cfg.eps_scale / n, mode=mode, qr_every=qr_every, snapshot_iters=si,
+                residual_tol=residual_tol)
+    rng_state = generator.get_state()
+
+    def attempt():
+        generator.set_state(rng_state)
+        carry = iso = None
+        if cfg.ckpt_dir is not None:
+            like = power_carry_like(n, cfg.n_vectors, len(si))
+            carry, step, path, skipped = ckpt.restore_latest_valid(cfg.ckpt_dir, like,
+                                                                   device=dev)
+            notes.extend(f"checkpoint_skipped:{os.path.basename(p)}" for p in skipped)
+            if carry is not None:
+                iso = ckpt.manifest_extra(path).get("isolated_rows", 0)
+                notes.append(f"resumed:{step}")
+                random_start_vectors(generator, n, cfg.n_vectors, device=dev)
+        while True:
+            t_now = 0
+            if carry is not None:
+                t_now = int(carry.t)
+                if t_now >= cfg.max_iter or bool(carry.done.all()):
+                    break
+            if segment_injector is not None:
+                segment_injector(t_now)
+            stop = min(t_now + every, cfg.max_iter)
+            t0 = time.monotonic()
+            if carry is None:
+                carry, iso = gpic_segment_start(x, stop, generator=generator,
+                                                n_vectors=cfg.n_vectors, **build, **loop)
+            else:
+                carry = gpic_segment(x, carry, stop, **build, **loop)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            sec = time.monotonic() - t0
+            t_after = int(carry.t)
+            if cfg.straggler_timeout is not None and sec > cfg.straggler_timeout:
+                notes.append(f"straggler:{t_after}:{sec:.3f}")
+                raise StragglerTimeout(
+                    f"segment ending at sweep {t_after} took {sec:.3f}s "
+                    f"(straggler_timeout={cfg.straggler_timeout}s); resuming from the "
+                    "last snapshot")
+            if saver is not None:
+                saver.save_async(os.path.join(cfg.ckpt_dir, f"step_{t_after:06d}"), carry,
+                                 step=t_after,
+                                 extra={"isolated_rows": int(iso), "sweep": t_after})
+        return gpic_segment_finalize(x, carry, iso, k, generator=generator,
+                                     kmeans_iters=cfg.kmeans_iters, embedding=cfg.embedding,
+                                     snapshot_iters=si, probe_components=cfg.component_probe,
+                                     **build)
+
+    retries = 0
+    try:
+        while True:
+            try:
+                return attempt(), tuple(notes)
+            except GPICError as e:
+                if saver is not None:
+                    saver.wait()     # land the pending snapshot before the restore
+                retries += 1
+                if retries > cfg.max_retries:
+                    raise
+                notes.append(f"retry:{retries}:{type(e).__name__}")
+                if cfg.backoff:
+                    time.sleep(cfg.backoff * 2 ** (retries - 1))
+    finally:
+        if saver is not None:
+            saver.wait()

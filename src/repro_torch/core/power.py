@@ -26,6 +26,12 @@ Three embedding modes share the one loop:
 The reference's ``while_loop`` is a Python loop here that reads
 ``done.all()`` on the host once per sweep; its ``lax.cond`` on the QR
 cadence is a Python ``if`` on the sweep count.
+
+The loop's whole state is a :class:`PowerCarry`. One loop body advances it
+(:func:`power_iteration_segment`, up to a stop sweep), so a run cut into
+segments, with the carry saved and restored between them, makes the
+uninterrupted run's sweeps bit for bit: the resumable supervisor
+(``core/pipeline.py``) rests on that.
 """
 from __future__ import annotations
 
@@ -142,12 +148,61 @@ def _validate_loop_args(mode, qr_every, residual_tol, r):
     return block, residual
 
 
-def _power_loop(op, v0, eps, max_iter, mode="pic", qr_every=1, snapshot_iters=(),
-                residual_tol=None):
-    """The one convergence loop behind every embedding mode. Returns
-    (t, V, t_cols, done, snaps, status): snaps is the list of the states
-    after each of ``snapshot_iters`` sweeps (None where the loop stopped
-    earlier), status the (r,) int32 COL_* mask.
+@dataclass(frozen=True)
+class PowerCarry:
+    """The whole state of the convergence loop after ``t`` sweeps, as
+    tensors on the state's device. The loop body is a function of the
+    carry and the operator alone, so a carry saved after any sweep
+    (``train/checkpoint.py`` keeps each field by name), restored and
+    advanced with :func:`power_iteration_segment` makes the uninterrupted
+    loop's sweeps bit for bit: the same eps-crossings, latches and
+    per-column counts."""
+    t: torch.Tensor       # () int32: completed sweeps
+    v: torch.Tensor       # (n, r): the engine state
+    delta: torch.Tensor   # (n, r): |v_t - v_{t-1}| (delta_0 = v_0)
+    done: torch.Tensor    # (r,) bool: per-column convergence latches
+    t_cols: torch.Tensor  # (r,) int32: per-column sweep counts
+    snaps: torch.Tensor   # (n, r, S): the ensemble's snapshots (S = 0 outside it)
+    status: torch.Tensor  # (r,) int32: COL_* latches
+    best: torch.Tensor    # (r,) f32: best acceleration seen (the stall rule)
+    since: torch.Tensor   # (r,) int32: sweeps since ``best`` improved
+
+
+def init_power_carry(v0, n_snapshots: int = 0) -> PowerCarry:
+    """The sweep-0 carry of an (n, r) start block; ``n_snapshots`` sizes
+    the ensemble's snapshot stack (0: none)."""
+    r, dev = v0.shape[1], v0.device
+    return PowerCarry(
+        t=torch.tensor(0, dtype=torch.int32, device=dev), v=v0, delta=v0,  # delta_0 <- v_0
+        done=torch.zeros((r,), dtype=torch.bool, device=dev),
+        t_cols=torch.zeros((r,), dtype=torch.int32, device=dev),
+        snaps=torch.zeros(tuple(v0.shape) + (n_snapshots,), dtype=v0.dtype, device=dev),
+        status=torch.zeros((r,), dtype=torch.int32, device=dev),
+        best=torch.full((r,), float("inf"), dtype=torch.float32, device=dev),
+        since=torch.zeros((r,), dtype=torch.int32, device=dev))
+
+
+def power_carry_like(n: int, r: int, n_snapshots: int = 0,
+                     dtype: torch.dtype = torch.float32) -> PowerCarry:
+    """The carry's shapes and types for an (n, r) state, as tensors on the
+    ``meta`` device (no storage): what a snapshot restore checks each
+    leaf against."""
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+    return PowerCarry(
+        t=meta((), torch.int32), v=meta((n, r), dtype), delta=meta((n, r), dtype),
+        done=meta((r,), torch.bool), t_cols=meta((r,), torch.int32),
+        snaps=meta((n, r, n_snapshots), dtype), status=meta((r,), torch.int32),
+        best=meta((r,), torch.float32), since=meta((r,), torch.int32))
+
+
+def power_iteration_segment(op, carry: PowerCarry, eps, stop: int, *, mode="pic",
+                            qr_every=1, snapshot_iters=(), residual_tol=None) -> PowerCarry:
+    """Advance the carry until ``stop`` sweeps are done or every column is
+    done, and return the new carry (the input is not changed). The body
+    below is the one definition of a sweep: the whole loop
+    (:func:`_power_loop`) is one segment to ``max_iter``, so a run cut into
+    segments makes its sweeps bit for bit.
 
     The divergence latches are always armed: a column whose L1 mass hits
     exact zero (COL_ZERO) or that produced a NaN/Inf (COL_NONFINITE) is
@@ -159,23 +214,20 @@ def _power_loop(op, v0, eps, max_iter, mode="pic", qr_every=1, snapshot_iters=()
     ``residual_tol`` (block mode only) arms the subspace residual rule: on
     a QR sweep after column 0 has converged by its classic rule, a
     relative residual <= residual_tol latches every column done. The gate
-    reads ``done[0]`` on the host.
+    reads ``done[0]`` on the host. ``snapshot_iters`` are the sweep counts
+    after which the state goes into ``snaps`` (the ensemble's).
     """
     op = as_operator(op)
-    r = v0.shape[1]
+    v, delta, done, t_cols = carry.v, carry.delta, carry.done, carry.t_cols
+    status, best, since = carry.status, carry.best, carry.since
+    r = v.shape[1]
     block, residual = _validate_loop_args(mode, qr_every, residual_tol, r)
-    dev = v0.device
+    dev = v.device
     eps = torch.tensor(eps, dtype=torch.float32, device=dev)
-    t = 0
-    v, delta = v0, v0                                     # delta_0 <- v_0
-    done = torch.zeros((r,), dtype=torch.bool, device=dev)
-    t_cols = torch.zeros((r,), dtype=torch.int32, device=dev)
-    status = torch.zeros((r,), dtype=torch.int32, device=dev)
-    best = torch.full((r,), float("inf"), dtype=torch.float32, device=dev)
-    since = torch.zeros((r,), dtype=torch.int32, device=dev)
+    t = int(carry.t)
     pinned = torch.arange(r, device=dev) == 0
-    snaps = [None] * len(snapshot_iters)
-    while t < max_iter and not bool(done.all()):
+    snaps = carry.snaps.clone() if snapshot_iters else carry.snaps
+    while t < stop and not bool(done.all()):
         u = op.matmat(v)                                   # (n, r)
         l1 = torch.sum(torch.abs(u), dim=0)                # (r,)
         v_next = u / torch.clamp_min(l1, 1e-30)[None, :]
@@ -214,10 +266,32 @@ def _power_loop(op, v0, eps, max_iter, mode="pic", qr_every=1, snapshot_iters=()
         t += 1
         for j, s in enumerate(snapshot_iters):
             if t == s:
-                snaps[j] = v_next
+                snaps[:, :, j] = v_next
         v, delta = v_next, delta_next
-    status = (status | torch.where(~done, COL_MAXITER, 0)).to(torch.int32)
-    return t, v, t_cols, done, snaps, status
+    return PowerCarry(t=torch.tensor(t, dtype=torch.int32, device=dev), v=v, delta=delta,
+                      done=done, t_cols=t_cols, snaps=snaps, status=status, best=best,
+                      since=since)
+
+
+def finalize_power_carry(carry: PowerCarry):
+    """Close a finished carry as the loop does on exit: COL_MAXITER on the
+    columns still not done. Returns (t, V, t_cols, done, snaps, status),
+    ``t`` a Python int."""
+    status = (carry.status | torch.where(~carry.done, COL_MAXITER, 0)).to(torch.int32)
+    return int(carry.t), carry.v, carry.t_cols, carry.done, carry.snaps, status
+
+
+def _power_loop(op, v0, eps, max_iter, mode="pic", qr_every=1, snapshot_iters=(),
+                residual_tol=None):
+    """The one convergence loop behind every embedding mode: the sweep-0
+    carry, one segment to ``max_iter``, then the close. Returns (t, V,
+    t_cols, done, snaps, status): snaps the (n, r, S) states after each of
+    ``snapshot_iters`` sweeps (zeros where the loop stopped earlier),
+    status the (r,) int32 COL_* mask."""
+    carry = power_iteration_segment(
+        op, init_power_carry(v0, len(snapshot_iters)), eps, max_iter, mode=mode,
+        qr_every=qr_every, snapshot_iters=snapshot_iters, residual_tol=residual_tol)
+    return finalize_power_carry(carry)
 
 
 def batched_power_iteration(op, v0, eps, max_iter, *, mode="pic", qr_every=1,
@@ -259,11 +333,26 @@ def default_snapshot_iters(max_iter, n_snapshots=4):
     return tuple(iters)
 
 
-def backfill_snapshots(snaps, v):
-    """The (n, r, S) stack of the snapshots, with the slots the loop never
-    reached (it stopped before their diffusion time) filled with the final
-    frozen block."""
-    return torch.stack([v if s is None else s for s in snaps], dim=2)
+def resolve_snapshot_iters(snapshot_iters, max_iter) -> tuple[int, ...]:
+    """The ensemble's diffusion times as a tuple of ints (None: the default
+    geometric schedule), checked to be strictly ascending in [1,
+    max_iter]."""
+    si = tuple(int(s) for s in (snapshot_iters if snapshot_iters is not None
+                                else default_snapshot_iters(max_iter)))
+    if not si or list(si) != sorted(set(si)):
+        raise ValueError(
+            f"snapshot_iters must be non-empty strictly ascending ints, got {si!r}")
+    if si[0] < 1 or si[-1] > max_iter:
+        raise ValueError(f"snapshot_iters {si!r} must lie in [1, max_iter={max_iter}]")
+    return si
+
+
+def backfill_snapshots(snaps, v, t, snapshot_iters):
+    """The (n, r, S) snapshot stack with the slots the loop never reached
+    (it stopped after ``t`` sweeps, before their diffusion time) filled
+    with the final frozen block ``v``."""
+    written = torch.tensor(snapshot_iters, device=v.device) <= t          # (S,)
+    return torch.where(written[None, None, :], snaps, v[:, :, None])
 
 
 def ensemble_power_iteration(op, v0, eps, max_iter, *,
@@ -276,20 +365,10 @@ def ensemble_power_iteration(op, v0, eps, max_iter, *,
     Returns (snaps, t_cols, done, v, status): the (n, r, S) snapshot stack,
     the per-column stats, the loop's final state and the (r,) COL_* mask.
     """
-    snapshot_iters = tuple(
-        int(s) for s in (snapshot_iters if snapshot_iters is not None
-                         else default_snapshot_iters(max_iter)))
-    if not snapshot_iters or list(snapshot_iters) != sorted(set(snapshot_iters)):
-        raise ValueError(
-            f"snapshot_iters must be non-empty strictly ascending ints, "
-            f"got {snapshot_iters!r}")
-    if snapshot_iters[0] < 1 or snapshot_iters[-1] > max_iter:
-        raise ValueError(
-            f"snapshot_iters {snapshot_iters!r} must lie in [1, max_iter="
-            f"{max_iter}]")
-    _t, v, t_cols, done, snaps, status = _power_loop(
+    snapshot_iters = resolve_snapshot_iters(snapshot_iters, max_iter)
+    t, v, t_cols, done, snaps, status = _power_loop(
         op, v0, eps, max_iter, "pic", 1, snapshot_iters)
-    return backfill_snapshots(snaps, v), t_cols, done, v, status
+    return backfill_snapshots(snaps, v, t, snapshot_iters), t_cols, done, v, status
 
 
 def ensemble_embedding(snaps):

@@ -29,20 +29,17 @@ from .core.pic import PICResult
 from .core.pipeline import GPICConfig, check_config
 
 #: reference fields that select HOW the reference computes (kernel vs jnp
-#: oracle, a fallback policy, knobs of the mesh and the retry supervisor,
-#: which a single-device run never takes) and not WHAT: the port accepts
-#: any value and ignores it
-_NO_EFFECT = ("use_pallas", "retry_on_fallback", "overlap", "shard_axes",
-              "max_retries", "backoff")
+#: oracle, a fallback policy, knobs of the mesh, which a single-device run
+#: never takes) and not WHAT: the port accepts any value and ignores it.
+#: The port has no kernel fallback, so ``retry_on_fallback`` has nothing
+#: to retry.
+_NO_EFFECT = ("use_pallas", "retry_on_fallback", "overlap", "shard_axes")
 
 #: reference fields this slice does not route, with the value that means
 #: "off"; any other value raises NotImplementedError
 _UNROUTED_DEFAULTS = {
     "mesh": None,                 # ROADMAP queue 1 item 10, multi-GPU
     "fold_shift": False,          # item 10 (sharded explicit engine only)
-    "checkpoint_every": None,     # item 9, resumable execution
-    "ckpt_dir": None,             # item 9
-    "straggler_timeout": None,    # item 9
     "inject_ring_fault": None,    # item 10
 }
 

@@ -3,18 +3,23 @@ from __future__ import annotations
 
 import torch
 
+#: the types A is stored in: f32, or bf16 (the reference's a_dtype, O4)
+A_DTYPES = (torch.float32, torch.bfloat16)
 
-def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+
+def check_cuda_tensor(name: str, t: torch.Tensor, dtype, ndim: int,
                       *, device: torch.device | None = None) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``ndim``
-    dimensions on a CUDA device (``device`` when given)."""
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor (or one of a
+    tuple of dtypes) of ``ndim`` dimensions on a CUDA device (``device``
+    when given)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be on a CUDA device (or all inputs on the "
                          f"CPU for the plain version), got {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if t.ndim != ndim:
         raise ValueError(f"{name} must have {ndim} dimensions, got shape {tuple(t.shape)}")
     if not t.is_contiguous():

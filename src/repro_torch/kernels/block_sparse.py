@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from . import _build, ref
-from ._check import check_cuda_tensor, operand_ptr
+from ._check import A_DTYPES, check_cuda_tensor, operand_ptr
 from .affinity import KINDS
 from .power_step import MAX_R
 from .streaming import _check_features, _check_kind
@@ -30,7 +30,7 @@ from .streaming import _check_features, _check_kind
 PLAN_TM = 16
 TN = 256
 
-_MATMAT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_MATMAT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _STREAMING_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
 _DEGREE_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
@@ -57,13 +57,13 @@ def _check_plan(counts, col_idx, n_rows, n_cols, device):
 def block_sparse_matmat(a: torch.Tensor, v: torch.Tensor, d: torch.Tensor,
                         counts: torch.Tensor, col_idx: torch.Tensor) -> torch.Tensor:
     """U (R, r) f32 = (A V) / max(d, 1e-30) over the plan's live tiles of
-    the stored A (R, C), V (C, r), d (R,): ``degree_normalized_matmat``
-    with the dead tiles left out, the same bits for a finite V. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    the stored A (R, C) f32 or bf16, V (C, r), d (R,):
+    ``degree_normalized_matmat`` with the dead tiles left out, the same bits
+    for a finite V. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
     if a.device.type == "cpu":
         return ref.block_sparse_matmat_ref(a, v, d, counts, col_idx, tm=PLAN_TM, tn=TN)
-    check_cuda_tensor("a", a, torch.float32, 2)
+    check_cuda_tensor("a", a, A_DTYPES, 2)
     check_cuda_tensor("v", v, torch.float32, 2, device=a.device)
     check_cuda_tensor("d", d, torch.float32, 1, device=a.device)
     n_rows, n_cols = a.shape
@@ -82,7 +82,8 @@ def block_sparse_matmat(a: torch.Tensor, v: torch.Tensor, d: torch.Tensor,
         _build.launch(
             "block_sparse_matmat", "block_sparse", "gpic_block_sparse_matmat",
             _MATMAT_ARGTYPES, a.data_ptr(), v.data_ptr(), d.data_ptr(), counts.data_ptr(),
-            col_idx.data_ptr(), u.data_ptr(), n_rows, n_cols, r, stream)
+            col_idx.data_ptr(), u.data_ptr(), n_rows, n_cols, r, int(a.dtype == torch.bfloat16),
+            stream)
     return u
 
 

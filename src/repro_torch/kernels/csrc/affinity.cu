@@ -6,10 +6,14 @@
 // threshold thr of a kNN truncation; null pointers for the dense fixed
 // spec, whose bits do not change). It computes the (R, C) stripe
 // A[row_offset:row_offset+R, col_offset:col_offset+C] of the masked
-// similarity matrix and D, the stripe's row sums, in one pass.
+// similarity matrix and D, the stripe's row sums, in one pass. A is stored
+// in f32 or, as the reference's out_dtype=bfloat16 (O4), in bf16: every
+// entry is made and added to D in f32 exactly as for an f32 A, then rounded
+// to nearest even as it is stored, so a bf16 A is bit for bit the f32 A
+// rounded (astype) and D is the f32 call's D.
 //
 // Bound on an H100: the write of A. At n = 45,000 A is n^2 * 4 B = 8.1 GB,
-// about 2.4 ms at 3.35 TB/s; the features it reads are n * m * 4 B. The
+// about 2.4 ms at 3.35 TB/s (bf16: 4.05 GB, 1.2 ms); the features it reads are n * m * 4 B. The
 // arithmetic (2m FMAs, the transform and, for rbf, one expf per entry;
 // one compare more with a threshold) sits under that line once no barrier
 // or shared-memory slab paces each tile. Each expf takes one MUFU.EX2: a
@@ -45,10 +49,11 @@
 //    only the warps on a ragged edge or on the global diagonal test the
 //    mask (tile::tile_entries), and the score form is fixed per compiled
 //    loop. Its stores take one of two paths, chosen by the launcher:
-//     - bulk (rows of 16-byte multiples, n_cols % 4 == 0): each entry goes
-//       to a double-buffered 16 x 256 tile in shared memory, and once the
+//     - bulk (rows of 16-byte multiples: n_cols % 4 == 0 in f32, % 8 in
+//       bf16): each entry goes to a double-buffered 16 x 256 tile of the
+//       stored type in shared memory (16 KB in bf16, 32 in f32), and once the
 //       block has made the tile (one barrier), each of 16 threads writes
-//       one row's 1 KB with a 1-D bulk copy (cp.async.bulk, the copy
+//       one row's 1 KB (bf16: 512 bytes) with a 1-D bulk copy (cp.async.bulk, the copy
 //       engine of the TMA), waited on only before its buffer is reused;
 //       whole 1 KB row segments wrote A faster than 128-byte warp stores
 //       on an H100 (PERF.md section 6);
@@ -82,10 +87,10 @@ namespace {
 constexpr int TM = 16;   // rows per block
 using tile::TN;
 
-template <bool POLICY>
+template <bool POLICY, typename T>
 __global__ void __launch_bounds__(TN) affinity_kernel(
     const float* __restrict__ xr, const float* __restrict__ xc,
-    tile::Policy pol, float* __restrict__ a, float* __restrict__ d,
+    tile::Policy pol, T* __restrict__ a, float* __restrict__ d,
     int n_rows, int n_cols, int m, int row_offset, int col_offset,
     int kind, float inv_two_sigma_sq) {
     extern __shared__ float smem[];
@@ -108,7 +113,8 @@ __global__ void __launch_bounds__(TN) affinity_kernel(
                               n_cols, m, row_offset, col_offset, kind, inv_two_sigma_sq, pol,
                               [&](int r, float v) {
             const int row = row0 + r;
-            if (row < n_rows && col < n_cols) a[static_cast<size_t>(row) * n_cols + col] = v;
+            if (row < n_rows && col < n_cols)
+                a[static_cast<size_t>(row) * n_cols + col] = from_f32<T>(v);
             rowsum[r] += v;
         });
     }
@@ -121,7 +127,7 @@ __global__ void __launch_bounds__(TN) affinity_kernel(
 // Write bytes from shared memory at src to global memory at dst with a 1-D
 // bulk copy, committed as a bulk group of its own (both 16-byte aligned,
 // bytes a multiple of 16).
-__device__ __forceinline__ void bulk_store(float* dst, const float* src, int bytes) {
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
     asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
                  :: "l"(dst), "r"(s), "r"(bytes) : "memory");
@@ -133,13 +139,16 @@ __device__ __forceinline__ void bulk_store(float* dst, const float* src, int byt
 // register stores, and with the entries the skip test drops stored as +0
 // (tile_entries' ZEROS form); affinity_kernel above is the staged template
 // (any m). They give the same A and D.
-template <bool POLICY, bool BULK>
+template <bool POLICY, bool BULK, typename T>
 __global__ void __launch_bounds__(TN, 2) affinity_reg_kernel(
     const float* __restrict__ xr, const float* __restrict__ xc,
-    tile::Policy pol, float* __restrict__ a, float* __restrict__ d,
+    tile::Policy pol, T* __restrict__ a, float* __restrict__ d,
     int n_rows, int n_cols, int m, int row_offset, int col_offset,
     int kind, float inv_two_sigma_sq) {
-    __shared__ __align__(128) float s_tile[BULK ? 2 * TM * TN : 1];  // two tiles' rows
+    // two tiles' rows, as raw bytes (a __shared__ array may not be of a type
+    // with constructors)
+    __shared__ __align__(128) unsigned char s_bytes[(BULK ? 2 * TM * TN : 1) * sizeof(T)];
+    T* s_tile = reinterpret_cast<T*>(s_bytes);
     __shared__ __align__(16) tile::Rows<TM> s_rows;
     __shared__ tile::RowFeats<TM> s_rf;
     __shared__ __align__(16) float s_bound[TM];
@@ -154,7 +163,7 @@ __global__ void __launch_bounds__(TN, 2) affinity_reg_kernel(
     const int rows_in = n_rows - row0;   // the block's rows inside the stripe
     // bulk: thread i < TM copies row row0 + i; register: thread t stores column t
     const bool copier = BULK && static_cast<int>(threadIdx.x) < min(TM, rows_in);
-    float* a_thread = a + static_cast<size_t>(row0 + (BULK ? threadIdx.x : 0)) * n_cols
+    T* a_thread = a + static_cast<size_t>(row0 + (BULK ? threadIdx.x : 0)) * n_cols
                       + (BULK ? 0 : threadIdx.x);
     float rowsum[TM];
 #pragma unroll
@@ -169,11 +178,11 @@ __global__ void __launch_bounds__(TN, 2) affinity_reg_kernel(
             tile::load_col<1, POLICY>(xc, nullptr, pol, c0 + TN + threadIdx.x, n_cols, m, 0,
                                       nxt);
             if constexpr (BULK) {
-                float* s_col = s_tile + buf * (TM * TN) + threadIdx.x;
+                T* s_col = s_tile + buf * (TM * TN) + threadIdx.x;
                 tile::tile_entries<TM, Form, POLICY, true>(
                     cur, s_rf, s_rows, s_bound, m, inv_two_sigma_sq, pol, row0, c0, n_rows,
                     n_cols, row_offset, col_offset, [&](int i, float v) {
-                        s_col[i * TN] = v;
+                        s_col[i * TN] = from_f32<T>(v);
                         rowsum[i] += v;
                     });
                 // the tile's writes visible to the copy engine, and the copy
@@ -183,14 +192,14 @@ __global__ void __launch_bounds__(TN, 2) affinity_reg_kernel(
                 __syncthreads();
                 if (copier)
                     bulk_store(a_thread + c0, s_tile + buf * (TM * TN) + threadIdx.x * TN,
-                               4 * min(TN, n_cols - c0));
+                               static_cast<int>(sizeof(T)) * min(TN, n_cols - c0));
                 buf ^= 1;
             } else {
-                float* a_col = a_thread + c0;
+                T* a_col = a_thread + c0;
                 tile::tile_entries<TM, Form, POLICY, true>(
                     cur, s_rf, s_rows, s_bound, m, inv_two_sigma_sq, pol, row0, c0, n_rows,
                     n_cols, row_offset, col_offset, [&](int i, float v) {
-                        if (i < rows_in) __stcs(a_col + static_cast<size_t>(i) * n_cols, v);
+                        if (i < rows_in) stcs_f32(a_col + static_cast<size_t>(i) * n_cols, v);
                         rowsum[i] += v;
                     });
             }
@@ -215,14 +224,10 @@ __global__ void __launch_bounds__(TN, 2) affinity_reg_kernel(
     if (threadIdx.x < TM && row0 + threadIdx.x < n_rows) d[row0 + threadIdx.x] = s;
 }
 
-}  // namespace
-
-// scale_r / scale_c / thr may be null (policy off).
-extern "C" int gpic_affinity_and_degree(
-    const float* xr, const float* xc, const float* scale_r, const float* scale_c,
-    const float* thr, float* a, float* d,
-    int n_rows, int n_cols, int m, int row_offset, int col_offset,
-    int kind, float inv_two_sigma_sq, cudaStream_t stream) {
+template <typename T>
+int launch(const float* xr, const float* xc, const float* scale_r, const float* scale_c,
+           const float* thr, T* a, float* d, int n_rows, int n_cols, int m, int row_offset,
+           int col_offset, int kind, float inv_two_sigma_sq, cudaStream_t stream) {
     const int grid = (n_rows + TM - 1) / TM;
     const tile::Policy pol{scale_r, scale_c, thr, nullptr};
     const bool policy = tile::has_policy(pol);
@@ -230,18 +235,36 @@ extern "C" int gpic_affinity_and_degree(
                   inv_two_sigma_sq
     if (m > tile::MR) {
         const size_t smem = tile::smem_bytes(TM, m);
-        if (policy) affinity_kernel<true><<<grid, TN, smem, stream>>>(GPIC_ARGS);
-        else affinity_kernel<false><<<grid, TN, smem, stream>>>(GPIC_ARGS);
+        if (policy) affinity_kernel<true, T><<<grid, TN, smem, stream>>>(GPIC_ARGS);
+        else affinity_kernel<false, T><<<grid, TN, smem, stream>>>(GPIC_ARGS);
     } else {
-        // bulk copies need 16-byte rows; E2's fused form (scales, no thr)
-        // keeps the register stores (affinity_reg_kernel)
-        const bool bulk = n_cols % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0
+        // bulk copies need 16-byte rows (n_cols a multiple of 4 in f32, of
+        // 8 in bf16); E2's fused form (scales, no thr) keeps the register
+        // stores (affinity_reg_kernel)
+        const bool bulk = (static_cast<size_t>(n_cols) * sizeof(T)) % 16 == 0
+                          && reinterpret_cast<uintptr_t>(a) % 16 == 0
                           && !(scale_r != nullptr && thr == nullptr);
-        if (policy && bulk) affinity_reg_kernel<true, true><<<grid, TN, 0, stream>>>(GPIC_ARGS);
-        else if (policy) affinity_reg_kernel<true, false><<<grid, TN, 0, stream>>>(GPIC_ARGS);
-        else if (bulk) affinity_reg_kernel<false, true><<<grid, TN, 0, stream>>>(GPIC_ARGS);
-        else affinity_reg_kernel<false, false><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+        if (policy && bulk) affinity_reg_kernel<true, true, T><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+        else if (policy) affinity_reg_kernel<true, false, T><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+        else if (bulk) affinity_reg_kernel<false, true, T><<<grid, TN, 0, stream>>>(GPIC_ARGS);
+        else affinity_reg_kernel<false, false, T><<<grid, TN, 0, stream>>>(GPIC_ARGS);
     }
 #undef GPIC_ARGS
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// scale_r / scale_c / thr may be null (policy off). a is float, or
+// __nv_bfloat16 where a_bf16 is nonzero.
+extern "C" int gpic_affinity_and_degree(
+    const float* xr, const float* xc, const float* scale_r, const float* scale_c,
+    const float* thr, void* a, float* d,
+    int n_rows, int n_cols, int m, int row_offset, int col_offset,
+    int kind, float inv_two_sigma_sq, int a_bf16, cudaStream_t stream) {
+    if (a_bf16)
+        return launch(xr, xc, scale_r, scale_c, thr, static_cast<__nv_bfloat16*>(a), d, n_rows,
+                      n_cols, m, row_offset, col_offset, kind, inv_two_sigma_sq, stream);
+    return launch(xr, xc, scale_r, scale_c, thr, static_cast<float*>(a), d, n_rows, n_cols, m,
+                  row_offset, col_offset, kind, inv_two_sigma_sq, stream);
 }

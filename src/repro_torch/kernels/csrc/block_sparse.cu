@@ -34,7 +34,7 @@
 //
 // Bound on an H100: the stored sweep, the live tiles' bytes of A (at
 // n = 45,000 a quarter of the 8.1 GB on cluster-sorted blobs, about 0.6 ms
-// at 3.35 TB/s); the streamed sweep and degree, the live tiles' operations
+// at 3.35 TB/s; half that in bf16); the streamed sweep and degree, the live tiles' operations
 // (streaming.cu's count scaled by the live fraction, and its MUFU and
 // issue floors likewise; the degree's register template with row
 // thresholds makes only the live entries near a threshold with their
@@ -47,7 +47,10 @@
 //  * The stored sweep is power_step.cu's block (one row, 256 threads, four
 //    loads in flight, the streaming cache hint), its reduction the fixed
 //    warp tree and warp order of tile::block_reduce_fixed, the same bits as
-//    power_step.cu's, and its epilogue the same floored __fdiv_rn.
+//    power_step.cu's, and its epilogue the same floored __fdiv_rn. A bf16 A
+//    (O4) takes the same kernel on its element type, each entry widened to
+//    f32 as it is loaded: U is bit for bit this kernel's on the f32 upcast,
+//    and power_step.cu's on the same bf16 A.
 //  * The streamed sweep and degree are streaming.cu's kernels with the
 //    first visited tile staging the row slab (tile_scores' first flag).
 //    Each has streaming.cu's two templates: the staged one (any m) and the
@@ -87,16 +90,16 @@ __device__ __forceinline__ int plan_row(const int* __restrict__ counts,
     return min(counts[rb], n_j);
 }
 
-template <int RT>
+template <int RT, typename T>
 __global__ void __launch_bounds__(TN) bs_matmat_kernel(
-    const float* __restrict__ a, const float* __restrict__ v,
+    const T* __restrict__ a, const float* __restrict__ v,
     const float* __restrict__ d, const int* __restrict__ counts,
     const int* __restrict__ col_idx, float* __restrict__ u,
     int n_cols, int n_j, int r) {
     __shared__ float s_red[tile::NWARPS * RT];
     const int row = blockIdx.x;
     const int tid = threadIdx.x;
-    const float* arow = a + static_cast<size_t>(row) * n_cols;
+    const T* arow = a + static_cast<size_t>(row) * n_cols;
     const int* ids;
     const int nb = plan_row(counts, col_idx, row, n_j, &ids);
 
@@ -113,7 +116,7 @@ __global__ void __launch_bounds__(TN) bs_matmat_kernel(
         for (int q = 0; q < UNROLL; ++q) {
             const int id = b + q < nb ? ids[b + q] : n_j;
             jj[q] = id < n_j ? id * TN + tid : n_cols;
-            av[q] = jj[q] < n_cols ? __ldcs(arow + jj[q]) : 0.f;
+            av[q] = jj[q] < n_cols ? ldcs_f32(arow + jj[q]) : 0.f;
         }
 #pragma unroll
         for (int q = 0; q < UNROLL; ++q) {
@@ -412,13 +415,31 @@ __global__ void __launch_bounds__(TN, 4) liveness_reg_kernel(
     });
 }
 
-template <int RT>
-void launch_bs_matmat(const float* a, const float* v, const float* d, const int* counts,
+template <int RT, typename T>
+void launch_bs_matmat(const T* a, const float* v, const float* d, const int* counts,
                       const int* col_idx, float* u, int n_rows, int n_cols, int r,
                       cudaStream_t stream) {
     const int n_j = (n_cols + TN - 1) / TN;
-    bs_matmat_kernel<RT><<<n_rows, TN, 0, stream>>>(a, v, d, counts, col_idx, u, n_cols,
-                                                     n_j, r);
+    bs_matmat_kernel<RT, T><<<n_rows, TN, 0, stream>>>(a, v, d, counts, col_idx, u, n_cols,
+                                                        n_j, r);
+}
+
+template <typename T>
+int launch_bs_matmat_r(const T* a, const float* v, const float* d, const int* counts,
+                       const int* col_idx, float* u, int n_rows, int n_cols, int r,
+                       cudaStream_t stream) {
+#define GPIC_LAUNCH(RT) launch_bs_matmat<RT>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, \
+                                             stream)
+    if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
+    else if (r <= 1) GPIC_LAUNCH(1);
+    else if (r <= 2) GPIC_LAUNCH(2);
+    else if (r <= 4) GPIC_LAUNCH(4);
+    else if (r <= 8) GPIC_LAUNCH(8);
+    else if (r <= 16) GPIC_LAUNCH(16);
+    else if (r <= 32) GPIC_LAUNCH(32);
+    else return static_cast<int>(cudaErrorInvalidValue);
+#undef GPIC_LAUNCH
+    return static_cast<int>(cudaGetLastError());
 }
 
 template <int RT>
@@ -445,18 +466,15 @@ void launch_bs_streaming(const float* xr, const float* xc, const tile::Policy& p
 
 }  // namespace
 
+// a is float, or __nv_bfloat16 where a_bf16 is nonzero.
 extern "C" int gpic_block_sparse_matmat(
-    const float* a, const float* v, const float* d, const int* counts, const int* col_idx,
-    float* u, int n_rows, int n_cols, int r, cudaStream_t stream) {
-    if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
-    else if (r <= 1) launch_bs_matmat<1>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
-    else if (r <= 2) launch_bs_matmat<2>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
-    else if (r <= 4) launch_bs_matmat<4>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
-    else if (r <= 8) launch_bs_matmat<8>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
-    else if (r <= 16) launch_bs_matmat<16>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
-    else if (r <= 32) launch_bs_matmat<32>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
-    else return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(cudaGetLastError());
+    const void* a, const float* v, const float* d, const int* counts, const int* col_idx,
+    float* u, int n_rows, int n_cols, int r, int a_bf16, cudaStream_t stream) {
+    if (a_bf16)
+        return launch_bs_matmat_r(static_cast<const __nv_bfloat16*>(a), v, d, counts, col_idx,
+                                  u, n_rows, n_cols, r, stream);
+    return launch_bs_matmat_r(static_cast<const float*>(a), v, d, counts, col_idx, u, n_rows,
+                              n_cols, r, stream);
 }
 
 // d may be null: U is then the unnormalized A V. scale_r / scale_c / thr

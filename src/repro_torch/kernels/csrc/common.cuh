@@ -2,6 +2,7 @@
 // library with a plain C interface, loaded from Python with ctypes).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -10,6 +11,30 @@
 // loop's non-finite latch).
 __device__ __forceinline__ float nan_max(float x, float lo) {
     return isnan(x) ? x : fmaxf(x, lo);
+}
+
+// A's stored types: float, or __nv_bfloat16 (the reference's a_dtype,
+// O4). An entry is made and summed in f32 and rounded once when it is
+// stored, to nearest even as astype and torch's .to() round; a sweep
+// widens each stored entry back to f32, which is exact, so a bf16 A sweeps
+// to the bits of the same kernel on its f32 upcast.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+    return __float2bfloat16_rn(v);
+}
+// One entry of A loaded, or stored, with the streaming cache hint (A is
+// read or written once a pass and would only evict what is reused).
+__device__ __forceinline__ float ldcs_f32(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float ldcs_f32(const __nv_bfloat16* p) {
+    return __bfloat162float(
+        __ushort_as_bfloat16(__ldcs(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void stcs_f32(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void stcs_f32(__nv_bfloat16* p, float v) {
+    __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16_rn(v)));
 }
 
 // 16 bytes from global to shared memory without passing through registers;

@@ -81,12 +81,6 @@ struct Args {
     float scale;
 };
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16_rn(x);
-}
-
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {

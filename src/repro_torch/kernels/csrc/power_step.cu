@@ -1,12 +1,12 @@
 // Degree-normalized mat-mat sweep for Hopper (sm_90a):
-//     U = (A V) / max(d, 1e-30),  A (R, C) f32, V (C, r) f32, d (R,) f32.
+//     U = (A V) / max(d, 1e-30),  A (R, C) f32 or bf16, V (C, r) f32, d (R,) f32.
 //
 // Replaces: src/repro/kernels/power_step.py::degree_normalized_matmat (the
 // Pallas TPU kernel _power_step_kernel), which runs once per power sweep.
 //
 // Bound on an H100: the read of A. At n = 45,000 that is 8.1 GB per sweep,
-// about 2.4 ms at 3.35 TB/s; V, d and U are O(n r) and the 2 n^2 r flops
-// are far under the line at r <= 32.
+// about 2.4 ms at 3.35 TB/s (bf16: 4.05 GB, 1.2 ms); V, d and U are O(n r)
+// and the 2 n^2 r flops are far under the line at r <= 32.
 //
 // Design:
 //  * One block of 256 threads per row of A, or per ROWS rows (Ring below).
@@ -18,12 +18,13 @@
 //    same from run to run (no atomics).
 //  * The rows stream through a ring of STAGES shared-memory stages of CH
 //    columns, filled by 16-byte cp.async (one instruction moves 4 columns,
+//    8 in bf16,
 //    and STAGES - 1 stages are in flight while a thread sums the current
 //    one), so each SM keeps enough of A's bytes in flight to run at the
 //    memory's rate. Thread t reads its own columns of a stage back in order,
 //    so the bits are those of a plain load of each column.
-//  * Rows that do not start on 16 bytes (C not a multiple of 4, or an
-//    unaligned A) take the plain-load template of the same kernel, chosen
+//  * Rows that do not start on 16 bytes (C not a multiple of 4, 8 in bf16,
+//    or an unaligned A) take the plain-load template of the same kernel, chosen
 //    by the wrapper: one row a block, four scalar loads in flight per
 //    thread, through the streaming cache hint so A does not evict V from
 //    L2.
@@ -31,6 +32,10 @@
 //    in registers; the wrapper rejects r > 32.
 //  * The epilogue is the floored divide the reference pins
 //    (u / max(d, 1e-30), NaN degrees propagate).
+//  * A bf16 A (the reference's a_dtype, O4) takes the same kernel on its
+//    element type T: each entry is widened to f32 as it is read (exact)
+//    and the fmaf chain is unchanged, so U is bit for bit this kernel's U
+//    on the f32 upcast of A, and the reference's upcast-on-load.
 
 #include "common.cuh"
 
@@ -44,11 +49,14 @@ constexpr int UNROLL = 4;  // plain-load template: loads in flight per thread
 // From r = 2 on, V's loads outweigh A's, so a block takes 4 rows and each V
 // value it loads serves all of them (from r = 16 one row again, for the
 // partials' registers); 24 or 32 KB a block keep 7 or 8 blocks on an SM.
-template <int RT> struct Ring {
+// A stage holds the same columns in either type, so a bf16 ring is half
+// the bytes.
+template <int RT, typename T> struct Ring {
     static constexpr int ROWS = RT == 1 || RT >= 16 ? 1 : 4;
     static constexpr int CH = 2048 / ROWS;
     static constexpr int STAGES = ROWS == 1 ? 3 : 4;
-    static constexpr int BYTES = STAGES * ROWS * CH * 4;
+    static constexpr int PIECE = 16 / static_cast<int>(sizeof(T));  // columns a cp.async moves
+    static constexpr int BYTES = STAGES * ROWS * CH * static_cast<int>(sizeof(T));
     static_assert(CH % THREADS == 0, "whole columns per thread");
 };
 
@@ -67,12 +75,12 @@ __device__ __forceinline__ void add_column(float (&acc)[ROWS][RT], const float (
             if (c < r) acc[i][c] = fmaf(aj[i], vv[c], acc[i][c]);
 }
 
-template <int RT, bool RING>
+template <int RT, bool RING, typename T>
 __global__ void __launch_bounds__(THREADS) power_step_kernel(
-    const float* __restrict__ a, const float* __restrict__ v,
+    const T* __restrict__ a, const float* __restrict__ v,
     const float* __restrict__ d, float* __restrict__ u,
     int n_rows, int n_cols, int r) {
-    constexpr int ROWS = RING ? Ring<RT>::ROWS : 1;
+    constexpr int ROWS = RING ? Ring<RT, T>::ROWS : 1;
     extern __shared__ float4 ring4[];
     __shared__ float s_red[NWARPS][ROWS][RT];
     const int row0 = blockIdx.x * ROWS;
@@ -89,19 +97,20 @@ __global__ void __launch_bounds__(THREADS) power_step_kernel(
         // stage k holds columns [k CH, (k + 1) CH) of the block's rows, as
         // 16-byte pieces; a piece past the row's end (or a row past the
         // last) is zero-filled and never read
-        constexpr int CH = Ring<RT>::CH, STAGES = Ring<RT>::STAGES;
-        float* ring = reinterpret_cast<float*>(ring4);
+        using R = Ring<RT, T>;
+        constexpr int CH = R::CH, STAGES = R::STAGES, PIECE = R::PIECE;
+        T* ring = reinterpret_cast<T*>(ring4);
         const int n_ch = (n_cols + CH - 1) / CH;
         auto fill = [&](int k) {
-            float* slot = ring + (k % STAGES) * ROWS * CH;
+            T* slot = ring + (k % STAGES) * ROWS * CH;
 #pragma unroll
             for (int i = 0; i < ROWS; ++i) {
-                const float* arow = a + static_cast<size_t>(row0 + min(i, nr - 1)) * n_cols;
+                const T* arow = a + static_cast<size_t>(row0 + min(i, nr - 1)) * n_cols;
 #pragma unroll
-                for (int p = tid; p < CH / 4; p += THREADS) {
-                    const int j = k * CH + 4 * p;
+                for (int p = tid; p < CH / PIECE; p += THREADS) {
+                    const int j = k * CH + PIECE * p;
                     const bool ok = i < nr && j < n_cols;
-                    cp_async16(slot + i * CH + 4 * p, ok ? arow + j : arow, ok ? 16 : 0);
+                    cp_async16(slot + i * CH + PIECE * p, ok ? arow + j : arow, ok ? 16 : 0);
                 }
             }
         };
@@ -115,7 +124,7 @@ __global__ void __launch_bounds__(THREADS) power_step_kernel(
             cp_async_commit();
             cp_async_wait<STAGES - 1>();  // stage k has landed for this thread ...
             __syncthreads();              // ... and for every thread
-            const float* slot = ring + (k % STAGES) * ROWS * CH;
+            const T* slot = ring + (k % STAGES) * ROWS * CH;
             const int j0 = k * CH;
 #pragma unroll
             for (int q = 0; q < CH / THREADS; ++q) {
@@ -123,18 +132,18 @@ __global__ void __launch_bounds__(THREADS) power_step_kernel(
                 if (j0 + CH > n_cols && j >= n_cols) break;
                 float aj[ROWS];
 #pragma unroll
-                for (int i = 0; i < ROWS; ++i) aj[i] = slot[i * CH + tid + q * THREADS];
+                for (int i = 0; i < ROWS; ++i) aj[i] = to_f32(slot[i * CH + tid + q * THREADS]);
                 add_column(acc, aj, v, j, r);
             }
             __syncthreads();  // every thread is done with the stage before it is refilled
         }
     } else {
-        const float* arow = a + static_cast<size_t>(row0) * n_cols;
+        const T* arow = a + static_cast<size_t>(row0) * n_cols;
         int j = tid;
         for (; j + (UNROLL - 1) * THREADS < n_cols; j += UNROLL * THREADS) {
             float av[UNROLL];
 #pragma unroll
-            for (int q = 0; q < UNROLL; ++q) av[q] = __ldcs(arow + j + q * THREADS);
+            for (int q = 0; q < UNROLL; ++q) av[q] = ldcs_f32(arow + j + q * THREADS);
 #pragma unroll
             for (int q = 0; q < UNROLL; ++q) {
                 const float aj[1] = {av[q]};
@@ -142,7 +151,7 @@ __global__ void __launch_bounds__(THREADS) power_step_kernel(
             }
         }
         for (; j < n_cols; j += THREADS) {
-            const float aj[1] = {__ldcs(arow + j)};
+            const float aj[1] = {ldcs_f32(arow + j)};
             add_column(acc, aj, v, j, r);
         }
     }
@@ -168,15 +177,16 @@ __global__ void __launch_bounds__(THREADS) power_step_kernel(
     }
 }
 
-template <int RT>
-int launch(const float* a, const float* v, const float* d, float* u,
+template <int RT, typename T>
+int launch(const T* a, const float* v, const float* d, float* u,
            int n_rows, int n_cols, int r, bool ring, cudaStream_t stream) {
     if (!ring) {
-        power_step_kernel<RT, false><<<n_rows, THREADS, 0, stream>>>(a, v, d, u, n_rows, n_cols, r);
+        power_step_kernel<RT, false, T><<<n_rows, THREADS, 0, stream>>>(a, v, d, u, n_rows,
+                                                                        n_cols, r);
         return static_cast<int>(cudaGetLastError());
     }
-    using R = Ring<RT>;
-    auto kernel = power_step_kernel<RT, true>;
+    using R = Ring<RT, T>;
+    auto kernel = power_step_kernel<RT, true, T>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            R::BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -185,15 +195,9 @@ int launch(const float* a, const float* v, const float* d, float* u,
     return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// ring: every row of A starts on 16 bytes (A's address and 4 C bytes are
-// multiples of 16), so it streams through the cp.async ring; 0 takes the
-// plain-load template.
-extern "C" int gpic_degree_normalized_matmat(
-    const float* a, const float* v, const float* d, float* u,
-    int n_rows, int n_cols, int r, int ring, cudaStream_t stream) {
-    const bool rg = ring != 0;
+template <typename T>
+int launch_r(const T* a, const float* v, const float* d, float* u,
+             int n_rows, int n_cols, int r, bool rg, cudaStream_t stream) {
     if (r <= 1) return launch<1>(a, v, d, u, n_rows, n_cols, r, rg, stream);
     if (r <= 2) return launch<2>(a, v, d, u, n_rows, n_cols, r, rg, stream);
     if (r <= 4) return launch<4>(a, v, d, u, n_rows, n_cols, r, rg, stream);
@@ -201,4 +205,18 @@ extern "C" int gpic_degree_normalized_matmat(
     if (r <= 16) return launch<16>(a, v, d, u, n_rows, n_cols, r, rg, stream);
     if (r <= 32) return launch<32>(a, v, d, u, n_rows, n_cols, r, rg, stream);
     return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// ring: every row of A starts on 16 bytes (A's address and C's bytes are
+// multiples of 16), so it streams through the cp.async ring; 0 takes the
+// plain-load template. a is float, or __nv_bfloat16 where a_bf16 is nonzero.
+extern "C" int gpic_degree_normalized_matmat(
+    const void* a, const float* v, const float* d, float* u,
+    int n_rows, int n_cols, int r, int ring, int a_bf16, cudaStream_t stream) {
+    if (a_bf16)
+        return launch_r(static_cast<const __nv_bfloat16*>(a), v, d, u, n_rows, n_cols, r,
+                        ring != 0, stream);
+    return launch_r(static_cast<const float*>(a), v, d, u, n_rows, n_cols, r, ring != 0, stream);
 }

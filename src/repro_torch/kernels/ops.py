@@ -18,6 +18,8 @@ is the LM's: causal grouped-query attention (kernels/flash_attention.py).
 """
 from __future__ import annotations
 
+import torch
+
 from ._build import launch_counts, reset_launch_counts
 from .affinity import affinity_and_degree as _affinity_and_degree
 from .block_sparse import PLAN_TM, TN, block_sparse_matmat
@@ -63,12 +65,14 @@ def _spec_kind_sigma(spec, kind, sigma):
 
 
 def affinity_and_degree(xn, xc=None, *, kind="cosine_shifted", sigma=1.0, spec=None,
-                        scale_r=None, scale_c=None, thr=None, row_offset=0, col_offset=0):
-    """Fused A + D build. See kernels/affinity.py."""
+                        scale_r=None, scale_c=None, thr=None, row_offset=0, col_offset=0,
+                        out_dtype=torch.float32):
+    """Fused A + D build, A stored in ``out_dtype`` (f32 or bf16). See
+    kernels/affinity.py."""
     kind, sigma = _spec_kind_sigma(spec, kind, sigma)
     return _affinity_and_degree(xn, xc, kind=kind, sigma=sigma, row_offset=row_offset,
                                 col_offset=col_offset, scale_r=scale_r, scale_c=scale_c,
-                                thr=thr)
+                                thr=thr, out_dtype=out_dtype)
 
 
 def streaming_matmat(x, v, d=None, xc=None, *, kind="cosine_shifted", sigma=1.0,

@@ -3,7 +3,9 @@
 Counterpart of ``repro/kernels/power_step.py``: ``degree_normalized_matmat``,
 U = (A V) / max(d, 1e-30) in one read of A for all r columns of V, and the
 paper's single-vector ``degree_normalized_matvec`` and ``power_step``,
-which launch it with r = 1 (or r columns).
+which launch it with r = 1 (or r columns). A is f32 or bf16 (the
+reference's a_dtype, O4: each entry widened to f32 on load, the sums in
+f32).
 """
 from __future__ import annotations
 
@@ -12,21 +14,22 @@ import ctypes
 import torch
 
 from . import _build, ref
-from ._check import check_cuda_tensor
+from ._check import A_DTYPES, check_cuda_tensor
 
 #: widest V the kernel takes (its per-thread partials live in registers)
 MAX_R = 32
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def degree_normalized_matmat(a: torch.Tensor, v: torch.Tensor,
                              d: torch.Tensor) -> torch.Tensor:
-    """U (R, r) f32 for A (R, C), V (C, r), d (R,). A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel or raises."""
+    """U (R, r) f32 for A (R, C) f32 or bf16, V (C, r), d (R,). A bf16 A
+    gives the bits of the same call on ``a.float()``. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
     if a.device.type == "cpu":
         return ref.degree_normalized_matmat_ref(a, v, d)
-    check_cuda_tensor("a", a, torch.float32, 2)
+    check_cuda_tensor("a", a, A_DTYPES, 2)
     check_cuda_tensor("v", v, torch.float32, 2, device=a.device)
     check_cuda_tensor("d", d, torch.float32, 1, device=a.device)
     n_rows, n_cols = a.shape
@@ -40,13 +43,13 @@ def degree_normalized_matmat(a: torch.Tensor, v: torch.Tensor,
     if n_rows == 0:
         return u
     # rows that start on 16 bytes stream through the kernel's cp.async ring
-    ring = a.data_ptr() % 16 == 0 and n_cols % 4 == 0
+    ring = a.data_ptr() % 16 == 0 and (n_cols * a.element_size()) % 16 == 0
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch(
             "degree_normalized_matmat", "power_step", "gpic_degree_normalized_matmat",
             _ARGTYPES, a.data_ptr(), v.data_ptr(), d.data_ptr(), u.data_ptr(),
-            n_rows, n_cols, r, int(ring), stream)
+            n_rows, n_cols, r, int(ring), int(a.dtype == torch.bfloat16), stream)
     return u
 
 

@@ -58,9 +58,12 @@ def affinity_and_degree_ref(
     scale_r: torch.Tensor | None = None,
     scale_c: torch.Tensor | None = None,
     thr: torch.Tensor | None = None,
+    out_dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(A (R, C), D (R,)): the masked affinity stripe of ``xn`` against
-    ``xc`` (``None``: itself) at global offsets, and its row sums."""
+    """(A (R, C) in ``out_dtype``, D (R,) f32): the masked affinity stripe
+    of ``xn`` against ``xc`` (``None``: itself) at global offsets, and its
+    row sums, taken in f32 before A is rounded to ``out_dtype`` (the
+    reference's order)."""
     x = xn.float()
     c = x if xc is None else xc.float()
     a = _affinity_scores_ref(x, c, kind=kind, sigma=sigma, scale_r=scale_r, scale_c=scale_c)
@@ -68,7 +71,7 @@ def affinity_and_degree_ref(
     if thr is not None:
         valid = valid & (a >= thr.float()[:, None])
     a = torch.where(valid, a, 0.0)
-    return a, torch.sum(a, dim=1)
+    return a.to(out_dtype), torch.sum(a, dim=1)
 
 
 def row_topk_ref(
@@ -120,7 +123,8 @@ def degree_normalized_matvec_ref(a: torch.Tensor, v: torch.Tensor,
 
 def degree_normalized_matmat_ref(a: torch.Tensor, v: torch.Tensor,
                                  d: torch.Tensor) -> torch.Tensor:
-    """U = (A V) / d[:, None] for V of shape (C, r)."""
+    """U = (A V) / d[:, None] for V of shape (C, r); a bf16 A is upcast
+    to f32 first, as the reference's oracle does."""
     u = a.float() @ v.float()
     return _floored_degree_divide(u, d[:, None])
 

@@ -285,10 +285,10 @@ def _ref_override(override):
 @pytest.mark.parametrize("override,names", [
     (dict(affinity=dict(kind="rbf", bandwidth="adaptive", scale_k=65)), "K > 64"),
     (dict(affinity=dict(kind="rbf", sigma=0.3, knn_k=65), block_sparse=False), "K > 64"),
-    (dict(a_dtype=jnp.bfloat16), "item 13"), (dict(tile=128), "item 1"),
+    (dict(tile=128), "item 1"),
     (dict(n_vectors=33), "kernel 2 follow-up"),
 ], ids=["scale_k_past_kernel_limit",
-        "knn_k_past_kernel_limit", "bf16", "tile", "n_vectors_past_kernel_limit"])
+        "knn_k_past_kernel_limit", "tile", "n_vectors_past_kernel_limit"])
 def test_unported_settings_raise_not_implemented(override, names):
     """Each names its ROADMAP entry: among them neighbor ranks past the row
     top-k kernel's 64 on a route that runs it."""
@@ -305,15 +305,17 @@ def test_unported_settings_raise_not_implemented(override, names):
 @pytest.mark.parametrize("override", [
     dict(engine="streaming"), dict(embedding="orthogonal", n_vectors=2),
     dict(embedding="ensemble"), dict(engine="matrix_free", affinity_kind="cosine"),
-], ids=["streaming", "orthogonal", "ensemble", "matrix_free"])
+    dict(a_dtype=jnp.bfloat16),
+], ids=["streaming", "orthogonal", "ensemble", "matrix_free", "bf16"])
 def test_settings_this_port_routes_run(override):
     """Settings an earlier slice refused: the port accepts the reference's
     config and runs it on the CPU. The matrix-free engine takes a cosine
-    kind, on the direction clusters."""
+    kind, on the direction clusters; bf16 A storage (queue 1 item 13) runs
+    on the explicit engine."""
     override = {"affinity_kind": "rbf", "sigma": 0.3, **override}
     ref_cfg = jcore.GPICConfig(**override)
     cfg = config_from_reference(_plain_fields(ref_cfg))
-    assert cfg == GPICConfig(**override)
+    assert cfg == GPICConfig(**_port_override(override))
     if cfg.engine == "matrix_free":
         x, y, k = direction_clusters(120, 0)
     else:
@@ -444,8 +446,12 @@ def test_config_from_reference_defaults_and_rejections():
     assert config_from_reference(fields) == GPICConfig()
     with pytest.raises(NotImplementedError, match="mesh"):
         config_from_reference(dict(fields, mesh="a mesh"))
-    with pytest.raises(NotImplementedError, match="checkpoint_every"):
-        config_from_reference(dict(fields, checkpoint_every=5, ckpt_dir="/tmp/x"))
+    with pytest.raises(NotImplementedError, match="inject_ring_fault"):
+        config_from_reference(dict(fields, inject_ring_fault=("ring_nan", 0)))
+    # the resumable supervisor's fields are routed (queue 1 item 9)
+    routed = dict(checkpoint_every=5, ckpt_dir="ck", max_retries=1, backoff=0.5,
+                  straggler_timeout=30.0)
+    assert config_from_reference(dict(fields, **routed)) == GPICConfig(**routed)
     with pytest.raises(ValueError, match="unknown GPICConfig field"):
         config_from_reference(dict(fields, not_a_field=1))
     with pytest.raises(ValueError, match="unknown engine"):
