@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the affinity build (#1), the k-means assignment (#3), the Gram
-(#4), the row top-k (#7), the streamed degrees (#6, #11) and the liveness
-pass (#8) from two checkouts on one CUDA card, in turns, to read each
-kernel's before and after on the same card.
+(#4), the row top-k (#7), the streamed degrees (#6, #11), the liveness
+pass (#8) and the stored block-sparse sweep (#9) from two checkouts on one
+CUDA card, in turns, to read each kernel's before and after on the same
+card.
 
     python3 ab_kernels.py BASE_DIR
 
@@ -29,7 +30,12 @@ with E1's and E2's kNN operands), the liveness pass and the block-sparse
 degree on its plan (E1's and E2's), and the affinity build (dense rbf, the
 main path's and E1's fused build's call; E1's and E2's thresholded
 two-pass calls; E2's scales alone, its fused build's call), each 8.1 GB A
-freed before the next is built, at n = 45,000, m = 2 by CUDA events.
+freed before the next is built, at n = 45,000, m = 2 by CUDA events; and
+the stored block-sparse sweep on E1's A and plan (n = 45,000, live
+fraction 0.2453) in f32 and bf16 at r = 1 and 2, on A and on a copy of it
+shifted one element off 16 bytes (a checkout's plain-load template), by
+CUDA events, each with a hash of U's bits, which must be the same in every
+turn of both checkouts.
 Correctness is ``chip_smoke.py``'s to check, apart from the bits hashes.
 Prints one line per turn and writes all of them to
 ``chiprun_out/ab_kernels.json``; exits non-zero if a turn fails or a hash
@@ -160,6 +166,30 @@ for tag, spec in (("E1", AffinitySpec(kind="rbf", sigma=cs.SIGMA, knn_k=cs.KNN_K
         report[f"affinity {tag} fused form"] = dict(ms=cs.cuda_ms(
             lambda: affinity_and_degree(x, **dict(pol, thr=None)), 5))
     torch.cuda.empty_cache()
+# the stored block-sparse sweep (#9) on E1's plan: f32 and bf16 A, r = 1
+# and 2, on A itself and on a copy shifted one element off 16 bytes (the
+# plain-load template where a checkout has one), with a hash of U's bits
+from repro_torch.core.affinity import dense_block_live
+from repro_torch.kernels.block_sparse import block_sparse_matmat
+_, thr = affinity_stats(x, AffinitySpec(kind="rbf", sigma=cs.SIGMA, knn_k=cs.KNN_K))
+a, d = affinity_and_degree(x, kind="rbf", sigma=cs.SIGMA, thr=thr)
+counts, col_idx, _ = block_plan(dense_block_live(a, 16, 256))
+gv = torch.Generator(device="cuda").manual_seed(9)
+v1 = (d / d.sum())[:, None].contiguous()
+v2 = torch.cat([v1, torch.rand((n, 1), generator=gv, device="cuda") / n], dim=1)
+for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+    aa = a.to(dtype)
+    shifted = torch.empty(n * n + 1, dtype=dtype, device="cuda")[1:].view(n, n)
+    shifted.copy_(aa)
+    for form, am in (("", aa), (" unaligned", shifted)):
+        for vv in (v1, v2):
+            u = block_sparse_matmat(am, vv, d, counts, col_idx)
+            report[f"bs_matmat E1 {tag} r={vv.shape[1]}{form}"] = dict(
+                ms=cs.cuda_ms(lambda: block_sparse_matmat(am, vv, d, counts, col_idx), 20),
+                bits=hashlib.sha256(u.cpu().numpy().tobytes()).hexdigest()[:16])
+    del aa, shifted
+    torch.cuda.empty_cache()
+del a
 print("AB_REPORT " + json.dumps(report))
 '''
 
@@ -186,10 +216,14 @@ def main() -> int:
     base = os.path.abspath(ap.parse_args().base)
     turns = [("base-1", base), ("this-1", ROOT), ("this-2", ROOT), ("base-2", base)]
     out = {tag: run_turn(tag, root) for tag, root in turns}
-    # a redesign keeps its bits: an entry that hashes them must agree in every turn
+    # a redesign keeps its bits: an entry that hashes them must agree in every
+    # turn, and #9's on A and on its shifted copy alike
     for name, rec in out["this-1"].items():
         if isinstance(rec, dict) and "bits" in rec:
             got = {tag: out[tag][name]["bits"] for tag in out}
+            if name.startswith("bs_matmat") and name.endswith(" unaligned"):
+                got.update({f"{tag} aligned": out[tag][name[:-len(" unaligned")]]["bits"]
+                            for tag in out})
             print(f"ab_kernels: {name} bits {got}", flush=True)
             if len(set(got.values())) != 1:
                 raise SystemExit(f"ab_kernels: {name} gives other bits in another turn: {got}")

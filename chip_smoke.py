@@ -48,7 +48,11 @@ Phases (any failure exits non-zero before the last line is printed):
                 the live map equal to dense_block_live of the thresholded A,
                 the sweeps and the degree bitwise their dense twins (#2, #5,
                 #6, #1's D), the fused one-pass build bitwise the two-pass
-                build; ragged and off-diagonal stripes at m = 16; a NaN in V.
+                build; ragged and off-diagonal stripes at m = 16; a NaN in V
+                reaching exactly the rows whose plan lists its tile. The
+                stored sweep (#9) bitwise #2 and its own plain-load
+                template (A shifted one element off 16 bytes) at r = 1, 2,
+                4, 8, 16 and 32, both templates timed.
                 The affinity build (#1), the streamed sweeps (#5, #10),
                 the streamed degrees (#6, #11) and the liveness pass (#8)
                 have a register template (m <= 2) beside the staged-slab
@@ -91,8 +95,11 @@ Phases (any failure exits non-zero before the last line is printed):
                 entries differ by rounding), its D bitwise the f32 call's
                 D, dense and with E1's thresholds; #2's and #9's U bitwise the same kernel on
                 a.float(), #2's ring bitwise its plain-load template, #9
-                bitwise #2 on the same bf16 A, each within its tolerance of
-                its plain version; the bf16 A's live tiles those of the f32
+                (its ring: bf16 rows on 16 bytes) bitwise #2 on the same
+                A and its plain-load template in f32 and bf16 at every r
+                bucket, at E1 and on the stripes (their plan, every third
+                row block emptied, every tile live), each within its
+                tolerance of its plain version; the bf16 A's live tiles those of the f32
                 A; no spill in a bf16 template of #2 or #9 at r <= 2; each
                 timed against its bf16 bound (A at 2 bytes an entry).
   3. end to end run_gpic on each path, with the launch counters reset just
@@ -184,9 +191,10 @@ Phases (any failure exits non-zero before the last line is printed):
   4. profile    one more n = 45,000 run of each engine under torch.profiler:
                 the device's busy share of the wall time and device time by
                 kernel and the k-means stage; and the graph runs E1
-                (explicit, block_sparse=False) and E1 and E2 block-sparse
-                on both engines, each cut into its stages (pass 1, build,
-                sweeps, k-means, probe, idle).
+                (explicit, block_sparse=False), E1 and E2 block-sparse
+                on both engines and E1 block-sparse explicit in bf16, each
+                cut into its stages (pass 1, build, sweeps, k-means, probe,
+                idle).
 
 The last lines are one JSON object with every kernel's numbers (rows 1, 2
 and 9 with their bf16 forms' too: ``bf16_ms``, ``bf16_bound_ms``,
@@ -1495,7 +1503,9 @@ def _bs_plain_stripes(x, v, d, counts, col_idx, pol, stripe=4096):
 def phase_block_sparse(report, build_log=""):
     """Kernels #8-#11 at the main path's shape with E1's and E2's operands:
     the liveness map equal to dense_block_live of kernel #1's thresholded A;
-    #9 bitwise #2 (r = 1, 2), #10 bitwise #5 (d given and None) and its
+    #9 bitwise #2 and its plain-load template (every r bucket, a NaN of V
+    reaching exactly its rows: ``check_bs_matmat_bits``), timed in both
+    templates; #10 bitwise #5 (d given and None) and its
     staged template, #11 bitwise #6, #1's D and its staged template; the
     fused build's A, D and thresholds bitwise the two-pass build's; each
     against its plain version; #8's register template's map its staged
@@ -1503,7 +1513,8 @@ def phase_block_sparse(report, build_log=""):
     ragged and off-diagonal stripes at m = 16 and at the register
     template's width (with E1's and E2's kNN thresholds too), and a NaN in
     V. ``build_log`` is nvcc's report of block_sparse.cu: no register
-    template of the main path may spill."""
+    template of the main path, and no template of #9 at r <= 2, may
+    spill."""
     from repro_torch.core.affinity import AffinitySpec, block_plan, dense_block_live
     from repro_torch.core.graph import affinity_stats, fused_affinity_build
     from repro_torch.core.power import batched_power_iteration
@@ -1523,6 +1534,10 @@ def phase_block_sparse(report, build_log=""):
     for tmpl, line in live_registers.items():
         print(f"[block_sparse] liveness_kernel {tmpl}: {line}")
     check_no_entry_spill("#8", live_registers)
+    bs_registers = sweep_template_registers(build_log, "bs_matmat", "f32")
+    for tmpl, line in bs_registers.items():
+        print(f"[block_sparse] bs_matmat_kernel f32 {tmpl}: {line}")
+    check_sweep_no_spill("#9 f32", bs_registers, templates=("plain",))
     deg_registers = entry_registers(build_log, "bs_streaming_degree")
     for tmpl, line in deg_registers.items():
         print(f"[block_sparse] bs_streaming_degree_kernel {tmpl}: {line}")
@@ -1575,6 +1590,8 @@ def phase_block_sparse(report, build_log=""):
                 check(torch.equal(u10, block_sparse_streaming_matmat(
                     x_st, v, dn, **plan, **pol)), f"{tag} r={r} d={dn is not None}: #10's "
                       "register template is not bitwise its staged template")
+        # #9 in each r bucket: #2's bits, in the template A takes and the plain-load one
+        tmpl9 = check_bs_matmat_bits(f"{tag} f32", a, d, counts, col_idx, g)
         d_b = block_sparse_streaming_degree(x, **plan, **pol)
         d_6 = affinity_degree_streaming(x, **pol)
         torch.cuda.synchronize()
@@ -1654,6 +1671,7 @@ def phase_block_sparse(report, build_log=""):
             torch.cuda.empty_cache()
             r = 2
             op_bytes = 4.0 * n                             # the thresholds
+            shifted = shifted_copy(a)                      # #9's plain-load template
             plan_bytes = 4.0 * (counts.numel() + float(counts.sum()))
             times = dict(
                 block_liveness=dict(
@@ -1669,6 +1687,11 @@ def phase_block_sparse(report, build_log=""):
                     library_ms=cuda_ms(lambda: torch.matmul(a, v2) / d.clamp_min(1e-30)[:, None],
                                        20),
                     r1_ms=cuda_ms(lambda: block_sparse_matmat(a, v1, d, counts, col_idx), 20),
+                    template=tmpl9,
+                    plain_load_ms=cuda_ms(lambda: block_sparse_matmat(
+                        shifted, v2, d, counts, col_idx), 20),
+                    plain_load_r1_ms=cuda_ms(lambda: block_sparse_matmat(
+                        shifted, v1, d, counts, col_idx), 20),
                     dense_ms=cuda_ms(lambda: degree_normalized_matmat(a, v2, d), 20),
                     bound=bound_ms(4.0 * (entries + 2 * n * r + n) + plan_bytes,
                                    2.0 * r * entries)),
@@ -1692,6 +1715,7 @@ def phase_block_sparse(report, build_log=""):
                                                                pol), 2),
                     library_ms=None,
                     dense_ms=cuda_ms(lambda: affinity_degree_streaming(x, **pol), 20)))
+            del shifted
             for name, t in times.items():
                 b, by = t.pop("bound")
                 t.update(bound_ms=b, bound_by=by)
@@ -1703,8 +1727,11 @@ def phase_block_sparse(report, build_log=""):
             v_nan = v2.clone()
             v_nan[7, 1] = float("nan")
             bad_d = int((~torch.isfinite(degree_normalized_matmat(a, v_nan, d))).any(1).sum())
-            bad_b = int((~torch.isfinite(block_sparse_matmat(a, v_nan, d, counts,
-                                                             col_idx))).any(1).sum())
+            rows_b = (~torch.isfinite(block_sparse_matmat(a, v_nan, d, counts, col_idx))).any(1)
+            bad_b = int(rows_b.sum())
+            check(torch.equal(rows_b, live[:, 0].bool().repeat_interleave(16)[:n]),
+                  "a NaN of V at column 7 does not reach exactly the rows whose plan row "
+                  "holds tile 0")
             eps = 1e-5 / n
             st_d = batched_power_iteration(lambda v: degree_normalized_matmat(a, v, d), v_nan,
                                            eps, 3, return_status=True)[3]
@@ -1731,7 +1758,8 @@ def phase_block_sparse(report, build_log=""):
               f"library_ms={t['library_ms']} bound_ms={t['bound_ms']:.4f} ({t['bound_by']})"
               + "".join(f" {key}={val:.4f}" for key, val in t.items()
                         if key in ("r1_ms", "dense_ms", "staged_ms", "staged_r1_ms",
-                                   "mufu_bound_ms")), flush=True)
+                                   "plain_load_ms", "plain_load_r1_ms", "mufu_bound_ms"))
+              + (f" template={t['template']}" if "template" in t else ""), flush=True)
 
     # ragged rows, wide features and the register template's width,
     # off-diagonal stripes (rows after the columns too), every operand
@@ -1815,6 +1843,7 @@ def phase_block_sparse(report, build_log=""):
     for name, err in worst.items():
         report[name]["max_abs_err"] = err
     report["block_sparse_streaming_matmat"]["registers"] = registers
+    report["block_sparse_matmat"]["registers"] = bs_registers
     report["block_liveness"]["registers"] = live_registers
     report["block_sparse_streaming_degree"]["registers"] = deg_registers
     report["block_sparse"] = out
@@ -1876,26 +1905,77 @@ BF16_COLS = (1037, 1032, 900, 737)
 PEAK_HALF = 0.55
 
 
-def bf16_registers(log: str, kernel: str) -> dict[str, str]:
-    """Registers and spills of the bf16 templates of #2 (``power_step``:
-    ``{"RT=<r bucket> <ring|plain>": ...}``) or #9 (``bs_matmat``:
-    ``{"RT=<r bucket>": ...}``) in nvcc's report."""
-    if kernel == "power_step":
-        return ptxas_registers(
-            log, r"power_step_kernelILi(\d+)ELb(\d)E13__nv_bfloat16",
-            lambda e: f"RT={e.group(1)} {'ring' if e.group(2) == '1' else 'plain'}")
-    return ptxas_registers(log, r"bs_matmat_kernelILi(\d+)E13__nv_bfloat16",
-                           lambda e: f"RT={e.group(1)}")
+def sweep_template_registers(log: str, kernel: str, dtype: str = "bf16") -> dict[str, str]:
+    """Registers and spills of the templates of #2 (``power_step``) or #9
+    (``bs_matmat``) on an A of ``dtype`` ("f32" or "bf16") in nvcc's report:
+    ``{"RT=<r bucket> <ring|plain>": ...}``."""
+    t = {"f32": "f", "bf16": "13__nv_bfloat16"}[dtype]
+    return ptxas_registers(
+        log, rf"{kernel}_kernelILi(\d+)ELb(\d)E{t}",
+        lambda e: f"RT={e.group(1)} {'ring' if e.group(2) == '1' else 'plain'}")
 
 
-def check_bf16_no_spill(tag: str, registers: dict[str, str]) -> None:
-    """Fail on a spill of a bf16 template at r <= 2 (the main path), and
-    where the report names none."""
+def check_sweep_no_spill(tag: str, registers: dict[str, str],
+                         templates=("ring", "plain")) -> None:
+    """Fail on a spill of a template at r <= 2 (the main path), and where
+    the report names not exactly ``templates`` at r = 1 and 2 (an f32 A
+    takes #9's plain-load template alone)."""
     main = {t: line for t, line in registers.items() if t.split()[0] in ("RT=1", "RT=2")}
-    check({t.split()[0] for t in main} == {"RT=1", "RT=2"},
-          f"nvcc's report names no bf16 template of {tag} at r = 1 and 2: {registers}")
+    check(set(main) == {f"RT={rt} {tmpl}" for rt in (1, 2) for tmpl in templates},
+          f"nvcc's report names not the {templates} templates of {tag} at r = 1 and 2: "
+          f"{registers}")
     spills = [f"{t}: {line}" for t, line in main.items() if not line.endswith(" 0 bytes spilled")]
-    check(not spills, f"{tag}'s bf16 template spills on the main path: {spills}")
+    check(not spills, f"{tag}'s template spills on the main path: {spills}")
+
+
+def shifted_copy(a):
+    """A copy of ``a`` whose rows start one element off 16 bytes: #2's and
+    #9's plain-load template."""
+    out = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)[1:].view(a.shape)
+    return out.copy_(a)
+
+
+#: the r buckets of #9's templates, each checked for its bits
+BS_R = (1, 2, 4, 8, 16, 32)
+
+
+def check_bs_matmat_bits(tag, a, d, counts, col_idx, g, rs=BS_R) -> str:
+    """#9 on A (f32 or bf16) bitwise #2 on the same A, #2 on ``a.float()``
+    and its own plain-load template (A shifted one element off 16 bytes) at
+    each r of ``rs``; and a NaN of V in a column reaches exactly the rows
+    whose plan row lists that column's tile, in both templates. Returns
+    the template A itself takes ("ring" or "plain")."""
+    from repro_torch.kernels.block_sparse import block_sparse_matmat, takes_ring
+    from repro_torch.kernels.power_step import degree_normalized_matmat
+    shifted = shifted_copy(a)
+    check(not takes_ring(shifted), f"{tag}: a shifted A takes #9's ring")
+    tmpl = "ring" if takes_ring(a) else "plain"
+    af = a.float()
+    n_rows, n_cols = a.shape
+    for r in rs:
+        v = torch.rand((n_cols, r), generator=g, device="cuda") / n_cols
+        u = block_sparse_matmat(a, v, d, counts, col_idx)
+        check(torch.equal(u, degree_normalized_matmat(a, v, d)),
+              f"{tag} r={r}: #9 ({tmpl}) is not bitwise #2 on the same A")
+        check(torch.equal(u, degree_normalized_matmat(af, v, d)),
+              f"{tag} r={r}: #9 ({tmpl}) is not bitwise #2 on a.float()")
+        check(torch.equal(u, block_sparse_matmat(shifted, v, d, counts, col_idx)),
+              f"{tag} r={r}: #9's {tmpl} and plain-load templates differ")
+    # a NaN of V at a column of the first listed tile of the middle row block
+    n_j = col_idx.shape[1]
+    listed = (torch.arange(n_j, device="cuda")[None, :] < counts[:, None].clamp(max=n_j))
+    rb = counts.shape[0] // 2
+    tile = int(col_idx[rb, 0]) if int(counts[rb]) > 0 else 0
+    j = min(tile * 256 + 7, n_cols - 1)
+    want = (listed & (col_idx == j // 256)).any(1).repeat_interleave(16)[:n_rows]
+    v = torch.rand((n_cols, 2), generator=g, device="cuda") / n_cols
+    v[j, 1] = float("nan")
+    for aa, form in ((a, tmpl), (shifted, "plain")):
+        bad = ~torch.isfinite(block_sparse_matmat(aa, v, d, counts, col_idx)).all(1)
+        check(torch.equal(bad, want), f"{tag}: a NaN of V at column {j} reaches "
+              f"{int(bad.sum())} rows in #9's {form} template, not the {int(want.sum())} "
+              "rows whose plan lists its tile")
+    return tmpl
 
 
 def bf16_ulps(a, b) -> int:
@@ -1925,11 +2005,14 @@ def phase_bf16_kernels(kernels, logs):
     m = 16, where the f32 entries differ by f32 rounding); #2's and #9's U
     on a bf16 A bitwise the
     same kernel on ``a.float()``, #2's ring bitwise its plain-load template
-    (A shifted 2 bytes off 16), #9 bitwise #2 on the same bf16 A, each
-    within its tolerance of its plain version; the bf16 A's live tiles
-    (``dense_block_live``) those of the f32 A. Each timed beside its plain
-    version and its bf16 bound (A's bytes at 2 a entry). ``logs`` holds
-    nvcc's reports: no bf16 template of #2 or #9 may spill at r <= 2."""
+    (A shifted 2 bytes off 16), #9 bitwise #2 on the same A and its own
+    plain-load template in f32 and bf16 in every r bucket (at E1, and on
+    the stripes with their plan, every third row block emptied and every
+    tile live; ``check_bs_matmat_bits``), each within its tolerance of its
+    plain version; the bf16 A's live tiles (``dense_block_live``) those of
+    the f32 A. Each timed beside its plain version and its bf16 bound (A's
+    bytes at 2 a entry), #9 in both templates. ``logs`` holds nvcc's
+    reports: no bf16 template of #2 or #9 may spill at r <= 2."""
     from repro_torch.core.affinity import AffinitySpec, block_plan, dense_block_live
     from repro_torch.core.graph import affinity_stats
     from repro_torch.kernels import ref
@@ -1939,10 +2022,10 @@ def phase_bf16_kernels(kernels, logs):
     bf = torch.bfloat16
     for tag, log, kernel in (("#2", logs["power_step"], "power_step"),
                              ("#9", logs["block_sparse"], "bs_matmat")):
-        registers = bf16_registers(log, kernel)
+        registers = sweep_template_registers(log, kernel)
         for tmpl, line in registers.items():
             print(f"[bf16] {tag} {tmpl}: {line}")
-        check_bf16_no_spill(tag, registers)
+        check_sweep_no_spill(tag + " bf16", registers)
     feats, _, _ = _features(N_MAIN)
     x = feats["rbf"]
     n, m = x.shape
@@ -2022,27 +2105,32 @@ def phase_bf16_kernels(kernels, logs):
     v1 = (d / d.sum())[:, None].contiguous()
     v2 = torch.cat([v1, torch.rand((n, 1), generator=g, device="cuda") / n], dim=1)
     for v in (v1, v2):
-        u = block_sparse_matmat(a, v, d, counts, col_idx)
-        check(torch.equal(u, block_sparse_matmat(af, v, d, counts, col_idx)),
+        check(torch.equal(block_sparse_matmat(a, v, d, counts, col_idx),
+                          block_sparse_matmat(af, v, d, counts, col_idx)),
               f"#9 bf16 r={v.shape[1]}: U is not #9's U on the f32 upcast")
-        check(torch.equal(u, degree_normalized_matmat(a, v, d)),
-              f"#9 bf16 r={v.shape[1]}: U is not #2's on the same bf16 A")
     del af
+    tmpl9 = check_bs_matmat_bits("#9 bf16 E1", a, d, counts, col_idx, g)
     err9, exc9 = _u_errors(block_sparse_matmat(a, v2, d, counts, col_idx),
                            ref.block_sparse_matmat_ref(a, v2, d, counts, col_idx, tm=16, tn=256))
     check(exc9 <= 0.0, "#9 bf16 disagrees with its plain version")
     ms = cuda_ms(lambda: block_sparse_matmat(a, v2, d, counts, col_idx), 20)
     ms1 = cuda_ms(lambda: block_sparse_matmat(a, v1, d, counts, col_idx), 20)
+    shifted = shifted_copy(a)
+    plain_load = cuda_ms(lambda: block_sparse_matmat(shifted, v2, d, counts, col_idx), 20)
+    plain_load1 = cuda_ms(lambda: block_sparse_matmat(shifted, v1, d, counts, col_idx), 20)
+    del shifted
     plain = cuda_ms(lambda: ref.block_sparse_matmat_ref(a, v2, d, counts, col_idx, tm=16,
                                                         tn=256), 3)
     plan_bytes = 4.0 * (counts.numel() + float(counts.sum()))
     b, by = bound_ms(2.0 * entries + 4.0 * (2 * n * 2 + n) + plan_bytes, 2.0 * 2 * entries)
-    rec9 = dict(ms=ms, r1_ms=ms1, plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=err9,
-                live_fraction=float(live.float().mean()))
+    rec9 = dict(ms=ms, r1_ms=ms1, template=tmpl9, plain_load_ms=plain_load,
+                plain_load_r1_ms=plain_load1, plain_ms=plain, bound_ms=b, bound_by=by,
+                max_abs_err=err9, live_fraction=float(live.float().mean()))
     print(f"[bf16] #9 E1 n={n}: live tiles equal to the f32 A's ({rec9['live_fraction']:.4f}); "
-          f"U bitwise #9 on a.float() and #2 on the bf16 A (r = 1, 2); max|U-U_ref|={err9:.3e}; "
-          f"kernel_ms={ms:.4f} (r=1 {ms1:.4f}) plain_ms={plain:.4f} bound_ms={b:.4f} ({by})",
-          flush=True)
+          f"U bitwise #9 on a.float(), #2 on the bf16 A and on a.float() and #9's plain-load "
+          f"template (r = {', '.join(map(str, BS_R))}); max|U-U_ref|={err9:.3e}; "
+          f"kernel_ms={ms:.4f} ({tmpl9}; r=1 {ms1:.4f}) plain_load_ms={plain_load:.4f} "
+          f"(r=1 {plain_load1:.4f}) plain_ms={plain:.4f} bound_ms={b:.4f} ({by})", flush=True)
     del a, d
     torch.cuda.empty_cache()
 
@@ -2067,22 +2155,41 @@ def phase_bf16_kernels(kernels, logs):
                 ulps = bf16_ulps(ab, a_ref)
                 check(ulps <= 1, f"#1 bf16 ragged {shape} is {ulps} bf16 ulps from its plain "
                       "version")
-                live = dense_block_live(ab, 16, 256)
-                cnt, idx, _ = block_plan(live)
                 for r in (4, 32):
                     v = torch.rand((cols, r), generator=g, device="cuda")
                     u = degree_normalized_matmat(ab, v, d)
                     check(torch.equal(u, degree_normalized_matmat(ab.float(), v, d)),
                           f"#2 bf16 ragged {shape} r={r}: not #2 on the f32 upcast")
-                    check(torch.equal(block_sparse_matmat(ab, v, d, cnt, idx), u),
-                          f"#9 bf16 ragged {shape} r={r}: not #2 on the same A")
                     err_u, exc = _u_errors(u, ref.degree_normalized_matmat_ref(ab, v, d))
                     check(exc <= 0.0, f"#2 bf16 ragged {shape} r={r} disagrees with plain")
                     worst["#2"] = worst["#9"] = max(worst["#2"], err_u)
+                # #9 in f32 and bf16 on the stripe's plan, on a plan with every
+                # third row block emptied (their rows of A zeroed for #2) and
+                # on one with every tile live
+                tmpls = set()
+                for aa, dt in ((a, "f32"), (ab, "bf16")):
+                    cnt, idx, _ = block_plan(dense_block_live(aa, 16, 256))
+                    emptied = cnt.clone()
+                    emptied[::3] = 0
+                    a_e = aa.clone()
+                    for rb in range(0, cnt.shape[0], 3):
+                        a_e[16 * rb:16 * rb + 16] = 0
+                    n_j = idx.shape[1]
+                    every = (torch.full_like(cnt, n_j),
+                             torch.arange(n_j, dtype=idx.dtype, device="cuda").expand_as(idx)
+                             .contiguous())
+                    for form, (aa_p, cnt_p, idx_p) in (("plan", (aa, cnt, idx)),
+                                                       ("emptied", (a_e, emptied, idx)),
+                                                       ("every tile", (aa, *every))):
+                        tmpls.add(check_bs_matmat_bits(f"#9 {dt} ragged {shape} {form}", aa_p,
+                                                       d, cnt_p, idx_p, g))
                 worst["#1"] = max(worst["#1"], err1)
                 print(f"[bf16] ragged a{shape} offsets=({ro},0): #1 bitwise the f32 call "
                       f"rounded, {ulps} bf16 ulp(s) from the plain version "
-                      f"(max|A-A_ref|={err1:.3e}); #2 and #9 bitwise (r = 4, 32)")
+                      f"(max|A-A_ref|={err1:.3e}); #2 bitwise (r = 4, 32); #9 bitwise #2 and "
+                      f"its plain-load template, f32 and bf16, r = {', '.join(map(str, BS_R))}, "
+                      f"its plan, every third row block emptied and every tile live "
+                      f"({'/'.join(sorted(tmpls))}), a NaN of V reaching exactly its rows")
     for rec, key in ((rec1["dense"], "#1"), (rec2, "#2"), (rec9, "#9")):
         rec["max_abs_err"] = max(rec["max_abs_err"], worst[key])
     kernels["affinity_and_degree"]["bf16"] = rec1
@@ -3423,6 +3530,9 @@ def main() -> int:
             phase_profile(report, out_dir, engine, tag=f"{tag}_block_sparse",
                           cfg=_graph_cfg(spec, engine=engine, embedding="orthogonal",
                                          n_vectors=2, block_sparse=True))
+    phase_profile(report, out_dir, "explicit", tag="E1_bf16_block_sparse",
+                  cfg=_graph_cfg(E1_SPEC, engine="explicit", embedding="orthogonal",
+                                 n_vectors=2, block_sparse=True, a_dtype=torch.bfloat16))
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": counts[name],

@@ -30,7 +30,7 @@ from .streaming import _check_features, _check_kind
 PLAN_TM = 16
 TN = 256
 
-_MATMAT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_MATMAT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _STREAMING_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
 _DEGREE_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
@@ -52,6 +52,16 @@ def _check_plan(counts, col_idx, n_rows, n_cols, device):
         raise ValueError(f"the plan of a ({n_rows}, {n_cols}) stripe is counts ({n_i},) and "
                          f"col_idx ({n_i}, {n_j}) on the (16, 256) grid, got "
                          f"{tuple(counts.shape)} and {tuple(col_idx.shape)}")
+
+
+def takes_ring(a: torch.Tensor) -> bool:
+    """Whether the stored sweep streams A's live tiles through its
+    ``cp.async`` ring: a bf16 A whose rows all start on 16 bytes (A's
+    address and a row's bytes multiples of 16). An f32 A, on which the
+    ring measured slower than the plain loads on an H100, and rows off 16
+    bytes take the plain-load template, which gives the same bits."""
+    return (a.dtype == torch.bfloat16 and a.data_ptr() % 16 == 0
+            and (a.shape[1] * a.element_size()) % 16 == 0)
 
 
 def block_sparse_matmat(a: torch.Tensor, v: torch.Tensor, d: torch.Tensor,
@@ -82,8 +92,8 @@ def block_sparse_matmat(a: torch.Tensor, v: torch.Tensor, d: torch.Tensor,
         _build.launch(
             "block_sparse_matmat", "block_sparse", "gpic_block_sparse_matmat",
             _MATMAT_ARGTYPES, a.data_ptr(), v.data_ptr(), d.data_ptr(), counts.data_ptr(),
-            col_idx.data_ptr(), u.data_ptr(), n_rows, n_cols, r, int(a.dtype == torch.bfloat16),
-            stream)
+            col_idx.data_ptr(), u.data_ptr(), n_rows, n_cols, r, int(takes_ring(a)),
+            int(a.dtype == torch.bfloat16), stream)
     return u
 
 

@@ -16,9 +16,10 @@
 // columns (affinity_tile.cuh), on the device as int32:
 //   counts  (nI,)     live tiles of row block i
 //   col_idx (nI, nJ)  their ids in ascending order first (then the dead ids)
-// Every kernel's row block divides PLAN_TM (one row for the stored sweep,
-// tm_for(RT) in {16, 8, 4, 2} rows for the streamed one, 16 for the degree
-// and the liveness pass), reads plan row row0 / PLAN_TM and loops its
+// Every kernel's row block divides PLAN_TM (bs_rows(RT) in {16, 8, 4, 2, 1}
+// rows for the stored sweep's ring, 2 or 1 for its plain-load template,
+// tm_for(RT) in {16, 8, 4, 2} for the streamed one, 16 for the degree and
+// the liveness pass), reads plan row row0 / PLAN_TM and loops its
 // counts itself: a sweep needs neither max_b nor a host sync. An id at or
 // past nJ, or a count past nJ, is ignored (a plan from outside cannot read
 // out of bounds).
@@ -34,7 +35,9 @@
 //
 // Bound on an H100: the stored sweep, the live tiles' bytes of A (at
 // n = 45,000 a quarter of the 8.1 GB on cluster-sorted blobs, about 0.6 ms
-// at 3.35 TB/s; half that in bf16); the streamed sweep and degree, the live tiles' operations
+// at 3.35 TB/s; half that in bf16, where V's column of each live tile, read
+// once a row, would be four times A's bytes, so a block shares it between
+// rows); the streamed sweep and degree, the live tiles' operations
 // (streaming.cu's count scaled by the live fraction, and its MUFU and
 // issue floors likewise; the degree's register template with row
 // thresholds makes only the live entries near a threshold with their
@@ -44,13 +47,29 @@
 // find the live ones.
 //
 // Design:
-//  * The stored sweep is power_step.cu's block (one row, 256 threads, four
-//    loads in flight, the streaming cache hint), its reduction the fixed
-//    warp tree and warp order of tile::block_reduce_fixed, the same bits as
-//    power_step.cu's, and its epilogue the same floored __fdiv_rn. A bf16 A
-//    (O4) takes the same kernel on its element type, each entry widened to
-//    f32 as it is loaded: U is bit for bit this kernel's on the f32 upcast,
-//    and power_step.cu's on the same bf16 A.
+//  * The stored sweep takes ROWS rows of one plan row block a block (ROWS
+//    x RT partials a thread), which share the plan row's ids: thread t
+//    loads V's row id * 256 + t once a live tile and applies it to the
+//    column's entry in each of the ROWS rows, so V's traffic falls by ROWS.
+//    A bf16 A whose rows start on 16 bytes streams the live tiles of
+//    bs_rows(RT) rows (16 at r <= 2) through a ring of STAGES shared-memory
+//    stages, each one tile's 256 columns of the block's rows, filled by
+//    16-byte cp.async with STAGES - 1 tiles in flight (16 KB a block) and
+//    one barrier a tile, walking the plan two ids ahead, as the streamed
+//    kernels do, with V's row of the next tile in flight while this one
+//    folds. An f32 A, and rows off 16 bytes, take the plain-load template:
+//    plain_rows(RT) rows a block (2 at r <= 4) and plain_unroll(RT) live
+//    tiles at a time, their entries and V's rows all in flight before the
+//    first folds. On an H100 at E1 the ring runs bf16 at 0.6 of the
+//    plain-load template's time and f32 a little slower than it, so f32
+//    takes the plain-load template.
+//    Thread t adds columns id * 256 + t in ascending tile order with
+//    fmaf, each row is reduced by the fixed warp tree and warp order of
+//    tile::block_reduce_fixed, and the epilogue is the same floored
+//    __fdiv_rn: U is power_step.cu's bits, whatever the template and ROWS.
+//    A bf16 A (O4) takes the same kernel on its element type, each entry
+//    widened to f32 as it is read: U is bit for bit this kernel's on the
+//    f32 upcast, and power_step.cu's on the same bf16 A.
 //  * The streamed sweep and degree are streaming.cu's kernels with the
 //    first visited tile staging the row slab (tile_scores' first flag).
 //    Each has streaming.cu's two templates: the staged one (any m) and the
@@ -79,7 +98,6 @@ namespace {
 using tile::TN;
 using tile::tm_for;
 constexpr int PLAN_TM = 16;  // rows of a plan row block
-constexpr int UNROLL = 4;    // live tiles in flight per thread (stored sweep)
 
 // The live tiles of the plan row holding row0: (ids, count).
 __device__ __forceinline__ int plan_row(const int* __restrict__ counts,
@@ -90,48 +108,159 @@ __device__ __forceinline__ int plan_row(const int* __restrict__ counts,
     return min(counts[rb], n_j);
 }
 
-template <int RT, typename T>
+// The stored sweep's ring: rows a block for r <= RT (ROWS x RT partials a
+// thread, at most 32), and stages: STAGES - 1 stages of ROWS x 256 entries
+// in flight make 16 KB a block (3 stages of 8 KB in bf16 at 16 rows), at
+// least 3, at most 8.
+__host__ __device__ constexpr int bs_rows(int rt) { return rt <= 2 ? PLAN_TM : 32 / rt; }
+template <typename T>
+__host__ __device__ constexpr int bs_stages(int rows) {
+    const int stage = rows * TN * static_cast<int>(sizeof(T));
+    const int s = 1 + (16384 + stage - 1) / stage;
+    return s < 3 ? 3 : s < 8 ? s : 8;
+}
+// The plain-load template's rows a block and live tiles loaded at a time
+// (its partials and its tiles' entries and V rows stay in registers)
+__host__ __device__ constexpr int plain_rows(int rt) { return rt <= 4 ? 2 : 1; }
+__host__ __device__ constexpr int plain_unroll(int rt) { return rt <= 8 ? 4 : 2; }
+
+// The first column of live tile id for this thread, or n_cols (no column,
+// nothing loaded) for an id outside [0, nJ): every sweep's walk of the plan.
+__device__ __forceinline__ int tile_col(int id, int n_j, int n_cols) {
+    return static_cast<unsigned>(id) < static_cast<unsigned>(n_j)
+        ? id * TN + static_cast<int>(threadIdx.x) : n_cols;
+}
+
+// V's row col (zeros past the r columns, or for no column)
+template <int RT>
+__device__ __forceinline__ void load_v_row(const float* __restrict__ v, int col, int n_cols,
+                                           int r, float (&vv)[RT]) {
+#pragma unroll
+    for (int c = 0; c < RT; ++c)
+        vv[c] = col < n_cols && c < r ? v[static_cast<size_t>(col) * r + c] : 0.f;
+}
+
+// acc[i * RT + c] += a_i V[col, c] for the block's ROWS entries a_i of a column
+template <int RT, int ROWS>
+__device__ __forceinline__ void fold_column(float (&acc)[ROWS * RT], const float (&aj)[ROWS],
+                                            const float (&vv)[RT], int r) {
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+        for (int c = 0; c < RT; ++c)
+            if (c < r) acc[i * RT + c] = fmaf(aj[i], vv[c], acc[i * RT + c]);
+}
+
+// U rows [row0, row0 + ROWS) over the plan's live tiles: RING streams the
+// tiles through the shared-memory ring (rows on 16 bytes), else the
+// plain-load template. The same bits either way, and whatever ROWS (see
+// the header).
+template <int RT, bool RING, typename T, int ROWS = RING ? bs_rows(RT) : plain_rows(RT),
+          int STAGES = bs_stages<T>(ROWS)>
 __global__ void __launch_bounds__(TN) bs_matmat_kernel(
     const T* __restrict__ a, const float* __restrict__ v,
     const float* __restrict__ d, const int* __restrict__ counts,
     const int* __restrict__ col_idx, float* __restrict__ u,
-    int n_cols, int n_j, int r) {
-    __shared__ float s_red[tile::NWARPS * RT];
-    const int row = blockIdx.x;
+    int n_rows, int n_cols, int n_j, int r) {
+    static_assert(PLAN_TM % ROWS == 0, "a block's rows lie in one plan row block");
+    static_assert(!RING || STAGES >= 2, "the ring keeps a tile in flight");
+    extern __shared__ float4 ring4[];
+    __shared__ float s_red[tile::NWARPS * ROWS * RT];
+    const int row0 = blockIdx.x * ROWS;
+    const int nr = min(ROWS, n_rows - row0);
     const int tid = threadIdx.x;
-    const T* arow = a + static_cast<size_t>(row) * n_cols;
     const int* ids;
-    const int nb = plan_row(counts, col_idx, row, n_j, &ids);
+    const int nb = plan_row(counts, col_idx, row0, n_j, &ids);
 
-    float acc[RT];
+    float acc[ROWS * RT];
 #pragma unroll
-    for (int c = 0; c < RT; ++c) acc[c] = 0.f;
+    for (int e = 0; e < ROWS * RT; ++e) acc[e] = 0.f;
 
-    // thread t adds columns id * 256 + t of the live tiles in ascending
-    // order: power_step.cu's order with the dead tiles left out
-    for (int b = 0; b < nb; b += UNROLL) {
-        int jj[UNROLL];
-        float av[UNROLL];
+    if constexpr (RING) {
+        // the plan walked two ids ahead: V's row of tile b + 1 loads while
+        // tile b folds
+        int id_next = nb > 1 ? ids[1] : n_j;
+        float vc[RT], vn[RT];
+        load_v_row<RT>(v, tile_col(nb > 0 ? ids[0] : n_j, n_j, n_cols), n_cols, r, vc);
+        // stage b % STAGES holds live tile b's 256 columns of the block's
+        // rows as 16-byte pieces, row i at entry i * 256; a piece past the
+        // row's end or of a row past the last is zero-filled and never read
+        constexpr int PIECE = 16 / static_cast<int>(sizeof(T));  // entries a cp.async moves
+        constexpr int PER_ROW = TN / PIECE;
+        constexpr int PIECES = ROWS * PER_ROW;
+        T* ring = reinterpret_cast<T*>(ring4);
+        const auto fill = [&](int b, int id) {
+            if (b < nb && static_cast<unsigned>(id) < static_cast<unsigned>(n_j)) {
+                T* slot = ring + (b % STAGES) * (ROWS * TN);
 #pragma unroll
-        for (int q = 0; q < UNROLL; ++q) {
-            const int id = b + q < nb ? ids[b + q] : n_j;
-            jj[q] = id < n_j ? id * TN + tid : n_cols;
-            av[q] = jj[q] < n_cols ? ldcs_f32(arow + jj[q]) : 0.f;
-        }
-#pragma unroll
-        for (int q = 0; q < UNROLL; ++q) {
-            if (jj[q] < n_cols) {
-                const float* vrow = v + static_cast<size_t>(jj[q]) * r;
-#pragma unroll
-                for (int c = 0; c < RT; ++c)
-                    if (c < r) acc[c] = fmaf(av[q], vrow[c], acc[c]);
+                for (int p0 = 0; p0 < PIECES; p0 += TN) {
+                    const int p = p0 + tid;
+                    if (PIECES % TN == 0 || p < PIECES) {
+                        const int i = p / PER_ROW;
+                        const int j = id * TN + (p - i * PER_ROW) * PIECE;
+                        const bool ok = i < nr && j < n_cols;
+                        cp_async16(slot + i * TN + (p - i * PER_ROW) * PIECE,
+                                   a + static_cast<size_t>(row0 + (ok ? i : 0)) * n_cols
+                                       + (ok ? j : 0),
+                                   ok ? 16 : 0);
+                    }
+                }
             }
+            cp_async_commit();  // an empty group past the plan keeps the count
+        };
+#pragma unroll
+        for (int b = 0; b < STAGES - 1; ++b) fill(b, b < nb ? ids[b] : n_j);
+        int id_fill = STAGES - 1 < nb ? ids[STAGES - 1] : n_j;
+        int id = nb > 0 ? ids[0] : n_j;
+        for (int b = 0; b < nb; ++b) {
+            cp_async_wait<STAGES - 2>();  // tile b has landed for this thread ...
+            __syncthreads();              // ... and for all, who are done with tile b - 1
+            fill(b + STAGES - 1, id_fill);
+            id_fill = b + STAGES < nb ? ids[b + STAGES] : n_j;
+            const int id_after = b + 2 < nb ? ids[b + 2] : n_j;
+            load_v_row<RT>(v, tile_col(id_next, n_j, n_cols), n_cols, r, vn);
+            if (tile_col(id, n_j, n_cols) < n_cols) {
+                const T* slot = ring + (b % STAGES) * (ROWS * TN) + tid;
+                float aj[ROWS];
+#pragma unroll
+                for (int i = 0; i < ROWS; ++i) aj[i] = to_f32(slot[i * TN]);
+                fold_column<RT, ROWS>(acc, aj, vc, r);
+            }
+#pragma unroll
+            for (int c = 0; c < RT; ++c) vc[c] = vn[c];
+            id = id_next;
+            id_next = id_after;
+        }
+    } else {
+        // PLAIN_UNROLL live tiles at a time: their ids, then the ROWS
+        // entries of column id * 256 + t of each (with the streaming cache
+        // hint) and V's rows, all in flight before the first folds
+        constexpr int PLAIN_UNROLL = plain_unroll(RT);
+        const T* base = a + static_cast<size_t>(row0) * n_cols;
+        for (int b = 0; b < nb; b += PLAIN_UNROLL) {
+            int col[PLAIN_UNROLL];
+            float aj[PLAIN_UNROLL][ROWS], vv[PLAIN_UNROLL][RT];
+#pragma unroll
+            for (int q = 0; q < PLAIN_UNROLL; ++q)
+                col[q] = tile_col(b + q < nb ? ids[b + q] : n_j, n_j, n_cols);
+#pragma unroll
+            for (int q = 0; q < PLAIN_UNROLL; ++q) {
+#pragma unroll
+                for (int i = 0; i < ROWS; ++i)
+                    aj[q][i] = col[q] < n_cols && i < nr
+                        ? ldcs_f32(base + static_cast<size_t>(i) * n_cols + col[q]) : 0.f;
+                load_v_row<RT>(v, col[q], n_cols, r, vv[q]);
+            }
+#pragma unroll
+            for (int q = 0; q < PLAIN_UNROLL; ++q)
+                if (col[q] < n_cols) fold_column<RT, ROWS>(acc, aj[q], vv[q], r);
         }
     }
 
-    const float s = tile::block_reduce_fixed<RT>(acc, s_red);
-    if (tid < r)
-        u[static_cast<size_t>(row) * r + tid] = __fdiv_rn(s, nan_max(d[row], 1e-30f));
+    const float s = tile::block_reduce_fixed<ROWS * RT>(acc, s_red);
+    const int i = tid / RT, c = tid - i * RT;
+    if (tid < ROWS * RT && c < r && i < nr)
+        u[static_cast<size_t>(row0 + i) * r + c] = __fdiv_rn(s, nan_max(d[row0 + i], 1e-30f));
 }
 
 template <int RT, bool POLICY>
@@ -216,21 +345,16 @@ __global__ void __launch_bounds__(TN, tile::reg_blocks_per_sm(RT)) bs_streaming_
 #pragma unroll
     for (int e = 0; e < TM * RT; ++e) acc[e] = 0.f;
 
-    // the first column of live tile id for this thread (n_cols, which
-    // loads nothing, for an id outside [0, nJ))
-    const auto first_col = [&](int id) {
-        return static_cast<unsigned>(id) < static_cast<unsigned>(n_j)
-            ? id * TN + static_cast<int>(threadIdx.x) : n_cols;
-    };
     tile::with_form<POLICY>(kind, pol, [&](auto form) {
         using Form = decltype(form);
         int id = nb > 0 ? ids[0] : n_j;
         int id_next = nb > 1 ? ids[1] : n_j;
         tile::Col<RT> cur, nxt;
-        tile::load_col<RT, POLICY>(xc, v, pol, first_col(id), n_cols, m, r, cur);
+        tile::load_col<RT, POLICY>(xc, v, pol, tile_col(id, n_j, n_cols), n_cols, m, r, cur);
         for (int b = 0; b < nb; ++b) {
             const int id_after = b + 2 < nb ? ids[b + 2] : n_j;
-            tile::load_col<RT, POLICY>(xc, v, pol, first_col(id_next), n_cols, m, r, nxt);
+            tile::load_col<RT, POLICY>(xc, v, pol, tile_col(id_next, n_j, n_cols), n_cols, m, r,
+                                       nxt);
             if (static_cast<unsigned>(id) < static_cast<unsigned>(n_j))
                 tile::fold_tile<TM, RT, Form, POLICY>(
                     cur, s_rf, s_rows, m, inv_two_sigma_sq, pol, row0, id * TN, n_rows, n_cols,
@@ -317,21 +441,16 @@ __global__ void __launch_bounds__(TN, tile::reg_blocks_per_sm(1)) bs_streaming_d
 #pragma unroll
     for (int r = 0; r < PLAN_TM; ++r) rowsum[r] = 0.f;
 
-    // the first column of live tile id for this thread (n_cols, which
-    // loads nothing, for an id outside [0, nJ))
-    const auto first_col = [&](int id) {
-        return static_cast<unsigned>(id) < static_cast<unsigned>(n_j)
-            ? id * TN + static_cast<int>(threadIdx.x) : n_cols;
-    };
     tile::with_form<POLICY>(kind, pol, [&](auto form) {
         using Form = decltype(form);
         int id = nb > 0 ? ids[0] : n_j;
         int id_next = nb > 1 ? ids[1] : n_j;
         tile::Col<1> cur, nxt;  // r = 0: the features and scale alone
-        tile::load_col<1, POLICY>(xc, nullptr, pol, first_col(id), n_cols, m, 0, cur);
+        tile::load_col<1, POLICY>(xc, nullptr, pol, tile_col(id, n_j, n_cols), n_cols, m, 0, cur);
         for (int b = 0; b < nb; ++b) {
             const int id_after = b + 2 < nb ? ids[b + 2] : n_j;
-            tile::load_col<1, POLICY>(xc, nullptr, pol, first_col(id_next), n_cols, m, 0, nxt);
+            tile::load_col<1, POLICY>(xc, nullptr, pol, tile_col(id_next, n_j, n_cols), n_cols, m,
+                                      0, nxt);
             if (static_cast<unsigned>(id) < static_cast<unsigned>(n_j))
                 tile::tile_entries<PLAN_TM, Form, POLICY>(
                     cur, s_rf, s_rows, s_bound, m, inv_two_sigma_sq, pol, row0, id * TN, n_rows,
@@ -415,31 +534,39 @@ __global__ void __launch_bounds__(TN, 4) liveness_reg_kernel(
     });
 }
 
-template <int RT, typename T>
-void launch_bs_matmat(const T* a, const float* v, const float* d, const int* counts,
-                      const int* col_idx, float* u, int n_rows, int n_cols, int r,
-                      cudaStream_t stream) {
+template <int RT, bool RING, typename T>
+int launch_bs_matmat(const T* a, const float* v, const float* d, const int* counts,
+                     const int* col_idx, float* u, int n_rows, int n_cols, int r,
+                     cudaStream_t stream) {
+    constexpr int ROWS = RING ? bs_rows(RT) : plain_rows(RT);
+    constexpr int BYTES = RING ? bs_stages<T>(ROWS) * ROWS * TN * static_cast<int>(sizeof(T)) : 0;
     const int n_j = (n_cols + TN - 1) / TN;
-    bs_matmat_kernel<RT, T><<<n_rows, TN, 0, stream>>>(a, v, d, counts, col_idx, u, n_cols,
-                                                        n_j, r);
+    auto kernel = bs_matmat_kernel<RT, RING, T>;
+    if constexpr (RING) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<(n_rows + ROWS - 1) / ROWS, TN, BYTES, stream>>>(a, v, d, counts, col_idx, u,
+                                                             n_rows, n_cols, n_j, r);
+    return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <bool RING, typename T>
 int launch_bs_matmat_r(const T* a, const float* v, const float* d, const int* counts,
                        const int* col_idx, float* u, int n_rows, int n_cols, int r,
                        cudaStream_t stream) {
-#define GPIC_LAUNCH(RT) launch_bs_matmat<RT>(a, v, d, counts, col_idx, u, n_rows, n_cols, r, \
-                                             stream)
+#define GPIC_LAUNCH(RT) return launch_bs_matmat<RT, RING>(a, v, d, counts, col_idx, u, \
+                                                          n_rows, n_cols, r, stream)
     if (r < 1) return static_cast<int>(cudaErrorInvalidValue);
-    else if (r <= 1) GPIC_LAUNCH(1);
-    else if (r <= 2) GPIC_LAUNCH(2);
-    else if (r <= 4) GPIC_LAUNCH(4);
-    else if (r <= 8) GPIC_LAUNCH(8);
-    else if (r <= 16) GPIC_LAUNCH(16);
-    else if (r <= 32) GPIC_LAUNCH(32);
-    else return static_cast<int>(cudaErrorInvalidValue);
+    if (r <= 1) GPIC_LAUNCH(1);
+    if (r <= 2) GPIC_LAUNCH(2);
+    if (r <= 4) GPIC_LAUNCH(4);
+    if (r <= 8) GPIC_LAUNCH(8);
+    if (r <= 16) GPIC_LAUNCH(16);
+    if (r <= 32) GPIC_LAUNCH(32);
 #undef GPIC_LAUNCH
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int RT>
@@ -466,15 +593,22 @@ void launch_bs_streaming(const float* xr, const float* xc, const tile::Policy& p
 
 }  // namespace
 
-// a is float, or __nv_bfloat16 where a_bf16 is nonzero.
+// a is float, or __nv_bfloat16 where a_bf16 is nonzero. ring: a bf16 A
+// whose rows all start on 16 bytes (A's address and C's bytes multiples of
+// 16) streams its live tiles through the cp.async ring; 0 takes the
+// plain-load template, which an f32 A always takes (the ring measured
+// slower in f32 on an H100).
 extern "C" int gpic_block_sparse_matmat(
     const void* a, const float* v, const float* d, const int* counts, const int* col_idx,
-    float* u, int n_rows, int n_cols, int r, int a_bf16, cudaStream_t stream) {
+    float* u, int n_rows, int n_cols, int r, int ring, int a_bf16, cudaStream_t stream) {
+    const auto* ab = static_cast<const __nv_bfloat16*>(a);
+    if (a_bf16 && ring)
+        return launch_bs_matmat_r<true>(ab, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
     if (a_bf16)
-        return launch_bs_matmat_r(static_cast<const __nv_bfloat16*>(a), v, d, counts, col_idx,
-                                  u, n_rows, n_cols, r, stream);
-    return launch_bs_matmat_r(static_cast<const float*>(a), v, d, counts, col_idx, u, n_rows,
-                              n_cols, r, stream);
+        return launch_bs_matmat_r<false>(ab, v, d, counts, col_idx, u, n_rows, n_cols, r, stream);
+    if (ring) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bs_matmat_r<false>(static_cast<const float*>(a), v, d, counts, col_idx, u,
+                                     n_rows, n_cols, r, stream);
 }
 
 // d may be null: U is then the unnormalized A V. scale_r / scale_c / thr

@@ -37,6 +37,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -63,6 +64,7 @@ from repro_torch.core.gpic import _build_engine_operator, _local_health
 from repro_torch.core.kmeans import kmeans
 from repro_torch.interop import config_from_reference, result_to_numpy
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels.block_sparse import takes_ring
 from repro_torch.kernels.row_topk import topk_thresholds_from_scores
 
 A_ATOL = 1e-6
@@ -355,6 +357,62 @@ def test_dead_tiles_contribute_nothing():
     a_cut = a.clone()
     a_cut[:TM, :TN] = 0.0
     torch.testing.assert_close(u, (a_cut @ v) / d.clamp_min(1e-30)[:, None], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_cols", [1024, 1037, 45_000])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "one_off"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_stored_sweep_template_choice(dtype, offset, n_cols):
+    """#9's wrapper takes the cp.async ring exactly for a bf16 A whose rows
+    all start on 16 bytes (the address, and a row's bytes, multiples of
+    16); an f32 A (the ring measured slower than the plain loads on the
+    card) and rows off 16 bytes take the plain-load template."""
+    base = torch.empty(2 * n_cols + offset, dtype=dtype)
+    assert base.data_ptr() % 16 == 0
+    a = base[offset:].view(2, n_cols)
+    rows_on_16 = offset == 0 and (n_cols * a.element_size()) % 16 == 0
+    assert takes_ring(a) is (dtype == torch.bfloat16 and rows_on_16)
+
+
+def _ragged_plan(dtype, seed):
+    """A (300, 600) A (n not a multiple of 16, a ragged last column tile)
+    on a random plan whose neighbouring row blocks have different live sets
+    and every third row block is empty; dead tiles hold zeros. Returns the
+    torch operands, A's bits as a jax array, and the plan."""
+    rng = np.random.default_rng(seed)
+    n_rows, n_cols = 300, 600
+    n_i, n_j = -(-n_rows // TM), -(-n_cols // TN)
+    live = rng.random((n_i, n_j)) < 0.6
+    live[1], live[2] = [True, False, True], [False, True, True]
+    live[::3] = False
+    assert any(not np.array_equal(live[i], live[i + 1]) for i in range(n_i - 1))
+    mask = np.repeat(np.repeat(live, TM, axis=0), TN, axis=1)[:n_rows, :n_cols]
+    a = torch.from_numpy((rng.random((n_rows, n_cols)) * mask).astype(np.float32)).to(dtype)
+    if dtype == torch.bfloat16:
+        a_j = jnp.asarray(a.view(torch.int16).numpy().view(ml_dtypes.bfloat16))
+    else:
+        a_j = jnp.asarray(a.numpy())
+    d = a.float().sum(dim=1) + 0.5
+    return a, a_j, d, live, taff.block_plan(torch.from_numpy(live))
+
+
+@pytest.mark.parametrize("r", [1, 2, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_stored_sweep_plain_version_matches_pallas_on_ragged_plans(dtype, r):
+    """#9's plain version against the reference's Pallas kernel in
+    interpret mode (tm = 16, tn = 256) on the same A bits and plan: rows
+    not a multiple of 16, neighbouring row blocks with different live
+    sets, empty row blocks (U = 0 there, exactly)."""
+    a, a_j, d, live, (counts, col_idx, max_b) = _ragged_plan(dtype, seed=r)
+    v = np.random.default_rng(10 + r).random((a.shape[1], r)).astype(np.float32)
+    got = tops.block_sparse_matmat(a, _t(v), d, counts, col_idx)
+    want = jops.block_sparse_matmat(a_j, jnp.asarray(v), jnp.asarray(d.numpy()),
+                                    jnp.asarray(counts.numpy()), jnp.asarray(col_idx.numpy()),
+                                    jnp.asarray(int(max_b)), tm=TM, tn=TN, mode="pallas")
+    assert got.dtype == torch.float32
+    _assert_u_close(got.numpy(), want)
+    empty = np.repeat(~live.any(axis=1), TM)[:a.shape[0]]
+    assert np.all(got.numpy()[empty] == 0.0)
 
 
 #: (rows, cols, row_offset, col_offset) of tests/test_torch_kernels.py's
