@@ -3431,6 +3431,368 @@ def phase_profile(report, out_dir, engine, tag="classic", cfg=None):
                        top=[dict(name=l, launches=c, ms=ms) for l, (c, ms) in top])
 
 
+def _directions(n: int, seed: int = 0, m: int = 8, noise: float = 0.02):
+    """(x, k): three clusters of n/2, 3n/10 and the rest of the points along
+    three orthogonal directions in m = 8, at magnitudes in [0.5, 2], plus
+    |noise| in every coordinate: features the cosine kinds separate (on the
+    2-D sets cosine_shifted leaves an embedding of f32 noise)."""
+    rng = np.random.default_rng(seed)
+    sizes = [n // 2, 3 * n // 10]
+    y = np.repeat(np.arange(3), sizes + [n - sum(sizes)])
+    dirs = np.zeros((3, m))
+    for c in range(3):
+        dirs[c, 2 * c:2 * c + 2] = np.sqrt(0.5)
+    x = dirs[y] * rng.uniform(0.5, 2.0, (n, 1)) + noise * np.abs(rng.standard_normal((n, m)))
+    return x.astype(np.float32), 3
+
+
+#: the cosine_shifted runs of the sharded phase stop after 3 sweeps: run to
+#: its eps, (1 + cos) / 2 leaves an embedding spread of ~1e-6 of its size,
+#: whose partition is f32 noise
+EARLY = dict(eps_scale=0.0, max_iter=3)
+DIST_RTOL = 1e-5        # a sharded embedding against one device's, relative to max|v|
+FOUR_RANKS = 4
+FOUR_RANK_S = 300       # the four-rank phase's deadline, and its ranks' collective timeout
+
+
+def _sharded_runs():
+    """(tag, entry, data, keyword arguments) of the sharded phase at
+    n = 45,000: the main path's explicit and streaming runs, E1 on both
+    engines (block-sparse, orthogonal r = 2), bf16 A, fold_shift and the
+    matrix-free engine (the cosine kinds on the direction clusters)."""
+    from repro_torch import AffinitySpec
+    rbf = dict(affinity_kind="rbf", sigma=SIGMA, max_iter=400)
+    e1 = dict(affinity=AffinitySpec(**E1_SPEC), max_iter=400, embedding="orthogonal",
+              n_vectors=2)
+    return (("explicit", "gpic", "gaussians", dict(engine="explicit", **rbf)),
+            ("streaming", "gpic", "gaussians", dict(engine="streaming", **rbf)),
+            ("E1 explicit", "gpic", "gaussians", dict(engine="explicit", **e1)),
+            ("E1 streaming", "gpic", "gaussians", dict(engine="streaming", **e1)),
+            ("explicit bf16", "gpic", "gaussians",
+             dict(engine="explicit", a_dtype=torch.bfloat16, **rbf)),
+            ("explicit fold_shift", "gpic", "directions",
+             dict(engine="explicit", fold_shift=True, **EARLY)),
+            ("matrix_free", "matrix_free", "directions", dict(**EARLY)))
+
+
+def _one_device_twin(entry, x, k, kw):
+    """The single-device entry point of a sharded run, with the same
+    generator seed (fold_shift is a stripe storage detail it has no
+    counterpart of)."""
+    from repro_torch.core import gpic, gpic_matrix_free
+    kw = dict(kw)
+    kw.pop("fold_shift", None)
+    eps_scale = kw.pop("eps_scale", 1e-5)
+    run = gpic if entry == "gpic" else gpic_matrix_free
+    return run(x, k, eps=eps_scale / x.shape[0],
+               generator=torch.Generator(device="cuda").manual_seed(0), **kw)
+
+
+def _sharded_call(entry, x_loc, k, kw, device="cuda"):
+    from repro_torch.core import distributed as D
+    run = D.distributed_gpic if entry == "gpic" else D.distributed_gpic_matrix_free
+    return run(x_loc, k, device=device,
+               generator=torch.Generator(device=device).manual_seed(0), **kw)
+
+
+def _nccl_store():
+    import tempfile
+    return os.path.join(tempfile.mkdtemp(prefix="chip_smoke_nccl_"), "store")
+
+
+def phase_distributed(report):
+    """The sharded engines (core/distributed.py) on a 1-rank NCCL group at
+    n = 45,000: each run of ``_sharded_runs`` through its distributed entry
+    point, held to the single-device port on the card (labels equal,
+    column 0's sweeps equal, the embedding within DIST_RTOL of max|v|),
+    with its wall, peak memory and the launches of every kernel. A run on
+    the CPU device with an NCCL group must raise. Returns the launches of
+    each kernel summed over the sharded runs, and the single-device
+    embeddings of the explicit and streaming runs (the four-rank phase's
+    yardstick)."""
+    import torch.distributed as dist
+    from repro_torch.core import distributed as D
+    from repro_torch.data import dataset_by_name
+    xg, _, kg = dataset_by_name("gaussians", N_MAIN, seed=0)
+    xd, kd = _directions(N_MAIN)
+    data = {"gaussians": (torch.as_tensor(xg, device="cuda"), kg),
+            "directions": (torch.as_tensor(xd, device="cuda"), kd)}
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{_nccl_store()}", rank=0,
+                            world_size=1)
+    dist.all_reduce(torch.zeros(1, device="cuda"))     # the communicator, made once
+    torch.cuda.synchronize()
+    print(f"[distributed] 1-rank NCCL group up in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    try:
+        try:
+            D.distributed_gpic(xg[:64], kg, device="cpu")
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        print(f"[distributed] an NCCL group asked for the CPU raises: {raised}", flush=True)
+        check(raised is not None and "nccl" in raised,
+              "an NCCL group ran on CPU tensors instead of raising")
+        totals, runs, yardstick = {}, {}, {}
+        for tag, entry, name, kw in _sharded_runs():
+            x, k = data[name]
+            one, labels_one, wall_one, _, peak_one = _counted(
+                lambda: _one_device_twin(entry, x, k, kw))
+            res, labels, wall, counts, peak = _counted(
+                lambda: _sharded_call(entry, D.shard_points(x), k, kw))
+            cols, cols_one = res.n_iter_cols.tolist(), one.n_iter_cols.tolist()
+            emb, emb_one = res.embeddings, one.embeddings
+            rel = float((emb - emb_one).abs().max() / emb_one.abs().max())
+            bitwise = torch.equal(emb, emb_one)
+            print(f"[distributed] 1 rank {tag} n={N_MAIN}: wall_s={wall:.4f} (one device "
+                  f"{wall_one:.4f}) peak_mem_GB={peak / 1e9:.3f} (one device "
+                  f"{peak_one / 1e9:.3f}) n_iter_cols={cols} (one device {cols_one}) "
+                  f"labels equal={bool((labels == labels_one).all())} "
+                  f"max|dv|/max|v|={rel:.3e} bitwise={bitwise} launches={counts}", flush=True)
+            check(bool(torch.isfinite(emb).all()) and labels.shape == (N_MAIN,),
+                  f"1-rank {tag}: the result has the wrong shape or is not finite")
+            check(bool((labels == labels_one).all()) and cols[0] == cols_one[0]
+                  and rel <= DIST_RTOL,
+                  f"1-rank {tag}: labels, column 0's sweeps or the embedding differ from "
+                  "the single-device run")
+            check(counts["kmeans_assign"] == kw.get("kmeans_iters", 25) + 1,
+                  f"1-rank {tag}: assignment launches {counts}")
+            for op, c in counts.items():
+                totals[op] = totals.get(op, 0) + c
+            runs[tag] = dict(wall_s=wall, wall_one_device_s=wall_one, peak_mem_bytes=peak,
+                             peak_one_device_bytes=peak_one, n_iter_cols=cols,
+                             n_iter_cols_one_device=cols_one, max_rel_err=rel,
+                             bitwise=bitwise, launches=counts)
+            if tag in ("explicit", "streaming"):
+                yardstick[tag] = (labels, cols, emb.cpu())
+            del res, one
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    missing = [op for op in SOURCES if op != "flash_attention" and not totals.get(op)]
+    print(f"[distributed] launches on the sharded path (all runs): {totals}", flush=True)
+    check(not missing, f"kernels never launched on the sharded path: {missing}")
+    report["distributed"] = dict(runs=runs, launches=totals)
+    return totals, yardstick
+
+
+def phase_ring_stages(report):
+    """What one card can show of the ring at P = 4: for each rank's rows of
+    a 4-way partition of the main shape and each ring stage s, the stage
+    kernels at (row0, col0(s) = ((rank + s) % 4) n/4) on the column block
+    (#1, #5 with d=None, #6, #7 with K = KNN_K, then with kNN thresholds
+    #8, #10 with d=None on the stage's plan, #11), each against its plain
+    version on the same stripe; and the stage sums, in ring order, against
+    the single-device kernel's output on those rows (#6, #5, #7 merged
+    with row_topk_merge, #11 and #10 against #6 and #5 with the same
+    thresholds). A stage's errors are measured against the whole row's
+    scale (its degree, its max|U|): a stripe between distant blobs holds
+    only entries near the bottom of f32, where a relative error says
+    nothing. The thresholds lie halfway between each row's KNN_K-th and
+    next entry (from #7 with K + 1), so the plain versions, whose rounding
+    differs from the kernels' at an entry, keep the same entries. The
+    twins (#6 and #1's D, #10 and #5, #11 and #6 with the thresholds) are
+    counted where bitwise and their largest difference printed."""
+    from repro_torch.core.affinity import block_plan, dense_block_live
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.affinity import affinity_and_degree
+    from repro_torch.kernels.block_sparse import (block_liveness,
+                                                  block_sparse_streaming_degree,
+                                                  block_sparse_streaming_matmat)
+    from repro_torch.kernels.row_topk import row_topk, row_topk_merge
+    from repro_torch.kernels.streaming import affinity_degree_streaming, affinity_matmat
+    feats, _, _ = _features(N_MAIN)
+    x = feats["rbf"]
+    n_loc = N_MAIN // FOUR_RANKS
+    kw = dict(kind="rbf", sigma=SIGMA)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    v = torch.rand((N_MAIN, 2), generator=g, device="cuda") / N_MAIN
+    top = row_topk(x, k=KNN_K + 1, stat="similarity", **kw)
+    kth, nxt = top[:, KNN_K - 1], top[:, KNN_K]
+    thr = torch.where(kth > nxt, 0.5 * (kth + nxt), kth).contiguous()
+    full = dict(d=affinity_degree_streaming(x, **kw), u=affinity_matmat(x, v, None, **kw),
+                top=row_topk(x, k=KNN_K, stat="similarity", **kw),
+                d_thr=affinity_degree_streaming(x, thr=thr, **kw),
+                u_thr=affinity_matmat(x, v, None, thr=thr, **kw))
+    err = dict.fromkeys(("#1 A", "#1 D", "#5", "#6", "#7", "#10", "#11"), 0.0)
+    sums_err = dict.fromkeys(("#6", "#5", "#7", "#11", "#10"), 0.0)
+    twins = {name: [0, 0.0] for name in ("#6 = #1's D", "#10 = #5", "#11 = #6")}
+    live_frac = []
+
+    def d_err(d, d_ref, scale):
+        """The largest |D - D_ref| over the row's scale."""
+        return float(((d - d_ref).abs() / scale.clamp_min(1e-30)).max())
+
+    def u_err(u, u_ref, scale):
+        """The most |U - U_ref| exceeds rtol |U_ref| + atol max|U| of the
+        whole rows (<= 0 where they agree)."""
+        diff = (u - u_ref).abs()
+        return float((diff - U_RTOL * u_ref.abs()).max()) - U_ATOL * float(scale.abs().max())
+
+    def twin(name, a, b, scale):
+        twins[name][0] += int(torch.equal(a, b))
+        twins[name][1] = max(twins[name][1], d_err(a, b, scale if a.ndim == 1
+                                                    else scale[:, None]))
+
+    for rank in range(FOUR_RANKS):
+        r0, r1 = rank * n_loc, (rank + 1) * n_loc
+        xr, thr_r = x[r0:r1], thr[r0:r1]
+        d_row, d_row_thr = full["d"][r0:r1], full["d_thr"][r0:r1]
+        u_row, u_row_thr = full["u"][r0:r1], full["u_thr"][r0:r1]
+        acc = dict(d=0.0, u=0.0, top=torch.full((n_loc, KNN_K), -torch.inf, device="cuda"),
+                   d_thr=0.0, u_thr=0.0)
+        for s in range(FOUR_RANKS):
+            c0 = ((rank + s) % FOUR_RANKS) * n_loc
+            xc, vc = x[c0:c0 + n_loc], v[c0:c0 + n_loc].contiguous()
+            off = dict(kw, row_offset=r0, col_offset=c0)
+            a, d1 = affinity_and_degree(xr, xc, **off)
+            a_ref, d_ref = ref.affinity_and_degree_ref(xr, xc, **off)
+            err["#1 A"] = max(err["#1 A"], float((a - a_ref).abs().max()))
+            err["#1 D"] = max(err["#1 D"], d_err(d1, d_ref, d_row))
+            del a, a_ref
+            d6 = affinity_degree_streaming(xr, xc, **off)
+            err["#6"] = max(err["#6"], d_err(d6, d_ref, d_row))
+            twin("#6 = #1's D", d6, d1, d_row)
+            u5 = affinity_matmat(xr, vc, None, xc, **off)
+            err["#5"] = max(err["#5"], u_err(u5, ref.affinity_matmat_ref(
+                xr, vc, None, xc, **off), u_row))
+            t7 = row_topk(xr, xc, k=KNN_K, stat="similarity", **off)
+            err["#7"] = max(err["#7"], _topk_error(t7, ref.row_topk_ref(
+                xr, xc, k=KNN_K, stat="similarity", **off)))
+            live = block_liveness(xr, xc, thr=thr_r, **off)
+            a_thr, _ = affinity_and_degree(xr, xc, thr=thr_r, **off)
+            check(torch.equal(live, ref.block_liveness_ref(xr, xc, tm=16, tn=256, thr=thr_r,
+                                                           **off))
+                  and torch.equal(live.bool(), dense_block_live(a_thr, 16, 256)),
+                  f"stage ({rank}, {s}): #8's map is not its plain version's and #1's")
+            del a_thr
+            live_frac.append(float(live.float().mean()))
+            counts, col_idx, _ = block_plan(live)
+            plan = dict(counts=counts, col_idx=col_idx)
+            u10 = block_sparse_streaming_matmat(xr, vc, None, xc, thr=thr_r, **plan, **off)
+            twin("#10 = #5", u10, affinity_matmat(xr, vc, None, xc, thr=thr_r, **off),
+                 u_row_thr.abs().amax(dim=1))
+            err["#10"] = max(err["#10"], u_err(u10, ref.block_sparse_streaming_matmat_ref(
+                xr, vc, None, xc, tm=16, tn=256, thr=thr_r, **plan, **off), u_row_thr))
+            d11 = block_sparse_streaming_degree(xr, xc, thr=thr_r, **plan, **off)
+            twin("#11 = #6", d11, affinity_degree_streaming(xr, xc, thr=thr_r, **off),
+                 d_row_thr)
+            err["#11"] = max(err["#11"], d_err(d11, ref.block_sparse_streaming_degree_ref(
+                xr, xc, tm=16, tn=256, thr=thr_r, **plan, **off), d_row_thr))
+            acc["d"] = acc["d"] + d6
+            acc["u"] = acc["u"] + u5
+            acc["top"] = row_topk_merge(acc["top"], t7, KNN_K)
+            acc["d_thr"] = acc["d_thr"] + d11
+            acc["u_thr"] = acc["u_thr"] + u10
+        sums_err["#6"] = max(sums_err["#6"], d_err(acc["d"], d_row, d_row))
+        sums_err["#5"] = max(sums_err["#5"], u_err(acc["u"], u_row, u_row))
+        sums_err["#7"] = max(sums_err["#7"], _topk_error(acc["top"], full["top"][r0:r1]))
+        sums_err["#11"] = max(sums_err["#11"], d_err(acc["d_thr"], d_row_thr, d_row_thr))
+        sums_err["#10"] = max(sums_err["#10"], u_err(acc["u_thr"], u_row_thr, u_row_thr))
+        torch.cuda.empty_cache()
+    stripes = FOUR_RANKS * FOUR_RANKS
+    print(f"[ring] P={FOUR_RANKS} stages of n={N_MAIN} (n/P={n_loc}), each kernel against "
+          f"its plain version (max |A - A_ref|; D's error over the row's degree; U's "
+          f"excess over rtol {U_RTOL} + atol {U_ATOL} max|U| of the rows, <= 0 passes; "
+          f"top-k max error): {err}; stage sums in ring order against the single-device "
+          f"kernel on the rows: {sums_err}; twins bitwise on (of {stripes} stripes) and "
+          f"their largest difference over the row's scale: {twins}; live fraction of the "
+          f"stage plans {min(live_frac):.4f}..{max(live_frac):.4f}", flush=True)
+    check(err["#1 A"] <= A_ATOL and max(err["#1 D"], err["#6"], err["#11"]) <= D_RTOL
+          and max(err["#5"], err["#10"]) <= 0.0 and err["#7"] <= A_ATOL,
+          f"a stage kernel disagrees with its plain version: {err}")
+    check(sums_err["#7"] == 0.0 and max(sums_err["#6"], sums_err["#11"]) <= D_RTOL
+          and max(sums_err["#5"], sums_err["#10"]) <= 0.0,
+          f"the ring's stage sums disagree with the single-device kernels: {sums_err}")
+    report["ring_stages"] = dict(p=FOUR_RANKS, n_loc=n_loc, kernel_errors=err,
+                                 stage_sum_errors=sums_err, twins=twins,
+                                 live_fraction=[min(live_frac), max(live_frac)])
+
+
+def _four_rank_worker(rank, world, store, out_path):
+    """One rank of the four-rank NCCL phase, on card ``rank``: the explicit
+    and streaming runs of the main path on its row block, each once to warm
+    up and once counted; rank 0 saves what it got."""
+    import torch.distributed as dist
+    from repro_torch.core import distributed as D
+    from repro_torch.data import dataset_by_name
+    from repro_torch.kernels import ops
+    import datetime
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=FOUR_RANK_S))
+    x, _, k = dataset_by_name("gaussians", N_MAIN, seed=0)
+    x_loc = torch.as_tensor(D.shard_points(x), device=dev)
+    out = {}
+    for tag, entry, _, kw in _sharded_runs()[:2]:
+        _sharded_call(entry, x_loc, k, kw, device=dev)
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = _sharded_call(entry, x_loc, k, kw, device=dev)
+        labels = res.labels.cpu()
+        wall = time.perf_counter() - t0
+        out[tag] = dict(labels=labels, n_iter_cols=res.n_iter_cols.tolist(),
+                        embeddings=res.embeddings.cpu(), wall_s=wall,
+                        peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+                        launches=ops.launch_counts())
+    if rank == 0:
+        torch.save(out, out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_four_ranks(report, yardstick):
+    """Four ranks, one card each, over NCCL, when the machine has four
+    cards: the explicit and streaming runs at n = 45,000 held to the 1-rank
+    runs (labels equal, column 0's sweeps within one: the ring and the
+    all-reduce sum in another order, so an eps-crossing may move; the
+    embedding within DIST_RTOL of max|v| where the sweeps are equal). On
+    fewer cards it says so on one line and runs nothing."""
+    import tempfile
+    import torch.multiprocessing as mp
+    cards = torch.cuda.device_count()
+    if cards < FOUR_RANKS:
+        print(f"[distributed] four-rank NCCL phase not run: {cards} CUDA card(s) here, it "
+              f"needs {FOUR_RANKS} (one rank a card)", flush=True)
+        report["four_ranks"] = dict(run=False, cards=cards)
+        return
+    torch.cuda.empty_cache()
+    out_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_4r_"), "four_ranks.pt")
+    # NCCL's bootstrap between the ranks over the loopback interface: the
+    # machine has no network to pick another one from
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_DEBUG", "WARN")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_four_rank_worker, args=(FOUR_RANKS, _nccl_store(), out_path),
+                             nprocs=FOUR_RANKS, join=False, start_method="spawn")
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > FOUR_RANK_S:
+            for proc in ctx.processes:
+                proc.kill()
+            check(False, f"the four ranks did not finish in {FOUR_RANK_S} s")
+    got = torch.load(out_path)
+    rec = {}
+    for tag, (labels_1, cols_1, emb_1) in yardstick.items():
+        r = got[tag]
+        cols = r["n_iter_cols"]
+        rel = float((r["embeddings"] - emb_1).abs().max() / emb_1.abs().max())
+        same_labels = bool((r["labels"].numpy() == labels_1).all())
+        print(f"[distributed] 4 ranks {tag} n={N_MAIN}: wall_s={r['wall_s']:.4f} "
+              f"peak_mem_GB(rank 0)={r['peak_mem_bytes'] / 1e9:.3f} n_iter_cols={cols} "
+              f"(1 rank {cols_1}) labels equal={same_labels} max|dv|/max|v|={rel:.3e} "
+              f"launches(rank 0)={r['launches']}", flush=True)
+        check(same_labels and abs(cols[0] - cols_1[0]) <= 1
+              and (cols[0] != cols_1[0] or rel <= DIST_RTOL),
+              f"4 ranks {tag}: the result differs from the 1-rank run")
+        rec[tag] = dict(wall_s=r["wall_s"], peak_mem_bytes=r["peak_mem_bytes"],
+                        n_iter_cols=cols, max_rel_err=rel, launches=r["launches"])
+    report["four_ranks"] = dict(run=True, cards=cards, runs=rec)
+
+
 SOURCES = {
     "affinity_and_degree": ("src/repro_torch/kernels/csrc/affinity.cu",
                             "src/repro/kernels/affinity.py:182"),
@@ -3470,11 +3832,43 @@ def _bf16_keys(rec, launches) -> dict:
             "bf16_library_ms": None}
 
 
-def main() -> int:
+def _finish(t_start, smi, report, name, line) -> int:
+    """Write the report to chiprun_out/``name`` and print the closing
+    lines: ``line`` (a JSON object), the card's name and power limit, and
+    the result object."""
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    report["total_s"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, name), "w") as f:
+        json.dump(report, f, indent=1)
+    print(f"[done] total_s={report['total_s']:.1f}")
+    print(json.dumps(line))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_distributed(t_start, smi, report) -> int:
+    """``--distributed``: the sharded phases alone, the 1-rank NCCL runs and
+    then the four-rank phase where the machine has four cards. Its JSON
+    line is the sharded path's launches."""
+    sharded, yardstick = phase_distributed(report)
+    phase_four_ranks(report, yardstick)
+    return _finish(t_start, smi, report, "chip_smoke_distributed.json",
+                   {"sharded_launches": sharded})
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     t_start = time.perf_counter()
     smi = phase_device()
     report = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0)}
     report["build_s"], logs = phase_build()
+    if argv == ["--distributed"]:
+        return main_distributed(t_start, smi, report)
+    check(not argv, f"unknown arguments {argv} (the one option is --distributed)")
     kernels = {}
     phase_affinity(kernels, logs["affinity"])
     phase_power_step(kernels)
@@ -3515,6 +3909,10 @@ def main() -> int:
     phase_reorder(report)
     phase_serve_parity(report)
     counts["flash_attention"] = phase_serve(report)["flash_attention"]
+    sharded, yardstick = phase_distributed(report)
+    phase_four_ranks(report, yardstick)
+    del yardstick
+    phase_ring_stages(report)
     check(all(counts[name] > 0 for name in SOURCES), f"a kernel was never launched: {counts}")
     check(all(c > 0 for c in bf16_counts.values()),
           f"a bf16 form was never launched on its path: {bf16_counts}")
@@ -3542,19 +3940,11 @@ def main() -> int:
          **({"launch_floor_ms": kernels[name]["launch_floor_ms"]}
             if "launch_floor_ms" in kernels[name] else {}),
          **(_bf16_keys(kernels[name]["bf16"], bf16_counts[name])
-            if name in bf16_counts else {})}
+            if name in bf16_counts else {}),
+         "sharded_launches": sharded.get(name, 0)}
         for name in SOURCES]}
     report["kernels"] = kernels
-    report["total_s"] = time.perf_counter() - t_start
-    with open(os.path.join(out_dir, "chip_smoke_report.json"), "w") as f:
-        json.dump(report, f, indent=1)
-    print(f"[done] total_s={report['total_s']:.1f}")
-    print(json.dumps(line))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
-    return 0
+    return _finish(t_start, smi, report, "chip_smoke_report.json", line)
 
 
 if __name__ == "__main__":

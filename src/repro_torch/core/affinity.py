@@ -276,7 +276,8 @@ def affinity_chunked(
 # ---------------------------------------------------------------------------
 
 def matmat_matrix_free(xn: torch.Tensor, v: torch.Tensor,
-                       kind: AffinityKind | AffinitySpec = "cosine_shifted") -> torch.Tensor:
+                       kind: AffinityKind | AffinitySpec = "cosine_shifted", *,
+                       psum=None) -> torch.Tensor:
     """A V without A, for V (n,) or (n, r): the factored product shares the
     two O(n m r) skinny matmuls among all r columns.
 
@@ -285,9 +286,10 @@ def matmat_matrix_free(xn: torch.Tensor, v: torch.Tensor,
 
     ``xn`` must be row-normalized. ``kind`` may be an :class:`AffinitySpec`,
     which must be factorable (scaling and truncation break the low-rank
-    plus diagonal structure). The reference's ``psum`` hook, which finishes
-    the sums over a sharded matrix's row chunks, belongs to the multi-GPU
-    slice (ROADMAP queue 1 item 10) and is left out: this is one chunk.
+    plus diagonal structure). ``psum`` finishes the sums over the ranks
+    when ``xn`` and ``v`` are a rank's row blocks of a sharded matrix: the
+    (m, r) block X^T V and the (r,) column sums are all that crosses, once
+    a sweep each. None means one device.
     """
     if isinstance(kind, AffinitySpec):
         if not kind.factorable:
@@ -295,11 +297,14 @@ def matmat_matrix_free(xn: torch.Tensor, v: torch.Tensor,
                 "matrix-free path needs a factorable spec (cosine kinds, "
                 f"fixed bandwidth, no truncation); got {kind}")
         kind = kind.kind
+    if psum is None:
+        def psum(t):
+            return t
     if kind == "cosine":
-        return xn @ (xn.T @ v) - v
+        return xn @ psum(xn.T @ v) - v
     if kind == "cosine_shifted":
-        vsum = torch.sum(v, dim=0)
-        return 0.5 * (vsum + xn @ (xn.T @ v)) - v
+        vsum = psum(torch.sum(v, dim=0))
+        return 0.5 * (vsum + xn @ psum(xn.T @ v)) - v
     raise ValueError(f"matrix-free path supports cosine affinities, got {kind!r}")
 
 

@@ -52,7 +52,9 @@ from .power import (
     finalize_power_carry,
     init_power_carry,
     init_power_vectors,
+    init_power_vectors_local,
     power_iteration_segment,
+    random_start_vectors,
     run_power_embedding,
     standardize_columns,
 )
@@ -91,11 +93,15 @@ def gpic(
     residual_tol: float | None = None,
     probe_components: bool = True,
     block_sparse: bool = True,
+    u0t=None,
+    kmeans_init=None,
 ) -> PICResult:
     """Accelerated PIC via the multi-vector power engine, on the device of
     ``x``. ``affinity`` (an :class:`AffinitySpec`) takes precedence over the
     ``affinity_kind``/``sigma`` shorthand. ``generator`` draws the extra
-    power columns and then the kmeans++ seeds. ``qr_every`` and
+    power columns and then the kmeans++ seeds; ``u0t`` ((n, r-1) start
+    columns) and ``kmeans_init`` ((k, c) centroids) replace those draws,
+    so a run can take the reference's. ``qr_every`` and
     ``residual_tol`` tune embedding='orthogonal', ``snapshot_iters``
     embedding='ensemble'. ``probe_components`` runs the component probe
     on a truncated graph; ``block_sparse`` picks a truncated spec's route
@@ -111,12 +117,11 @@ def gpic(
     op = _build_engine_operator(x, spec, engine=engine, a_dtype=a_dtype,
                                 block_sparse=block_sparse)
 
-    v0 = init_power_vectors(op.degree, n_vectors, generator=generator)
     v, t_cols, done, emb_raw, status = run_power_embedding(
-        op, v0, eps, max_iter, embedding=embedding, qr_every=qr_every,
-        snapshot_iters=snapshot_iters, residual_tol=residual_tol)
+        op, _start_block(op, n_vectors, generator, u0t), eps, max_iter, embedding=embedding,
+        qr_every=qr_every, snapshot_iters=snapshot_iters, residual_tol=residual_tol)
     emb = standardize_columns(emb_raw)
-    labels, _ = kmeans(emb, k, iters=kmeans_iters, generator=generator)
+    labels, _ = kmeans(emb, k, iters=kmeans_iters, generator=generator, init=kmeans_init)
     health = _local_health(op, status, n, spec, probe_components=probe_components)
     return make_pic_result(labels, v, t_cols, done, embedding=embedding,
                            embeddings=emb_raw, health=health)
@@ -137,27 +142,38 @@ def gpic_matrix_free(
     qr_every: int = 1,
     snapshot_iters: tuple | None = None,
     residual_tol: float | None = None,
+    u0t=None,
+    kmeans_init=None,
 ) -> PICResult:
     """PIC without A (the reference's O2), on the device of ``x``, for the
     factorable specs (cosine kinds, no scaling or truncation): O(n m r)
     work a sweep and O(n m) memory, the explicit path's function on the
-    same engine state. ``generator`` draws as in :func:`gpic`."""
+    same engine state. ``generator``, ``u0t`` and ``kmeans_init`` as in
+    :func:`gpic`."""
     n = x.shape[0]
     if eps is None:
         eps = 1e-5 / n
     spec = as_affinity_spec(affinity, kind=affinity_kind)
     op = _build_engine_operator(x, spec, engine="matrix_free")
 
-    v0 = init_power_vectors(op.degree, n_vectors, generator=generator)
     v, t_cols, done, emb_raw, status = run_power_embedding(
-        op, v0, eps, max_iter, embedding=embedding, qr_every=qr_every,
-        snapshot_iters=snapshot_iters, residual_tol=residual_tol)
+        op, _start_block(op, n_vectors, generator, u0t), eps, max_iter, embedding=embedding,
+        qr_every=qr_every, snapshot_iters=snapshot_iters, residual_tol=residual_tol)
     emb = standardize_columns(emb_raw)
-    labels, _ = kmeans(emb, k, iters=kmeans_iters, generator=generator)
+    labels, _ = kmeans(emb, k, iters=kmeans_iters, generator=generator, init=kmeans_init)
     # a factorable spec is never truncated: the probe cannot arm
     health = _local_health(op, status, n, spec, probe_components=False)
     return make_pic_result(labels, v, t_cols, done, embedding=embedding,
                            embeddings=emb_raw, health=health)
+
+
+def _start_block(op, n_vectors, generator, u0t):
+    """The (n, r) start state: the degree column, then the extra columns
+    drawn from ``generator``, or the given ``u0t``."""
+    if u0t is None:
+        u0t = random_start_vectors(generator, op.degree.shape[0], n_vectors,
+                                   device=op.degree.device)
+    return init_power_vectors_local(op.degree, torch.as_tensor(u0t, dtype=torch.float32))
 
 
 def _components(n, spec, device, build_op, probe_components=True):

@@ -185,14 +185,16 @@ def degree_guard(u: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, u / safe, 0.0)
 
 
-def count_bad_rows(d: torch.Tensor) -> torch.Tensor:
+def count_bad_rows(d: torch.Tensor, sum_fn=None) -> torch.Tensor:
     """() int32 count of rows whose degree cannot anchor them (not > 0:
-    zero and non-finite degrees both count)."""
-    return torch.sum(~(d > 0)).to(torch.int32)
+    zero and non-finite degrees both count). ``sum_fn`` finishes the count
+    over the ranks of a sharded ``d`` (None: one device)."""
+    local = torch.sum(~(d > 0)).to(torch.int32)
+    return local if sum_fn is None else sum_fn(local)
 
 
-def graph_component_probe(op, n_total: int, *, max_components: int = 8,
-                          max_sweeps: int = 32):
+def graph_component_probe(op, n_total: int, *, row_offset: int = 0,
+                          max_components: int = 8, max_sweeps: int = 32):
     """Component check of the (truncated) affinity graph on the device.
 
     Reachability expansion from an indicator on the lowest-index unvisited
@@ -207,39 +209,46 @@ def graph_component_probe(op, n_total: int, *, max_components: int = 8,
     ``matmat_t`` and the expansion walks A + A^T: the weakly connected
     components, along which power-iteration mass can move. For a
     nonnegative A and a {0, 1} indicator the positivity of A v does not
-    depend on the summation order, so the result is exact on either engine
-    and on either device.
+    depend on the summation order, so the result is exact on either engine,
+    on either device and on any number of ranks.
 
-    The reference runs the two loops on the device (``while_loop``); here
-    the host reads one flag per hop. Returns ``(n_components () int32,
-    components (n,) int32)``, ids in discovery order, -1 for rows never
+    On a sharded operator the rows are this rank's block, starting at
+    global row ``row_offset``: ``op.sum`` finishes the unvisited count and
+    the growth of a hop, ``op.max`` the global lowest unvisited row, so
+    every rank reads the same flags and takes the same branches. The
+    reference runs the two loops on the device (``while_loop``); here the
+    host reads one flag per hop. Returns ``(n_components () int32,
+    components (n_loc,) int32)``, ids in discovery order, -1 for rows never
     reached.
     """
     n_local = op.degree.shape[0]
-    if n_local != n_total:
-        raise ValueError(f"the probe of one device covers all {n_total} rows, "
-                         f"the operator has {n_local}")
     device = op.degree.device
+    gidx = row_offset + torch.arange(n_local, dtype=torch.int64, device=device)
     comp = torch.full((n_local,), -1, dtype=torch.int32, device=device)
     visited = torch.zeros((n_local,), dtype=torch.bool, device=device)
+
+    def unvisited():
+        return int(op.sum(torch.sum(~visited, dtype=torch.int64)))
+
     count = 0
-    while count < max_components and not bool(visited.all()):
-        # the lowest unvisited index: argmax returns the first maximum
-        reached = torch.zeros_like(visited)
-        reached[torch.argmax((~visited).to(torch.int32))] = True
+    while count < max_components and unvisited() > 0:
+        # the global lowest unvisited index, as the max of the negated minima
+        cand = torch.where(visited, n_total, gidx)
+        seed = -op.max(-torch.amin(cand))
+        reached = gidx == seed
         for _ in range(max_sweeps):
             ind = reached.to(torch.float32)[:, None]
             new = reached | (op.matmat(ind)[:, 0] > 0)
             if op.matmat_t is not None:
                 new = new | (op.matmat_t(ind)[:, 0] > 0)
-            grew = bool((new & ~reached).any())
+            grew = int(op.sum(torch.sum(new & ~reached, dtype=torch.int64))) > 0
             reached = new
             if not grew:
                 break
         comp = torch.where(reached & (comp < 0), count, comp)
         visited = visited | reached
         count += 1
-    leftover = 0 if bool(visited.all()) else 1
+    leftover = 1 if unvisited() > 0 else 0
     return (torch.tensor(count + leftover, dtype=torch.int32, device=device),
             comp.to(torch.int32))
 
@@ -263,7 +272,8 @@ def as_f32(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
 
 
-def validate_features(x: torch.Tensor, k: int, *, sanitize: bool = False):
+def validate_features(x: torch.Tensor, k: int, *, sanitize: bool = False,
+                      reductions=None):
     """Front-door feature checks. Returns ``(x, notes)`` — possibly
     sanitized — or raises a typed error.
 
@@ -271,6 +281,12 @@ def validate_features(x: torch.Tensor, k: int, *, sanitize: bool = False):
     (ndim != 2, empty, n < k) and for an all-identical feature matrix;
     :class:`NonFiniteInputError` for NaN/Inf features unless
     ``sanitize=True``, which zero-fills them and records a note.
+
+    ``reductions`` — (sum, max, all_gather) over a process group, as
+    ``core/operators.py::mesh_reductions`` makes them — checks the whole
+    matrix when ``x`` is one rank's row block: n counts every rank's rows,
+    and the non-finite count and the identical-rows test cover them all,
+    so every rank raises, or passes, alike.
     """
     notes: list[str] = []
     if x.ndim != 2:
@@ -279,10 +295,15 @@ def validate_features(x: torch.Tensor, k: int, *, sanitize: bool = False):
     n, m = x.shape
     if n == 0 or m == 0:
         raise InvalidInputError(f"empty feature matrix (shape {tuple(x.shape)})")
+    first = x[0:1]
+    if reductions is not None:
+        total, _, gather = reductions
+        n = int(total(torch.tensor(n, device=x.device)))
     if n < k:
         raise InvalidInputError(
             f"cannot form k={k} clusters from n={n} points")
-    n_bad = int(torch.sum(~torch.isfinite(x)))
+    bad = torch.sum(~torch.isfinite(x))
+    n_bad = int(bad if reductions is None else total(bad))
     if n_bad:
         if not sanitize:
             raise NonFiniteInputError(
@@ -290,7 +311,14 @@ def validate_features(x: torch.Tensor, k: int, *, sanitize: bool = False):
                 "to zero-fill them (recorded in PICResult.health.notes)")
         x = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
         notes.append(f"sanitized:{n_bad}_nonfinite_features")
-    if bool(torch.all(x == x[0:1])):
+        first = x[0:1]
+    if reductions is None:
+        identical = bool(torch.all(x == first))
+    else:
+        # the global first row is rank 0's; a rank differs where any row does
+        differ = torch.any(x != gather(first)[0:1]).to(torch.int32)
+        identical = int(total(differ)) == 0
+    if identical:
         raise InvalidInputError(
             "all feature rows are identical — every pairwise affinity is "
             "equal and the power embedding is constant; clustering is "

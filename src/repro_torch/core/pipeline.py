@@ -11,9 +11,11 @@ every affinity spec (dense, adaptive bandwidth, kNN truncation on the
 block-sparse route, the default, or the dense-storage one), the
 matrix-free engine with the factorable specs, every embedding mode, the
 row reorder, A stored in bf16 (``a_dtype``) and the resumable supervisor
-(``checkpoint_every``, ``straggler_timeout``, ``segment_injector``); the
-settings a later slice brings raise ``NotImplementedError`` naming the
-ROADMAP item.
+(``checkpoint_every``, ``straggler_timeout``, ``segment_injector``). With
+``mesh`` (a ``torch.distributed`` process group) each rank passes its row
+block and the run goes to the sharded engines (``core/distributed.py``),
+with ``fold_shift``, ``overlap`` and ``inject_ring_fault``. The settings a
+later slice brings raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -24,13 +26,16 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels.block_sparse import TN
 from ..kernels.power_step import MAX_R
 from ..kernels.row_topk import check_k
 from .affinity import AffinityKind, AffinitySpec, as_affinity_spec, invert_permutation
+from .distributed import distributed_gpic, distributed_gpic_matrix_free
 from .gpic import gpic, gpic_matrix_free, gpic_segment, gpic_segment_finalize, gpic_segment_start
 from .graph import graph_reorder_permutation
+from .operators import mesh_reductions
 from .health import (GPICError, StragglerTimeout, as_f32, raise_for_health, resolve_device,
                      validate_features)
 from .pic import PICResult
@@ -94,6 +99,21 @@ class GPICConfig:
                     (recorded in ``PICResult.health.notes``) instead of
                     raising :class:`~repro_torch.core.health.NonFiniteInputError`.
 
+    Multi-GPU (see ``core/distributed.py``):
+      mesh:         a ``torch.distributed`` process group (NCCL with one
+                    card a rank, or gloo on the CPU), or None for one
+                    device. Each rank calls ``run_gpic`` with its row block
+                    (``shard_points``) and gets the whole run's result.
+      fold_shift:   O5: the sharded explicit engine stores raw cosine and
+                    folds the ``cosine_shifted`` transform into an O(n r)
+                    epilogue (a dense fixed ``cosine_shifted`` spec only).
+      overlap:      the streaming ring's schedule: sends and receives of
+                    the next stage in flight during the current one
+                    (True), or after it; the same bits either way.
+      inject_ring_fault: ``('ring_nan', stage)`` poisons the V block the
+                    sharded streaming ring consumes at that stage with NaN
+                    (fault injection; mesh and engine='streaming' only).
+
     Resumable execution (one device; see :func:`_run_supervised`):
       checkpoint_every: run the power loop in segments of this many sweeps
                     and snapshot the loop's carry after each. A segment
@@ -134,6 +154,10 @@ class GPICConfig:
     seed: int = 0
     sanitize: bool = False
     component_probe: bool = True
+    mesh: dist.ProcessGroup | None = None
+    fold_shift: bool = False
+    overlap: bool = True
+    inject_ring_fault: tuple | None = None
     checkpoint_every: int | None = None
     ckpt_dir: str | None = None
     max_retries: int = 3
@@ -195,6 +219,7 @@ def check_config(cfg: GPICConfig, n: int | None = None) -> AffinitySpec:
         spec.validate_for_n(n)
     if cfg.engine == "matrix_free":
         dropped = [name for name, bad in (
+            ("fold_shift", cfg.fold_shift),
             ("tile", cfg.tile is not None),
             ("a_dtype", cfg.a_dtype != torch.float32),
         ) if bad]
@@ -208,6 +233,13 @@ def check_config(cfg: GPICConfig, n: int | None = None) -> AffinitySpec:
                 "(cosine kinds, fixed bandwidth, no truncation); got "
                 f"{spec} — use the explicit or streaming engine for "
                 "adaptive/kNN graphs")
+    elif cfg.fold_shift and (cfg.mesh is None or cfg.engine != "explicit"
+                             or spec.kind != "cosine_shifted"
+                             or not spec.dense_fixed):
+        raise ValueError(
+            "fold_shift (O5) applies only to the sharded explicit engine "
+            "with a dense fixed cosine_shifted spec (the shift being "
+            "folded has no closed form on a truncated row)")
     if cfg.engine == "streaming" and cfg.a_dtype != torch.float32:
         raise ValueError(
             "a_dtype (O4) selects the A *storage* dtype; the streaming "
@@ -229,6 +261,11 @@ def check_config(cfg: GPICConfig, n: int | None = None) -> AffinitySpec:
         raise ValueError(
             f"straggler_timeout must be > 0 seconds, got "
             f"{cfg.straggler_timeout}")
+    if cfg.inject_ring_fault is not None and (
+            cfg.mesh is None or cfg.engine != "streaming"):
+        raise ValueError(
+            "inject_ring_fault poisons a sharded streaming ring stage; it "
+            "needs mesh set and engine='streaming'")
     if cfg.n_vectors < 1:
         raise ValueError(f"n_vectors must be >= 1, got {cfg.n_vectors}")
     # the cap holds for the matrix-free engine too: its Gram kernel takes
@@ -254,7 +291,23 @@ def check_config(cfg: GPICConfig, n: int | None = None) -> AffinitySpec:
         raise NotImplementedError(
             "tile overrides are not ported yet (ROADMAP queue 1 item 1, the "
             "tile policy); this slice's kernels use fixed tiles")
+    if cfg.mesh is not None:
+        later = [name for name, on in (
+            ("checkpoint_every", cfg.checkpoint_every is not None),
+            ("straggler_timeout", cfg.straggler_timeout is not None),
+            ("row_reorder", cfg.row_reorder)) if on]
+        if later:
+            raise mesh_not_ported(later)
     return spec
+
+
+def mesh_not_ported(names) -> NotImplementedError:
+    """The error for a setting whose mesh branch a later slice ports: the
+    supervisor's (checkpoints, straggler timeouts, injected faults) and the
+    row reorder's."""
+    return NotImplementedError(
+        f"GPICConfig.mesh with {list(names)}: the resumable supervisor and the row "
+        "reorder run on one device; their mesh branches are ROADMAP queue 1 item 10b")
 
 
 def run_gpic(
@@ -290,11 +343,22 @@ def run_gpic(
     cfg = config or GPICConfig()
     if overrides:
         cfg = cfg.with_(**overrides)
+    if cfg.mesh is not None and not isinstance(cfg.mesh, dist.ProcessGroup):
+        raise TypeError(
+            "GPICConfig.mesh takes a torch.distributed process group (or None for one "
+            f"device), got {type(cfg.mesh).__name__}")
     shape = np.shape(x)
-    spec = check_config(cfg, shape[0] if shape else None)
+    n = shape[0] if shape else None
+    if n is not None and cfg.mesh is not None:
+        n *= dist.get_world_size(cfg.mesh)          # x is this rank's row block
+    spec = check_config(cfg, n)
+    if cfg.mesh is not None and segment_injector is not None:
+        raise mesh_not_ported(["segment_injector"])
     dev = resolve_device(device, "run_gpic")
     x = as_f32(x, dev)
-    x, notes = validate_features(x, k, sanitize=cfg.sanitize)
+    x, notes = validate_features(
+        x, k, sanitize=cfg.sanitize,
+        reductions=None if cfg.mesh is None else mesh_reductions(cfg.mesh))
     inv = None
     if cfg.row_reorder:
         perm = graph_reorder_permutation(x, spec)
@@ -313,6 +377,8 @@ def run_gpic(
         res, sup_notes = _run_supervised(x.contiguous(), k, cfg, generator=generator,
                                          spec=spec, segment_injector=segment_injector)
         notes = tuple(notes) + sup_notes
+    elif cfg.mesh is not None:
+        res = _run_sharded_front(x.contiguous(), k, cfg, spec=spec, generator=generator)
     elif cfg.engine == "matrix_free":
         res = gpic_matrix_free(x.contiguous(), k, **common)
     else:
@@ -324,8 +390,25 @@ def run_gpic(
     if notes:
         res = replace(res, health=replace(res.health,
                                           notes=res.health.notes + notes))
-    raise_for_health(res.health, x.shape[0])
+    raise_for_health(res.health, res.labels.shape[0])
     return res
+
+
+def _run_sharded_front(x_loc: torch.Tensor, k: int, cfg: GPICConfig, *, spec: AffinitySpec,
+                       generator: torch.Generator) -> PICResult:
+    """The unsupervised mesh route: this rank's block through the sharded
+    entry point of the engine, on the device of ``x_loc``."""
+    common = dict(group=cfg.mesh, device=x_loc.device, generator=generator,
+                  eps_scale=cfg.eps_scale, max_iter=cfg.max_iter,
+                  kmeans_iters=cfg.kmeans_iters, affinity=spec, n_vectors=cfg.n_vectors,
+                  embedding=cfg.embedding, qr_every=cfg.qr_every,
+                  snapshot_iters=cfg.snapshot_iters, residual_tol=cfg.residual_tol)
+    if cfg.engine == "matrix_free":
+        return distributed_gpic_matrix_free(x_loc, k, **common)
+    return distributed_gpic(x_loc, k, engine=cfg.engine, a_dtype=cfg.a_dtype,
+                            fold_shift=cfg.fold_shift, block_sparse=cfg.block_sparse,
+                            overlap=cfg.overlap, probe_components=cfg.component_probe,
+                            inject_ring_fault=cfg.inject_ring_fault, **common)
 
 
 def _unpermute_result(res: PICResult, inv: torch.Tensor) -> PICResult:

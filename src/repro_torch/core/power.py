@@ -6,8 +6,13 @@ operator realizes it, so the per-iteration memory traffic does not depend
 on the number of power vectors.
 
 The engine is parameterized by a :class:`PowerOperator`: ``matmat``
-performs the sweep and ``gram`` the V^T V products of the block algebra,
-on one device.
+performs the sweep and ``gram`` the V^T V products of the block algebra.
+Its ``sum``/``max``/``all_gather`` hooks finish the loop's global
+quantities (the column l1, the acceleration, the Grams): the identity on
+one device, collectives over a process group on the sharded engines
+(``core/operators.py::mesh_reductions``), where V is each rank's (n_loc, r)
+row block. Every value the loop branches on comes out of those hooks, so
+all ranks take the same branches.
 
 Three embedding modes share the one loop:
 
@@ -49,6 +54,10 @@ EMBEDDINGS = ("pic", "orthogonal", "ensemble")
 STALL_PATIENCE = 10
 
 
+def _identity(x):
+    return x
+
+
 def _gram_plain(v):
     """V^T V in f32: the default binding; the operator builders bind the
     Gram kernel (``kernels.ops.gram``)."""
@@ -58,19 +67,30 @@ def _gram_plain(v):
 
 @dataclass(frozen=True)
 class PowerOperator:
-    """One degree-normalized sweep of A.
+    """One degree-normalized sweep of A, and the reductions that finish it.
 
     Attributes:
-      matmat: maps the (n, r) V to (A V) / d.
-      degree: the (n,) degree backing the sweep (v0 seed and diagnostics;
-        None for a bare callable).
-      gram: maps an (n, c) block to its (c, c) Gram V^T V (the
-        re-orthonormalization and the subspace residual).
-      matmat_t: maps V to the unnormalized A^T V, for the component probe
-        of a directed (kNN-truncated) graph; None where A is symmetric.
+      matmat: maps the local (n_loc, r) block of V to that block of
+        (A V) / d (n_loc = n on one device).
+      degree: the local (n_loc,) degree backing the sweep (v0 seed and
+        diagnostics; None for a bare callable).
+      sum: finishes a sum over the ranks of an already locally reduced
+        value (identity on one device; an all-reduce when sharded).
+      max: the same for a maximum.
+      all_gather: maps a local (n_loc, ...) block to the global (n, ...)
+        tensor, the ranks' blocks in rank order (identity on one device).
+      gram: maps a local (n_loc, c) block to its local (c, c) Gram V^T V
+        (the re-orthonormalization and the subspace residual); ``sum``
+        finishes it.
+      matmat_t: maps the local block of V to the local block of the
+        unnormalized A^T V, for the component probe of a directed
+        (kNN-truncated) graph; None where A is symmetric.
     """
     matmat: Callable[[torch.Tensor], torch.Tensor]
     degree: torch.Tensor | None = None
+    sum: Callable[[torch.Tensor], torch.Tensor] = field(default=_identity)
+    max: Callable[[torch.Tensor], torch.Tensor] = field(default=_identity)
+    all_gather: Callable[[torch.Tensor], torch.Tensor] = field(default=_identity)
     gram: Callable[[torch.Tensor], torch.Tensor] = field(default=_gram_plain)
     matmat_t: Callable[[torch.Tensor], torch.Tensor] | None = None
 
@@ -94,9 +114,10 @@ def orthonormalize_block(op, v):
     reports the failure in ``info`` where the reference's Cholesky returns
     NaNs, and L may come back partly filled and still finite, so both are
     tested. The (r, r) algebra stays on the block's device: the skip is a
-    ``torch.where``, not a host decision.
+    ``torch.where``, not a host decision. The Gram is global (the local
+    Grams finished by ``op.sum``), so every rank computes the same factor.
     """
-    ell, info = torch.linalg.cholesky_ex(op.gram(v))
+    ell, info = torch.linalg.cholesky_ex(op.sum(op.gram(v)))
     ok = (info == 0) & torch.all(torch.isfinite(ell))
     q = torch.linalg.solve_triangular(ell, v.T, upper=False).T
     out = torch.cat([v[:, :1], q[:, 1:]], dim=1)
@@ -115,7 +136,7 @@ def subspace_residual(op, v, u):
     guard does.
     """
     r = v.shape[1]
-    g = op.gram(torch.cat([v, u], dim=1))                      # (2r, 2r)
+    g = op.sum(op.gram(torch.cat([v, u], dim=1)))              # (2r, 2r)
     gvv, gvu, guu = g[:r, :r], g[:r, r:], g[r:, r:]
     lam, info = torch.linalg.solve_ex(gvv, gvu)
     denom = torch.trace(guu)
@@ -229,7 +250,7 @@ def power_iteration_segment(op, carry: PowerCarry, eps, stop: int, *, mode="pic"
     snaps = carry.snaps.clone() if snapshot_iters else carry.snaps
     while t < stop and not bool(done.all()):
         u = op.matmat(v)                                   # (n, r)
-        l1 = torch.sum(torch.abs(u), dim=0)                # (r,)
+        l1 = op.sum(torch.sum(torch.abs(u), dim=0))        # (r,)
         v_next = u / torch.clamp_min(l1, 1e-30)[None, :]
         # per-column fault latches read the reduced l1: a NaN/Inf anywhere
         # in the column propagates into its sum
@@ -245,7 +266,7 @@ def power_iteration_segment(op, carry: PowerCarry, eps, stop: int, *, mode="pic"
         if block and qr_now:
             v_next = orthonormalize_block(op, v_next)
         delta_next = torch.abs(v_next - v)
-        accel = torch.amax(torch.abs(delta_next - delta), dim=0)  # (r,)
+        accel = op.max(torch.amax(torch.abs(delta_next - delta), dim=0))  # (r,)
         # columns already done are frozen: keep prior value/delta and don't
         # count the iteration; columns converging NOW keep this update. In
         # block mode only the pinned column 0 freezes.
@@ -418,11 +439,21 @@ def init_power_vectors(d, n_vectors, *, generator=None, dtype=None):
     v_0 = D / sum(D) (Algorithm 2 lines 4-5); the rest are random starts
     drawn from ``generator``."""
     dtype = dtype or d.dtype
-    v0 = (d / torch.clamp_min(torch.sum(d), 1e-30)).to(dtype)
-    return torch.cat(
-        [v0[:, None], random_start_vectors(generator, d.shape[0], n_vectors,
-                                           device=d.device, dtype=dtype)],
-        dim=1)
+    return init_power_vectors_local(
+        d, random_start_vectors(generator, d.shape[0], n_vectors, device=d.device,
+                                dtype=dtype), dtype=dtype)
+
+
+def init_power_vectors_local(d_loc, u0t_loc, sum_fn=_identity, dtype=None):
+    """The local (n_loc, r) block of the start state: column 0 is the
+    degree start normalized by the global degree mass (``sum_fn`` finishes
+    the sum over the ranks: the identity on one device), the rest this
+    rank's rows of the replicated random starts ``u0t`` (n, r-1), so every
+    rank seeds its rows of the single-device state."""
+    dtype = dtype or d_loc.dtype
+    dsum = sum_fn(torch.sum(d_loc))
+    v0 = (d_loc / torch.clamp_min(dsum, 1e-30)).to(dtype)
+    return torch.cat([v0[:, None], u0t_loc.to(device=d_loc.device, dtype=dtype)], dim=1)
 
 
 def standardize_columns(v):

@@ -29,43 +29,39 @@ from .core.pic import PICResult
 from .core.pipeline import GPICConfig, check_config
 
 #: reference fields that select HOW the reference computes (kernel vs jnp
-#: oracle, a fallback policy, knobs of the mesh, which a single-device run
-#: never takes) and not WHAT: the port accepts any value and ignores it.
-#: The port has no kernel fallback, so ``retry_on_fallback`` has nothing
-#: to retry.
-_NO_EFFECT = ("use_pallas", "retry_on_fallback", "overlap", "shard_axes")
-
-#: reference fields this slice does not route, with the value that means
-#: "off"; any other value raises NotImplementedError
-_UNROUTED_DEFAULTS = {
-    "mesh": None,                 # ROADMAP queue 1 item 10, multi-GPU
-    "fold_shift": False,          # item 10 (sharded explicit engine only)
-    "inject_ring_fault": None,    # item 10
-}
-
+#: oracle, a fallback policy, the mesh axes the rows stripe over, which a
+#: process group has no counterpart of) and not WHAT: the port accepts any
+#: value and ignores it. The port has no kernel fallback, so
+#: ``retry_on_fallback`` has nothing to retry.
+_NO_EFFECT = ("use_pallas", "retry_on_fallback", "shard_axes")
 
 def config_from_reference(ref_fields: dict, n: int | None = None) -> GPICConfig:
     """The port's :class:`GPICConfig` for the reference config whose fields
     are given as plain values. Raises ValueError for an unknown field or a
     value the reference refuses (the spec's neighbor ranks against ``n``,
     the number of points, when it is given) and NotImplementedError for a
-    setting this slice does not route."""
+    setting that does not cross (a reference mesh) or that the port does
+    not route yet."""
     kept = {f.name for f in fields(GPICConfig)}
     out = {}
     for name, value in ref_fields.items():
-        if name in kept:
+        if name == "mesh":
+            # a JAX object: the port's counterpart is a process group, which
+            # the caller sets on the port's config
+            if value is not None:
+                raise NotImplementedError(
+                    f"mesh={value!r} is a JAX mesh and cannot cross; set the port's "
+                    "GPICConfig.mesh to a torch.distributed process group instead")
+        elif name in kept:
             if name == "a_dtype":
                 value = getattr(torch, str(value))
             elif name == "affinity" and value is not None:
                 value = AffinitySpec(**value)
             elif name == "snapshot_iters" and value is not None:
                 value = tuple(int(t) for t in value)
+            elif name == "inject_ring_fault" and value is not None:
+                value = tuple(value)
             out[name] = value
-        elif name in _UNROUTED_DEFAULTS:
-            if value != _UNROUTED_DEFAULTS[name]:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not routed by the port yet (see "
-                    "ROADMAP queue 1)")
         elif name not in _NO_EFFECT:
             raise ValueError(f"unknown GPICConfig field {name!r}")
     cfg = GPICConfig(**out)

@@ -337,10 +337,15 @@ def test_settings_this_port_routes_run(override):
     dict(affinity=dict(kind="rbf", bandwidth="adaptive", scale_k=0)),
     dict(affinity=dict(kind="cosine", bandwidth="adaptive")),
     dict(engine="matrix_free", affinity=dict(kind="cosine_shifted", knn_k=5)),
+    dict(fold_shift=True), dict(engine="matrix_free", affinity_kind="cosine", fold_shift=True),
+    dict(inject_ring_fault=("ring_nan", 0)),
+    dict(engine="streaming", inject_ring_fault=("ring_nan", 1)),
 ], ids=["qr_every_0", "qr_every_outside_orthogonal", "snapshot_iters_outside_ensemble",
         "residual_tol_with_r1", "residual_tol_0", "residual_tol_outside_orthogonal",
         "streaming_bf16", "knn_k_not_below_n", "knn_k_0", "scale_k_not_below_n", "scale_k_0",
-        "adaptive_cosine", "matrix_free_knn"])
+        "adaptive_cosine", "matrix_free_knn", "fold_shift_without_mesh",
+        "fold_shift_on_matrix_free", "ring_fault_without_mesh",
+        "ring_fault_streaming_without_mesh"])
 def test_front_door_value_errors_match_the_reference(override):
     """The same class and message in both packages. The spec's own checks
     run where it is built; the neighbor ranks against n = 40 at the front
@@ -444,10 +449,18 @@ def test_config_from_reference_defaults_and_rejections():
     assert config_from_reference(_plain_fields(jcore.GPICConfig())) == GPICConfig()
     fields = _plain_fields(jcore.GPICConfig(use_pallas=False, retry_on_fallback=True))
     assert config_from_reference(fields) == GPICConfig()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a reference mesh is a JAX object: the port takes a process group instead
+    with pytest.raises(NotImplementedError, match="mesh.*process group"):
         config_from_reference(dict(fields, mesh="a mesh"))
-    with pytest.raises(NotImplementedError, match="inject_ring_fault"):
-        config_from_reference(dict(fields, inject_ring_fault=("ring_nan", 0)))
+    # the sharded engines' fields are routed (queue 1 item 10): overlap
+    # crosses as is, and the ring fault and fold_shift reach check_config,
+    # which refuses them without a mesh as the reference does
+    assert config_from_reference(dict(fields, overlap=False)) == GPICConfig(overlap=False)
+    with pytest.raises(ValueError, match="needs mesh set and engine='streaming'"):
+        config_from_reference(dict(fields, engine="streaming",
+                                   inject_ring_fault=("ring_nan", 0)))
+    with pytest.raises(ValueError, match="applies only to the sharded explicit engine"):
+        config_from_reference(dict(fields, fold_shift=True))
     # the resumable supervisor's fields are routed (queue 1 item 9)
     routed = dict(checkpoint_every=5, ckpt_dir="ck", max_retries=1, backoff=0.5,
                   straggler_timeout=30.0)
@@ -458,9 +471,58 @@ def test_config_from_reference_defaults_and_rejections():
         config_from_reference(dict(fields, engine="warp"))
 
 
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A gloo process group of this process alone (the default group, torn
+    down after the test)."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("override", [
+    dict(checkpoint_every=5, ckpt_dir="ck"), dict(straggler_timeout=30.0),
+    dict(row_reorder=True), dict(segment_injector=lambda t: None),
+], ids=["checkpoint_every", "straggler_timeout", "row_reorder", "segment_injector"])
+def test_mesh_with_the_supervisor_or_the_reorder_names_item_10b(one_rank_group, override):
+    """Their mesh branches are the next slice: NotImplementedError naming
+    ROADMAP queue 1 item 10b, before anything runs."""
+    x, _, k = dataset_by_name("gaussians", 40, seed=0)
+    override = dict(override)
+    injector = override.pop("segment_injector", None)
+    cfg = GPICConfig(mesh=one_rank_group, **override)
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        run_gpic(x, k, cfg, device="cpu", segment_injector=injector)
+
+
+@pytest.mark.parametrize("engine", ["explicit", "streaming", "matrix_free"])
+def test_run_gpic_on_a_one_rank_group_is_the_one_device_run(one_rank_group, engine):
+    """With ``mesh`` set, run_gpic routes to the sharded engines; on one
+    rank they make the one-device run's labels, sweeps and health, the
+    embedding within f32 noise."""
+    if engine == "matrix_free":
+        x, _, k = direction_clusters(200, 0)
+        cfg = GPICConfig(engine=engine, affinity_kind="cosine")
+    else:
+        x, _, k = dataset_by_name("gaussians", 200, seed=0)
+        cfg = GPICConfig(engine=engine, affinity_kind="rbf", sigma=0.3)
+    one = result_to_numpy(run_gpic(x, k, cfg, device="cpu"))
+    res = run_gpic(x, k, cfg.with_(mesh=one_rank_group), device="cpu")
+    got = result_to_numpy(res)
+    for field in ("labels", "n_iter_cols", "health_col_status", "health_isolated_rows"):
+        np.testing.assert_array_equal(got[field], one[field], err_msg=field)
+    np.testing.assert_allclose(got["embeddings"], one["embeddings"], rtol=0,
+                               atol=1e-6 * np.abs(one["embeddings"]).max())
+
+
 def test_port_imports_no_jax_and_nothing_of_the_reference():
     code = ("import sys, repro_torch, repro_torch.interop, repro_torch.core, "
             "repro_torch.kernels.ops, repro_torch.models, repro_torch.configs, "
+            "repro_torch.core.distributed, "
             "repro_torch.train, repro_torch.train.train_step, repro_torch.launch, "
             "repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
