@@ -31,7 +31,10 @@ degree on its plan (E1's and E2's), and the affinity build (dense rbf, the
 main path's and E1's fused build's call; E1's and E2's thresholded
 two-pass calls; E2's scales alone, its fused build's call), each 8.1 GB A
 freed before the next is built, at n = 45,000, m = 2 by CUDA events; and
-the stored block-sparse sweep on E1's A and plan (n = 45,000, live
+#6 against #1's D on the 16 stripes of a 4-way ring partition of the
+main shape (how many are bitwise, and each one's D against #1's stored
+entries summed in the kernels' order, the first parting rows in hex); the
+stored block-sparse sweep on E1's A and plan (n = 45,000, live
 fraction 0.2453) in f32 and bf16 at r = 1 and 2, on A and on a copy of it
 shifted one element off 16 bytes (a checkout's plain-load template), by
 CUDA events, each with a hash of U's bits, which must be the same in every
@@ -146,6 +149,58 @@ for stat, k, sc in cases:
     report[tag] = dict(ms=cs.cuda_ms(lambda: row_topk(x, k=k, stat=stat, kind="rbf",
                                                       sigma=cs.SIGMA, scale_r=sc,
                                                       scale_c=sc), 5))
+# #6 against #1's D on the P = 4 ring stripes of the main shape (rows
+# rank n/4, columns ((rank + s) % 4) n/4, chip_smoke.py's phase_ring_stages):
+# the stripes where the two are bitwise, and #1's stored entries summed in
+# the kernels' order with one rounding an add (thread t adds columns t,
+# t + 256, ... in order, then the warp tree, then the 8 warps in order),
+# which D must equal; for the first rows where #6 or #1 part from that sum,
+# the values in hex and the row's nonzero and subnormal entries
+def kernel_order_sums(a):
+    rows, cols = a.shape
+    tiles = -(-cols // 256)
+    padded = torch.zeros((rows, tiles * 256), device=a.device)
+    padded[:, :cols] = a
+    part = torch.zeros((rows, 256), device=a.device)
+    for j in range(tiles):
+        part = part + padded[:, j * 256:(j + 1) * 256]
+    warp = part.view(rows, 8, 32)
+    for off in (16, 8, 4, 2, 1):
+        warp = warp + torch.cat([warp[:, :, off:], warp[:, :, 32 - off:]], dim=2)
+    total = torch.zeros((rows,), device=a.device)
+    for w in range(8):
+        total = total + warp[:, w, 0]
+    return total
+
+
+n_loc = n // 4
+ring = dict(stripes=16, bitwise=0, d1_is_the_sum=0, d6_is_the_sum=0, parting_rows=0,
+            rows=[])
+for rank in range(4):
+    xr = x[rank * n_loc:(rank + 1) * n_loc]
+    for s in range(4):
+        c0 = ((rank + s) % 4) * n_loc
+        xc = x[c0:c0 + n_loc]
+        off = dict(kind="rbf", sigma=cs.SIGMA, row_offset=rank * n_loc, col_offset=c0)
+        a, d1 = affinity_and_degree(xr, xc, **off)
+        d6 = affinity_degree_streaming(xr, xc, **off)
+        want = kernel_order_sums(a)
+        ring["bitwise"] += int(torch.equal(d1, d6))
+        ring["d1_is_the_sum"] += int(torch.equal(d1, want))
+        ring["d6_is_the_sum"] += int(torch.equal(d6, want))
+        parted = ((d1 != want) | (d6 != want)).nonzero().flatten()
+        ring["parting_rows"] += parted.numel()
+        for i in parted[:3].tolist():
+            row = a[i]
+            ring["rows"].append(dict(
+                stripe=[rank, s], row=rank * n_loc + i, d1=float(d1[i]).hex(),
+                d6=float(d6[i]).hex(), sum=float(want[i]).hex(),
+                nonzero=int((row != 0).sum()),
+                subnormal=int(((row != 0) & (row.abs() < 2.0 ** -126)).sum()),
+                largest=float(row.max()).hex()))
+        del a
+torch.cuda.empty_cache()
+report["ring #6 = #1's D"] = dict(ms=None, **ring)
 report["degree dense"] = dict(ms=cs.cuda_ms(
     lambda: affinity_degree_streaming(x, kind="rbf", sigma=cs.SIGMA), 10))
 # each call's A (8.1 GB) is dropped as it returns, before the next call
@@ -205,7 +260,8 @@ def run_turn(tag: str, root: str) -> dict:
                          f"{proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     print(f"[{tag}] {device}", flush=True)
     times = " ".join(f"{name}: {rec['ms']:.6f} ms;" if rec["ms"] is not None
-                     else f"{name}: raises;" for name, rec in reports[0].items())
+                     else f"{name}: {rec.get('raises', rec)};"
+                     for name, rec in reports[0].items())
     print(f"[{tag}] {times}", flush=True)
     return dict(reports[0], device=device)
 

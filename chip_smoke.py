@@ -3500,16 +3500,174 @@ def _nccl_store():
     return os.path.join(tempfile.mkdtemp(prefix="chip_smoke_nccl_"), "store")
 
 
+#: the sharded runs phase_distributed repeats through run_gpic's supervisor
+SUPERVISED_TAGS = ("explicit", "streaming", "E1 explicit", "explicit bf16")
+
+
+def _same_result(a, b) -> bool:
+    """Labels, embeddings, sweeps, convergence and health, bit for bit."""
+    return (all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+        "labels", "embedding", "embeddings", "n_iter_cols", "converged_cols"))
+            and torch.equal(a.health.col_status, b.health.col_status)
+            and torch.equal(a.health.components, b.health.components)
+            and int(a.health.isolated_rows) == int(b.health.isolated_rows)
+            and int(a.health.n_components) == int(b.health.n_components))
+
+
+def _shuffled(x):
+    """The rows of ``x`` in a fixed shuffled order (the reorder cases')."""
+    return x[torch.as_tensor(np.random.default_rng(0).permutation(x.shape[0]),
+                             device=x.device)]
+
+
+def _overhead_pct(plain, supervised, reps=5):
+    """(the median over ``reps`` interleaved pairs of the supervised run's
+    wall over the plain one's, in %, and that pair's walls in s)."""
+    pairs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        supervised().labels.cpu()
+        on = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain().labels.cpu()
+        off = time.perf_counter() - t0
+        pairs.append((100.0 * (on - off) / off, on, off))
+    return sorted(pairs)[len(pairs) // 2]
+
+
+def _supervised_sharded(report, data, mono):
+    """run_gpic's supervisor and row reorder on the 1-rank NCCL group at
+    n = 45,000 (the group is up; ``mono`` holds the monolithic sharded runs
+    of ``_sharded_runs`` by tag): each of SUPERVISED_TAGS with
+    ``checkpoint_every=5`` bitwise its monolithic run, no notes; explicit
+    interrupted at sweep 10 and resumed, bitwise, notes retry and
+    resumed:10; a straggler timeout retried (an injector counts the
+    attempts) and then raised; the ring fault of ``FaultSchedule``'s
+    ``ring_stage`` on streaming the typed PowerDivergenceError; E1 explicit
+    on shuffled rows with ``row_reorder``: the one-device permutation
+    exactly and the one-device reordered run's labels. The checkpoint
+    overhead of explicit gaussians on the group beside one device's,
+    recorded, no gate. Snapshots go under build/. Returns the reorder's
+    (permutation, labels) for the four-rank phase."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch import AffinitySpec, GPICConfig, run_gpic
+    from repro_torch.core import distributed as D
+    from repro_torch.core.graph import graph_reorder_permutation
+    from repro_torch.core.health import StragglerTimeout
+    from repro_torch.core.pipeline import _row_reorder_permutation
+    from repro_torch.train.fault_tolerance import FailureInjector, FaultSchedule, run_schedule
+    group = dist.group.WORLD
+    root = os.path.join(ROOT, "build", "chip_smoke_sharded_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    kws = {tag: kw for tag, _, _, kw in _sharded_runs()}
+    xg, kg = data["gaussians"]
+    x_loc = D.shard_points(xg, group)
+
+    def on_group(tag, **kw):
+        if "ckpt_dir" in kw:
+            kw["ckpt_dir"] = os.path.join(root, kw["ckpt_dir"])
+        return GPICConfig(mesh=group, **kws[tag]).with_(**kw)
+
+    rec = {}
+    for tag in SUPERVISED_TAGS:
+        cfg = on_group(tag, checkpoint_every=5, ckpt_dir=tag.replace(" ", "_"))
+        res, _, wall, counts, _ = _counted(lambda: run_gpic(x_loc, kg, cfg))
+        bitwise = _same_result(res, mono[tag])
+        print(f"[distributed] 1 rank {tag} supervised (checkpoint_every=5): wall_s={wall:.4f} "
+              f"(monolithic {report['distributed']['runs'][tag]['wall_s']:.4f}) "
+              f"n_iter_cols={res.n_iter_cols.tolist()} bitwise the monolithic run={bitwise} "
+              f"notes={res.health.notes} launches={counts}", flush=True)
+        check(bitwise and res.health.notes == (),
+              f"1-rank {tag} with checkpoint_every=5 is not its monolithic run bit for bit")
+        rec[tag] = dict(wall_s=wall, bitwise=bitwise, launches=counts)
+    inj = FailureInjector(fail_at_steps=(10,))
+    res = run_gpic(x_loc, kg, on_group("explicit", checkpoint_every=5, ckpt_dir="fault"),
+                   segment_injector=inj.maybe_fail)
+    resumed = _same_result(res, mono["explicit"])
+    check(resumed and res.health.notes == ("retry:1:SimulatedFailure", "resumed:10"),
+          f"1-rank explicit interrupted at sweep 10: bitwise={resumed} notes "
+          f"{res.health.notes}")
+    attempts = []
+    try:
+        run_gpic(x_loc, kg, on_group("explicit", straggler_timeout=1e-9, max_retries=2),
+                 segment_injector=attempts.append)
+        straggler = None
+    except StragglerTimeout as e:
+        straggler = str(e)
+    check(straggler is not None and attempts == [0, 0, 0],
+          f"a straggler timeout on the group was not retried twice, then raised: "
+          f"attempts {attempts}, {straggler}")
+    ring = run_schedule(x_loc, kg, FaultSchedule(ring_stage=0),
+                        on_group("streaming", checkpoint_every=5, ckpt_dir="ring"))
+    check(ring["status"] == "typed_error" and ring.get("error") == "PowerDivergenceError",
+          f"the ring fault on the group: {ring['status']} {ring.get('error')}")
+    print(f"[distributed] 1 rank explicit interrupted at sweep 10: bitwise={resumed} "
+          f"notes={res.health.notes}; a straggler timeout: {len(attempts)} attempts, then "
+          f"StragglerTimeout; FaultSchedule(ring_stage=0) on streaming: {ring['status']} "
+          f"{ring.get('error')}", flush=True)
+
+    xs = _shuffled(xg)
+    cfg = on_group("E1 explicit", row_reorder=True)
+    spec = AffinitySpec(**E1_SPEC)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, perm = _row_reorder_permutation(D.shard_points(xs, group), cfg, spec)
+    torch.cuda.synchronize()
+    perm_s = time.perf_counter() - t0
+    perm_one = graph_reorder_permutation(xs, spec)
+    res, labels, wall, _, _ = _counted(lambda: run_gpic(D.shard_points(xs, group), kg, cfg))
+    one, labels_one, wall_one, _, _ = _counted(lambda: run_gpic(xs, kg, cfg.with_(mesh=None)))
+    same_perm = torch.equal(perm, perm_one)
+    print(f"[distributed] 1 rank E1 explicit, shuffled rows, row_reorder: the permutation "
+          f"{perm_s:.4f} s, equal to one device's={same_perm}; wall_s={wall:.4f} (one device "
+          f"{wall_one:.4f}) labels equal={bool((labels == labels_one).all())} "
+          f"bitwise={_same_result(res, one)} n_iter_cols={res.n_iter_cols.tolist()}",
+          flush=True)
+    check(same_perm and bool((labels == labels_one).all()),
+          "the reordered run on the group differs from the one-device reordered run")
+    reorder = (perm.cpu(), labels)
+
+    plain = GPICConfig(**kws["explicit"])
+    every5 = dict(checkpoint_every=5, ckpt_dir=os.path.join(root, "timed"))
+
+    def fresh(cfg, xx):
+        def run():
+            shutil.rmtree(every5["ckpt_dir"], ignore_errors=True)
+            return run_gpic(xx, kg, cfg)
+        return run
+
+    overhead = {}
+    for where, cfg, xx in (("one device", plain, xg), ("1-rank group", plain.with_(mesh=group),
+                                                       x_loc)):
+        pct, on, off = _overhead_pct(lambda: run_gpic(xx, kg, cfg),
+                                     fresh(cfg.with_(**every5), xx))
+        overhead[where] = dict(pct=pct, on_s=on, off_s=off)
+    print(f"[distributed] checkpoint overhead, explicit gaussians n={N_MAIN} checkpoint_every=5 "
+          "(median of 5 interleaved pairs, recorded): " + "; ".join(
+              f"{where} {o['pct']:.2f}% ({o['on_s']:.4f} s vs {o['off_s']:.4f} s)"
+              for where, o in overhead.items()), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    report["distributed"]["supervised"] = dict(
+        runs=rec, resumed_bitwise=resumed, straggler_attempts=len(attempts),
+        ring_fault=ring.get("error"), reorder=dict(permutation_s=perm_s, equal=same_perm,
+                                                   wall_s=wall, wall_one_device_s=wall_one),
+        checkpoint_overhead=overhead)
+    return reorder
+
+
 def phase_distributed(report):
     """The sharded engines (core/distributed.py) on a 1-rank NCCL group at
     n = 45,000: each run of ``_sharded_runs`` through its distributed entry
     point, held to the single-device port on the card (labels equal,
     column 0's sweeps equal, the embedding within DIST_RTOL of max|v|),
-    with its wall, peak memory and the launches of every kernel. A run on
-    the CPU device with an NCCL group must raise. Returns the launches of
-    each kernel summed over the sharded runs, and the single-device
-    embeddings of the explicit and streaming runs (the four-rank phase's
-    yardstick)."""
+    with its wall, peak memory and the launches of every kernel; then
+    run_gpic's supervisor and row reorder on the group
+    (:func:`_supervised_sharded`). A run on the CPU device with an NCCL
+    group must raise. Returns the launches of each kernel summed over the
+    monolithic sharded runs, and the four-rank phase's yardstick: the
+    single-device embeddings of the explicit and streaming runs, and the
+    reordered E1 run's permutation and labels."""
     import torch.distributed as dist
     from repro_torch.core import distributed as D
     from repro_torch.data import dataset_by_name
@@ -3533,7 +3691,8 @@ def phase_distributed(report):
         print(f"[distributed] an NCCL group asked for the CPU raises: {raised}", flush=True)
         check(raised is not None and "nccl" in raised,
               "an NCCL group ran on CPU tensors instead of raising")
-        totals, runs, yardstick = {}, {}, {}
+        totals, runs, yardstick, mono = {}, {}, {}, {}
+        report["distributed"] = dict(runs=runs)
         for tag, entry, name, kw in _sharded_runs():
             x, k = data[name]
             one, labels_one, wall_one, _, peak_one = _counted(
@@ -3565,14 +3724,18 @@ def phase_distributed(report):
                              bitwise=bitwise, launches=counts)
             if tag in ("explicit", "streaming"):
                 yardstick[tag] = (labels, cols, emb.cpu())
+            if tag in SUPERVISED_TAGS:
+                mono[tag] = res
             del res, one
             torch.cuda.empty_cache()
+        report["distributed"]["launches"] = totals
+        yardstick["reorder"] = _supervised_sharded(report, data, mono)
     finally:
         dist.destroy_process_group()
     missing = [op for op in SOURCES if op != "flash_attention" and not totals.get(op)]
-    print(f"[distributed] launches on the sharded path (all runs): {totals}", flush=True)
+    print(f"[distributed] launches on the sharded path (all monolithic runs): {totals}",
+          flush=True)
     check(not missing, f"kernels never launched on the sharded path: {missing}")
-    report["distributed"] = dict(runs=runs, launches=totals)
     return totals, yardstick
 
 
@@ -3591,8 +3754,9 @@ def phase_ring_stages(report):
     nothing. The thresholds lie halfway between each row's KNN_K-th and
     next entry (from #7 with K + 1), so the plain versions, whose rounding
     differs from the kernels' at an entry, keep the same entries. The
-    twins (#6 and #1's D, #10 and #5, #11 and #6 with the thresholds) are
-    counted where bitwise and their largest difference printed."""
+    twins (#6 and #1's D, #10 and #5, #11 and #6 with the thresholds) must
+    be bitwise on every stripe; the count and their largest difference are
+    printed."""
     from repro_torch.core.affinity import block_plan, dense_block_live
     from repro_torch.kernels import ref
     from repro_torch.kernels.affinity import affinity_and_degree
@@ -3704,19 +3868,27 @@ def phase_ring_stages(report):
     check(sums_err["#7"] == 0.0 and max(sums_err["#6"], sums_err["#11"]) <= D_RTOL
           and max(sums_err["#5"], sums_err["#10"]) <= 0.0,
           f"the ring's stage sums disagree with the single-device kernels: {sums_err}")
+    check(all(count == stripes for count, _ in twins.values()),
+          f"a twin is not bitwise on every one of the {stripes} stripes: {twins}")
     report["ring_stages"] = dict(p=FOUR_RANKS, n_loc=n_loc, kernel_errors=err,
                                  stage_sum_errors=sums_err, twins=twins,
                                  live_fraction=[min(live_frac), max(live_frac)])
 
 
-def _four_rank_worker(rank, world, store, out_path):
+def _four_rank_worker(rank, world, store, out_path, ckpt_root):
     """One rank of the four-rank NCCL phase, on card ``rank``: the explicit
     and streaming runs of the main path on its row block, each once to warm
-    up and once counted; rank 0 saves what it got."""
+    up and once counted; the explicit run through run_gpic's supervisor
+    (snapshots every 5 sweeps under ``ckpt_root``, shared by the ranks),
+    interrupted at sweep 10 on rank 1 alone and resumed; E1 explicit on
+    shuffled rows with ``row_reorder``. Rank 0 saves what it got."""
     import torch.distributed as dist
+    from repro_torch import AffinitySpec, GPICConfig, run_gpic
     from repro_torch.core import distributed as D
+    from repro_torch.core.pipeline import _row_reorder_permutation
     from repro_torch.data import dataset_by_name
     from repro_torch.kernels import ops
+    from repro_torch.train.fault_tolerance import FailureInjector
     import datetime
     torch.cuda.set_device(rank)
     dev = torch.device("cuda", rank)
@@ -3724,7 +3896,7 @@ def _four_rank_worker(rank, world, store, out_path):
                             world_size=world, timeout=datetime.timedelta(seconds=FOUR_RANK_S))
     x, _, k = dataset_by_name("gaussians", N_MAIN, seed=0)
     x_loc = torch.as_tensor(D.shard_points(x), device=dev)
-    out = {}
+    out, mono = {}, {}
     for tag, entry, _, kw in _sharded_runs()[:2]:
         _sharded_call(entry, x_loc, k, kw, device=dev)
         dist.barrier()
@@ -3739,6 +3911,24 @@ def _four_rank_worker(rank, world, store, out_path):
                         embeddings=res.embeddings.cpu(), wall_s=wall,
                         peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
                         launches=ops.launch_counts())
+        mono[tag] = res
+    group = dist.group.WORLD
+    kws = {tag: kw for tag, _, _, kw in _sharded_runs()}
+    cfg = GPICConfig(mesh=group, checkpoint_every=5, ckpt_dir=ckpt_root, **kws["explicit"])
+    injector = FailureInjector(fail_at_steps=(10,)).maybe_fail if rank == 1 else None
+    t0 = time.perf_counter()
+    res = run_gpic(x_loc, k, cfg, segment_injector=injector)
+    out["resumed"] = dict(bitwise=_same_result(res, mono["explicit"]),
+                          notes=res.health.notes, wall_s=time.perf_counter() - t0)
+    xs = _shuffled(torch.as_tensor(x, device=dev))
+    cfg = GPICConfig(mesh=group, row_reorder=True, **kws["E1 explicit"])
+    _, perm = _row_reorder_permutation(D.shard_points(xs, group), cfg,
+                                       AffinitySpec(**E1_SPEC))
+    t0 = time.perf_counter()
+    res = run_gpic(D.shard_points(xs, group), k, cfg)
+    out["reorder"] = dict(perm=perm.cpu(), labels=res.labels.cpu().numpy(),
+                          n_iter_cols=res.n_iter_cols.tolist(),
+                          wall_s=time.perf_counter() - t0)
     if rank == 0:
         torch.save(out, out_path)
     dist.barrier()
@@ -3750,8 +3940,12 @@ def phase_four_ranks(report, yardstick):
     cards: the explicit and streaming runs at n = 45,000 held to the 1-rank
     runs (labels equal, column 0's sweeps within one: the ring and the
     all-reduce sum in another order, so an eps-crossing may move; the
-    embedding within DIST_RTOL of max|v| where the sweeps are equal). On
-    fewer cards it says so on one line and runs nothing."""
+    embedding within DIST_RTOL of max|v| where the sweeps are equal); the
+    supervised explicit run, interrupted on one rank, bitwise the 4-rank
+    monolithic run with the notes retry and resumed:10; the reordered E1
+    run's permutation exactly the 1-rank one (its labels against the 1-rank
+    run's recorded). On fewer cards it says so on one line and runs
+    nothing."""
     import tempfile
     import torch.multiprocessing as mp
     cards = torch.cuda.device_count()
@@ -3761,21 +3955,24 @@ def phase_four_ranks(report, yardstick):
         report["four_ranks"] = dict(run=False, cards=cards)
         return
     torch.cuda.empty_cache()
-    out_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_4r_"), "four_ranks.pt")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4r_")
+    out_path = os.path.join(tmp, "four_ranks.pt")
     # NCCL's bootstrap between the ranks over the loopback interface: the
     # machine has no network to pick another one from
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     os.environ.setdefault("NCCL_DEBUG", "WARN")
     t0 = time.perf_counter()
-    ctx = mp.start_processes(_four_rank_worker, args=(FOUR_RANKS, _nccl_store(), out_path),
+    ctx = mp.start_processes(_four_rank_worker, args=(FOUR_RANKS, _nccl_store(), out_path,
+                                                      os.path.join(tmp, "ckpt")),
                              nprocs=FOUR_RANKS, join=False, start_method="spawn")
     while not ctx.join(timeout=5):
         if time.perf_counter() - t0 > FOUR_RANK_S:
             for proc in ctx.processes:
                 proc.kill()
             check(False, f"the four ranks did not finish in {FOUR_RANK_S} s")
-    got = torch.load(out_path)
+    got = torch.load(out_path, weights_only=False)
     rec = {}
+    perm_1, labels_reorder_1 = yardstick.pop("reorder")
     for tag, (labels_1, cols_1, emb_1) in yardstick.items():
         r = got[tag]
         cols = r["n_iter_cols"]
@@ -3790,6 +3987,26 @@ def phase_four_ranks(report, yardstick):
               f"4 ranks {tag}: the result differs from the 1-rank run")
         rec[tag] = dict(wall_s=r["wall_s"], peak_mem_bytes=r["peak_mem_bytes"],
                         n_iter_cols=cols, max_rel_err=rel, launches=r["launches"])
+    from repro_torch import adjusted_rand_index
+    resumed, reorder = got["resumed"], got["reorder"]
+    same_perm = torch.equal(reorder["perm"], perm_1)
+    same_labels = bool((reorder["labels"] == labels_reorder_1).all())
+    agree = adjusted_rand_index(reorder["labels"], labels_reorder_1)
+    print(f"[distributed] 4 ranks explicit supervised, interrupted at sweep 10 on rank 1: "
+          f"bitwise the 4-rank monolithic run={resumed['bitwise']} notes={resumed['notes']} "
+          f"wall_s={resumed['wall_s']:.4f}; E1 explicit shuffled with row_reorder: the "
+          f"permutation equal to the 1-rank one={same_perm}, labels equal={same_labels} "
+          f"(ARI between {agree:.4f}; E1 clusters at ARI 0.0143, so k-means may part on "
+          "the sum-order noise of 4 ranks, recorded) "
+          f"n_iter_cols={reorder['n_iter_cols']} wall_s={reorder['wall_s']:.4f}", flush=True)
+    check(resumed["bitwise"]
+          and resumed["notes"] == ("retry:1:SimulatedFailure", "resumed:10"),
+          "the 4-rank supervised run interrupted on one rank is not its monolithic run")
+    check(same_perm, "the 4-rank row reorder's permutation is not the 1-rank one")
+    rec["resumed"] = dict(bitwise=resumed["bitwise"], notes=list(resumed["notes"]),
+                          wall_s=resumed["wall_s"])
+    rec["reorder"] = dict(permutation_equal=same_perm, labels_equal=same_labels, ari=agree,
+                          n_iter_cols=reorder["n_iter_cols"], wall_s=reorder["wall_s"])
     report["four_ranks"] = dict(run=True, cards=cards, runs=rec)
 
 

@@ -31,7 +31,9 @@ gathered embedding on every rank with the same draws (a
 The segmented entry points cut the loop into bounded pieces over a
 :class:`~repro_torch.core.power.PowerCarry` whose (n/P, r) leaves stay on
 their ranks; each call rebuilds the operator from the features, and the
-pieces make the monolithic run's sweeps bit for bit.
+pieces make the monolithic run's sweeps bit for bit; ``run_gpic``'s
+supervisor (``core/pipeline.py``) snapshots, resumes and retries them on a
+group.
 """
 from __future__ import annotations
 
@@ -284,6 +286,11 @@ def distributed_gpic_matrix_free(
 # ---------------------------------------------------------------------------
 # Segmented execution: the sharded engines in bounded pieces
 # ---------------------------------------------------------------------------
+
+#: the fields of a sharded PowerCarry held by rows, (n/P, ...) on each rank;
+#: the others (t, done, t_cols, status, best, since) are replicated. A
+#: snapshot gathers these (train/checkpoint.py), so it is the global carry.
+CARRY_ROW_LEAVES = ("v", "delta", "snaps")
 
 def distributed_gpic_segment_start(
     x_loc, stop: int, *, group=None, device=None, generator: torch.Generator | None = None,

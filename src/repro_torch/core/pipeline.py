@@ -14,8 +14,9 @@ row reorder, A stored in bf16 (``a_dtype``) and the resumable supervisor
 (``checkpoint_every``, ``straggler_timeout``, ``segment_injector``). With
 ``mesh`` (a ``torch.distributed`` process group) each rank passes its row
 block and the run goes to the sharded engines (``core/distributed.py``),
-with ``fold_shift``, ``overlap`` and ``inject_ring_fault``. The settings a
-later slice brings raise ``NotImplementedError`` naming the ROADMAP item.
+with ``fold_shift``, ``overlap`` and ``inject_ring_fault``, the supervisor
+and the row reorder included. The settings a later slice brings raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,9 +33,12 @@ from ..kernels.block_sparse import TN
 from ..kernels.power_step import MAX_R
 from ..kernels.row_topk import check_k
 from .affinity import AffinityKind, AffinitySpec, as_affinity_spec, invert_permutation
-from .distributed import distributed_gpic, distributed_gpic_matrix_free
+from .distributed import (CARRY_ROW_LEAVES, distributed_component_ids, distributed_gpic,
+                          distributed_gpic_matrix_free, distributed_gpic_segment,
+                          distributed_gpic_segment_finalize, distributed_gpic_segment_start,
+                          shard_points)
 from .gpic import gpic, gpic_matrix_free, gpic_segment, gpic_segment_finalize, gpic_segment_start
-from .graph import graph_reorder_permutation
+from .graph import content_row_score, graph_reorder_permutation, reorder_permutation
 from .operators import mesh_reductions
 from .health import (GPICError, StragglerTimeout, as_f32, raise_for_health, resolve_device,
                      validate_features)
@@ -114,12 +118,14 @@ class GPICConfig:
                     sharded streaming ring consumes at that stage with NaN
                     (fault injection; mesh and engine='streaming' only).
 
-    Resumable execution (one device; see :func:`_run_supervised`):
+    Resumable execution (one device or a group; see :func:`_run_supervised`):
       checkpoint_every: run the power loop in segments of this many sweeps
                     and snapshot the loop's carry after each. A segment
                     boundary moves only where the loop stops, so a run
                     interrupted at any sweep and resumed is bitwise the
                     uninterrupted run. Set with ckpt_dir (both or neither).
+                    With ``mesh`` a snapshot is the global carry, as one
+                    device writes it, so it resumes on any number of ranks.
       ckpt_dir:     the snapshots' directory. If it holds a valid snapshot
                     (an earlier call died), the run resumes from it (note
                     ``resumed:<sweep>``); a corrupt snapshot is quarantined
@@ -291,23 +297,7 @@ def check_config(cfg: GPICConfig, n: int | None = None) -> AffinitySpec:
         raise NotImplementedError(
             "tile overrides are not ported yet (ROADMAP queue 1 item 1, the "
             "tile policy); this slice's kernels use fixed tiles")
-    if cfg.mesh is not None:
-        later = [name for name, on in (
-            ("checkpoint_every", cfg.checkpoint_every is not None),
-            ("straggler_timeout", cfg.straggler_timeout is not None),
-            ("row_reorder", cfg.row_reorder)) if on]
-        if later:
-            raise mesh_not_ported(later)
     return spec
-
-
-def mesh_not_ported(names) -> NotImplementedError:
-    """The error for a setting whose mesh branch a later slice ports: the
-    supervisor's (checkpoints, straggler timeouts, injected faults) and the
-    row reorder's."""
-    return NotImplementedError(
-        f"GPICConfig.mesh with {list(names)}: the resumable supervisor and the row "
-        "reorder run on one device; their mesh branches are ROADMAP queue 1 item 10b")
 
 
 def run_gpic(
@@ -338,7 +328,9 @@ def run_gpic(
     called with the sweep count at every segment boundary, it may raise (a
     GPICError is retried from the last snapshot). Passing it, or setting
     ``checkpoint_every`` or ``straggler_timeout``, runs the supervised
-    segments, bitwise the monolithic run.
+    segments, bitwise the monolithic run. On a group one rank's injector
+    arms the supervisor on every rank, and what it raises is raised on
+    every rank.
     """
     cfg = config or GPICConfig()
     if overrides:
@@ -352,8 +344,6 @@ def run_gpic(
     if n is not None and cfg.mesh is not None:
         n *= dist.get_world_size(cfg.mesh)          # x is this rank's row block
     spec = check_config(cfg, n)
-    if cfg.mesh is not None and segment_injector is not None:
-        raise mesh_not_ported(["segment_injector"])
     dev = resolve_device(device, "run_gpic")
     x = as_f32(x, dev)
     x, notes = validate_features(
@@ -361,9 +351,9 @@ def run_gpic(
         reductions=None if cfg.mesh is None else mesh_reductions(cfg.mesh))
     inv = None
     if cfg.row_reorder:
-        perm = graph_reorder_permutation(x, spec)
+        x_all, perm = _row_reorder_permutation(x, cfg, spec)
         inv = invert_permutation(perm)
-        x = x[perm]
+        x = x_all[perm] if cfg.mesh is None else shard_points(x_all[perm], cfg.mesh)
         notes = tuple(notes) + ("row_reorder",)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
@@ -372,10 +362,15 @@ def run_gpic(
                   n_vectors=cfg.n_vectors, embedding=cfg.embedding,
                   qr_every=cfg.qr_every, residual_tol=cfg.residual_tol,
                   snapshot_iters=cfg.snapshot_iters)
-    if (cfg.checkpoint_every is not None or cfg.straggler_timeout is not None
-            or segment_injector is not None):
+    supervised = (cfg.checkpoint_every is not None or cfg.straggler_timeout is not None
+                  or segment_injector is not None)
+    injected = segment_injector is not None
+    if cfg.mesh is not None:        # the ranks agree, or they would part into a hang
+        supervised, injected = _on_any_rank((supervised, injected), cfg.mesh, dev)
+    if supervised:
         res, sup_notes = _run_supervised(x.contiguous(), k, cfg, generator=generator,
-                                         spec=spec, segment_injector=segment_injector)
+                                         spec=spec, segment_injector=segment_injector,
+                                         injected=injected)
         notes = tuple(notes) + sup_notes
     elif cfg.mesh is not None:
         res = _run_sharded_front(x.contiguous(), k, cfg, spec=spec, generator=generator)
@@ -411,6 +406,30 @@ def _run_sharded_front(x_loc: torch.Tensor, k: int, cfg: GPICConfig, *, spec: Af
                             inject_ring_fault=cfg.inject_ring_fault, **common)
 
 
+def _on_any_rank(flags, group, device) -> tuple[bool, ...]:
+    """Each of ``flags`` ORed over the ranks of ``group``: one all-reduce."""
+    t = torch.tensor([float(f) for f in flags], device=device)
+    return tuple(bool(v) for v in mesh_reductions(group)[1](t).tolist())
+
+
+def _row_reorder_permutation(x: torch.Tensor, cfg: GPICConfig, spec: AffinitySpec):
+    """``(x_all, perm)``: the features of every row and the permutation of
+    ``row_reorder``, content scores grouped by the probe's components for a
+    truncated spec. One device: ``graph_reorder_permutation`` of ``x``. On a
+    group ``x`` is this rank's block: the scores' column medians need every
+    row, so the (n, m) features are gathered, and the components come from
+    the sharded probe (``distributed_component_ids``). Neither the scores
+    nor the probe's ids depend on a summation order, so the permutation is
+    the one device's, exactly, on every rank."""
+    if cfg.mesh is None:
+        return x, graph_reorder_permutation(x, spec)
+    x_all = mesh_reductions(cfg.mesh)[2](x)
+    comp = None
+    if spec.truncated:
+        _, comp = distributed_component_ids(x, group=cfg.mesh, device=x.device, affinity=spec)
+    return x_all, reorder_permutation(content_row_score(x_all), comp)
+
+
 def _unpermute_result(res: PICResult, inv: torch.Tensor) -> PICResult:
     """Map every per-row output of a run on ``x[perm]`` back to the
     caller's row order: the labels, the column-0 embedding, the clustered
@@ -434,24 +453,37 @@ def _segment_plan(cfg: GPICConfig):
 
 
 def _run_supervised(x: torch.Tensor, k: int, cfg: GPICConfig, *, generator: torch.Generator,
-                    spec: AffinitySpec, segment_injector):
-    """The resumable supervisor of one device.
+                    spec: AffinitySpec, segment_injector, injected: bool):
+    """The resumable supervisor, of one device or, with ``cfg.mesh``, of a
+    process group.
 
     Runs the power loop in segments of ``checkpoint_every`` sweeps
-    (``max_iter`` without snapshots) through the segmented entry points of
-    core/gpic.py, snapshots the carry after each (``train/checkpoint.py``,
-    written on a background thread), and retries a
-    :class:`~repro_torch.core.health.GPICError` (an injected fault, a
+    (``max_iter`` without snapshots) through the segmented entry points
+    (core/gpic.py; on a group the sharded trio of core/distributed.py, each
+    rank on its row block), snapshots the carry after each
+    (``train/checkpoint.py``, written on a background thread), and retries
+    a :class:`~repro_torch.core.health.GPICError` (an injected fault, a
     straggler timeout) from the newest valid snapshot, up to
     ``max_retries`` times with exponential backoff. A segment boundary
     moves only where the loop stops, so a resumed run is bitwise the
     uninterrupted one.
 
+    On a group every branch comes from a collective, so the ranks never
+    part into a hang. A snapshot is the global carry, the layout one device
+    writes: every rank gathers the row leaves and rank 0 alone writes; rank
+    0 alone restores, and each rank keeps its rows. ``injected`` says that
+    some rank has an injector: then every rank calls its own at each
+    boundary and all join one exchange, so what any rank's injector raises
+    is raised on every rank. A segment's seconds are the slowest rank's.
+    The stopping checks read the replicated ``t`` and ``done``. So every
+    rank writes the same notes and returns the same result.
+
     The random stream: the monolithic run draws the extra start columns,
-    then the k-means seeds, from one generator. Every attempt starts from
-    the generator's state at entry; a fresh one draws the start columns,
-    a resumed one draws them too and drops them, so k-means always draws
-    from the state the uninterrupted run reaches.
+    then the k-means seeds, from one generator (seeded alike on every
+    rank). Every attempt starts from the generator's state at entry; a
+    fresh one draws the start columns, a resumed one draws them too and
+    drops them, so k-means always draws from the state the uninterrupted
+    run reaches.
 
     The port has no kernel fallback (a kernel that fails raises), so the
     reference's fallback resume has no counterpart here. Returns (result,
@@ -460,15 +492,27 @@ def _run_supervised(x: torch.Tensor, k: int, cfg: GPICConfig, *, generator: torc
     """
     from ..train import checkpoint as ckpt  # train imports core
 
-    n, dev = x.shape[0], x.device
+    group, dev = cfg.mesh, x.device
+    n = x.shape[0] * (1 if group is None else dist.get_world_size(group))
+    writes = group is None or dist.get_rank(group) == 0
     mode, qr_every, si, residual_tol = _segment_plan(cfg)
     every = cfg.checkpoint_every or cfg.max_iter
-    saver = ckpt.AsyncCheckpointer() if cfg.ckpt_dir is not None else None
+    saver = ckpt.AsyncCheckpointer() if cfg.ckpt_dir is not None and writes else None
     notes: list[str] = []
     build = dict(affinity=spec, engine=cfg.engine, a_dtype=cfg.a_dtype,
                  block_sparse=cfg.block_sparse)
-    loop = dict(eps=cfg.eps_scale / n, mode=mode, qr_every=qr_every, snapshot_iters=si,
-                residual_tol=residual_tol)
+    loop = dict(mode=mode, qr_every=qr_every, snapshot_iters=si, residual_tol=residual_tol)
+    if group is None:
+        start_fn, step_fn, fin_fn = gpic_segment_start, gpic_segment, gpic_segment_finalize
+        loop["eps"] = cfg.eps_scale / n
+        ring, sharded = {}, {}
+    else:
+        start_fn, step_fn, fin_fn = (distributed_gpic_segment_start, distributed_gpic_segment,
+                                     distributed_gpic_segment_finalize)
+        build.update(group=group, device=dev, fold_shift=cfg.fold_shift, overlap=cfg.overlap)
+        loop["eps_scale"] = cfg.eps_scale
+        ring = dict(inject_ring_fault=cfg.inject_ring_fault)
+        sharded = dict(group=group, row_leaves=CARRY_ROW_LEAVES)
     rng_state = generator.get_state()
 
     def attempt():
@@ -477,10 +521,10 @@ def _run_supervised(x: torch.Tensor, k: int, cfg: GPICConfig, *, generator: torc
         if cfg.ckpt_dir is not None:
             like = power_carry_like(n, cfg.n_vectors, len(si))
             carry, step, path, skipped = ckpt.restore_latest_valid(cfg.ckpt_dir, like,
-                                                                   device=dev)
+                                                                   device=dev, **sharded)
             notes.extend(f"checkpoint_skipped:{os.path.basename(p)}" for p in skipped)
             if carry is not None:
-                iso = ckpt.manifest_extra(path).get("isolated_rows", 0)
+                iso = ckpt.manifest_extra(path, group=group).get("isolated_rows", 0)
                 notes.append(f"resumed:{step}")
                 random_start_vectors(generator, n, cfg.n_vectors, device=dev)
         while True:
@@ -489,18 +533,21 @@ def _run_supervised(x: torch.Tensor, k: int, cfg: GPICConfig, *, generator: torc
                 t_now = int(carry.t)
                 if t_now >= cfg.max_iter or bool(carry.done.all()):
                     break
-            if segment_injector is not None:
-                segment_injector(t_now)
+            if injected:
+                _inject(segment_injector, t_now, group)
             stop = min(t_now + every, cfg.max_iter)
             t0 = time.monotonic()
             if carry is None:
-                carry, iso = gpic_segment_start(x, stop, generator=generator,
-                                                n_vectors=cfg.n_vectors, **build, **loop)
+                carry, iso = start_fn(x, stop, generator=generator, n_vectors=cfg.n_vectors,
+                                      **build, **loop, **ring)
             else:
-                carry = gpic_segment(x, carry, stop, **build, **loop)
+                carry = step_fn(x, carry, stop, **build, **loop, **ring)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             sec = time.monotonic() - t0
+            if group is not None:
+                sec = float(mesh_reductions(group)[1](
+                    torch.tensor([sec], dtype=torch.float64, device=dev)))
             t_after = int(carry.t)
             if cfg.straggler_timeout is not None and sec > cfg.straggler_timeout:
                 notes.append(f"straggler:{t_after}:{sec:.3f}")
@@ -508,14 +555,16 @@ def _run_supervised(x: torch.Tensor, k: int, cfg: GPICConfig, *, generator: torc
                     f"segment ending at sweep {t_after} took {sec:.3f}s "
                     f"(straggler_timeout={cfg.straggler_timeout}s); resuming from the "
                     "last snapshot")
-            if saver is not None:
-                saver.save_async(os.path.join(cfg.ckpt_dir, f"step_{t_after:06d}"), carry,
-                                 step=t_after,
-                                 extra={"isolated_rows": int(iso), "sweep": t_after})
-        return gpic_segment_finalize(x, carry, iso, k, generator=generator,
-                                     kmeans_iters=cfg.kmeans_iters, embedding=cfg.embedding,
-                                     snapshot_iters=si, probe_components=cfg.component_probe,
-                                     **build)
+            if cfg.ckpt_dir is not None:
+                snap = carry if group is None else ckpt.gather_rows(carry, CARRY_ROW_LEAVES,
+                                                                   group)
+                if saver is not None:
+                    saver.save_async(os.path.join(cfg.ckpt_dir, f"step_{t_after:06d}"), snap,
+                                     step=t_after,
+                                     extra={"isolated_rows": int(iso), "sweep": t_after})
+        return fin_fn(x, carry, iso, k, generator=generator, kmeans_iters=cfg.kmeans_iters,
+                      embedding=cfg.embedding, snapshot_iters=si,
+                      probe_components=cfg.component_probe, **build)
 
     retries = 0
     try:
@@ -525,6 +574,8 @@ def _run_supervised(x: torch.Tensor, k: int, cfg: GPICConfig, *, generator: torc
             except GPICError as e:
                 if saver is not None:
                     saver.wait()     # land the pending snapshot before the restore
+                if group is not None:
+                    dist.barrier(group=group)
                 retries += 1
                 if retries > cfg.max_retries:
                     raise
@@ -534,3 +585,25 @@ def _run_supervised(x: torch.Tensor, k: int, cfg: GPICConfig, *, generator: torc
     finally:
         if saver is not None:
             saver.wait()
+
+
+def _inject(injector, t_now: int, group) -> None:
+    """Call this rank's segment injector (None: none here) at the boundary
+    of sweep ``t_now``. On a group every rank joins one exchange of what its
+    injector raised, and each raises the error of the lowest rank that had
+    one: one rank's fault is every rank's, of the same class."""
+    err = None
+    try:
+        if injector is not None:
+            injector(t_now)
+    except Exception as e:  # noqa: BLE001 - shared, then raised on every rank
+        if group is None:
+            raise
+        err = e
+    if group is None:
+        return
+    errs = [None] * dist.get_world_size(group)
+    dist.all_gather_object(errs, err, group=group)
+    first = next((e for e in errs if e is not None), None)
+    if first is not None:
+        raise first

@@ -115,7 +115,7 @@ __global__ void __launch_bounds__(TN) affinity_kernel(
             const int row = row0 + r;
             if (row < n_rows && col < n_cols)
                 a[static_cast<size_t>(row) * n_cols + col] = from_f32<T>(v);
-            rowsum[r] += v;
+            tile::add_entry(rowsum[r], v);
         });
     }
 
@@ -183,7 +183,7 @@ __global__ void __launch_bounds__(TN, 2) affinity_reg_kernel(
                     cur, s_rf, s_rows, s_bound, m, inv_two_sigma_sq, pol, row0, c0, n_rows,
                     n_cols, row_offset, col_offset, [&](int i, float v) {
                         s_col[i * TN] = from_f32<T>(v);
-                        rowsum[i] += v;
+                        tile::add_entry(rowsum[i], v);
                     });
                 // the tile's writes visible to the copy engine, and the copy
                 // that read this buffer two tiles ago done reading
@@ -200,7 +200,7 @@ __global__ void __launch_bounds__(TN, 2) affinity_reg_kernel(
                     cur, s_rf, s_rows, s_bound, m, inv_two_sigma_sq, pol, row0, c0, n_rows,
                     n_cols, row_offset, col_offset, [&](int i, float v) {
                         if (i < rows_in) stcs_f32(a_col + static_cast<size_t>(i) * n_cols, v);
-                        rowsum[i] += v;
+                        tile::add_entry(rowsum[i], v);
                     });
             }
             cur = nxt;

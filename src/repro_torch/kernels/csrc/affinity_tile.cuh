@@ -114,6 +114,15 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ xr, int n_ro
     }
 }
 
+// Add entry a to a row sum as a step of its own. A plain `sum += a` lets
+// nvcc contract the last multiply that makes the entry (expf's scaling by
+// 2^k, which rounds only where the entry is subnormal) into an FMA with the
+// sum, where the kernel does not also store the entry; the degrees then
+// part from the stored build's D on rows of subnormal entries alone. Every
+// row sum of the family adds through this, so each one adds the entry as
+// stored, the order and rounding of the plain version's sum.
+__device__ __forceinline__ void add_entry(float& sum, float a) { sum = __fadd_rn(sum, a); }
+
 __device__ __forceinline__ float sq_dist(float dot, float sqr, float sqc) {
     return __fsub_rn(__fadd_rn(sqr, sqc), __fmul_rn(2.0f, dot));
 }
@@ -482,7 +491,7 @@ __device__ __forceinline__ void with_form(int kind, const Policy& pol, F&& f) {
 // clean_span, with_form) and hand each entry, made with transform()'s
 // arithmetic and keep_entry(), to the caller's emit(i, a): the build stores
 // it and adds it to its row sum, the degrees add it to their row sums (the
-// staged loop's rowsum[i] += a), the liveness pass ORs a != 0.
+// staged loop's add_entry), the liveness pass ORs a != 0.
 //
 // All skip the exponent where an entry is provably dropped. With the row
 // thresholds (rbf, POLICY form) an entry is kept only if expf(x) >= thr_i,

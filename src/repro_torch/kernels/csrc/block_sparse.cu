@@ -401,8 +401,9 @@ __global__ void __launch_bounds__(TN) bs_streaming_degree_kernel(
         if (id >= n_j) continue;
         tile::masked_tile<PLAN_TM, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, id * TN, first,
                                            n_rows, n_cols, m, row_offset, col_offset, kind,
-                                           inv_two_sigma_sq, pol,
-                                           [&](int r, float a) { rowsum[r] += a; });
+                                           inv_two_sigma_sq, pol, [&](int r, float a) {
+                                               tile::add_entry(rowsum[r], a);
+                                           });
         first = false;
     }
 
@@ -454,7 +455,8 @@ __global__ void __launch_bounds__(TN, tile::reg_blocks_per_sm(1)) bs_streaming_d
             if (static_cast<unsigned>(id) < static_cast<unsigned>(n_j))
                 tile::tile_entries<PLAN_TM, Form, POLICY>(
                     cur, s_rf, s_rows, s_bound, m, inv_two_sigma_sq, pol, row0, id * TN, n_rows,
-                    n_cols, row_offset, col_offset, [&](int i, float a) { rowsum[i] += a; });
+                    n_cols, row_offset, col_offset,
+                    [&](int i, float a) { tile::add_entry(rowsum[i], a); });
             cur = nxt;
             id = id_next;
             id_next = id_after;

@@ -189,15 +189,16 @@ __global__ void __launch_bounds__(TN) streaming_degree_kernel(
     for (int c0 = 0; c0 < n_cols; c0 += TN)
         tile::masked_tile<TM_DEG, POLICY>(xr, xc, s_xc, s_xr, s_rows, row0, c0, c0 == 0, n_rows,
                                           n_cols, m, row_offset, col_offset, kind,
-                                          inv_two_sigma_sq, pol,
-                                          [&](int r, float a) { rowsum[r] += a; });
+                                          inv_two_sigma_sq, pol, [&](int r, float a) {
+                                              tile::add_entry(rowsum[r], a);
+                                          });
 
     const float s = tile::block_reduce_fixed<TM_DEG>(rowsum, s_red);
     if (threadIdx.x < TM_DEG && row0 + threadIdx.x < n_rows) d[row0 + threadIdx.x] = s;
 }
 
 // The degree's register template (m <= tile::MR): #5's register template
-// with each entry added to its row sum, the staged loop's rowsum[i] += a,
+// with each entry added to its row sum, the staged loop's tile::add_entry,
 // in place of the fold with V (no V is loaded); TM_DEG = tm_for(1) rows, so
 // the same per-thread sums and the same reduction: the staged template's
 // bits. Where the row thresholds exist, a warp's tile whose entries are
@@ -232,7 +233,7 @@ __global__ void __launch_bounds__(TN, tile::reg_blocks_per_sm(1)) streaming_degr
                                       nxt);
             tile::tile_entries<TM_DEG, Form, POLICY>(
                 cur, s_rf, s_rows, s_bound, m, inv_two_sigma_sq, pol, row0, c0, n_rows, n_cols,
-                row_offset, col_offset, [&](int i, float a) { rowsum[i] += a; });
+                row_offset, col_offset, [&](int i, float a) { tile::add_entry(rowsum[i], a); });
             cur = nxt;
         }
     });

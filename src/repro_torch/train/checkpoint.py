@@ -14,8 +14,14 @@ on restore, and a snapshot that fails is quarantined (renamed out of the
 ``step_`` namespace, its bytes kept) while the restore falls back to the
 previous one. bf16 leaves are stored as their uint16 bits.
 
-The reference's restore onto a mesh (its ``mesh``/``specs`` arguments)
-waits for the port's multi-GPU slice (ROADMAP queue 1 item 10).
+A sharded run (a ``torch.distributed`` process group, each rank holding a
+row block) snapshots the global tree, in the layout a one-device run
+writes: :func:`gather_rows` gathers the row leaves, and rank 0 alone
+writes. The restore onto a group (``group=``, the reference's ``mesh`` and
+``specs``) reads and checks on rank 0 alone, which broadcasts what it
+found; each rank keeps its rows of the leaves named in ``row_leaves`` and
+the others whole. So a snapshot written on P ranks resumes on any number
+of ranks, or on one device.
 """
 from __future__ import annotations
 
@@ -29,8 +35,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.health import CheckpointCorruptError
+from ..core.operators import group_layout, mesh_reductions
 
 
 def _leaves(tree) -> dict:
@@ -97,6 +105,54 @@ class AsyncCheckpointer:
         self._thread.start()
 
 
+def _tree_like(like, leaves: dict):
+    """``leaves`` in the structure of ``like``: a dict, or ``like``'s type."""
+    return leaves if isinstance(like, dict) else type(like)(**leaves)
+
+
+def gather_rows(tree: Any, row_leaves, group) -> Any:
+    """The global tree of a sharded one: each leaf named in ``row_leaves``
+    (this rank's (n/P, ...) rows) all-gathered over ``group`` in rank order,
+    the others (replicated) as they are. A collective: every rank calls it
+    and gets the same tree."""
+    gather = mesh_reductions(group)[2]
+    return _tree_like(tree, {name: gather(leaf) if name in row_leaves else leaf
+                             for name, leaf in _leaves(tree).items()})
+
+
+def _on_rank0(group, fn):
+    """``fn()`` run on ``group``'s rank 0 alone, its value broadcast to every
+    rank (one collective), or the CheckpointCorruptError it raised, raised
+    on every rank."""
+    box = [None]
+    if group_layout(group)[0] == 0:
+        try:
+            box[0] = (True, fn())
+        except CheckpointCorruptError as e:
+            box[0] = (False, str(e))
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
+    ok, value = box[0]
+    if not ok:
+        raise CheckpointCorruptError(value)
+    return value
+
+
+def _keep_rows(tree: Any, row_leaves, group, device) -> Any:
+    """This rank's tree from a global one: its rows of the ``row_leaves``
+    (rank n/P to (rank + 1) n/P), the others whole, on ``device``."""
+    rank, p = group_layout(group)
+    out = {}
+    for name, leaf in _leaves(tree).items():
+        if name in row_leaves:
+            if leaf.shape[0] % p:
+                raise CheckpointCorruptError(
+                    f"leaf {name}: {leaf.shape[0]} rows do not divide over {p} ranks")
+            n_loc = leaf.shape[0] // p
+            leaf = leaf[rank * n_loc:(rank + 1) * n_loc]
+        out[name] = leaf.to(device)
+    return _tree_like(tree, out)
+
+
 def _read_manifest(path: str) -> dict:
     try:
         with open(os.path.join(path, "manifest.json")) as f:
@@ -105,13 +161,21 @@ def _read_manifest(path: str) -> dict:
         raise CheckpointCorruptError(f"checkpoint {path}: unreadable manifest ({e})") from e
 
 
-def restore(path: str, like: Any, *, device="cpu"):
+def restore(path: str, like: Any, *, device="cpu", group=None, row_leaves=()):
     """Restore the snapshot ``path`` into the structure of ``like`` (a
     dataclass or dict of tensors, e.g. on the ``meta`` device, whose names,
     shapes and dtypes each leaf must match), on ``device``. Returns
     ``(tree, step)``; raises :class:`CheckpointCorruptError` for a missing,
     truncated or mismatched leaf, a checksum mismatch or an unreadable
-    manifest."""
+    manifest.
+
+    With ``group`` (a process group; every rank calls it) rank 0 alone
+    reads and checks the global snapshot and broadcasts it; each rank
+    returns its rows of the leaves named in ``row_leaves`` and the others
+    whole, and every rank raises where rank 0's checks fail."""
+    if group is not None:
+        tree, step = _on_rank0(group, lambda: restore(path, like))
+        return _keep_rows(tree, row_leaves, group, device), step
     manifest = _read_manifest(path)
     want = _leaves(like)
     entries = {e["name"]: e for e in manifest.get("leaves", [])}
@@ -138,8 +202,7 @@ def restore(path: str, like: Any, *, device="cpu"):
         if entry["dtype"] == "bfloat16":
             t = t.view(torch.int16).view(torch.bfloat16)
         out[name] = t.to(device=device, dtype=ref.dtype)
-    tree = out if isinstance(like, dict) else type(like)(**out)
-    return tree, manifest["step"]
+    return _tree_like(like, out), manifest["step"]
 
 
 def latest_step(root: str) -> Optional[str]:
@@ -152,9 +215,12 @@ def latest_step(root: str) -> Optional[str]:
     return os.path.join(root, steps[-1]) if steps else None
 
 
-def manifest_extra(path: str) -> dict:
+def manifest_extra(path: str, *, group=None) -> dict:
     """The ``extra`` dict a snapshot was saved with (raises
-    :class:`CheckpointCorruptError` on an unreadable manifest)."""
+    :class:`CheckpointCorruptError` on an unreadable manifest). With
+    ``group``, rank 0 reads it and every rank returns it."""
+    if group is not None:
+        return _on_rank0(group, lambda: manifest_extra(path))
     return _read_manifest(path).get("extra", {})
 
 
@@ -169,12 +235,21 @@ def quarantine(path: str) -> str:
     return dst
 
 
-def restore_latest_valid(root: str, like: Any, *, device="cpu"):
+def restore_latest_valid(root: str, like: Any, *, device="cpu", group=None, row_leaves=()):
     """Restore the newest snapshot under ``root`` that passes its checks,
     quarantining each corrupt one on the way: the supervisor's resume.
     Returns ``(tree, step, path, skipped)``, ``skipped`` the quarantined
     snapshots (their original paths, newest first); ``(None, None, None,
-    skipped)`` when no valid snapshot is left."""
+    skipped)`` when no valid snapshot is left.
+
+    With ``group`` rank 0 alone resolves the snapshot and quarantines, and
+    broadcasts the outcome; every rank returns the same step, path and
+    skipped list, and its tree as :func:`restore` gives it."""
+    if group is not None:
+        tree, step, path, skipped = _on_rank0(group, lambda: restore_latest_valid(root, like))
+        if tree is not None:
+            tree = _keep_rows(tree, row_leaves, group, device)
+        return tree, step, path, skipped
     skipped: list[str] = []
     while True:
         path = latest_step(root)

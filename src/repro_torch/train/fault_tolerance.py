@@ -7,21 +7,21 @@
     slower than ``threshold`` times the running median;
   - :func:`inject_nan_features`, :class:`ClusteringFaultHarness`,
     :class:`FaultSchedule`, :func:`apply_feature_faults` and
-    :func:`run_schedule`: corrupt the input or interrupt the run, and
-    classify what ``run_gpic`` returns by the robustness contract ('ok',
-    'recovered', 'degraded' or 'typed_error').
+    :func:`run_schedule`: corrupt the input, poison a ring stage or
+    interrupt the run, and classify what ``run_gpic`` returns by the
+    robustness contract ('ok', 'recovered', 'degraded' or 'typed_error').
 
 The reference's ``RestartableLoop`` (a restartable training loop) waits for
-the port's training (ROADMAP queue 1 item 12b). Its ``FaultSchedule`` also
-poisons a ring stage of the sharded streaming engine (item 10) and forces
-a kernel onto its fallback, which the port does not have: a kernel that
-fails raises.
+the port's training (ROADMAP queue 1 item 12b). Its ``FaultSchedule``'s
+``kernel_failure`` forces a kernel onto its fallback, which the port does
+not have (a kernel that fails raises), so the port's schedule has no such
+field.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -165,11 +165,15 @@ class FaultSchedule:
       isolate_rows: feature rows moved to ``outlier_distance`` in every
                     coordinate, so an rbf affinity underflows their rows to
                     zero degree (the isolated-row latch)
+      ring_stage:   poison the V block this stage of the sharded streaming
+                    ring consumes with NaN (the config must set ``mesh`` and
+                    engine='streaming'; ``inject_ring_fault``)
       fail_sweeps:  sweep counts at which the supervisor's segment injector
                     raises SimulatedFailure (once each: the resume path)
     """
     nan_rows: tuple = ()
     isolate_rows: tuple = ()
+    ring_stage: Optional[int] = None
     fail_sweeps: tuple = ()
     outlier_distance: float = 60.0
 
@@ -188,14 +192,19 @@ def run_schedule(x, k: int, schedule: FaultSchedule, config=None, **kwargs) -> d
     """One supervised ``run_gpic`` with every fault of ``schedule`` live,
     classified by the robustness contract ('ok', 'recovered', 'degraded'
     or 'typed_error', never an unclassified crash). ``record['notes']``
-    holds the supervisor's retry and resume history."""
+    holds the supervisor's retry and resume history. ``x`` is what
+    ``run_gpic`` takes: on a group (``config.mesh``) this rank's row block,
+    whose rows the input faults index."""
     from ..core.pipeline import run_gpic
 
     x = apply_feature_faults(x, schedule)
+    if schedule.ring_stage is not None:
+        config = config.with_(inject_ring_fault=("ring_nan", schedule.ring_stage))
     injector = (FailureInjector(fail_at_steps=schedule.fail_sweeps)
                 if schedule.fail_sweeps else None)
     record: dict = {"faults": {"nan_rows": list(schedule.nan_rows),
                                "isolate_rows": list(schedule.isolate_rows),
+                               "ring_stage": schedule.ring_stage,
                                "fail_sweeps": list(schedule.fail_sweeps)}}
     try:
         res = run_gpic(x, k, config,

@@ -488,15 +488,29 @@ def one_rank_group(tmp_path):
     dict(checkpoint_every=5, ckpt_dir="ck"), dict(straggler_timeout=30.0),
     dict(row_reorder=True), dict(segment_injector=lambda t: None),
 ], ids=["checkpoint_every", "straggler_timeout", "row_reorder", "segment_injector"])
-def test_mesh_with_the_supervisor_or_the_reorder_names_item_10b(one_rank_group, override):
-    """Their mesh branches are the next slice: NotImplementedError naming
-    ROADMAP queue 1 item 10b, before anything runs."""
-    x, _, k = dataset_by_name("gaussians", 40, seed=0)
+def test_mesh_with_the_supervisor_or_the_reorder_names_item_10b(one_rank_group, tmp_path,
+                                                                override):
+    """The settings of ROADMAP queue 1 item 10b run on a group. On one rank
+    the supervised run (snapshots, the straggler watchdog, an injector) is
+    bitwise the monolithic sharded run, and the reordered run is the
+    one-device reordered run (the permutation from the gathered features
+    and the sharded probe)."""
+    x, _, k = dataset_by_name("gaussians", 200, seed=0)
+    x = x[np.random.default_rng(3).permutation(x.shape[0])]
     override = dict(override)
     injector = override.pop("segment_injector", None)
-    cfg = GPICConfig(mesh=one_rank_group, **override)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        run_gpic(x, k, cfg, device="cpu", segment_injector=injector)
+    if "ckpt_dir" in override:
+        override["ckpt_dir"] = str(tmp_path / override["ckpt_dir"])
+    cfg = GPICConfig(affinity=AffinitySpec(kind="rbf", sigma=0.3, knn_k=10), max_iter=60,
+                     mesh=one_rank_group)
+    res = run_gpic(x, k, cfg.with_(**override), device="cpu", segment_injector=injector)
+    got = result_to_numpy(res)
+    reorder = override.get("row_reorder", False)
+    want = result_to_numpy(run_gpic(x, k, cfg.with_(mesh=None, **override) if reorder else cfg,
+                                    device="cpu"))
+    assert res.health.notes == (("row_reorder",) if reorder else ())
+    for field, value in want.items():
+        np.testing.assert_array_equal(got[field], value, err_msg=field)
 
 
 @pytest.mark.parametrize("engine", ["explicit", "streaming", "matrix_free"])

@@ -8,10 +8,11 @@ per-column sweep counts and convergence, health), on every engine and on
 the block-sparse route. Around it: snapshots with a checksum per leaf,
 quarantined when corrupt with a fall back to the previous valid one; the
 straggler watchdog's typed error; concurrent-fault schedules classified
-by the robustness contract. The reference's ring-fault and kernel-fallback
-cases have no counterpart in the port (ROADMAP queue 1 item 10; the port
-has no fallback). Last, the port's supervised run against the reference's,
-both resumed after the same injected fault.
+by the robustness contract; the restore onto a process group (a 1-rank
+gloo group here; 4 ranks in ``test_torch_distributed_supervisor.py``,
+with the ring fault). The reference's kernel-fallback cases have no
+counterpart in the port (it has no fallback). Last, the port's supervised
+run against the reference's, both resumed after the same injected fault.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from repro_torch.train.fault_tolerance import (ClusteringFaultHarness, FailureIn
                                                FaultSchedule, SimulatedFailure,
                                                apply_feature_faults, inject_nan_features,
                                                run_schedule)
+from test_torch_pipeline import one_rank_group  # noqa: F401 - the fixture
 
 E1 = AffinitySpec(kind="rbf", sigma=0.3, knn_k=10)
 
@@ -313,6 +315,58 @@ class TestCheckpoint:
         assert ckpt.latest_step(root).endswith("step_000003")
         assert ckpt.restore_latest_valid(str(tmp_path / "none"), power_carry_like(16, 2, 3)) \
             == (None, None, None, [])
+
+
+class TestCheckpointOnAGroup:
+    """The restore onto a process group, on a gloo group of this process
+    alone: a snapshot is the global carry in the one-device layout."""
+
+    CFG = GPICConfig(affinity_kind="rbf", sigma=0.3, max_iter=30, eps_scale=1e-7,
+                     checkpoint_every=5)
+
+    def test_one_rank_snapshot_is_byte_identical_to_one_device(self, one_rank_group, tmp_path):
+        """The same supervised run on one device and on a 1-rank group
+        writes the same files, byte for byte (the row leaves gathered)."""
+        x = _blobs()
+        _run(x, 3, self.CFG.with_(ckpt_dir=str(tmp_path / "one")))
+        _run(x, 3, self.CFG.with_(ckpt_dir=str(tmp_path / "group"), mesh=one_rank_group))
+        steps = sorted(os.listdir(tmp_path / "one"))
+        assert steps == sorted(os.listdir(tmp_path / "group")) and len(steps) >= 2
+        for step in steps:
+            names = sorted(os.listdir(tmp_path / "one" / step))
+            assert names == sorted(os.listdir(tmp_path / "group" / step))
+            for name in names:
+                assert (tmp_path / "one" / step / name).read_bytes() == \
+                    (tmp_path / "group" / step / name).read_bytes(), (step, name)
+
+    def test_one_device_snapshot_restores_onto_the_group(self, one_rank_group, tmp_path):
+        """restore_latest_valid with the group gives the one-device restore's
+        tree, step and path; a one-device run killed at sweep 10 resumes on
+        the group, bitwise the uninterrupted run."""
+        from repro_torch.core.distributed import CARRY_ROW_LEAVES
+        x, root = _blobs(), str(tmp_path / "ck")
+        cfg = self.CFG.with_(ckpt_dir=root, max_retries=0)
+        with pytest.raises(SimulatedFailure):
+            _run(x, 3, cfg, segment_injector=FailureInjector(fail_at_steps=(10,)).maybe_fail)
+        like = power_carry_like(96, 1)
+        one = ckpt.restore_latest_valid(root, like)
+        got = ckpt.restore_latest_valid(root, like, group=one_rank_group,
+                                        row_leaves=CARRY_ROW_LEAVES)
+        assert got[1:] == one[1:] and one[1] == 10
+        for name in (f.name for f in dataclasses.fields(PowerCarry)):
+            assert torch.equal(getattr(got[0], name), getattr(one[0], name)), name
+        assert ckpt.manifest_extra(one[2], group=one_rank_group) == ckpt.manifest_extra(one[2])
+        res = _run(x, 3, cfg.with_(mesh=one_rank_group))
+        assert res.health.notes == ("resumed:10",)
+        _assert_bitwise(_run(x, 3, GPICConfig(affinity_kind="rbf", sigma=0.3, max_iter=30,
+                                              eps_scale=1e-7)), res, "one device -> group")
+
+    def test_wrong_shape_on_the_group_is_typed(self, one_rank_group, tmp_path):
+        path = str(tmp_path / "step_000004")
+        ckpt.save(path, _carry(), step=4)
+        with pytest.raises(CheckpointCorruptError, match="shape"):
+            ckpt.restore(path, power_carry_like(16, 3, 3), group=one_rank_group,
+                         row_leaves=("v", "delta", "snaps"))
 
 
 # ---------------------------------------------------------------------------
