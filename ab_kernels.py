@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the affinity build (#1), the k-means assignment (#3), the Gram
 (#4), the row top-k (#7), the streamed degrees (#6, #11), the liveness
-pass (#8) and the stored block-sparse sweep (#9) from two checkouts on one
+pass (#8), the stored block-sparse sweep (#9) and flash attention with
+its backward (#12) from two checkouts on one
 CUDA card, in turns, to read each kernel's before and after on the same
 card.
 
@@ -38,7 +39,12 @@ stored block-sparse sweep on E1's A and plan (n = 45,000, live
 fraction 0.2453) in f32 and bf16 at r = 1 and 2, on A and on a copy of it
 shifted one element off 16 bytes (a checkout's plain-load template), by
 CUDA events, each with a hash of U's bits, which must be the same in every
-turn of both checkouts.
+turn of both checkouts; kernel 12 (#12) at the serve shape (b h = 128,
+s = 2,048, d = 80, f32 q over bf16 cache views) without and with its row
+log-sum-exp L, the output's bits hashed (the same in every turn of both
+checkouts, and with L as without), and its backward at the training
+shape (b h = 64, s = 1,024, d = 80, causal, f32) with a hash of dq, dk
+and dv (the same in every turn of a checkout that has it), by CUDA events.
 Correctness is ``chip_smoke.py``'s to check, apart from the bits hashes.
 Prints one line per turn and writes all of them to
 ``chiprun_out/ab_kernels.json``; exits non-zero if a turn fails or a hash
@@ -245,6 +251,41 @@ for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
     del aa, shifted
     torch.cuda.empty_cache()
 del a
+torch.cuda.empty_cache()
+# kernel 12 at the serve shape (f32 q over bf16 cache views) with and
+# without the row log-sum-exp L, each with a hash of the output's bits
+# (equal in every turn: writing L moves no bit), and its backward at the
+# training shape (f32, causal), with a hash of dq, dk, dv; a checkout whose
+# kernel writes no L or has no backward records that
+from repro_torch.kernels import flash_attention as fa
+
+
+def bits(*ts):
+    return hashlib.sha256(b"".join(t.float().cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
+
+
+f32, bf16 = torch.float32, torch.bfloat16
+qf, kf, vf = cs._fa_case(4, 32, 32, 2048, 80, f32, bf16, seed=40, strided=True)
+report["flash serve"] = dict(ms=cs.cuda_ms(lambda: fa.flash_attention(qf, kf, vf), 10),
+                             bits=bits(fa.flash_attention(qf, kf, vf)))
+if hasattr(fa, "flash_attention_bwd"):
+    out, lse = fa._forward(qf, kf, vf, True, with_lse=True)
+    report["flash serve with L"] = dict(
+        ms=cs.cuda_ms(lambda: fa._forward(qf, kf, vf, True, with_lse=True), 10),
+        bits=bits(out), same_as="flash serve")
+    q, k, v = cs._fa_case(2, 32, 32, 1024, 80, f32, f32, seed=70, strided=True)
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(90),
+                       device="cuda") * 0.5
+    out, lse = fa._forward(q, k, v, True, with_lse=True)
+    report["flash backward train"] = dict(
+        ms=cs.cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout), 10),
+        bits=bits(*fa.flash_attention_bwd(q, k, v, out, lse, dout)))
+    del q, k, v, dout, out, lse
+else:
+    for name in ("flash serve with L", "flash backward train"):
+        report[name] = dict(ms=None, raises="this checkout's kernel 12 writes no L and has no "
+                                            "backward")
+del qf, kf, vf
 print("AB_REPORT " + json.dumps(report))
 '''
 
@@ -276,7 +317,10 @@ def main() -> int:
     # turn, and #9's on A and on its shifted copy alike
     for name, rec in out["this-1"].items():
         if isinstance(rec, dict) and "bits" in rec:
-            got = {tag: out[tag][name]["bits"] for tag in out}
+            got = {tag: out[tag][name]["bits"] for tag in out if "bits" in out[tag][name]}
+            if "same_as" in rec:
+                got.update({f"{tag} {rec['same_as']}": out[tag][rec["same_as"]]["bits"]
+                            for tag in out})
             if name.startswith("bs_matmat") and name.endswith(" unaligned"):
                 got.update({f"{tag} aligned": out[tag][name[:-len(" unaligned")]]["bits"]
                             for tag in out})

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of GPIC, and of its LM substrate's dense
-serving path, on one CUDA card, end to end.
+serving and training paths, on one CUDA card, end to end.
 
     python3 chip_smoke.py
 
@@ -86,6 +86,22 @@ Phases (any failure exits non-zero before the last line is printed):
                 on the f32 FMA units and as the split-TF32 terms it runs on
                 the tensor cores, and each template's registers (no spills
                 at d = 80 and 128).
+                Kernel 12's backward (csrc/flash_attention_bwd.cu: D, dK/dV,
+                dQ) and the forward's row log-sum-exp L against the plain
+                backward at the training shape (b = 2, h = kv = 32,
+                s = 1,024, d = 80, causal, f32), the serve mix, GQA rep 4
+                d = 120 full and causal, rows off 16-byte alignment and the
+                (f32, f32), (f32, bf16), (bf16, bf16) pairs (f32 gradients
+                within 1e-5 of their max, bf16 ones within 2^-6); the
+                forward's output the same bits with and without L; the
+                gradients the same bits on a second call and through the
+                autograd Function; each kernel timed beside its plain
+                version (D also beside torch.linalg.vecdot) and bounded by
+                the products it computes, as split-TF32 terms at the TF32
+                rate and on the f32 FMA units; the whole backward timed
+                beside the plain backward and SDPA's backward and bounded by
+                its five distinct products; no template spills at d = 80,
+                120 and 128.
                 bf16 A storage (the reference's a_dtype=bfloat16, O4) in
                 #1, #2 and #9, at the main shape and on ragged stripes
                 (m = 16 and 2, 1,037, 1,032, 900 and 737 columns: the bulk
@@ -187,7 +203,20 @@ Phases (any failure exits non-zero before the last line is printed):
                   the full 32-layer model, 4 requests of 2,048 prompt tokens
                   and 32 generated tokens each: flash attention launched 32
                   times in prefill and 0 in decode, its prefill and 4 decode
-                  steps profiled.
+                  steps profiled;
+                - the dense LM trainer (launch/train.py's path): stablelm-3b
+                  at its published widths, all 32 layers, 3 steps of 2 x
+                  1,024 tokens (f32, remat="full", AdamW, z-loss): finite
+                  losses, kernel 12 twice a layer forward and its three
+                  backward kernels once a layer, ms a step, peak memory and
+                  a profile by stage; 2 layers against the same step with
+                  the attention through its plain versions (every gradient
+                  leaf within 1e-4 of its max, the parameters after it); the
+                  train_lm example through RestartableLoop with a failure at
+                  step 3, bitwise the uninterrupted run; h2o-danube-3-4b at
+                  its widths, 2 layers, forward and backward at s = 6,144
+                  past its window, layer 0's attention and gradients
+                  against float64.
   4. profile    one more n = 45,000 run of each engine under torch.profiler:
                 the device's busy share of the wall time and device time by
                 kernel and the k-means stage; and the graph runs E1
@@ -3141,6 +3170,224 @@ def phase_flash_attention(report, build_log=""):
                                      f32_fma_bound_ms=fma_bnd, registers=registers)
 
 
+FA_GRAD_F32_REL = 1e-5      # an f32 gradient, relative to its max|grad_ref|
+FA_GRAD_BF16_REL = 2.0 ** -6  # a bf16 gradient: two bf16 steps at the top of its range
+FA_LSE_TOL = (1e-5, 1e-6)   # (atol, rtol) of the forward's row log-sum-exp
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "stablelm-3b", 2, 1024, 3
+BWD_LABELS = {"flash_attention_bwd_delta": "delta_kernel",
+              "flash_attention_bwd_dkdv": "dkdv_kernel",
+              "flash_attention_bwd_dq": "dq_kernel"}
+
+
+def _pairs(s: int, causal: bool) -> float:
+    return s * (s + 1) / 2 if causal else s * s
+
+
+#: the products of the backward (S = Q K^T, dP = dO V^T, dV = P^T dO,
+#: dK = dS^T Q, dQ = dS K) each kernel computes: both rebuild S and dP
+BWD_PRODUCTS = {"flash_attention_bwd_dkdv": ("S", "dP", "dV", "dK"),
+                "flash_attention_bwd_dq": ("S", "dP", "dQ"),
+                "whole": ("S", "dP", "dV", "dK", "dQ")}
+
+
+def flash_bwd_bounds(q, k, causal) -> dict[str, dict]:
+    """Bounds of each backward kernel's call and of the whole backward
+    (``"whole"``: its five distinct products). Bytes: each input read once
+    and each output written once. ``bound_ms``: each product as its
+    split-TF32 terms at the TF32 tensor rate, the forward's convention
+    (``flash_tensor_bound``: 1 + one term for each f32 operand; P and dS are
+    f32, dO has q's type), or the bytes if they take longer;
+    ``f32_fma_bound_ms``: the products on the f32 FMA units. A product is
+    2 d operations per visible (query, key) pair and query head. D (2 d a
+    row, no product) is bounded by its bytes against the f32 FMA rate."""
+    s, d = q.shape[-2:]
+    heads = q.numel() // (s * d)
+    qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
+    rows4 = 4 * heads * s                       # one f32 a row: L or D
+    pair_ops = 2.0 * d * _pairs(s, causal) * heads
+    fq, fk = int(q.dtype == torch.float32), int(k.dtype == torch.float32)
+    terms = {"S": 1 + fq + fk, "dP": 1 + fq + fk, "dV": 2 + fq, "dK": 2 + fq, "dQ": 2 + fk}
+    n_bytes = {"flash_attention_bwd_dkdv": 2 * qb + 2 * kb + 2 * rows4 + 2 * kb,
+               "flash_attention_bwd_dq": 2 * qb + 2 * kb + 2 * rows4 + qb,
+               "whole": 3 * qb + 2 * kb + rows4 + qb + 2 * kb}
+    out = {}
+    for op, products in BWD_PRODUCTS.items():
+        t_bytes = n_bytes[op] / H100_BYTES_PER_S * 1e3
+        t_ops = sum(terms[p] for p in products) * pair_ops / H100_TF32_FLOPS * 1e3
+        out[op] = dict(zip(("bound_ms", "bound_by"), (t_bytes, "bytes") if t_bytes >= t_ops
+                           else (t_ops, "operations")),
+                       f32_fma_bound_ms=bound_ms(n_bytes[op], len(products) * pair_ops)[0])
+    bnd, by = bound_ms(2 * qb + rows4, 2.0 * d * heads * s)
+    out["flash_attention_bwd_delta"] = dict(bound_ms=bnd, bound_by=by)
+    return out
+
+
+def _grad_errors(got, want) -> list[float]:
+    """max|g - g_ref| / max|g_ref| of each gradient, held to its type's
+    tolerance (an f32 gradient f32-level, a bf16 one bf16-level)."""
+    errs = []
+    for g, w in zip(got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"a gradient has the wrong shape or type: {g.shape} {g.dtype}, {w.shape} {w.dtype}")
+        check(bool(torch.isfinite(g).all()), "a backward kernel gives a non-finite gradient")
+        rel = float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30))
+        limit = FA_GRAD_BF16_REL if g.dtype == torch.bfloat16 else FA_GRAD_F32_REL
+        check(rel <= limit, f"a backward kernel's gradient parts from the plain backward by "
+                            f"{rel:.3e} of its max (limit {limit:.3e})")
+        errs.append(rel)
+    return errs
+
+
+def phase_flash_attention_backward(report, build_log=""):
+    """Kernel 12's backward (dQ, dK, dV from csrc/flash_attention_bwd.cu)
+    and the forward's row log-sum-exp L against the plain backward
+    (``ref.flash_attention_bwd_ref``) on the card, at the training shape
+    (b = 2, h = kv = 32, s = 1,024, d = 80, causal, f32), the serve shape
+    and mix, GQA rep 4 at d = 120 (full and causal), rows off 16-byte
+    alignment, and the (f32, f32), (f32, bf16) and (bf16, bf16) pairs; the
+    forward's output bitwise with and without L; the gradients the same
+    bits on a second call and through the autograd Function; no dK/dV or dQ
+    template spills at d = 80 (NT = 5) or d = 120, 128 (NT = 8); each
+    kernel timed (device events) beside its plain version, and the whole
+    backward beside the plain backward and SDPA's backward."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (_forward, flash_attention,
+                                                     flash_attention_bwd, flash_attention_bwd_delta)
+    types = {"f": "f32", "13__nv_bfloat16": "bf16", "S1_": "bf16"}
+    regs = ptxas_registers(
+        build_log, r"(dkdv|dq)_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S1_)Li(\d)E",
+        lambda e: f"{e.group(1)} {types[e.group(2)]}/{types[e.group(3)]} NT={e.group(4)}")
+    for tmpl, line in sorted(regs.items()):
+        print(f"[flash-bwd] {tmpl}: {line}")
+    main = {f"{kernel} {pair} NT={nt}" for kernel in ("dkdv", "dq")
+            for pair in ("f32/f32", "f32/bf16", "bf16/bf16") for nt in (5, 8)}
+    check(main <= set(regs), f"nvcc's report names no backward template at d = 80 (NT = 5) "
+                             f"or d = 120 and 128 (NT = 8) for each type pair: {regs}")
+    spills = [f"{tmpl}: {regs[tmpl]}" for tmpl in sorted(main)
+              if not regs[tmpl].endswith(" 0 bytes spilled")]
+    check(not spills, f"the backward kernels spill at d = 80, 120 or 128: {spills}")
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # tag, (b, h, kv, s, d), q type, k/v type, causal, strided
+        ("train", (TRAIN_BATCH, 32, 32, TRAIN_SEQ, 80), f32, f32, True, True),
+        ("serve mix", (4, 32, 32, 2048, 80), f32, bf16, True, True),
+        ("GQA rep 4 d=120 causal", (2, 32, 8, 1024, 120), f32, f32, True, False),
+        ("GQA rep 4 d=120 full", (2, 32, 8, 1024, 120), f32, f32, False, False),
+        ("GQA rep 4 d=120 full, f32/bf16", (2, 32, 8, 1024, 120), f32, bf16, False, False),
+        ("all-bf16", (TRAIN_BATCH, 32, 32, TRAIN_SEQ, 80), bf16, bf16, True, True),
+        ("unaligned rows d=17", (2, 4, 2, 200, 17), f32, f32, True, False),
+        ("unaligned rows d=17, bf16, full", (2, 4, 2, 200, 17), bf16, bf16, False, False),
+        ("smoke d=24 s=17 MQA", (2, 4, 1, 17, 24), f32, bf16, True, True),
+    ]
+    worst, worst_lse = 0.0, 0.0
+    abs_err = dict.fromkeys(BWD_LABELS, 0.0)
+    for i, (tag, (b, h, kv, s, d), qt, kt, causal, strided) in enumerate(cases):
+        q, k, v = _fa_case(b, h, kv, s, d, qt, kt, seed=70 + i, strided=strided)
+        g = torch.Generator(device="cuda").manual_seed(90 + i)
+        dout = (torch.randn(q.shape, generator=g, device="cuda") * 0.5).to(qt)
+        out, lse = _forward(q, k, v, causal, with_lse=True)
+        plain_out = _forward(q, k, v, causal, with_lse=False)[0]
+        check(torch.equal(out, plain_out),
+              f"the forward's output moves when it also writes L ({tag})")
+        want_out, want_lse = ref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+        atol, rtol = FA_LSE_TOL
+        lse_excess = float(((lse - want_lse).abs() - atol - rtol * want_lse.abs()).max())
+        lse_err = float((lse - want_lse).abs().max())
+        check(lse.shape == want_lse.shape and lse_excess <= 0.0,
+              f"the forward's L parts from the plain row log-sum-exp ({tag}): {lse_err:.3e}")
+        delta = flash_attention_bwd_delta(out, dout)
+        want_delta = torch.sum(dout.float() * out.float(), dim=-1)
+        d_err = float((delta - want_delta).abs().max())
+        check(d_err <= FA_GRAD_F32_REL * float(want_delta.abs().max()),
+              f"the backward's D parts from rowsum(dO O) ({tag}): {d_err:.3e}")
+        got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+        again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+        check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+              f"the backward kernels give other bits on a second call ({tag})")
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+        torch.cuda.synchronize()
+        errs = _grad_errors(got, want)
+        print(f"[flash-bwd] {tag} q {tuple(q.shape)} {qt} k/v {tuple(k.shape)} {kt} "
+              f"causal={causal}: max|L-L_ref|={lse_err:.3e}; max|g-g_ref|/max|g_ref| "
+              f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}", flush=True)
+        worst, worst_lse = max(worst, *errs), max(worst_lse, lse_err)
+        diffs = [float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)]
+        for op, e in (("flash_attention_bwd_delta", d_err), ("flash_attention_bwd_dq", diffs[0]),
+                      ("flash_attention_bwd_dkdv", max(diffs[1:]))):
+            abs_err[op] = max(abs_err[op], e)
+        if tag == "train":
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            ops.reset_launch_counts()
+            flash_attention(*leaves, causal=causal).backward(dout)
+            counts = ops.launch_counts()
+            check(all(torch.equal(t.grad, w) for t, w in zip(leaves, got)),
+                  "the autograd Function's gradients are not the backward kernels'")
+            check(counts["flash_attention"] == 1 and all(
+                counts[op] == 1 for op in BWD_LABELS), f"the Function's launches: {counts}")
+        del q, k, v, dout, out, lse, got, again, want, want_out, want_lse, plain_out, delta
+        torch.cuda.empty_cache()
+    # times at the training shape: each kernel by its device events beside
+    # its plain version; the whole backward beside the plain backward and
+    # SDPA's backward
+    b, h, s, d = TRAIN_BATCH, 32, TRAIN_SEQ, 80
+    q, k, v = _fa_case(b, h, h, s, d, f32, f32, seed=70, strided=True)
+    dout = (torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(90),
+                        device="cuda") * 0.5)
+    out, lse = _forward(q, k, v, True, with_lse=True)
+    reps = 10
+    events = device_events(lambda: flash_attention_bwd(q, k, v, out, lse, dout), reps)
+    per_kernel = {op: sum(ms for name, ms in events if label in name) / reps
+                  for op, label in BWD_LABELS.items()}
+    check(all(ms > 0 for ms in per_kernel.values()),
+          f"the profiler missed a backward kernel: {[n for n, _ in events][:8]}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = sdpa(lq, lk, lv, is_causal=True)
+    whole = {
+        "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout), reps),
+        "plain_ms": cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout), reps),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), dout,
+                                                          retain_graph=True), reps),
+        "fwd_lse_ms": cuda_ms(lambda: _forward(q, k, v, True, with_lse=True), reps),
+        "fwd_ms": cuda_ms(lambda: _forward(q, k, v, True, with_lse=False), reps),
+    }
+    # each kernel's plain version, and the one PyTorch call that computes D
+    plain = {"flash_attention_bwd_delta": lambda: torch.sum(dout.float() * out.float(), dim=-1),
+             "flash_attention_bwd_dkdv": lambda: ref.flash_attention_bwd_ref(
+                 q, k, v, out, lse, dout, grads="kv"),
+             "flash_attention_bwd_dq": lambda: ref.flash_attention_bwd_ref(
+                 q, k, v, out, lse, dout, grads="q")}
+    library = {"flash_attention_bwd_delta": lambda: torch.linalg.vecdot(out, dout)}
+    lib_err = max(float((a - w).abs().max() / w.abs().max()) for a, w in zip(
+        torch.autograd.grad(lib_out, (lq, lk, lv), dout, retain_graph=True),
+        ref.flash_attention_bwd_ref(q, k, v, out, lse, dout)))
+    vecdot_err = float((library["flash_attention_bwd_delta"]()
+                        - flash_attention_bwd_delta(out, dout)).abs().max())
+    bounds = flash_bwd_bounds(q, k, True)
+    whole.update(bounds.pop("whole"))
+    for op, bnd in bounds.items():
+        rec = dict(ms=per_kernel[op], **bnd, plain_ms=cuda_ms(plain[op], reps),
+                   library_ms=cuda_ms(library[op], reps) if op in library else None,
+                   max_abs_err=abs_err[op])
+        report[op] = rec
+        fma = (f" f32_fma_bound_ms={rec['f32_fma_bound_ms']:.4f}"
+               if "f32_fma_bound_ms" in rec else "")
+        lib = f" library_ms={rec['library_ms']:.4f}" if rec["library_ms"] is not None else ""
+        print(f"[flash-bwd] {op} at the training shape (b h = {b * h}, s = {s}, d = {d}, "
+              f"causal, f32): kernel_ms={rec['ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']}){fma} plain_ms={rec['plain_ms']:.4f}{lib}", flush=True)
+    print(f"[flash-bwd] the whole backward: {whole['ms']:.4f} ms (3 launches) against the "
+          f"plain backward {whole['plain_ms']:.4f} and SDPA's backward "
+          f"{whole['library_ms']:.4f} (f32 tensors; max|sdpa-plain|/max = {lib_err:.3e}); "
+          f"bound_ms={whole['bound_ms']:.4f} ({whole['bound_by']}: the five distinct products "
+          f"as split-TF32 terms at {H100_TF32_FLOPS / 1e12:.0f} TFLOP/s) f32_fma_bound_ms="
+          f"{whole['f32_fma_bound_ms']:.4f}; the forward {whole['fwd_ms']:.4f} ms, with L "
+          f"{whole['fwd_lse_ms']:.4f}; max|vecdot-D| = {vecdot_err:.3e}", flush=True)
+    report["flash_attention_bwd"] = dict(whole, max_rel_err=worst, max_lse_err=worst_lse,
+                                         library_max_rel_err=lib_err, registers=regs)
+    del q, k, v, dout, out, lse, lq, lk, lv, lib_out
+    torch.cuda.empty_cache()
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -3249,13 +3496,333 @@ def phase_serve(report):
     check(bool(torch.isfinite(res.prefill_logits).all()), "the prefill logits are not finite")
     check(res.prefill_launches["flash_attention"] == cfg.n_layers
           and res.decode_launches["flash_attention"] == 0
-          and counts["flash_attention"] == cfg.n_layers,
+          and counts["flash_attention"] == cfg.n_layers
+          and not any(counts[op] for op in BWD_LABELS),
           f"flash_attention launches: prefill {res.prefill_launches}, decode "
           f"{res.decode_launches}")
     report["serve"] = dict(times, peak_mem_bytes=peak, launches=counts,
                            first_tokens=res.tokens[:2].tolist(),
                            profile=_serve_profile(cfg, params, res.tokens))
     return counts
+
+
+TRAIN_GRAD_REL = 1e-4       # a gradient leaf, kernel 12 against the plain versions, of max|leaf|
+
+
+def _plain_attention():
+    """A context in which the model's attention computes kernel 12's
+    function by its plain version, differentiated by autograd: the yardstick
+    of phase_train (b). The port itself never routes a CUDA tensor so."""
+    import contextlib
+
+    from repro_torch.kernels import ops, ref
+
+    @contextlib.contextmanager
+    def swap():
+        kernel = ops.flash_attention
+        ops.flash_attention = lambda q, k, v, causal=True: ref.flash_attention_ref(
+            q, k, v, causal=causal)
+        try:
+            yield
+        finally:
+            ops.flash_attention = kernel
+
+    return swap()
+
+
+def _train_profile(cfg, tcfg, params, opt, batch):
+    """One train step under torch.profiler, cut into the forward and
+    backward (``value_and_grad``) and the optimizer (``adamw_update``):
+    device ms by kernel family in each, and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_step import value_and_grad
+    families = (("attention forward (kernel 12)", ("flash_kernel",)),
+                ("attention backward (dkdv)", ("dkdv_kernel",)),
+                ("attention backward (dq)", ("dq_kernel",)),
+                ("attention backward (D)", ("delta_kernel",)),
+                ("matmuls (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90")))
+
+    def profiled(stage, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        spans = _device_spans(prof)
+        by = {}
+        for st, en, label in spans:
+            fam = next((f for f, keys in families if any(k in label for k in keys)), "other")
+            by[fam] = by.get(fam, 0.0) + (en - st) / 1e3
+        busy = _busy_us(spans) / 1e3 if spans else None
+        print(f"[train-profile] {stage}: wall_ms={wall:.3f} device_busy_ms="
+              + (f"{busy:.3f}" if busy is not None else "not measured (no device events)")
+              + "; " + ", ".join(f"{f} {ms:.3f}"
+                                 for f, ms in sorted(by.items(), key=lambda t: -t[1])),
+              flush=True)
+        return res, dict(wall_ms=wall, device_busy_ms=busy, by_family_ms=by)
+
+    (_, grads), fwd_bwd = profiled("forward+backward",
+                                   lambda: value_and_grad(params, cfg, batch, tcfg))
+    _, optim = profiled("optimizer", lambda: adamw_update(params, grads, opt, tcfg))
+    return {"forward+backward": fwd_bwd, "optimizer": optim}
+
+
+def _train_full_width(report):
+    """(a) stablelm-3b at its published widths, all 32 layers, seed-0
+    weights drawn on the card, launch/train.py's TrainConfig (f32 compute,
+    remat="full", AdamW, z-loss), 3 steps of 2 x 1,024 tokens from the
+    synthetic stream; the last step profiled by stage."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import token_batches, train_config
+    from repro_torch.models import get_api
+    from repro_torch.train import adamw_init, build_train_step
+    from repro_torch.train._tree import leaves
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = train_config(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = get_api(cfg).init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = adamw_init(params)
+    n_params = sum(t.numel() for t in leaves(params))
+    data_fn = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, "cuda")
+    step = build_train_step(cfg, tcfg)
+    steps, total = [], dict.fromkeys(("flash_attention", *BWD_LABELS), 0)
+    for i in range(TRAIN_STEPS):
+        batch = data_fn(i)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        launches = {op: counts[op] for op in total}
+        for op in total:
+            total[op] += counts[op]
+        steps.append(dict(m, ms=ms, launches=launches))
+        print(f"[train] {TRAIN_ARCH} full ({cfg.n_layers} layers, {n_params:,} parameters), "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, step {i}: loss={m['loss']:.6f} "
+              f"grad_norm={m['grad_norm']:.6f} lr={m['lr']:.6e} ms={ms:.3f}; kernel 12 "
+              f"launches: forward {launches['flash_attention']}, backward "
+              + ", ".join(f"{op.rsplit('_', 1)[1]} {launches[op]}" for op in BWD_LABELS),
+              flush=True)
+        check(all(np.isfinite([m["loss"], m["grad_norm"], m["lr"]])), "a train step's loss "
+              "or grad norm is not finite")
+        check(launches["flash_attention"] == 2 * cfg.n_layers
+              and all(launches[op] == cfg.n_layers for op in BWD_LABELS),
+              f"kernel 12's launches in a train step (remat full: 2 forwards and one backward "
+              f"a layer): {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    check(all(bool(torch.isfinite(t).all()) for t in leaves(params)),
+          "a parameter is not finite after training")
+    print(f"[train] peak_mem_GB={peak / 1e9:.3f} (parameters {4 * n_params / 1e9:.3f} GB in f32)",
+          flush=True)
+    profile = _train_profile(cfg, tcfg, params, opt, data_fn(TRAIN_STEPS))
+    report["train_full"] = dict(arch=TRAIN_ARCH, n_layers=cfg.n_layers, n_params=n_params,
+                                batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps,
+                                peak_mem_bytes=peak, profile=profile)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return total
+
+
+def _train_parity(report):
+    """(b) the published widths cut to 2 layers, one step: every gradient
+    leaf, then the parameters after the step, against the same step with
+    the attention through its plain versions on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import token_batches, train_config
+    from repro_torch.models import get_api
+    from repro_torch.train import adamw_init, build_train_step
+    from repro_torch.train._tree import leaves, tree_map
+    from repro_torch.train.train_step import value_and_grad
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=2)
+    tcfg = train_config(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    params = get_api(cfg).init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, "cuda")(0)
+    ops.reset_launch_counts()
+    loss_k, grads_k = value_and_grad(params, cfg, batch, tcfg)
+    counts_k = ops.launch_counts()
+    with _plain_attention():
+        ops.reset_launch_counts()
+        loss_p, grads_p = value_and_grad(params, cfg, batch, tcfg)
+        counts_p = ops.launch_counts()
+    check(all(g is not None for g in leaves(grads_k)), "a gradient leaf is None")
+    rels = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(leaves(grads_k), leaves(grads_p))]
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(counts_k["flash_attention"] == 4 and all(counts_k[op] == 2 for op in BWD_LABELS)
+          and sum(counts_p.values()) == 0, f"launches: kernels {counts_k}, plain {counts_p}")
+    check(loss_rel <= 1e-5 and max(rels) <= TRAIN_GRAD_REL,
+          f"the kernels' gradients part from the plain versions': loss {loss_rel:.3e}, "
+          f"worst leaf {max(rels):.3e}")
+    del grads_k
+    results = []
+    for plain in (False, True):
+        p = tree_map(torch.clone, params)
+        o = adamw_init(p)
+        step = build_train_step(cfg, tcfg)
+        if plain:
+            with _plain_attention():
+                p, o, m = step(p, o, batch)
+        else:
+            p, o, m = step(p, o, batch)
+        results.append((p, float(m["lr"])))
+    (pk, lr), (pp, _) = results
+    # the first AdamW step moves each element by lr g / (|g| + eps): an element
+    # whose gradient lies within the gradient tolerance of 0 may step either way
+    worst, flipped = 0.0, 0
+    for a, b, g in zip(leaves(pk), leaves(pp), leaves(grads_p)):
+        diff = (a - b).abs()
+        noise = g.abs() <= TRAIN_GRAD_REL * g.abs().max()
+        tol = 1e-4 * float(b.abs().max())
+        worst = max(worst, float(diff[~noise].max()) / tol if bool((~noise).any()) else 0.0)
+        flipped += int((diff[noise] > tol).sum())
+        check(bool((diff[noise] <= 2 * lr + tol).all()), "a parameter moved past two steps")
+    check(worst <= 1.0, f"the parameters after a step part: {worst:.3e} of 1e-4 max|p|")
+    print(f"[train-parity] {TRAIN_ARCH} widths, 2 layers, {TRAIN_BATCH} x {TRAIN_SEQ}: loss "
+          f"{float(loss_k):.6f} (plain {float(loss_p):.6f}, rel {loss_rel:.3e}); "
+          f"{len(rels)} gradient leaves, worst max|g-g_plain|/max|g_plain| {max(rels):.3e} "
+          f"(limit {TRAIN_GRAD_REL}); parameters after one step: worst max|dp| {worst:.3e} of "
+          f"1e-4 max|p| where |g| is past the gradient tolerance, {flipped} elements within "
+          f"it that stepped apart (lr {lr:.3e}); kernel 12 launches: "
+          f"{ {op: counts_k[op] for op in ('flash_attention', *BWD_LABELS)} }", flush=True)
+    report["train_parity"] = dict(loss=float(loss_k), loss_plain=float(loss_p),
+                                  loss_rel=loss_rel, worst_grad_rel=max(rels),
+                                  worst_param_rel=worst, noise_elements_apart=flipped,
+                                  launches=counts_k)
+    del params, results, pk, pp, grads_p
+    torch.cuda.empty_cache()
+
+
+def _train_restart(report):
+    """(c) the port's train_lm example (about 100M parameters) through
+    RestartableLoop: snapshots every 2 steps and a failure injected at
+    step 3, 6 steps; the losses of every step and the final parameters and
+    AdamW state bitwise an uninterrupted run's, one restart."""
+    import tempfile
+
+    from repro_torch.examples.train_lm import train
+    from repro_torch.train._tree import named_leaves
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        s0, n0, log0, loop0 = train(steps=6, ckpt_dir=os.path.join(root, "plain"),
+                                    ckpt_every=100, device="cuda")
+        s1, n1, log1, loop1 = train(steps=6, ckpt_dir=os.path.join(root, "restarted"),
+                                    ckpt_every=2, inject_failure_at=3, device="cuda")
+    wall = time.perf_counter() - t0
+    a, b = named_leaves(s1), named_leaves(s0)
+    differ = [k for k in b if not torch.equal(a[k], b[k])]
+    loss0 = {r["step"]: r["loss"] for r in log0}
+    loss1 = {r["step"]: r["loss"] for r in log1}
+    print(f"[train-restart] train_lm example, 6 steps, snapshots every 2, failure at step 3: "
+          f"restarts={loop1.restarts}, steps logged {[r['step'] for r in log1]}, losses "
+          f"{[round(loss1[i], 6) for i in sorted(loss1)]} (uninterrupted "
+          f"{[round(loss0[i], 6) for i in sorted(loss0)]}); leaves differing "
+          f"{len(differ)} of {len(b)} {differ[:4]}; ms a step "
+          f"{[round(r['sec'] * 1e3, 1) for r in log0]}; {wall:.1f} s", flush=True)
+    check(n0 == n1 == 6 and loop1.restarts == 1 and loop0.restarts == 0,
+          "the restartable loop did not restart once")
+    check(loss0 == loss1 and not differ,
+          "the restarted run is not bitwise the uninterrupted one")
+    report["train_restart"] = dict(restarts=loop1.restarts,
+                                   losses=[loss1[i] for i in sorted(loss1)],
+                                   ms_per_step=[r["sec"] * 1e3 for r in log0], wall_s=wall)
+
+
+DANUBE_SEQ = 6144           # past h2o-danube-3-4b's window of 4,096
+DANUBE_REL = 1e-5           # f32 attention and its gradients against float64, of the max
+
+
+def _train_window(report):
+    """(d) h2o-danube-3-4b at its published widths cut to 2 layers, a
+    forward and backward at s = 6,144 past its 4,096 window (the plain
+    windowed path; kernel 12 is not its function); then layer 0's windowed
+    attention and its gradients against float64 masked-softmax attention
+    on the card, for kv head 0 and its 4 query heads."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import token_batches, train_config
+    from repro_torch.models import get_api
+    from repro_torch.models import layers as L
+    from repro_torch.train._tree import leaves
+    from repro_torch.train.train_step import value_and_grad
+    cfg = get_config("h2o-danube-3-4b").replace(n_layers=2)
+    tcfg = train_config(steps=1, batch=1, seq=DANUBE_SEQ)
+    params = get_api(cfg).init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = token_batches(cfg, 1, DANUBE_SEQ, 0, "cuda")(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(params, cfg, batch, tcfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in leaves(grads)),
+          "h2o-danube's loss or a gradient is not finite")
+    check(sum(counts.values()) == 0, f"a kernel ran on the windowed path: {counts}")
+    del grads
+    # layer 0's q, k, v, as the attention makes them
+    lp = params["layers"][0]
+    s, h, kv, hd = DANUBE_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    with torch.no_grad():
+        x = L.rms_norm(L.embed_tokens(params["embed"], batch["tokens"]), lp["ln1"], cfg.norm_eps)
+        q = (x @ lp["attn"]["wq"]).reshape(1, s, h, hd)
+        k = (x @ lp["attn"]["wk"]).reshape(1, s, kv, hd)
+        v = (x @ lp["attn"]["wv"]).reshape(1, s, kv, hd)
+        cos, sin = L.rope_table(torch.arange(s, device="cuda"), hd, cfg.rope_theta)
+        q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+    pos = torch.arange(s, device="cuda")
+    ok = L._visible(pos[:, None], pos[None, :], window=cfg.sliding_window)
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(5),
+                       device="cuda")
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    out = L._masked_attention(ql, kl, vl, ok)
+    out.backward(dout)
+    rep = h // kv
+    q64, k64, v64 = (t[:, :, :n].double().requires_grad_()
+                     for t, n in ((q, rep), (k, 1), (v, 1)))
+    logits = torch.einsum("bsrd,btd->brst", q64, k64[:, :, 0]) / hd ** 0.5
+    probs = torch.softmax(logits.masked_fill(~ok, -torch.inf), dim=-1)
+    out64 = torch.einsum("brst,btd->bsrd", probs, v64[:, :, 0])
+    out64.backward(dout[:, :, :rep].double())
+    errs = {name: float((got.double() - want).abs().max() / want.abs().max())
+            for name, got, want in (("out", out[:, :, :rep].detach(), out64.detach()),
+                                    ("dq", ql.grad[:, :, :rep], q64.grad),
+                                    ("dk", kl.grad[:, :, :1], k64.grad),
+                                    ("dv", vl.grad[:, :, :1], v64.grad))}
+    print(f"[train-window] h2o-danube-3-4b widths, 2 layers, 1 x {DANUBE_SEQ} (window "
+          f"{cfg.sliding_window}): loss {float(loss):.6f}, forward and backward {wall:.3f} s, "
+          f"peak_mem_GB={peak / 1e9:.3f}, kernel launches {sum(counts.values())}; layer 0 "
+          f"attention, kv head 0, against float64: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" of the max (limit {DANUBE_REL})", flush=True)
+    check(max(errs.values()) <= DANUBE_REL, "the windowed attention parts from float64")
+    report["train_window"] = dict(loss=float(loss), wall_s=wall, peak_mem_bytes=peak,
+                                  float64_rel_errors=errs)
+    del params, q, k, v, ql, kl, vl, out, q64, k64, v64, logits, probs, out64
+    torch.cuda.empty_cache()
+
+
+def phase_train(report):
+    """The LM trainer (launch/train.py's path) on the card: (a) full-width
+    stablelm-3b, 3 steps; (b) 2 layers against the plain attention; (c)
+    the restartable example, bitwise; (d) h2o-danube past its window.
+    Returns kernel 12's launches in (a), forward and backward."""
+    launches = _train_full_width(report)
+    _train_parity(report)
+    _train_restart(report)
+    _train_window(report)
+    return launches
 
 
 def _profiled(fn, top_n=6):
@@ -3732,7 +4299,8 @@ def phase_distributed(report):
         yardstick["reorder"] = _supervised_sharded(report, data, mono)
     finally:
         dist.destroy_process_group()
-    missing = [op for op in SOURCES if op != "flash_attention" and not totals.get(op)]
+    missing = [op for op in SOURCES  # the LM's kernels are off the GPIC path
+               if not op.startswith("flash_attention") and not totals.get(op)]
     print(f"[distributed] launches on the sharded path (all monolithic runs): {totals}",
           flush=True)
     check(not missing, f"kernels never launched on the sharded path: {missing}")
@@ -4034,6 +4602,14 @@ SOURCES = {
                                       "src/repro/kernels/block_sparse.py:339"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:80"),
+    # the backward replaces no Pallas kernel: the reference differentiates its
+    # jnp attention (models/layers.py:207-230) with XLA
+    "flash_attention_bwd_delta": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                  "src/repro/models/layers.py:207"),
+    "flash_attention_bwd_dkdv": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                 "src/repro/models/layers.py:207"),
+    "flash_attention_bwd_dq": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                               "src/repro/models/layers.py:207"),
 }
 
 
@@ -4097,6 +4673,7 @@ def main(argv=None) -> int:
     phase_block_sparse(kernels, logs["block_sparse"])
     phase_bf16_kernels(kernels, logs)
     phase_flash_attention(kernels, logs["flash_attention"])
+    phase_flash_attention_backward(kernels, logs["flash_attention_bwd"])
     # each kernel's launches come from the run of the path that uses it
     explicit = phase_end_to_end(report)
     counts = {name: explicit[0][name] for name in
@@ -4126,6 +4703,8 @@ def main(argv=None) -> int:
     phase_reorder(report)
     phase_serve_parity(report)
     counts["flash_attention"] = phase_serve(report)["flash_attention"]
+    train_launches = phase_train(report)
+    counts.update({op: train_launches[op] for op in BWD_LABELS})
     sharded, yardstick = phase_distributed(report)
     phase_four_ranks(report, yardstick)
     del yardstick
@@ -4158,6 +4737,9 @@ def main(argv=None) -> int:
             if "launch_floor_ms" in kernels[name] else {}),
          **(_bf16_keys(kernels[name]["bf16"], bf16_counts[name])
             if name in bf16_counts else {}),
+         **({"train_launches": train_launches[name]} if name in train_launches else {}),
+         **({"f32_fma_bound_ms": kernels[name]["f32_fma_bound_ms"]}
+            if "f32_fma_bound_ms" in kernels[name] else {}),
          "sharded_launches": sharded.get(name, 0)}
         for name in SOURCES]}
     report["kernels"] = kernels

@@ -1,10 +1,11 @@
 """Architecture config registry: get_config(arch_id) / get_smoke_config,
-the ten arch ids of the reference with their published widths."""
+the ten arch ids of the reference with their published widths, and the
+reference's training and shape-cell configs."""
 from __future__ import annotations
 
 import importlib
 
-from .base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
+from .base import SHAPE_CELLS, MLAConfig, ModelConfig, MoEConfig, ShapeCell, SSMConfig, TrainConfig
 
 ARCH_IDS = (
     "granite-34b",
@@ -52,4 +53,5 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
 __all__ = [
     "ARCH_IDS", "get_config", "get_smoke_config",
     "ModelConfig", "MoEConfig", "SSMConfig", "MLAConfig",
+    "TrainConfig", "ShapeCell", "SHAPE_CELLS",
 ]

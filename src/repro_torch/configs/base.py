@@ -4,8 +4,8 @@ Every architecture has a ``ModelConfig`` in ``configs/<id>.py`` with its
 exact published dimensions, plus a ``smoke()`` variant for CPU tests (same
 family and topology, tiny dims). The family extensions (MoE, SSM, MLA) are
 plain fields here: only the dense family is routed (``models/model_zoo``).
-The training and shape-cell configs stay with the reference until training
-is ported (ROADMAP queue 1 item 12).
+``TrainConfig``, ``ShapeCell`` and ``SHAPE_CELLS`` are the reference's,
+field for field.
 """
 from __future__ import annotations
 
@@ -92,3 +92,40 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input-shape) cell for the dry-run grid."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPE_CELLS: tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", 4_096, 256, "train"),
+    ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCell("decode_32k", 32_768, 128, "decode"),
+    ShapeCell("long_500k", 524_288, 1, "decode"),
+)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    seq_len: int = 4096
+    global_batch: int = 256
+    microbatch: int = 0           # 0 = no microbatching (single shot)
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    param_dtype: str = "float32"  # smoke tests use f32; prod bf16+f32 master
+    compute_dtype: str = "bfloat16"
+    remat: Literal["none", "dots", "full"] = "full"
+    z_loss: float = 1e-4
+    gradient_compression: bool = False
+    seed: int = 0

@@ -9,8 +9,10 @@ from .synthetic import (
     three_circles,
     two_moons,
 )
+from .tokens import SyntheticTokenStream
 
 __all__ = [
+    "SyntheticTokenStream",
     "two_moons",
     "three_circles",
     "anisotropic",

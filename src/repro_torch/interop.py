@@ -13,7 +13,9 @@ GPIC has no learned weights. The state that crosses is:
 
 The LM substrate has weights: :func:`lm_params_from_reference` turns the
 reference's parameter tree, as numpy arrays, into the port's parameter
-dict, so that both packages compute with the same weights.
+dict, so that both packages compute with the same weights, and
+:func:`adamw_state_from_reference` its AdamW state, so that both train
+from one state.
 
 :func:`result_to_numpy` turns a result into numpy arrays for comparisons.
 """
@@ -27,6 +29,7 @@ import torch
 from .core.affinity import AffinitySpec
 from .core.pic import PICResult
 from .core.pipeline import GPICConfig, check_config
+from .train.optimizer import AdamWState
 
 #: reference fields that select HOW the reference computes (kernel vs jnp
 #: oracle, a fallback policy, the mesh axes the rows stripe over, which a
@@ -89,6 +92,16 @@ def lm_params_from_reference(tree: dict, cfg) -> dict:
     return {"embed": {name: tensor(a) for name, a in tree["embed"].items()},
             "layers": [layer(tree["layers"], i) for i in range(cfg.n_layers)],
             "ln_f": tensor(tree["ln_f"])}
+
+
+def adamw_state_from_reference(state: dict, cfg):
+    """The port's :class:`~repro_torch.train.optimizer.AdamWState` from the
+    reference's AdamW state as numpy (``{"step", "mu", "nu"}``, the moments
+    in the reference's parameter tree): the step an int32 scalar, the
+    moments as :func:`lm_params_from_reference` gives them."""
+    return AdamWState(step=torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32),
+                      mu=lm_params_from_reference(state["mu"], cfg),
+                      nu=lm_params_from_reference(state["nu"], cfg))
 
 
 def result_to_numpy(res: PICResult) -> dict[str, np.ndarray]:

@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("affinity", "power_step", "kmeans_assign", "streaming", "gram", "row_topk",
-           "block_sparse", "flash_attention")
+           "block_sparse", "flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 OPS = ("affinity_and_degree", "degree_normalized_matmat", "kmeans_assign",
        "streaming_matmat", "streaming_degree", "gram", "row_topk", "block_liveness",
        "block_sparse_matmat", "block_sparse_streaming_matmat",
-       "block_sparse_streaming_degree", "flash_attention")
+       "block_sparse_streaming_degree", "flash_attention", "flash_attention_bwd_delta",
+       "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[tuple[str, str], object] = {}   # the typed C entry points

@@ -14,7 +14,11 @@
 // Types: q f32 or bf16; k and v f32 or bf16 (the serve path passes f32 q
 // with the bf16 cache). The function is the oracle's f32 one (logits and
 // p in f32, out = acc / max(l, 1e-30)); the output is rounded once to q's
-// type.
+// type. Where the caller asks for it (a training forward), the kernel also
+// writes each row's f32 log-sum-exp L = m + log(max(l, 1e-30)) of the
+// scaled logits, (b, h, s) contiguous, which the backward kernels
+// (flash_attention_bwd.cu) read to rebuild P = exp(S scale - L); without it
+// the output's bits are those of a call that writes no L.
 //
 // Bound on an H100: operations. At the serve shape (b h = 128, s = 2048,
 // d = 80, causal) the two products are 2 * 2 * (s^2 / 2) * d * bh = 8.6e10
@@ -73,6 +77,7 @@ struct Args {
     const void* k;
     const void* v;
     void* o;
+    float* lse;  // (b, h, s) row log-sum-exp, or null
     long long q_sb, q_sh, q_ss;
     long long k_sb, k_sh, k_ss;
     long long v_sb, v_sh, v_ss;
@@ -373,6 +378,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(Args a) {
             if (c < a.d) orow[c] = from_f32<TQ>(acc[j][2 * r] / l_floor);
             if (c + 1 < a.d) orow[c + 1] = from_f32<TQ>(acc[j][2 * r + 1] / l_floor);
         }
+        if (a.lse != nullptr && t == 0)
+            a.lse[static_cast<long long>(gi) * a.s + qi] = m[r] + logf(l_floor);
     }
 }
 
@@ -407,9 +414,10 @@ int launch_types(const Args& a, int n_blocks, bool async_copy, cudaStream_t stre
 // are (0, 0), (0, 1) and (1, 1). Strides are in elements: q (b, h, s, d)
 // by q_sb, q_sh, q_ss, d contiguous; k and v (b, kv, s, d) likewise.
 // async_copy: q, k and v rows (and d) are 16-byte aligned, so the tiles
-// stream in with cp.async; 0 takes the scalar-staging template.
+// stream in with cp.async; 0 takes the scalar-staging template. lse: the
+// (b, h, s) f32 row log-sum-exp, written where it is not null.
 extern "C" int gpic_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int q_type, int kv_type,
+    const void* q, const void* k, const void* v, void* o, float* lse, int q_type, int kv_type,
     int b, int h, int kv, int s, int d,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
@@ -420,7 +428,7 @@ extern "C" int gpic_flash_attention(
     if (b < 1 || h < 1 || kv < 1 || h % kv != 0 || s < 1 || d < 1 || d > MAX_D ||
         static_cast<long long>(b) * h * n_qt > 0x7fffffffLL)
         return static_cast<int>(cudaErrorInvalidValue);
-    Args a{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+    Args a{q, k, v, o, lse, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            o_sb, o_sh, o_ss, b * h, h, h / kv, s, d, static_cast<int>(n_qt), causal, scale};
     const int n_blocks = static_cast<int>(b * h * n_qt);
     const bool ac = async_copy != 0;

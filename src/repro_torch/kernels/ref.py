@@ -191,20 +191,66 @@ def power_step_ref(a: torch.Tensor, v: torch.Tensor, d: torch.Tensor) -> torch.T
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, return_lse: bool = False):
     """Oracle for kernels/flash_attention.py: q (bh, s, d), k/v (bkv, s, d),
     or the 4-D form (b, h, s, d), (b, kv, s, d). The kv heads are repeated,
-    the softmax taken in f32 and the result cast to q's type."""
+    the softmax taken in f32 and the result cast to q's type. With
+    ``return_lse``, also the f32 row log-sum-exp L of the scaled, masked
+    logits, q's shape without d: the backward's P = exp(S / sqrt(d) - L)."""
+    logits = _flash_logits(q, k, causal)
+    probs = torch.softmax(logits, dim=-1)
+    vv = v.repeat_interleave(q.shape[-3] // k.shape[-3], dim=-3).float()
+    out = torch.einsum("...hst,...htd->...hsd", probs, vv).to(q.dtype)
+    return (out, torch.logsumexp(logits, dim=-1)) if return_lse else out
+
+
+def _flash_logits(q, k, causal):
+    """f32 q k^T / sqrt(d) over the repeated kv heads, masked."""
     s, d = q.shape[-2:]
-    rep = q.shape[-3] // k.shape[-3]
-    kk = k.repeat_interleave(rep, dim=-3).float()
-    vv = v.repeat_interleave(rep, dim=-3).float()
+    kk = k.repeat_interleave(q.shape[-3] // k.shape[-3], dim=-3).float()
     logits = torch.einsum("...hsd,...htd->...hst", q.float(), kk) / math.sqrt(d)
     if causal:
         mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
         logits = logits.masked_fill(~mask, -torch.inf)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("...hst,...htd->...hsd", probs, vv).to(q.dtype)
+    return logits
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            grads: str = "qkv"):
+    """Oracle for the backward kernels of kernels/flash_attention.py:
+    (dq, dk, dv) of ``flash_attention`` at (q, k, v), given its output
+    ``out``, its row log-sum-exp ``lse`` and the output's gradient ``dout``,
+    in the inputs' types, f32 inside:
+
+        D = rowsum(dO * O),  P = exp(S / sqrt(d) - L),  dV = P^T dO,
+        dS = P * (dO V^T - D),  dQ = dS K / sqrt(d),  dK = dS^T Q / sqrt(d),
+
+    dK and dV summed over the query heads of each kv head (GQA).
+    ``grads`` names the gradients to compute and return, in that order:
+    "q" is the dQ kernel's plain version, "kv" the dK/dV kernel's."""
+    d = q.shape[-1]
+    hq, hk = q.shape[-3], k.shape[-3]
+    rep = hq // hk
+    qf, of, dof = q.float(), out.float(), dout.float()
+    vv = v.repeat_interleave(rep, dim=-3).float()
+    p = torch.exp(_flash_logits(q, k, causal) - lse.float()[..., None])
+    delta = torch.sum(dof * of, dim=-1)
+    dp = torch.einsum("...hsd,...htd->...hst", dof, vv)
+    ds = p * (dp - delta[..., None])
+    scale = 1.0 / math.sqrt(d)
+
+    def per_kv_head(g):        # (..., hq, s, d) -> (..., hk, s, d), the rep heads summed
+        return g.unflatten(-3, (hk, rep)).sum(dim=-3)
+
+    result = {
+        "q": lambda: (torch.einsum("...hst,...htd->...hsd", ds,
+                                   k.repeat_interleave(rep, dim=-3).float()) * scale
+                      ).to(q.dtype),
+        "k": lambda: per_kv_head(torch.einsum("...hst,...hsd->...htd", ds, qf) * scale
+                                 ).to(k.dtype),
+        "v": lambda: per_kv_head(torch.einsum("...hst,...hsd->...htd", p, dof)).to(v.dtype),
+    }
+    return tuple(result[g]() for g in grads)
 
 
 def kmeans_assign_ref(x: torch.Tensor, cents: torch.Tensor

@@ -6,13 +6,19 @@ Initializers draw from an explicit ``torch.Generator`` and make the tensors
 on its device; ``gen=None`` gives the shapes alone, on the meta device.
 
 Attention routes self-attention: the no-cache forward, the prefill into
-the KV cache at ``cache_pos=0`` and the decode over the cache. Wherever it
-computes the function of kernel 12 (causal, or full without a cache,
-attention over equal query and key lengths) it calls
-``ops.flash_attention``: the hand-written kernel on a CUDA tensor, its
-plain version on the CPU. The decode (one query over the cache) stays plain
-torch, as the reference keeps it in jnp. The reference's sharding
-constraints are the identity on one device and are dropped.
+the KV cache at ``cache_pos=0`` and the decode over the cache, with the
+reference's causal, sliding-window and prefix-LM masks. Wherever it
+computes the function of kernel 12 (attention over equal query and key
+lengths under a plain causal mask, or full without a cache) it calls
+``ops.flash_attention``: the hand-written kernel on a CUDA tensor (with its
+hand-written backward when training), its plain version on the CPU. A
+window that cuts into the sequence, a prefix, and the decode (queries
+past the start of the cache) stay plain torch, as the reference keeps
+them in jnp: its full-scores path, or, past 8,192 positions in multiples
+of 1,024, its query-blockwise path. The two paths part where a window and
+a prefix meet, and each is mirrored as it is (ROADMAP queue 3).
+Cross-attention raises. The reference's sharding constraints are the
+identity on one device and are dropped.
 """
 from __future__ import annotations
 
@@ -134,13 +140,9 @@ def attention(
     same dict is returned."""
     if x_kv is not None:
         raise _unrouted("cross-attention")
-    if prefix_len:
-        raise _unrouted("prefix-LM attention (prefix_len > 0)")
-    if cfg.sliding_window:
-        raise _unrouted(f"sliding-window attention ({cfg.arch_id}, "
-                        f"window {cfg.sliding_window})")
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    window = cfg.sliding_window
 
     q = x @ p["wq"]
     k = x @ p["wk"]
@@ -172,13 +174,23 @@ def attention(
         k, v = ck[:, :q_offset + s], cv[:, :q_offset + s]
         causal = True
 
-    if q_offset == 0:
+    t = k.shape[1]
+    plain_mask = not causal or (not prefix_len and (not window or t <= window))
+    if q_offset == 0 and plain_mask:
         # kernel 12's function: (b, h, s, d) views of q and of k, v (the
         # cache slice on the prefill), read in place by the kernel
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal).transpose(1, 2)
+    elif cache is None and s > _BLOCKWISE_MIN and s % _BLOCK_Q == 0:
+        out = _blockwise_attention(q, k, v, window, prefix_len)
     else:
-        out = _cached_attention(q, k, v, q_offset)
+        qi = q_offset + torch.arange(s, device=q.device)[:, None]
+        kj = torch.arange(t, device=q.device)[None, :]
+        if cache is None:   # the reference's _build_mask
+            ok = _visible(qi, kj, causal=causal, window=window, prefix_len=prefix_len)
+        else:               # its cache path's mask: the prefix only among prefix rows
+            ok = _visible(qi, kj, window=window, prefix_len=prefix_len, prefix_rows=True)
+        out = _masked_attention(q, k, v, ok)
     # the reference's attention output is in v's dtype (the cache's on
     # prefill and decode), then promoted for the output projection
     out = out.to(v.dtype).reshape(b, s, h * hd)
@@ -186,14 +198,50 @@ def attention(
     return out.to(dt) @ p["wo"].to(dt), cache
 
 
-def _cached_attention(q, k, v, q_offset):
-    """q (b, s, h, d) at positions q_offset + i over k, v (b, t, kv, d):
-    grouped-query attention without repeating K/V, key j visible to query i
-    when j <= q_offset + i. The reference's arithmetic: the logits in the
-    promoted type of q and k, an f32 softmax, probabilities rounded to v's
-    type, the PV product accumulated in f32 and rounded to v's type."""
+_BLOCKWISE_MIN = 8192   # the reference's blockwise attention above this sequence length
+_BLOCK_Q = 1024
+
+
+def _visible(qi, kj, *, causal=True, window=0, prefix_len=0, prefix_rows=False):
+    """Bool mask of key ``kj`` visible to query ``qi`` (broadcast): causal,
+    cut to the last ``window`` keys, and the first ``prefix_len`` keys
+    visible to every query (``prefix_rows``: to the prefix's own queries
+    only, as the reference's cache and blockwise paths have it). Not causal:
+    every key, as the reference's ``_build_mask``."""
+    if not causal:
+        return torch.ones(torch.broadcast_shapes(qi.shape, kj.shape), dtype=torch.bool,
+                          device=qi.device)
+    ok = kj <= qi
+    if window:
+        ok = ok & (kj > qi - window)
+    if prefix_len:
+        pre = kj < prefix_len
+        ok = ok | ((pre & (qi < prefix_len)) if prefix_rows else pre)
+    return ok
+
+
+def _blockwise_attention(q, k, v, window, prefix_len):
+    """The reference's ``_blockwise_causal_attention``: query blocks of
+    1,024 rows, each over every key under the causal, window and (prefix
+    rows) masks, so the (s, s) scores are never whole."""
+    s = q.shape[1]
+    kj = torch.arange(s, device=q.device)[None, :]
+    outs = []
+    for q0 in range(0, s, _BLOCK_Q):
+        qi = q0 + torch.arange(_BLOCK_Q, device=q.device)[:, None]
+        ok = _visible(qi, kj, window=window, prefix_len=prefix_len, prefix_rows=True)
+        outs.append(_masked_attention(q[:, q0:q0 + _BLOCK_Q], k, v, ok))
+    return torch.cat(outs, dim=1)
+
+
+def _masked_attention(q, k, v, ok):
+    """q (b, s, h, d) over k, v (b, t, kv, d) with ``ok`` (s, t) the visible
+    keys: grouped-query attention without repeating K/V. The reference's
+    arithmetic: the logits in the promoted type of q and k, an f32 softmax,
+    probabilities rounded to v's type, the PV product accumulated in f32
+    and rounded to v's type."""
     b, s, h, hd = q.shape
-    t, kv = k.shape[1], k.shape[2]
+    kv = k.shape[2]
     rep = h // kv
     dt = torch.promote_types(q.dtype, k.dtype)
     # the reference's f32 1 / sqrt(hd), as a host number: a device scalar
@@ -201,9 +249,7 @@ def _cached_attention(q, k, v, q_offset):
     scale = float(1.0 / torch.sqrt(torch.tensor(float(hd))))
     qg = q.reshape(b, s, kv, rep, hd).to(dt)
     logits = torch.einsum("bskrd,btkd->bkrst", qg, k.to(dt)).float() * scale
-    qi = q_offset + torch.arange(s, device=q.device)[:, None]
-    kj = torch.arange(t, device=q.device)[None, :]
-    logits = logits.masked_fill(kj > qi, -torch.inf)
+    logits = logits.masked_fill(~ok, -torch.inf)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkrst,btkd->bskrd", probs.float(), v.float()).to(v.dtype)
     return out.reshape(b, s, h, hd)
@@ -259,7 +305,12 @@ def init_embed(gen, cfg: ModelConfig, dtype=torch.float32):
 
 
 def embed_tokens(p, tokens):
-    return p["tok"][tokens]
+    """The reference's gather ``p["tok"][tokens]``, as ``F.embedding``:
+    the same values, and a backward that sums each token's rows in a fixed
+    order (indexing's backward accumulates with atomics, whose order varies
+    from run to run, and a restarted training run would not replay bit for
+    bit)."""
+    return F.embedding(tokens, p["tok"])
 
 
 def lm_logits(p, x):

@@ -1,15 +1,25 @@
-"""Dense decoder-only transformer LM (granite / stablelm / qwen), the port of
-``repro/models/transformer.py``.
+"""Dense decoder-only transformer LM (granite / stablelm / danube / qwen), the
+port of ``repro/models/transformer.py``.
 
 Parameters: ``{"embed": {"tok", "head"}, "layers": [per-layer dict, ...],
 "ln_f"}``; the reference's scan over stacked layers is a Python loop over
-the list. ``remat`` only matters when differentiating, so it is accepted and
-ignored. The KV cache keeps the reference's stacked layout, (L, b, S, kv,
-hd) for K and for V, and is updated in place.
+the list. ``remat`` selects what a differentiated forward keeps, as the
+reference's ``jax.checkpoint`` around each layer does: ``"none"`` keeps
+every activation, ``"full"`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, non-reentrant), ``"dots"`` keeps the outputs
+of the projection and MLP matmuls (those with no batch dims, the
+reference's ``checkpoint_dots_with_no_batch_dims``) and recomputes the
+rest. The values are the same under every setting. The KV cache keeps the
+reference's stacked layout, (L, b, S, kv, hd) for K and for V, and is
+updated in place.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from . import layers as L
@@ -47,35 +57,66 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
-def _layer_apply(cfg, x, lp, *, positions, cache=None, cache_pos=None):
+def _layer_apply(cfg, x, lp, *, positions, prefix_len=0, cache=None, cache_pos=None):
     h, new_cache = L.attention(
         L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["attn"], cfg,
-        positions=positions, cache=cache, cache_pos=cache_pos,
+        positions=positions, prefix_len=prefix_len, cache=cache, cache_pos=cache_pos,
     )
     x = x + h
     x = x + L.mlp(L.rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"])
     return x, new_cache
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of 2-D matmuls (x @ w reaches
+    ``aten.mm``; the attention einsums reach ``aten.bmm`` and are
+    recomputed), recompute everything else."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT = ("none", "full", "dots")
+
+
 def forward_embeds(params, cfg: ModelConfig, h, *, prefix_len=0,
                    compute_dtype=torch.bfloat16, remat: str = "full"):
     """(b, s, e) embeddings -> (b, s, e) final hidden states."""
-    if prefix_len:
-        raise L._unrouted("prefix-LM attention (prefix_len > 0)")
+    if remat not in _REMAT:
+        raise ValueError(f"remat must be one of {_REMAT}, got {remat!r}")
     h = h.to(compute_dtype)
     positions = torch.arange(h.shape[1], device=h.device)
+
+    def body(x, lp):
+        return _layer_apply(cfg, x, _cast(lp, compute_dtype), positions=positions,
+                            prefix_len=prefix_len)[0]
+
+    remat_kw = {}
+    if remat == "dots":
+        remat_kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                   _save_dots)
     for lp in params["layers"]:
-        h, _ = _layer_apply(cfg, h, _cast(lp, compute_dtype), positions=positions)
+        if remat == "none" or not torch.is_grad_enabled():
+            h = body(h, lp)
+        else:
+            h = checkpoint(body, h, lp, use_reentrant=False, **remat_kw)
     return L.rms_norm(h, params["ln_f"].to(compute_dtype), cfg.norm_eps)
 
 
 def forward(params, cfg: ModelConfig, tokens, *, compute_dtype=torch.bfloat16,
             remat: str = "full", prefix_embeds=None):
-    """tokens (b, s) -> logits (b, s, v_padded), f32."""
-    if prefix_embeds is not None:
-        raise L._unrouted("prefix embeddings (the VLM and audio front ends)")
+    """tokens (b, s) -> logits (b, s, v_padded), f32. ``prefix_embeds``
+    (b, p, e) are prepended bidirectional positions (the VLM and audio
+    front ends' stub embeddings); the logits are those of the tokens."""
     h = L.embed_tokens(params["embed"], tokens)
-    h = forward_embeds(params, cfg, h, compute_dtype=compute_dtype, remat=remat)
+    prefix_len = 0
+    if prefix_embeds is not None:
+        prefix_len = prefix_embeds.shape[1]
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    h = forward_embeds(params, cfg, h, prefix_len=prefix_len,
+                       compute_dtype=compute_dtype, remat=remat)
+    if prefix_len:
+        h = h[:, prefix_len:]
     return L.lm_logits(params["embed"], h.float())
 
 

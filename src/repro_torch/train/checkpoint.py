@@ -8,6 +8,9 @@ Layout: a snapshot is a directory
 
 Leaves are named by field (``PowerCarry``'s ``t``, ``v``, ``delta``, ...),
 so a restore matches them by name against the structure it is given. A
+nested tree (dicts, lists, tuples and dataclasses of tensors, such as the
+LM trainer's ``(params, AdamWState)``) names each leaf by its path, the
+keys joined with dots (``0.layers.3.attn.wq``). A
 save writes a ``.tmp`` directory and renames it into place, so a failure
 mid-save never corrupts the newest snapshot; each leaf's CRC32 is checked
 on restore, and a snapshot that fails is quarantined (renamed out of the
@@ -25,7 +28,6 @@ of ranks, or on one device.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import shutil
@@ -39,13 +41,7 @@ import torch.distributed as dist
 
 from ..core.health import CheckpointCorruptError
 from ..core.operators import group_layout, mesh_reductions
-
-
-def _leaves(tree) -> dict:
-    """The named leaves of a dataclass of tensors, or of a dict."""
-    if isinstance(tree, dict):
-        return dict(tree)
-    return {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
+from ._tree import named_leaves, rebuild
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -71,7 +67,7 @@ def save(path: str, tree: Any, *, step: int, extra: Optional[dict] = None) -> No
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = {"step": int(step), "leaves": [], "extra": extra or {}}
-    for name, leaf in _leaves(tree).items():
+    for name, leaf in named_leaves(tree).items():
         arr, dtype = _to_numpy(leaf)
         np.save(os.path.join(tmp, f"{name}.npy"), arr)
         manifest["leaves"].append({"name": name, "dtype": dtype, "shape": list(arr.shape),
@@ -99,15 +95,11 @@ class AsyncCheckpointer:
     def save_async(self, path: str, tree: Any, *, step: int,
                    extra: Optional[dict] = None) -> None:
         self.wait()
-        host = {name: leaf.detach().to("cpu", copy=True) for name, leaf in _leaves(tree).items()}
+        host = {name: leaf.detach().to("cpu", copy=True)
+                for name, leaf in named_leaves(tree).items()}
         self._thread = threading.Thread(
             target=save, args=(path, host), kwargs=dict(step=step, extra=extra), daemon=True)
         self._thread.start()
-
-
-def _tree_like(like, leaves: dict):
-    """``leaves`` in the structure of ``like``: a dict, or ``like``'s type."""
-    return leaves if isinstance(like, dict) else type(like)(**leaves)
 
 
 def gather_rows(tree: Any, row_leaves, group) -> Any:
@@ -116,8 +108,8 @@ def gather_rows(tree: Any, row_leaves, group) -> Any:
     the others (replicated) as they are. A collective: every rank calls it
     and gets the same tree."""
     gather = mesh_reductions(group)[2]
-    return _tree_like(tree, {name: gather(leaf) if name in row_leaves else leaf
-                             for name, leaf in _leaves(tree).items()})
+    return rebuild(tree, {name: gather(leaf) if name in row_leaves else leaf
+                          for name, leaf in named_leaves(tree).items()})
 
 
 def _on_rank0(group, fn):
@@ -142,7 +134,7 @@ def _keep_rows(tree: Any, row_leaves, group, device) -> Any:
     (rank n/P to (rank + 1) n/P), the others whole, on ``device``."""
     rank, p = group_layout(group)
     out = {}
-    for name, leaf in _leaves(tree).items():
+    for name, leaf in named_leaves(tree).items():
         if name in row_leaves:
             if leaf.shape[0] % p:
                 raise CheckpointCorruptError(
@@ -150,7 +142,7 @@ def _keep_rows(tree: Any, row_leaves, group, device) -> Any:
             n_loc = leaf.shape[0] // p
             leaf = leaf[rank * n_loc:(rank + 1) * n_loc]
         out[name] = leaf.to(device)
-    return _tree_like(tree, out)
+    return rebuild(tree, out)
 
 
 def _read_manifest(path: str) -> dict:
@@ -177,7 +169,7 @@ def restore(path: str, like: Any, *, device="cpu", group=None, row_leaves=()):
         tree, step = _on_rank0(group, lambda: restore(path, like))
         return _keep_rows(tree, row_leaves, group, device), step
     manifest = _read_manifest(path)
-    want = _leaves(like)
+    want = named_leaves(like)
     entries = {e["name"]: e for e in manifest.get("leaves", [])}
     if set(entries) != set(want):
         raise CheckpointCorruptError(
@@ -202,7 +194,7 @@ def restore(path: str, like: Any, *, device="cpu", group=None, row_leaves=()):
         if entry["dtype"] == "bfloat16":
             t = t.view(torch.int16).view(torch.bfloat16)
         out[name] = t.to(device=device, dtype=ref.dtype)
-    return _tree_like(like, out), manifest["step"]
+    return rebuild(like, out), manifest["step"]
 
 
 def latest_step(root: str) -> Optional[str]:

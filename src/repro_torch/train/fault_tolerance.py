@@ -11,14 +11,19 @@
     interrupt the run, and classify what ``run_gpic`` returns by the
     robustness contract ('ok', 'recovered', 'degraded' or 'typed_error').
 
-The reference's ``RestartableLoop`` (a restartable training loop) waits for
-the port's training (ROADMAP queue 1 item 12b). Its ``FaultSchedule``'s
+  - :class:`RestartableLoop`: the LM trainer's loop, a step function
+    wrapped with periodic (async) snapshots (``train/checkpoint.py``); on
+    an injected failure it restores the latest snapshot and replays from
+    it, so a restarted run is the uninterrupted one bit for bit.
+
+The reference's ``FaultSchedule``'s
 ``kernel_failure`` forces a kernel onto its fallback, which the port does
 not have (a kernel that fails raises), so the port's schedule has no such
 field.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -27,6 +32,8 @@ import numpy as np
 import torch
 
 from ..core.health import COL_OK, GPICError, is_recovery_note
+from . import checkpoint as ckpt
+from ._tree import leaves
 
 
 class SimulatedFailure(RuntimeError, GPICError):
@@ -71,6 +78,88 @@ class StragglerMonitor:
     @property
     def median(self) -> float:
         return sorted(self.times)[len(self.times) // 2] if self.times else 0.0
+
+
+class RestartableLoop:
+    """Checkpoint/restart training loop.
+
+    step_fn: (state, batch) -> (state, metrics), deterministic.
+    data_fn: (step: int) -> batch, deterministic per step (replayable).
+    The state is any tree ``train/checkpoint.py`` saves (dicts, lists,
+    tuples and dataclasses of tensors); it is restored on the device of its
+    first leaf.
+    """
+
+    def __init__(self, step_fn: Callable, data_fn: Callable, ckpt_dir: str,
+                 *, ckpt_every: int = 50, max_restarts: int = 10,
+                 injector: Optional[FailureInjector] = None,
+                 async_save: bool = True):
+        self.step_fn = step_fn
+        self.data_fn = data_fn
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every
+        self.max_restarts = max_restarts
+        self.injector = injector
+        self.saver = ckpt.AsyncCheckpointer() if async_save else None
+        self.monitor = StragglerMonitor()
+        self.restarts = 0
+
+    def _save(self, state, step):
+        path = os.path.join(self.ckpt_dir, f"step_{step:06d}")
+        if self.saver:
+            self.saver.save_async(path, state, step=step)
+        else:
+            ckpt.save(path, state, step=step)
+
+    def _restore(self, state_like):
+        path = ckpt.latest_step(self.ckpt_dir)
+        if path is None:
+            return None
+        device = leaves(state_like)[0].device
+        return ckpt.restore(path, state_like, device=device)
+
+    def run(self, state, n_steps: int, *, start_step: int = 0):
+        """Runs to n_steps, surviving injected failures. Returns (state,
+        step, metrics log); a replayed step is logged again."""
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        step = start_step
+        metrics_log = []
+        # initial checkpoint so a pre-first-save failure restores cleanly
+        self._save(state, step)
+        if self.saver:
+            self.saver.wait()
+        while step < n_steps:
+            try:
+                while step < n_steps:
+                    if self.injector:
+                        self.injector.maybe_fail(step)
+                    t0 = time.perf_counter()
+                    batch = self.data_fn(step)
+                    state, metrics = self.step_fn(state, batch)
+                    metrics = {k: float(v) for k, v in metrics.items()}  # syncs the step
+                    dt = time.perf_counter() - t0
+                    self.monitor.record(step, dt)
+                    metrics_log.append({"step": step, "sec": dt, **metrics})
+                    step += 1
+                    if step % self.ckpt_every == 0:
+                        self._save(state, step)
+            except SimulatedFailure:
+                self.restarts += 1
+                if self.restarts > self.max_restarts:
+                    raise
+                if self.saver:
+                    self.saver.wait()
+                restored = self._restore(state)
+                if restored is None:
+                    step = start_step  # no checkpoint yet: replay from start
+                else:
+                    state, step = restored
+        if self.saver:
+            self.saver.wait()
+        self._save(state, step)
+        if self.saver:
+            self.saver.wait()
+        return state, step, metrics_log
 
 
 def _rows_set(x, rows, value):

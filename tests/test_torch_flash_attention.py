@@ -7,9 +7,13 @@ Tolerances: f32 atol 2e-6, rtol 1e-5, the reference's own kernel test's
 atol = rtol = 2e-2, also the reference's (one rounding of the output to bf16
 on each side, of f32 values that differ in the last bits). The CUDA kernel
 is held against the same plain version on the card by ``chip_smoke.py``.
+The backward's plain version, which the CPU runs and the card's backward
+kernels are held to, is held to jax.vjp of the reference's oracle and to
+autograd through the plain forward (tolerances at ``GRAD_F32_REL``).
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -261,3 +265,127 @@ def test_wrapper_stages_unaligned_rows_element_by_element():
     assert not _rows_aligned16(torch.zeros((1, 4, 50, 17)))    # 68-byte rows
     assert not _rows_aligned16(torch.zeros((1, 4, 50, 24), dtype=torch.bfloat16)[..., 1:17])
     assert _rows_aligned16(torch.zeros((1, 1, 50, 8), dtype=torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# the backward: the plain version the CPU runs and the card's kernels are
+# held to (chip_smoke.py's phase_flash_attention_backward)
+# ---------------------------------------------------------------------------
+
+#: gradients against jax.vjp of the reference oracle, relative to max|grad|:
+#: f32 1e-5 (sums in other orders; measured 7.0e-7); where an input is bf16,
+#: 2**-6, two bf16 steps at the top of the range: each side rounds its f32
+#: gradient to bf16 once, and the f32 values differ a little more there
+#: (the plain backward's D reads the output as stored in bf16, where the
+#: reference's derivative uses the unrounded one; measured 8.1e-3)
+GRAD_F32_REL, GRAD_BF16_REL = 1e-5, 2.0 ** -6
+
+BWD_CASES = [
+    (4, 4, 64, 32),       # MHA
+    (8, 2, 100, 16),      # GQA rep 4, ragged
+    (6, 1, 130, 24),      # MQA, past two 64-row tiles
+]
+
+
+def _bwd_inputs(bh, bkv, s, d, seed, q_dtype, kv_dtype):
+    q, k, v = _qkv(bh, bkv, s, d, seed=seed)
+    dout = (np.random.default_rng(seed + 100).standard_normal((bh, s, d)) * 0.5).astype(np.float32)
+    q, dout = (torch.from_numpy(a).to(q_dtype) for a in (q, dout))
+    k, v = (torch.from_numpy(a).to(kv_dtype) for a in (k, v))
+    return q, k, v, dout
+
+
+def _assert_grads_close(got, want, rel):
+    for g, w in zip(got, want, strict=True):
+        w = np.asarray(w.float() if isinstance(w, torch.Tensor) else np.asarray(w, np.float32))
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0, atol=rel * np.abs(w).max())
+
+
+@pytest.mark.parametrize("bh,bkv,s,d", BWD_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("types", ["f32", "f32/bf16", "bf16"])
+def test_plain_backward_matches_the_reference_oracle_vjp(bh, bkv, s, d, causal, types):
+    """(dq, dk, dv) of the plain backward, given the plain forward's output
+    and L, against jax.vjp of the reference's oracle on the same inputs and
+    output gradient, in the inputs' types."""
+    q_dtype, kv_dtype = {"f32": (torch.float32,) * 2, "bf16": (torch.bfloat16,) * 2,
+                         "f32/bf16": (torch.float32, torch.bfloat16)}[types]
+    q, k, v, dout = _bwd_inputs(bh, bkv, s, d, d + s, q_dtype, kv_dtype)
+    out, lse = tref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    got = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+    assert [g.dtype for g in got] == [q_dtype, kv_dtype, kv_dtype]
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+
+    def j(t):
+        return jnp.asarray(t.float().numpy()).astype(
+            jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+
+    _, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(a, b, c, causal=causal),
+                     j(q), j(k), j(v))
+    want = [np.asarray(g, np.float32) for g in vjp(j(dout))]
+    rel = GRAD_BF16_REL if torch.bfloat16 in (q_dtype, kv_dtype) else GRAD_F32_REL
+    _assert_grads_close(got, want, rel)
+    # L is the row log-sum-exp of the reference's scaled, masked logits
+    kk = jnp.repeat(j(k), bh // bkv, axis=0).astype(jnp.float32)
+    logits = jnp.einsum("hsd,htd->hst", j(q).astype(jnp.float32), kk) / np.sqrt(np.float32(d))
+    if causal:
+        logits = jnp.where(jnp.tril(jnp.ones((s, s), bool))[None], logits, -jnp.inf)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(logits, axis=-1)),
+                               rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("bh,bkv,s,d", BWD_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_is_autograd_through_the_plain_forward(bh, bkv, s, d, causal):
+    q, k, v, dout = _bwd_inputs(bh, bkv, s, d, 7, torch.float32, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    tref.flash_attention_ref(*leaves, causal=causal).backward(dout)
+    out, lse = tref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    got = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+    _assert_grads_close(got, [t.grad for t in leaves], GRAD_F32_REL)
+
+
+@pytest.mark.parametrize("bh,bkv,s,d", BWD_CASES)
+@pytest.mark.parametrize("types", ["f32", "f32/bf16", "bf16"])
+def test_each_backward_kernels_plain_version_is_its_part_of_the_whole(bh, bkv, s, d, types):
+    """``grads="q"`` (the dQ kernel's plain version) and ``grads="kv"`` (the
+    dK/dV kernel's) give the bits of the whole plain backward's parts."""
+    q_dtype, kv_dtype = {"f32": (torch.float32,) * 2, "bf16": (torch.bfloat16,) * 2,
+                         "f32/bf16": (torch.float32, torch.bfloat16)}[types]
+    q, k, v, dout = _bwd_inputs(bh, bkv, s, d, 3 * d + s, q_dtype, kv_dtype)
+    out, lse = tref.flash_attention_ref(q, k, v, return_lse=True)
+    dq, dk, dv = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout)
+    (dq_part,) = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout, grads="q")
+    dk_part, dv_part = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout, grads="kv")
+    for part, whole in ((dq_part, dq), (dk_part, dk), (dv_part, dv)):
+        assert part.dtype == whole.dtype and torch.equal(part, whole)
+
+
+def test_the_autograd_function_on_the_cpu():
+    """With grad on, ``flash_attention`` is the autograd Function: the same
+    output as a call without grad, and its gradients are the plain backward's
+    at its saved output and L; the (b, h, s, d) strided views of the model
+    give the flattened form's gradients in the views' memory order. A call
+    without grad, or on inputs that need none, builds no graph."""
+    b, h, kv, s, d = 2, 6, 2, 40, 16
+    q, k, v, dout = _bwd_inputs(b * h, b * kv, s, d, 11, torch.float32, torch.float32)
+    with torch.no_grad():
+        plain = tops.flash_attention(q, k, v)
+    assert tops.flash_attention(q, k, v).grad_fn is None
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tops.flash_attention(*leaves)
+    assert out.grad_fn is not None and torch.equal(out.detach(), plain)
+    out.backward(dout)
+    o, lse = tref.flash_attention_ref(q, k, v, return_lse=True)
+    want = tref.flash_attention_bwd_ref(q, k, v, o, lse, dout)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+    # the model's layout: (b, s, h, d) activations seen as (b, h, s, d)
+    act = [t.reshape(b, -1, s, d).transpose(1, 2).contiguous().requires_grad_()
+           for t in (q, k, v)]
+    out4 = tops.flash_attention(*(a.transpose(1, 2) for a in act))
+    out4.backward(dout.reshape(b, h, s, d))
+    for a, t in zip(act, leaves):
+        assert a.grad.is_contiguous()
+        np.testing.assert_allclose(a.grad.transpose(1, 2).reshape(t.shape).numpy(),
+                                   t.grad.numpy(), rtol=1e-6, atol=1e-7)

@@ -375,6 +375,9 @@ def test_cpu_calls_launch_no_kernel():
     tops.block_sparse_streaming_degree(x, counts=plan[0], col_idx=plan[1], kind="rbf")
     tops.block_sparse_streaming_matmat(x, u, d, counts=plan[0], col_idx=plan[1], kind="rbf")
     tops.flash_attention(x[None, :, :2], x[None, :, :2], x[None, :, :2])
+    xg = x[None, :, :2].clone().requires_grad_()
+    tops.flash_attention(xg, xg, xg).sum().backward()     # the backward's plain version
+    assert xg.grad is not None
     assert tops.launch_counts() == {"affinity_and_degree": 0,
                                     "degree_normalized_matmat": 0,
                                     "kmeans_assign": 0,
@@ -386,7 +389,10 @@ def test_cpu_calls_launch_no_kernel():
                                     "block_sparse_matmat": 0,
                                     "block_sparse_streaming_matmat": 0,
                                     "block_sparse_streaming_degree": 0,
-                                    "flash_attention": 0}
+                                    "flash_attention": 0,
+                                    "flash_attention_bwd_delta": 0,
+                                    "flash_attention_bwd_dkdv": 0,
+                                    "flash_attention_bwd_dq": 0}
 
 
 @pytest.mark.parametrize("op", ["affinity", "matmat", "assign", "streaming_matmat",

@@ -26,6 +26,8 @@ Tolerances, and why:
   the logits within tolerance may need to show that a flip is a near-tie.
 - prefill + decode against a full forward, both in the port with an f32
   cache: atol 2e-3, rtol 1e-3, the reference's own test's.
+- the window and prefix forwards: the forward's tolerances above, but the
+  blockwise case at s = 9,216 (its docstring says why).
 """
 import dataclasses
 import math
@@ -43,6 +45,7 @@ torch.set_num_threads(1)
 from repro import configs as jconfigs
 from repro.models import get_api as jget_api
 from repro.models import make_train_batch as jmake_train_batch
+from repro.models import transformer as transformer_ref
 from repro.train.train_step import build_decode_step as jbuild_decode_step
 from repro.train.train_step import build_prefill as jbuild_prefill
 from repro_torch import configs
@@ -208,6 +211,11 @@ def test_configs_equal_the_reference(arch):
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         assert (cfg.resolved_head_dim, cfg.vocab_padded) == (jcfg.resolved_head_dim,
                                                               jcfg.vocab_padded)
+    assert dataclasses.asdict(configs.TrainConfig()) == dataclasses.asdict(jconfigs.TrainConfig())
+    assert [dataclasses.asdict(c) for c in configs.SHAPE_CELLS] == [
+        dataclasses.asdict(c) for c in jconfigs.SHAPE_CELLS]
+    assert [f.name for f in dataclasses.fields(configs.ShapeCell)] == [
+        f.name for f in dataclasses.fields(jconfigs.ShapeCell)]
 
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
@@ -217,20 +225,98 @@ def test_non_dense_families_raise_not_implemented(arch):
         get_api(configs.get_smoke_config(arch))
 
 
-def test_window_and_prefix_attention_raise_not_implemented():
+def _danube(n_layers=None):
+    jcfg = jconfigs.get_smoke_config("h2o-danube-3-4b")      # window 16
     cfg = configs.get_smoke_config("h2o-danube-3-4b")
-    api = get_api(cfg)                                 # a dense arch: routed up to attention
-    params = api.init_params(torch.Generator().manual_seed(0), cfg)
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="sliding-window.*item 12"):
-        api.forward(params, cfg, {"tokens": tokens}, compute_dtype=torch.float32)
+    if n_layers:
+        jcfg, cfg = jcfg.replace(n_layers=n_layers), cfg.replace(n_layers=n_layers)
+    jparams = jget_api(jcfg).init_params(jax.random.key(0), jcfg)
+    return jcfg, cfg, jparams, lm_params_from_reference(jax.tree.map(np.asarray, jparams), cfg)
+
+
+def _forward_both(jcfg, cfg, jparams, params, tokens, prefix=None, dtype="float32"):
+    jkw = dict(compute_dtype=getattr(jnp, dtype))
+    kw = dict(compute_dtype=getattr(torch, dtype))
+    if prefix is not None:
+        jkw["prefix_embeds"] = jnp.asarray(prefix)
+        kw["prefix_embeds"] = torch.from_numpy(prefix)
+    want = np.asarray(transformer_ref.forward(jparams, jcfg, jnp.asarray(tokens), **jkw))
+    got = transformer.forward(params, cfg, torch.from_numpy(tokens), **kw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_windowed_forward_matches_the_reference(dtype):
+    """h2o-danube's sliding window (16 in the smoke config) cutting into a
+    sequence of 48: the reference's full-scores path, at the tolerances of
+    the forward tests above."""
+    jcfg, cfg, jparams, params = _danube()
+    tokens = np.array(jmake_train_batch(jcfg, B, 48, 0)["tokens"])
+    got, want = _forward_both(jcfg, cfg, jparams, params, tokens, dtype=dtype)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=5e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "h2o-danube-3-4b"])
+def test_prefix_forward_matches_the_reference(arch):
+    """forward(prefix_embeds=): 5 bidirectional prefix positions before 20
+    tokens. On h2o-danube the window (16) and the prefix meet: the
+    full-scores path keeps the prefix keys visible past the window."""
+    jcfg, cfg = jconfigs.get_smoke_config(arch), configs.get_smoke_config(arch)
+    jparams = jget_api(jcfg).init_params(jax.random.key(0), jcfg)
+    params = lm_params_from_reference(jax.tree.map(np.asarray, jparams), cfg)
+    tokens = np.array(jmake_train_batch(jcfg, B, 20, 0)["tokens"])
+    prefix = (np.random.default_rng(2).standard_normal((B, 5, cfg.d_model)) * 0.02
+              ).astype(np.float32)
+    got, want = _forward_both(jcfg, cfg, jparams, params, tokens, prefix)
+    assert got.shape == (B, 20, cfg.vocab_padded)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_blockwise_forward_matches_the_reference():
+    """Past 8,192 positions in multiples of 1,024 a window or a prefix takes
+    the reference's query-blockwise path: one h2o-danube layer at the smoke
+    width, 16 prefix positions and 9,200 tokens (s = 9,216), where the
+    blockwise path keeps the prefix keys for the prefix's own queries only.
+    atol 1e-3 * max|logits|: the frameworks' f32 RoPE tables part with the
+    position (the angle pos * f carries pos times f's last-bit difference,
+    about 5e-4 rad near 9,200); measured 1.8e-4 of max|logits|, where the
+    full path's prefix rule here would part by 1.03 of it."""
+    jcfg, cfg, jparams, params = _danube(n_layers=1)
+    tokens = np.array(jmake_train_batch(jcfg, 1, 9200, 0)["tokens"])
+    prefix = (np.random.default_rng(3).standard_normal((1, 16, cfg.d_model)) * 0.02
+              ).astype(np.float32)
+    got, want = _forward_both(jcfg, cfg, jparams, params, tokens, prefix)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * np.abs(want).max())
+
+
+def test_windowed_prefill_and_decode_match_the_reference():
+    """h2o-danube's window on the cache path: a prompt of 20 (past the
+    window of 16) into the bf16 cache, then 4 decode steps, against the
+    reference's logits (f32 compute)."""
+    jcfg, cfg, jparams, params = _danube()
+    tokens = np.array(jmake_train_batch(jcfg, B, 24, 0)["tokens"])
+    jlogits, jcache = jax.jit(jbuild_prefill(jcfg, MAX_LEN, compute_dtype=jnp.float32))(
+        jparams, {"tokens": jnp.asarray(tokens[:, :20])})
+    logits, cache = build_prefill(cfg, MAX_LEN, compute_dtype=torch.float32)(
+        params, {"tokens": torch.from_numpy(tokens[:, :20])})
+    _assert_logits_close(logits.numpy(), jlogits)
+    for i in range(20, 24):
+        tok = tokens[:, i:i + 1]
+        want, jcache = jget_api(jcfg).decode_step(jparams, jcfg, jnp.asarray(tok), jcache,
+                                                  jnp.int32(i), None, compute_dtype=jnp.float32)
+        got, cache = get_api(cfg).decode_step(params, cfg, torch.from_numpy(tok), cache, i,
+                                              None, compute_dtype=torch.float32)
+        _assert_logits_close(got.numpy(), want)
+
+
+def test_cross_attention_raises_not_implemented():
     cfg = configs.get_smoke_config("stablelm-3b")
-    params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    params = get_api(cfg).init_params(torch.Generator().manual_seed(0), cfg)
     h = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="prefix.*item 12"):
-        transformer.forward_embeds(params, cfg, h, prefix_len=2)
-    with pytest.raises(NotImplementedError, match="prefix.*item 12"):
-        L.attention(h, params["layers"][0]["attn"], cfg, prefix_len=2)
     with pytest.raises(NotImplementedError, match="cross-attention.*item 12"):
         L.attention(h, params["layers"][0]["attn"], cfg, x_kv=h)
 

@@ -538,7 +538,8 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
             "repro_torch.kernels.ops, repro_torch.models, repro_torch.configs, "
             "repro_torch.core.distributed, "
             "repro_torch.train, repro_torch.train.train_step, repro_torch.launch, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.examples.train_lm, repro_torch.data.tokens; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; "
             "sys.exit(1 if bad else 0)")
