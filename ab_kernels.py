@@ -44,11 +44,19 @@ s = 2,048, d = 80, f32 q over bf16 cache views) without and with its row
 log-sum-exp L, the output's bits hashed (the same in every turn of both
 checkouts, and with L as without), and its backward at the training
 shape (b h = 64, s = 1,024, d = 80, causal, f32) with a hash of dq, dk
-and dv (the same in every turn of a checkout that has it), by CUDA events.
-Correctness is ``chip_smoke.py``'s to check, apart from the bits hashes.
+and dv, by CUDA events: the same bits in both turns of a checkout that
+has it, and between the checkouts (whose backward kernels may sum in
+other orders) within ``FA_GRAD_F32_REL`` of each gradient's max (the
+turns write their gradients under ``build/ab_kernels/``); and a
+full-width stablelm-3b training step (``chip_smoke.py``'s ``phase_train``
+(a): 2 x 1,024 tokens, f32, ``remat="full"``), the mean of its steps 1
+and 2 by the host clock to a synchronize.
+Correctness is ``chip_smoke.py``'s to check, apart from the bits hashes
+and the backward's agreement across checkouts.
 Prints one line per turn and writes all of them to
-``chiprun_out/ab_kernels.json``; exits non-zero if a turn fails or a hash
-differs between turns.
+``chiprun_out/ab_kernels.json``; exits non-zero if a turn fails, a hash
+differs between turns where it must not, or the backward's gradients part
+between the checkouts.
 """
 from __future__ import annotations
 
@@ -61,8 +69,9 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 _TURN = r'''
-import hashlib, json, os, sys
-root = sys.argv[1]
+import hashlib, json, os, sys, time
+import numpy as np
+root, grads_path = sys.argv[1], sys.argv[2]
 os.chdir(root)
 sys.path.insert(0, root)
 import chip_smoke as cs
@@ -277,21 +286,51 @@ if hasattr(fa, "flash_attention_bwd"):
     dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(90),
                        device="cuda") * 0.5
     out, lse = fa._forward(q, k, v, True, with_lse=True)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    np.savez(grads_path, **{n: t.float().cpu().numpy() for n, t in zip(("dq", "dk", "dv"), grads)})
     report["flash backward train"] = dict(
         ms=cs.cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout), 10),
-        bits=bits(*fa.flash_attention_bwd(q, k, v, out, lse, dout)))
-    del q, k, v, dout, out, lse
+        bits=bits(*grads), bits_within="checkout", grads=grads_path)
+    del q, k, v, dout, out, lse, grads
 else:
     for name in ("flash serve with L", "flash backward train"):
         report[name] = dict(ms=None, raises="this checkout's kernel 12 writes no L and has no "
                                             "backward")
 del qf, kf, vf
+torch.cuda.empty_cache()
+# a full-width stablelm-3b training step, chip_smoke.py's phase_train (a)
+from repro_torch.configs import get_config
+from repro_torch.launch.train import token_batches, train_config
+from repro_torch.models import get_api
+from repro_torch.train import adamw_init, build_train_step
+cfg = get_config(cs.TRAIN_ARCH)
+params = get_api(cfg).init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+opt = adamw_init(params)
+data_fn = token_batches(cfg, cs.TRAIN_BATCH, cs.TRAIN_SEQ, 0, "cuda")
+step = build_train_step(cfg, train_config(steps=cs.TRAIN_STEPS, batch=cs.TRAIN_BATCH,
+                                          seq=cs.TRAIN_SEQ))
+steps_ms, losses = [], []
+for i in range(cs.TRAIN_STEPS):
+    batch = data_fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    steps_ms.append((time.perf_counter() - t0) * 1e3)
+report["train step"] = dict(ms=sum(steps_ms[1:]) / len(steps_ms[1:]), steps_ms=steps_ms,
+                            losses=losses)
+del params, opt, step
 print("AB_REPORT " + json.dumps(report))
 '''
 
 
 def run_turn(tag: str, root: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", _TURN, root], capture_output=True, text=True)
+    grads_dir = os.path.join(ROOT, "build", "ab_kernels")
+    os.makedirs(grads_dir, exist_ok=True)
+    proc = subprocess.run([sys.executable, "-c", _TURN, root,
+                           os.path.join(grads_dir, f"{tag}_flash_bwd.npz")],
+                          capture_output=True, text=True)
     lines = proc.stdout.splitlines()
     reports = [json.loads(line[len("AB_REPORT "):]) for line in lines
                if line.startswith("AB_REPORT ")]
@@ -307,6 +346,25 @@ def run_turn(tag: str, root: str) -> dict:
     return dict(reports[0], device=device)
 
 
+def grads_apart(base: dict, this: dict) -> dict:
+    """max|this - base| / max|base| of each gradient the two turns saved;
+    raises where one parts by more than ``FA_GRAD_F32_REL`` (an f32
+    gradient's tolerance in ``chip_smoke.py``). A base turn that has no
+    backward gives ``{}``."""
+    import numpy as np
+
+    from chip_smoke import FA_GRAD_F32_REL
+    if "grads" not in base:
+        return {}
+    with np.load(base["grads"]) as b, np.load(this["grads"]) as t:
+        apart = {n: float(np.abs(t[n] - b[n]).max() / max(float(np.abs(b[n]).max()), 1e-30))
+                 for n in ("dq", "dk", "dv")}
+    if max(apart.values()) > FA_GRAD_F32_REL:
+        raise SystemExit(f"ab_kernels: the backward's gradients part between the checkouts by "
+                         f"more than {FA_GRAD_F32_REL} of their max: {apart}")
+    return apart
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("base", help="another checkout of this repository")
@@ -314,9 +372,21 @@ def main() -> int:
     turns = [("base-1", base), ("this-1", ROOT), ("this-2", ROOT), ("base-2", base)]
     out = {tag: run_turn(tag, root) for tag, root in turns}
     # a redesign keeps its bits: an entry that hashes them must agree in every
-    # turn, and #9's on A and on its shifted copy alike
+    # turn, and #9's on A and on its shifted copy alike; an entry whose
+    # arithmetic may change between the checkouts only within each checkout
+    across = {}
     for name, rec in out["this-1"].items():
-        if isinstance(rec, dict) and "bits" in rec:
+        if isinstance(rec, dict) and rec.get("bits_within") == "checkout":
+            for side in ("base", "this"):
+                got = {tag: out[tag][name].get("bits") for tag in (f"{side}-1", f"{side}-2")}
+                print(f"ab_kernels: {name} bits {got}", flush=True)
+                if len(set(got.values())) != 1:
+                    raise SystemExit(f"ab_kernels: {name} gives other bits in another turn "
+                                     f"of one checkout: {got}")
+            across[name] = grads_apart(out["base-1"][name], out["this-1"][name])
+            print(f"ab_kernels: {name} max|this - base| / max|base|: {across[name]}",
+                  flush=True)
+        elif isinstance(rec, dict) and "bits" in rec:
             got = {tag: out[tag][name]["bits"] for tag in out if "bits" in out[tag][name]}
             if "same_as" in rec:
                 got.update({f"{tag} {rec['same_as']}": out[tag][rec["same_as"]]["bits"]
@@ -327,6 +397,7 @@ def main() -> int:
             print(f"ab_kernels: {name} bits {got}", flush=True)
             if len(set(got.values())) != 1:
                 raise SystemExit(f"ab_kernels: {name} gives other bits in another turn: {got}")
+    out["across checkouts"] = across
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "ab_kernels.json"), "w") as f:

@@ -237,6 +237,7 @@ from __future__ import annotations
 import functools
 import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -3238,6 +3239,31 @@ def _grad_errors(got, want) -> list[float]:
     return errs
 
 
+def _f64_backward(q, k, v, out, lse, dout, causal):
+    """(dq, dk, dv) of kernel 12 in float64 from the same output and L:
+    the backward's algebra without rounding, which the kernels and the plain
+    version are each read against."""
+    rep = q.shape[-3] // k.shape[-3]
+    s, d = q.shape[-2:]
+    qd, od, dod = q.double(), out.double(), dout.double()
+    kd, vd = (t.double().repeat_interleave(rep, dim=-3) for t in (k, v))
+    scale = 1.0 / math.sqrt(d)
+    p = torch.exp(qd @ kd.transpose(-1, -2) * scale - lse.double()[..., None])
+    if causal:
+        p = p.masked_fill(torch.ones((s, s), dtype=torch.bool, device=q.device).triu(1), 0.0)
+    ds = p * (dod @ vd.transpose(-1, -2) - (dod * od).sum(-1)[..., None])
+    per_kv = (k.shape[-3], rep)
+    return (ds @ kd * scale,
+            (ds.transpose(-1, -2) @ qd * scale).unflatten(-3, per_kv).sum(-3),
+            (p.transpose(-1, -2) @ dod).unflatten(-3, per_kv).sum(-3))
+
+
+def _rel_errors(got, want) -> list[float]:
+    """max|g - w| / max|w| of each gradient, in float64."""
+    return [float((g.double() - w.double()).abs().max() / w.double().abs().max())
+            for g, w in zip(got, want)]
+
+
 def phase_flash_attention_backward(report, build_log=""):
     """Kernel 12's backward (dQ, dK, dV from csrc/flash_attention_bwd.cu)
     and the forward's row log-sum-exp L against the plain backward
@@ -3246,21 +3272,27 @@ def phase_flash_attention_backward(report, build_log=""):
     and mix, GQA rep 4 at d = 120 (full and causal), rows off 16-byte
     alignment, and the (f32, f32), (f32, bf16) and (bf16, bf16) pairs; the
     forward's output bitwise with and without L; the gradients the same
-    bits on a second call and through the autograd Function; no dK/dV or dQ
-    template spills at d = 80 (NT = 5) or d = 120, 128 (NT = 8); each
-    kernel timed (device events) beside its plain version, and the whole
-    backward beside the plain backward and SDPA's backward."""
+    bits on a second call and through the autograd Function; the f32 ones
+    of the training shape and of GQA d = 120 causal also against a float64
+    backward (``_f64_backward``), beside the plain version's; no dK/dV or dQ
+    template spills at d = 80 (NT = 5) or d = 120, 128 (NT = 8; its
+    cp.async and scalar-staging forms); each kernel timed (device events)
+    beside its plain version and its share of its split-TF32 bound, and
+    the whole backward beside the plain backward and SDPA's backward."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import (_forward, flash_attention,
                                                      flash_attention_bwd, flash_attention_bwd_delta)
     types = {"f": "f32", "13__nv_bfloat16": "bf16", "S1_": "bf16"}
     regs = ptxas_registers(
-        build_log, r"(dkdv|dq)_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S1_)Li(\d)E",
-        lambda e: f"{e.group(1)} {types[e.group(2)]}/{types[e.group(3)]} NT={e.group(4)}")
+        build_log,
+        r"(dkdv|dq)_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16|S1_)Li(\d)ELb(\d)E",
+        lambda e: (f"{e.group(1)} {types[e.group(2)]}/{types[e.group(3)]} NT={e.group(4)} "
+                   f"{'async' if e.group(5) == '1' else 'scalar'}"))
     for tmpl, line in sorted(regs.items()):
         print(f"[flash-bwd] {tmpl}: {line}")
-    main = {f"{kernel} {pair} NT={nt}" for kernel in ("dkdv", "dq")
-            for pair in ("f32/f32", "f32/bf16", "bf16/bf16") for nt in (5, 8)}
+    main = {f"{kernel} {pair} NT={nt} {form}" for kernel in ("dkdv", "dq")
+            for pair in ("f32/f32", "f32/bf16", "bf16/bf16")
+            for nt, form in ((5, "async"), (8, "async"), (8, "scalar"))}
     check(main <= set(regs), f"nvcc's report names no backward template at d = 80 (NT = 5) "
                              f"or d = 120 and 128 (NT = 8) for each type pair: {regs}")
     spills = [f"{tmpl}: {regs[tmpl]}" for tmpl in sorted(main)
@@ -3280,6 +3312,7 @@ def phase_flash_attention_backward(report, build_log=""):
     ]
     worst, worst_lse = 0.0, 0.0
     abs_err = dict.fromkeys(BWD_LABELS, 0.0)
+    to_f64 = {}
     for i, (tag, (b, h, kv, s, d), qt, kt, causal, strided) in enumerate(cases):
         q, k, v = _fa_case(b, h, kv, s, d, qt, kt, seed=70 + i, strided=strided)
         g = torch.Generator(device="cuda").manual_seed(90 + i)
@@ -3310,6 +3343,16 @@ def phase_flash_attention_backward(report, build_log=""):
               f"causal={causal}: max|L-L_ref|={lse_err:.3e}; max|g-g_ref|/max|g_ref| "
               f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}", flush=True)
         worst, worst_lse = max(worst, *errs), max(worst_lse, lse_err)
+        if tag in ("train", "GQA rep 4 d=120 causal"):
+            exact = _f64_backward(q, k, v, out, lse, dout, causal)
+            to_f64[tag] = {"kernels": _rel_errors(got, exact),
+                           "plain": _rel_errors(want, exact)}
+            del exact
+            print(f"[flash-bwd] {tag}: max|g-g_f64|/max|g_f64| (dq, dk, dv) kernels "
+                  + ", ".join(f"{e:.3e}" for e in to_f64[tag]["kernels"]) + "; plain "
+                  + ", ".join(f"{e:.3e}" for e in to_f64[tag]["plain"]), flush=True)
+            check(max(to_f64[tag]["kernels"]) <= FA_GRAD_F32_REL,
+                  f"the backward kernels part from a float64 backward ({tag}): {to_f64[tag]}")
         diffs = [float((a.float() - w.float()).abs().max()) for a, w in zip(got, want)]
         for op, e in (("flash_attention_bwd_delta", d_err), ("flash_attention_bwd_dq", diffs[0]),
                       ("flash_attention_bwd_dkdv", max(diffs[1:]))):
@@ -3368,22 +3411,29 @@ def phase_flash_attention_backward(report, build_log=""):
         rec = dict(ms=per_kernel[op], **bnd, plain_ms=cuda_ms(plain[op], reps),
                    library_ms=cuda_ms(library[op], reps) if op in library else None,
                    max_abs_err=abs_err[op])
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         report[op] = rec
         fma = (f" f32_fma_bound_ms={rec['f32_fma_bound_ms']:.4f}"
                if "f32_fma_bound_ms" in rec else "")
         lib = f" library_ms={rec['library_ms']:.4f}" if rec["library_ms"] is not None else ""
         print(f"[flash-bwd] {op} at the training shape (b h = {b * h}, s = {s}, d = {d}, "
               f"causal, f32): kernel_ms={rec['ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
-              f"({rec['bound_by']}){fma} plain_ms={rec['plain_ms']:.4f}{lib}", flush=True)
+              f"({rec['bound_by']}; the kernel at {100 * rec['bound_share']:.1f}% of it){fma} "
+              f"plain_ms={rec['plain_ms']:.4f}{lib}; SDPA's whole backward "
+              f"{whole['library_ms']:.4f}", flush=True)
+    whole["bound_share"] = whole["bound_ms"] / whole["ms"]
     print(f"[flash-bwd] the whole backward: {whole['ms']:.4f} ms (3 launches) against the "
           f"plain backward {whole['plain_ms']:.4f} and SDPA's backward "
-          f"{whole['library_ms']:.4f} (f32 tensors; max|sdpa-plain|/max = {lib_err:.3e}); "
-          f"bound_ms={whole['bound_ms']:.4f} ({whole['bound_by']}: the five distinct products "
-          f"as split-TF32 terms at {H100_TF32_FLOPS / 1e12:.0f} TFLOP/s) f32_fma_bound_ms="
+          f"{whole['library_ms']:.4f} ({whole['ms'] / whole['library_ms']:.3f}x; f32 tensors; "
+          f"max|sdpa-plain|/max = {lib_err:.3e}); bound_ms={whole['bound_ms']:.4f} "
+          f"({whole['bound_by']}: the five distinct products as split-TF32 terms at "
+          f"{H100_TF32_FLOPS / 1e12:.0f} TFLOP/s; the three launches at "
+          f"{100 * whole['bound_share']:.1f}% of it) f32_fma_bound_ms="
           f"{whole['f32_fma_bound_ms']:.4f}; the forward {whole['fwd_ms']:.4f} ms, with L "
           f"{whole['fwd_lse_ms']:.4f}; max|vecdot-D| = {vecdot_err:.3e}", flush=True)
     report["flash_attention_bwd"] = dict(whole, max_rel_err=worst, max_lse_err=worst_lse,
-                                         library_max_rel_err=lib_err, registers=regs)
+                                         library_max_rel_err=lib_err, registers=regs,
+                                         rel_err_to_f64=to_f64)
     del q, k, v, dout, out, lse, lq, lk, lv, lib_out
     torch.cuda.empty_cache()
 

@@ -40,9 +40,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 
 _DELTA_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
                    + [ctypes.c_void_p])
 _DKDV_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 18
-                  + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                  + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DQ_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 15
-                + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -137,7 +137,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True):
     output, its row log-sum-exp ``lse`` (f32, q's shape without d) and the
     output's gradient ``dout``; each gradient in its input's type and
     memory order. The plain version on the CPU; on CUDA tensors three
-    kernel launches (D, then dK and dV, then dQ), or a raise."""
+    kernel launches (D, then dK and dV, then dQ), or a raise. Like the
+    forward, the kernels stream 16-byte aligned rows with ``cp.async`` and
+    take their scalar-staging template otherwise (:func:`_rows_aligned16`)."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
     _check(q, k, v)
@@ -157,18 +159,21 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True):
     kv = k4.shape[1]
     codes = (_CODES[q.dtype], _CODES[k.dtype])
     scale = 1.0 / math.sqrt(d)
+    async_copy = int(all(_rows_aligned16(t) for t in (q4, k4, v4, do4)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch("flash_attention_bwd_dkdv", "flash_attention_bwd",
                       "gpic_flash_attention_bwd_dkdv", _DKDV_ARGTYPES, q4.data_ptr(),
                       k4.data_ptr(), v4.data_ptr(), do4.data_ptr(), lse.data_ptr(),
                       delta.data_ptr(), dk4.data_ptr(), dv4.data_ptr(), *codes, b, h, kv, s, d,
-                      *_strides(q4, k4, v4, do4, dk4, dv4), int(causal), scale, stream)
+                      *_strides(q4, k4, v4, do4, dk4, dv4), int(causal), scale, async_copy,
+                      stream)
         _build.launch("flash_attention_bwd_dq", "flash_attention_bwd",
                       "gpic_flash_attention_bwd_dq", _DQ_ARGTYPES, q4.data_ptr(),
                       k4.data_ptr(), v4.data_ptr(), do4.data_ptr(), lse.data_ptr(),
                       delta.data_ptr(), dq4.data_ptr(), *codes, b, h, kv, s, d,
-                      *_strides(q4, k4, v4, do4, dq4), int(causal), scale, stream)
+                      *_strides(q4, k4, v4, do4, dq4), int(causal), scale, async_copy,
+                      stream)
     return dq, dk, dv
 
 

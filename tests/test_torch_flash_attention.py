@@ -301,6 +301,23 @@ def _assert_grads_close(got, want, rel):
         np.testing.assert_allclose(g.float().numpy(), w, rtol=0, atol=rel * np.abs(w).max())
 
 
+TYPE_PAIRS = {"f32": (torch.float32,) * 2, "bf16": (torch.bfloat16,) * 2,
+              "f32/bf16": (torch.float32, torch.bfloat16)}
+
+
+def _j(t):
+    """A torch tensor as a jax array of its type (f32 or bf16)."""
+    return jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+
+
+def _oracle_grads(q, k, v, dout, causal):
+    """(dq, dk, dv) as f32 numpy: jax.vjp of the reference's oracle."""
+    _, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(a, b, c, causal=causal),
+                     _j(q), _j(k), _j(v))
+    return [np.asarray(g, np.float32) for g in vjp(_j(dout))]
+
+
 @pytest.mark.parametrize("bh,bkv,s,d", BWD_CASES)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("types", ["f32", "f32/bf16", "bf16"])
@@ -308,30 +325,93 @@ def test_plain_backward_matches_the_reference_oracle_vjp(bh, bkv, s, d, causal, 
     """(dq, dk, dv) of the plain backward, given the plain forward's output
     and L, against jax.vjp of the reference's oracle on the same inputs and
     output gradient, in the inputs' types."""
-    q_dtype, kv_dtype = {"f32": (torch.float32,) * 2, "bf16": (torch.bfloat16,) * 2,
-                         "f32/bf16": (torch.float32, torch.bfloat16)}[types]
+    q_dtype, kv_dtype = TYPE_PAIRS[types]
     q, k, v, dout = _bwd_inputs(bh, bkv, s, d, d + s, q_dtype, kv_dtype)
     out, lse = tref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
     got = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
     assert [g.dtype for g in got] == [q_dtype, kv_dtype, kv_dtype]
     assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
-
-    def j(t):
-        return jnp.asarray(t.float().numpy()).astype(
-            jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
-
-    _, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(a, b, c, causal=causal),
-                     j(q), j(k), j(v))
-    want = [np.asarray(g, np.float32) for g in vjp(j(dout))]
+    want = _oracle_grads(q, k, v, dout, causal)
     rel = GRAD_BF16_REL if torch.bfloat16 in (q_dtype, kv_dtype) else GRAD_F32_REL
     _assert_grads_close(got, want, rel)
     # L is the row log-sum-exp of the reference's scaled, masked logits
-    kk = jnp.repeat(j(k), bh // bkv, axis=0).astype(jnp.float32)
-    logits = jnp.einsum("hsd,htd->hst", j(q).astype(jnp.float32), kk) / np.sqrt(np.float32(d))
+    kk = jnp.repeat(_j(k), bh // bkv, axis=0).astype(jnp.float32)
+    logits = jnp.einsum("hsd,htd->hst", _j(q).astype(jnp.float32), kk) / np.sqrt(np.float32(d))
     if causal:
         logits = jnp.where(jnp.tril(jnp.ones((s, s), bool))[None], logits, -jnp.inf)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(logits, axis=-1)),
                                rtol=0, atol=2e-6)
+
+
+def _bwd_parts(x: torch.Tensor):
+    """x as the backward kernels' TF32 operands: hi = x rounded to TF32 and
+    lo = x - hi, of which the tensor cores read the top 19 bits (its low 13
+    truncated); one exact part for bf16."""
+    if x.dtype == torch.bfloat16:
+        return x.float(), None
+    hi = _tf32(x)
+    return hi, ((x - hi).contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _emulated_backward(q, k, v, out, lse, dout, causal, step=32, one_term=False):
+    """The backward kernels' arithmetic on the CPU (csrc/flash_attention_bwd.cu):
+    S = Q K^T and dP = dO V^T as split-TF32 products of the inputs as stored
+    (a bf16 operand is one exact part), P = exp(S scale - L) and dS = P (dP - D)
+    in f32, then dV = P^T dO and dK = dS^T Q summed over 32-query steps, the
+    query heads of a kv head in order, and dQ = dS K over 32-key steps, with
+    P and dS split as the kernels split them (``_bwd_parts``). The products
+    are exact in f32, the sums f32; the tensor cores' own summation is not
+    emulated. ``one_term``: every operand rounded once to TF32 instead (one
+    term a product)."""
+    parts = (lambda x: (_tf32(x.float()), None)) if one_term else _bwd_parts
+    rep = q.shape[0] // k.shape[0]
+    s, d = q.shape[-2:]
+    scale = 1.0 / math.sqrt(d)
+    kk, vv = (a.repeat_interleave(rep, dim=0) for a in (k, v))
+
+    def transposed(p):
+        return tuple(None if x is None else x.transpose(-1, -2) for x in p)
+
+    logits = _split_matmul(parts(q), transposed(parts(kk))) * scale
+    dp = _split_matmul(parts(dout), transposed(parts(vv)))
+    p = torch.exp(logits - lse[..., None])
+    if causal:
+        p = p.masked_fill(torch.ones((s, s), dtype=torch.bool).triu(1), 0.0)
+    ds = p * (dp - torch.sum(dout.float() * out.float(), dim=-1)[..., None])
+    dq = torch.zeros(q.shape)
+    for k0 in range(0, s, step):
+        dq = dq + _split_matmul(parts(ds[..., k0:k0 + step]), parts(kk[:, k0:k0 + step]))
+    dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    for hi in range(q.shape[0]):
+        for q0 in range(0, s, step):
+            rows = slice(q0, q0 + step)
+            dv[hi // rep] += _split_matmul(parts(p[hi, rows].T), parts(dout[hi, rows]))
+            dk[hi // rep] += _split_matmul(parts(ds[hi, rows].T), parts(q[hi, rows]))
+    return (dq * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("bh,bkv,s,d", BWD_CASES[1:])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("types", ["f32", "f32/bf16", "bf16"])
+def test_split_tf32_backward_matches_the_reference_oracle_vjp(bh, bkv, s, d, causal, types):
+    """The tensor-core design of the backward kernels keeps the f32 function:
+    with every product run as its split-TF32 terms (three for two f32
+    operands, two where one is bf16, one for two bf16) and P and dS split,
+    the gradients stay within GRAD_F32_REL (GRAD_BF16_REL where an input is
+    bf16) of jax.vjp of the reference's oracle, on GQA and MQA heads. One
+    TF32 term a product would not: its f32 gradients miss GRAD_F32_REL."""
+    q_dtype, kv_dtype = TYPE_PAIRS[types]
+    q, k, v, dout = _bwd_inputs(bh, bkv, s, d, 5 * d + s, q_dtype, kv_dtype)
+    out, lse = tref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    got = _emulated_backward(q, k, v, out, lse, dout, causal)
+    assert [g.dtype for g in got] == [q_dtype, kv_dtype, kv_dtype]
+    want = _oracle_grads(q, k, v, dout, causal)
+    rel = GRAD_BF16_REL if torch.bfloat16 in (q_dtype, kv_dtype) else GRAD_F32_REL
+    _assert_grads_close(got, want, rel)
+    if types == "f32":
+        one_term = _emulated_backward(q, k, v, out, lse, dout, causal, one_term=True)
+        for g, w in zip(one_term, want):
+            assert np.abs(g.numpy() - w).max() > GRAD_F32_REL * np.abs(w).max()
 
 
 @pytest.mark.parametrize("bh,bkv,s,d", BWD_CASES)
@@ -350,8 +430,7 @@ def test_plain_backward_is_autograd_through_the_plain_forward(bh, bkv, s, d, cau
 def test_each_backward_kernels_plain_version_is_its_part_of_the_whole(bh, bkv, s, d, types):
     """``grads="q"`` (the dQ kernel's plain version) and ``grads="kv"`` (the
     dK/dV kernel's) give the bits of the whole plain backward's parts."""
-    q_dtype, kv_dtype = {"f32": (torch.float32,) * 2, "bf16": (torch.bfloat16,) * 2,
-                         "f32/bf16": (torch.float32, torch.bfloat16)}[types]
+    q_dtype, kv_dtype = TYPE_PAIRS[types]
     q, k, v, dout = _bwd_inputs(bh, bkv, s, d, 3 * d + s, q_dtype, kv_dtype)
     out, lse = tref.flash_attention_ref(q, k, v, return_lse=True)
     dq, dk, dv = tref.flash_attention_bwd_ref(q, k, v, out, lse, dout)
