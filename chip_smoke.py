@@ -3100,22 +3100,25 @@ def check_no_spill(tag: str, registers: dict[str, str]) -> None:
 def phase_flash_attention(report, build_log=""):
     """Kernel 12 against its plain version at the serve path's shape and
     layout, and at ragged, GQA, MQA, full, bf16, unaligned (the
-    scalar-staging template) and b h > 65,535 ones; timed at the serve shape
-    beside SDPA (a yardstick; the port never calls it). ``build_log`` is
-    nvcc's report of flash_attention.cu: no template may spill at d = 80
-    (NT = 10) or d = 128 (NT = 16)."""
+    scalar-staging template) and b h > 65,535 ones, and at seamless's (h 16,
+    d 64: its encoder's full attention, its decoder's causal prefill over
+    the cache); timed at the serve shape beside SDPA (a yardstick; the port
+    never calls it). ``build_log`` is nvcc's report of flash_attention.cu:
+    no template may spill at d = 64 (NT = 8), 80 (NT = 10) or 128 (NT =
+    16)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     registers = flash_registers(build_log)
     for tmpl, line in registers.items():
         print(f"[flash] {tmpl}: {line}")
     main = {tmpl: line for tmpl, line in registers.items()
-            if tmpl.split()[1] in ("NT=10", "NT=16")}
-    check({t.split()[1] for t in main} == {"NT=10", "NT=16"},
-          f"nvcc's report names no flash_attention template at d = 80 and 128: {registers}")
+            if tmpl.split()[1] in ("NT=8", "NT=10", "NT=16")}
+    check({t.split()[1] for t in main} == {"NT=8", "NT=10", "NT=16"},
+          f"nvcc's report names no flash_attention template at d = 64, 80 and 128: "
+          f"{registers}")
     spills = [f"{tmpl}: {line}" for tmpl, line in main.items()
               if not line.endswith(" 0 bytes spilled")]
-    check(not spills, f"flash_attention spills at d = 80 or 128: {spills}")
+    check(not spills, f"flash_attention spills at d = 64, 80 or 128: {spills}")
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # tag, (b, h, kv, s, d), q type, k/v type, causal, strided
         ("serve", (4, 32, 32, 2048, 80), f32, bf16, True, False),
@@ -3129,6 +3132,9 @@ def phase_flash_attention(report, build_log=""):
         ("unaligned rows d=17", (2, 4, 2, 200, 17), f32, f32, True, False),
         ("unaligned rows d=17, cache views, full", (2, 4, 2, 200, 17), f32, bf16, False, True),
         ("b h = 70,000 > 65,535, GQA rep 5", (2, 35000, 7000, 40, 16), f32, bf16, True, False),
+        ("seamless encoder, full, f32 views", (4, 16, 16, 2048, 64), f32, f32, False, True),
+        ("seamless decoder prefill, bf16 cache views", (4, 16, 16, 2048, 64), f32, bf16, True,
+         True),
     ]
     worst = 0.0
     for i, (tag, (b, h, kv, s, d), qt, kt, causal, strided) in enumerate(cases):
@@ -3451,25 +3457,27 @@ def _top2_margin(logits):
     return top2[..., 0] - top2[..., 1]
 
 
-def phase_serve_parity(report):
-    """stablelm-3b at full width cut to 2 layers, batch 2, a ragged prompt
-    of 100: prefill and 8 decode steps on the card against the same calls on
-    the CPU (the plain versions), from the same weights. The decode steps
-    are fed the CPU's greedy tokens, so each step compares the same inputs."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import get_api, make_train_batch
-    cfg = get_config(SERVE_ARCH).replace(n_layers=2)
+def _card_cpu_parity(tag, cfg, params, data, steps=8):
+    """``cfg``'s prefill of ``data`` and ``steps`` decode steps on the card
+    against the same calls on the CPU (the plain versions), from the same
+    weights ``params`` (on the CPU). The decode steps are fed the CPU's
+    greedy tokens, so each step compares the same inputs. Returns (the
+    worst max|dlogits| / max|logits|, greedy tokens compared past a
+    near-tie, flips among them, the share of equal cache entries by leaf)."""
+    from repro_torch.models import get_api
+    from repro_torch.train._tree import named_leaves
     api = get_api(cfg)
-    t0 = time.perf_counter()
-    params = api.init_params(torch.Generator().manual_seed(0), cfg)
     params_gpu = _tree_to(params, "cuda")
-    tokens = make_train_batch(cfg, 2, 100, torch.Generator().manual_seed(1))["tokens"]
+    prompt = data["tokens"].shape[1]
+    max_len = prompt + steps + (cfg.n_prefix_tokens or 0)
+    first = prompt + (cfg.n_prefix_tokens if cfg.family == "vlm" else 0)
     kw = dict(compute_dtype=torch.float32)
-    max_len, steps = 100 + 8, 8
     runs = {}
     for dev, p in (("cpu", params), ("cuda", params_gpu)):
-        logits, cache = api.prefill(p, cfg, {"tokens": tokens.to(dev)}, max_len, **kw)
-        runs[dev] = [logits[:, :, :cfg.vocab_size].float().cpu()], cache
+        out = api.prefill(p, cfg, {key: x.to(dev) for key, x in data.items()}, max_len, **kw)
+        extras = {"enc_out": out[2]} if cfg.family == "encdec" else None
+        runs[dev] = [out[0][:, :, :cfg.vocab_size].float().cpu()], out[1], extras
+        del out
     worst, flips, compared = 0.0, 0, 0
     for i in range(steps + 1):
         want, got = runs["cpu"][0][i], runs["cuda"][0][i]
@@ -3481,7 +3489,7 @@ def phase_serve_parity(report):
         flips += int((~same & clear).sum())
         compared += int(clear.sum())
         worst = max(worst, err / scale)
-        print(f"[serve-parity] {'prefill' if i == 0 else f'decode {i}'}: "
+        print(f"[{tag}] {'prefill' if i == 0 else f'decode {i}'}: "
               f"max|dlogits|={err:.4e} max|logits|={scale:.4f} greedy same "
               f"{same.tolist()} top-2 margin {[round(float(m), 4) for m in margin]}",
               flush=True)
@@ -3490,10 +3498,31 @@ def phase_serve_parity(report):
         tok = want[:, -1].argmax(-1).to(torch.int32)[:, None]
         for dev in ("cpu", "cuda"):
             logits, _ = api.decode_step(params if dev == "cpu" else params_gpu, cfg,
-                                        tok.to(dev), runs[dev][1], 100 + i, **kw)
+                                        tok.to(dev), runs[dev][1], first + i, runs[dev][2],
+                                        **kw)
             runs[dev][0].append(logits[:, :, :cfg.vocab_size].float().cpu())
-    cache_same = {name: float((runs["cuda"][1][name].cpu() == runs["cpu"][1][name])
-                              .float().mean()) for name in ("k", "v")}
+    cpu_cache = named_leaves(runs["cpu"][1])
+    cache_same = {name: float((t.cpu() == cpu_cache[name]).float().mean())
+                  for name, t in named_leaves(runs["cuda"][1]).items()}
+    del runs, params_gpu
+    torch.cuda.empty_cache()
+    return worst, compared, flips, cache_same
+
+
+def phase_serve_parity(report):
+    """stablelm-3b at full width cut to 2 layers, batch 2, a ragged prompt
+    of 100: prefill and 8 decode steps on the card against the same calls on
+    the CPU (the plain versions), from the same weights. The decode steps
+    are fed the CPU's greedy tokens, so each step compares the same inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api, make_train_batch
+    cfg = get_config(SERVE_ARCH).replace(n_layers=2)
+    t0 = time.perf_counter()
+    params = get_api(cfg).init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = make_train_batch(cfg, 2, 100, torch.Generator().manual_seed(1))["tokens"]
+    steps = 8
+    worst, compared, flips, cache_same = _card_cpu_parity("serve-parity", cfg, params,
+                                                          {"tokens": tokens}, steps)
     wall = time.perf_counter() - t0
     print(f"[serve-parity] {SERVE_ARCH} 2 layers, batch 2, prompt 100, {steps} decode "
           f"steps: max|dlogits|/max|logits|={worst:.4e} (limit {SERVE_LOGIT_RTOL}), "
@@ -3504,6 +3533,50 @@ def phase_serve_parity(report):
     report["serve_parity"] = dict(max_rel_logit_err=worst, greedy_compared=compared,
                                   greedy_flips=flips, cache_equal_fraction=cache_same,
                                   wall_s=wall)
+
+
+#: the families past the dense one: each arch, the depth its card-vs-CPU
+#: parity run is cut to, and kernel 12's launches in a full-depth prefill
+#: (zamba2: one a group of 6 mamba blocks; seamless: 24 encoder, 24
+#: decoder self-attention and 24 cross-attention calls; mamba2 has no
+#: attention; paligemma's prefix mask is never kernel 12's function)
+FAMILY_ARCHS = {
+    "mamba2-780m": (dict(n_layers=2), 0),
+    "zamba2-2.7b": (dict(n_layers=6), 9),
+    "seamless-m4t-large-v2": (dict(n_layers=2, n_enc_layers=2), 72),
+    "paligemma-3b": (dict(n_layers=2), 0),
+}
+
+
+def phase_family_parity(report):
+    """The ssm, hybrid, encdec and vlm families at full width, cut in depth
+    (``FAMILY_ARCHS``): batch 2, a ragged prompt of 100 tokens (paligemma's
+    256 image positions before it, seamless's 100 source frames), prefill
+    and 8 decode steps on the card against the CPU, from the same weights,
+    as ``phase_serve_parity``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api, make_train_batch
+    out = {}
+    for arch, (cut, _) in FAMILY_ARCHS.items():
+        cfg = get_config(arch).replace(**cut)
+        t0 = time.perf_counter()
+        params = get_api(cfg).init_params(torch.Generator().manual_seed(0), cfg)
+        data = make_train_batch(cfg, 2, 100, torch.Generator().manual_seed(1))
+        data.pop("labels")
+        worst, compared, flips, cache_same = _card_cpu_parity(f"family-parity {arch}", cfg,
+                                                              params, data)
+        wall = time.perf_counter() - t0
+        print(f"[family-parity] {arch} {cut}, batch 2, prompt 100: max|dlogits|/max|logits|="
+              f"{worst:.4e} (limit {SERVE_LOGIT_RTOL}), greedy tokens compared past a "
+              f"near-tie {compared}, differing {flips}; cache entries equal {cache_same}; "
+              f"{wall:.1f} s", flush=True)
+        check(worst <= SERVE_LOGIT_RTOL, f"the card and the CPU disagree on {arch}'s logits")
+        check(flips == 0, f"{arch}: the card's greedy tokens differ from the CPU's past a "
+              "near-tie")
+        out[arch] = dict(cut=cut, max_rel_logit_err=worst, greedy_compared=compared,
+                         greedy_flips=flips, cache_equal_fraction=cache_same, wall_s=wall)
+        del params
+    report["family_parity"] = out
 
 
 def phase_serve(report):
@@ -3554,6 +3627,69 @@ def phase_serve(report):
                            first_tokens=res.tokens[:2].tolist(),
                            profile=_serve_profile(cfg, params, res.tokens))
     return counts
+
+
+def phase_family_serve(report):
+    """Each family of ``FAMILY_ARCHS`` at full depth and width through
+    launch/serve.py's ``serve``, weights drawn on the card from seed 0: 4
+    requests of 2,048 prompt tokens (seamless: 2,048 source frames;
+    paligemma: its 256 image positions before them), 32 generated tokens;
+    then a second call, whose tokens must equal the first's, and the
+    prefill and 4 decode steps under torch.profiler. Kernel 12's
+    launches are checked exactly: ``FAMILY_ARCHS``' count a prefill, none in
+    the decode, and no other kernel. Returns {arch: {"prefill": n,
+    "decode": n}} of kernel 12's launches in the first call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import get_api
+    out, launches = {}, {}
+    for arch, (_, flash_prefill) in FAMILY_ARCHS.items():
+        cfg = get_config(arch)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = get_api(cfg).init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+        kw = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN, seed=0,
+                  device="cuda", params=params)
+        ops.reset_launch_counts()
+        res = serve.serve(cfg, **kw)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        again = serve.serve(cfg, **kw)
+        times = {tag: dict(prefill_ms=r.prefill_s * 1e3,
+                           decode_ms_per_token=r.decode_s / (SERVE_GEN - 1) * 1e3)
+                 for tag, r in (("first", res), ("second", again))}
+        pre, dec = res.prefill_launches, res.decode_launches
+        print(f"[family-serve] {arch} full ({cfg.n_layers} layers"
+              + (f", {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
+              + f", d_model {cfg.d_model}), batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+              f"gen {SERVE_GEN}: "
+              + "; ".join(f"{tag} call prefill_ms={t['prefill_ms']:.3f} decode_ms_per_token="
+                          f"{t['decode_ms_per_token']:.3f}" for tag, t in times.items())
+              + f"; peak_mem_GB={peak / 1e9:.3f}; flash_attention launches: prefill "
+              f"{pre['flash_attention']}, decode {dec['flash_attention']}", flush=True)
+        print(f"[family-serve]   seq0: {res.tokens[0].tolist()}", flush=True)
+        check(torch.equal(again.tokens, res.tokens), f"{arch}: a second serve call gives "
+              "other tokens")
+        check(tuple(res.tokens.shape) == (SERVE_BATCH, SERVE_GEN)
+              and int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab_size,
+              f"{arch}: the serve path's tokens have the wrong shape or range")
+        check(bool(torch.isfinite(res.prefill_logits).all()),
+              f"{arch}: the prefill logits are not finite")
+        check(pre["flash_attention"] == flash_prefill and counts["flash_attention"] == flash_prefill
+              and not any(n for op, n in counts.items() if op != "flash_attention")
+              and not any(dec.values()),
+              f"{arch}: kernel launches: prefill {pre}, decode {dec} (flash_attention "
+              f"{flash_prefill} a prefill expected, nothing else)")
+        launches[arch] = {"prefill": pre["flash_attention"], "decode": dec["flash_attention"]}
+        out[arch] = dict(times, peak_mem_bytes=peak, launches=launches[arch],
+                         first_tokens=res.tokens[:2].tolist(),
+                         profile=_serve_profile(cfg, params, res.tokens,
+                                                label=f"family-profile {arch}"))
+        del params, res, again
+    report["family_serve"] = out
+    return launches
 
 
 TRAIN_GRAD_REL = 1e-4       # a gradient leaf, kernel 12 against the plain versions, of max|leaf|
@@ -3891,32 +4027,36 @@ def _profiled(fn, top_n=6):
                 top=[dict(name=l, launches=c, ms=ms) for l, (c, ms) in top])
 
 
-def _serve_profile(cfg, params, tokens):
-    """The serve path's prefill and 4 decode steps under torch.profiler."""
+def _serve_profile(cfg, params, tokens, label="serve-profile"):
+    """The serve path's prefill and 4 decode steps under torch.profiler,
+    with serve's inputs (the stub embeddings of encdec and vlm too)."""
     from repro_torch.models import make_train_batch
     from repro_torch.train.train_step import build_decode_step, build_prefill
-    max_len = SERVE_PROMPT + SERVE_GEN
+    max_len = SERVE_PROMPT + SERVE_GEN + (cfg.n_prefix_tokens or 0)
+    first = SERVE_PROMPT + (cfg.n_prefix_tokens if cfg.family == "vlm" else 0)
     data = make_train_batch(cfg, SERVE_BATCH, SERVE_PROMPT, torch.Generator().manual_seed(0))
-    data = {"tokens": data["tokens"].to("cuda")}
+    data = {key: x.to("cuda") for key, x in data.items() if key != "labels"}
     prefill = build_prefill(cfg, max_len, compute_dtype=torch.float32)
     decode = build_decode_step(cfg, compute_dtype=torch.float32)
     state = {}
 
     def run_prefill():
-        state["cache"] = prefill(params, data)[1]
+        out = prefill(params, data)
+        state["cache"] = out[1]
+        state["extras"] = {"enc_out": out[2]} if cfg.family == "encdec" else None
 
     def run_decode():
         for i in range(4):
-            decode(params, tokens[:, i:i + 1], state["cache"], SERVE_PROMPT + i)
+            decode(params, tokens[:, i:i + 1], state["cache"], first + i, state["extras"])
 
     out = {"prefill": _profiled(run_prefill), "decode_4_steps": _profiled(run_decode)}
     for tag, rec in out.items():
         busy = rec["device_busy_ms"]
-        print(f"[serve-profile] {tag}: wall_ms={rec['wall_ms']:.3f} device_busy_ms="
+        print(f"[{label}] {tag}: wall_ms={rec['wall_ms']:.3f} device_busy_ms="
               + (f"{busy:.3f} busy_share={busy / rec['wall_ms']:.4f}" if busy is not None
                  else "not measured (no device events)"), flush=True)
         for t in rec["top"]:
-            print(f"[serve-profile]   {t['ms']:9.3f} ms  x{t['launches']:<5d} {t['name']}")
+            print(f"[{label}]   {t['ms']:9.3f} ms  x{t['launches']:<5d} {t['name']}")
     return out
 
 #: device-event names of this port's kernels (always listed by the profile)
@@ -4753,6 +4893,8 @@ def main(argv=None) -> int:
     phase_reorder(report)
     phase_serve_parity(report)
     counts["flash_attention"] = phase_serve(report)["flash_attention"]
+    phase_family_parity(report)
+    family_launches = phase_family_serve(report)
     train_launches = phase_train(report)
     counts.update({op: train_launches[op] for op in BWD_LABELS})
     sharded, yardstick = phase_distributed(report)
@@ -4788,6 +4930,7 @@ def main(argv=None) -> int:
          **(_bf16_keys(kernels[name]["bf16"], bf16_counts[name])
             if name in bf16_counts else {}),
          **({"train_launches": train_launches[name]} if name in train_launches else {}),
+         **({"family_launches": family_launches} if name == "flash_attention" else {}),
          **({"f32_fma_bound_ms": kernels[name]["f32_fma_bound_ms"]}
             if "f32_fma_bound_ms" in kernels[name] else {}),
          "sharded_launches": sharded.get(name, 0)}

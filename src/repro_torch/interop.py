@@ -12,8 +12,9 @@ GPIC has no learned weights. The state that crosses is:
     ``batched_power_iteration`` (the two packages' generators differ).
 
 The LM substrate has weights: :func:`lm_params_from_reference` turns the
-reference's parameter tree, as numpy arrays, into the port's parameter
-dict, so that both packages compute with the same weights, and
+reference's parameter tree of any family the port routes, as numpy
+arrays, into the port's parameter dict, so that both packages compute
+with the same weights, and
 :func:`adamw_state_from_reference` its AdamW state, so that both train
 from one state.
 
@@ -72,26 +73,45 @@ def config_from_reference(ref_fields: dict, n: int | None = None) -> GPICConfig:
     return cfg
 
 
+#: the reference's stacked parameter groups of each family, by the config
+#: field that counts their layers
+_STACKED = {"layers": "n_layers", "mamba": "n_layers", "enc_layers": "n_enc_layers",
+            "dec_layers": "n_layers"}
+
+
 def lm_params_from_reference(tree: dict, cfg) -> dict:
-    """The port's dense-LM parameters from the reference's parameter tree
-    as numpy (``jax.tree.map(np.asarray, params)``): ``embed.{tok,head}``,
-    ``layers.*`` stacked on a leading (n_layers, ...) axis, ``ln_f``. The
-    (in, out) weight layout is kept; the stacked layers become a list of
-    per-layer dicts. CPU tensors in the arrays' float type."""
+    """The port's LM parameters from the reference's parameter tree as
+    numpy (``jax.tree.map(np.asarray, params)``), for every family the port
+    routes: the groups stacked on a leading layer axis (``layers`` of the
+    dense, ssm and vlm families, hybrid's ``mamba``, encdec's
+    ``enc_layers`` and ``dec_layers``) become lists of per-layer dicts;
+    everything else (``embed``, ``ln_f``, hybrid's one ``shared_attn``,
+    encdec's ``ln_enc``) keeps its nesting. The (in, out) weight layout is
+    kept. CPU tensors in the arrays' float type."""
     def tensor(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, copy=True))
 
-    def layer(node, i):
+    def layer(node, i, n):
         if isinstance(node, dict):
-            return {name: layer(sub, i) for name, sub in node.items()}
-        if node.shape[0] != cfg.n_layers:
+            return {name: layer(sub, i, n) for name, sub in node.items()}
+        if node.shape[0] != n:
             raise ValueError(f"stacked layer weights have {node.shape[0]} layers, the "
-                             f"config {cfg.n_layers}")
+                             f"config {n}")
         return tensor(node[i])
 
-    return {"embed": {name: tensor(a) for name, a in tree["embed"].items()},
-            "layers": [layer(tree["layers"], i) for i in range(cfg.n_layers)],
-            "ln_f": tensor(tree["ln_f"])}
+    def whole(node):
+        if isinstance(node, dict):
+            return {name: whole(sub) for name, sub in node.items()}
+        return tensor(node)
+
+    out = {}
+    for name, node in tree.items():
+        if name in _STACKED:
+            n = getattr(cfg, _STACKED[name])
+            out[name] = [layer(node, i, n) for i in range(n)]
+        else:
+            out[name] = whole(node)
+    return out
 
 
 def adamw_state_from_reference(state: dict, cfg):

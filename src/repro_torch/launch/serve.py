@@ -5,9 +5,12 @@ cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         --smoke --device cpu --batch 4 --prompt-len 32 --gen 16
 
-The weights are random, drawn from ``--seed`` at the config's published
-widths; the parameters and the compute are f32 and the KV cache bf16, as in
-the reference. Prefill and decode are timed on the host clock around work
+Every family ``get_api`` routes serves (dense, ssm, hybrid, encdec, vlm);
+encdec's source frames and vlm's image prefix are the stub front ends'
+random embeddings, drawn with the prompts. The weights are random, drawn
+from ``--seed`` at the config's published widths; the parameters and the
+compute are f32, the KV cache bf16 and the SSM caches f32, as in the
+reference. Prefill and decode are timed on the host clock around work
 that ends in ``torch.cuda.synchronize()`` on the card.
 """
 from __future__ import annotations
@@ -64,14 +67,19 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int, seed: int 
     max_len = prompt_len + gen + (cfg.n_prefix_tokens or 0)
 
     data = make_train_batch(cfg, batch, prompt_len, torch.Generator().manual_seed(seed))
-    data = {"tokens": data["tokens"].to(dev)}
+    data = {key: x.to(dev) for key, x in data.items() if key != "labels"}
     prefill = build_prefill(cfg, max_len, compute_dtype=torch.float32)
     decode = build_decode_step(cfg, compute_dtype=torch.float32)
+    # the decode's first position: past the image prefix for vlm
+    pos = prompt_len + (cfg.n_prefix_tokens if cfg.family == "vlm" else 0)
 
     _sync(dev)
     before = ops.launch_counts()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, data)
+    out = prefill(params, data)
+    logits, cache = out[0], out[1]
+    extras = {"enc_out": out[2]} if cfg.family == "encdec" else None
+    del out
     last = logits[:, -1, : cfg.vocab_size]
     tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
     _sync(dev)
@@ -84,7 +92,7 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int, seed: int 
     generated = [tok]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        nxt, cache = decode(params, tok, cache, prompt_len + i)
+        nxt, cache = decode(params, tok, cache, pos + i, extras)
         tok = nxt[:, None]
         generated.append(tok)
     _sync(dev)

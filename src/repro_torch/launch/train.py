@@ -8,8 +8,10 @@ Random weights drawn from ``--seed`` on the device, the synthetic
 Zipf-Markov token stream, the full train step (microbatching, AdamW, grad
 clip, z-loss, optional int8 gradient compression) and the restartable
 checkpointing loop with optional failure injection. Writes the
-reference's ``summary.json`` into ``--ckpt-dir``. The dense family is
-routed (``models/model_zoo.py``).
+reference's ``summary.json`` into ``--ckpt-dir``. Every family
+``get_api`` routes trains (dense, ssm, hybrid, encdec, vlm); encdec's and
+vlm's batches carry the stub front ends' embeddings, drawn anew each
+step, as the reference's ``launch/train.py`` draws them.
 """
 from __future__ import annotations
 
@@ -45,12 +47,21 @@ def train_config(*, steps: int, batch: int, seq: int, lr: float = 3e-4, microbat
 
 def token_batches(cfg, batch: int, seq: int, seed: int, device):
     """data_fn(step) -> {"tokens", "labels"}: the stream's int32 batch at
-    ``step``, on ``device``."""
+    ``step``, on ``device``; for encdec also ``src_embeds`` (batch, seq,
+    d_model), for vlm ``image_embeds`` (batch, n_prefix_tokens, d_model):
+    normal draws times 0.02 from a generator seeded with the step."""
     stream = SyntheticTokenStream(cfg.vocab_size, seed=seed)
+    stub = {"encdec": ("src_embeds", seq), "vlm": ("image_embeds", cfg.n_prefix_tokens)}
 
     def data_fn(step):
-        return {k: torch.from_numpy(v).to(device)
-                for k, v in stream.batch_at(step, batch, seq).items()}
+        out = {k: torch.from_numpy(v).to(device)
+               for k, v in stream.batch_at(step, batch, seq).items()}
+        if cfg.family in stub:
+            name, n = stub[cfg.family]
+            gen = torch.Generator(device=device).manual_seed(step)
+            out[name] = torch.randn((batch, n, cfg.d_model), generator=gen,
+                                    device=device) * 0.02
+        return out
 
     return data_fn
 

@@ -17,8 +17,13 @@ past the start of the cache) stay plain torch, as the reference keeps
 them in jnp: its full-scores path, or, past 8,192 positions in multiples
 of 1,024, its query-blockwise path. The two paths part where a window and
 a prefix meet, and each is mirrored as it is (ROADMAP queue 3).
-Cross-attention raises. The reference's sharding constraints are the
-identity on one device and are dropped.
+
+Cross-attention (``x_kv``, the encoder-decoder's) projects K and V from
+``x_kv``, with no RoPE and no mask: over as many keys as queries it is
+kernel 12's full function (``ops.flash_attention``, ``causal=False``);
+over another number of keys (the decode step, a ragged source) it is the
+plain masked path with every key visible. The reference's sharding
+constraints are the identity on one device and are dropped.
 """
 from __future__ import annotations
 
@@ -115,10 +120,6 @@ def init_attention(gen, cfg: ModelConfig, dtype=torch.float32):
     return p
 
 
-def _unrouted(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item 12)")
-
-
 def attention(
     x,
     p,
@@ -127,7 +128,7 @@ def attention(
     positions=None,            # (s,) int positions of x in the sequence
     causal=True,
     prefix_len=0,
-    x_kv=None,                 # cross-attention source: not ported
+    x_kv=None,                 # cross-attention source (b, s_kv, e)
     cache=None,                # dict(k, v) (b, S_max, kv, d), written in place
     cache_pos=None,            # int: write offset in the cache
     rope=True,
@@ -137,21 +138,33 @@ def attention(
     With a cache, the new K and V are written into it IN PLACE (the
     reference returns an updated copy; on the card a copy of the cache per
     layer and step would cost its whole size in memory traffic), and the
-    same dict is returned."""
-    if x_kv is not None:
-        raise _unrouted("cross-attention")
+    same dict is returned. Cross-attention (``x_kv``) takes no cache: the
+    reference's models pass none, and its decode re-projects ``x_kv``."""
+    if x_kv is not None and cache is not None:
+        raise ValueError("cross-attention (x_kv) takes no cache")
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     window = cfg.sliding_window
+    src = x if x_kv is None else x_kv
+    s_kv = src.shape[1]
 
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = src @ p["wk"]
+    v = src @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    k = k.reshape(b, s_kv, kv, hd)
+    v = v.reshape(b, s_kv, kv, hd)
+
+    if x_kv is not None:
+        if s_kv == s:       # kernel 12's full function
+            out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), causal=False).transpose(1, 2)
+        else:
+            out = _masked_attention(q, k, v, torch.ones((s, s_kv), dtype=torch.bool,
+                                                        device=q.device))
+        return _out_proj(out, v, p, b, s), cache
 
     if positions is None:
         positions = torch.arange(s, device=x.device)
@@ -191,11 +204,16 @@ def attention(
         else:               # its cache path's mask: the prefix only among prefix rows
             ok = _visible(qi, kj, window=window, prefix_len=prefix_len, prefix_rows=True)
         out = _masked_attention(q, k, v, ok)
-    # the reference's attention output is in v's dtype (the cache's on
-    # prefill and decode), then promoted for the output projection
-    out = out.to(v.dtype).reshape(b, s, h * hd)
+    return _out_proj(out, v, p, b, s), cache
+
+
+def _out_proj(out, v, p, b, s):
+    """The output projection of the attention ``out`` (b, s, h, d): the
+    reference's attention output is in v's dtype (the cache's on prefill
+    and decode), then promoted for the product with wo."""
+    out = out.to(v.dtype).reshape(b, s, -1)
     dt = torch.promote_types(out.dtype, p["wo"].dtype)
-    return out.to(dt) @ p["wo"].to(dt), cache
+    return out.to(dt) @ p["wo"].to(dt)
 
 
 _BLOCKWISE_MIN = 8192   # the reference's blockwise attention above this sequence length

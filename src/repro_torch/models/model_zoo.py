@@ -1,15 +1,21 @@
-"""Uniform model API, the port of ``repro/models/model_zoo.py`` for the
-dense family.
+"""Uniform model API over the families, the port of
+``repro/models/model_zoo.py``.
 
 ModelAPI:
   init_params(gen, cfg, dtype)        -> parameter dict (on gen's device)
   forward(params, cfg, batch, **kw)   -> logits (b, s, v)
   init_cache(cfg, batch, max_len, dtype, device) -> decode cache
   decode_step(params, cfg, tokens, cache, pos, extras, **kw) -> (logits, cache)
-  prefill(params, cfg, batch, max_len, **kw) -> (logits, cache)
+  prefill(params, cfg, batch, max_len, **kw) -> (logits, cache[, enc_out])
 
-The reference's sharding specs have no counterpart on one device. The
-moe, ssm, hybrid, encdec and vlm families raise NotImplementedError.
+Batch layouts (int tokens and labels):
+  dense/ssm/hybrid : {tokens, labels}
+  encdec           : {src_embeds (b, s, d), tokens, labels}
+  vlm              : {image_embeds (b, p, d), tokens, labels}
+
+The encdec decode step takes ``extras["enc_out"]``, the prefill's third
+output. The reference's sharding specs have no counterpart on one device.
+The moe family raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ from typing import Callable
 import torch
 
 from ..configs.base import ModelConfig
-from . import transformer
+from . import encdec, hybrid, ssm, transformer, vlm
 
 
 @dataclass(frozen=True)
@@ -32,34 +38,65 @@ class ModelAPI:
     prefill: Callable
 
 
-def _dense_forward(params, cfg, batch, **kw):
-    return transformer.forward(params, cfg, batch["tokens"], **kw)
+def _dense_forward(mod):
+    def fwd(params, cfg, batch, **kw):
+        return mod.forward(params, cfg, batch["tokens"], **kw)
+    return fwd
 
 
-def _dense_decode(params, cfg, tokens, cache, pos, extras=None, **kw):
-    return transformer.decode_step(params, cfg, tokens, cache, pos, **kw)
+def _dense_decode(mod):
+    def step(params, cfg, tokens, cache, pos, extras=None, **kw):
+        return mod.decode_step(params, cfg, tokens, cache, pos, **kw)
+    return step
 
 
-def _dense_prefill(params, cfg, batch, max_len, **kw):
-    return transformer.prefill(params, cfg, batch["tokens"], max_len, **kw)
+def _dense_prefill(mod):
+    def pre(params, cfg, batch, max_len, **kw):
+        return mod.prefill(params, cfg, batch["tokens"], max_len, **kw)
+    return pre
 
 
-_DENSE = ModelAPI("dense", transformer.init_params, _dense_forward,
-                  transformer.init_cache, _dense_decode, _dense_prefill)
+def _encdec_decode(params, cfg, tokens, cache, pos, extras=None, **kw):
+    return encdec.decode_step(params, cfg, tokens, cache, pos, extras["enc_out"], **kw)
+
+
+def _token_family(name, mod):
+    return ModelAPI(name, mod.init_params, _dense_forward(mod), mod.init_cache,
+                    _dense_decode(mod), _dense_prefill(mod))
+
+
+_FAMILIES: dict[str, ModelAPI] = {
+    "dense": _token_family("dense", transformer),
+    "ssm": _token_family("ssm", ssm),
+    "hybrid": _token_family("hybrid", hybrid),
+    "encdec": ModelAPI("encdec", encdec.init_params, encdec.forward, encdec.init_cache,
+                       _encdec_decode, encdec.prefill),
+    "vlm": ModelAPI("vlm", vlm.init_params, vlm.forward, vlm.init_cache,
+                    _dense_decode(vlm), vlm.prefill),
+}
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family} family ({cfg.arch_id}) is not ported yet "
-            "(ROADMAP queue 1 item 12); the port routes the dense family")
-    return _DENSE
+            f"(ROADMAP queue 1 item 12); the port routes {', '.join(_FAMILIES)}")
+    return _FAMILIES[cfg.family]
 
 
 def make_train_batch(cfg: ModelConfig, batch: int, seq: int,
                      gen: torch.Generator) -> dict[str, torch.Tensor]:
-    """Random int64 tokens, and labels (the tokens shifted left by one),
-    drawn from ``gen`` on its device: the dense family's batch. The other
-    families' stub front-end embeddings come with their port."""
+    """Random int64 tokens, labels (the tokens shifted left by one) and,
+    for encdec and vlm, the stub front end's embeddings (f32 normal draws
+    times 0.02: ``src_embeds`` (batch, seq, d_model), ``image_embeds``
+    (batch, n_prefix_tokens, d_model)), all drawn from ``gen`` on its
+    device."""
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=gen.device)
-    return {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    out = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    if cfg.family == "encdec":
+        out["src_embeds"] = torch.randn((batch, seq, cfg.d_model), generator=gen,
+                                        device=gen.device) * 0.02
+    if cfg.family == "vlm":
+        out["image_embeds"] = torch.randn((batch, cfg.n_prefix_tokens, cfg.d_model),
+                                          generator=gen, device=gen.device) * 0.02
+    return out

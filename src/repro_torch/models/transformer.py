@@ -79,11 +79,25 @@ def _save_dots(ctx, op, *args, **kwargs):
 _REMAT = ("none", "full", "dots")
 
 
+def checkpointed(body, remat: str, *args, policy=None):
+    """``body(*args)`` under a ``remat`` setting: as is for "none" (or
+    without grad); recomputed in the backward for "full", and for "dots",
+    which keeps what ``policy`` saves (the dense layers' ``_save_dots``; the
+    other families' reference wraps its blocks in a plain ``jax.checkpoint``
+    for "dots" too, and passes none)."""
+    if remat not in _REMAT:
+        raise ValueError(f"remat must be one of {_REMAT}, got {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return body(*args)
+    kw = {}
+    if remat == "dots" and policy is not None:
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, policy)
+    return checkpoint(body, *args, use_reentrant=False, **kw)
+
+
 def forward_embeds(params, cfg: ModelConfig, h, *, prefix_len=0,
                    compute_dtype=torch.bfloat16, remat: str = "full"):
     """(b, s, e) embeddings -> (b, s, e) final hidden states."""
-    if remat not in _REMAT:
-        raise ValueError(f"remat must be one of {_REMAT}, got {remat!r}")
     h = h.to(compute_dtype)
     positions = torch.arange(h.shape[1], device=h.device)
 
@@ -91,15 +105,8 @@ def forward_embeds(params, cfg: ModelConfig, h, *, prefix_len=0,
         return _layer_apply(cfg, x, _cast(lp, compute_dtype), positions=positions,
                             prefix_len=prefix_len)[0]
 
-    remat_kw = {}
-    if remat == "dots":
-        remat_kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
-                                                   _save_dots)
     for lp in params["layers"]:
-        if remat == "none" or not torch.is_grad_enabled():
-            h = body(h, lp)
-        else:
-            h = checkpoint(body, h, lp, use_reentrant=False, **remat_kw)
+        h = checkpointed(body, remat, h, lp, policy=_save_dots)
     return L.rms_norm(h, params["ln_f"].to(compute_dtype), cfg.norm_eps)
 
 
@@ -133,14 +140,19 @@ def init_cache(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16, device=No
             for name, a in one.items()}
 
 
-def _run_layers(params, cfg, h, cache, pos, compute_dtype):
+def head_logits(params, cfg: ModelConfig, h, compute_dtype):
+    """The final norm ``ln_f`` and the LM head over h: f32 logits."""
+    h = L.rms_norm(h, params["ln_f"].to(compute_dtype), cfg.norm_eps)
+    return L.lm_logits(params["embed"], h.float())
+
+
+def _run_layers(params, cfg, h, cache, pos, compute_dtype, prefix_len=0):
     positions = pos + torch.arange(h.shape[1], device=h.device)
     for i, lp in enumerate(params["layers"]):
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}   # views: written in place
         h, _ = _layer_apply(cfg, h, _cast(lp, compute_dtype), positions=positions,
-                            cache=layer_cache, cache_pos=pos)
-    h = L.rms_norm(h, params["ln_f"].to(compute_dtype), cfg.norm_eps)
-    return L.lm_logits(params["embed"], h.float())
+                            prefix_len=prefix_len, cache=layer_cache, cache_pos=pos)
+    return h
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, pos,
@@ -149,7 +161,8 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos,
     updated in place; pos the current write position (an int). Returns
     (logits, cache)."""
     h = L.embed_tokens(params["embed"], tokens).to(compute_dtype)
-    return _run_layers(params, cfg, h, cache, int(pos), compute_dtype), cache
+    h = _run_layers(params, cfg, h, cache, int(pos), compute_dtype)
+    return head_logits(params, cfg, h, compute_dtype), cache
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_len,
@@ -159,4 +172,5 @@ def prefill(params, cfg: ModelConfig, tokens, max_len,
     b, _ = tokens.shape
     cache = init_cache(cfg, b, max_len, cache_dtype, device=tokens.device)
     h = L.embed_tokens(params["embed"], tokens).to(compute_dtype)
-    return _run_layers(params, cfg, h, cache, 0, compute_dtype), cache
+    h = _run_layers(params, cfg, h, cache, 0, compute_dtype)
+    return head_logits(params, cfg, h, compute_dtype), cache

@@ -38,7 +38,8 @@ def softmax_xent(logits, labels, z_loss=0.0):
 
 
 def loss_fn(params, cfg: ModelConfig, batch, tcfg: TrainConfig):
-    """(loss, {"xent", "aux"}). The dense family has no auxiliary loss (the
+    """(loss, {"xent", "aux"}) for the families ``get_api`` routes (dense,
+    ssm, hybrid, encdec, vlm), none of which has an auxiliary loss (the
     reference's moe router loss comes with that family's port)."""
     logits = get_api(cfg).forward(params, cfg, batch,
                                   compute_dtype=_dtype(tcfg.compute_dtype), remat=tcfg.remat)
@@ -94,6 +95,9 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 
 
 def build_decode_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
+    """serve_step(params, tokens, cache, pos, extras=None) -> (next tokens,
+    cache); ``extras`` goes to the family's decode step (encdec's
+    ``{"enc_out": ...}``)."""
     api = get_api(cfg)
 
     def serve_step(params, tokens, cache, pos, extras=None):
@@ -109,6 +113,9 @@ def build_decode_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
 
 
 def build_prefill(cfg: ModelConfig, max_len: int, compute_dtype=torch.bfloat16):
+    """prefill_step(params, batch) -> (logits, cache), and for encdec a third
+    output, the encoder's ``enc_out``, which the decode step takes as
+    ``extras["enc_out"]``."""
     api = get_api(cfg)
 
     def prefill_step(params, batch):

@@ -51,7 +51,6 @@ from repro.train.train_step import build_prefill as jbuild_prefill
 from repro_torch import configs
 from repro_torch.interop import lm_params_from_reference
 from repro_torch.models import get_api, make_train_batch
-from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.train.train_step import build_decode_step, build_prefill
 
@@ -219,8 +218,9 @@ def test_configs_equal_the_reference(arch):
 
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
-                                  if jconfigs.get_config(a).family != "dense"])
+                                  if jconfigs.get_config(a).family == "moe"])
 def test_non_dense_families_raise_not_implemented(arch):
+    """The moe family, the one the port does not route yet."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
         get_api(configs.get_smoke_config(arch))
 
@@ -311,14 +311,6 @@ def test_windowed_prefill_and_decode_match_the_reference():
         got, cache = get_api(cfg).decode_step(params, cfg, torch.from_numpy(tok), cache, i,
                                               None, compute_dtype=torch.float32)
         _assert_logits_close(got.numpy(), want)
-
-
-def test_cross_attention_raises_not_implemented():
-    cfg = configs.get_smoke_config("stablelm-3b")
-    params = get_api(cfg).init_params(torch.Generator().manual_seed(0), cfg)
-    h = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="cross-attention.*item 12"):
-        L.attention(h, params["layers"][0]["attn"], cfg, x_kv=h)
 
 
 def test_full_stablelm_parameter_count_from_shapes():
