@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of GPIC, and of its LM substrate's dense
-serving and training paths, on one CUDA card, end to end.
+"""Drive the PyTorch/CUDA port of GPIC, and of its LM substrate's serving
+(every family) and dense training paths, on one CUDA card, end to end.
 
     python3 chip_smoke.py
 
@@ -216,7 +216,22 @@ Phases (any failure exits non-zero before the last line is printed):
                   step 3, bitwise the uninterrupted run; h2o-danube-3-4b at
                   its widths, 2 layers, forward and backward at s = 6,144
                   past its window, layer 0's attention and gradients
-                  against float64.
+                  against float64;
+                - the other families (FAMILY_ARCHS): mamba2-780m,
+                  zamba2-2.7b, seamless-m4t-large-v2, paligemma-3b and
+                  deepseek-v2-lite-16b at full width cut in depth, batch
+                  2, a prompt of 100, on the card against the CPU, then
+                  each served at full depth (4 x 2,048 prompt tokens, 32
+                  generated; kernel 12's launches exact), deepseek's
+                  routing counted (copies dropped past the capacity,
+                  tokens at a router near-tie); deepseek's routed experts
+                  alone at the decode and prefill shapes under
+                  torch.cuda.set_sync_debug_mode("error"), the decode
+                  shape against the CPU; llama4-maverick-400b-a17b at
+                  published widths, 2 of 48 layers (74 GB, the card
+                  alone), 1 x 1,024 prompt tokens and 8 generated: kernel
+                  12 once a layer in the prefill, the logits against the
+                  same weights through the plain attention.
   4. profile    one more n = 45,000 run of each engine under torch.profiler:
                 the device's busy share of the wall time and device time by
                 kernel and the k-means stage; and the graph runs E1
@@ -3539,21 +3554,67 @@ def phase_serve_parity(report):
 #: parity run is cut to, and kernel 12's launches in a full-depth prefill
 #: (zamba2: one a group of 6 mamba blocks; seamless: 24 encoder, 24
 #: decoder self-attention and 24 cross-attention calls; mamba2 has no
-#: attention; paligemma's prefix mask is never kernel 12's function)
+#: attention; paligemma's prefix mask is never kernel 12's function;
+#: deepseek's MLA is computed in plain torch, as the reference computes it
+#: in jnp: its q.k width of 192 is past kernel 12's 128 and unequal to v's)
 FAMILY_ARCHS = {
     "mamba2-780m": (dict(n_layers=2), 0),
     "zamba2-2.7b": (dict(n_layers=6), 9),
     "seamless-m4t-large-v2": (dict(n_layers=2, n_enc_layers=2), 72),
     "paligemma-3b": (dict(n_layers=2), 0),
+    "deepseek-v2-lite-16b": (dict(n_layers=2), 0),   # the dense layer 0 and one moe layer
 }
+ROUTE_TIE = 1e-6            # router probabilities nearer than this: a near-tie
+
+
+def _route_counts(x, p, cfg):
+    """A moe layer's routing of x, as device tensors (no host sync):
+    [copies dropped past the capacity, tokens whose k-th and (k+1)-th
+    router probabilities lie within ROUTE_TIE]."""
+    from repro_torch.models import moe
+    m = cfg.moe
+    xf = x.reshape(-1, x.shape[-1])
+    probs, _, top_ids = moe.route(xf, p, cfg)
+    cap = moe.moe_capacity(xf.shape[0], m)
+    slot, _ = moe.dispatch(top_ids, m.n_experts, cap)
+    top = torch.topk(probs, m.top_k + 1, dim=-1).values
+    return torch.stack([(slot == m.n_experts * cap).sum(),
+                        (top[:, -2] - top[:, -1] <= ROUTE_TIE).sum()])
+
+
+def _prefill_routing(tag, cfg, params, data, max_len):
+    """One prefill of ``data`` with every moe layer's routing counted
+    (``_route_counts`` beside each ``moe_ffn`` call): the copies routed,
+    dropped, and the tokens at a router near-tie, summed over the layers."""
+    from repro_torch.models import moe
+    from repro_torch.train.train_step import build_prefill
+    real, counts = moe.moe_ffn, []
+
+    def counted(x, p, c):
+        counts.append(_route_counts(x, p, c))
+        return real(x, p, c)
+
+    moe.moe_ffn = counted
+    try:
+        build_prefill(cfg, max_len, compute_dtype=torch.float32)(params, data)
+    finally:
+        moe.moe_ffn = real
+    dropped, near = (int(v) for v in torch.stack(counts).sum(0))
+    t = data["tokens"].numel()
+    copies = t * cfg.moe.top_k * len(counts)
+    print(f"[{tag}] routing over {len(counts)} moe layers of {t} tokens: {dropped} of "
+          f"{copies} copies dropped (capacity {moe.moe_capacity(t, cfg.moe)} an expert), "
+          f"{near} token-layers at a router near-tie (gap <= {ROUTE_TIE})", flush=True)
+    return dict(moe_layers=len(counts), copies=copies, dropped=dropped, near_ties=near)
 
 
 def phase_family_parity(report):
-    """The ssm, hybrid, encdec and vlm families at full width, cut in depth
-    (``FAMILY_ARCHS``): batch 2, a ragged prompt of 100 tokens (paligemma's
-    256 image positions before it, seamless's 100 source frames), prefill
-    and 8 decode steps on the card against the CPU, from the same weights,
-    as ``phase_serve_parity``."""
+    """The ssm, hybrid, encdec, vlm and moe families at full width, cut in
+    depth (``FAMILY_ARCHS``): batch 2, a ragged prompt of 100 tokens
+    (paligemma's 256 image positions before it, seamless's 100 source
+    frames), prefill and 8 decode steps on the card against the CPU, from
+    the same weights, as ``phase_serve_parity``; deepseek's routing (dropped
+    copies, near-ties) counted on the CPU's prefill."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_api, make_train_batch
     out = {}
@@ -3575,6 +3636,9 @@ def phase_family_parity(report):
               "near-tie")
         out[arch] = dict(cut=cut, max_rel_logit_err=worst, greedy_compared=compared,
                          greedy_flips=flips, cache_equal_fraction=cache_same, wall_s=wall)
+        if cfg.family == "moe":
+            out[arch]["routing"] = _prefill_routing(f"family-parity {arch}", cfg, params, data,
+                                                    100 + 8)
         del params
     report["family_parity"] = out
 
@@ -3635,14 +3699,15 @@ def phase_family_serve(report):
     requests of 2,048 prompt tokens (seamless: 2,048 source frames;
     paligemma: its 256 image positions before them), 32 generated tokens;
     then a second call, whose tokens must equal the first's, and the
-    prefill and 4 decode steps under torch.profiler. Kernel 12's
-    launches are checked exactly: ``FAMILY_ARCHS``' count a prefill, none in
-    the decode, and no other kernel. Returns {arch: {"prefill": n,
-    "decode": n}} of kernel 12's launches in the first call."""
+    prefill and 4 decode steps under torch.profiler; for moe one more
+    prefill with its routing counted. Kernel 12's launches are checked
+    exactly: ``FAMILY_ARCHS``' count a prefill, none in the decode, and no
+    other kernel. Returns {arch: {"prefill": n, "decode": n}} of kernel 12's
+    launches in the first call."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.models import get_api
+    from repro_torch.models import get_api, make_train_batch
     out, launches = {}, {}
     for arch, (_, flash_prefill) in FAMILY_ARCHS.items():
         cfg = get_config(arch)
@@ -3687,9 +3752,166 @@ def phase_family_serve(report):
                          first_tokens=res.tokens[:2].tolist(),
                          profile=_serve_profile(cfg, params, res.tokens,
                                                 label=f"family-profile {arch}"))
-        del params, res, again
+        if cfg.family == "moe":
+            data = make_train_batch(cfg, SERVE_BATCH, SERVE_PROMPT,
+                                    torch.Generator().manual_seed(0))
+            out[arch]["routing"] = _prefill_routing(
+                f"family-serve {arch}", cfg, params, {"tokens": data["tokens"].to("cuda")},
+                SERVE_PROMPT + SERVE_GEN)
+        # kw holds the weights too: the next family's peak must not count them
+        del params, res, again, kw
     report["family_serve"] = out
     return launches
+
+
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_REL = 1e-5              # moe_ffn's y, the card against the CPU, of max|y|
+
+
+def phase_moe_ffn(report):
+    """deepseek-v2-lite-16b's routed experts alone (``moe_ffn``, one moe
+    layer's weights drawn on the card from seed 0) at the decode shape (4
+    tokens) and the prefill shape (4 x 2,048): a first call, then a call
+    under ``torch.cuda.set_sync_debug_mode("error")``, where any host sync
+    raises, whose y and aux must be the first call's bits; both timed by
+    CUDA events; at the decode shape y against the CPU's ``moe_ffn`` on the
+    same weights within MOE_REL of max|y|; dropped copies and router
+    near-ties printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(MOE_ARCH)
+    p = moe.init_moe_ffn(torch.Generator(device="cuda").manual_seed(0), cfg)
+    out = {}
+    for tag, s in (("decode", 1), ("prefill", SERVE_PROMPT)):
+        x = torch.randn((SERVE_BATCH, s, cfg.d_model), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+        y, aux = moe.moe_ffn(x, p, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y2, aux2 = moe.moe_ffn(x, p, cfg)
+        except RuntimeError as err:
+            check(False, f"moe_ffn at the {tag} shape synchronizes with the host: {err}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(torch.equal(y, y2) and torch.equal(aux, aux2),
+              f"moe_ffn at the {tag} shape: a second call gives other bits")
+        check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(aux)),
+              f"moe_ffn at the {tag} shape: y or aux is not finite")
+        ms = cuda_ms(lambda: moe.moe_ffn(x, p, cfg), 5 if s > 1 else 20)
+        dropped, near = (int(v) for v in _route_counts(x, p, cfg))
+        t = SERVE_BATCH * s
+        rec = dict(tokens=t, capacity=moe.moe_capacity(t, cfg.moe), ms=ms, dropped=dropped,
+                   copies=t * cfg.moe.top_k, near_ties=near)
+        if tag == "decode":
+            p_cpu = _tree_to(p, "cpu")
+            want, want_aux = moe.moe_ffn(x.cpu(), p_cpu, cfg)
+            err = float((y.cpu() - want).abs().max() / want.abs().max())
+            rec.update(max_rel_err=err, aux_rel_err=float(abs(aux.cpu() - want_aux) / want_aux))
+            check(err <= MOE_REL, f"moe_ffn at the decode shape: the card against the CPU "
+                  f"{err:.3e} of max|y| (limit {MOE_REL})")
+            del p_cpu
+        print(f"[moe-ffn] {MOE_ARCH} {tag} shape ({SERVE_BATCH} x {s} tokens, capacity "
+              f"{rec['capacity']}): no host sync; {ms:.3f} ms; {dropped} of {rec['copies']} "
+              f"copies dropped; {near} tokens at a router near-tie"
+              + (f"; card vs CPU {rec['max_rel_err']:.3e} of max|y|" if tag == "decode" else ""),
+              flush=True)
+        out[tag] = rec
+        del x, y, y2
+    del p
+    torch.cuda.empty_cache()
+    report["moe_ffn"] = out
+
+
+LLAMA4_ARCH = "llama4-maverick-400b-a17b"
+LLAMA4_CUT = dict(n_layers=2)   # layer 0 moe (128 experts, top-1, a shared one), layer 1 dense
+LLAMA4_BATCH, LLAMA4_PROMPT, LLAMA4_GEN = 1, 1024, 8
+
+
+def phase_llama4(report):
+    """llama4-maverick-400b-a17b at published widths, 2 of its 48 layers
+    (74 GB of f32 weights: the card alone, no CPU copy), through
+    launch/serve.py's ``serve``: the peak reckoned from the meta-device
+    shapes printed before the draw, then 1 request of 1,024 prompt tokens
+    and 8 generated, and a second call, whose tokens must equal the
+    first's. Kernel 12 (GQA 40/8, d 128) must launch exactly once a layer
+    in the prefill, never in a decode step, and no other kernel. The
+    prefill's logits are held against the same weights with the attention
+    through its plain versions (``_plain_attention``), within
+    SERVE_LOGIT_RTOL of max|logits|. Returns kernel 12's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import get_api, make_train_batch
+    from repro_torch.train._tree import named_leaves
+    from repro_torch.train.train_step import build_prefill
+    cfg = get_config(LLAMA4_ARCH).replace(**LLAMA4_CUT)
+    api = get_api(cfg)
+    n_params = sum(t.numel() for t in named_leaves(api.init_params(None, cfg)).values())
+    logits_bytes = LLAMA4_BATCH * LLAMA4_PROMPT * cfg.vocab_padded * 4
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[llama4] {LLAMA4_ARCH} {LLAMA4_CUT}: {n_params:,} parameters; reckoned peak "
+          f"{(n_params * 4 + 2 * logits_bytes) / 1e9:.3f} GB (f32 weights "
+          f"{n_params * 4 / 1e9:.3f} GB, two prefills' logits {2 * logits_bytes / 1e9:.3f} GB) "
+          f"of the card's {total / 1e9:.3f} GB", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    kw = dict(batch=LLAMA4_BATCH, prompt_len=LLAMA4_PROMPT, gen=LLAMA4_GEN, seed=0,
+              device="cuda", params=params)
+    ops.reset_launch_counts()
+    res = serve.serve(cfg, **kw)
+    counts = ops.launch_counts()
+    again = serve.serve(cfg, **kw)
+    check(torch.equal(again.tokens, res.tokens), "llama4: a second serve call gives other tokens")
+    check(tuple(res.tokens.shape) == (LLAMA4_BATCH, LLAMA4_GEN)
+          and int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab_size,
+          "llama4: the serve path's tokens have the wrong shape or range")
+    check(bool(torch.isfinite(res.prefill_logits).all()), "llama4: the prefill logits are not finite")
+    pre, dec = res.prefill_launches, res.decode_launches
+    check(pre["flash_attention"] == cfg.n_layers and counts["flash_attention"] == cfg.n_layers
+          and not any(n for op, n in counts.items() if op != "flash_attention")
+          and not any(dec.values()),
+          f"llama4: kernel launches: prefill {pre}, decode {dec} (flash_attention "
+          f"{cfg.n_layers} a prefill expected, nothing else)")
+    data = make_train_batch(cfg, LLAMA4_BATCH, LLAMA4_PROMPT, torch.Generator().manual_seed(0))
+    data = {"tokens": data["tokens"].to("cuda")}
+    prefill = build_prefill(cfg, LLAMA4_PROMPT + LLAMA4_GEN, compute_dtype=torch.float32)
+    got = prefill(params, data)[0][..., :cfg.vocab_size]
+    with _plain_attention():
+        want = prefill(params, data)[0][..., :cfg.vocab_size]
+    err = float((got - want).abs().max() / want.abs().max())
+    same = bool(torch.equal(got[:, -1].argmax(-1), want[:, -1].argmax(-1)))
+    del got, want
+    peak = torch.cuda.max_memory_allocated()
+    routing = _prefill_routing("llama4", cfg, params, data, LLAMA4_PROMPT + LLAMA4_GEN)
+    times = {tag: dict(prefill_ms=r.prefill_s * 1e3,
+                       decode_ms_per_token=r.decode_s / (LLAMA4_GEN - 1) * 1e3)
+             for tag, r in (("first", res), ("second", again))}
+    print(f"[llama4] batch {LLAMA4_BATCH}, prompt {LLAMA4_PROMPT}, gen {LLAMA4_GEN}: weights "
+          f"drawn in {draw_s:.3f} s; "
+          + "; ".join(f"{tag} call prefill_ms={t['prefill_ms']:.3f} decode_ms_per_token="
+                      f"{t['decode_ms_per_token']:.3f}" for tag, t in times.items())
+          + f"; peak_mem_GB={peak / 1e9:.3f}; flash_attention launches: prefill "
+          f"{pre['flash_attention']}, decode {dec['flash_attention']}; logits against the "
+          f"plain attention {err:.4e} of max|logits| (limit {SERVE_LOGIT_RTOL}), last greedy "
+          f"token {'the same' if same else 'other'}", flush=True)
+    print(f"[llama4]   seq0: {res.tokens[0].tolist()}", flush=True)
+    check(err <= SERVE_LOGIT_RTOL, "llama4: kernel 12 and the plain attention disagree on the "
+          "prefill logits")
+    report["llama4"] = dict(times, cut=LLAMA4_CUT, n_params=n_params, peak_mem_bytes=peak,
+                            reckoned_peak_bytes=n_params * 4 + 2 * logits_bytes,
+                            draw_s=draw_s, launches={"prefill": pre["flash_attention"],
+                                                     "decode": dec["flash_attention"]},
+                            plain_attention_rel_err=err, routing=routing,
+                            first_tokens=res.tokens.tolist())
+    del params, res, again
+    torch.cuda.empty_cache()
+    return report["llama4"]["launches"]
 
 
 TRAIN_GRAD_REL = 1e-4       # a gradient leaf, kernel 12 against the plain versions, of max|leaf|
@@ -4895,6 +5117,8 @@ def main(argv=None) -> int:
     counts["flash_attention"] = phase_serve(report)["flash_attention"]
     phase_family_parity(report)
     family_launches = phase_family_serve(report)
+    phase_moe_ffn(report)
+    family_launches[LLAMA4_ARCH] = phase_llama4(report)
     train_launches = phase_train(report)
     counts.update({op: train_launches[op] for op in BWD_LABELS})
     sharded, yardstick = phase_distributed(report)

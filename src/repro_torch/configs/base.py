@@ -3,7 +3,7 @@
 Every architecture has a ``ModelConfig`` in ``configs/<id>.py`` with its
 exact published dimensions, plus a ``smoke()`` variant for CPU tests (same
 family and topology, tiny dims). The family extensions (MoE, SSM, MLA) are
-plain fields here: ``models/model_zoo`` routes every family but moe.
+plain fields here: ``models/model_zoo`` routes every family.
 ``TrainConfig``, ``ShapeCell`` and ``SHAPE_CELLS`` are the reference's,
 field for field.
 """

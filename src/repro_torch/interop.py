@@ -30,6 +30,7 @@ import torch
 from .core.affinity import AffinitySpec
 from .core.pic import PICResult
 from .core.pipeline import GPICConfig, check_config
+from .models.moe import layer_schedule
 from .train.optimizer import AdamWState
 
 #: reference fields that select HOW the reference computes (kernel vs jnp
@@ -74,9 +75,19 @@ def config_from_reference(ref_fields: dict, n: int | None = None) -> GPICConfig:
 
 
 #: the reference's stacked parameter groups of each family, by the config
-#: field that counts their layers
+#: field that counts their layers (moe's two groups: :func:`_stacked_counts`)
 _STACKED = {"layers": "n_layers", "mamba": "n_layers", "enc_layers": "n_enc_layers",
             "dec_layers": "n_layers"}
+
+
+def _stacked_counts(cfg) -> dict[str, int]:
+    """{stacked group: its layers}; moe's ``dense_layers`` and
+    ``moe_layers`` counted from its layer schedule."""
+    counts = {name: getattr(cfg, field) for name, field in _STACKED.items()}
+    if cfg.family == "moe":
+        kinds = [kind for kind, _ in layer_schedule(cfg)]
+        counts.update(dense_layers=kinds.count("dense"), moe_layers=kinds.count("moe"))
+    return counts
 
 
 def lm_params_from_reference(tree: dict, cfg) -> dict:
@@ -84,11 +95,15 @@ def lm_params_from_reference(tree: dict, cfg) -> dict:
     numpy (``jax.tree.map(np.asarray, params)``), for every family the port
     routes: the groups stacked on a leading layer axis (``layers`` of the
     dense, ssm and vlm families, hybrid's ``mamba``, encdec's
-    ``enc_layers`` and ``dec_layers``) become lists of per-layer dicts;
+    ``enc_layers`` and ``dec_layers``, moe's ``dense_layers`` and
+    ``moe_layers``) become lists of per-layer dicts;
     everything else (``embed``, ``ln_f``, hybrid's one ``shared_attn``,
     encdec's ``ln_enc``) keeps its nesting. The (in, out) weight layout is
-    kept. CPU tensors in the arrays' float type."""
+    kept. CPU tensors in the arrays' float type (bfloat16 arrays, which
+    numpy holds as an extension type, cross through f32, exactly)."""
     def tensor(a) -> torch.Tensor:
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
         return torch.from_numpy(np.array(a, copy=True))
 
     def layer(node, i, n):
@@ -104,10 +119,11 @@ def lm_params_from_reference(tree: dict, cfg) -> dict:
             return {name: whole(sub) for name, sub in node.items()}
         return tensor(node)
 
+    stacked = _stacked_counts(cfg)
     out = {}
     for name, node in tree.items():
-        if name in _STACKED:
-            n = getattr(cfg, _STACKED[name])
+        if name in stacked:
+            n = stacked[name]
             out[name] = [layer(node, i, n) for i in range(n)]
         else:
             out[name] = whole(node)

@@ -5,13 +5,14 @@ cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
         --smoke --device cpu --batch 4 --prompt-len 32 --gen 16
 
-Every family ``get_api`` routes serves (dense, ssm, hybrid, encdec, vlm);
-encdec's source frames and vlm's image prefix are the stub front ends'
-random embeddings, drawn with the prompts. The weights are random, drawn
-from ``--seed`` at the config's published widths; the parameters and the
-compute are f32, the KV cache bf16 and the SSM caches f32, as in the
-reference. Prefill and decode are timed on the host clock around work
-that ends in ``torch.cuda.synchronize()`` on the card.
+Every family ``get_api`` routes serves (dense, ssm, hybrid, encdec, vlm,
+moe); encdec's source frames and vlm's image prefix are the stub front
+ends' random embeddings, drawn with the prompts. The weights are random,
+drawn from ``--seed`` at the config's published widths; the parameters and
+the compute are f32, the KV caches (moe's MLA latent cache too) bf16 and
+the SSM caches f32, as in the reference. Prefill and decode are timed on
+the host clock around work that ends in ``torch.cuda.synchronize()`` on
+the card.
 """
 from __future__ import annotations
 

@@ -9,9 +9,10 @@ Zipf-Markov token stream, the full train step (microbatching, AdamW, grad
 clip, z-loss, optional int8 gradient compression) and the restartable
 checkpointing loop with optional failure injection. Writes the
 reference's ``summary.json`` into ``--ckpt-dir``. Every family
-``get_api`` routes trains (dense, ssm, hybrid, encdec, vlm); encdec's and
-vlm's batches carry the stub front ends' embeddings, drawn anew each
-step, as the reference's ``launch/train.py`` draws them.
+``get_api`` routes trains (dense, ssm, hybrid, encdec, vlm, moe, whose
+loss adds its router's load-balancing loss); encdec's and vlm's batches
+carry the stub front ends' embeddings, drawn anew each step, as the
+reference's ``launch/train.py`` draws them.
 """
 from __future__ import annotations
 

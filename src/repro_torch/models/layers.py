@@ -331,6 +331,14 @@ def embed_tokens(p, tokens):
     return F.embedding(tokens, p["tok"])
 
 
+def promoted(a, b):
+    """a and b in their promoted dtype, as jnp computes mixed operands (the
+    same tensors where they are in it already: no copy of an f32 weight)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
 def lm_logits(p, x):
-    w = p["head"] if "head" in p else p["tok"].T
+    """x @ the head (or the tied table's transpose), in the promoted dtype."""
+    x, w = promoted(x, p["head"] if "head" in p else p["tok"].T)
     return x @ w

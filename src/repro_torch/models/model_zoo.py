@@ -9,13 +9,13 @@ ModelAPI:
   prefill(params, cfg, batch, max_len, **kw) -> (logits, cache[, enc_out])
 
 Batch layouts (int tokens and labels):
-  dense/ssm/hybrid : {tokens, labels}
+  dense/ssm/hybrid/moe : {tokens, labels}
   encdec           : {src_embeds (b, s, d), tokens, labels}
   vlm              : {image_embeds (b, p, d), tokens, labels}
 
 The encdec decode step takes ``extras["enc_out"]``, the prefill's third
-output. The reference's sharding specs have no counterpart on one device.
-The moe family raises NotImplementedError.
+output; the moe forward takes ``return_aux=True`` for (logits, aux loss).
+The reference's sharding specs have no counterpart on one device.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from typing import Callable
 import torch
 
 from ..configs.base import ModelConfig
-from . import encdec, hybrid, ssm, transformer, vlm
+from . import encdec, hybrid, moe, ssm, transformer, vlm
 
 
 @dataclass(frozen=True)
@@ -73,14 +73,14 @@ _FAMILIES: dict[str, ModelAPI] = {
                        _encdec_decode, encdec.prefill),
     "vlm": ModelAPI("vlm", vlm.init_params, vlm.forward, vlm.init_cache,
                     _dense_decode(vlm), vlm.prefill),
+    "moe": _token_family("moe", moe),
 }
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.arch_id}) is not ported yet "
-            f"(ROADMAP queue 1 item 12); the port routes {', '.join(_FAMILIES)}")
+        raise ValueError(f"unknown model family {cfg.family!r} ({cfg.arch_id}); "
+                         f"the families are {', '.join(_FAMILIES)}")
     return _FAMILIES[cfg.family]
 
 

@@ -1,0 +1,437 @@
+"""Mixture-of-Experts layers and Multi-head Latent Attention (MLA), the port
+of ``repro/models/moe.py``: deepseek-v2-lite-16b and llama4-maverick-400b-a17b.
+
+Routed experts (:func:`moe_ffn`): the router in f32, softmax, top-k, the
+weights renormalised; the Switch-style auxiliary loss; the fixed-capacity
+sort dispatch, every shape static: the token copies are sorted by expert
+id (a stable sort, so each expert keeps its first ``cap`` copies in token
+order and drops the rest), packed into an (E, cap, d) buffer, run through
+three batched expert GEMMs (``torch.bmm`` on the (E, d, f) weights as they
+lie), and combined weighted by the router. Nothing in it reads a device
+value on the host: the counts come from ``searchsorted`` on the sorted ids,
+and no boolean-mask indexing, ``bincount`` or ``one_hot`` is used. Every
+gather it does reads each kept row once (dropped copies and empty slots
+read a zero pad row, whose gradient is discarded), and the combine sums a
+token's k copies over a dimension of their own, so the forward and the
+backward sum in a fixed order: no scatter-add, no atomics. The
+reference's expert-parallel ``shard_map`` path has no counterpart here.
+
+MLA (DeepSeek-V2): K and V compressed to a ``kv_lora_rank`` latent plus one
+shared RoPE key. Without a cache the expanded form; with one (prefill and
+decode, as in the reference) the absorbed form over all the cache's
+positions under the causal mask, the cache (b, S, r) and (b, S, dr)
+written in place.
+
+The model: the reference's two stacked groups, ``dense_layers`` and
+``moe_layers``, are lists of per-layer dicts, walked in
+:func:`layer_schedule` order by a Python loop; ``remat`` through
+``transformer.checkpointed``. Layers without MLA (llama4) take
+``layers.attention``, kernel 12 in the prefill. Each layer's parameters
+keep f32 leaves as they are and cast the others to the compute dtype
+(the reference's moe ``_cast``), so f32 weights promote a bf16 compute to
+f32 wherever they meet it, as jnp does. The cache keeps the reference's
+stacked layout ``{"moe", "prefix", "dense"}`` and is updated in place.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig, MoEConfig
+from . import layers as L
+from .transformer import _save_dots, checkpointed, head_logits
+
+
+def _mm(a, b):
+    """``a @ b`` in the promoted dtype (3-D: ``torch.bmm`` on the operands
+    as they lie)."""
+    a, b = L.promoted(a, b)
+    return a @ b
+
+
+def _einsum(eq, a, b):
+    return torch.einsum(eq, *L.promoted(a, b))
+
+
+# ---------------------------------------------------------------------------
+# routed experts
+# ---------------------------------------------------------------------------
+
+
+def init_moe_ffn(gen, cfg: ModelConfig, dtype=torch.float32):
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_ff_expert, m.n_experts
+    p = {
+        "router": L.dense_init(gen, (d, e), d, torch.float32),   # router in f32
+        "wg": L.dense_init(gen, (e, d, f), d, dtype),
+        "wu": L.dense_init(gen, (e, d, f), d, dtype),
+        "wd": L.dense_init(gen, (e, f, d), f, dtype),
+    }
+    if m.n_shared_experts:
+        fs = m.d_ff_expert * m.n_shared_experts
+        p["shared"] = {
+            "wg": L.dense_init(gen, (d, fs), d, dtype),
+            "wu": L.dense_init(gen, (d, fs), d, dtype),
+            "wd": L.dense_init(gen, (fs, d), fs, dtype),
+        }
+    return p
+
+
+def moe_capacity(n_tokens: int, cfg: MoEConfig) -> int:
+    cap = int(math.ceil(n_tokens * cfg.top_k * cfg.capacity_factor
+                        / max(cfg.n_experts, 1)))
+    return max(cap, 4)
+
+
+def route(xf, p, cfg: ModelConfig):
+    """xf (t, d) -> (probs (t, e) f32, top_w (t, k) renormalised, top_ids
+    (t, k) int64): the router's softmax in f32 and its top k."""
+    probs = torch.softmax(_mm(xf.float(), p["router"]), dim=-1)
+    top_w, top_ids = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    return probs, top_w, top_ids
+
+
+def dispatch(top_ids, n_experts: int, cap: int):
+    """The fixed-capacity packing of the (t, k) routed copies, in static
+    shapes. Returns (slot (t*k,): each copy's row of the (e*cap) buffer in
+    token order, ``e*cap`` where the copy is dropped; src (e*cap,): the copy
+    (an index into the t*k copies) that fills each row, ``t*k`` where the
+    row is empty). Copies sort stably by expert id, and each expert keeps
+    its first ``cap``, as the reference's ``jnp.argsort``."""
+    dev = top_ids.device
+    flat_e = top_ids.reshape(-1)
+    n = flat_e.numel()
+    order = torch.argsort(flat_e, stable=True)
+    rank = torch.empty_like(order).scatter_(0, order, torch.arange(n, device=dev))
+    # starts[i]: the copies routed below expert i; starts[e] = n
+    starts = torch.searchsorted(flat_e[order],
+                                torch.arange(n_experts + 1, device=dev, dtype=flat_e.dtype))
+    pos = rank - starts[flat_e]
+    slot = torch.where(pos < cap, flat_e * cap + pos, n_experts * cap)
+    j = torch.arange(cap, device=dev)
+    filled = j[None, :] < (starts[1:] - starts[:-1])[:, None]              # (e, cap)
+    first = (starts[:-1, None] + j[None, :]).clamp_max(n - 1)
+    src = torch.where(filled, order[first], n).reshape(-1)
+    return slot, src
+
+
+def _pad_row(x):
+    """x (n, d) with a zero row appended at index n."""
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))])
+
+
+def moe_ffn(x, p, cfg: ModelConfig):
+    """x (b, s, d) -> (y (b, s, d), aux loss, an f32 scalar)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e, k = m.n_experts, m.top_k
+    xf = x.reshape(t, d)
+
+    probs, top_w, top_ids = route(xf, p, cfg)
+    # load-balancing auxiliary loss (Switch-style); the one-hot count as a
+    # compare with arange(e)
+    me = probs.mean(0)
+    hits = top_ids[..., None] == torch.arange(e, device=x.device)            # (t, k, e)
+    ce = hits.float().sum(1).mean(0)
+    aux = (me * ce).sum() * e * m.aux_loss_weight
+
+    cap = moe_capacity(t, m)
+    slot, src = dispatch(top_ids, e, cap)
+    # each token's k copies, side by side: the backward sums them over k
+    xk = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
+    he = _pad_row(xk)[src].reshape(e, cap, d)
+
+    hg = F.silu(_mm(he, p["wg"]))                                              # (e, cap, f)
+    hu = _mm(he, p["wu"])
+    ye = _mm(hg * hu, p["wd"])                                                 # (e, cap, d)
+
+    yk = _pad_row(ye.reshape(e * cap, d))[slot].reshape(t, k, d)
+    contrib = yk * top_w.to(x.dtype)[..., None]
+    y = contrib.to(x.dtype).sum(1)
+
+    if m.n_shared_experts:
+        sp = p["shared"]
+        y = y + _mm(F.silu(_mm(xf, sp["wg"])) * _mm(xf, sp["wu"]), sp["wd"])
+    return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg: ModelConfig, dtype=torch.float32):
+    a = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv, r = a.nope_head_dim, a.rope_head_dim, a.v_head_dim, a.kv_lora_rank
+    return {
+        "wq": L.dense_init(gen, (d, h * (dn + dr)), d, dtype),
+        "w_dkv": L.dense_init(gen, (d, r), d, dtype),
+        "w_kr": L.dense_init(gen, (d, dr), d, dtype),
+        "kv_norm": torch.ones((r,), dtype=dtype, device=L._device(gen)),
+        "w_uk": L.dense_init(gen, (r, h * dn), r, dtype),
+        "w_uv": L.dense_init(gen, (r, h * dv), r, dtype),
+        "wo": L.dense_init(gen, (h * dv, d), h * dv, dtype),
+    }
+
+
+def _mla_rope(x, positions, theta):
+    cos, sin = L.rope_table(positions, x.shape[-1], theta)
+    return L.apply_rope(x, cos, sin)
+
+
+def _masked_softmax(logits, ok, scale, dtype):
+    """The reference's ``softmax(logits.astype(f32) * scale + mask)`` with
+    the mask 0 where ``ok`` and -inf elsewhere, in place on the f32
+    logits; the probabilities in ``dtype``."""
+    logits = logits.float().mul_(scale).masked_fill_(~ok, -torch.inf)
+    return torch.softmax(logits, dim=-1).to(dtype)
+
+
+def mla_attention(x, p, cfg: ModelConfig, *, positions=None, cache=None, cache_pos=None):
+    """The expanded form without a cache; with one (``{"ckv": (b, S, r),
+    "kr": (b, S, dr)}``, compressed and head-free) the absorbed form over all
+    S positions, the new entries written at ``cache_pos`` in place. Returns
+    (y (b, s, e), cache)."""
+    a = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv, r = a.nope_head_dim, a.rope_head_dim, a.v_head_dim, a.kv_lora_rank
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+
+    q = _mm(x, p["wq"]).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    # back to the compute dtype: RoPE's f32 tables must not promote the
+    # score products (and the compressed cache) to f32
+    q_rope = _mla_rope(q_rope, positions, cfg.rope_theta).to(x.dtype)
+    ckv = L.rms_norm(_mm(x, p["w_dkv"]), p["kv_norm"], cfg.norm_eps)           # (b, s, r)
+    kr = _mla_rope(_mm(x, p["w_kr"])[:, :, None, :], positions,
+                   cfg.rope_theta)[:, :, 0].to(x.dtype)                          # (b, s, dr)
+    # the reference's f32 1 / sqrt(dn + dr), as a host number
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(dn + dr))))
+
+    if cache is not None:
+        pos = int(cache_pos)
+        ckv_c, kr_c = cache["ckv"], cache["kr"]
+        if pos < 0 or pos + s > ckv_c.shape[1]:
+            raise ValueError(f"cache_pos {pos} + {s} tokens past the cache's "
+                             f"{ckv_c.shape[1]} positions")
+        ckv_c[:, pos:pos + s] = ckv.to(ckv_c.dtype)
+        kr_c[:, pos:pos + s] = kr.to(kr_c.dtype)
+        # absorbed: q_eff = q_nope @ W_uk, per head, into the latent space
+        q_eff = _einsum("bshd,rhd->bshr", q_nope, p["w_uk"].reshape(r, h, dn))
+        # in place: at the prefill the (b, h, s, S) scores are the largest
+        # tensors of the layer
+        logits = _einsum("bshr,btr->bhst", q_eff, ckv_c)
+        logits.add_(_einsum("bshd,btd->bhst", q_rope, kr_c))
+        qi = pos + torch.arange(s, device=x.device)[:, None]
+        kj = torch.arange(ckv_c.shape[1], device=x.device)[None, :]
+        probs = _masked_softmax(logits, kj <= qi, scale, x.dtype)
+        del logits
+        lat = _einsum("bhst,btr->bshr", probs, ckv_c)                           # (b, s, h, r)
+        out = _einsum("bshr,rhd->bshd", lat, p["w_uv"].reshape(r, h, dv))
+    else:
+        k_nope = _mm(ckv, p["w_uk"]).reshape(b, s, h, dn)
+        v = _mm(ckv, p["w_uv"]).reshape(b, s, h, dv)
+        logits = _einsum("bshd,bthd->bhst", q_nope, k_nope)
+        logits = logits + _einsum("bshd,btd->bhst", q_rope, kr)
+        qi = torch.arange(s, device=x.device)
+        probs = _masked_softmax(logits, qi[None, :] <= qi[:, None], scale, x.dtype)
+        out = _einsum("bhst,bthd->bshd", probs, v)
+
+    return _mm(out.reshape(b, s, h * dv), p["wo"]), cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16, device=None):
+    a = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, max_len, a.kv_lora_rank), dtype=dtype, device=device),
+        "kr": torch.zeros((batch, max_len, a.rope_head_dim), dtype=dtype, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# the MoE decoder LM (deepseek-v2-lite / llama4-maverick)
+# ---------------------------------------------------------------------------
+
+
+def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:
+    m = cfg.moe
+    if idx < m.first_dense:
+        return False
+    return (idx - m.first_dense) % m.moe_every == 0
+
+
+def layer_schedule(cfg: ModelConfig):
+    """[("dense" | "moe", position in its group)] in layer order."""
+    sched = []
+    nd = nm = 0
+    for i in range(cfg.n_layers):
+        if _is_moe_layer(cfg, i):
+            sched.append(("moe", nm))
+            nm += 1
+        else:
+            sched.append(("dense", nd))
+            nd += 1
+    return sched
+
+
+def _plan(cfg: ModelConfig):
+    """(n_prefix_dense, n_super, dense_per_super): the layers are
+    [first_dense dense] + n_super x [1 moe + (moe_every - 1) dense]."""
+    m = cfg.moe
+    rest = cfg.n_layers - m.first_dense
+    if rest % m.moe_every:
+        raise ValueError(f"n_layers - first_dense ({rest}) must be a multiple of "
+                         f"moe_every ({m.moe_every})")
+    return m.first_dense, rest // m.moe_every, m.moe_every - 1
+
+
+def init_layer(gen, cfg: ModelConfig, moe_layer: bool, dtype=torch.float32):
+    dev = L._device(gen)
+    p = {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+         "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=dev)}
+    p["attn"] = init_mla(gen, cfg, dtype) if cfg.mla else L.init_attention(gen, cfg, dtype)
+    if moe_layer:
+        p["moe"] = init_moe_ffn(gen, cfg, dtype)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, dtype, gated=True)
+    return p
+
+
+def init_params(gen, cfg: ModelConfig, dtype=torch.float32):
+    """Random parameters drawn from ``gen`` on its device (shapes only, on
+    the meta device, for ``gen=None``): ``embed``, ``ln_f`` and the layer
+    lists ``dense_layers`` and ``moe_layers``, each in layer order."""
+    params = {"embed": L.init_embed(gen, cfg, dtype),
+              "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=L._device(gen))}
+    for kind in ("dense", "moe"):
+        group = [init_layer(gen, cfg, kind == "moe", dtype)
+                 for k, _ in layer_schedule(cfg) if k == kind]
+        if group:
+            params[f"{kind}_layers"] = group
+    return params
+
+
+def _cast(tree, compute_dtype):
+    """The reference's moe rule: f32 leaves as they are (the same tensors),
+    the others in ``compute_dtype``."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, compute_dtype) for k, v in tree.items()}
+    return tree if tree.dtype == torch.float32 else tree.to(compute_dtype)
+
+
+def _apply_layer(cfg, x, lp, moe_layer, *, positions, cache=None, cache_pos=None):
+    """One pre-norm layer: (x, aux), aux None for a dense layer."""
+    h_in = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.mla:
+        h, _ = mla_attention(h_in, lp["attn"], cfg, positions=positions, cache=cache,
+                             cache_pos=cache_pos)
+    else:
+        # jnp promotes x to the weights' dtype in x @ w; layers.attention
+        # takes x in it
+        h, _ = L.attention(L.promoted(h_in, lp["attn"]["wq"])[0], lp["attn"], cfg,
+                           positions=positions, cache=cache, cache_pos=cache_pos)
+    x = x + h
+    h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if moe_layer:
+        y, aux = moe_ffn(h2, lp["moe"], cfg)
+    else:
+        y, aux = L.mlp(L.promoted(h2, lp["mlp"]["wg"])[0], lp["mlp"]), None
+    return x + y, aux
+
+
+def forward(params, cfg: ModelConfig, tokens, *, compute_dtype=torch.bfloat16,
+            remat: str = "full", return_aux=False):
+    """tokens (b, s) -> logits (b, s, v_padded), f32; with ``return_aux``
+    (logits, the moe layers' summed aux loss)."""
+    _plan(cfg)
+    h = L.embed_tokens(params["embed"], tokens).to(compute_dtype)
+    positions = torch.arange(h.shape[1], device=h.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def body(x, lp, moe_layer):
+        return _apply_layer(cfg, x, _cast(lp, compute_dtype), moe_layer,
+                            positions=positions)
+
+    for kind, i in layer_schedule(cfg):
+        h, aux = checkpointed(body, remat, h, params[f"{kind}_layers"][i], kind == "moe",
+                              policy=_save_dots)
+        if aux is not None:
+            aux_total = aux_total + aux
+    logits = head_logits(params, cfg, h, compute_dtype)
+    return (logits, aux_total) if return_aux else logits
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16, device=None):
+    """A layer's cache (MLA's or the attention's; shapes taken on the meta
+    device) stacked as the reference's: ``moe`` (n_super, ...), ``prefix``
+    (n_prefix, ...) and ``dense`` (n_super, dense_per_super, ...)."""
+    if cfg.mla:
+        one = init_mla_cache(cfg, batch, max_len, dtype, device="meta")
+    else:
+        one = L.init_attention_cache(cfg, batch, max_len, dtype, device="meta")
+    n_prefix, n_super, dps = _plan(cfg)
+
+    def stacked(*lead):
+        return {name: torch.zeros((*lead, *a.shape), dtype=dtype, device=device)
+                for name, a in one.items()}
+
+    cache = {"moe": stacked(n_super)}
+    if n_prefix:
+        cache["prefix"] = stacked(n_prefix)
+    if dps:
+        cache["dense"] = stacked(n_super, dps)
+    return cache
+
+
+def _layer_cache(cache, kind, i, n_prefix, dps):
+    """Views of the stacked cache for group ``kind``'s layer ``i``."""
+    if kind == "moe":
+        group, idx = cache["moe"], (i,)
+    elif i < n_prefix:
+        group, idx = cache["prefix"], (i,)
+    else:
+        group, idx = cache["dense"], divmod(i - n_prefix, dps)
+    return {name: t[idx] for name, t in group.items()}
+
+
+def _serve(params, cfg, h, cache, pos, compute_dtype):
+    n_prefix, _, dps = _plan(cfg)
+    positions = pos + torch.arange(h.shape[1], device=h.device)
+    for kind, i in layer_schedule(cfg):
+        lp = _cast(params[f"{kind}_layers"][i], compute_dtype)
+        h, _ = _apply_layer(cfg, h, lp, kind == "moe", positions=positions,
+                            cache=_layer_cache(cache, kind, i, n_prefix, dps),
+                            cache_pos=pos)
+    return h
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache, pos, *, compute_dtype=torch.bfloat16):
+    """One token step at position ``pos`` (an int); the cache is updated in
+    place. Returns (logits, cache)."""
+    h = L.embed_tokens(params["embed"], tokens).to(compute_dtype)
+    h = _serve(params, cfg, h, cache, int(pos), compute_dtype)
+    return head_logits(params, cfg, h, compute_dtype), cache
+
+
+def prefill(params, cfg: ModelConfig, tokens, max_len, *, compute_dtype=torch.bfloat16,
+            cache_dtype=torch.bfloat16):
+    """Full-sequence pass that fills a new cache of ``max_len`` positions
+    (MLA: its absorbed form, as the reference's prefill). Returns (logits,
+    cache)."""
+    b, _ = tokens.shape
+    cache = init_cache(cfg, b, max_len, cache_dtype, device=tokens.device)
+    h = L.embed_tokens(params["embed"], tokens).to(compute_dtype)
+    h = _serve(params, cfg, h, cache, 0, compute_dtype)
+    return head_logits(params, cfg, h, compute_dtype), cache

@@ -38,13 +38,17 @@ def softmax_xent(logits, labels, z_loss=0.0):
 
 
 def loss_fn(params, cfg: ModelConfig, batch, tcfg: TrainConfig):
-    """(loss, {"xent", "aux"}) for the families ``get_api`` routes (dense,
-    ssm, hybrid, encdec, vlm), none of which has an auxiliary loss (the
-    reference's moe router loss comes with that family's port)."""
-    logits = get_api(cfg).forward(params, cfg, batch,
-                                  compute_dtype=_dtype(tcfg.compute_dtype), remat=tcfg.remat)
+    """(loss, {"xent", "aux"}): the token cross-entropy, plus for the moe
+    family the router's load-balancing loss summed over its moe layers
+    (the other families have none: aux 0.0)."""
+    kw = dict(compute_dtype=_dtype(tcfg.compute_dtype), remat=tcfg.remat)
+    api = get_api(cfg)
+    if cfg.family == "moe":
+        logits, aux = api.forward(params, cfg, batch, return_aux=True, **kw)
+    else:
+        logits, aux = api.forward(params, cfg, batch, **kw), 0.0
     loss = softmax_xent(logits, batch["labels"], tcfg.z_loss)
-    return loss, {"xent": loss, "aux": 0.0}
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 def value_and_grad(params, cfg: ModelConfig, batch, tcfg: TrainConfig):

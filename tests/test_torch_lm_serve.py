@@ -217,14 +217,6 @@ def test_configs_equal_the_reference(arch):
         f.name for f in dataclasses.fields(jconfigs.ShapeCell)]
 
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
-                                  if jconfigs.get_config(a).family == "moe"])
-def test_non_dense_families_raise_not_implemented(arch):
-    """The moe family, the one the port does not route yet."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        get_api(configs.get_smoke_config(arch))
-
-
 def _danube(n_layers=None):
     jcfg = jconfigs.get_smoke_config("h2o-danube-3-4b")      # window 16
     cfg = configs.get_smoke_config("h2o-danube-3-4b")
