@@ -41,13 +41,16 @@ shifted one element off 16 bytes (a checkout's plain-load template), by
 CUDA events, each with a hash of U's bits, which must be the same in every
 turn of both checkouts; kernel 12 (#12) at the serve shape (b h = 128,
 s = 2,048, d = 80, f32 q over bf16 cache views) without and with its row
-log-sum-exp L, the output's bits hashed (the same in every turn of both
-checkouts, and with L as without), and its backward at the training
+log-sum-exp L, the output's bits hashed (the same in both turns of a
+checkout, and with L as without in every turn: the checkouts' forwards
+may sum in other orders), and its backward at the training
 shape (b h = 64, s = 1,024, d = 80, causal, f32) with a hash of dq, dk
 and dv, by CUDA events: the same bits in both turns of a checkout that
 has it, and between the checkouts (whose backward kernels may sum in
 other orders) within ``FA_GRAD_F32_REL`` of each gradient's max (the
-turns write their gradients under ``build/ab_kernels/``); and a
+turns write their gradients under ``build/ab_kernels/``), and its output
+and gradients against float64 where keys and values share a large mean
+(recorded, not held); and a
 full-width stablelm-3b training step (``chip_smoke.py``'s ``phase_train``
 (a): 2 x 1,024 tokens, f32, ``remat="full"``), the mean of its steps 1
 and 2 by the host clock to a synchronize.
@@ -263,7 +266,8 @@ del a
 torch.cuda.empty_cache()
 # kernel 12 at the serve shape (f32 q over bf16 cache views) with and
 # without the row log-sum-exp L, each with a hash of the output's bits
-# (equal in every turn: writing L moves no bit), and its backward at the
+# (equal in each checkout's turns, and with and without L in every turn:
+# writing L moves no bit), and its backward at the
 # training shape (f32, causal), with a hash of dq, dk, dv; a checkout whose
 # kernel writes no L or has no backward records that
 from repro_torch.kernels import flash_attention as fa
@@ -276,7 +280,7 @@ def bits(*ts):
 f32, bf16 = torch.float32, torch.bfloat16
 qf, kf, vf = cs._fa_case(4, 32, 32, 2048, 80, f32, bf16, seed=40, strided=True)
 report["flash serve"] = dict(ms=cs.cuda_ms(lambda: fa.flash_attention(qf, kf, vf), 10),
-                             bits=bits(fa.flash_attention(qf, kf, vf)))
+                             bits=bits(fa.flash_attention(qf, kf, vf)), bits_within="checkout")
 if hasattr(fa, "flash_attention_bwd"):
     out, lse = fa._forward(qf, kf, vf, True, with_lse=True)
     report["flash serve with L"] = dict(
@@ -292,6 +296,26 @@ if hasattr(fa, "flash_attention_bwd"):
         ms=cs.cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout), 10),
         bits=bits(*grads), bits_within="checkout", grads=grads_path)
     del q, k, v, dout, out, lse, grads
+    # keys and values that share a large mean (seamless's cross-attention
+    # at initialization), d = 64, full: the output and the gradients
+    # through the autograd Function against float64
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((2, 16, 1024, 64), generator=g, device="cuda")
+    mk, mv = (torch.randn((1, 1, 1, 64), generator=g, device="cuda") * 1.5 for _ in range(2))
+    k = torch.randn(q.shape, generator=g, device="cuda") + mk
+    v = torch.randn(q.shape, generator=g, device="cuda") + mv
+    dout = torch.randn(q.shape, generator=g, device="cuda") * 0.5
+    exact = [t.double().requires_grad_() for t in (q, k, v)]
+    out64 = torch.softmax(exact[0] @ exact[1].transpose(-1, -2) / 8.0, dim=-1) @ exact[2]
+    out64.backward(dout.double())
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=False)
+    out.backward(dout)
+    report["flash shared mean"] = dict(ms=None, rel_to_f64={
+        name: float((a.detach().double() - w.detach()).abs().max() / w.detach().abs().max())
+        for name, a, w in zip(("out", "dq", "dk", "dv"), [out] + [t.grad for t in leaves],
+                              [out64] + [t.grad for t in exact])})
+    del q, k, v, dout, exact, out64, leaves, out
 else:
     for name in ("flash serve with L", "flash backward train"):
         report[name] = dict(ms=None, raises="this checkout's kernel 12 writes no L and has no "
@@ -386,11 +410,19 @@ def main() -> int:
             across[name] = grads_apart(out["base-1"][name], out["this-1"][name])
             print(f"ab_kernels: {name} max|this - base| / max|base|: {across[name]}",
                   flush=True)
+        elif isinstance(rec, dict) and "same_as" in rec:
+            # the bits of another entry of the same turn
+            for tag in out:
+                if "bits" not in out[tag][name]:
+                    continue
+                got = {name: out[tag][name]["bits"],
+                       rec["same_as"]: out[tag][rec["same_as"]]["bits"]}
+                print(f"ab_kernels: {tag} bits {got}", flush=True)
+                if len(set(got.values())) != 1:
+                    raise SystemExit(f"ab_kernels: {name} gives other bits than "
+                                     f"{rec['same_as']} in turn {tag}: {got}")
         elif isinstance(rec, dict) and "bits" in rec:
             got = {tag: out[tag][name]["bits"] for tag in out if "bits" in out[tag][name]}
-            if "same_as" in rec:
-                got.update({f"{tag} {rec['same_as']}": out[tag][rec["same_as"]]["bits"]
-                            for tag in out})
             if name.startswith("bs_matmat") and name.endswith(" unaligned"):
                 got.update({f"{tag} aligned": out[tag][name[:-len(" unaligned")]]["bits"]
                             for tag in out})

@@ -3196,6 +3196,8 @@ FA_GRAD_F32_REL = 1e-5      # an f32 gradient, relative to its max|grad_ref|
 FA_GRAD_BF16_REL = 2.0 ** -6  # a bf16 gradient: two bf16 steps at the top of its range
 FA_LSE_TOL = (1e-5, 1e-6)   # (atol, rtol) of the forward's row log-sum-exp
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "stablelm-3b", 2, 1024, 3
+#: seamless-m4t-large-v2's attention in a training step: (b, h, s, d), f32
+SEAMLESS_BWD_SHAPE = (TRAIN_BATCH, 16, TRAIN_SEQ, 64)
 BWD_LABELS = {"flash_attention_bwd_delta": "delta_kernel",
               "flash_attention_bwd_dkdv": "dkdv_kernel",
               "flash_attention_bwd_dq": "dq_kernel"}
@@ -3299,7 +3301,11 @@ def phase_flash_attention_backward(report, build_log=""):
     template spills at d = 80 (NT = 5) or d = 120, 128 (NT = 8; its
     cp.async and scalar-staging forms); each kernel timed (device events)
     beside its plain version and its share of its split-TF32 bound, and
-    the whole backward beside the plain backward and SDPA's backward."""
+    the whole backward beside the plain backward and SDPA's backward, at
+    the training shape and at seamless's (``SEAMLESS_BWD_SHAPE``: d = 64,
+    full and causal); and the forward and the gradients against float64
+    where the keys and values share a large mean
+    (``_shared_mean_attention``)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import (_forward, flash_attention,
                                                      flash_attention_bwd, flash_attention_bwd_delta)
@@ -3330,6 +3336,8 @@ def phase_flash_attention_backward(report, build_log=""):
         ("unaligned rows d=17", (2, 4, 2, 200, 17), f32, f32, True, False),
         ("unaligned rows d=17, bf16, full", (2, 4, 2, 200, 17), bf16, bf16, False, False),
         ("smoke d=24 s=17 MQA", (2, 4, 1, 17, 24), f32, bf16, True, True),
+        ("seamless d=64 full", (TRAIN_BATCH, 16, 16, TRAIN_SEQ, 64), f32, f32, False, True),
+        ("seamless d=64 causal", (TRAIN_BATCH, 16, 16, TRAIN_SEQ, 64), f32, f32, True, True),
     ]
     worst, worst_lse = 0.0, 0.0
     abs_err = dict.fromkeys(BWD_LABELS, 0.0)
@@ -3389,62 +3397,141 @@ def phase_flash_attention_backward(report, build_log=""):
                 counts[op] == 1 for op in BWD_LABELS), f"the Function's launches: {counts}")
         del q, k, v, dout, out, lse, got, again, want, want_out, want_lse, plain_out, delta
         torch.cuda.empty_cache()
-    # times at the training shape: each kernel by its device events beside
-    # its plain version; the whole backward beside the plain backward and
-    # SDPA's backward
-    b, h, s, d = TRAIN_BATCH, 32, TRAIN_SEQ, 80
-    q, k, v = _fa_case(b, h, h, s, d, f32, f32, seed=70, strided=True)
+    shared_mean = _shared_mean_attention()
+    # times at the training shape, then at seamless's (d = 64, full and
+    # causal): each kernel by its device events beside its plain version;
+    # the whole backward beside the plain backward and SDPA's backward
+    recs, whole, lib_err = _bwd_times("the training shape", TRAIN_BATCH, 32, TRAIN_SEQ, 80,
+                                      True, abs_err)
+    report.update(recs)
+    d64 = {}
+    for causal in (False, True):
+        recs64, whole64, err64 = _bwd_times(f"seamless's shape ({'causal' if causal else 'full'})",
+                                            *SEAMLESS_BWD_SHAPE, causal, abs_err)
+        d64["causal" if causal else "full"] = dict(recs64, whole=whole64,
+                                                   library_max_rel_err=err64)
+    report["flash_attention_bwd"] = dict(whole, max_rel_err=worst, max_lse_err=worst_lse,
+                                         library_max_rel_err=lib_err, registers=regs,
+                                         rel_err_to_f64=to_f64, seamless_d64=d64,
+                                         shared_mean=shared_mean)
+
+
+FA_SHARED_MEAN_OUT_REL = 2e-6   # the forward's output against float64, of max|out|
+
+
+def _shared_mean_attention():
+    """Kernel 12 through its autograd Function where the keys and the
+    values share a large mean, as seamless's cross-attention over its
+    encoder's output does at initialization: the forward's output against
+    float64 (FA_SHARED_MEAN_OUT_REL of its max), and the gradients
+    (TRAIN_GRAD_REL of each one's max), beside the plain version's. dQ
+    there is a small sum of terms whose D = rowsum(dO O) carries the
+    forward's error, magnified: a forward whose P V product chains over
+    every key on the tensor cores put dQ 3.8e-4 of its max from float64.
+    Seamless's training shape (d = 64, full) and stablelm's (d = 80,
+    causal)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    g = torch.Generator(device="cuda").manual_seed(3)
+    out_rec = {}
+    for tag, (b, h, s, d), causal in (("seamless d=64 full", SEAMLESS_BWD_SHAPE, False),
+                                      ("train d=80 causal", (TRAIN_BATCH, 32, TRAIN_SEQ, 80),
+                                       True)):
+        q = torch.randn((b, h, s, d), generator=g, device="cuda")
+        mk, mv = (torch.randn((1, 1, 1, d), generator=g, device="cuda") * 1.5 for _ in range(2))
+        k = torch.randn((b, h, s, d), generator=g, device="cuda") + mk
+        v = torch.randn((b, h, s, d), generator=g, device="cuda") + mv
+        dout = torch.randn((b, h, s, d), generator=g, device="cuda") * 0.5
+        exact = [t.double().requires_grad_() for t in (q, k, v)]
+        out64 = _f64_attention(*exact, causal=causal)
+        out64.backward(dout.double())
+        errs = {}
+        for name, fn in (("kernels", flash_attention), ("plain", ref.flash_attention_ref)):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            out = fn(*leaves, causal=causal)
+            out.backward(dout)
+            errs[name] = [float((a.detach().double() - w.detach()).abs().max()
+                                / w.detach().abs().max())
+                          for a, w in zip([out] + [t.grad for t in leaves],
+                                          [out64] + [t.grad for t in exact])]
+        print(f"[flash-bwd] keys and values with a shared mean, {tag} (b h = {b * h}, s = {s}): "
+              f"against float64, (out, dq, dk, dv) kernels "
+              + ", ".join(f"{e:.3e}" for e in errs["kernels"]) + "; plain "
+              + ", ".join(f"{e:.3e}" for e in errs["plain"]), flush=True)
+        check(errs["kernels"][0] <= FA_SHARED_MEAN_OUT_REL
+              and max(errs["kernels"][1:]) <= TRAIN_GRAD_REL,
+              f"kernel 12 parts from float64 where keys and values share a mean ({tag}): "
+              f"{errs['kernels']}")
+        out_rec[tag] = errs
+        del q, k, v, dout, exact, out64
+    torch.cuda.empty_cache()
+    return out_rec
+
+
+def _bwd_times(tag, b, h, s, d, causal, abs_err, reps=10):
+    """Kernel 12's backward at (b, h = kv, s, d), f32: each kernel timed by
+    its device events beside its plain version and its bounds (D also
+    beside ``torch.linalg.vecdot``), and the whole backward beside the
+    plain backward and SDPA's backward. Returns ({op: record}, the whole
+    backward's record, max|SDPA's - the plain gradients| / max)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (_forward, flash_attention_bwd,
+                                                     flash_attention_bwd_delta)
+    q, k, v = _fa_case(b, h, h, s, d, torch.float32, torch.float32, seed=70, strided=True)
     dout = (torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(90),
                         device="cuda") * 0.5)
-    out, lse = _forward(q, k, v, True, with_lse=True)
-    reps = 10
-    events = device_events(lambda: flash_attention_bwd(q, k, v, out, lse, dout), reps)
+    out, lse = _forward(q, k, v, causal, with_lse=True)
+    bwd = lambda: flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)  # noqa: E731
+    events = device_events(bwd, reps)
     per_kernel = {op: sum(ms for name, ms in events if label in name) / reps
                   for op, label in BWD_LABELS.items()}
     check(all(ms > 0 for ms in per_kernel.values()),
           f"the profiler missed a backward kernel: {[n for n, _ in events][:8]}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    lib_out = sdpa(lq, lk, lv, is_causal=True)
+    lib_out = sdpa(lq, lk, lv, is_causal=causal)
     whole = {
-        "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, dout), reps),
-        "plain_ms": cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout), reps),
+        "ms": cuda_ms(bwd, reps),
+        "plain_ms": cuda_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                                causal=causal), reps),
         "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), dout,
                                                           retain_graph=True), reps),
-        "fwd_lse_ms": cuda_ms(lambda: _forward(q, k, v, True, with_lse=True), reps),
-        "fwd_ms": cuda_ms(lambda: _forward(q, k, v, True, with_lse=False), reps),
+        "fwd_lse_ms": cuda_ms(lambda: _forward(q, k, v, causal, with_lse=True), reps),
+        "fwd_ms": cuda_ms(lambda: _forward(q, k, v, causal, with_lse=False), reps),
     }
     # each kernel's plain version, and the one PyTorch call that computes D
     plain = {"flash_attention_bwd_delta": lambda: torch.sum(dout.float() * out.float(), dim=-1),
              "flash_attention_bwd_dkdv": lambda: ref.flash_attention_bwd_ref(
-                 q, k, v, out, lse, dout, grads="kv"),
+                 q, k, v, out, lse, dout, causal=causal, grads="kv"),
              "flash_attention_bwd_dq": lambda: ref.flash_attention_bwd_ref(
-                 q, k, v, out, lse, dout, grads="q")}
+                 q, k, v, out, lse, dout, causal=causal, grads="q")}
     library = {"flash_attention_bwd_delta": lambda: torch.linalg.vecdot(out, dout)}
     lib_err = max(float((a - w).abs().max() / w.abs().max()) for a, w in zip(
         torch.autograd.grad(lib_out, (lq, lk, lv), dout, retain_graph=True),
-        ref.flash_attention_bwd_ref(q, k, v, out, lse, dout)))
+        ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)))
     vecdot_err = float((library["flash_attention_bwd_delta"]()
                         - flash_attention_bwd_delta(out, dout)).abs().max())
-    bounds = flash_bwd_bounds(q, k, True)
+    bounds = flash_bwd_bounds(q, k, causal)
     whole.update(bounds.pop("whole"))
+    mask = "causal" if causal else "full"
+    recs = {}
     for op, bnd in bounds.items():
         rec = dict(ms=per_kernel[op], **bnd, plain_ms=cuda_ms(plain[op], reps),
                    library_ms=cuda_ms(library[op], reps) if op in library else None,
                    max_abs_err=abs_err[op])
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-        report[op] = rec
+        recs[op] = rec
         fma = (f" f32_fma_bound_ms={rec['f32_fma_bound_ms']:.4f}"
                if "f32_fma_bound_ms" in rec else "")
         lib = f" library_ms={rec['library_ms']:.4f}" if rec["library_ms"] is not None else ""
-        print(f"[flash-bwd] {op} at the training shape (b h = {b * h}, s = {s}, d = {d}, "
-              f"causal, f32): kernel_ms={rec['ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+        print(f"[flash-bwd] {op} at {tag} (b h = {b * h}, s = {s}, d = {d}, {mask}, f32): "
+              f"kernel_ms={rec['ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
               f"({rec['bound_by']}; the kernel at {100 * rec['bound_share']:.1f}% of it){fma} "
               f"plain_ms={rec['plain_ms']:.4f}{lib}; SDPA's whole backward "
               f"{whole['library_ms']:.4f}", flush=True)
     whole["bound_share"] = whole["bound_ms"] / whole["ms"]
-    print(f"[flash-bwd] the whole backward: {whole['ms']:.4f} ms (3 launches) against the "
-          f"plain backward {whole['plain_ms']:.4f} and SDPA's backward "
+    print(f"[flash-bwd] the whole backward at {tag}: {whole['ms']:.4f} ms (3 launches) against "
+          f"the plain backward {whole['plain_ms']:.4f} and SDPA's backward "
           f"{whole['library_ms']:.4f} ({whole['ms'] / whole['library_ms']:.3f}x; f32 tensors; "
           f"max|sdpa-plain|/max = {lib_err:.3e}); bound_ms={whole['bound_ms']:.4f} "
           f"({whole['bound_by']}: the five distinct products as split-TF32 terms at "
@@ -3452,11 +3539,9 @@ def phase_flash_attention_backward(report, build_log=""):
           f"{100 * whole['bound_share']:.1f}% of it) f32_fma_bound_ms="
           f"{whole['f32_fma_bound_ms']:.4f}; the forward {whole['fwd_ms']:.4f} ms, with L "
           f"{whole['fwd_lse_ms']:.4f}; max|vecdot-D| = {vecdot_err:.3e}", flush=True)
-    report["flash_attention_bwd"] = dict(whole, max_rel_err=worst, max_lse_err=worst_lse,
-                                         library_max_rel_err=lib_err, registers=regs,
-                                         rel_err_to_f64=to_f64)
     del q, k, v, dout, out, lse, lq, lk, lv, lib_out
     torch.cuda.empty_cache()
+    return recs, whole, lib_err
 
 
 def _tree_to(tree, device):
@@ -3917,10 +4002,11 @@ def phase_llama4(report):
 TRAIN_GRAD_REL = 1e-4       # a gradient leaf, kernel 12 against the plain versions, of max|leaf|
 
 
-def _plain_attention():
+def _plain_attention(fn=None):
     """A context in which the model's attention computes kernel 12's
-    function by its plain version, differentiated by autograd: the yardstick
-    of phase_train (b). The port itself never routes a CUDA tensor so."""
+    function by its plain version (or by ``fn(q, k, v, causal)``),
+    differentiated by autograd: the yardstick of phase_train (b). The port
+    itself never routes a CUDA tensor so."""
     import contextlib
 
     from repro_torch.kernels import ops, ref
@@ -3928,8 +4014,8 @@ def _plain_attention():
     @contextlib.contextmanager
     def swap():
         kernel = ops.flash_attention
-        ops.flash_attention = lambda q, k, v, causal=True: ref.flash_attention_ref(
-            q, k, v, causal=causal)
+        ops.flash_attention = fn or (lambda q, k, v, causal=True: ref.flash_attention_ref(
+            q, k, v, causal=causal))
         try:
             yield
         finally:
@@ -4230,6 +4316,331 @@ def phase_train(report):
     _train_parity(report)
     _train_restart(report)
     _train_window(report)
+    return launches
+
+
+#: phase_family_train's steps: each family's depth cut (None: its full
+#: depth) and kernel 12's launches in one step under remat="full", where
+#: each checkpoint runs its forward twice and its backward once: (forward,
+#: each of D, dK/dV and dQ). zamba2: one shared attention a group of 6, 9
+#: groups; seamless: 24 encoder (full), 24 decoder self (causal) and 24
+#: cross (full) calls; deepseek at 4 of 27 layers (the dense layer 0 and 3
+#: moe layers: its 27 would need 251 GB with AdamW's moments)
+FAMILY_TRAIN = {
+    "mamba2-780m": (None, 0, 0),
+    "zamba2-2.7b": (None, 18, 9),
+    "seamless-m4t-large-v2": (None, 144, 72),
+    "paligemma-3b": (None, 0, 0),
+    "deepseek-v2-lite-16b": (dict(n_layers=4), 0, 0),
+}
+#: kernel 12's launches in one value_and_grad at FAMILY_ARCHS's cut (remat
+#: full): zamba2's one group, seamless's 2 + 2 layers
+FAMILY_CUT_LAUNCHES = {"zamba2-2.7b": (2, 1), "seamless-m4t-large-v2": (12, 6)}
+FAMILY_PARITY_SEQ = 128     # the tokens a row in the card-vs-CPU gradients
+TRAIN_LOSS_REL = 1e-5       # a loss, the card against the CPU or the plain attention
+WIDE_HEAD = 160             # a head width past kernel 12's MAX_D
+
+
+def _kernel12_counts(counts):
+    return {op: counts[op] for op in ("flash_attention", *BWD_LABELS)}
+
+
+def _grad_rels(got, want):
+    """max|g - w| / max|w| of each gradient leaf (``got`` moved to w's
+    device), by leaf name."""
+    from repro_torch.train._tree import named_leaves
+    want = named_leaves(want)
+    return {name: float((g.to(want[name].device) - want[name]).abs().max()
+                        / want[name].abs().max().clamp_min(1e-30))
+            for name, g in named_leaves(got).items()}
+
+
+def _family_steps(arch, cut, fwd, bwd):
+    """(a) ``arch`` at its published widths (depth ``cut``), seed-0 weights
+    drawn on the card, launch/train.py's TrainConfig (f32, remat="full",
+    AdamW, z-loss), 3 steps of 2 x 1,024 tokens from ``token_batches``;
+    the peak memory; one more step profiled by stage. Frees its weights and
+    AdamW state before it returns (the record, kernel 12's launches in the
+    last step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import token_batches, train_config
+    from repro_torch.models import get_api
+    from repro_torch.train import adamw_init, build_train_step
+    from repro_torch.train import train_step as ts
+    from repro_torch.train._tree import leaves
+    cfg = get_config(arch).replace(**(cut or {}))
+    tcfg = train_config(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = get_api(cfg).init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = adamw_init(params)
+    n_params = sum(t.numel() for t in leaves(params))
+    data_fn = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, "cuda")
+    step = build_train_step(cfg, tcfg)
+    want = {"flash_attention": fwd, **dict.fromkeys(BWD_LABELS, bwd)}
+    # the loss's parts (moe: xent + the router's aux loss), read from loss_fn
+    real_loss_fn, parts = ts.loss_fn, []
+
+    def recorded(*args, **kw):
+        loss, aux = real_loss_fn(*args, **kw)
+        parts.append({k: float(v.detach()) if torch.is_tensor(v) else float(v)
+                      for k, v in aux.items()})
+        return loss, aux
+
+    steps = []
+    ts.loss_fn = recorded
+    try:
+        for i in range(TRAIN_STEPS):
+            batch = data_fn(i)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            m = {k: float(v) for k, v in m.items()}
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = _kernel12_counts(ops.launch_counts())
+            xent, aux = parts[-1]["xent"], parts[-1]["aux"]
+            steps.append(dict(m, ms=ms, launches=launches, xent=xent, aux=aux))
+            print(f"[family-train] {arch} ({cfg.n_layers} layers"
+                  + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
+                  + f", {n_params:,} parameters), {TRAIN_BATCH} x {TRAIN_SEQ} tokens, step {i}: "
+                  f"loss={m['loss']:.6f} " + (f"(xent {xent:.6f} + aux {aux:.6f}) "
+                                              if cfg.family == "moe" else "")
+                  + f"grad_norm={m['grad_norm']:.6f} lr={m['lr']:.6e} ms={ms:.3f}; kernel 12 "
+                  f"launches: forward {launches['flash_attention']}, backward "
+                  + ", ".join(f"{op.rsplit('_', 1)[1]} {launches[op]}" for op in BWD_LABELS),
+                  flush=True)
+            check(all(np.isfinite([m["loss"], m["grad_norm"], m["lr"]])),
+                  f"{arch}: a train step's loss or grad norm is not finite")
+            check(launches == want, f"{arch}: kernel 12's launches in a train step {launches}, "
+                                    f"not {want}")
+            if cfg.family == "moe":
+                check(np.isfinite(aux) and aux > 0.0
+                      and abs(xent + aux - m["loss"]) <= 1e-6 * abs(m["loss"]),
+                      f"{arch}: the aux loss {aux} is not a finite positive part of the loss "
+                      f"{m['loss']} (xent {xent})")
+    finally:
+        ts.loss_fn = real_loss_fn
+    peak = torch.cuda.max_memory_allocated()
+    check(all(bool(torch.isfinite(t).all()) for t in leaves(params)),
+          f"{arch}: a parameter is not finite after training")
+    print(f"[family-train] {arch} peak_mem_GB={peak / 1e9:.3f} (weights, gradients and AdamW's "
+          f"two moments in f32 {16 * n_params / 1e9:.3f} GB)", flush=True)
+    profile = _train_profile(cfg, tcfg, params, opt, data_fn(TRAIN_STEPS))
+    rec = dict(n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers, n_params=n_params,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps, peak_mem_bytes=peak,
+               profile=profile)
+    del params, opt, step, data_fn
+    torch.cuda.empty_cache()
+    return rec, steps[-1]["launches"]
+
+
+def _family_vs_cpu(arch, cut):
+    """(b) ``arch`` at FAMILY_ARCHS's cut: one value_and_grad of 2 x 128
+    tokens (remat full) on the CPU and on the card from the same weights
+    and batch: the loss and every gradient leaf; deepseek's router
+    near-ties counted first. (d) a second call on the card: the same bits
+    in every leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import token_batches, train_config
+    from repro_torch.models import get_api
+    from repro_torch.train._tree import named_leaves
+    from repro_torch.train.train_step import value_and_grad
+    cfg = get_config(arch).replace(**cut)
+    tcfg = train_config(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=FAMILY_PARITY_SEQ)
+    params = get_api(cfg).init_params(torch.Generator().manual_seed(0), cfg)
+    batch = token_batches(cfg, TRAIN_BATCH, FAMILY_PARITY_SEQ, 0, "cpu")(0)
+    routing = None
+    if cfg.family == "moe":
+        routing = _prefill_routing(f"family-train {arch}", cfg, params,
+                                   {k: v for k, v in batch.items() if k != "labels"},
+                                   FAMILY_PARITY_SEQ)
+    t0 = time.perf_counter()
+    loss_c, grads_c = value_and_grad(params, cfg, batch, tcfg)
+    cpu_s = time.perf_counter() - t0
+    params_g = _tree_to(params, "cuda")
+    batch_g = {k: v.to("cuda") for k, v in batch.items()}
+    del params
+    runs = [value_and_grad(params_g, cfg, batch_g, tcfg) for _ in range(2)]
+    (loss_g, grads_g), (loss_2, grads_2) = runs
+    rels = _grad_rels(grads_g, grads_c)
+    loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    second = named_leaves(grads_2)
+    differ = [name for name, g in named_leaves(grads_g).items()
+              if not torch.equal(g, second[name])]
+    top = sorted(rels, key=rels.get, reverse=True)[:3]
+    worst = top[0]
+    print(f"[family-train] {arch} {cut}, {TRAIN_BATCH} x {FAMILY_PARITY_SEQ}: the card against "
+          f"the CPU: loss {float(loss_g):.6f} (CPU {float(loss_c):.6f}, rel {loss_rel:.3e}, limit "
+          f"{TRAIN_LOSS_REL}); {len(rels)} gradient leaves, worst max|g-g_cpu|/max|g_cpu| "
+          + ", ".join(f"{n} {rels[n]:.3e}" for n in top)
+          + f" (limit {TRAIN_GRAD_REL}); CPU side {cpu_s:.1f} s; a "
+          f"second backward on the card: loss "
+          f"{'the same' if torch.equal(loss_g, loss_2) else 'other'} bits, {len(differ)} leaves "
+          f"with other bits {differ[:4]}", flush=True)
+    check(loss_rel <= TRAIN_LOSS_REL and rels[worst] <= TRAIN_GRAD_REL,
+          f"{arch}: the card's loss or gradients part from the CPU's")
+    check(torch.equal(loss_g, loss_2) and not differ,
+          f"{arch}: two backward passes on the card give other bits: {differ}")
+    rec = dict(cut=cut, loss=float(loss_g), loss_cpu=float(loss_c), loss_rel=loss_rel,
+               worst_grad_rel=rels[worst], worst_leaves={n: rels[n] for n in top}, cpu_s=cpu_s,
+               second_backward_bitwise=True, routing=routing)
+    del params_g, batch_g, runs, grads_g, grads_2, grads_c
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _f64_attention(q, k, v, causal=True):
+    """Kernel 12's function in float64 (the kv heads repeated), rounded to
+    q's type: the exact attention, differentiated by autograd in float64."""
+    rep = q.shape[-3] // k.shape[-3]
+    s, d = q.shape[-2:]
+    kd, vd = (t.double().repeat_interleave(rep, dim=-3) for t in (k, v))
+    logits = q.double() @ kd.transpose(-1, -2) / math.sqrt(d)
+    if causal:
+        logits = logits.masked_fill(
+            torch.ones((s, s), dtype=torch.bool, device=q.device).triu(1), -torch.inf)
+    return (torch.softmax(logits, dim=-1) @ vd).to(q.dtype)
+
+
+def _family_kernel_vs_plain(arch, cut):
+    """(c) ``arch`` at FAMILY_ARCHS's cut, one value_and_grad of 2 x 1,024
+    tokens on the card with kernel 12, with its f32 plain version
+    (``_plain_attention``) and with its function in float64
+    (``_f64_attention``): the launches (the plain runs none), and the loss
+    and every gradient leaf of the kernels held to the float64 attention's:
+    TRAIN_GRAD_REL of the leaf's max, or twice the f32 plain version's own
+    distance where that is larger. The f32 plain version carries rounding
+    of the kernels' size, which an ill-conditioned leaf (mamba's ``a_log``:
+    a sum over every position of terms of both signs) magnifies past
+    TRAIN_GRAD_REL; the distances between all three are printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import token_batches, train_config
+    from repro_torch.models import get_api
+    from repro_torch.train.train_step import value_and_grad
+    cfg = get_config(arch).replace(**cut)
+    tcfg = train_config(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    params = get_api(cfg).init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, "cuda")(0)
+    ops.reset_launch_counts()
+    loss_k, grads_k = value_and_grad(params, cfg, batch, tcfg)
+    counts_k = _kernel12_counts(ops.launch_counts())
+    runs, plain_counts = {}, 0
+    for name, fn in (("f32", None), ("f64", _f64_attention)):
+        with _plain_attention(fn):
+            ops.reset_launch_counts()
+            runs[name] = value_and_grad(params, cfg, batch, tcfg)
+            plain_counts += sum(ops.launch_counts().values())
+    fwd, bwd = FAMILY_CUT_LAUNCHES[arch]
+    check(counts_k == {"flash_attention": fwd, **dict.fromkeys(BWD_LABELS, bwd)}
+          and plain_counts == 0, f"{arch}: launches: kernels {counts_k}, plain {plain_counts}")
+    dist, rels = {}, {}
+    for tag, (loss_a, grads_a), (loss_b, grads_b) in (
+            ("kernels-f64", (loss_k, grads_k), runs["f64"]),
+            ("kernels-f32plain", (loss_k, grads_k), runs["f32"]),
+            ("f32plain-f64", runs["f32"], runs["f64"])):
+        rel = rels[tag] = _grad_rels(grads_a, grads_b)
+        top = sorted(rel, key=rel.get, reverse=True)[:3]
+        dist[tag] = dict(loss_rel=abs(float(loss_a) - float(loss_b)) / abs(float(loss_b)),
+                         worst_grad_rel=rel[top[0]], worst_leaves={n: rel[n] for n in top})
+        print(f"[family-train] {arch} {cut}, {TRAIN_BATCH} x {TRAIN_SEQ}, {tag}: loss rel "
+              f"{dist[tag]['loss_rel']:.3e}; worst leaves "
+              + ", ".join(f"{n} {rel[n]:.3e}" for n in top), flush=True)
+    # a leaf that f32 attention itself cannot hold to TRAIN_GRAD_REL of the
+    # float64 attention's (the plain version parts by more) is held to twice
+    # the plain version's distance
+    kern, plain = rels["kernels-f64"], rels["f32plain-f64"]
+    limits = {n: max(TRAIN_GRAD_REL, 2 * plain[n]) for n in kern}
+    past = {n: (kern[n], plain[n]) for n in kern if limits[n] > TRAIN_GRAD_REL}
+    bad = {n: kern[n] for n in kern if kern[n] > limits[n]}
+    print(f"[family-train] {arch}: kernel 12's launches {counts_k}, the plain runs' "
+          f"{plain_counts}; the kernels held to the float64 attention (limits: loss "
+          f"{TRAIN_LOSS_REL}, each leaf {TRAIN_GRAD_REL}, or twice the f32 plain version's "
+          f"distance where that is past it: (kernels, plain) "
+          + (", ".join(f"{n} ({a:.3e}, {b:.3e})" for n, (a, b) in past.items()) or "none")
+          + f"); leaves past their limit {bad}", flush=True)
+    check(dist["kernels-f64"]["loss_rel"] <= TRAIN_LOSS_REL and not bad,
+          f"{arch}: kernel 12's gradients part from the float64 attention's: {bad}")
+    rec = dict(cut=cut, launches=counts_k, f32_limited_leaves=past, **dist)
+    del params, grads_k, runs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _wide_heads(report):
+    """(e) heads past kernel 12's width on the card: stablelm-3b's widths
+    at 2 layers with head_dim 160, and paligemma-3b (head_dim 256) at 2
+    layers over an empty image prefix (a plain causal mask): the card's
+    logits (stablelm's forward, paligemma's prefill) against the CPU's,
+    then a forward and backward on the card, finite, with no launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import token_batches, train_config
+    from repro_torch.models import get_api
+    from repro_torch.train._tree import leaves
+    from repro_torch.train.train_step import value_and_grad
+    out = {}
+    for arch, over in ((SERVE_ARCH, dict(n_layers=2, head_dim=WIDE_HEAD)),
+                       ("paligemma-3b", dict(n_layers=2))):
+        cfg = get_config(arch).replace(**over)
+        api = get_api(cfg)
+        params = api.init_params(torch.Generator().manual_seed(0), cfg)
+        batch = token_batches(cfg, TRAIN_BATCH, FAMILY_PARITY_SEQ, 0, "cpu")(0)
+        if cfg.family == "vlm":
+            batch["image_embeds"] = torch.zeros((TRAIN_BATCH, 0, cfg.d_model))
+        inputs = {k: v for k, v in batch.items() if k != "labels"}
+        params_g = _tree_to(params, "cuda")
+        batch_g = {k: v.to("cuda") for k, v in batch.items()}
+        kw = dict(compute_dtype=torch.float32)
+        ops.reset_launch_counts()
+        if cfg.family == "vlm":
+            want = api.prefill(params, cfg, inputs, FAMILY_PARITY_SEQ, **kw)[0]
+            got = api.prefill(params_g, cfg, {k: v.to("cuda") for k, v in inputs.items()},
+                              FAMILY_PARITY_SEQ, **kw)[0]
+        else:
+            want = api.forward(params, cfg, inputs, **kw)
+            got = api.forward(params_g, cfg, {k: v.to("cuda") for k, v in inputs.items()}, **kw)
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        loss, grads = value_and_grad(params_g, cfg, batch_g, train_config(
+            steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=FAMILY_PARITY_SEQ))
+        counts = ops.launch_counts()
+        finite = (bool(torch.isfinite(got).all()) and bool(torch.isfinite(loss))
+                  and all(bool(torch.isfinite(g).all()) for g in leaves(grads)))
+        hd = cfg.resolved_head_dim
+        print(f"[family-train] wide heads: {arch} {over} (head_dim {hd}), {TRAIN_BATCH} x "
+              f"{FAMILY_PARITY_SEQ}" + (", an empty image prefix" if cfg.family == "vlm" else "")
+              + f": the card's {'prefill ' if cfg.family == 'vlm' else ''}logits against the "
+              f"CPU's {err:.4e} of max|logits| (limit {SERVE_LOGIT_RTOL}); loss "
+              f"{float(loss):.6f}; "
+              f"finite {finite}; kernel launches {sum(counts.values())}", flush=True)
+        check(finite and err <= SERVE_LOGIT_RTOL and sum(counts.values()) == 0,
+              f"{arch} at head_dim {hd}: finite {finite}, logits {err:.3e}, launches {counts}")
+        out[arch] = dict(head_dim=hd, rel_logit_err=err, loss=float(loss), launches=0)
+        del params, params_g, batch_g, grads, got, want
+        torch.cuda.empty_cache()
+    report["wide_heads"] = out
+
+
+def phase_family_train(report):
+    """The ssm, hybrid, encdec, vlm and moe families trained on the card
+    through launch/train.py's path: (a) 3 steps at published widths
+    (``FAMILY_TRAIN``), (b) gradients against the CPU at FAMILY_ARCHS's
+    cut, (c) zamba2's and seamless's against kernel 12's plain version,
+    (d) the same bits from a second backward, (e) heads past kernel 12's
+    width. Returns kernel 12's launches a step in (a), by arch."""
+    out, launches = {}, {}
+    for arch, (cut, fwd, bwd) in FAMILY_TRAIN.items():
+        rec, launches[arch] = _family_steps(arch, cut, fwd, bwd)
+        rec["vs_cpu"] = _family_vs_cpu(arch, FAMILY_ARCHS[arch][0])
+        if arch in FAMILY_CUT_LAUNCHES:
+            rec["vs_plain"] = _family_kernel_vs_plain(arch, FAMILY_ARCHS[arch][0])
+        out[arch] = rec
+    report["family_train"] = out
+    _wide_heads(report)
     return launches
 
 
@@ -5121,6 +5532,7 @@ def main(argv=None) -> int:
     family_launches[LLAMA4_ARCH] = phase_llama4(report)
     train_launches = phase_train(report)
     counts.update({op: train_launches[op] for op in BWD_LABELS})
+    family_train = phase_family_train(report)
     sharded, yardstick = phase_distributed(report)
     phase_four_ranks(report, yardstick)
     del yardstick
@@ -5155,6 +5567,8 @@ def main(argv=None) -> int:
             if name in bf16_counts else {}),
          **({"train_launches": train_launches[name]} if name in train_launches else {}),
          **({"family_launches": family_launches} if name == "flash_attention" else {}),
+         **({"family_train_launches": {arch: c[name] for arch, c in family_train.items()}}
+            if name in ("flash_attention", *BWD_LABELS) else {}),
          **({"f32_fma_bound_ms": kernels[name]["f32_fma_bound_ms"]}
             if "f32_fma_bound_ms" in kernels[name] else {}),
          "sharded_launches": sharded.get(name, 0)}

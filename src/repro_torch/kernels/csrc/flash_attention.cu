@@ -55,6 +55,12 @@
 //    correction factor of 1 leave m, l and acc unchanged), only tiles that
 //    cross the diagonal or the end of s are masked, and the flattened grid
 //    starts the longest rows first. b h is not limited by a grid dimension.
+//  * Up to d = 96 the P V product sums each tile's 64 keys for each group
+//    of 8-wide columns of d in fresh accumulators and adds them to acc in
+//    f32 (pv_group, add_to), as the backward does: the tensor cores' own
+//    accumulation truncates, and chained over every key of a row it cost
+//    the output an order of magnitude of accuracy. Wider heads chain (the
+//    fresh accumulators spill there).
 //  * m = -inf is guarded as in the Pallas kernel; expf, not __expf.
 //  * The fragment helpers and the tile staging are in flash_tile.cuh, which
 //    the backward (flash_attention_bwd.cu) shares.
@@ -73,6 +79,11 @@ constexpr int BK = 64;          // keys per tile
 constexpr int NS = BK / 8;      // 8-key steps (and 8-key score columns) per tile
 constexpr int MAX_D = 128;
 constexpr int MAX_NT = MAX_D / 8;
+// Widest head (in 8-wide steps) whose P V product sums each tile in fresh
+// accumulators (pv_group): past d = 96 they cost more registers than the
+// widest templates have (ptxas spilled at NT = 14 and 16), and P V chains
+// into acc over every key
+constexpr int FRESH_MAX_NT = 12;
 
 struct Args {
     const void* q;
@@ -96,6 +107,65 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
     x += __shfl_xor_sync(0xffffffffu, x, 1);
     return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// acc += p in f32 (round to nearest): the tensor cores' own accumulation
+// truncates, and chained over a whole row of keys (384 mma into one
+// accumulator at s = 1,024) it put the output of an attention whose keys
+// and values share a large mean 1.3e-5 of max|out| from float64 (the
+// plain version 2.1e-6), which D = rowsum(dO O) in the backward carried
+// into dQ at 3.8e-4 of its max (ab_kernels.py's "flash shared mean")
+__device__ __forceinline__ void add_to(float (&acc)[4], const float (&p)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += p[e];
+}
+
+// acc[j0 .. j0 + JG) += P V over this tile's 64 keys: the 8 steps of 8
+// keys summed in JG fresh accumulators, then added to acc in f32 (add_to).
+// P's A operand is split from S's accumulator as it stands; an f32 V's B
+// operand is two 4-byte loads, split; a bf16 V's one ldmatrix.trans of JG
+// 8-wide columns (JG 4 or 2), exact in TF32.
+template <int JG, int NT, int VP, typename TKV>
+__device__ __forceinline__ void pv_group(float (&acc)[NT][4], const float (&sc)[NS][4],
+                                         const TKV* vb, int j0, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    float p[JG][4];
+#pragma unroll
+    for (int i = 0; i < JG; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+        uint32_t ph[4], pl[4];
+        split(sc[kk][0], ph[0], pl[0]);
+        split(sc[kk][2], ph[1], pl[1]);
+        split(sc[kk][1], ph[2], pl[2]);
+        split(sc[kk][3], ph[3], pl[3]);
+        if constexpr (sizeof(TKV) == 4) {
+#pragma unroll
+            for (int i = 0; i < JG; ++i) {
+                const float y0 = vb[(8 * kk + 2 * t) * VP + 8 * (j0 + i) + g];
+                const float y1 = vb[(8 * kk + 2 * t + 1) * VP + 8 * (j0 + i) + g];
+                uint32_t h0, l0, h1, l1;
+                split(y0, h0, l0);
+                split(y1, h1, l1);
+                mma(p[i], pl, h0, h1);
+                mma(p[i], ph, l0, l1);
+                mma(p[i], ph, h0, h1);
+            }
+        } else {
+            uint32_t w[JG];
+            const int col = JG == 4 ? lane >> 3 : (lane >> 3) & 1;
+            ldmatrix_t(w, vb + (8 * kk + (lane & 7)) * VP + 8 * (j0 + col));
+#pragma unroll
+            for (int i = 0; i < JG; ++i) {
+                mma(p[i], pl, w[i] << 16, w[i] & 0xffff0000u);
+                mma(p[i], ph, w[i] << 16, w[i] & 0xffff0000u);
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < JG; ++i) add_to(acc[j0 + i], p[i]);
 }
 
 template <typename TQ, typename TKV, int NT>
@@ -241,46 +311,54 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(Args a) {
             acc[j][3] *= corr[1];
         }
 
-        // acc += P V: 8 steps of 8 keys, P's A operand straight from S
+        if constexpr (NT <= FRESH_MAX_NT) {
+            // acc += P V: each group of 8-wide columns of d sums the tile's
+            // 8 steps of 8 keys in fresh accumulators (pv_group)
 #pragma unroll
-        for (int kk = 0; kk < NS; ++kk) {
-            uint32_t ph[4], pl[4];
-            split(sc[kk][0], ph[0], pl[0]);
-            split(sc[kk][2], ph[1], pl[1]);
-            split(sc[kk][1], ph[2], pl[2]);
-            split(sc[kk][3], ph[3], pl[3]);
-            if constexpr (KV_SPLIT) {
+            for (int j0 = 0; j0 + 4 <= NT; j0 += 4) pv_group<4, NT, VP>(acc, sc, vb, j0, lane);
+            if constexpr (NT % 4 != 0) pv_group<2, NT, VP>(acc, sc, vb, NT - 2, lane);
+        } else {
+            // acc += P V: 8 steps of 8 keys, P's A operand straight from S
 #pragma unroll
-                for (int j = 0; j < NT; ++j) {
-                    const float y0 = vb[(8 * kk + 2 * t) * VP + 8 * j + g];
-                    const float y1 = vb[(8 * kk + 2 * t + 1) * VP + 8 * j + g];
-                    uint32_t h0, l0, h1, l1;
-                    split(y0, h0, l0);
-                    split(y1, h1, l1);
-                    mma(acc[j], pl, h0, h1);
-                    mma(acc[j], ph, l0, l1);
-                    mma(acc[j], ph, h0, h1);
-                }
-            } else {
-                const TKV* vrow = vb + (8 * kk + (lane & 7)) * VP;
+            for (int kk = 0; kk < NS; ++kk) {
+                uint32_t ph[4], pl[4];
+                split(sc[kk][0], ph[0], pl[0]);
+                split(sc[kk][2], ph[1], pl[1]);
+                split(sc[kk][1], ph[2], pl[2]);
+                split(sc[kk][3], ph[3], pl[3]);
+                if constexpr (KV_SPLIT) {
 #pragma unroll
-                for (int j = 0; j + 4 <= NT; j += 4) {
-                    uint32_t w[4];
-                    ldmatrix_t(w, vrow + 8 * (j + (lane >> 3)));
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        mma(acc[j + i], pl, w[i] << 16, w[i] & 0xffff0000u);
-                        mma(acc[j + i], ph, w[i] << 16, w[i] & 0xffff0000u);
+                    for (int j = 0; j < NT; ++j) {
+                        const float y0 = vb[(8 * kk + 2 * t) * VP + 8 * j + g];
+                        const float y1 = vb[(8 * kk + 2 * t + 1) * VP + 8 * j + g];
+                        uint32_t h0, l0, h1, l1;
+                        split(y0, h0, l0);
+                        split(y1, h1, l1);
+                        mma(acc[j], pl, h0, h1);
+                        mma(acc[j], ph, l0, l1);
+                        mma(acc[j], ph, h0, h1);
                     }
-                }
-                if constexpr (NT % 4 != 0) {
-                    constexpr int j = NT - 2;
-                    uint32_t w[2];
-                    ldmatrix_t(w, vrow + 8 * (j + ((lane >> 3) & 1)));
+                } else {
+                    const TKV* vrow = vb + (8 * kk + (lane & 7)) * VP;
 #pragma unroll
-                    for (int i = 0; i < 2; ++i) {
-                        mma(acc[j + i], pl, w[i] << 16, w[i] & 0xffff0000u);
-                        mma(acc[j + i], ph, w[i] << 16, w[i] & 0xffff0000u);
+                    for (int j = 0; j + 4 <= NT; j += 4) {
+                        uint32_t w[4];
+                        ldmatrix_t(w, vrow + 8 * (j + (lane >> 3)));
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+                            mma(acc[j + i], pl, w[i] << 16, w[i] & 0xffff0000u);
+                            mma(acc[j + i], ph, w[i] << 16, w[i] & 0xffff0000u);
+                        }
+                    }
+                    if constexpr (NT % 4 != 0) {
+                        constexpr int j = NT - 2;
+                        uint32_t w[2];
+                        ldmatrix_t(w, vrow + 8 * (j + ((lane >> 3) & 1)));
+#pragma unroll
+                        for (int i = 0; i < 2; ++i) {
+                            mma(acc[j + i], pl, w[i] << 16, w[i] & 0xffff0000u);
+                            mma(acc[j + i], ph, w[i] << 16, w[i] & 0xffff0000u);
+                        }
                     }
                 }
             }

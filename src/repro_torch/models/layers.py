@@ -9,21 +9,24 @@ Attention routes self-attention: the no-cache forward, the prefill into
 the KV cache at ``cache_pos=0`` and the decode over the cache, with the
 reference's causal, sliding-window and prefix-LM masks. Wherever it
 computes the function of kernel 12 (attention over equal query and key
-lengths under a plain causal mask, or full without a cache) it calls
+lengths under a plain causal mask, or full without a cache) at a head
+width the kernel takes (up to its ``MAX_D``, 128) it calls
 ``ops.flash_attention``: the hand-written kernel on a CUDA tensor (with its
 hand-written backward when training), its plain version on the CPU. A
 window that cuts into the sequence, a prefix, and the decode (queries
 past the start of the cache) stay plain torch, as the reference keeps
 them in jnp: its full-scores path, or, past 8,192 positions in multiples
-of 1,024, its query-blockwise path. The two paths part where a window and
-a prefix meet, and each is mirrored as it is (ROADMAP queue 3).
+of 1,024, its query-blockwise path; so does a head wider than ``MAX_D``,
+which the reference computes at any width. The two paths part where a
+window and a prefix meet, and each is mirrored as it is (ROADMAP queue 3).
 
 Cross-attention (``x_kv``, the encoder-decoder's) projects K and V from
 ``x_kv``, with no RoPE and no mask: over as many keys as queries it is
 kernel 12's full function (``ops.flash_attention``, ``causal=False``);
-over another number of keys (the decode step, a ragged source) it is the
-plain masked path with every key visible. The reference's sharding
-constraints are the identity on one device and are dropped.
+over another number of keys (the decode step, a ragged source), or at a
+head past ``MAX_D``, it is the plain masked path with every key visible.
+The reference's sharding constraints are the identity on one device and
+are dropped.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..kernels.flash_attention import MAX_D
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -158,7 +162,7 @@ def attention(
     v = v.reshape(b, s_kv, kv, hd)
 
     if x_kv is not None:
-        if s_kv == s:       # kernel 12's full function
+        if s_kv == s and hd <= MAX_D:       # kernel 12's full function
             out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                       v.transpose(1, 2), causal=False).transpose(1, 2)
         else:
@@ -189,7 +193,7 @@ def attention(
 
     t = k.shape[1]
     plain_mask = not causal or (not prefix_len and (not window or t <= window))
-    if q_offset == 0 and plain_mask:
+    if q_offset == 0 and plain_mask and hd <= MAX_D:
         # kernel 12's function: (b, h, s, d) views of q and of k, v (the
         # cache slice on the prefill), read in place by the kernel
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
