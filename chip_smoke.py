@@ -217,11 +217,19 @@ Phases (any failure exits non-zero before the last line is printed):
                   its widths, 2 layers, forward and backward at s = 6,144
                   past its window, layer 0's attention and gradients
                   against float64;
+                - the sharded LM step (build_train_step under
+                  axis_rules(rules, mesh=mesh)): the same stablelm-3b
+                  steps on a 1 x 1 ("data", "model") DeviceMesh over a
+                  1-rank NCCL group, each loss and the parameters after 3
+                  steps bit for bit the one-device step's, kernel 12's
+                  launches exact, ms a step, peak and busy share; with
+                  four cards, also on meshes (1, 4) and (2, 2), one card a
+                  rank (phase_four_ranks);
                 - the other families (FAMILY_ARCHS): mamba2-780m,
                   zamba2-2.7b, seamless-m4t-large-v2, paligemma-3b and
                   deepseek-v2-lite-16b at full width cut in depth, batch
                   2, a prompt of 100, on the card against the CPU, then
-                  each served at full depth (4 x 2,048 prompt tokens, 32
+                  each served at half its depth (4 x 2,048 prompt tokens, 32
                   generated; kernel 12's launches exact), deepseek's
                   routing counted (copies dropped past the capacity,
                   tokens at a router near-tie); deepseek's routed experts
@@ -239,6 +247,9 @@ Phases (any failure exits non-zero before the last line is printed):
                 on both engines and E1 block-sparse explicit in bf16, each
                 cut into its stages (pass 1, build, sweeps, k-means, probe,
                 idle).
+
+Each phase's seconds are printed on a line of their own ("[phase] ...")
+and kept in the report's ``phase_s``.
 
 The last lines are one JSON object with every kernel's numbers (rows 1, 2
 and 9 with their bf16 forms' too: ``bf16_ms``, ``bf16_bound_ms``,
@@ -3635,19 +3646,29 @@ def phase_serve_parity(report):
                                   wall_s=wall)
 
 
-#: the families past the dense one: each arch, the depth its card-vs-CPU
-#: parity run is cut to, and kernel 12's launches in a full-depth prefill
-#: (zamba2: one a group of 6 mamba blocks; seamless: 24 encoder, 24
-#: decoder self-attention and 24 cross-attention calls; mamba2 has no
-#: attention; paligemma's prefix mask is never kernel 12's function;
-#: deepseek's MLA is computed in plain torch, as the reference computes it
-#: in jnp: its q.k width of 192 is past kernel 12's 128 and unequal to v's)
+#: the families past the dense one: each arch and the depth its card-vs-CPU
+#: parity run is cut to (mamba2 has no attention; paligemma's prefix mask
+#: is never kernel 12's function; deepseek's MLA is computed in plain
+#: torch, as the reference computes it in jnp: its q.k width of 192 is
+#: past kernel 12's 128 and unequal to v's)
 FAMILY_ARCHS = {
-    "mamba2-780m": (dict(n_layers=2), 0),
-    "zamba2-2.7b": (dict(n_layers=6), 9),
-    "seamless-m4t-large-v2": (dict(n_layers=2, n_enc_layers=2), 72),
-    "paligemma-3b": (dict(n_layers=2), 0),
-    "deepseek-v2-lite-16b": (dict(n_layers=2), 0),   # the dense layer 0 and one moe layer
+    "mamba2-780m": dict(n_layers=2),
+    "zamba2-2.7b": dict(n_layers=6),
+    "seamless-m4t-large-v2": dict(n_layers=2, n_enc_layers=2),
+    "paligemma-3b": dict(n_layers=2),
+    "deepseek-v2-lite-16b": dict(n_layers=2),   # the dense layer 0 and one moe layer
+}
+#: phase_family_serve's depth, half of each family's (cut from the full
+#: depth to keep the script near 700 s), and kernel 12's launches
+#: in a prefill at it: zamba2 5 groups of 6, one launch each; seamless 12
+#: encoder, 12 decoder self and 12 cross-attention calls; deepseek the
+#: dense layer 0 and 13 moe layers
+FAMILY_SERVE = {
+    "mamba2-780m": (dict(n_layers=24), 0),
+    "zamba2-2.7b": (dict(n_layers=30), 5),
+    "seamless-m4t-large-v2": (dict(n_layers=12, n_enc_layers=12), 36),
+    "paligemma-3b": (dict(n_layers=9), 0),
+    "deepseek-v2-lite-16b": (dict(n_layers=14), 0),
 }
 ROUTE_TIE = 1e-6            # router probabilities nearer than this: a near-tie
 
@@ -3703,7 +3724,7 @@ def phase_family_parity(report):
     from repro_torch.configs import get_config
     from repro_torch.models import get_api, make_train_batch
     out = {}
-    for arch, (cut, _) in FAMILY_ARCHS.items():
+    for arch, cut in FAMILY_ARCHS.items():
         cfg = get_config(arch).replace(**cut)
         t0 = time.perf_counter()
         params = get_api(cfg).init_params(torch.Generator().manual_seed(0), cfg)
@@ -3779,14 +3800,14 @@ def phase_serve(report):
 
 
 def phase_family_serve(report):
-    """Each family of ``FAMILY_ARCHS`` at full depth and width through
-    launch/serve.py's ``serve``, weights drawn on the card from seed 0: 4
+    """Each family of ``FAMILY_SERVE`` at its published width and half its
+    depth through launch/serve.py's ``serve``, weights drawn on the card from seed 0: 4
     requests of 2,048 prompt tokens (seamless: 2,048 source frames;
     paligemma: its 256 image positions before them), 32 generated tokens;
     then a second call, whose tokens must equal the first's, and the
     prefill and 4 decode steps under torch.profiler; for moe one more
     prefill with its routing counted. Kernel 12's launches are checked
-    exactly: ``FAMILY_ARCHS``' count a prefill, none in the decode, and no
+    exactly: ``FAMILY_SERVE``'s count a prefill, none in the decode, and no
     other kernel. Returns {arch: {"prefill": n, "decode": n}} of kernel 12's
     launches in the first call."""
     from repro_torch.configs import get_config
@@ -3794,8 +3815,8 @@ def phase_family_serve(report):
     from repro_torch.launch import serve
     from repro_torch.models import get_api, make_train_batch
     out, launches = {}, {}
-    for arch, (_, flash_prefill) in FAMILY_ARCHS.items():
-        cfg = get_config(arch)
+    for arch, (depth, flash_prefill) in FAMILY_SERVE.items():
+        cfg = get_config(arch).replace(**depth)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3811,7 +3832,7 @@ def phase_family_serve(report):
                            decode_ms_per_token=r.decode_s / (SERVE_GEN - 1) * 1e3)
                  for tag, r in (("first", res), ("second", again))}
         pre, dec = res.prefill_launches, res.decode_launches
-        print(f"[family-serve] {arch} full ({cfg.n_layers} layers"
+        print(f"[family-serve] {arch} half depth ({cfg.n_layers} layers"
               + (f", {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
               + f", d_model {cfg.d_model}), batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
               f"gen {SERVE_GEN}: "
@@ -4074,7 +4095,7 @@ def _train_full_width(report):
     from repro_torch.launch.train import token_batches, train_config
     from repro_torch.models import get_api
     from repro_torch.train import adamw_init, build_train_step
-    from repro_torch.train._tree import leaves
+    from repro_torch.train._tree import leaves, named_leaves
     cfg = get_config(TRAIN_ARCH)
     tcfg = train_config(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
     torch.cuda.synchronize()
@@ -4117,13 +4138,17 @@ def _train_full_width(report):
           "a parameter is not finite after training")
     print(f"[train] peak_mem_GB={peak / 1e9:.3f} (parameters {4 * n_params / 1e9:.3f} GB in f32)",
           flush=True)
+    # the yardstick of the sharded step: the losses and the parameters after
+    # the 3 steps, on the host
+    one_device = dict(losses=[rec["loss"] for rec in steps],
+                      params={name: t.cpu() for name, t in named_leaves(params).items()})
     profile = _train_profile(cfg, tcfg, params, opt, data_fn(TRAIN_STEPS))
     report["train_full"] = dict(arch=TRAIN_ARCH, n_layers=cfg.n_layers, n_params=n_params,
                                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps,
                                 peak_mem_bytes=peak, profile=profile)
     del params, opt, step
     torch.cuda.empty_cache()
-    return total
+    return total, one_device
 
 
 def _train_parity(report):
@@ -4311,12 +4336,172 @@ def phase_train(report):
     """The LM trainer (launch/train.py's path) on the card: (a) full-width
     stablelm-3b, 3 steps; (b) 2 layers against the plain attention; (c)
     the restartable example, bitwise; (d) h2o-danube past its window.
-    Returns kernel 12's launches in (a), forward and backward."""
-    launches = _train_full_width(report)
+    Returns kernel 12's launches in (a), forward and backward, and (a)'s
+    losses and parameters after its 3 steps (on the host)."""
+    launches, one_device = _train_full_width(report)
     _train_parity(report)
     _train_restart(report)
     _train_window(report)
-    return launches
+    return launches, one_device
+
+
+#: the four-rank phase's meshes of the sharded LM step, (data, model)
+SHARDED_MESHES = ((1, 4), (2, 2))
+#: the reference's own tolerance across mesh shapes (its elastic reshard test)
+SHARDED_ATOL, SHARDED_RTOL = 5e-4, 2e-3
+
+
+def _one_device_lm(cfg, tcfg, data_fn, dev):
+    """phase_train (a)'s 3 steps on ``dev`` alone: the losses and the
+    parameters after them, on the host."""
+    from repro_torch.models import get_api
+    from repro_torch.train import adamw_init, build_train_step
+    from repro_torch.train._tree import named_leaves
+    params = get_api(cfg).init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt, step, losses = adamw_init(params), build_train_step(cfg, tcfg), []
+    for i in range(TRAIN_STEPS):
+        params, opt, m = step(params, opt, data_fn(i))
+        losses.append(float(m["loss"]))
+    out = dict(losses=losses, params={k: t.cpu() for k, t in named_leaves(params).items()})
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_lm_steps(mesh, cfg, tcfg, data_fn, dev, yardstick, profile=False):
+    """stablelm-3b's seed-0 weights placed on ``mesh`` by param_shardings
+    (the AdamW moments with them: adamw_init's zeros of the local shards),
+    then phase_train (a)'s 3 steps through build_train_step under
+    axis_rules(rules, mesh=mesh): each step's loss, ms and kernel 12's
+    launches, the peak, and each rank's shards after the 3 steps against
+    the slices of ``yardstick`` (one device's parameters, on the host): bit
+    for bit, the worst distance, and its share of the tolerance; a digest
+    of the replicated leaves. ``profile``: then one more step under
+    torch.profiler, its wall and the device's busy ms."""
+    import hashlib
+
+    from repro_torch.distributed import axis_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import (build_rules, local_shard, param_shardings,
+                                         placement_leaves, shard_tree, specs_like)
+    from repro_torch.models import get_api
+    from repro_torch.train import adamw_init, build_train_step
+    from repro_torch.train._tree import named_leaves
+    import gc
+    api = get_api(cfg)
+    rules = build_rules(cfg, model_size=mesh.shape[1], data_size=mesh.shape[0])
+    # a process's first checkpointed forward imports parts of torch lazily,
+    # and a frame cycle made there keeps that step's locals (its gradients,
+    # the optimizer state) until the cycle collector runs: collect them
+    # before the peak is reset
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = dict(mesh=list(mesh.shape), steps=[])
+    with axis_rules(rules, mesh=mesh):
+        full = api.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        placements = param_shardings(mesh, specs_like(api.param_specs(cfg), full))
+        params = shard_tree(full, mesh, placements)
+        del full
+        opt = adamw_init(params)
+        step = build_train_step(cfg, tcfg)
+        for i in range(TRAIN_STEPS):
+            batch = data_fn(i)
+            torch.cuda.synchronize(dev)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            m = {k: float(v) for k, v in m.items()}
+            torch.cuda.synchronize(dev)
+            rec["steps"].append(dict(m, ms=(time.perf_counter() - t0) * 1e3,
+                                     launches=_kernel12_counts(ops.launch_counts())))
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+        flat = dict(zip(named_leaves(params), placement_leaves(placements)))
+        bitwise, worst, share, digest = True, 0.0, 0.0, hashlib.sha256()
+        for name, got in named_leaves(params).items():
+            want = local_shard(yardstick[name], mesh, flat[name]).to(dev)
+            d = (got - want).abs()
+            bitwise &= torch.equal(got, want)
+            worst = max(worst, float(d.max()))
+            share = max(share, float((d / (SHARDED_ATOL + SHARDED_RTOL * want.abs())).max()))
+            if not any(pl.is_shard() for pl in flat[name]):
+                digest.update(got.cpu().numpy().tobytes())
+        rec.update(bitwise=bitwise, worst_abs=worst, tolerance_share=share,
+                   replicated_digest=digest.hexdigest(),
+                   finite=all(bool(torch.isfinite(t).all()) for t in named_leaves(params).values()))
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as torch_profile
+            batch = data_fn(TRAIN_STEPS)
+            torch.cuda.synchronize(dev)
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(params, opt, batch)
+                torch.cuda.synchronize(dev)
+                wall = (time.perf_counter() - t0) * 1e3
+            spans = _device_spans(prof)
+            rec["profile"] = dict(wall_ms=wall, device_busy_ms=_busy_us(spans) / 1e3
+                                  if spans else None)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_sharded_train(report, one_device):
+    """The sharded train step (build_train_step under axis_rules(rules,
+    mesh=mesh), ROADMAP 12b.4a) of stablelm-3b at full width on a 1 x 1
+    ("data", "model") DeviceMesh over a 1-rank NCCL group: phase_train
+    (a)'s weights, batches and TrainConfig (f32, remat "full"), 3 steps.
+    Each loss and every parameter after the 3 steps must be bit for bit
+    phase_train (a)'s (``one_device``), and kernel 12's launches exactly
+    2 forwards and one backward (D, dK/dV, dQ) a layer a step. Records ms
+    a step, the peak and the busy share of a profiled 4th step beside
+    phase_train's. Returns kernel 12's launches over the 3 steps."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import token_batches, train_config
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = train_config(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    data_fn = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, "cuda")
+    dist.init_process_group("nccl", init_method=f"file://{_nccl_store()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        rec = _sharded_lm_steps(mesh, cfg, tcfg, data_fn, "cuda", one_device["params"],
+                                profile=True)
+    finally:
+        dist.destroy_process_group()
+    losses = [st["loss"] for st in rec["steps"]]
+    want = {"flash_attention": 2 * cfg.n_layers, **dict.fromkeys(BWD_LABELS, cfg.n_layers)}
+    for i, st in enumerate(rec["steps"]):
+        print(f"[sharded-train] {TRAIN_ARCH} full on a 1 x 1 ('data', 'model') mesh (1-rank "
+              f"NCCL), step {i}: loss={st['loss']:.6f} (one device {one_device['losses'][i]:.6f}) "
+              f"ms={st['ms']:.3f}; kernel 12 launches {st['launches']}", flush=True)
+        check(st["launches"] == want, f"kernel 12's launches in a sharded step: "
+              f"{st['launches']}, expected {want}")
+    train = report["train_full"]
+    prof, one_prof = rec["profile"], train["profile"]
+    one_wall = sum(one_prof[k]["wall_ms"] for k in one_prof)
+    one_busy = sum(one_prof[k]["device_busy_ms"] or 0.0 for k in one_prof)
+    busy = prof["device_busy_ms"]
+    print(f"[sharded-train] losses bitwise one device's={losses == one_device['losses']}; "
+          f"parameters after {TRAIN_STEPS} steps bitwise={rec['bitwise']} (worst "
+          f"|d|={rec['worst_abs']:.3e}); peak_mem_GB={rec['peak_mem_bytes'] / 1e9:.3f} "
+          f"(phase_train {train['peak_mem_bytes'] / 1e9:.3f}); ms a step "
+          + ", ".join(f"{st['ms']:.3f}" for st in rec["steps"])
+          + " (phase_train " + ", ".join(f"{st['ms']:.3f}" for st in train["steps"])
+          + f"); profiled step wall_ms={prof['wall_ms']:.3f} busy="
+          + (f"{100 * busy / prof['wall_ms']:.2f}%" if busy else "not measured")
+          + f" (phase_train's profiled stages {one_wall:.3f} ms, busy "
+          + (f"{100 * one_busy / one_wall:.2f}%)" if one_busy else "not measured)"), flush=True)
+    check(losses == one_device["losses"], f"the 1-rank sharded step's losses {losses} are not "
+          f"one device's {one_device['losses']} bit for bit")
+    check(rec["bitwise"] and rec["finite"], "the 1-rank sharded step's parameters after "
+          f"{TRAIN_STEPS} steps are not one device's bit for bit")
+    report["sharded_train"] = dict(rec, arch=TRAIN_ARCH, losses_bitwise=True)
+    return {op: sum(st["launches"][op] for st in rec["steps"]) for op in want}
 
 
 #: phase_family_train's steps: each family's depth cut (None: its full
@@ -4326,6 +4511,9 @@ def phase_train(report):
 #: groups; seamless: 24 encoder (full), 24 decoder self (causal) and 24
 #: cross (full) calls; deepseek at 4 of 27 layers (the dense layer 0 and 3
 #: moe layers: its 27 would need 251 GB with AdamW's moments)
+#: phase_family_train (a)'s steps a family, the first of TRAIN_STEPS' schedule
+#: (cut from 3 to keep the script near 700 s; phase_train keeps all 3)
+FAMILY_TRAIN_STEPS = 2
 FAMILY_TRAIN = {
     "mamba2-780m": (None, 0, 0),
     "zamba2-2.7b": (None, 18, 9),
@@ -4358,7 +4546,8 @@ def _grad_rels(got, want):
 def _family_steps(arch, cut, fwd, bwd):
     """(a) ``arch`` at its published widths (depth ``cut``), seed-0 weights
     drawn on the card, launch/train.py's TrainConfig (f32, remat="full",
-    AdamW, z-loss), 3 steps of 2 x 1,024 tokens from ``token_batches``;
+    AdamW, z-loss), FAMILY_TRAIN_STEPS steps of 2 x 1,024 tokens from
+    ``token_batches``;
     the peak memory; one more step profiled by stage. Frees its weights and
     AdamW state before it returns (the record, kernel 12's launches in the
     last step)."""
@@ -4392,7 +4581,7 @@ def _family_steps(arch, cut, fwd, bwd):
     steps = []
     ts.loss_fn = recorded
     try:
-        for i in range(TRAIN_STEPS):
+        for i in range(FAMILY_TRAIN_STEPS):
             batch = data_fn(i)
             torch.cuda.synchronize()
             ops.reset_launch_counts()
@@ -4429,7 +4618,7 @@ def _family_steps(arch, cut, fwd, bwd):
           f"{arch}: a parameter is not finite after training")
     print(f"[family-train] {arch} peak_mem_GB={peak / 1e9:.3f} (weights, gradients and AdamW's "
           f"two moments in f32 {16 * n_params / 1e9:.3f} GB)", flush=True)
-    profile = _train_profile(cfg, tcfg, params, opt, data_fn(TRAIN_STEPS))
+    profile = _train_profile(cfg, tcfg, params, opt, data_fn(FAMILY_TRAIN_STEPS))
     rec = dict(n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers, n_params=n_params,
                batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps, peak_mem_bytes=peak,
                profile=profile)
@@ -4627,7 +4816,7 @@ def _wide_heads(report):
 
 def phase_family_train(report):
     """The ssm, hybrid, encdec, vlm and moe families trained on the card
-    through launch/train.py's path: (a) 3 steps at published widths
+    through launch/train.py's path: (a) FAMILY_TRAIN_STEPS steps at published widths
     (``FAMILY_TRAIN``), (b) gradients against the CPU at FAMILY_ARCHS's
     cut, (c) zamba2's and seamless's against kernel 12's plain version,
     (d) the same bits from a second backward, (e) heads past kernel 12's
@@ -4635,9 +4824,9 @@ def phase_family_train(report):
     out, launches = {}, {}
     for arch, (cut, fwd, bwd) in FAMILY_TRAIN.items():
         rec, launches[arch] = _family_steps(arch, cut, fwd, bwd)
-        rec["vs_cpu"] = _family_vs_cpu(arch, FAMILY_ARCHS[arch][0])
+        rec["vs_cpu"] = _family_vs_cpu(arch, FAMILY_ARCHS[arch])
         if arch in FAMILY_CUT_LAUNCHES:
-            rec["vs_plain"] = _family_kernel_vs_plain(arch, FAMILY_ARCHS[arch][0])
+            rec["vs_plain"] = _family_kernel_vs_plain(arch, FAMILY_ARCHS[arch])
         out[arch] = rec
     report["family_train"] = out
     _wide_heads(report)
@@ -4842,7 +5031,7 @@ def _directions(n: int, seed: int = 0, m: int = 8, noise: float = 0.02):
 EARLY = dict(eps_scale=0.0, max_iter=3)
 DIST_RTOL = 1e-5        # a sharded embedding against one device's, relative to max|v|
 FOUR_RANKS = 4
-FOUR_RANK_S = 300       # the four-rank phase's deadline, and its ranks' collective timeout
+FOUR_RANK_S = 600       # the four-rank phase's deadline, and its ranks' collective timeout
 
 
 def _sharded_runs():
@@ -5272,7 +5461,8 @@ def _four_rank_worker(rank, world, store, out_path, ckpt_root):
     up and once counted; the explicit run through run_gpic's supervisor
     (snapshots every 5 sweeps under ``ckpt_root``, shared by the ranks),
     interrupted at sweep 10 on rank 1 alone and resumed; E1 explicit on
-    shuffled rows with ``row_reorder``. Rank 0 saves what it got."""
+    shuffled rows with ``row_reorder``; then the sharded LM step
+    (:func:`_four_rank_lm`). Rank 0 saves what it got."""
     import torch.distributed as dist
     from repro_torch import AffinitySpec, GPICConfig, run_gpic
     from repro_torch.core import distributed as D
@@ -5320,13 +5510,80 @@ def _four_rank_worker(rank, world, store, out_path, ckpt_root):
     out["reorder"] = dict(perm=perm.cpu(), labels=res.labels.cpu().numpy(),
                           n_iter_cols=res.n_iter_cols.tolist(),
                           wall_s=time.perf_counter() - t0)
+    del mono, res
+    torch.cuda.empty_cache()
+    lm = _four_rank_lm(dev)
+    gathered = [None] * world if rank == 0 else None
+    dist.gather_object(lm, gathered, dst=0)
+    out["lm"] = gathered
     if rank == 0:
         torch.save(out, out_path)
     dist.barrier()
     dist.destroy_process_group()
 
 
-def phase_four_ranks(report, yardstick):
+def _four_rank_lm(dev):
+    """This rank's part of the sharded LM step on four cards: phase_train
+    (a)'s 3 steps on this card alone (the yardstick of the parameters),
+    then on each of SHARDED_MESHES through :func:`_sharded_lm_steps`."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import token_batches, train_config
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = train_config(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    data_fn = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, dev)
+    one = _one_device_lm(cfg, tcfg, data_fn, dev)
+    out = dict(one_losses=one["losses"], meshes={})
+    for shape in SHARDED_MESHES:
+        mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+        out["meshes"][f"{shape[0]}x{shape[1]}"] = _sharded_lm_steps(
+            mesh, cfg, tcfg, data_fn, dev, one["params"])
+    return out
+
+
+def _check_four_rank_lm(lm, losses_1):
+    """The sharded LM step's records of the four ranks, against the 1-rank
+    run's losses ``losses_1``: each loss within TRAIN_LOSS_REL, every
+    rank's shards within the reference's tolerance of one device's
+    parameters, the replicated leaves bitwise alike on every rank, kernel
+    12 at 2 forwards and one backward a layer a rank a step."""
+    from repro_torch.configs import get_config
+    layers = get_config(TRAIN_ARCH).n_layers
+    want = {"flash_attention": 2 * layers, **dict.fromkeys(BWD_LABELS, layers)}
+    rec = {}
+    for name in lm[0]["meshes"]:
+        ranks = [r["meshes"][name] for r in lm]
+        losses = [st["loss"] for st in ranks[0]["steps"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_1))
+        worst = max(r["worst_abs"] for r in ranks)
+        share = max(r["tolerance_share"] for r in ranks)
+        same_replicated = len({r["replicated_digest"] for r in ranks}) == 1
+        launches = [st["launches"] for r in ranks for st in r["steps"]]
+        ms = [[st["ms"] for st in r["steps"]] for r in ranks]
+        peaks = [r["peak_mem_bytes"] for r in ranks]
+        print(f"[distributed] 4 ranks sharded LM step {TRAIN_ARCH} full, mesh {name} "
+              f"(data x model): losses {losses} (1 rank {losses_1}; worst rel {rel:.3e}); "
+              f"parameters after {TRAIN_STEPS} steps: worst |d|={worst:.3e} against one "
+              f"device, {share:.3f} of atol {SHARDED_ATOL} + rtol {SHARDED_RTOL} |x|; "
+              f"replicated leaves bitwise alike on every rank={same_replicated}; ms a step "
+              f"(rank 0) {ms[0]}; peak_mem_GB a rank "
+              + ", ".join(f"{p / 1e9:.3f}" for p in peaks)
+              + f"; kernel 12 launches (rank 0, step 0) {launches[0]}", flush=True)
+        check(rel <= TRAIN_LOSS_REL, f"4 ranks {name}: a loss is not within "
+              f"{TRAIN_LOSS_REL} of the 1-rank run's")
+        check(share <= 1.0 and all(r["finite"] for r in ranks),
+              f"4 ranks {name}: the parameters are not within the tolerance of one device's")
+        check(same_replicated, f"4 ranks {name}: the replicated leaves differ between ranks")
+        check(all(c == want for c in launches), f"4 ranks {name}: kernel 12's launches "
+              f"{launches}, expected {want} a rank a step")
+        rec[name] = dict(losses=losses, max_loss_rel=rel, worst_abs=worst,
+                         tolerance_share=share, replicated_bitwise=same_replicated,
+                         ms=ms, peak_mem_bytes=peaks, launches=launches[0])
+    return rec
+
+
+def phase_four_ranks(report, yardstick, lm_losses):
     """Four ranks, one card each, over NCCL, when the machine has four
     cards: the explicit and streaming runs at n = 45,000 held to the 1-rank
     runs (labels equal, column 0's sweeps within one: the ring and the
@@ -5335,8 +5592,9 @@ def phase_four_ranks(report, yardstick):
     supervised explicit run, interrupted on one rank, bitwise the 4-rank
     monolithic run with the notes retry and resumed:10; the reordered E1
     run's permutation exactly the 1-rank one (its labels against the 1-rank
-    run's recorded). On fewer cards it says so on one line and runs
-    nothing."""
+    run's recorded); the sharded LM step at meshes (1, 4) and (2, 2)
+    against the 1-rank run's losses ``lm_losses`` (:func:`_check_four_rank_lm`).
+    On fewer cards it says so on one line and runs nothing."""
     import tempfile
     import torch.multiprocessing as mp
     cards = torch.cuda.device_count()
@@ -5398,6 +5656,7 @@ def phase_four_ranks(report, yardstick):
                           wall_s=resumed["wall_s"])
     rec["reorder"] = dict(permutation_equal=same_perm, labels_equal=same_labels, ari=agree,
                           n_iter_cols=reorder["n_iter_cols"], wall_s=reorder["wall_s"])
+    rec["lm"] = _check_four_rank_lm(got["lm"], lm_losses)
     report["four_ranks"] = dict(run=True, cards=cards, runs=rec)
 
 
@@ -5448,6 +5707,32 @@ def _bf16_keys(rec, launches) -> dict:
             "bf16_library_ms": None}
 
 
+#: seconds of each phase, in the order run (a phase run again gets "#2", ...)
+PHASE_S: dict[str, float] = {}
+
+
+def _timed(fn):
+    """``fn`` with its seconds printed on a line of their own and kept in
+    PHASE_S."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            key, i = fn.__name__, 2
+            while key in PHASE_S:
+                key, i = f"{fn.__name__}#{i}", i + 1
+            PHASE_S[key] = time.perf_counter() - t0
+            print(f"[phase] {key}: {PHASE_S[key]:.1f} s", flush=True)
+    return run
+
+
+for _name, _fn in list(globals().items()):
+    if _name.startswith("phase_") and callable(_fn):
+        globals()[_name] = _timed(_fn)
+
+
 def _finish(t_start, smi, report, name, line) -> int:
     """Write the report to chiprun_out/``name`` and print the closing
     lines: ``line`` (a JSON object), the card's name and power limit, and
@@ -5455,6 +5740,7 @@ def _finish(t_start, smi, report, name, line) -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     report["total_s"] = time.perf_counter() - t_start
+    report["phase_s"] = PHASE_S
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump(report, f, indent=1)
     print(f"[done] total_s={report['total_s']:.1f}")
@@ -5467,13 +5753,18 @@ def _finish(t_start, smi, report, name, line) -> int:
 
 
 def main_distributed(t_start, smi, report) -> int:
-    """``--distributed``: the sharded phases alone, the 1-rank NCCL runs and
-    then the four-rank phase where the machine has four cards. Its JSON
-    line is the sharded path's launches."""
+    """``--distributed``: the sharded phases alone: phase_train (a)'s
+    one-device steps (the yardstick), the 1-rank NCCL runs of the LM step
+    and of GPIC, then the four-rank phase where the machine has four
+    cards. Its JSON line is the sharded paths' launches."""
+    _, one_device = _train_full_width(report)
+    sharded_lm = phase_sharded_train(report, one_device)
+    lm_losses = one_device["losses"]
+    del one_device
     sharded, yardstick = phase_distributed(report)
-    phase_four_ranks(report, yardstick)
+    phase_four_ranks(report, yardstick, lm_losses)
     return _finish(t_start, smi, report, "chip_smoke_distributed.json",
-                   {"sharded_launches": sharded})
+                   {"sharded_launches": {**sharded, **sharded_lm}})
 
 
 def main(argv=None) -> int:
@@ -5530,11 +5821,14 @@ def main(argv=None) -> int:
     family_launches = phase_family_serve(report)
     phase_moe_ffn(report)
     family_launches[LLAMA4_ARCH] = phase_llama4(report)
-    train_launches = phase_train(report)
+    train_launches, one_device = phase_train(report)
     counts.update({op: train_launches[op] for op in BWD_LABELS})
+    sharded_lm = phase_sharded_train(report, one_device)
+    lm_losses = one_device["losses"]
+    del one_device
     family_train = phase_family_train(report)
     sharded, yardstick = phase_distributed(report)
-    phase_four_ranks(report, yardstick)
+    phase_four_ranks(report, yardstick, lm_losses)
     del yardstick
     phase_ring_stages(report)
     check(all(counts[name] > 0 for name in SOURCES), f"a kernel was never launched: {counts}")
@@ -5571,7 +5865,7 @@ def main(argv=None) -> int:
             if name in ("flash_attention", *BWD_LABELS) else {}),
          **({"f32_fma_bound_ms": kernels[name]["f32_fma_bound_ms"]}
             if "f32_fma_bound_ms" in kernels[name] else {}),
-         "sharded_launches": sharded.get(name, 0)}
+         "sharded_launches": sharded.get(name, 0) + sharded_lm.get(name, 0)}
         for name in SOURCES]}
     report["kernels"] = kernels
     return _finish(t_start, smi, report, "chip_smoke_report.json", line)

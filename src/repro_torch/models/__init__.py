@@ -1,3 +1,4 @@
-from .model_zoo import ModelAPI, get_api, make_train_batch
+from .model_zoo import ModelAPI, decode_inputs_specs, get_api, make_train_batch, train_batch_specs
 
-__all__ = ["ModelAPI", "get_api", "make_train_batch"]
+__all__ = ["ModelAPI", "decode_inputs_specs", "get_api", "make_train_batch",
+           "train_batch_specs"]

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import stacked
 from . import layers as L
 from . import transformer as T
 from .transformer import _cast, checkpointed
@@ -58,6 +59,16 @@ def init_params(gen, cfg: ModelConfig, dtype=torch.float32):
         "ln_enc": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
         "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
     }
+
+
+def param_specs(cfg: ModelConfig):
+    enc = {"ln1": ("embed",), "attn": L.attention_specs(cfg),
+           "ln2": ("embed",), "mlp": L.mlp_specs(gated=False)}
+    dec = {"ln1": ("embed",), "self_attn": L.attention_specs(cfg),
+           "ln_x": ("embed",), "cross_attn": L.attention_specs(cfg),
+           "ln2": ("embed",), "mlp": L.mlp_specs(gated=False)}
+    return {"embed": L.embed_specs(cfg), "enc_layers": stacked(enc, "layers"),
+            "dec_layers": stacked(dec, "layers"), "ln_enc": ("embed",), "ln_f": ("embed",)}
 
 
 def encode(params, cfg: ModelConfig, src_embeds, *, compute_dtype=torch.bfloat16,
@@ -120,6 +131,7 @@ def forward(params, cfg: ModelConfig, batch, *, compute_dtype=torch.bfloat16,
 
 #: the decoder's self-attention cache, a layer's stacked on (n_layers,)
 init_cache = T.init_cache
+cache_specs = T.cache_specs
 
 
 def _run_decoder(params, cfg, h, cache, pos, enc_out, compute_dtype):

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import stacked
 from . import layers as L
 from . import ssm
 from .transformer import _cast, checkpointed, head_logits
@@ -49,6 +50,20 @@ def init_params(gen, cfg: ModelConfig, dtype=torch.float32):
             "mlp": L.init_mlp(gen, cfg, dtype, gated=True),
         },
         "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+    }
+
+
+def param_specs(cfg: ModelConfig):
+    return {
+        "embed": L.embed_specs(cfg),
+        "mamba": stacked(ssm.mamba_block_specs(cfg), "layers"),
+        "shared_attn": {
+            "ln1": ("embed",),
+            "attn": L.attention_specs(cfg),
+            "ln2": ("embed",),
+            "mlp": L.mlp_specs(gated=True),
+        },
+        "ln_f": ("embed",),
     }
 
 
@@ -98,6 +113,11 @@ def init_cache(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16, device=No
     mamba = {name: torch.zeros((n_groups, per, *a.shape), dtype=torch.float32, device=device)
              for name, a in one.items()}
     return {"mamba": mamba, "attn": _attn_cache(cfg, batch, max_len, dtype, device)}
+
+
+def cache_specs(cfg: ModelConfig):
+    return {"mamba": stacked(ssm.mamba_cache_specs(cfg), "layers", None),
+            "attn": stacked(L.attention_cache_specs(cfg), "layers")}
 
 
 def _serve(params, cfg, h, cache, pos, compute_dtype, *, prefill_mode):

@@ -25,8 +25,18 @@ Cross-attention (``x_kv``, the encoder-decoder's) projects K and V from
 kernel 12's full function (``ops.flash_attention``, ``causal=False``);
 over another number of keys (the decode step, a ragged source), or at a
 head past ``MAX_D``, it is the plain masked path with every key visible.
-The reference's sharding constraints are the identity on one device and
-are dropped.
+Every init has a sibling ``*_specs`` giving the reference's tree of
+logical axis names (``distributed/sharding.py``). Under a rules context
+with a mesh the functions run on each rank's local shards, with the
+collectives of ``distributed/collectives.py`` at the reference's
+``constrain`` sites: q, k and v on the rank's own heads (the local head
+counts are read from the local weights), the output projection and the
+MLP's down projection summed over "model", the vocab-sharded table read
+by a masked lookup and the logits gathered. K and V replicated over
+"model" (a ``kv_heads`` rule of None, as an MQA model needs on a model
+axis wider than its KV heads) are projected on every rank, which takes
+the KV heads of its own query heads. The cache and cross-attention paths
+run on one device only.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed import collectives as C
 from ..kernels import ops
 from ..kernels.flash_attention import MAX_D
 
@@ -124,6 +135,20 @@ def init_attention(gen, cfg: ModelConfig, dtype=torch.float32):
     return p
 
 
+def attention_specs(cfg: ModelConfig):
+    s = {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv_heads"),
+        "wv": ("embed", "kv_heads"),
+        "wo": ("heads", "embed"),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ("heads",)
+        s["bk"] = ("kv_heads",)
+        s["bv"] = ("kv_heads",)
+    return s
+
+
 def attention(
     x,
     p,
@@ -147,19 +172,30 @@ def attention(
     if x_kv is not None and cache is not None:
         raise ValueError("cross-attention (x_kv) takes no cache")
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    h, kv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd   # this rank's heads
     window = cfg.sliding_window
     src = x if x_kv is None else x_kv
     s_kv = src.shape[1]
+    heads, kv_heads = C.group("heads"), C.group("kv_heads")
+    sharded = heads is not None or kv_heads is not None
+    if sharded and (x_kv is not None or cache is not None or heads is None):
+        raise NotImplementedError("sharded attention runs the training forward only (no "
+                                  "cache, no cross-attention), with the query heads sharded "
+                                  "wherever the KV heads are")
 
-    q = x @ p["wq"]
-    k = src @ p["wk"]
-    v = src @ p["wv"]
+    q_in = C.enter(x, heads)
+    kv_in = src if kv_heads is None else q_in
+    q = q_in @ p["wq"]
+    k = kv_in @ p["wk"]
+    v = kv_in @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s_kv, kv, hd)
     v = v.reshape(b, s_kv, kv, hd)
+    if heads is not None and kv_heads is None:
+        k, v = _own_kv_heads(k, v, h, cfg, heads)
 
     if x_kv is not None:
         if s_kv == s and hd <= MAX_D:       # kernel 12's full function
@@ -208,7 +244,17 @@ def attention(
         else:               # its cache path's mask: the prefix only among prefix rows
             ok = _visible(qi, kj, window=window, prefix_len=prefix_len, prefix_rows=True)
         out = _masked_attention(q, k, v, ok)
-    return _out_proj(out, v, p, b, s), cache
+    return C.reduce(_out_proj(out, v, p, b, s), heads), cache
+
+
+def _own_kv_heads(k, v, h, cfg, grp):
+    """The KV heads of this rank's ``h`` query heads, from K and V
+    (b, s, kv, d) projected whole on every rank. The ranks' gradients of
+    K and V are summed (``enter``), each rank's holding only its heads'."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    lo = C.rank(grp) * h // rep
+    n = max(h // rep, 1)
+    return (C.enter(k, grp).narrow(2, lo, n), C.enter(v, grp).narrow(2, lo, n))
 
 
 def _out_proj(out, v, p, b, s):
@@ -286,6 +332,13 @@ def init_attention_cache(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16,
     }
 
 
+def attention_cache_specs(cfg: ModelConfig):
+    return {
+        "k": ("batch", "cache_seq", "kv_heads_act", None),
+        "v": ("batch", "cache_seq", "kv_heads_act", None),
+    }
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -306,12 +359,20 @@ def init_mlp(gen, cfg: ModelConfig, dtype=torch.float32, d_ff=None, gated=True):
     }
 
 
+def mlp_specs(gated=True):
+    if gated:
+        return {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"), "wd": ("mlp", "embed")}
+    return {"wu": ("embed", "mlp"), "wd": ("mlp", "embed")}
+
+
 def mlp(x, p):
+    grp = C.group("mlp")
+    x = C.enter(x, grp)
     if "wg" in p:
         h = F.silu(x @ p["wg"]) * (x @ p["wu"])
     else:
         h = F.gelu(x @ p["wu"], approximate="tanh")   # jax.nn.gelu's default
-    return h @ p["wd"]
+    return C.reduce(h @ p["wd"], grp)
 
 
 # ---------------------------------------------------------------------------
@@ -326,13 +387,21 @@ def init_embed(gen, cfg: ModelConfig, dtype=torch.float32):
     return p
 
 
+def embed_specs(cfg: ModelConfig):
+    s = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        s["head"] = ("embed", "vocab")
+    return s
+
+
 def embed_tokens(p, tokens):
     """The reference's gather ``p["tok"][tokens]``, as ``F.embedding``:
     the same values, and a backward that sums each token's rows in a fixed
     order (indexing's backward accumulates with atomics, whose order varies
     from run to run, and a restarted training run would not replay bit for
-    bit)."""
-    return F.embedding(tokens, p["tok"])
+    bit). A table sharded by vocab rows is read by
+    ``collectives.vocab_embedding``."""
+    return C.vocab_embedding(tokens, p["tok"], C.group("vocab"))
 
 
 def promoted(a, b):
@@ -343,6 +412,8 @@ def promoted(a, b):
 
 
 def lm_logits(p, x):
-    """x @ the head (or the tied table's transpose), in the promoted dtype."""
-    x, w = promoted(x, p["head"] if "head" in p else p["tok"].T)
-    return x @ w
+    """x @ the head (or the tied table's transpose), in the promoted dtype;
+    a vocab-sharded head's logits gathered whole on every rank."""
+    grp = C.group("vocab")
+    x, w = promoted(C.enter(x, grp), p["head"] if "head" in p else p["tok"].T)
+    return C.gather(x @ w, grp)

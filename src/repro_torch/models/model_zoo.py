@@ -3,8 +3,10 @@
 
 ModelAPI:
   init_params(gen, cfg, dtype)        -> parameter dict (on gen's device)
+  param_specs(cfg)                    -> the reference's tree of logical axes
   forward(params, cfg, batch, **kw)   -> logits (b, s, v)
   init_cache(cfg, batch, max_len, dtype, device) -> decode cache
+  cache_specs(cfg)                    -> the cache's logical axes
   decode_step(params, cfg, tokens, cache, pos, extras, **kw) -> (logits, cache)
   prefill(params, cfg, batch, max_len, **kw) -> (logits, cache[, enc_out])
 
@@ -15,7 +17,9 @@ Batch layouts (int tokens and labels):
 
 The encdec decode step takes ``extras["enc_out"]``, the prefill's third
 output; the moe forward takes ``return_aux=True`` for (logits, aux loss).
-The reference's sharding specs have no counterpart on one device.
+A spec tree stacks a family's layers as the reference does (("layers",
+...) leaves); the port keeps them as a list (``launch/mesh.py::specs_like``
+lays a spec tree over a parameter tree).
 """
 from __future__ import annotations
 
@@ -32,8 +36,10 @@ from . import encdec, hybrid, moe, ssm, transformer, vlm
 class ModelAPI:
     family: str
     init_params: Callable
+    param_specs: Callable
     forward: Callable                  # (params, cfg, batch, **kw) -> logits
     init_cache: Callable
+    cache_specs: Callable
     decode_step: Callable              # (params, cfg, tokens, cache, pos, extras)
     prefill: Callable
 
@@ -61,18 +67,18 @@ def _encdec_decode(params, cfg, tokens, cache, pos, extras=None, **kw):
 
 
 def _token_family(name, mod):
-    return ModelAPI(name, mod.init_params, _dense_forward(mod), mod.init_cache,
-                    _dense_decode(mod), _dense_prefill(mod))
+    return ModelAPI(name, mod.init_params, mod.param_specs, _dense_forward(mod),
+                    mod.init_cache, mod.cache_specs, _dense_decode(mod), _dense_prefill(mod))
 
 
 _FAMILIES: dict[str, ModelAPI] = {
     "dense": _token_family("dense", transformer),
     "ssm": _token_family("ssm", ssm),
     "hybrid": _token_family("hybrid", hybrid),
-    "encdec": ModelAPI("encdec", encdec.init_params, encdec.forward, encdec.init_cache,
-                       _encdec_decode, encdec.prefill),
-    "vlm": ModelAPI("vlm", vlm.init_params, vlm.forward, vlm.init_cache,
-                    _dense_decode(vlm), vlm.prefill),
+    "encdec": ModelAPI("encdec", encdec.init_params, encdec.param_specs, encdec.forward,
+                       encdec.init_cache, encdec.cache_specs, _encdec_decode, encdec.prefill),
+    "vlm": ModelAPI("vlm", vlm.init_params, vlm.param_specs, vlm.forward, vlm.init_cache,
+                    vlm.cache_specs, _dense_decode(vlm), vlm.prefill),
     "moe": _token_family("moe", moe),
 }
 
@@ -82,6 +88,33 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
         raise ValueError(f"unknown model family {cfg.family!r} ({cfg.arch_id}); "
                          f"the families are {', '.join(_FAMILIES)}")
     return _FAMILIES[cfg.family]
+
+
+def train_batch_specs(cfg: ModelConfig, batch: int, seq: int) -> dict[str, torch.Tensor]:
+    """A train batch's shapes and dtypes, as meta tensors (the reference's
+    ShapeDtypeStructs): int32 tokens and labels, bf16 stub embeddings."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    b = {"tokens": meta((batch, seq), torch.int32), "labels": meta((batch, seq), torch.int32)}
+    if cfg.family == "encdec":
+        b["src_embeds"] = meta((batch, seq, cfg.d_model), torch.bfloat16)
+    if cfg.family == "vlm":
+        b["image_embeds"] = meta((batch, cfg.n_prefix_tokens, cfg.d_model), torch.bfloat16)
+    return b
+
+
+def decode_inputs_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
+    """One decode step's inputs at a cache of ``cache_len`` positions, as
+    meta tensors: tokens (batch, 1), the family's bf16 cache, pos, and for
+    encdec ``extras["enc_out"]``."""
+    out = {"tokens": torch.empty((batch, 1), dtype=torch.int32, device="meta"),
+           "cache": get_api(cfg).init_cache(cfg, batch, cache_len, torch.bfloat16,
+                                            device="meta"),
+           "pos": torch.empty((), dtype=torch.int32, device="meta")}
+    if cfg.family == "encdec":
+        out["extras"] = {"enc_out": torch.empty((batch, cache_len, cfg.d_model),
+                                                dtype=torch.bfloat16, device="meta")}
+    return out
 
 
 def make_train_batch(cfg: ModelConfig, batch: int, seq: int,

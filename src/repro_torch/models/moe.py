@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
+from ..distributed.sharding import stacked
 from . import layers as L
 from .transformer import _save_dots, checkpointed, head_logits
 
@@ -77,6 +78,18 @@ def init_moe_ffn(gen, cfg: ModelConfig, dtype=torch.float32):
             "wd": L.dense_init(gen, (fs, d), fs, dtype),
         }
     return p
+
+
+def moe_ffn_specs(cfg: ModelConfig):
+    s = {
+        "router": ("embed", None),
+        "wg": ("experts", "embed", "expert_mlp"),
+        "wu": ("experts", "embed", "expert_mlp"),
+        "wd": ("experts", "expert_mlp", "embed"),
+    }
+    if cfg.moe.n_shared_experts:
+        s["shared"] = L.mlp_specs(gated=True)
+    return s
 
 
 def moe_capacity(n_tokens: int, cfg: MoEConfig) -> int:
@@ -179,6 +192,18 @@ def init_mla(gen, cfg: ModelConfig, dtype=torch.float32):
     }
 
 
+def mla_specs(cfg: ModelConfig):
+    return {
+        "wq": ("embed", "heads"),
+        "w_dkv": ("embed", None),
+        "w_kr": ("embed", None),
+        "kv_norm": (None,),
+        "w_uk": (None, "heads"),
+        "w_uv": (None, "heads"),
+        "wo": ("heads", "embed"),
+    }
+
+
 def _mla_rope(x, positions, theta):
     cos, sin = L.rope_table(positions, x.shape[-1], theta)
     return L.apply_rope(x, cos, sin)
@@ -260,6 +285,10 @@ def init_mla_cache(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16, devic
 # ---------------------------------------------------------------------------
 
 
+def mla_cache_specs(cfg: ModelConfig):
+    return {"ckv": ("batch", "cache_seq", None), "kr": ("batch", "cache_seq", None)}
+
+
 def _is_moe_layer(cfg: ModelConfig, idx: int) -> bool:
     m = cfg.moe
     if idx < m.first_dense:
@@ -304,6 +333,16 @@ def init_layer(gen, cfg: ModelConfig, moe_layer: bool, dtype=torch.float32):
     return p
 
 
+def layer_specs(cfg: ModelConfig, moe_layer: bool):
+    s = {"ln1": ("embed",), "ln2": ("embed",),
+         "attn": mla_specs(cfg) if cfg.mla else L.attention_specs(cfg)}
+    if moe_layer:
+        s["moe"] = moe_ffn_specs(cfg)
+    else:
+        s["mlp"] = L.mlp_specs(gated=True)
+    return s
+
+
 def init_params(gen, cfg: ModelConfig, dtype=torch.float32):
     """Random parameters drawn from ``gen`` on its device (shapes only, on
     the meta device, for ``gen=None``): ``embed``, ``ln_f`` and the layer
@@ -316,6 +355,14 @@ def init_params(gen, cfg: ModelConfig, dtype=torch.float32):
         if group:
             params[f"{kind}_layers"] = group
     return params
+
+
+def param_specs(cfg: ModelConfig):
+    specs = {"embed": L.embed_specs(cfg), "ln_f": ("embed",)}
+    for kind in ("dense", "moe"):
+        if any(k == kind for k, _ in layer_schedule(cfg)):
+            specs[f"{kind}_layers"] = stacked(layer_specs(cfg, kind == "moe"), "layers")
+    return specs
 
 
 def _cast(tree, compute_dtype):
@@ -393,6 +440,17 @@ def init_cache(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16, device=No
     if dps:
         cache["dense"] = stacked(n_super, dps)
     return cache
+
+
+def cache_specs(cfg: ModelConfig):
+    base = mla_cache_specs(cfg) if cfg.mla else L.attention_cache_specs(cfg)
+    n_prefix, _, dps = _plan(cfg)
+    specs = {"moe": stacked(base, "layers")}
+    if n_prefix:
+        specs["prefix"] = stacked(base, "layers")
+    if dps:
+        specs["dense"] = stacked(base, "layers", None)
+    return specs
 
 
 def _layer_cache(cache, kind, i, n_prefix, dps):

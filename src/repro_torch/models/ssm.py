@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import stacked
 from . import layers as L
 from .transformer import _cast, checkpointed, head_logits
 
@@ -55,6 +56,20 @@ def init_mamba_block(gen, cfg: ModelConfig, dtype=torch.float32):
         "d_skip": torch.ones((h,), dtype=dtype, device=dev),
         "norm": torch.ones((d_inner,), dtype=dtype, device=dev),
         "out_proj": L.dense_init(gen, (d_inner, cfg.d_model), d_inner, dtype),
+    }
+
+
+def mamba_block_specs(cfg: ModelConfig):
+    return {
+        "ln": ("embed",),
+        "in_proj": ("embed", "ssm_inner"),
+        "conv_w": (None, "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "dt_bias": ("ssm_heads",),
+        "a_log": ("ssm_heads",),
+        "d_skip": ("ssm_heads",),
+        "norm": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
     }
 
 
@@ -180,6 +195,13 @@ def init_mamba_cache(cfg: ModelConfig, batch, dtype=torch.float32, device=None):
     }
 
 
+def mamba_cache_specs(cfg: ModelConfig):
+    return {
+        "conv": ("batch", None, "ssm_inner"),
+        "state": ("batch", "ssm_heads", None, None),
+    }
+
+
 def mamba_decode_step(params, cfg: ModelConfig, u, cache):
     """u (b, 1, d_model); cache {conv (b, k - 1, conv_dim), state (b, h, p,
     n)}, written in place with the new conv tail and state. Returns (out,
@@ -231,6 +253,11 @@ def init_params(gen, cfg: ModelConfig, dtype=torch.float32):
     }
 
 
+def param_specs(cfg: ModelConfig):
+    return {"embed": L.embed_specs(cfg), "layers": stacked(mamba_block_specs(cfg), "layers"),
+            "ln_f": ("embed",)}
+
+
 def forward(params, cfg: ModelConfig, tokens, *, compute_dtype=torch.bfloat16,
             remat: str = "full", prefix_embeds=None):
     """tokens (b, s) -> logits (b, s, v_padded), f32. ``remat`` "full" or
@@ -253,6 +280,10 @@ def init_cache(cfg: ModelConfig, batch, max_len, dtype=torch.float32, device=Non
     one = init_mamba_cache(cfg, batch, dtype, device="meta")
     return {name: torch.zeros((cfg.n_layers, *a.shape), dtype=dtype, device=device)
             for name, a in one.items()}
+
+
+def cache_specs(cfg: ModelConfig):
+    return stacked(mamba_cache_specs(cfg), "layers")
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, pos, *, compute_dtype=torch.bfloat16):

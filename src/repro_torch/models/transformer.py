@@ -22,6 +22,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import bind, stacked
 from . import layers as L
 
 
@@ -39,6 +40,15 @@ def init_layer(gen, cfg: ModelConfig, dtype=torch.float32):
     }
 
 
+def layer_specs(cfg: ModelConfig):
+    return {
+        "ln1": ("embed",),
+        "attn": L.attention_specs(cfg),
+        "ln2": ("embed",),
+        "mlp": L.mlp_specs(gated=gated(cfg)),
+    }
+
+
 def init_params(gen, cfg: ModelConfig, dtype=torch.float32):
     """Random parameters drawn from ``gen`` on its device (shapes only, on
     the meta device, for ``gen=None``)."""
@@ -46,6 +56,17 @@ def init_params(gen, cfg: ModelConfig, dtype=torch.float32):
         "embed": L.init_embed(gen, cfg, dtype),
         "layers": [init_layer(gen, cfg, dtype) for _ in range(cfg.n_layers)],
         "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=L._device(gen)),
+    }
+
+
+def param_specs(cfg: ModelConfig):
+    """The reference's specs, whose layers are one stack: ("layers", ...)
+    before each layer leaf's names (the port's ``params["layers"]`` is a
+    list of layers, each with the names after "layers")."""
+    return {
+        "embed": L.embed_specs(cfg),
+        "layers": stacked(layer_specs(cfg), "layers"),
+        "ln_f": ("embed",),
     }
 
 
@@ -84,7 +105,8 @@ def checkpointed(body, remat: str, *args, policy=None):
     without grad); recomputed in the backward for "full", and for "dots",
     which keeps what ``policy`` saves (the dense layers' ``_save_dots``; the
     other families' reference wraps its blocks in a plain ``jax.checkpoint``
-    for "dots" too, and passes none)."""
+    for "dots" too, and passes none). The recomputation runs under the
+    sharding rules of the forward."""
     if remat not in _REMAT:
         raise ValueError(f"remat must be one of {_REMAT}, got {remat!r}")
     if remat == "none" or not torch.is_grad_enabled():
@@ -92,7 +114,7 @@ def checkpointed(body, remat: str, *args, policy=None):
     kw = {}
     if remat == "dots" and policy is not None:
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, policy)
-    return checkpoint(body, *args, use_reentrant=False, **kw)
+    return checkpoint(bind(body), *args, use_reentrant=False, **kw)
 
 
 def forward_embeds(params, cfg: ModelConfig, h, *, prefix_len=0,
@@ -138,6 +160,10 @@ def init_cache(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16, device=No
     one = L.init_attention_cache(cfg, batch, max_len, dtype, device="meta")
     return {name: torch.zeros((cfg.n_layers, *a.shape), dtype=dtype, device=device)
             for name, a in one.items()}
+
+
+def cache_specs(cfg: ModelConfig):
+    return stacked(L.attention_cache_specs(cfg), "layers")
 
 
 def head_logits(params, cfg: ModelConfig, h, compute_dtype):

@@ -18,7 +18,9 @@ from . import layers as L
 from . import transformer as T
 
 init_params = T.init_params
+param_specs = T.param_specs
 init_cache = T.init_cache
+cache_specs = T.cache_specs
 
 
 def forward(params, cfg: ModelConfig, batch, *, compute_dtype=torch.bfloat16,

@@ -19,19 +19,22 @@ def _children(node) -> dict | None:
     return None
 
 
+def _walk(node, prefix, out):
+    kids = _children(node)
+    if kids is None:
+        out[prefix] = node
+        return
+    for name, sub in kids.items():
+        _walk(sub, f"{prefix}.{name}" if prefix else name, out)
+
+
 def named_leaves(tree) -> dict:
-    """{dotted path: leaf}, depth first."""
+    """{dotted path: leaf}, depth first. (Module-level recursion: a nested
+    function that calls itself is a reference cycle, which would keep the
+    leaves, a step's gradients among them, alive until Python's cycle
+    collector runs.)"""
     out = {}
-
-    def walk(node, prefix):
-        kids = _children(node)
-        if kids is None:
-            out[prefix] = node
-            return
-        for name, sub in kids.items():
-            walk(sub, f"{prefix}.{name}" if prefix else name)
-
-    walk(tree, "")
+    _walk(tree, "", out)
     return out
 
 
@@ -39,21 +42,22 @@ def leaves(tree) -> list:
     return list(named_leaves(tree).values())
 
 
+def _build(node, prefix, named):
+    kids = _children(node)
+    if kids is None:
+        return named[prefix]
+    built = {name: _build(sub, f"{prefix}.{name}" if prefix else name, named)
+             for name, sub in kids.items()}
+    if isinstance(node, dict):
+        return {k: built[str(k)] for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(built[str(i)] for i in range(len(node)))
+    return type(node)(**built)
+
+
 def rebuild(like, named: dict):
     """The leaves ``named`` by their paths, in the structure of ``like``."""
-    def build(node, prefix):
-        kids = _children(node)
-        if kids is None:
-            return named[prefix]
-        built = {name: build(sub, f"{prefix}.{name}" if prefix else name)
-                 for name, sub in kids.items()}
-        if isinstance(node, dict):
-            return {k: built[str(k)] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(built[str(i)] for i in range(len(node)))
-        return type(node)(**built)
-
-    return build(like, "")
+    return _build(like, "", named)
 
 
 def unflatten(like, flat: list):

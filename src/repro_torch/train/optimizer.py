@@ -15,6 +15,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from ..configs.base import TrainConfig
 from ._tree import leaves, tree_map
@@ -45,15 +46,26 @@ def lr_schedule(step: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
     return cfg.learning_rate * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, sharded=None, group=None) -> torch.Tensor:
+    """The norm of every leaf of ``tree`` together. Where the leaves are a
+    rank's shards, ``sharded`` marks (in leaf order) those split over
+    ``group``: their sums of squares are summed over it, the others (alike
+    on every rank) count once; the leaves are added in the same order."""
     sums = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    if group is not None:
+        split = [i for i, s in enumerate(sharded) if s]
+        if split:
+            part = torch.stack([sums[i] for i in split])
+            dist.all_reduce(part, group=group)
+            for j, i in enumerate(split):
+                sums[i] = part[j]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, sharded=None, group=None):
     """Scale ``grads`` IN PLACE to a global norm of at most ``max_norm``.
     Returns (grads, the norm before clipping)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, sharded, group)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in leaves(grads):
         g.mul_(scale)
@@ -61,11 +73,13 @@ def clip_by_global_norm(grads, max_norm):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state: AdamWState, cfg: TrainConfig):
+def adamw_update(params, grads, state: AdamWState, cfg: TrainConfig, *, sharded=None,
+                 group=None):
     """Returns (params, state, metrics). The parameters, the moments and
     the gradients (clipped) are updated IN PLACE; ``state.step`` is a new
-    tensor."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    tensor. On a rank's shards, ``sharded`` and ``group`` are
+    :func:`global_norm`'s; the update itself is elementwise."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, sharded, group)
     step = state.step + 1
     lr = lr_schedule(step, cfg)
     b1, b2 = cfg.b1, cfg.b2

@@ -10,16 +10,35 @@ into that many slices whose gradients are summed in order and scaled by
 The AdamW update runs in place under ``torch.no_grad()``, so the returned
 parameters and state are the tensors passed in, updated. The serve steps
 are used by launch/serve.py.
+
+Called under ``axis_rules(rules, mesh=mesh)`` with a ("data", "model")
+``DeviceMesh``, the step is sharded, as the reference's ``jax.jit`` of it
+is under the same context: each rank passes its local shards of the
+parameters and of the AdamW moments (``launch/mesh.py``'s
+``param_shardings`` and ``shard_tree``) and the global batch, of which it
+reads its rows of the "data" axis. The layers run tensor-parallel over
+"model" (``distributed/collectives.py``), the gradients are averaged over
+"data", and the clipping norm sums the sharded leaves over "model". A
+mesh of one rank is the one-device step, bit for bit. The dense and vlm
+families are routed; the others, and rules this layout cannot take, raise
+``NotImplementedError`` on every rank before any collective.
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig, TrainConfig
+from ..distributed.sharding import SHARDED_TODO, axis_rules, current_mesh, current_rules
 from ..models import get_api
 from ._tree import leaves, tree_map, unflatten
 from .compression import compress_decompress
 from .optimizer import adamw_update
+
+_SHARDED_FAMILIES = ("dense", "vlm")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -69,8 +88,141 @@ def _split_microbatches(batch, n):
     return {key: f(x) for key, x in batch.items()}
 
 
+@dataclass
+class _Layout:
+    """The sharded step's groups (None where the mesh axis has one rank)
+    and which parameter leaves are split over "model"."""
+    data: object
+    data_rank: int
+    data_size: int
+    model: object
+    sharded: list
+
+    def local_batch(self, batch):
+        def rows(x):
+            if x.shape[0] % self.data_size:
+                raise NotImplementedError(
+                    f"a batch of {x.shape[0]} rows over {self.data_size} data ranks "
+                    f"({SHARDED_TODO})")
+            n = x.shape[0] // self.data_size
+            return x.narrow(0, self.data_rank * n, n)
+        return {k: rows(x) for k, x in batch.items()}
+
+    def average(self, loss, grads):
+        if self.data is None:
+            return loss, grads
+        inv = 1.0 / self.data_size
+        for g in leaves(grads):
+            dist.all_reduce(g, group=self.data)
+            g.mul_(inv)
+        loss = loss.clone()
+        dist.all_reduce(loss, group=self.data)
+        return loss * inv, grads
+
+
+def _axis(rules, name):
+    a = rules.get(name)
+    return None if a in (None, ()) else (a,) if isinstance(a, str) else tuple(a)
+
+
+def _unsupported(why: str):
+    return NotImplementedError(f"the sharded train step {why} ({SHARDED_TODO})")
+
+
+def sharded_layout(cfg: ModelConfig, tcfg: TrainConfig, params, opt_state=None):
+    """The step's layout under the current rules and mesh (None without
+    them: one device). Everything it checks is local, so an unrouted
+    family or rule raises on every rank before any collective."""
+    rules, mesh = current_rules(), current_mesh()
+    if rules is None or mesh is None:
+        return None
+    if cfg.family not in _SHARDED_FAMILIES:
+        raise _unsupported(f"routes the {' and '.join(_SHARDED_FAMILIES)} families, "
+                           f"not {cfg.family} ({cfg.arch_id})")
+    if tuple(mesh.mesh_dim_names) != ("data", "model"):
+        raise _unsupported(f"takes a ('data', 'model') mesh, not {mesh.mesh_dim_names}")
+    size = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    for name in ("layers", "embed", "seq"):
+        if _axis(rules, name) is not None:
+            raise _unsupported(f"keeps {name!r} unsharded; the rules give {rules[name]!r}")
+    if _axis(rules, "batch") not in (None, ("data",)):
+        raise _unsupported(f"takes 'batch' over 'data', not {rules['batch']!r}")
+    if _axis(rules, "batch") is None and size["data"] > 1:
+        raise _unsupported("needs 'batch' over a data axis wider than one rank")
+    for name in ("heads", "kv_heads", "mlp", "vocab"):
+        if _axis(rules, name) not in (None, ("model",)):
+            raise _unsupported(f"takes {name!r} over 'model' or unsharded, not {rules[name]!r}")
+    for name in ("heads", "kv_heads"):
+        if _axis(rules, name) != _axis(rules, f"{name}_act"):
+            raise _unsupported(f"needs {name}_act sharded as {name} is: the rules give "
+                               f"{name} {rules.get(name)!r}, {name}_act "
+                               f"{rules.get(name + '_act')!r}")
+    if _axis(rules, "kv_heads") and not _axis(rules, "heads"):
+        raise _unsupported("shards the KV heads only with the query heads")
+    m = size["model"]
+    widths = {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "mlp": cfg.d_ff,
+              "vocab": cfg.vocab_padded}
+    for name, width in widths.items():
+        if _axis(rules, name) and width % m:
+            raise _unsupported(f"splits {name} ({width}) evenly over 'model' ({m} ranks)")
+    if _axis(rules, "heads") and not _axis(rules, "kv_heads") and m > 1:
+        local, rep = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
+        if local % rep and rep % local:
+            raise _unsupported(f"gives each rank whole KV groups: {local} query heads a "
+                               f"rank in groups of {rep}")
+    if tcfg.gradient_compression and m > 1:
+        raise _unsupported("compresses gradients only over 'data'")
+
+    placements, want = _expected_layout(cfg, tuple(sorted(rules.items())),
+                                        tuple(mesh.mesh_dim_names), tuple(mesh.shape))
+    got = {"parameter": params}
+    if opt_state is not None:
+        got.update(first_moment=opt_state.mu, second_moment=opt_state.nu)
+    for what, tree in got.items():
+        shapes = tuple(tuple(t.shape) for t in leaves(tree))
+        if shapes != want:
+            bad = next((i for i, (a, b) in enumerate(zip(shapes, want)) if a != b), None)
+            if bad is None:
+                raise ValueError(f"the {what} tree has {len(shapes)} leaves on this rank; "
+                                 f"{cfg.arch_id}'s has {len(want)}")
+            raise ValueError(f"{what} leaf {bad} is {shapes[bad]} on this rank; its placement "
+                             f"on the mesh {size} gives {want[bad]}")
+    coord = mesh.get_coordinate()
+    data = mesh.get_group("data") if size["data"] > 1 else None
+    return _Layout(data=data, data_rank=coord[0], data_size=size["data"],
+                   model=mesh.get_group("model") if m > 1 else None,
+                   sharded=[any(p.is_shard() for p in pl) for pl in placements])
+
+
+@functools.lru_cache(maxsize=16)
+def _expected_layout(cfg, rules_items, dim_names, mesh_shape):
+    """(each parameter leaf's placements, its local shape) under the rules
+    on a mesh of these dimensions; kept, so a step pays for it once."""
+    from ..launch.mesh import param_shardings, placement_leaves, specs_like
+
+    class Dims:
+        mesh_dim_names = dim_names
+
+    api = get_api(cfg)
+    full = api.init_params(None, cfg)
+    with axis_rules(dict(rules_items)):
+        placements = placement_leaves(param_shardings(Dims, specs_like(api.param_specs(cfg),
+                                                                       full)))
+    shapes = ()
+    for t, pl in zip(leaves(full), placements):
+        shape = list(t.shape)
+        for j, p in enumerate(pl):
+            if p.is_shard():
+                shape[p.dim] //= mesh_shape[j]
+        shapes += (tuple(shape),)
+    return tuple(placements), shapes
+
+
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     def train_step(params, opt_state, batch):
+        layout = sharded_layout(cfg, tcfg, params, opt_state)
+        if layout is not None:
+            batch = layout.local_batch(batch)
         if tcfg.microbatch and tcfg.microbatch > 1:
             mb = _split_microbatches(batch, tcfg.microbatch)
             gsum, lsum = None, 0.0
@@ -84,10 +236,13 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             loss = lsum * inv
         else:
             loss, grads = value_and_grad(params, cfg, batch, tcfg)
+        if layout is not None:
+            loss, grads = layout.average(loss, grads)
 
         if tcfg.gradient_compression:
             grads, _ = compress_decompress(grads)
-        params, opt_state, om = adamw_update(params, grads, opt_state, tcfg)
+        kw = {} if layout is None else dict(sharded=layout.sharded, group=layout.model)
+        params, opt_state, om = adamw_update(params, grads, opt_state, tcfg, **kw)
         return params, opt_state, {"loss": loss, **om}
 
     return train_step

@@ -1,0 +1,193 @@
+"""One rank of the sharded LM train step on a gloo group, for
+``tests/test_torch_sharding.py`` (spawned by ``repro_torch.testing.run_ranks``).
+
+``run_cases`` runs each case of a list on this rank and returns what the
+test reads, as plain numbers, strings and numpy arrays:
+
+  step    the smoke model's 3 sharded steps on a ("data", "model") mesh,
+          its parameters and AdamW state placed by ``param_shardings``,
+          against 3 one-device steps of the port from the same weights and
+          batches (run on every rank alike): the losses, the worst distance
+          of each rank's shards from the slices of the one-device results,
+          a digest of the replicated leaves, and kernel 12's calls
+  shard   each rank's ``local_shard`` of every parameter and whether it
+          equals ``distribute_tensor``'s local block
+  raise   the step of an unrouted family or rule: its error on this rank,
+          then a barrier, which every rank reaches only if none of them
+          entered a collective first
+
+It imports torch, numpy and the port, nothing of JAX.
+"""
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+import torch.distributed as dist  # noqa: E402
+from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.distributed import axis_rules  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch.mesh import (build_rules, local_shard, param_shardings,  # noqa: E402
+                                     placement_leaves, shard_tree, specs_like)
+from repro_torch.models import get_api  # noqa: E402
+from repro_torch.train import adamw_init, build_train_step  # noqa: E402
+from repro_torch.train._tree import leaves, named_leaves  # noqa: E402
+from repro_torch.train.optimizer import AdamWState  # noqa: E402
+
+BATCH, SEQ, STEPS = 4, 16, 3
+ATOL, RTOL = 5e-4, 2e-3     # the reference's own tolerance across mesh shapes
+
+
+def smoke(arch: str, **replace):
+    cfg = configs.get_smoke_config(arch)
+    return cfg.replace(**replace) if replace else cfg
+
+
+def tcfg(remat: str, batch: int = BATCH):
+    return configs.TrainConfig(seq_len=SEQ, global_batch=batch, compute_dtype="float32",
+                               remat=remat, learning_rate=1e-3, warmup_steps=2,
+                               total_steps=10)
+
+
+def batches(cfg, batch: int = BATCH):
+    out = []
+    for i in range(STEPS):
+        rng = np.random.default_rng(i)
+        toks = rng.integers(0, cfg.vocab_size, (batch, SEQ + 1))
+        b = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+        if cfg.family == "vlm":
+            b["image_embeds"] = torch.from_numpy(
+                rng.standard_normal((batch, cfg.n_prefix_tokens, cfg.d_model),
+                                    dtype=np.float32) * 0.02)
+        out.append(b)
+    return out
+
+
+def init(cfg):
+    params = get_api(cfg).init_params(torch.Generator().manual_seed(0), cfg)
+    return params, adamw_init(params)
+
+
+def steps(cfg, tc, params, opt, data):
+    step = build_train_step(cfg, tc)
+    losses = []
+    for b in data:
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+    return params, opt, losses
+
+
+_ONE = {}
+
+
+def one_device(arch, remat, replace):
+    key = (arch, remat, tuple(sorted(replace.items())))
+    if key not in _ONE:
+        cfg = smoke(arch, **replace)
+        params, opt = init(cfg)
+        _ONE[key] = steps(cfg, tcfg(remat), params, opt, batches(cfg))
+    return _ONE[key]
+
+
+def placements_of(cfg, mesh, params):
+    return param_shardings(mesh, specs_like(get_api(cfg).param_specs(cfg), params))
+
+
+def _distance(got, want):
+    """(max |got - want|, max |got - want| / (ATOL + RTOL |want|))."""
+    d = (got - want).abs()
+    return float(d.max()), float((d / (ATOL + RTOL * want.abs())).max())
+
+
+def _step_case(case, mesh):
+    arch, remat, replace = case["arch"], case["remat"], case.get("replace", {})
+    cfg = smoke(arch, **replace)
+    rules = build_rules(cfg, model_size=mesh.shape[1], data_size=mesh.shape[0],
+                        overrides=case.get("overrides"))
+    params, opt = init(cfg)
+    with axis_rules(rules, mesh=mesh):
+        pl = placements_of(cfg, mesh, params)
+        local = shard_tree(params, mesh, pl)
+        local_opt = AdamWState(step=opt.step, mu=shard_tree(opt.mu, mesh, pl),
+                               nu=shard_tree(opt.nu, mesh, pl))
+        calls = []
+        kernel = ops.flash_attention
+
+        def spy(*args, **kw):
+            calls.append(1)
+            return kernel(*args, **kw)
+
+        ops.flash_attention = spy
+        try:
+            local, local_opt, losses = steps(cfg, tcfg(remat), local, local_opt, batches(cfg))
+        finally:
+            ops.flash_attention = kernel
+    one_params, one_opt, one_losses = one_device(arch, remat, replace)
+    flat = placement_leaves(pl)
+    worst = {}
+    for what, got, want in (("params", local, one_params), ("mu", local_opt.mu, one_opt.mu),
+                            ("nu", local_opt.nu, one_opt.nu)):
+        dist_abs, dist_tol = 0.0, 0.0
+        for g, w, p in zip(leaves(got), leaves(want), flat, strict=True):
+            a, t = _distance(g, local_shard(w, mesh, p))
+            dist_abs, dist_tol = max(dist_abs, a), max(dist_tol, t)
+        worst[what] = (dist_abs, dist_tol)
+    digest = hashlib.sha256()
+    for g, p in zip(leaves(local), flat):
+        if not any(x.is_shard() for x in p):
+            digest.update(g.numpy().tobytes())
+    return dict(losses=losses, one_losses=one_losses, worst=worst,
+                replicated=digest.hexdigest(), flash_calls=len(calls),
+                n_layers=cfg.n_layers, coordinate=list(mesh.get_coordinate()))
+
+
+def _shard_case(case, mesh):
+    from torch.distributed.tensor import distribute_tensor
+    cfg = smoke(case["arch"])
+    rules = build_rules(cfg, model_size=mesh.shape[1], data_size=mesh.shape[0])
+    params, _ = init(cfg)
+    with axis_rules(rules, mesh=mesh):
+        pl = placements_of(cfg, mesh, params)
+        local = shard_tree(params, mesh, pl)
+    flat = placement_leaves(pl)
+    same = [torch.equal(g, distribute_tensor(w, mesh, list(p)).to_local())
+            for g, w, p in zip(leaves(local), leaves(params), flat)]
+    return dict(local={k: v.numpy() for k, v in named_leaves(local).items()},
+                placements={k: [str(x) for x in p]
+                            for k, p in zip(named_leaves(params), flat)},
+                same_as_dtensor=all(same), coordinate=list(mesh.get_coordinate()))
+
+
+def _raise_case(case, mesh):
+    cfg = smoke(case["arch"], **case.get("replace", {}))
+    rules = build_rules(cfg, model_size=mesh.shape[1], data_size=mesh.shape[0],
+                        overrides=case.get("overrides"))
+    params, opt = init(cfg)
+    batch = case.get("batch", BATCH)
+    raised = None
+    with axis_rules(rules, mesh=mesh):
+        try:
+            build_train_step(cfg, tcfg("full", batch))(params, opt, batches(cfg, batch)[0])
+        except NotImplementedError as e:
+            raised = str(e)
+    dist.barrier()
+    return dict(raised=raised)
+
+
+_KINDS = {"step": _step_case, "shard": _shard_case, "raise": _raise_case}
+
+
+def run_cases(rank, world, cases):
+    meshes, out = {}, []
+    for case in cases:
+        shape = tuple(case["mesh"])
+        if shape not in meshes:
+            meshes[shape] = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        out.append(_KINDS[case["kind"]](case, meshes[shape]))
+    return out
