@@ -260,6 +260,7 @@ chiprun_out/chip_smoke_report.json, the traces to chiprun_out/e2e_*.json.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -3882,7 +3883,8 @@ def phase_moe_ffn(report):
     raises, whose y and aux must be the first call's bits; both timed by
     CUDA events; at the decode shape y against the CPU's ``moe_ffn`` on the
     same weights within MOE_REL of max|y|; dropped copies and router
-    near-ties printed."""
+    near-ties printed. Then the expert-parallel form on a 1 x 1 mesh
+    against the local form, forward and backward (_moe_ep_vs_local)."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe
     cfg = get_config(MOE_ARCH)
@@ -3924,6 +3926,9 @@ def phase_moe_ffn(report):
               flush=True)
         out[tag] = rec
         del x, y, y2
+    with _one_rank_mesh() as mesh:
+        out["expert_parallel"] = _moe_ep_vs_local(cfg, p, mesh, "cuda")
+    _check_moe_ep(MOE_ARCH, out["expert_parallel"])
     del p
     torch.cuda.empty_cache()
     report["moe_ffn"] = out
@@ -3944,7 +3949,8 @@ def phase_llama4(report):
     in the prefill, never in a decode step, and no other kernel. The
     prefill's logits are held against the same weights with the attention
     through its plain versions (``_plain_attention``), within
-    SERVE_LOGIT_RTOL of max|logits|. Returns kernel 12's launches."""
+    SERVE_LOGIT_RTOL of max|logits|. Returns kernel 12's launches and the
+    weights, which phase_sharded_serve reads and frees."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -4015,9 +4021,348 @@ def phase_llama4(report):
                                                      "decode": dec["flash_attention"]},
                             plain_attention_rel_err=err, routing=routing,
                             first_tokens=res.tokens.tolist())
-    del params, res, again
+    del res, again
     torch.cuda.empty_cache()
-    return report["llama4"]["launches"]
+    return report["llama4"]["launches"], params
+
+
+#: phase_sharded_serve: requests, prompt tokens and greedy steps of a case
+SHARDED_SERVE_BATCH, SHARDED_SERVE_PROMPT, SHARDED_SERVE_GEN = 4, 512, 16
+LLAMA4_SERVE_PROMPT, LLAMA4_SERVE_GEN = 256, 8
+SHARDED_SERVE_REL = 1e-4    # a sharded decode's logits against one device's, of max|logits|
+PROFILE_STEPS = 4           # decode steps under torch.profiler
+GRANITE_ARCH, GRANITE_CUT = "granite-34b", dict(n_layers=4)   # of its 88 layers
+EP_MOE_CF = 11.0            # deepseek's capacity factor past E / k = 64 / 6: no form drops a copy
+EP_MOE_TOKENS = (4, 256)    # (rows, tokens a row) of the expert-parallel check
+
+
+@contextlib.contextmanager
+def _one_rank_mesh():
+    """A 1 x 1 ("data", "model") DeviceMesh over a 1-rank NCCL group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("nccl", init_method=f"file://{_nccl_store()}", rank=0,
+                            world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _counting_forms(calls):
+    """Count the calls of the flash decode and of moe_ffn's two mesh forms
+    (the expert-parallel and the gathered local one) in ``calls``."""
+    from repro_torch.models import layers, moe
+    real = {"flash": (layers, "_flash_decode"), "ep": (moe, "_moe_ffn_ep"),
+            "gathered": (moe, "_moe_ffn_gathered")}
+    saved = {key: getattr(mod, name) for key, (mod, name) in real.items()}
+    for key, (mod, name) in real.items():
+        def counted(*args, _key=key, **kw):
+            calls[_key] = calls.get(_key, 0) + 1
+            return saved[_key](*args, **kw)
+        setattr(mod, name, counted)
+    try:
+        yield
+    finally:
+        for key, (mod, name) in real.items():
+            setattr(mod, name, saved[key])
+
+
+def _decode_rules(cfg, mesh, overrides=None, model_size=None, data_size=None):
+    """build_rules for the decode_32k cell: on ``mesh``'s axes, or on the
+    production (16, 16) mesh's where no sizes are given."""
+    from repro_torch.configs import SHAPE_CELLS
+    from repro_torch.launch.mesh import build_rules
+    cell = {c.name: c for c in SHAPE_CELLS}["decode_32k"]
+    return build_rules(cfg, cell, model_size=model_size or 16, data_size=data_size or 16,
+                       overrides=overrides)
+
+
+def _drops_both(x, p, cfg):
+    """[copies the local form drops, copies the expert-parallel form on one
+    rank drops] of a moe layer's input x, as a device tensor."""
+    from repro_torch.models import moe
+    m = cfg.moe
+    xf = x.reshape(-1, x.shape[-1])
+    _, _, top_ids = moe.route(xf, p, cfg)
+    cap = moe.moe_capacity(xf.shape[0], m)
+    slot, _ = moe.dispatch(top_ids, m.n_experts, cap)
+    slot_ep, _ = moe.ep_dispatch(top_ids, m.n_experts, 0, 2 * cap)
+    return torch.stack([(slot == m.n_experts * cap).sum(),
+                        (slot_ep == m.n_experts * 2 * cap).sum()])
+
+
+def _sharded_decode(cfg, params, rules, mesh, dev, batch, prompt, gen, profile=False,
+                    drops=False):
+    """One device's prefill of ``batch`` seeded prompts of ``prompt`` tokens
+    into an f32 cache, ``gen`` greedy steps of the one-device decode, then
+    the same steps (the one-device tokens fed) through build_decode_step
+    under axis_rules(rules, mesh=mesh) on this rank's shards of the weights
+    (the weights themselves on a 1 x 1 mesh) and of that cache. Returns
+    each form's ms a token, the worst distance of the sharded logits from
+    one device's as a share of max|logits|, whether each step's greedy
+    tokens are equal, the mesh forms called, kernel 12's launches in the
+    sharded steps and the peak (each form timed after one untimed step);
+    with ``profile`` the sharded form's wall
+    and busy ms over PROFILE_STEPS more steps; with ``drops`` each step's
+    [local, expert-parallel] dropped copies summed over the moe layers."""
+    import gc
+
+    from repro_torch.distributed import axis_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import param_shardings, shard_tree, specs_like
+    from repro_torch.models import get_api, moe
+    from repro_torch.train._tree import tree_map
+    from repro_torch.train.train_step import build_decode_step
+    api = get_api(cfg)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    # positions in 64s, which every mesh axis here divides
+    max_len = -(-(prompt + gen + PROFILE_STEPS) // 64) * 64
+    logits, cache = api.prefill(params, cfg, {"tokens": tokens}, max_len,
+                                compute_dtype=torch.float32, cache_dtype=torch.float32)
+    fed = [logits[:, -1, :cfg.vocab_size].argmax(-1).to(torch.int32)]
+    del logits
+    start = tree_map(torch.clone, cache)
+    step = build_decode_step(cfg, torch.float32, return_logits=True)
+    step_drops, real_moe = [], moe.moe_ffn
+    if drops:
+        def counted(x, p, c):
+            if step_drops:      # not in a warm-up step
+                step_drops[-1] += _drops_both(x, p, c)
+            return real_moe(x, p, c)
+        moe.moe_ffn = counted
+    try:
+        want = []
+        # one step first, repeated in the timed run (it writes the same
+        # entries): a process group's first collective sets up its
+        # communicator, and the first call of a shape its kernels
+        step(params, fed[0][:, None], cache, prompt)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(gen):
+            step_drops.append(torch.zeros(2, dtype=torch.int64, device=dev))
+            nxt, cache, lg = step(params, fed[-1][:, None], cache, prompt + i)
+            want.append(lg[:, -1])
+            fed.append(nxt)
+        torch.cuda.synchronize(dev)
+        one_ms = (time.perf_counter() - t0) * 1e3 / gen
+        del cache
+        calls, got = {}, []
+        with axis_rules(rules, mesh=mesh):
+            if all(s == 1 for s in mesh.shape):
+                local = params
+            else:
+                local = shard_tree(params, mesh,
+                                   param_shardings(mesh, specs_like(api.param_specs(cfg), params)))
+            cache = shard_tree(start, mesh, param_shardings(mesh, api.cache_specs(cfg)))
+            del start
+            one_device_drops, step_drops = step_drops, []
+            step(local, fed[0][:, None], cache, prompt)
+            step_drops = one_device_drops
+            ops.reset_launch_counts()
+            with _counting_forms(calls):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                for i in range(gen):
+                    step_drops.append(torch.zeros(2, dtype=torch.int64, device=dev))
+                    nxt, cache, lg = step(local, fed[i][:, None], cache, prompt + i)
+                    got.append((lg[:, -1], nxt))
+                torch.cuda.synchronize(dev)
+                ms = (time.perf_counter() - t0) * 1e3 / gen
+            launches = ops.launch_counts()["flash_attention"]
+            rec = dict(ms_per_token=ms, one_device_ms_per_token=one_ms, calls=calls,
+                       flash_launches=launches)
+            if profile:
+                def more():
+                    tok = fed[-1][:, None]
+                    for i in range(PROFILE_STEPS):
+                        nxt, _, _ = step(local, tok, cache, prompt + gen + i)
+                        tok = nxt[:, None]
+                rec["profile"] = _profiled(more)
+        rel = [float((lg - w).abs().max() / w.abs().max()) for (lg, _), w in zip(got, want)]
+        same = [bool(torch.equal(nxt, fed[i + 1])) for i, (_, nxt) in enumerate(got)]
+        rec.update(max_rel=max(rel), same_tokens=same, peak_mem_bytes=
+                   torch.cuda.max_memory_allocated(dev))
+        if drops:
+            d = torch.stack(step_drops).cpu()
+            rec.update(one_device_drops=d[:gen].sum(0)[0].item(),
+                       sharded_drops=d[gen:].sum(0)[1].item(),
+                       no_drop_steps=[bool((d[i] == 0).all() and (d[gen + i] == 0).all())
+                                      for i in range(gen)])
+    finally:
+        moe.moe_ffn = real_moe
+    del local, cache, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _report_sharded_decode(tag, cfg, rec, expect_ep):
+    """Print a case of _sharded_decode and check it: tokens equal at each
+    step (where neither moe form drops a copy), logits within
+    SHARDED_SERVE_REL, the flash form once a layer a step, the
+    expert-parallel form once a moe layer a step, no kernel 12."""
+    gen = len(rec["same_tokens"])
+    prof = rec.get("profile")
+    busy = prof and prof["device_busy_ms"]
+    print(f"[sharded-serve] {tag}: {gen} steps, sharded {rec['ms_per_token']:.3f} ms a token "
+          f"(one device {rec['one_device_ms_per_token']:.3f}); logits within "
+          f"{rec['max_rel']:.3e} of one device's max|logits|; tokens equal "
+          f"{sum(rec['same_tokens'])}/{gen}; forms {rec['calls']}; kernel 12 launches "
+          f"{rec['flash_launches']}; peak_mem_GB={rec['peak_mem_bytes'] / 1e9:.3f}"
+          + (f"; profiled {PROFILE_STEPS} steps wall_ms={prof['wall_ms']:.3f} busy="
+             + (f"{busy / prof['wall_ms']:.4f}" if busy else "not measured")
+             + " (top device ms: " + ", ".join(f"{t['name'][:48]} x{t['launches']} "
+                                               f"{t['ms']:.3f}" for t in prof["top"][:3])
+             + ")" if prof else "")
+          + (f"; dropped copies: one device {rec['one_device_drops']}, expert-parallel "
+             f"{rec['sharded_drops']}" if "sharded_drops" in rec else ""), flush=True)
+    held = rec.get("no_drop_steps", [True] * gen)
+    check(all(s for s, h in zip(rec["same_tokens"], held) if h),
+          f"sharded serve {tag}: greedy tokens differ from one device's")
+    check(rec["max_rel"] <= SHARDED_SERVE_REL or not all(held),
+          f"sharded serve {tag}: logits {rec['max_rel']:.3e} of max from one device's "
+          f"(limit {SHARDED_SERVE_REL})")
+    n_moe = cfg.n_layers // cfg.moe.moe_every if cfg.moe else 0
+    check(rec["calls"].get("flash", 0) == cfg.n_layers * gen
+          and rec["calls"].get("ep", 0) == (n_moe * gen if expect_ep else 0)
+          and not rec["calls"].get("gathered") and rec["flash_launches"] == 0,
+          f"sharded serve {tag}: forms {rec['calls']}, kernel 12 {rec['flash_launches']} "
+          f"(flash {cfg.n_layers * gen}, expert-parallel {n_moe * gen} expected, no kernel 12)")
+
+
+def phase_sharded_serve(report, llama4_params):
+    """The sharded decode step (build_decode_step under axis_rules(rules,
+    mesh=mesh), ROADMAP 12b.4b) on a 1 x 1 ("data", "model") mesh over a
+    1-rank NCCL group, each case held to the one-device decode of the same
+    prompt (_sharded_decode): (c) llama4-maverick at LLAMA4_CUT under the
+    production decode_32k rules (``llama4_params``, phase_llama4's
+    weights, freed here): the flash decode and the expert-parallel moe
+    layer on one rank, each form's dropped copies; (a) stablelm-3b at full
+    width with "cache_seq" mapped to "model": the flash form over the whole
+    cache; (b) granite-34b at GRANITE_CUT under its production decode_32k
+    rules (MQA: "cache_seq" over "model"). Returns kernel 12's launches in
+    the sharded decodes (none expected)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api
+    from repro_torch.train._tree import leaves
+    out = {}
+    with _one_rank_mesh() as mesh:
+        cfg = get_config(LLAMA4_ARCH).replace(**LLAMA4_CUT)
+        rec = _sharded_decode(cfg, llama4_params, _decode_rules(cfg, mesh), mesh, "cuda",
+                              LLAMA4_BATCH, LLAMA4_SERVE_PROMPT, LLAMA4_SERVE_GEN, drops=True)
+        llama4_params.clear()
+        _report_sharded_decode(f"(c) {LLAMA4_ARCH} {LLAMA4_CUT}", cfg, rec, expect_ep=True)
+        out["llama4"] = rec
+        for key, arch, cut, overrides in (("stablelm", SERVE_ARCH, None, {"cache_seq": ("model",)}),
+                                          ("granite", GRANITE_ARCH, GRANITE_CUT, None)):
+            cfg = get_config(arch)
+            cfg = cfg.replace(**cut) if cut else cfg
+            n_params = sum(t.numel() for t in leaves(get_api(cfg).init_params(None, cfg)))
+            print(f"[sharded-serve] {arch} {cut or 'full'}: {n_params:,} parameters "
+                  f"({n_params * 4 / 1e9:.3f} GB in f32)", flush=True)
+            params = get_api(cfg).init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+            rules = (_decode_rules(cfg, mesh, overrides, model_size=1, data_size=1) if overrides
+                     else _decode_rules(cfg, mesh))
+            rec = _sharded_decode(cfg, params, rules, mesh, "cuda", SHARDED_SERVE_BATCH,
+                                  SHARDED_SERVE_PROMPT, SHARDED_SERVE_GEN, profile=True)
+            del params
+            tag = "(a)" if key == "stablelm" else "(b)"
+            _report_sharded_decode(f"{tag} {arch} {cut or 'full'}, cache_seq "
+                                   f"{rules['cache_seq']}", cfg, rec, expect_ep=False)
+            out[key] = dict(rec, n_params=n_params)
+    torch.cuda.empty_cache()
+    report["sharded_serve"] = out
+    return sum(r["flash_launches"] for r in out.values())
+
+
+def _moe_ep_vs_local(cfg, p, mesh, dev):
+    """deepseek's moe layer ``p`` (whole, on ``dev``) at EP_MOE_CF, where
+    no form drops a copy: the expert-parallel form under the rules on
+    ``mesh`` (this rank's rows and experts) against the local form on one
+    device over each "data" block of the same seeded input (the
+    expert-parallel aux loss is the mean of the blocks'): y, aux and the
+    gradients of sum(y**2) + aux (rank r's loss sum(y_r**2) + aux / d, the
+    parameters' gradients summed over "data"), each as a share of its max;
+    the expert-parallel forward and backward run under
+    set_sync_debug_mode("error"). Returns the record."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import axis_rules
+    from repro_torch.launch.mesh import (build_rules, local_shard, param_shardings,
+                                         placement_leaves, shard_tree)
+    from repro_torch.models import moe
+    from repro_torch.train._tree import leaves, named_leaves, tree_map
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=EP_MOE_CF))
+    rows, s = EP_MOE_TOKENS
+    x = torch.randn((rows, s, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    d, m = mesh.shape
+    rules = build_rules(cfg, model_size=m, data_size=d)
+    n = rows // d
+    # one device: the local form on each data block
+    live = tree_map(lambda t: t.detach().requires_grad_(), p)
+    xw = x.clone().requires_grad_()
+    blocks = [moe.moe_ffn(xw[i * n:(i + 1) * n], live, cfg) for i in range(d)]
+    y_one = torch.cat([b[0] for b in blocks])
+    aux_one = torch.stack([b[1] for b in blocks]).mean()
+    drops = torch.stack([_drops_both(xw[i * n:(i + 1) * n].detach(), p, cfg)
+                         for i in range(d)]).sum(0)
+    g_one = torch.autograd.grad((y_one * y_one).sum() + aux_one, [xw, *leaves(live)])
+    del blocks, live
+    coord = mesh.get_coordinate()
+    data = mesh.get_group("data") if d > 1 else None
+    with axis_rules(rules, mesh=mesh):
+        pl = param_shardings(mesh, moe.moe_ffn_specs(cfg))
+        local = tree_map(lambda t: t.requires_grad_(), shard_tree(p, mesh, pl))
+        x_loc = x[coord[0] * n:(coord[0] + 1) * n].clone().requires_grad_()
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe.moe_ffn(x_loc, local, cfg)
+            grads = torch.autograd.grad((y * y).sum() + aux / d, [x_loc, *leaves(local)])
+        except RuntimeError as err:
+            check(False, f"the expert-parallel moe_ffn synchronizes with the host: {err}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ms = cuda_ms(lambda: moe.moe_ffn(x_loc, local, cfg), 10)
+    ms_local = cuda_ms(lambda: moe.moe_ffn(x[:n], p, cfg), 10)
+    y, aux = y.detach(), aux.detach()
+    gx, gp = grads[0], list(grads[1:])
+    if data is not None:
+        for g in gp:
+            dist.all_reduce(g, group=data)
+    rel = {"y": float((y - y_one[coord[0] * n:(coord[0] + 1) * n]).abs().max()
+                      / y_one.abs().max()),
+           "x": float((gx - g_one[0][coord[0] * n:(coord[0] + 1) * n]).abs().max()
+                      / g_one[0].abs().max())}
+    for name, g, w, place in zip(named_leaves(local), gp, g_one[1:], placement_leaves(pl),
+                                 strict=True):
+        rel[name] = float((g - local_shard(w, mesh, place)).abs().max() / w.abs().max())
+    return dict(mesh=[d, m], tokens=rows * s, rel=rel, aux=float(aux.detach()),
+                aux_one=float(aux_one), drops=drops.tolist(), ms=ms, local_ms=ms_local)
+
+
+def _check_moe_ep(tag, rec):
+    worst = max(rec["rel"].values())
+    print(f"[moe-ffn] {tag} expert-parallel form on a {rec['mesh'][0]} x {rec['mesh'][1]} "
+          f"mesh against the local form at capacity factor {EP_MOE_CF} ({rec['tokens']} "
+          f"tokens): no host sync; y and the gradients of sum(y^2) + aux within {worst:.3e} "
+          f"of each leaf's max ({max(rec['rel'], key=rec['rel'].get)} the worst); aux "
+          f"{rec['aux']:.8f} (local {rec['aux_one']:.8f}); dropped copies local "
+          f"{rec['drops'][0]}, expert-parallel {rec['drops'][1]}; forward "
+          f"{rec['ms']:.3f} ms (local {rec['local_ms']:.3f})", flush=True)
+    check(rec["drops"] == [0, 0], f"moe_ffn {tag}: copies dropped at capacity factor {EP_MOE_CF}")
+    check(worst <= MOE_REL and abs(rec["aux"] - rec["aux_one"]) <= 1e-6 * abs(rec["aux_one"]),
+          f"moe_ffn {tag}: the expert-parallel form parts from the local form: {rec['rel']}, "
+          f"aux {rec['aux']} against {rec['aux_one']}")
 
 
 TRAIN_GRAD_REL = 1e-4       # a gradient leaf, kernel 12 against the plain versions, of max|leaf|
@@ -5462,7 +5807,8 @@ def _four_rank_worker(rank, world, store, out_path, ckpt_root):
     (snapshots every 5 sweeps under ``ckpt_root``, shared by the ranks),
     interrupted at sweep 10 on rank 1 alone and resumed; E1 explicit on
     shuffled rows with ``row_reorder``; then the sharded LM step
-    (:func:`_four_rank_lm`). Rank 0 saves what it got."""
+    (:func:`_four_rank_lm`) and the sharded serve (:func:`_four_rank_serve`).
+    Rank 0 saves what it got."""
     import torch.distributed as dist
     from repro_torch import AffinitySpec, GPICConfig, run_gpic
     from repro_torch.core import distributed as D
@@ -5516,6 +5862,10 @@ def _four_rank_worker(rank, world, store, out_path, ckpt_root):
     gathered = [None] * world if rank == 0 else None
     dist.gather_object(lm, gathered, dst=0)
     out["lm"] = gathered
+    serve = _four_rank_serve(dev)
+    gathered = [None] * world if rank == 0 else None
+    dist.gather_object(serve, gathered, dst=0)
+    out["serve"] = gathered
     if rank == 0:
         torch.save(out, out_path)
     dist.barrier()
@@ -5540,6 +5890,68 @@ def _four_rank_lm(dev):
         out["meshes"][f"{shape[0]}x{shape[1]}"] = _sharded_lm_steps(
             mesh, cfg, tcfg, data_fn, dev, one["params"])
     return out
+
+
+def _four_rank_serve(dev):
+    """This rank's part of the sharded serve on four cards, on each of
+    SHARDED_MESHES: phase_sharded_serve's (a) stablelm-3b at full width with
+    "cache_seq" over "model" and (b) granite-34b at GRANITE_CUT under its
+    decode_32k rules for the mesh, each against the one-device decode on
+    this card (_sharded_decode, 4 more steps profiled), and phase_moe_ffn's
+    expert-parallel deepseek layer (_moe_ep_vs_local)."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_api, moe
+    meshes = {shape: init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+              for shape in SHARDED_MESHES}
+    out = {}
+    for key, arch, cut, overrides in (("stablelm", SERVE_ARCH, None, {"cache_seq": ("model",)}),
+                                      ("granite", GRANITE_ARCH, GRANITE_CUT, None)):
+        cfg = get_config(arch)
+        cfg = cfg.replace(**cut) if cut else cfg
+        params = get_api(cfg).init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        for shape, mesh in meshes.items():
+            rules = _decode_rules(cfg, mesh, overrides, model_size=shape[1], data_size=shape[0])
+            out[f"{key} {shape[0]}x{shape[1]}"] = dict(
+                _sharded_decode(cfg, params, rules, mesh, dev, SHARDED_SERVE_BATCH,
+                                SHARDED_SERVE_PROMPT, SHARDED_SERVE_GEN, profile=True),
+                cache_seq=rules["cache_seq"])
+        del params
+        torch.cuda.empty_cache()
+    cfg = get_config(MOE_ARCH)
+    p = moe.init_moe_ffn(torch.Generator(device=dev).manual_seed(0), cfg)
+    for shape, mesh in meshes.items():
+        out[f"moe {shape[0]}x{shape[1]}"] = _moe_ep_vs_local(cfg, p, mesh, dev)
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_four_rank_serve(serve):
+    """The four ranks' records of _four_rank_serve: each decode case held
+    as phase_sharded_serve's (tokens equal, logits within
+    SHARDED_SERVE_REL of one device's, the flash form once a layer a step,
+    no kernel 12), the expert-parallel moe_ffn as phase_moe_ffn's."""
+    from repro_torch.configs import get_config
+    rec = {}
+    for name in serve[0]:
+        ranks = [r[name] for r in serve]
+        if name.startswith("moe"):
+            for i, r in enumerate(ranks):
+                _check_moe_ep(f"{MOE_ARCH} 4 ranks, rank {i}", r)
+        else:
+            arch, cut = ((SERVE_ARCH, None) if name.startswith("stablelm")
+                         else (GRANITE_ARCH, GRANITE_CUT))
+            cfg = get_config(arch)
+            cfg = cfg.replace(**cut) if cut else cfg
+            for i, r in enumerate(ranks):
+                _report_sharded_decode(f"4 ranks {name} (cache_seq {r['cache_seq']}), rank {i}",
+                                       cfg, r, expect_ep=False)
+        rec[name] = ranks
+    return rec
 
 
 def _check_four_rank_lm(lm, losses_1):
@@ -5593,7 +6005,9 @@ def phase_four_ranks(report, yardstick, lm_losses):
     monolithic run with the notes retry and resumed:10; the reordered E1
     run's permutation exactly the 1-rank one (its labels against the 1-rank
     run's recorded); the sharded LM step at meshes (1, 4) and (2, 2)
-    against the 1-rank run's losses ``lm_losses`` (:func:`_check_four_rank_lm`).
+    against the 1-rank run's losses ``lm_losses`` (:func:`_check_four_rank_lm`);
+    the sharded decode and the expert-parallel moe_ffn at the same meshes
+    (:func:`_check_four_rank_serve`).
     On fewer cards it says so on one line and runs nothing."""
     import tempfile
     import torch.multiprocessing as mp
@@ -5657,6 +6071,7 @@ def phase_four_ranks(report, yardstick, lm_losses):
     rec["reorder"] = dict(permutation_equal=same_perm, labels_equal=same_labels, ari=agree,
                           n_iter_cols=reorder["n_iter_cols"], wall_s=reorder["wall_s"])
     rec["lm"] = _check_four_rank_lm(got["lm"], lm_losses)
+    rec["serve"] = _check_four_rank_serve(got["serve"])
     report["four_ranks"] = dict(run=True, cards=cards, runs=rec)
 
 
@@ -5820,7 +6235,9 @@ def main(argv=None) -> int:
     phase_family_parity(report)
     family_launches = phase_family_serve(report)
     phase_moe_ffn(report)
-    family_launches[LLAMA4_ARCH] = phase_llama4(report)
+    family_launches[LLAMA4_ARCH], llama4_params = phase_llama4(report)
+    sharded_decode = phase_sharded_serve(report, llama4_params)
+    del llama4_params
     train_launches, one_device = phase_train(report)
     counts.update({op: train_launches[op] for op in BWD_LABELS})
     sharded_lm = phase_sharded_train(report, one_device)
@@ -5860,7 +6277,8 @@ def main(argv=None) -> int:
          **(_bf16_keys(kernels[name]["bf16"], bf16_counts[name])
             if name in bf16_counts else {}),
          **({"train_launches": train_launches[name]} if name in train_launches else {}),
-         **({"family_launches": family_launches} if name == "flash_attention" else {}),
+         **({"family_launches": family_launches, "sharded_decode_launches": sharded_decode}
+            if name == "flash_attention" else {}),
          **({"family_train_launches": {arch: c[name] for arch, c in family_train.items()}}
             if name in ("flash_attention", *BWD_LABELS) else {}),
          **({"f32_fma_bound_ms": kernels[name]["f32_fma_bound_ms"]}

@@ -1,4 +1,4 @@
-"""The collectives of the sharded LM step, each an autograd function with
+"""The collectives of the sharded LM steps, each an autograd function with
 its backward written out.
 
 Each rank holds its local shards of the parameters, placed by
@@ -14,13 +14,24 @@ mesh's "model" axis):
   gather   all-gather forward along a dimension, this rank's slice
            backward: the vocab-sharded logits, which every rank then reads
            whole and alike
+  gather_rows  all-gather forward along the rows, the all-reduced
+           gradient's slice backward: rows that every rank then computes
+           with whole, each toward its own rows' loss
+  mean     all-reduce forward divided by the group's size, identity
+           backward: the moe aux loss averaged over "data", which each
+           rank's loss counts once and the step's gradients average
+  all_max  all-reduce max, no backward: the flash decode's row maxima
 
 :func:`group` names the process group of a logical axis under the current
 rules and mesh: None without rules or a mesh, for an axis the rules leave
-unsharded, or over a mesh axis of one rank, where every function here is
-the identity and adds no operation.
+unsharded, or over mesh axes of one rank, where every function here is
+the identity and adds no operation. "data", "model" and both (the whole
+mesh, data-major) have groups; :func:`axis_index` is this rank's place
+along such axes, as the reference's ``jax.lax.axis_index``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -28,23 +39,66 @@ import torch.nn.functional as F
 
 from .sharding import SHARDED_TODO, current_mesh, current_rules
 
+MESH_AXES = ("data", "model")
+
+
+def mesh_axes(name: str) -> tuple:
+    """The mesh axes the rules map logical axis ``name`` to, as a tuple
+    (() without rules or for an unsharded axis)."""
+    axis = (current_rules() or {}).get(name)
+    if axis in (None, ()):
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def group_of(axes: tuple):
+    """The process group over mesh ``axes`` (a tuple in the mesh's order),
+    or None where there is no mesh or the axes hold one rank. Axes the
+    ("data", "model") mesh does not have, in another order, raise."""
+    mesh = current_mesh()
+    if mesh is None or not axes:
+        return None
+    names = tuple(mesh.mesh_dim_names)
+    if names != MESH_AXES or len(set(axes)) != len(axes) or any(a not in names for a in axes) \
+            or list(axes) != sorted(axes, key=names.index):
+        raise NotImplementedError(f"the sharded LM steps take axes of a ('data', 'model') "
+                                  f"mesh in its order, not {axes!r} on {names} ({SHARDED_TODO})")
+    if axis_size(axes) == 1:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    if not torch.equal(mesh.mesh.flatten().cpu(), torch.arange(dist.get_world_size())):
+        raise NotImplementedError(f"the whole-mesh group needs a mesh of the process group's "
+                                  f"ranks in order ({SHARDED_TODO})")
+    return dist.group.WORLD
+
 
 def group(name: str):
-    """The process group ``name`` is sharded over, or None (see above).
-    A rule other than None or the mesh's "model" axis raises."""
-    rules, mesh = current_rules(), current_mesh()
-    if rules is None or mesh is None:
+    """The process group ``name`` is sharded over, or None (see above)."""
+    if current_rules() is None or current_mesh() is None:
         return None
-    axis = rules.get(name)
-    if axis in (None, ()):
-        return None
-    if axis not in ("model", ("model",)):
-        raise NotImplementedError(
-            f"the sharded LM step takes {name!r} over the mesh's 'model' axis or "
-            f"unsharded, not {axis!r} ({SHARDED_TODO})")
-    if mesh.shape[mesh.mesh_dim_names.index("model")] == 1:
-        return None
-    return mesh.get_group("model")
+    return group_of(mesh_axes(name))
+
+
+def axis_index(axes: tuple) -> int:
+    """This rank's index along mesh ``axes``, the first the slowest (0
+    without a mesh)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 0
+    coord, names, idx = mesh.get_coordinate(), tuple(mesh.mesh_dim_names), 0
+    for a in axes:
+        j = names.index(a)
+        idx = idx * mesh.shape[j] + coord[j]
+    return idx
+
+
+def axis_size(axes: tuple) -> int:
+    """The ranks along mesh ``axes`` (1 without a mesh)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    return math.prod(mesh.shape[tuple(mesh.mesh_dim_names).index(a)] for a in axes)
 
 
 class _Enter(torch.autograd.Function):
@@ -87,6 +141,34 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, lo, ctx.width), None, None
 
 
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp, ctx.width = grp, x.shape[0]
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(dist.get_world_size(grp))]
+        dist.all_gather(parts, x.contiguous(), group=grp)
+        return torch.cat(parts, dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.grp)
+        return g.narrow(0, dist.get_rank(ctx.grp) * ctx.width, ctx.width), None
+
+
+class _Mean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=grp)
+        return out / dist.get_world_size(grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def enter(x, grp):
     return x if grp is None else _Enter.apply(x, grp)
 
@@ -97,6 +179,22 @@ def reduce(x, grp):
 
 def gather(x, grp, dim: int = -1):
     return x if grp is None else _Gather.apply(x, grp, dim % x.ndim)
+
+
+def gather_rows(x, grp):
+    return x if grp is None else _GatherRows.apply(x, grp)
+
+
+def mean(x, grp):
+    return x if grp is None else _Mean.apply(x, grp)
+
+
+def all_max(x, grp):
+    if grp is None:
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=grp)
+    return out
 
 
 def rank(grp) -> int:

@@ -35,8 +35,18 @@ MLP's down projection summed over "model", the vocab-sharded table read
 by a masked lookup and the logits gathered. K and V replicated over
 "model" (a ``kv_heads`` rule of None, as an MQA model needs on a model
 axis wider than its KV heads) are projected on every rank, which takes
-the KV heads of its own query heads. The cache and cross-attention paths
-run on one device only.
+the KV heads of its own query heads.
+
+Under a mesh the cache path runs the decode step (one token a row) on
+each rank's shard of the cache, laid out by the cache spec ("batch",
+"cache_seq", "kv_heads_act"): where the rules map "cache_seq", the
+reference's flash decode (a partial softmax over each rank's positions,
+combined by a max and two sums over the "cache_seq" axes); otherwise the
+dense decode on the rank's query heads over a cache sharded by KV heads
+or whole (or gathered over its positions under ``REPRO_NAIVE=1``). The
+owning rank alone writes a new position. A prefill or a cross-attention
+under a mesh raises, naming 12b.4c; a cross-attention without a cache
+runs with the heads unsharded only.
 """
 from __future__ import annotations
 
@@ -47,6 +57,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..distributed import collectives as C
+from ..distributed.sharding import (SHARDED_TODO, current_mesh, current_rules, logical_to_spec,
+                                    naive_mode)
 from ..kernels import ops
 from ..kernels.flash_attention import MAX_D
 
@@ -177,12 +189,17 @@ def attention(
     window = cfg.sliding_window
     src = x if x_kv is None else x_kv
     s_kv = src.shape[1]
+    if cache is not None and current_rules() is not None and current_mesh() is not None:
+        if x_kv is not None or s != 1:
+            raise NotImplementedError(f"under a mesh attention runs the training forward and "
+                                      f"the decode step (one token a row), not a prefill of "
+                                      f"{s} tokens or a cached cross-attention ({SHARDED_TODO})")
+        return _sharded_decode(x, p, cfg, positions, cache, int(cache_pos), rope)
     heads, kv_heads = C.group("heads"), C.group("kv_heads")
     sharded = heads is not None or kv_heads is not None
-    if sharded and (x_kv is not None or cache is not None or heads is None):
-        raise NotImplementedError("sharded attention runs the training forward only (no "
-                                  "cache, no cross-attention), with the query heads sharded "
-                                  "wherever the KV heads are")
+    if sharded and (x_kv is not None or heads is None):
+        raise NotImplementedError(f"sharded attention runs self-attention, with the query heads "
+                                  f"sharded wherever the KV heads are ({SHARDED_TODO})")
 
     q_in = C.enter(x, heads)
     kv_in = src if kv_heads is None else q_in
@@ -195,7 +212,9 @@ def attention(
     k = k.reshape(b, s_kv, kv, hd)
     v = v.reshape(b, s_kv, kv, hd)
     if heads is not None and kv_heads is None:
-        k, v = _own_kv_heads(k, v, h, cfg, heads)
+        # K and V projected whole: the rank takes its query heads' KV heads,
+        # the ranks' gradients of K and V summed (``enter``)
+        k, v = _group_kv(C.enter(k, heads), C.enter(v, heads), h, cfg, heads)
 
     if x_kv is not None:
         if s_kv == s and hd <= MAX_D:       # kernel 12's full function
@@ -247,14 +266,120 @@ def attention(
     return C.reduce(_out_proj(out, v, p, b, s), heads), cache
 
 
-def _own_kv_heads(k, v, h, cfg, grp):
-    """The KV heads of this rank's ``h`` query heads, from K and V
-    (b, s, kv, d) projected whole on every rank. The ranks' gradients of
-    K and V are summed (``enter``), each rank's holding only its heads'."""
+def _spec_axes(entry) -> tuple:
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _sharded_decode(x, p, cfg, positions, cache, pos, rope):
+    """One decode token under the rules and mesh, on the rank's shards of
+    the weights and of the cache (b, S_loc, kv_c, d), whose layout is the
+    cache spec's: rows over "batch", positions over "cache_seq", KV heads
+    over "kv_heads_act". q is projected on the rank's query heads; K and V
+    on its columns of wk and wv, gathered over "model" into whole heads
+    where the cache holds every KV head. The new K and V are written in
+    place by the rank whose cache shard holds ``pos`` alone.
+
+    With "cache_seq" mapped (and ``REPRO_NAIVE`` unset) the reference's
+    flash decode (:func:`_flash_decode`); otherwise the dense decode over
+    the cache, on the rank's query heads and their KV heads (a cache
+    sharded by positions, under ``REPRO_NAIVE=1``, is gathered first).
+    Either way the rank's heads go through its rows of wo, summed over
+    "model". Returns (out (b, 1, e), cache)."""
+    b = x.shape[0]
+    hd, window = cfg.resolved_head_dim, cfg.sliding_window
+    spec = logical_to_spec(("batch", "cache_seq", "kv_heads_act", None))
+    seq_axes, kv_axes = _spec_axes(spec[1]), _spec_axes(spec[2])
+    heads, kv_cols = C.group("heads"), C.group("kv_heads")
+    model = C.group_of(("model",))
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if kv_cols is not None and not kv_axes:     # the cache wants whole KV heads
+        k, v = C.gather(k, kv_cols), C.gather(v, kv_cols)
+    h_loc = q.shape[-1] // hd
+    q = q.reshape(b, 1, h_loc, hd)
+    k = k.reshape(b, 1, -1, hd)
+    v = v.reshape(b, 1, -1, hd)
+    ck, cv = cache["k"], cache["v"]
+    if k.shape[2] != ck.shape[2]:               # replicated wk, wv: the cache's own KV heads
+        n = ck.shape[2]
+        k, v = k.narrow(2, C.rank(model) * n, n), v.narrow(2, C.rank(model) * n, n)
+    if positions is None:
+        positions = pos + torch.arange(1, device=x.device)
+    if rope:
+        cos, sin = rope_table(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin).to(v.dtype)
+        k = apply_rope(k, cos, sin).to(v.dtype)
+
+    s_loc = ck.shape[1]
+    start = C.axis_index(seq_axes) * s_loc
+    if not 0 <= pos < s_loc * C.axis_size(seq_axes):
+        raise ValueError(f"cache_pos {pos} past the cache's {s_loc * C.axis_size(seq_axes)} "
+                         f"positions")
+    if start <= pos < start + s_loc:            # this rank's shard holds pos
+        ck[:, pos - start] = k[:, 0].to(ck.dtype)
+        cv[:, pos - start] = v[:, 0].to(cv.dtype)
+
+    if seq_axes and not naive_mode():
+        if "model" in seq_axes and heads is not None:
+            # every rank of the group combines the same heads: all of them
+            out = _flash_decode(C.gather(q, heads, 2), ck, cv, pos, start, window,
+                                C.group_of(seq_axes))
+            out = out.narrow(2, C.rank(heads) * h_loc, h_loc)
+        else:
+            ck, cv = _group_kv(ck, cv, h_loc, cfg, heads)
+            out = _flash_decode(q, ck, cv, pos, start, window, C.group_of(seq_axes))
+    else:
+        grp = C.group_of(seq_axes)
+        ck, cv = (C.gather(ck, grp, 1), C.gather(cv, grp, 1)) if grp is not None else (ck, cv)
+        ck, cv = _group_kv(ck[:, :pos + 1], cv[:, :pos + 1], h_loc, cfg, heads)
+        # made on the device: a host tensor copied there would wait for the queue
+        qi = pos + torch.arange(1, device=x.device)[:, None]
+        kj = torch.arange(pos + 1, device=x.device)[None, :]
+        out = _masked_attention(q, ck, cv, _visible(qi, kj, window=window, prefix_rows=True))
+    return C.reduce(_out_proj(out, cv, p, b, 1), heads), cache
+
+
+def _group_kv(ck, cv, h, cfg, grp):
+    """The KV heads (dimension 2) of this rank's ``h`` query heads, from K
+    and V or a cache that hold them all (as they are where they hold the
+    rank's own)."""
+    if grp is None or ck.shape[2] * cfg.n_heads == h * cfg.n_kv_heads:
+        return ck, cv
     rep = cfg.n_heads // cfg.n_kv_heads
-    lo = C.rank(grp) * h // rep
-    n = max(h // rep, 1)
-    return (C.enter(k, grp).narrow(2, lo, n), C.enter(v, grp).narrow(2, lo, n))
+    lo, n = C.rank(grp) * h // rep, max(h // rep, 1)
+    return ck.narrow(2, lo, n), cv.narrow(2, lo, n)
+
+
+def _flash_decode(q, ck, cv, pos, start, window, grp):
+    """The reference's ``_maybe_flash_decode`` (``layers.py:277-360``) on
+    this rank's cache shard (positions ``start`` on): the one-token
+    queries q (b, 1, h, d) over the shard's KV heads (b, S_loc, kv, d),
+    the causal (and window) mask, a local partial softmax (m, l, o) in f32,
+    combined over ``grp`` by a max and two sums, then ``o / max(l,
+    1e-30)``. Its arithmetic: q rounded to the cache's type, the scores
+    summed in f32, the unnormalized probabilities rounded to the cache's
+    type for the PV product, which is rounded to it before the f32 sum."""
+    b, _, h, hd = q.shape
+    kv = ck.shape[2]
+    rep = h // kv
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(hd))))
+    qg = q.reshape(b, 1, kv, rep, hd).to(ck.dtype).float()
+    logits = torch.einsum("bskrd,btkd->bkrst", qg, ck.float()) * scale      # (b, kv, rep, 1, t)
+    ids = start + torch.arange(ck.shape[1], device=q.device)
+    ok = ids <= pos
+    if window:
+        ok = ok & (ids > pos - window)
+    logits = logits.masked_fill(~ok, -torch.inf)
+    m = C.all_max(logits.amax(-1), grp)                                      # (b, kv, rep, 1)
+    p = torch.exp(logits - m[..., None]).masked_fill(~ok, 0.0)
+    l = C.reduce(p.sum(-1), grp)
+    o = torch.einsum("bkrst,btkd->bskrd", p.to(cv.dtype).float(), cv.float())
+    o = C.reduce(o.to(cv.dtype).float(), grp)                               # (b, 1, kv, rep, d)
+    o = o / torch.clamp_min(l, 1e-30).permute(0, 3, 1, 2)[..., None]
+    return o.reshape(b, 1, h, hd).to(cv.dtype)
 
 
 def _out_proj(out, v, p, b, s):

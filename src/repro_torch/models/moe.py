@@ -13,8 +13,18 @@ and no boolean-mask indexing, ``bincount`` or ``one_hot`` is used. Every
 gather it does reads each kept row once (dropped copies and empty slots
 read a zero pad row, whose gradient is discarded), and the combine sums a
 token's k copies over a dimension of their own, so the forward and the
-backward sum in a fixed order: no scatter-add, no atomics. The
-reference's expert-parallel ``shard_map`` path has no counterpart here.
+backward sum in a fixed order: no scatter-add, no atomics.
+
+Under rules and a mesh (the sharded decode step) the reference's
+expert-parallel path (:func:`_moe_ffn_ep`) where "experts" is mapped: each
+rank routes its rows over every expert, packs the copies of its own
+experts at twice its rows' capacity, and y is summed over the expert axis
+by one all-reduce (no all-to-all); the aux loss is averaged over "data".
+Where the reference takes its local path instead (``REPRO_NAIVE=1``, no
+"experts" rule, an expert count the axis does not divide), every rank
+computes the local form on the gathered rows and experts
+(:func:`_moe_ffn_gathered`). The shared experts run tensor-parallel over
+"mlp" in both.
 
 MLA (DeepSeek-V2): K and V compressed to a ``kv_lora_rank`` latent plus one
 shared RoPE key. Without a cache the expanded form; with one (prefill and
@@ -40,7 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
-from ..distributed.sharding import stacked
+from ..distributed import collectives as C
+from ..distributed.sharding import current_mesh, current_rules, naive_mode, stacked
 from . import layers as L
 from .transformer import _save_dots, checkpointed, head_logits
 
@@ -137,7 +148,45 @@ def _pad_row(x):
 
 
 def moe_ffn(x, p, cfg: ModelConfig):
-    """x (b, s, d) -> (y (b, s, d), aux loss, an f32 scalar)."""
+    """x (b, s, d) -> (y (b, s, d), aux loss, an f32 scalar). Under rules
+    and a mesh: the expert-parallel form where the rules map "experts"
+    (:func:`_moe_ffn_ep`), else the local form on every row and expert
+    (:func:`_moe_ffn_gathered`)."""
+    if current_rules() is not None and current_mesh() is not None:
+        ep_axes = C.mesh_axes("experts")
+        if ep_axes and not naive_mode() and cfg.moe.n_experts % C.axis_size(ep_axes) == 0:
+            return _moe_ffn_ep(x, p, cfg, ep_axes)
+        return _moe_ffn_gathered(x, p, cfg)
+    return _moe_ffn_local(x, p, cfg)
+
+
+def _aux_loss(probs, top_ids, m: MoEConfig):
+    """The Switch-style load-balancing loss of (t, e) router probabilities
+    and their (t, k) top ids; the one-hot count as a compare with
+    arange(e)."""
+    e = m.n_experts
+    me = probs.mean(0)
+    hits = top_ids[..., None] == torch.arange(e, device=probs.device)        # (t, k, e)
+    ce = hits.float().sum(1).mean(0)
+    return (me * ce).sum() * e * m.aux_loss_weight
+
+
+def _experts(he, p):
+    """The batched expert GEMMs of the (e, cap, d) buffer."""
+    hg = F.silu(_mm(he, p["wg"]))                                              # (e, cap, f)
+    hu = _mm(he, p["wu"])
+    return _mm(hg * hu, p["wd"])                                               # (e, cap, d)
+
+
+def _shared(xf, sp):
+    """The shared experts, tensor-parallel over "mlp" under rules and a
+    mesh (``layers.mlp``'s collectives)."""
+    grp = C.group("mlp")
+    xf = C.enter(xf, grp)
+    return C.reduce(_mm(F.silu(_mm(xf, sp["wg"])) * _mm(xf, sp["wu"]), sp["wd"]), grp)
+
+
+def _moe_ffn_local(x, p, cfg: ModelConfig):
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -145,31 +194,84 @@ def moe_ffn(x, p, cfg: ModelConfig):
     xf = x.reshape(t, d)
 
     probs, top_w, top_ids = route(xf, p, cfg)
-    # load-balancing auxiliary loss (Switch-style); the one-hot count as a
-    # compare with arange(e)
-    me = probs.mean(0)
-    hits = top_ids[..., None] == torch.arange(e, device=x.device)            # (t, k, e)
-    ce = hits.float().sum(1).mean(0)
-    aux = (me * ce).sum() * e * m.aux_loss_weight
+    aux = _aux_loss(probs, top_ids, m)
 
     cap = moe_capacity(t, m)
     slot, src = dispatch(top_ids, e, cap)
     # each token's k copies, side by side: the backward sums them over k
     xk = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
-    he = _pad_row(xk)[src].reshape(e, cap, d)
-
-    hg = F.silu(_mm(he, p["wg"]))                                              # (e, cap, f)
-    hu = _mm(he, p["wu"])
-    ye = _mm(hg * hu, p["wd"])                                                 # (e, cap, d)
+    ye = _experts(_pad_row(xk)[src].reshape(e, cap, d), p)
 
     yk = _pad_row(ye.reshape(e * cap, d))[slot].reshape(t, k, d)
     contrib = yk * top_w.to(x.dtype)[..., None]
     y = contrib.to(x.dtype).sum(1)
 
     if m.n_shared_experts:
-        sp = p["shared"]
-        y = y + _mm(F.silu(_mm(xf, sp["wg"])) * _mm(xf, sp["wu"]), sp["wd"])
+        y = y + _shared(xf, p["shared"])
     return y.reshape(b, s, d), aux
+
+
+def ep_dispatch(top_ids, e_loc: int, rank: int, cap: int):
+    """:func:`dispatch` of the copies routed to expert-parallel rank
+    ``rank``'s ``e_loc`` experts: the others sort after them, into a bin
+    of their own, as the reference's ``jnp.where(mine, local_e, e_loc)``.
+    Returns (slot (t*k,): each copy's row of the (e_loc*cap) buffer,
+    ``e_loc*cap`` where the copy is another rank's or dropped; src
+    (e_loc*cap,))."""
+    mine = torch.div(top_ids, e_loc, rounding_mode="floor") == rank
+    slot, src = dispatch(torch.where(mine, top_ids - rank * e_loc, e_loc), e_loc + 1, cap)
+    n = e_loc * cap
+    return torch.where(slot < n, slot, n), src[:n]
+
+
+def _moe_ffn_ep(x, p, cfg: ModelConfig, ep_axes: tuple):
+    """The reference's expert-parallel ``_moe_ffn_ep`` (``moe.py:145-252``)
+    on this rank's rows and its ``E / ep`` experts (wg, wu, wd split by
+    experts over ``ep_axes``): the router on every expert in f32, the aux
+    loss averaged over "data", this rank's experts' copies packed at twice
+    the capacity of its rows, y summed over ``ep_axes`` (one all-reduce of
+    (t, d), no all-to-all), the shared experts tensor-parallel beside it.
+
+    The backward: every rank routes alike, so the router's and aux's
+    gradients are whole on each; a rank's experts see only their copies,
+    so the copies' weights ``top_w`` and the tokens they read enter the
+    experts through ``enter`` (their gradients summed over ``ep_axes``)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    k = m.top_k
+    grp, ep = C.group_of(ep_axes), C.axis_size(ep_axes)
+    e_loc = m.n_experts // ep
+    if p["wg"].shape[0] != e_loc:
+        raise ValueError(f"the expert-parallel moe_ffn takes this rank's {e_loc} of "
+                         f"{m.n_experts} experts, not {p['wg'].shape[0]}")
+    xf = x.reshape(t, d)
+    probs, top_w, top_ids = route(xf, p, cfg)
+    aux = C.mean(_aux_loss(probs, top_ids, m), C.group("batch"))
+    cap = moe_capacity(t, m) * 2            # the reference's headroom for imbalance
+    slot, src = ep_dispatch(top_ids, e_loc, C.axis_index(ep_axes), cap)
+    xk = C.enter(xf, grp)[:, None, :].expand(t, k, d).reshape(t * k, d)
+    ye = _experts(_pad_row(xk)[src].reshape(e_loc, cap, d), p)
+    yk = _pad_row(ye.reshape(e_loc * cap, d))[slot].reshape(t, k, d)
+    contrib = yk * C.enter(top_w, grp).to(x.dtype)[..., None]
+    y = C.reduce(contrib.to(x.dtype).sum(1), grp)
+    if m.n_shared_experts:
+        y = y + _shared(xf, p["shared"])
+    return y.reshape(b, s, d), aux
+
+
+def _moe_ffn_gathered(x, p, cfg: ModelConfig):
+    """The local form under a mesh, as the reference's GSPMD runs it where
+    it takes no expert-parallel path (``REPRO_NAIVE=1``, no "experts"
+    rule, experts the axis does not divide): every rank gathers the rows
+    of "batch" and the experts of "experts", computes the local form on
+    all of them, and keeps its rows; the shared experts tensor-parallel."""
+    b = x.shape[0]
+    rows = C.group("batch")
+    ep = C.group("experts") if p["wg"].shape[0] != cfg.moe.n_experts else None
+    experts = {name: C.gather(p[name], ep, 0) for name in ("wg", "wu", "wd")}
+    y, aux = _moe_ffn_local(C.gather_rows(x, rows), {**p, **experts}, cfg)
+    return y.narrow(0, C.rank(rows) * b, b), aux
 
 
 # ---------------------------------------------------------------------------

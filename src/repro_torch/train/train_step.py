@@ -26,13 +26,16 @@ families are routed; the others, and rules this layout cannot take, raise
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
 
 from ..configs.base import ModelConfig, TrainConfig
-from ..distributed.sharding import SHARDED_TODO, axis_rules, current_mesh, current_rules
+from ..distributed import collectives as C
+from ..distributed.sharding import (SHARDED_TODO, axis_rules, current_mesh, current_rules,
+                                    logical_to_spec)
 from ..models import get_api
 from ._tree import leaves, tree_map, unflatten
 from .compression import compress_decompress
@@ -253,20 +256,159 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 # ---------------------------------------------------------------------------
 
 
-def build_decode_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
+_DECODE_FAMILIES = ("dense", "moe")
+
+
+@dataclass
+class _DecodeLayout:
+    """The sharded decode step's rows: the rank's rows of the global
+    batch where "batch" is sharded over "data" (None: every rank reads
+    every row)."""
+    data: object
+    data_rank: int
+    data_size: int
+
+    def rows(self, tokens):
+        n = tokens.shape[0] // self.data_size
+        return tokens.narrow(0, self.data_rank * n, n)
+
+    def gather(self, logits):
+        return C.gather(logits, self.data, 0)
+
+
+def _no_decode(why: str):
+    return NotImplementedError(f"the sharded decode step {why} ({SHARDED_TODO})")
+
+
+def decode_layout(cfg: ModelConfig, params, cache, tokens):
+    """The sharded decode step's layout under the current rules and mesh
+    (None without them: one device), the counterpart of
+    :func:`sharded_layout`. It checks the family (dense, and moe without
+    MLA), the rules, the widths the "model" axis must divide, and that
+    each parameter and cache leaf is this rank's shard; everything it
+    reads is local, so what it refuses raises on every rank before any
+    collective, naming 12b.4c."""
+    rules, mesh = current_rules(), current_mesh()
+    if rules is None or mesh is None:
+        return None
+    if cfg.family not in _DECODE_FAMILIES or cfg.mla is not None:
+        raise _no_decode(f"routes the dense family and moe's layers without MLA, not "
+                         f"{cfg.family}{' with MLA' if cfg.mla else ''} ({cfg.arch_id})")
+    if tuple(mesh.mesh_dim_names) != ("data", "model"):
+        raise _no_decode(f"takes a ('data', 'model') mesh, not {mesh.mesh_dim_names}")
+    size = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    for name in ("layers", "embed", "seq", "expert_mlp"):
+        if _axis(rules, name) is not None:
+            raise _no_decode(f"keeps {name!r} unsharded; the rules give {rules[name]!r}")
+    batch = _axis(rules, "batch")
+    if batch not in (None, ("data",)):
+        raise _no_decode(f"takes 'batch' over 'data' or unsharded, not {rules['batch']!r}")
+    for name in ("heads", "kv_heads", "mlp", "vocab", "experts", "kv_heads_act"):
+        if _axis(rules, name) not in (None, ("model",)):
+            raise _no_decode(f"takes {name!r} over 'model' or unsharded, not {rules[name]!r}")
+    seq = _axis(rules, "cache_seq") or ()
+    if seq not in ((), ("data",), ("model",), ("data", "model")):
+        raise _no_decode(f"shards 'cache_seq' over ('data',), ('model',) or ('data', 'model'), "
+                         f"not {rules['cache_seq']!r}")
+    m = size["model"]
+    heads, kv_act = _axis(rules, "heads"), _axis(rules, "kv_heads_act")
+    if kv_act and not heads and m > 1:
+        raise _no_decode("shards the cache's KV heads only with the query heads")
+    widths = [("heads", cfg.n_heads), ("kv_heads", cfg.n_kv_heads * cfg.resolved_head_dim),
+              ("mlp", cfg.d_ff), ("vocab", cfg.vocab_padded), ("kv_heads_act", cfg.n_kv_heads)]
+    if cfg.moe is not None:
+        widths += [("experts", cfg.moe.n_experts),
+                   ("mlp", cfg.moe.d_ff_expert * cfg.moe.n_shared_experts)]
+    for name, width in widths:
+        if _axis(rules, name) and width % m:
+            raise _no_decode(f"splits {name} ({width}) evenly over 'model' ({m} ranks)")
+    if heads and m > 1:
+        local, rep = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
+        if local % rep and rep % local:
+            raise _no_decode(f"gives each rank whole KV groups: {local} query heads a rank "
+                             f"in groups of {rep}")
+    b = tokens.shape[0]
+    if batch and b % size["data"]:
+        raise _no_decode(f"splits a batch of {b} rows over {size['data']} data ranks")
+
+    _, want = _expected_layout(cfg, tuple(sorted(rules.items())),
+                               tuple(mesh.mesh_dim_names), tuple(mesh.shape))
+    shapes = tuple(tuple(t.shape) for t in leaves(params))
+    if shapes != want:
+        bad = next((i for i, (a, w) in enumerate(zip(shapes, want)) if a != w), None)
+        if bad is None:
+            raise ValueError(f"the parameter tree has {len(shapes)} leaves on this rank; "
+                             f"{cfg.arch_id}'s has {len(want)} ({SHARDED_TODO})")
+        raise ValueError(f"parameter leaf {bad} is {shapes[bad]} on this rank; its placement "
+                         f"on the mesh {size} gives {want[bad]} ({SHARDED_TODO})")
+    _check_cache(cfg, cache, b, size)
+    data = mesh.get_group("data") if batch and size["data"] > 1 else None
+    return _DecodeLayout(data=data, data_rank=mesh.get_coordinate()[0] if batch else 0,
+                         data_size=size["data"] if batch else 1)
+
+
+def _check_cache(cfg, cache, b, size):
+    """Each cache leaf's rows, KV heads and head width those of this
+    rank's shard under the cache specs (its layers and positions as
+    given)."""
+    specs = _named(get_api(cfg).cache_specs(cfg))
+    got = _named(cache)
+    if sorted(got) != sorted(specs):
+        raise ValueError(f"the cache has leaves {sorted(got)}; {cfg.arch_id}'s has "
+                         f"{sorted(specs)} ({SHARDED_TODO})")
+    full = {"batch": b, "kv_heads_act": cfg.n_kv_heads}
+    for name, spec in specs.items():
+        t, resolved = got[name], logical_to_spec(spec)
+        for dim, (logical, axes) in enumerate(zip(spec, resolved)):
+            if logical is None and dim == len(spec) - 1:
+                want = cfg.resolved_head_dim
+            elif logical in full:
+                axes = () if axes is None else (axes,) if isinstance(axes, str) else axes
+                want = full[logical] // math.prod(size[a] for a in axes)
+            else:
+                continue
+            if t.shape[dim] != want:
+                raise ValueError(f"cache leaf {name} is {tuple(t.shape)} on this rank; its "
+                                 f"dimension {dim} ({logical}) on the mesh {size} is {want} "
+                                 f"({SHARDED_TODO})")
+
+
+def _named(tree, prefix="") -> dict:
+    """{dotted key: leaf} of a tree of dicts (leaves tensors or specs)."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in _named(tree[key], f"{prefix}{key}.").items()}
+    return {prefix[:-1]: tree}
+
+
+def build_decode_step(cfg: ModelConfig, compute_dtype=torch.bfloat16, return_logits=False):
     """serve_step(params, tokens, cache, pos, extras=None) -> (next tokens,
-    cache); ``extras`` goes to the family's decode step (encdec's
-    ``{"enc_out": ...}``)."""
+    cache), with ``return_logits`` also the step's f32 logits (b, 1,
+    vocab_size); ``extras`` goes to the family's decode step (encdec's
+    ``{"enc_out": ...}``).
+
+    Under ``axis_rules(rules, mesh=mesh)`` the step is sharded, the
+    counterpart of the reference's ``jax.jit`` of its decode under the same
+    context (ROADMAP 12b.4b): each rank passes its shards of the
+    parameters and of the cache (``launch/mesh.py``'s ``param_shardings``
+    of the param and cache specs, ``shard_tree``) and the global tokens,
+    of which it reads its rows of "batch"; :func:`decode_layout` checks
+    the layout first. The cache shards are updated in place, and the
+    logits and tokens come out whole and alike on every rank."""
     api = get_api(cfg)
 
     def serve_step(params, tokens, cache, pos, extras=None):
+        layout = decode_layout(cfg, params, cache, tokens)
+        if layout is not None:
+            tokens = layout.rows(tokens)
         logits, cache = api.decode_step(params, cfg, tokens, cache, pos,
                                         extras, compute_dtype=compute_dtype)
+        if layout is not None:
+            logits = layout.gather(logits)
         # mask vocab-padding columns (the embedding table is padded to 128)
         logits = logits[..., : cfg.vocab_size]
         # torch.argmax returns the first index of the maximum, like jnp.argmax
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return next_tok, cache
+        return (next_tok, cache, logits) if return_logits else (next_tok, cache)
 
     return serve_step
 
@@ -274,10 +416,15 @@ def build_decode_step(cfg: ModelConfig, compute_dtype=torch.bfloat16):
 def build_prefill(cfg: ModelConfig, max_len: int, compute_dtype=torch.bfloat16):
     """prefill_step(params, batch) -> (logits, cache), and for encdec a third
     output, the encoder's ``enc_out``, which the decode step takes as
-    ``extras["enc_out"]``."""
+    ``extras["enc_out"]``. One device only: under rules and a mesh it
+    raises, naming 12b.4c (prefill on one device and hand each rank its
+    shard of the cache, ``launch/mesh.py::local_shard``)."""
     api = get_api(cfg)
 
     def prefill_step(params, batch):
+        if current_rules() is not None and current_mesh() is not None:
+            raise NotImplementedError(f"the prefill runs on one device; under a mesh it has "
+                                      f"no sharded form yet ({SHARDED_TODO})")
         return api.prefill(params, cfg, batch, max_len, compute_dtype=compute_dtype)
 
     return prefill_step

@@ -1,0 +1,518 @@
+"""The port's sharded decode step (ROADMAP 12b.4b), on the CPU: the
+sequence-sharded flash decode, tensor-parallel attention over a
+KV-head-sharded cache and moe's expert-parallel FFN, under the
+reference's rules on 4 gloo ranks.
+
+One module fixture runs the reference once, in a subprocess of 4 host
+devices (``repro.testing.run_mesh_subprocess``): the smoke models' weights
+(key 0), a one-device prefill of 14 tokens into an f32 cache of 32
+positions, then 4 greedy steps of its decode jitted under
+``build_rules(cfg, cell, model_size=m, data_size=d)`` and the mesh, for
+stablelm-3b, granite-34b (MQA), llama4-maverick (moe, GQA) and
+h2o-danube-3-4b (its window of 16 cuts into the 32 positions), cells
+``decode_32k`` and ``long_500k``, meshes (1, 4) and (2, 2); the steps
+write positions 14 to 17, so the owning shard changes at 16. And
+``moe_ffn`` of deepseek's and llama4's smoke layer under
+``build_rules(cfg, model_size=m, data_size=d)`` at capacity factors 8.0
+and 1.0 (which drops copies), its y, aux and ``jax.grad`` of
+``sum(y**2) + aux``. Then one spawn of 4 gloo ranks
+(``tests/torch_sharded_serve_worker.py``, through
+``repro_torch.testing.run_ranks``) runs the port on the same weights and
+inputs, the same rules and meshes, on each rank's shards.
+
+Tolerances, and why:
+- logits against the reference's jitted decode: 1e-4 of max|logits| (two
+  frameworks' f32 sums in other orders; measured under 2e-6), the greedy
+  tokens equal;
+- logits against the port's one-device decode: 1e-5 of max|logits| (the
+  ranks' partial sums; measured under 1.2e-6), the tokens equal, and
+  each rank's cache shard within 1e-5 of the slice of the one-device
+  cache;
+- moe_ffn: y within 1e-5 of max|y|, aux within 1e-6, the same dropped
+  copies, each gradient leaf within 1e-5 of its max.
+Where the reference raises (llama4 ``decode_32k`` at (2, 2): its GSPMD
+cache update stops in a ShardingTypeError, ROADMAP queue 3) the port is
+held to the one-device decodes of both packages instead.
+"""
+import os
+import pickle
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+
+# one torch thread a process: the test run starts several processes at once
+torch.set_num_threads(1)
+
+from repro.testing import run_mesh_subprocess  # noqa: E402
+
+import torch_sharded_serve_worker as W  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.distributed import axis_rules  # noqa: E402
+from repro_torch.interop import lm_params_from_reference  # noqa: E402
+from repro_torch.launch.mesh import build_rules  # noqa: E402
+from repro_torch.models import get_api  # noqa: E402
+from repro_torch.testing import run_ranks  # noqa: E402
+from repro_torch.train._tree import leaves, tree_map  # noqa: E402
+from repro_torch.train.train_step import build_decode_step  # noqa: E402
+
+WORLD = 4
+#: the 4-rank run takes about 12 s alone on the CPU
+JOIN_TIMEOUT = 240
+REF_REL, ONE_REL, MOE_REL, AUX_ABS = 1e-4, 1e-5, 1e-5, 1e-6
+CANCEL_ROUNDINGS = 4        # llama4's router gradient (see _gradient_shares)
+DECODE_ARCHS = ("stablelm-3b", "granite-34b", "llama4-maverick-400b-a17b", "h2o-danube-3-4b")
+MOE_ARCHS = ("deepseek-v2-lite-16b", "llama4-maverick-400b-a17b")
+CELLS = ("decode_32k", "long_500k")
+MESHES = ((1, 4), (2, 2))
+CFS = (8.0, 1.0)
+MOE_X = (4, 8)          # (rows, tokens a row) of moe_ffn's input
+
+DECODE_CASES = [dict(kind="decode", arch=a, cell=c, mesh=m)
+                for a in DECODE_ARCHS for c in CELLS for m in MESHES]
+MOE_CASES = [dict(kind="moe", arch=a, cf=cf, mesh=m)
+             for a in MOE_ARCHS for cf in CFS for m in MESHES]
+#: REPRO_NAIVE=1: the dense decode and the gathered (local) moe_ffn
+NAIVE_CASES = {
+    "granite-replicated-cache": dict(kind="decode", arch="granite-34b", cell="decode_32k",
+                                     mesh=(1, 4), naive=True),
+    "stablelm-seq-sharded-cache": dict(kind="decode", arch="stablelm-3b", cell="long_500k",
+                                       mesh=(2, 2), naive=True),
+    "llama4": dict(kind="decode", arch="llama4-maverick-400b-a17b", cell="long_500k",
+                   mesh=(1, 4), naive=True),
+    "moe-ffn-deepseek": dict(kind="moe", arch="deepseek-v2-lite-16b", cf=1.0, mesh=(2, 2),
+                             naive=True),
+    "moe-ffn-llama4": dict(kind="moe", arch="llama4-maverick-400b-a17b", cf=1.0, mesh=(1, 4),
+                           naive=True),
+}
+#: (id, case): every unrouted family, then rules and inputs the layout cannot take
+RAISE_CASES = {
+    "ssm": dict(arch="mamba2-780m", mesh=(2, 2)),
+    "hybrid": dict(arch="zamba2-2.7b", mesh=(2, 2)),
+    "encdec": dict(arch="seamless-m4t-large-v2", mesh=(2, 2)),
+    "vlm": dict(arch="paligemma-3b", mesh=(2, 2)),
+    "moe-mla": dict(arch="deepseek-v2-lite-16b", mesh=(2, 2)),
+    "prefill": dict(arch="stablelm-3b", mesh=(2, 2), prefill=True),
+    "one-axis-mesh": dict(arch="stablelm-3b", mesh=(4,), mesh_names=("model",)),
+    "d-ff-not-divided": dict(arch="stablelm-3b", mesh=(1, 4), replace={"d_ff": 250}),
+    "cache-seq-out-of-mesh-order": dict(arch="granite-34b", mesh=(2, 2), cell="long_500k",
+                                        overrides={"cache_seq": ("model", "data")}),
+    "experts-over-data": dict(arch="llama4-maverick-400b-a17b", mesh=(2, 2),
+                              overrides={"experts": ("data",)}),
+    "seq-sharded": dict(arch="stablelm-3b", mesh=(2, 2), overrides={"seq": "model"}),
+}
+CASES = (DECODE_CASES + MOE_CASES + list(NAIVE_CASES.values())
+         + [dict(kind="raise", **c) for c in RAISE_CASES.values()])
+
+_REFERENCE = """
+import dataclasses
+import pickle
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_smoke_config, SHAPE_CELLS
+from repro.models import get_api
+from repro.models.moe import init_moe_ffn, moe_ffn, moe_capacity
+from repro.distributed.sharding import axis_rules
+from repro.launch.mesh import build_rules
+
+ARCHS, MOE_ARCHS, CELLS, MESHES, CFS = {archs!r}, {moe_archs!r}, {cells!r}, {meshes!r}, {cfs!r}
+B, PROMPT, STEPS, MAX_LEN, MOE_X = {batch}, {prompt}, {steps}, {max_len}, {moe_x!r}
+cells = {{c.name: c for c in SHAPE_CELLS}}
+out = dict(params={{}}, prompt={{}}, decode={{}}, moe={{}}, moe_local={{}}, moe_params={{}},
+           moe_x={{}})
+
+
+def grads_of(gx, gp):
+    grads = {{"x": np.asarray(gx)}}
+    for path, g in jax.tree_util.tree_flatten_with_path(gp)[0]:
+        grads[".".join(k.key for k in path)] = np.asarray(g)
+    return grads
+
+for arch in ARCHS:
+    cfg = get_smoke_config(arch)
+    api = get_api(cfg)
+    params = api.init_params(jax.random.key(0), cfg)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, PROMPT)).astype(np.int32)
+    logits, cache = api.prefill(params, cfg, {{"tokens": jnp.asarray(prompt)}}, MAX_LEN,
+                                compute_dtype=jnp.float32, cache_dtype=jnp.float32)[:2]
+    first = jnp.argmax(logits[:, -1, :cfg.vocab_size], -1)
+    out["params"][arch] = jax.tree.map(np.asarray, params)
+    out["prompt"][arch] = prompt
+
+    def run(step):
+        tok, c, lgs, fed = first[:, None].astype(jnp.int32), cache, [], []
+        for i in range(STEPS):
+            fed.append(np.asarray(tok[:, 0]))
+            lg, c = step(params, tok, c, jnp.int32(PROMPT + i))
+            lg = lg[:, -1, :cfg.vocab_size]
+            lgs.append(np.asarray(lg))
+            # the next tokens as a new host array: an eager argmax of the
+            # mesh-sharded logits carries their sharding into the next
+            # trace's embedding gather, which JAX refuses there
+            tok = jnp.asarray(np.argmax(np.asarray(lg), -1)[:, None].astype(np.int32))
+        return dict(logits=np.stack(lgs), tokens=np.stack(fed))
+
+    def step_fn(p, t, c, pos):
+        return api.decode_step(p, cfg, t, c, pos, None, compute_dtype=jnp.float32)
+
+    out["decode"][(arch, None, None)] = run(jax.jit(step_fn))
+    for cell in CELLS:
+        for d, m in MESHES:
+            rules = build_rules(cfg, cells[cell], model_size=m, data_size=d)
+            mesh = jax.make_mesh((d, m), ("data", "model"))
+            try:
+                with mesh, axis_rules(rules, mesh=mesh):
+                    res = run(jax.jit(step_fn))
+            except Exception as e:
+                res = dict(error=f"{{type(e).__name__}}: {{str(e)[:300]}}")
+            out["decode"][(arch, cell, (d, m))] = res
+
+for arch in MOE_ARCHS:
+    base = get_smoke_config(arch)
+    p = init_moe_ffn(jax.random.key(0), base)
+    # a direction every token shares, so that the router prefers some
+    # experts and capacity factor 1.0 drops copies even at the expert-
+    # parallel form's doubled capacity
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((*MOE_X, base.d_model)) * 0.5
+         + rng.standard_normal(base.d_model)).astype(np.float32)
+    out["moe_params"][arch] = jax.tree.map(np.asarray, p)
+    out["moe_x"][arch] = x
+    for cf in CFS:
+        cfg = base.replace(moe=dataclasses.replace(base.moe, capacity_factor=cf))
+        m_ = cfg.moe
+
+        def parts(x, p):
+            y, aux = moe_ffn(x, p, cfg)
+            return jnp.sum(y * y), aux
+
+        def grads():
+            g = jax.jit(jax.grad(lambda x, p: sum(parts(x, p)), argnums=(0, 1)))(x, p)
+            ga = jax.jit(jax.grad(lambda x, p: parts(x, p)[1], argnums=(0, 1)))(x, p)
+            return dict(grads=grads_of(*g), grads_aux=grads_of(*ga))
+
+        y, aux = jax.jit(lambda x, p: moe_ffn(x, p, cfg))(x, p)
+        out["moe_local"][(arch, cf)] = dict(y=np.asarray(y), aux=float(aux), **grads())
+        for d, m in MESHES:
+            rules = build_rules(cfg, model_size=m, data_size=d)
+            mesh = jax.make_mesh((d, m), ("data", "model"))
+            with mesh, axis_rules(rules, mesh=mesh):
+                y, aux = jax.jit(lambda x, p: moe_ffn(x, p, cfg))(x, p)
+                res = dict(y=np.asarray(y), aux=float(aux), **grads())
+            # the copies _moe_ffn_ep drops (moe.py:205-219), each data
+            # rank's rows on each expert rank
+            e_loc, rows = m_.n_experts // m, MOE_X[0] // d
+            dropped = np.zeros((*MOE_X, m_.top_k), bool)
+            for i in range(d):
+                xf = jnp.asarray(x[i * rows:(i + 1) * rows]).reshape(-1, cfg.d_model)
+                probs = jax.nn.softmax(xf @ p["router"], axis=-1)
+                _, top_ids = jax.lax.top_k(probs, m_.top_k)
+                flat_e = np.asarray(top_ids).reshape(-1)
+                cap = moe_capacity(xf.shape[0], m_) * 2
+                for r in range(m):
+                    mine = flat_e // e_loc == r
+                    ids = np.where(mine, flat_e - r * e_loc, e_loc)
+                    order = np.argsort(ids, kind="stable")
+                    counts = np.bincount(ids, minlength=e_loc + 1)
+                    starts = np.cumsum(counts) - counts
+                    pos = np.empty_like(order)
+                    pos[order] = np.arange(len(ids)) - starts[ids[order]]
+                    lost = mine & (pos >= cap)
+                    dropped[i * rows:(i + 1) * rows] |= lost.reshape(rows, MOE_X[1], m_.top_k)
+            res["dropped"] = dropped
+            out["moe"][(arch, cf, (d, m))] = res
+with open({path!r}, "wb") as f:
+    pickle.dump(out, f)
+print("OK")
+"""
+
+
+def _reference():
+    with tempfile.TemporaryDirectory(prefix="sharded_serve_ref_") as tmp:
+        path = os.path.join(tmp, "ref.pkl")
+        code = _REFERENCE.format(archs=DECODE_ARCHS, moe_archs=MOE_ARCHS, cells=CELLS,
+                                 meshes=MESHES, cfs=CFS, batch=W.BATCH, prompt=W.PROMPT,
+                                 steps=W.STEPS, max_len=W.MAX_LEN, moe_x=MOE_X, path=path)
+        assert "OK" in run_mesh_subprocess(code, devices=WORLD, timeout=900)
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    """The reference once, then every case once on the 4 ranks:
+    ({case index: [each rank's result]}, the reference's results)."""
+    ref = _reference()
+    inputs = dict(
+        params={a: lm_params_from_reference(ref["params"][a], configs.get_smoke_config(a))
+                for a in DECODE_ARCHS},
+        prompt={a: torch.from_numpy(ref["prompt"][a]) for a in DECODE_ARCHS},
+        decode=ref["decode"], moe=ref["moe"], moe_local=ref["moe_local"],
+        moe_params={a: _tensors(ref["moe_params"][a]) for a in MOE_ARCHS},
+        moe_x={a: torch.from_numpy(ref["moe_x"][a]) for a in MOE_ARCHS})
+    out = run_ranks(W.run_cases, WORLD, CASES, inputs, timeout=JOIN_TIMEOUT)
+    return {i: [out[r][i] for r in range(WORLD)] for i in range(len(CASES))}, ref
+
+
+def _decode_id(case):
+    return f"{case['arch']}-{case['cell']}-{case['mesh'][0]}x{case['mesh'][1]}"
+
+
+def _moe_id(case):
+    return f"{case['arch']}-cf{case['cf']}-{case['mesh'][0]}x{case['mesh'][1]}"
+
+
+# ---------------------------------------------------------------------------
+# (a) the decode matrix
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("i", range(len(DECODE_CASES)), ids=[_decode_id(c) for c in DECODE_CASES])
+def test_sharded_decode_matches_the_references_jitted_decode(ranks, i):
+    res = ranks[0][i]
+    case = DECODE_CASES[i]
+    print(f"{_decode_id(case)}: rules {res[0]['rules']}; forms {res[0]['calls']}; "
+          + (f"against the reference {max(r['ref_rel'] for r in res):.3e}"
+             if res[0]["ref_error"] is None else
+             f"the reference raised ({res[0]['ref_error'][:80]}); against its one-device "
+             f"decode {max(r['one_ref_rel'] for r in res):.3e}"))
+    if res[0]["ref_error"] is None:
+        for r in res:
+            assert r["ref_rel"] <= REF_REL and r["ref_same_tokens"], r
+    else:
+        assert (case["arch"], case["cell"], case["mesh"]) == (
+            "llama4-maverick-400b-a17b", "decode_32k", (2, 2)), res[0]["ref_error"]
+        assert res[0]["ref_error"].startswith("ShardingTypeError")
+        for r in res:
+            assert r["one_ref_rel"] <= REF_REL and r["one_ref_same_tokens"], r
+
+
+@pytest.mark.parametrize("i", range(len(DECODE_CASES)), ids=[_decode_id(c) for c in DECODE_CASES])
+def test_sharded_decode_matches_one_device_on_every_rank(ranks, i):
+    """Within 1e-5 of the port's one-device decode, the same tokens on
+    every rank, and each rank's cache shard the slice of the one-device
+    cache after the 4 steps."""
+    res = ranks[0][i]
+    for r in res:
+        assert r["one_rel"] <= ONE_REL and r["one_same_tokens"], r
+        assert r["cache_rel"] <= ONE_REL, r["cache_rel"]
+        np.testing.assert_array_equal(r["tokens"], res[0]["tokens"])
+
+
+@pytest.mark.parametrize("i", range(len(DECODE_CASES)), ids=[_decode_id(c) for c in DECODE_CASES])
+def test_each_rule_takes_its_form(ranks, i):
+    """The flash decode where the rules map "cache_seq" (once a layer a
+    step), the tensor-parallel decode elsewhere; llama4's moe layers
+    expert-parallel."""
+    case, res = DECODE_CASES[i], ranks[0][i]
+    cfg = configs.get_smoke_config(case["arch"])
+    for r in res:
+        calls = r["calls"]
+        assert calls.get("flash", 0) == (cfg.n_layers * W.STEPS if r["rules"]["cache_seq"]
+                                         else 0), r
+        n_moe = cfg.n_layers // cfg.moe.moe_every if cfg.moe else 0
+        assert calls.get("ep", 0) == n_moe * W.STEPS and not calls.get("gathered"), r
+
+
+# ---------------------------------------------------------------------------
+# (b) moe_ffn under the rules
+# ---------------------------------------------------------------------------
+
+
+def _moe_index(i):
+    return len(DECODE_CASES) + i
+
+
+@pytest.mark.parametrize("i", range(len(MOE_CASES)), ids=[_moe_id(c) for c in MOE_CASES])
+def test_expert_parallel_moe_ffn_matches_the_reference(ranks, i):
+    res = ranks[0][_moe_index(i)]
+    case = MOE_CASES[i]
+    n_drop = int(res[0]["dropped_ref"].sum())
+    print(f"{_moe_id(case)}: y {max(r['y_rel'] for r in res):.3e} of max|y|, aux "
+          f"{res[0]['aux']:.8f} (reference {res[0]['aux_ref']:.8f}), {n_drop} of "
+          f"{res[0]['dropped_ref'].size} copies dropped")
+    assert (n_drop > 0) == (case["cf"] < 8.0)
+    for r in res:
+        assert r["calls"] == {"ep": 1}, r["calls"]
+        assert r["y_rel"] <= MOE_REL, r["y_rel"]
+        assert abs(r["aux"] - r["aux_ref"]) <= AUX_ABS
+        np.testing.assert_array_equal(r["dropped"], r["dropped_ref"])
+
+
+def _gradient_shares(r, arch):
+    """Each leaf's distance from ``jax.grad`` as a share of its tolerance:
+    1e-5 of the leaf's max, for the gradients of ``sum(y**2) + aux`` and
+    of aux alone. At top_k = 1 (llama4) the router's weight w / sum(w) is
+    1, so its gradient through ``sum(y**2)`` is the difference of two
+    terms of size |dL/dw| / w that cancel in exact arithmetic: what each
+    framework computes there is their f32 rounding. That leaf's tolerance
+    adds CANCEL_ROUNDINGS f32 roundings (2**-24 each) of those terms' size
+    carried to the router (the sum over tokens of |x| |dL/dw| / w; measured
+    at 0.1 of one, ROADMAP queue 3); its aux share is held to 1e-5 of its
+    max alone."""
+    top1 = configs.get_smoke_config(arch).moe.top_k == 1
+    shares = {}
+    for key in ("grads", "grads_aux"):
+        for name, (dist, peak) in r[key].items():
+            tol = MOE_REL * peak
+            if key == "grads" and name == "router" and top1:
+                tol += CANCEL_ROUNDINGS * 2.0 ** -24 * r["router_scale"]
+            # aux reaches no expert weight: those leaves are 0 in both
+            shares[f"{key}.{name}"] = dist / tol if tol else float(dist > 0) * 2.0
+    return shares
+
+
+@pytest.mark.parametrize("i", range(len(MOE_CASES)), ids=[_moe_id(c) for c in MOE_CASES])
+def test_expert_parallel_moe_ffn_gradients_match_the_reference(ranks, i):
+    """x, the router, wg, wu, wd and the shared experts: the sum over
+    "data" of each rank's gradient against ``jax.grad``
+    (:func:`_gradient_shares`)."""
+    res, case = ranks[0][_moe_index(i)], MOE_CASES[i]
+    assert set(res[0]["grads"]) == {"x", "router", "wg", "wu", "wd", "shared.wg", "shared.wu",
+                                    "shared.wd"}
+    worst = {}
+    for r in res:
+        for k, v in _gradient_shares(r, case["arch"]).items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    print(f"{_moe_id(case)}: worst gradient distances as shares of the tolerance {worst}; "
+          f"the router's cancelling terms {res[0]['router_scale']:.3e} (its max "
+          f"{res[0]['grads']['router'][1]:.3e})")
+    assert all(v <= 1.0 for v in worst.values()), worst
+
+
+# ---------------------------------------------------------------------------
+# (c) REPRO_NAIVE=1: the dense decode and the local moe_ffn
+# ---------------------------------------------------------------------------
+
+
+def _naive_index(name):
+    return len(DECODE_CASES) + len(MOE_CASES) + list(NAIVE_CASES).index(name)
+
+
+@pytest.mark.parametrize("name", list(NAIVE_CASES))
+def test_naive_mode_takes_the_dense_and_local_paths(ranks, name):
+    case, res = NAIVE_CASES[name], ranks[0][_naive_index(name)]
+    for r in res:
+        assert not r["calls"].get("flash") and not r["calls"].get("ep"), r["calls"]
+        if case["kind"] == "decode":
+            cfg = configs.get_smoke_config(case["arch"])
+            if cfg.moe:
+                assert r["calls"]["gathered"] == cfg.n_layers // 2 * W.STEPS
+            assert r["one_rel"] <= ONE_REL and r["one_same_tokens"], r
+            assert r["cache_rel"] <= ONE_REL
+        else:   # against the reference's local path on one device
+            assert r["calls"] == {"gathered": 1}
+            assert r["y_rel"] <= MOE_REL and abs(r["aux"] - r["aux_ref"]) <= AUX_ABS, r
+            shares = _gradient_shares(r, case["arch"])
+            assert all(v <= 1.0 for v in shares.values()), shares
+
+
+# ---------------------------------------------------------------------------
+# (d) what the layout cannot take
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", list(RAISE_CASES))
+def test_unrouted_families_and_rules_raise_naming_12b_4c_on_every_rank(ranks, name):
+    i = len(DECODE_CASES) + len(MOE_CASES) + len(NAIVE_CASES) + list(RAISE_CASES).index(name)
+    for res in ranks[0][i]:
+        assert res["raised"] is not None and "12b.4c" in res["raised"], res["raised"]
+
+
+# ---------------------------------------------------------------------------
+# a mesh of one rank: the flash form's arithmetic against the dense decode
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "h2o-danube-3-4b",
+                                  "llama4-maverick-400b-a17b"])
+def test_one_rank_flash_decode_matches_the_dense_decode(one_rank_mesh, arch):
+    """On a 1 x 1 mesh with "cache_seq" mapped to "model" the flash form
+    runs over the whole cache with its collectives skipped (the card's
+    ``phase_sharded_serve`` (a)): within 1e-5 of the one-device decode,
+    the same tokens and caches."""
+    cfg = configs.get_smoke_config(arch)
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (W.BATCH, W.PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    logits, cache = api.prefill(params, cfg, {"tokens": prompt}, W.MAX_LEN,
+                                compute_dtype=torch.float32, cache_dtype=torch.float32)
+    first = logits[:, -1, :cfg.vocab_size].argmax(-1)
+    step = build_decode_step(cfg, torch.float32, return_logits=True)
+    one_cache = tree_map(torch.clone, cache)
+    want, want_fed, one_cache = W.greedy(step, params, one_cache, first)
+    rules = build_rules(cfg, model_size=1, data_size=1, overrides={"cache_seq": ("model",)})
+    calls = {}
+    with axis_rules(rules, mesh=one_rank_mesh), W.spied(calls):
+        got, fed, cache = W.greedy(step, params, cache, first)
+    assert calls["flash"] == cfg.n_layers * W.STEPS
+    assert torch.equal(fed, want_fed)
+    assert W.rel(got, want) <= ONE_REL
+    for a, b in zip(leaves(cache), leaves(one_cache), strict=True):
+        assert W.rel(a, b) <= ONE_REL
+
+
+def test_serve_and_one_device_decode_are_unchanged_without_a_mesh():
+    """Without rules the flash decode is never called, and the decode step
+    gives what it gave before (its tokens from the logits it returns)."""
+    cfg = configs.get_smoke_config("granite-34b")
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 6), generator=torch.Generator().manual_seed(2))
+    _, cache = api.prefill(params, cfg, {"tokens": prompt}, 12, compute_dtype=torch.float32)
+    calls = {}
+    with W.spied(calls):
+        tok, cache2, logits = build_decode_step(cfg, torch.float32, return_logits=True)(
+            params, prompt[:, -1:], tree_map(torch.clone, cache), 6)
+        tok2, _ = build_decode_step(cfg, torch.float32)(params, prompt[:, -1:], cache, 6)
+    assert calls == {} and torch.equal(tok, tok2)
+    assert torch.equal(tok, logits[:, -1].argmax(-1).to(torch.int32))
+
+
+def test_leaves_not_placed_for_the_mesh_raise_before_any_collective():
+    """The whole parameters, or a cache of another batch beside the rank's
+    parameters, handed to a decode step on a (1, 4) mesh: ValueError from
+    the shape checks, which read only the mesh's dimensions."""
+    from repro_torch.launch.mesh import param_shardings, shard_tree, specs_like
+
+    class Mesh:
+        mesh_dim_names, shape = ("data", "model"), (1, 4)
+
+        def get_coordinate(self):
+            return [0, 1]
+
+    cfg = configs.get_smoke_config("granite-34b")
+    api = get_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    cache = api.init_cache(cfg, W.BATCH, W.MAX_LEN, torch.float32)
+    tokens = torch.zeros((W.BATCH, 1), dtype=torch.int32)
+    step = build_decode_step(cfg, torch.float32)
+    mesh = Mesh()
+    with axis_rules(build_rules(cfg, W.cell("decode_32k"), model_size=4, data_size=1),
+                    mesh=mesh):
+        with pytest.raises(ValueError, match="parameter leaf .* on this rank.*12b.4c"):
+            step(params, tokens, cache, W.PROMPT)
+        local = shard_tree(params, mesh, param_shardings(mesh, specs_like(
+            api.param_specs(cfg), params)))
+        # a cache of another batch than the tokens'
+        with pytest.raises(ValueError, match="cache leaf .* on this rank.*12b.4c"):
+            step(local, tokens, api.init_cache(cfg, 1, W.MAX_LEN, torch.float32), W.PROMPT)
