@@ -4696,32 +4696,52 @@ SHARDED_MESHES = ((1, 4), (2, 2))
 SHARDED_ATOL, SHARDED_RTOL = 5e-4, 2e-3
 
 
-def _one_device_lm(cfg, tcfg, data_fn, dev):
-    """phase_train (a)'s 3 steps on ``dev`` alone: the losses and the
-    parameters after them, on the host."""
+def _one_device_lm(cfg, tcfg, data_fn, dev, profile=False):
+    """``cfg``'s seed-0 weights drawn on ``dev`` and TRAIN_STEPS steps of
+    ``data_fn`` on that card alone (phase_train (a)'s for stablelm-3b): the
+    losses, each step's ms and kernel 12's launches, the peak, and the
+    parameters after the steps, on the host. ``profile``: then one more
+    step under torch.profiler (:func:`_profiled`)."""
+    from repro_torch.kernels import ops
     from repro_torch.models import get_api
     from repro_torch.train import adamw_init, build_train_step
     from repro_torch.train._tree import named_leaves
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
     params = get_api(cfg).init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    opt, step, losses = adamw_init(params), build_train_step(cfg, tcfg), []
+    opt, step, losses, steps = adamw_init(params), build_train_step(cfg, tcfg), [], []
     for i in range(TRAIN_STEPS):
-        params, opt, m = step(params, opt, data_fn(i))
+        batch = data_fn(i)
+        torch.cuda.synchronize(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
         losses.append(float(m["loss"]))
-    out = dict(losses=losses, params={k: t.cpu() for k, t in named_leaves(params).items()})
-    del params, opt
+        torch.cuda.synchronize(dev)
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          launches=_kernel12_counts(ops.launch_counts())))
+    out = dict(losses=losses, steps=steps, peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+               params={k: t.to("cpu", copy=True) for k, t in named_leaves(params).items()})
+    if profile:
+        batch = data_fn(TRAIN_STEPS)
+        out["profile"] = _profiled(lambda: step(params, opt, batch))
+    del params, opt, step
     torch.cuda.empty_cache()
     return out
 
 
 def _sharded_lm_steps(mesh, cfg, tcfg, data_fn, dev, yardstick, profile=False):
-    """stablelm-3b's seed-0 weights placed on ``mesh`` by param_shardings
+    """``cfg``'s seed-0 weights placed on ``mesh`` by param_shardings
     (the AdamW moments with them: adamw_init's zeros of the local shards),
-    then phase_train (a)'s 3 steps through build_train_step under
+    then TRAIN_STEPS steps of ``data_fn`` through build_train_step under
     axis_rules(rules, mesh=mesh): each step's loss, ms and kernel 12's
-    launches, the peak, and each rank's shards after the 3 steps against
+    launches, the peak, and each rank's shards after the steps against
     the slices of ``yardstick`` (one device's parameters, on the host): bit
     for bit, the worst distance, and its share of the tolerance; a digest
-    of the replicated leaves. ``profile``: then one more step under
+    of the replicated leaves where the mesh has more than one rank (on one
+    rank every leaf is whole and the digest would compare nothing).
+    ``profile``: then one more step under
     torch.profiler, its wall and the device's busy ms."""
     import hashlib
 
@@ -4770,10 +4790,10 @@ def _sharded_lm_steps(mesh, cfg, tcfg, data_fn, dev, yardstick, profile=False):
             bitwise &= torch.equal(got, want)
             worst = max(worst, float(d.max()))
             share = max(share, float((d / (SHARDED_ATOL + SHARDED_RTOL * want.abs())).max()))
-            if not any(pl.is_shard() for pl in flat[name]):
+            if mesh.size() > 1 and not any(pl.is_shard() for pl in flat[name]):
                 digest.update(got.cpu().numpy().tobytes())
         rec.update(bitwise=bitwise, worst_abs=worst, tolerance_share=share,
-                   replicated_digest=digest.hexdigest(),
+                   replicated_digest=digest.hexdigest() if mesh.size() > 1 else None,
                    finite=all(bool(torch.isfinite(t).all()) for t in named_leaves(params).values()))
         if profile:
             from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -4801,7 +4821,10 @@ def phase_sharded_train(report, one_device):
     phase_train (a)'s (``one_device``), and kernel 12's launches exactly
     2 forwards and one backward (D, dK/dV, dQ) a layer a step. Records ms
     a step, the peak and the busy share of a profiled 4th step beside
-    phase_train's. Returns kernel 12's launches over the 3 steps."""
+    phase_train's. Then, on the same mesh, the ssm, hybrid, encdec and moe
+    families (ROADMAP 12b.4c's first part, :func:`_sharded_families`).
+    Returns kernel 12's launches over all the sharded steps, and each
+    arch's one-device losses (the four-rank phase's yardstick)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -4816,6 +4839,7 @@ def phase_sharded_train(report, one_device):
         mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
         rec = _sharded_lm_steps(mesh, cfg, tcfg, data_fn, "cuda", one_device["params"],
                                 profile=True)
+        families = _sharded_families(mesh)
     finally:
         dist.destroy_process_group()
     losses = [st["loss"] for st in rec["steps"]]
@@ -4830,23 +4854,115 @@ def phase_sharded_train(report, one_device):
     prof, one_prof = rec["profile"], train["profile"]
     one_wall = sum(one_prof[k]["wall_ms"] for k in one_prof)
     one_busy = sum(one_prof[k]["device_busy_ms"] or 0.0 for k in one_prof)
-    busy = prof["device_busy_ms"]
     print(f"[sharded-train] losses bitwise one device's={losses == one_device['losses']}; "
           f"parameters after {TRAIN_STEPS} steps bitwise={rec['bitwise']} (worst "
           f"|d|={rec['worst_abs']:.3e}); peak_mem_GB={rec['peak_mem_bytes'] / 1e9:.3f} "
           f"(phase_train {train['peak_mem_bytes'] / 1e9:.3f}); ms a step "
           + ", ".join(f"{st['ms']:.3f}" for st in rec["steps"])
           + " (phase_train " + ", ".join(f"{st['ms']:.3f}" for st in train["steps"])
-          + f"); profiled step wall_ms={prof['wall_ms']:.3f} busy="
-          + (f"{100 * busy / prof['wall_ms']:.2f}%" if busy else "not measured")
+          + f"); profiled step wall_ms={prof['wall_ms']:.3f} busy={_busy(prof)}"
           + f" (phase_train's profiled stages {one_wall:.3f} ms, busy "
           + (f"{100 * one_busy / one_wall:.2f}%)" if one_busy else "not measured)"), flush=True)
     check(losses == one_device["losses"], f"the 1-rank sharded step's losses {losses} are not "
           f"one device's {one_device['losses']} bit for bit")
     check(rec["bitwise"] and rec["finite"], "the 1-rank sharded step's parameters after "
           f"{TRAIN_STEPS} steps are not one device's bit for bit")
-    report["sharded_train"] = dict(rec, arch=TRAIN_ARCH, losses_bitwise=True)
-    return {op: sum(st["launches"][op] for st in rec["steps"]) for op in want}
+    report["sharded_train"] = dict(rec, arch=TRAIN_ARCH, losses_bitwise=True,
+                                   families=families)
+    launches = {op: sum(st["launches"][op] for r in (rec, *families.values())
+                        for st in r["steps"]) for op in want}
+    losses = {TRAIN_ARCH: one_device["losses"],
+              **{arch: r["one_device"]["losses"] for arch, r in families.items()}}
+    return launches, losses
+
+
+#: phase_sharded_train's other families, at FAMILY_ARCHS's depths
+SHARDED_FAMILIES = ("mamba2-780m", "zamba2-2.7b", "seamless-m4t-large-v2",
+                    "deepseek-v2-lite-16b")
+#: the four-rank phase's families of the sharded step, beside stablelm-3b
+FOUR_RANK_FAMILIES = ("zamba2-2.7b", "seamless-m4t-large-v2")
+
+
+def _family_cut(arch):
+    """``arch`` at its published widths cut to FAMILY_ARCHS's depth; the
+    moe family at EP_MOE_CF, where no copy is dropped: on a mesh its
+    routed experts take the expert-parallel form, which packs each
+    expert's copies at twice the local form's capacity (the reference's
+    headroom), so on a 1 x 1 mesh it gives one device's bits only where
+    neither form drops a copy."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(**FAMILY_ARCHS[arch])
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=EP_MOE_CF))
+    return cfg
+
+
+def _family_launches(arch):
+    """Kernel 12's launches in one step of ``arch`` at FAMILY_ARCHS's
+    depth (remat full): FAMILY_CUT_LAUNCHES, none without kernel 12."""
+    fwd, bwd = FAMILY_CUT_LAUNCHES.get(arch, (0, 0))
+    return {"flash_attention": fwd, **dict.fromkeys(BWD_LABELS, bwd)}
+
+
+def _busy(prof):
+    """A profiled step's device busy share of its wall, as a percentage."""
+    busy = prof and prof["device_busy_ms"]
+    return f"{100 * busy / prof['wall_ms']:.2f}%" if busy else "not measured"
+
+
+def _sharded_families(mesh):
+    """The sharded train step of the ssm, hybrid, encdec and moe families
+    (ROADMAP 12b.4c's first part) on the 1 x 1 ``mesh``: each of
+    SHARDED_FAMILIES at its published widths and FAMILY_ARCHS's depth
+    (:func:`_family_cut`), launch/train.py's TrainConfig (f32, remat
+    "full"), TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens, first on
+    the card alone, then placed on the mesh. Each loss and every parameter
+    after the steps must be one device's bit for bit, and kernel 12's
+    launches FAMILY_CUT_LAUNCHES a step in both runs (zamba2's shared
+    attention at d 80, seamless's three attentions at d 64; none in mamba2
+    and deepseek). Records ms a step, the peak and the busy share of a
+    profiled 4th step of both runs. Returns {arch: record}."""
+    from repro_torch.launch.train import token_batches, train_config
+    out = {}
+    for arch in SHARDED_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = _family_cut(arch)
+        tcfg = train_config(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+        data_fn = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, "cuda")
+        one = _one_device_lm(cfg, tcfg, data_fn, "cuda", profile=True)
+        t1 = time.perf_counter()
+        rec = _sharded_lm_steps(mesh, cfg, tcfg, data_fn, "cuda", one.pop("params"),
+                                profile=True)
+        seconds = (t1 - t0, time.perf_counter() - t1)
+        losses, want = [st["loss"] for st in rec["steps"]], _family_launches(arch)
+        depth = f"{cfg.n_layers} layers" + (f" + {cfg.n_enc_layers} encoder"
+                                            if cfg.n_enc_layers else "")
+        print(f"[sharded-train] {arch} full width, {depth}, on a 1 x 1 ('data', 'model') "
+              f"mesh (1-rank NCCL), {TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses {losses} "
+              f"(one device {one['losses']}, bitwise={losses == one['losses']}); parameters "
+              f"after {TRAIN_STEPS} steps bitwise={rec['bitwise']} (worst "
+              f"|d|={rec['worst_abs']:.3e}); ms a step "
+              + ", ".join(f"{st['ms']:.3f}" for st in rec["steps"]) + " (one device "
+              + ", ".join(f"{st['ms']:.3f}" for st in one["steps"])
+              + f"); peak_mem_GB={rec['peak_mem_bytes'] / 1e9:.3f} (one device "
+              f"{one['peak_mem_bytes'] / 1e9:.3f}); profiled step wall_ms="
+              f"{rec['profile']['wall_ms']:.3f} busy={_busy(rec['profile'])} (one device "
+              f"{one['profile']['wall_ms']:.3f} ms, busy {_busy(one['profile'])}); kernel 12 "
+              f"launches a step {rec['steps'][0]['launches']}; seconds one device "
+              f"{seconds[0]:.1f}, mesh {seconds[1]:.1f}", flush=True)
+        check(all(st["launches"] == want for st in rec["steps"] + one["steps"]),
+              f"{arch}: kernel 12's launches in a sharded step "
+              f"{[st['launches'] for st in rec['steps']]} (one device "
+              f"{[st['launches'] for st in one['steps']]}), expected {want}")
+        check(losses == one["losses"], f"{arch}: the 1-rank sharded step's losses {losses} are "
+              f"not one device's {one['losses']} bit for bit")
+        check(rec["bitwise"] and rec["finite"], f"{arch}: the 1-rank sharded step's parameters "
+              f"after {TRAIN_STEPS} steps are not one device's bit for bit")
+        out[arch] = dict(rec, one_device=one, n_layers=cfg.n_layers,
+                         n_enc_layers=cfg.n_enc_layers, losses_bitwise=True, seconds=seconds)
+    return out
 
 
 #: phase_family_train's steps: each family's depth cut (None: its full
@@ -5873,22 +5989,28 @@ def _four_rank_worker(rank, world, store, out_path, ckpt_root):
 
 
 def _four_rank_lm(dev):
-    """This rank's part of the sharded LM step on four cards: phase_train
-    (a)'s 3 steps on this card alone (the yardstick of the parameters),
-    then on each of SHARDED_MESHES through :func:`_sharded_lm_steps`."""
+    """This rank's part of the sharded LM step on four cards: for
+    stablelm-3b at full width and each of FOUR_RANK_FAMILIES at its
+    published widths and FAMILY_ARCHS's depth, TRAIN_STEPS steps on this
+    card alone (the yardstick of the parameters), then on each of
+    SHARDED_MESHES through :func:`_sharded_lm_steps`."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs import get_config
     from repro_torch.launch.train import token_batches, train_config
-    cfg = get_config(TRAIN_ARCH)
     tcfg = train_config(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
-    data_fn = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, dev)
-    one = _one_device_lm(cfg, tcfg, data_fn, dev)
-    out = dict(one_losses=one["losses"], meshes={})
-    for shape in SHARDED_MESHES:
-        mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
-        out["meshes"][f"{shape[0]}x{shape[1]}"] = _sharded_lm_steps(
-            mesh, cfg, tcfg, data_fn, dev, one["params"])
+    meshes = {shape: init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+              for shape in SHARDED_MESHES}
+    out = {}
+    for arch in (TRAIN_ARCH, *FOUR_RANK_FAMILIES):
+        cfg = get_config(arch) if arch == TRAIN_ARCH else _family_cut(arch)
+        data_fn = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, dev)
+        one = _one_device_lm(cfg, tcfg, data_fn, dev)
+        out[arch] = dict(one_losses=one["losses"], meshes={})
+        for shape, mesh in meshes.items():
+            out[arch]["meshes"][f"{shape[0]}x{shape[1]}"] = _sharded_lm_steps(
+                mesh, cfg, tcfg, data_fn, dev, one["params"])
+        del one
     return out
 
 
@@ -5956,42 +6078,50 @@ def _check_four_rank_serve(serve):
 
 def _check_four_rank_lm(lm, losses_1):
     """The sharded LM step's records of the four ranks, against the 1-rank
-    run's losses ``losses_1``: each loss within TRAIN_LOSS_REL, every
-    rank's shards within the reference's tolerance of one device's
+    runs' losses ``losses_1`` (by arch): each loss within TRAIN_LOSS_REL,
+    every rank's shards within the reference's tolerance of one device's
     parameters, the replicated leaves bitwise alike on every rank, kernel
-    12 at 2 forwards and one backward a layer a rank a step."""
+    12's launches a rank a step those of one device (stablelm-3b: 2
+    forwards and one backward a layer; the families: FAMILY_CUT_LAUNCHES)."""
     from repro_torch.configs import get_config
-    layers = get_config(TRAIN_ARCH).n_layers
-    want = {"flash_attention": 2 * layers, **dict.fromkeys(BWD_LABELS, layers)}
     rec = {}
-    for name in lm[0]["meshes"]:
-        ranks = [r["meshes"][name] for r in lm]
-        losses = [st["loss"] for st in ranks[0]["steps"]]
-        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_1))
-        worst = max(r["worst_abs"] for r in ranks)
-        share = max(r["tolerance_share"] for r in ranks)
-        same_replicated = len({r["replicated_digest"] for r in ranks}) == 1
-        launches = [st["launches"] for r in ranks for st in r["steps"]]
-        ms = [[st["ms"] for st in r["steps"]] for r in ranks]
-        peaks = [r["peak_mem_bytes"] for r in ranks]
-        print(f"[distributed] 4 ranks sharded LM step {TRAIN_ARCH} full, mesh {name} "
-              f"(data x model): losses {losses} (1 rank {losses_1}; worst rel {rel:.3e}); "
-              f"parameters after {TRAIN_STEPS} steps: worst |d|={worst:.3e} against one "
-              f"device, {share:.3f} of atol {SHARDED_ATOL} + rtol {SHARDED_RTOL} |x|; "
-              f"replicated leaves bitwise alike on every rank={same_replicated}; ms a step "
-              f"(rank 0) {ms[0]}; peak_mem_GB a rank "
-              + ", ".join(f"{p / 1e9:.3f}" for p in peaks)
-              + f"; kernel 12 launches (rank 0, step 0) {launches[0]}", flush=True)
-        check(rel <= TRAIN_LOSS_REL, f"4 ranks {name}: a loss is not within "
-              f"{TRAIN_LOSS_REL} of the 1-rank run's")
-        check(share <= 1.0 and all(r["finite"] for r in ranks),
-              f"4 ranks {name}: the parameters are not within the tolerance of one device's")
-        check(same_replicated, f"4 ranks {name}: the replicated leaves differ between ranks")
-        check(all(c == want for c in launches), f"4 ranks {name}: kernel 12's launches "
-              f"{launches}, expected {want} a rank a step")
-        rec[name] = dict(losses=losses, max_loss_rel=rel, worst_abs=worst,
-                         tolerance_share=share, replicated_bitwise=same_replicated,
-                         ms=ms, peak_mem_bytes=peaks, launches=launches[0])
+    for arch in lm[0]:
+        if arch == TRAIN_ARCH:
+            layers = get_config(TRAIN_ARCH).n_layers
+            want = {"flash_attention": 2 * layers, **dict.fromkeys(BWD_LABELS, layers)}
+        else:
+            want = _family_launches(arch)
+        for name in lm[0][arch]["meshes"]:
+            ranks = [r[arch]["meshes"][name] for r in lm]
+            losses = [st["loss"] for st in ranks[0]["steps"]]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_1[arch]))
+            worst = max(r["worst_abs"] for r in ranks)
+            share = max(r["tolerance_share"] for r in ranks)
+            same_replicated = len({r["replicated_digest"] for r in ranks}) == 1
+            launches = [st["launches"] for r in ranks for st in r["steps"]]
+            ms = [[st["ms"] for st in r["steps"]] for r in ranks]
+            peaks = [r["peak_mem_bytes"] for r in ranks]
+            print(f"[distributed] 4 ranks sharded LM step {arch} full width"
+                  + ("" if arch == TRAIN_ARCH else f" {FAMILY_ARCHS[arch]}")
+                  + f", mesh {name} (data x model): losses {losses} (1 rank "
+                  f"{losses_1[arch]}; worst rel {rel:.3e}); parameters after {TRAIN_STEPS} "
+                  f"steps: worst |d|={worst:.3e} against one device, {share:.3f} of atol "
+                  f"{SHARDED_ATOL} + rtol {SHARDED_RTOL} |x|; replicated leaves bitwise alike "
+                  f"on every rank={same_replicated}; ms a step (rank 0) {ms[0]}; peak_mem_GB a "
+                  "rank " + ", ".join(f"{p / 1e9:.3f}" for p in peaks)
+                  + f"; kernel 12 launches (rank 0, step 0) {launches[0]}", flush=True)
+            tag = f"4 ranks {arch} {name}"
+            check(rel <= TRAIN_LOSS_REL, f"{tag}: a loss is not within {TRAIN_LOSS_REL} of the "
+                  f"1-rank run's")
+            check(share <= 1.0 and all(r["finite"] for r in ranks),
+                  f"{tag}: the parameters are not within the tolerance of one device's")
+            check(same_replicated, f"{tag}: the replicated leaves differ between ranks")
+            check(all(c == want for c in launches), f"{tag}: kernel 12's launches "
+                  f"{launches}, expected {want} a rank a step")
+            rec[f"{arch} {name}"] = dict(losses=losses, max_loss_rel=rel, worst_abs=worst,
+                                         tolerance_share=share,
+                                         replicated_bitwise=same_replicated, ms=ms,
+                                         peak_mem_bytes=peaks, launches=launches[0])
     return rec
 
 
@@ -6004,8 +6134,9 @@ def phase_four_ranks(report, yardstick, lm_losses):
     supervised explicit run, interrupted on one rank, bitwise the 4-rank
     monolithic run with the notes retry and resumed:10; the reordered E1
     run's permutation exactly the 1-rank one (its labels against the 1-rank
-    run's recorded); the sharded LM step at meshes (1, 4) and (2, 2)
-    against the 1-rank run's losses ``lm_losses`` (:func:`_check_four_rank_lm`);
+    run's recorded); the sharded LM step of stablelm-3b and
+    FOUR_RANK_FAMILIES at meshes (1, 4) and (2, 2) against the 1-rank runs'
+    losses ``lm_losses``, by arch (:func:`_check_four_rank_lm`);
     the sharded decode and the expert-parallel moe_ffn at the same meshes
     (:func:`_check_four_rank_serve`).
     On fewer cards it says so on one line and runs nothing."""
@@ -6173,8 +6304,7 @@ def main_distributed(t_start, smi, report) -> int:
     and of GPIC, then the four-rank phase where the machine has four
     cards. Its JSON line is the sharded paths' launches."""
     _, one_device = _train_full_width(report)
-    sharded_lm = phase_sharded_train(report, one_device)
-    lm_losses = one_device["losses"]
+    sharded_lm, lm_losses = phase_sharded_train(report, one_device)
     del one_device
     sharded, yardstick = phase_distributed(report)
     phase_four_ranks(report, yardstick, lm_losses)
@@ -6240,8 +6370,7 @@ def main(argv=None) -> int:
     del llama4_params
     train_launches, one_device = phase_train(report)
     counts.update({op: train_launches[op] for op in BWD_LABELS})
-    sharded_lm = phase_sharded_train(report, one_device)
-    lm_losses = one_device["losses"]
+    sharded_lm, lm_losses = phase_sharded_train(report, one_device)
     del one_device
     family_train = phase_family_train(report)
     sharded, yardstick = phase_distributed(report)

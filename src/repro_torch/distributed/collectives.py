@@ -14,9 +14,15 @@ mesh's "model" axis):
   gather   all-gather forward along a dimension, this rank's slice
            backward: the vocab-sharded logits, which every rank then reads
            whole and alike
-  gather_rows  all-gather forward along the rows, the all-reduced
-           gradient's slice backward: rows that every rank then computes
-           with whole, each toward its own rows' loss
+  gather_summed  all-gather forward along a dimension, the all-reduced
+           gradient's slice backward: a tensor every rank then uses whole
+           or in parts of its own, each toward its own part of the loss
+           (the moe layer's rows under ``REPRO_NAIVE=1``; the mamba
+           block's ``in_proj`` output and conv weights, whose shards are
+           contiguous slices of z | x | B | C | dt, not the rank's heads)
+  all_sum  all-reduce forward and backward: a partial sum that every rank
+           then uses whole, each toward its own part of the loss (the
+           mamba block's gated norm, over the rank's columns of d_inner)
   mean     all-reduce forward divided by the group's size, identity
            backward: the moe aux loss averaged over "data", which each
            rank's loss counts once and the step's gradients average
@@ -141,20 +147,37 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, lo, ctx.width), None, None
 
 
-class _GatherRows(torch.autograd.Function):
+class _GatherSummed(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, grp):
-        ctx.grp, ctx.width = grp, x.shape[0]
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim, ctx.width = grp, dim, x.shape[dim]
         parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
                  for _ in range(dist.get_world_size(grp))]
         dist.all_gather(parts, x.contiguous(), group=grp)
-        return torch.cat(parts, dim=0)
+        return torch.cat(parts, dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.grp)
-        return g.narrow(0, dist.get_rank(ctx.grp) * ctx.width, ctx.width), None
+        lo = dist.get_rank(ctx.grp) * ctx.width
+        # contiguous: a leaf's gradient is all-reduced in place over "data" next
+        return g.narrow(ctx.dim, lo, ctx.width).contiguous(), None, None
+
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=grp)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.grp)
+        return g, None
 
 
 class _Mean(torch.autograd.Function):
@@ -181,8 +204,12 @@ def gather(x, grp, dim: int = -1):
     return x if grp is None else _Gather.apply(x, grp, dim % x.ndim)
 
 
-def gather_rows(x, grp):
-    return x if grp is None else _GatherRows.apply(x, grp)
+def gather_summed(x, grp, dim: int = -1):
+    return x if grp is None else _GatherSummed.apply(x, grp, dim % x.ndim)
+
+
+def all_sum(x, grp):
+    return x if grp is None else _AllSum.apply(x, grp)
 
 
 def mean(x, grp):

@@ -14,6 +14,9 @@ V in every layer at every step, as the reference does (no cross cache).
 Parameters: ``{"embed", "enc_layers": [...], "dec_layers": [...],
 "ln_enc", "ln_f"}``. The decoder's self-attention cache is stacked on
 the layers, (n_layers, b, S, kv, hd) for K and for V, updated in place.
+Under rules and a mesh (the sharded train step) each attention runs on
+the rank's heads and the MLP on its columns; the cross-attention's
+``enter`` of ``enc_out`` sums its gradient over the ranks' heads.
 """
 from __future__ import annotations
 

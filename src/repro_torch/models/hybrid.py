@@ -8,7 +8,10 @@ its ``shared_attn_every`` mamba blocks, then the shared block. The
 shared block's attention is causal self-attention with RoPE: kernel 12 in
 the forward and the prefill. ``remat`` "full" or "dots" recomputes each
 group in the backward (the reference's ``jax.checkpoint`` of its group
-body).
+body). Under rules and a mesh (the sharded train step) the mamba blocks
+run on the rank's SSM heads and the shared block on its attention heads
+and MLP columns; the shared leaves' gradients add up over the groups, as
+on one device.
 
 Parameters: ``{"embed", "mamba": [block, ...] (n_layers), "shared_attn":
 {"ln1", "attn", "ln2", "mlp"}, "ln_f"}``. The cache keeps the reference's

@@ -44,9 +44,12 @@ reference's flash decode (a partial softmax over each rank's positions,
 combined by a max and two sums over the "cache_seq" axes); otherwise the
 dense decode on the rank's query heads over a cache sharded by KV heads
 or whole (or gathered over its positions under ``REPRO_NAIVE=1``). The
-owning rank alone writes a new position. A prefill or a cross-attention
-under a mesh raises, naming 12b.4c; a cross-attention without a cache
-runs with the heads unsharded only.
+owning rank alone writes a new position. A prefill or a cached
+cross-attention under a mesh raises, naming 12b.4c. A cross-attention
+without a cache (the encoder-decoder's training forward) runs on the
+rank's heads as self-attention does, K and V projected from ``x_kv``
+through ``enter``, so that its gradient (the encoder's output) is summed
+over the ranks' heads.
 """
 from __future__ import annotations
 
@@ -196,13 +199,12 @@ def attention(
                                       f"{s} tokens or a cached cross-attention ({SHARDED_TODO})")
         return _sharded_decode(x, p, cfg, positions, cache, int(cache_pos), rope)
     heads, kv_heads = C.group("heads"), C.group("kv_heads")
-    sharded = heads is not None or kv_heads is not None
-    if sharded and (x_kv is not None or heads is None):
-        raise NotImplementedError(f"sharded attention runs self-attention, with the query heads "
-                                  f"sharded wherever the KV heads are ({SHARDED_TODO})")
+    if kv_heads is not None and heads is None:
+        raise NotImplementedError(f"sharded attention shards the query heads wherever the KV "
+                                  f"heads are ({SHARDED_TODO})")
 
     q_in = C.enter(x, heads)
-    kv_in = src if kv_heads is None else q_in
+    kv_in = src if kv_heads is None else q_in if x_kv is None else C.enter(x_kv, kv_heads)
     q = q_in @ p["wq"]
     k = kv_in @ p["wk"]
     v = kv_in @ p["wv"]
@@ -223,7 +225,7 @@ def attention(
         else:
             out = _masked_attention(q, k, v, torch.ones((s, s_kv), dtype=torch.bool,
                                                         device=q.device))
-        return _out_proj(out, v, p, b, s), cache
+        return C.reduce(_out_proj(out, v, p, b, s), heads), cache
 
     if positions is None:
         positions = torch.arange(s, device=x.device)

@@ -15,7 +15,7 @@ read a zero pad row, whose gradient is discarded), and the combine sums a
 token's k copies over a dimension of their own, so the forward and the
 backward sum in a fixed order: no scatter-add, no atomics.
 
-Under rules and a mesh (the sharded decode step) the reference's
+Under rules and a mesh (the sharded train and decode steps) the reference's
 expert-parallel path (:func:`_moe_ffn_ep`) where "experts" is mapped: each
 rank routes its rows over every expert, packs the copies of its own
 experts at twice its rows' capacity, and y is summed over the expert axis
@@ -27,10 +27,10 @@ computes the local form on the gathered rows and experts
 "mlp" in both.
 
 MLA (DeepSeek-V2): K and V compressed to a ``kv_lora_rank`` latent plus one
-shared RoPE key. Without a cache the expanded form; with one (prefill and
-decode, as in the reference) the absorbed form over all the cache's
-positions under the causal mask, the cache (b, S, r) and (b, S, dr)
-written in place.
+shared RoPE key. Without a cache the expanded form (under a mesh on the
+rank's heads); with one (prefill and decode, as in the reference) the
+absorbed form over all the cache's positions under the causal mask, the
+cache (b, S, r) and (b, S, dr) written in place.
 
 The model: the reference's two stacked groups, ``dense_layers`` and
 ``moe_layers``, are lists of per-layer dicts, walked in
@@ -51,7 +51,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
 from ..distributed import collectives as C
-from ..distributed.sharding import current_mesh, current_rules, naive_mode, stacked
+from ..distributed.sharding import (SHARDED_TODO, current_mesh, current_rules, naive_mode,
+                                    stacked)
 from . import layers as L
 from .transformer import _save_dots, checkpointed, head_logits
 
@@ -270,7 +271,7 @@ def _moe_ffn_gathered(x, p, cfg: ModelConfig):
     rows = C.group("batch")
     ep = C.group("experts") if p["wg"].shape[0] != cfg.moe.n_experts else None
     experts = {name: C.gather(p[name], ep, 0) for name in ("wg", "wu", "wd")}
-    y, aux = _moe_ffn_local(C.gather_rows(x, rows), {**p, **experts}, cfg)
+    y, aux = _moe_ffn_local(C.gather_summed(x, rows, 0), {**p, **experts}, cfg)
     return y.narrow(0, C.rank(rows) * b, b), aux
 
 
@@ -323,15 +324,26 @@ def mla_attention(x, p, cfg: ModelConfig, *, positions=None, cache=None, cache_p
     """The expanded form without a cache; with one (``{"ckv": (b, S, r),
     "kr": (b, S, dr)}``, compressed and head-free) the absorbed form over all
     S positions, the new entries written at ``cache_pos`` in place. Returns
-    (y (b, s, e), cache)."""
+    (y (b, s, e), cache).
+
+    Under rules and a mesh (the training forward) on the rank's heads:
+    ``wq``, ``w_uk``, ``w_uv`` and ``wo`` are split by heads, while
+    ``w_dkv``, ``w_kr`` and ``kv_norm`` are whole on every rank, so the
+    latent ``ckv`` and the shared RoPE key ``kr`` enter the rank's heads
+    through ``enter`` (their gradients summed over the ranks' heads) and
+    the output projection is summed by ``reduce``."""
     a = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
     dn, dr, dv, r = a.nope_head_dim, a.rope_head_dim, a.v_head_dim, a.kv_lora_rank
+    h = p["wq"].shape[1] // (dn + dr)                           # this rank's heads
+    heads = C.group("heads")
+    if cache is not None and heads is not None:
+        raise NotImplementedError(f"under a mesh MLA runs the training forward, not the "
+                                  f"absorbed form over a cache ({SHARDED_TODO})")
     if positions is None:
         positions = torch.arange(s, device=x.device)
 
-    q = _mm(x, p["wq"]).reshape(b, s, h, dn + dr)
+    q = _mm(C.enter(x, heads), p["wq"]).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     # back to the compute dtype: RoPE's f32 tables must not promote the
     # score products (and the compressed cache) to f32
@@ -363,6 +375,7 @@ def mla_attention(x, p, cfg: ModelConfig, *, positions=None, cache=None, cache_p
         lat = _einsum("bhst,btr->bshr", probs, ckv_c)                           # (b, s, h, r)
         out = _einsum("bshr,rhd->bshd", lat, p["w_uv"].reshape(r, h, dv))
     else:
+        ckv, kr = C.enter(ckv, heads), C.enter(kr, heads)
         k_nope = _mm(ckv, p["w_uk"]).reshape(b, s, h, dn)
         v = _mm(ckv, p["w_uv"]).reshape(b, s, h, dv)
         logits = _einsum("bshd,bthd->bhst", q_nope, k_nope)
@@ -371,7 +384,7 @@ def mla_attention(x, p, cfg: ModelConfig, *, positions=None, cache=None, cache_p
         probs = _masked_softmax(logits, qi[None, :] <= qi[:, None], scale, x.dtype)
         out = _einsum("bhst,bthd->bshd", probs, v)
 
-    return _mm(out.reshape(b, s, h * dv), p["wo"]), cache
+    return C.reduce(_mm(out.reshape(b, s, h * dv), p["wo"]), heads), cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16, device=None):

@@ -21,10 +21,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import stacked
+from ..distributed import collectives as C
+from ..distributed.sharding import SHARDED_TODO, stacked
 from . import layers as L
 from .transformer import _cast, checkpointed, head_logits
 
@@ -147,36 +149,83 @@ def ssd_chunked(x, dt, a, b_ssm, c_ssm, *, chunk):
     return y, state
 
 
+def _local_proj(cfg, zxbcdt, w, conv_b, grp):
+    """(z, x, B, C, dt, conv_w, conv_b) of this rank's SSM heads: z, x
+    and dt of its heads, B and C whole, and the conv's weights of its x
+    columns and of B and C. Under ``grp`` the shards of ``in_proj``,
+    ``conv_w`` and ``conv_b`` are contiguous slices of z | x | B | C | dt
+    and of x | B | C, not the rank's heads: the projection and the conv's
+    weights are gathered whole (``gather_summed``: a rank's gradient is
+    its heads' share, and B and C are every rank's) and each rank takes
+    its own columns."""
+    s, d_inner, h, _ = _dims(cfg)
+    if grp is None:
+        return (*_split_proj(cfg, zxbcdt), w, conv_b)
+    zxbcdt = C.gather_summed(zxbcdt, grp)
+    w, conv_b = C.gather_summed(w, grp), C.gather_summed(conv_b, grp)
+    m, r = dist.get_world_size(grp), C.rank(grp)
+    di, hl, n = d_inner // m, h // m, s.d_state
+    z = zxbcdt[..., r * di:(r + 1) * di]
+    x = zxbcdt[..., d_inner + r * di:d_inner + (r + 1) * di]
+    b_ssm, c_ssm = torch.split(zxbcdt[..., 2 * d_inner:2 * d_inner + 2 * n], n, dim=-1)
+    dt = zxbcdt[..., 2 * d_inner + 2 * n + r * hl:2 * d_inner + 2 * n + (r + 1) * hl]
+
+    def conv_cols(t):
+        return torch.cat([t[..., r * di:(r + 1) * di], t[..., d_inner:]], dim=-1)
+
+    return z, x, b_ssm, c_ssm, dt, conv_cols(w), conv_cols(conv_b)
+
+
+def _gated_norm(y, gamma, eps, d_inner, grp):
+    """``layers.rms_norm`` over the whole d_inner of y, the rank's columns
+    of it under ``grp``: their sums of squares summed over the ranks
+    (``all_sum``)."""
+    if grp is None:
+        return L.rms_norm(y, gamma, eps)
+    y32 = y.float()
+    var = C.all_sum(torch.sum(torch.square(y32), dim=-1, keepdim=True), grp) / d_inner
+    return (y32 * torch.rsqrt(var + eps) * gamma.float()).to(y.dtype)
+
+
 def mamba_forward(params, cfg: ModelConfig, u, *, chunk=None, return_cache=False):
     """Full-sequence Mamba2 block. u (b, s, d_model) -> (b, s, d_model).
 
     ``return_cache`` also returns the decode cache (conv tail and final
-    state, both f32) so that prefill can hand off to the recurrent decode."""
-    s_cfg, d_inner, h, conv_dim = _dims(cfg)
+    state, both f32) so that prefill can hand off to the recurrent decode.
+
+    Under rules and a mesh that shard "ssm_inner" and "ssm_heads", on the
+    rank's shards: the SSD on its heads (:func:`_local_proj`), the gated
+    norm summed over the ranks, ``out_proj``'s rows (its heads) summed by
+    ``reduce``."""
+    s_cfg, d_inner, _, _ = _dims(cfg)
     q = chunk or s_cfg.chunk
+    grp = C.group("ssm_inner")
+    if grp is not None and return_cache:
+        raise NotImplementedError(f"under a mesh the mamba block runs the training forward, "
+                                  f"not a prefill ({SHARDED_TODO})")
     res = u
     u = L.rms_norm(u, params["ln"], cfg.norm_eps)
-    zxbcdt = u @ params["in_proj"]
-    z, x, b_ssm, c_ssm, dt = _split_proj(cfg, zxbcdt)
+    zxbcdt = C.enter(u, grp) @ params["in_proj"]
+    z, x, b_ssm, c_ssm, dt, w, conv_b = _local_proj(cfg, zxbcdt, params["conv_w"],
+                                                    params["conv_b"], grp)
 
     # depthwise causal conv over (x, B, C)
     xbc_pre = torch.cat([x, b_ssm, c_ssm], dim=-1)            # (b, s, conv_dim)
-    w = params["conv_w"]                                      # (d_conv, conv_dim)
     pad = w.shape[0] - 1
     xbc_p = F.pad(xbc_pre, (0, 0, pad, 0))
     conv = sum(xbc_p[:, i:i + xbc_pre.shape[1]] * w[i][None, None]
-               for i in range(w.shape[0])) + params["conv_b"]
+               for i in range(w.shape[0])) + conv_b
     xbc = F.silu(conv)
-    x, b_ssm, c_ssm = torch.split(xbc, [d_inner, s_cfg.d_state, s_cfg.d_state], dim=-1)
+    x, b_ssm, c_ssm = torch.split(xbc, [x.shape[-1], s_cfg.d_state, s_cfg.d_state], dim=-1)
 
     dt = F.softplus(dt.float() + params["dt_bias"].float())
     a = -torch.exp(params["a_log"].float())
-    xh = x.reshape(*x.shape[:2], h, s_cfg.head_dim)
+    xh = x.reshape(*x.shape[:2], -1, s_cfg.head_dim)
     y, final_state = ssd_chunked(xh.float(), dt, a, b_ssm.float(), c_ssm.float(), chunk=q)
     y = y + params["d_skip"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(*x.shape[:2], d_inner).to(u.dtype)
-    y = L.rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    out = res + y @ params["out_proj"]
+    y = y.reshape(*x.shape).to(u.dtype)
+    y = _gated_norm(y * F.silu(z), params["norm"], cfg.norm_eps, d_inner, grp)
+    out = res + C.reduce(y @ params["out_proj"], grp)
     if return_cache:
         return out, {"conv": xbc_pre[:, -(s_cfg.d_conv - 1):].float(), "state": final_state}
     return out

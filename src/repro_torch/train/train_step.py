@@ -19,9 +19,12 @@ parameters and of the AdamW moments (``launch/mesh.py``'s
 reads its rows of the "data" axis. The layers run tensor-parallel over
 "model" (``distributed/collectives.py``), the gradients are averaged over
 "data", and the clipping norm sums the sharded leaves over "model". A
-mesh of one rank is the one-device step, bit for bit. The dense and vlm
-families are routed; the others, and rules this layout cannot take, raise
-``NotImplementedError`` on every rank before any collective.
+mesh of one rank is the one-device step, bit for bit. Every family is
+routed; rules and widths this layout cannot take raise
+``NotImplementedError`` on every rank before any collective. The moe
+family's aux loss is the mean of each data shard's (the reference's
+``pmean`` over "batch"), so over more than one data rank its step is one
+device's step with ``microbatch`` equal to the data ranks.
 """
 from __future__ import annotations
 
@@ -40,9 +43,6 @@ from ..models import get_api
 from ._tree import leaves, tree_map, unflatten
 from .compression import compress_decompress
 from .optimizer import adamw_update
-
-_SHARDED_FAMILIES = ("dense", "vlm")
-
 
 def _dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
@@ -134,14 +134,11 @@ def _unsupported(why: str):
 
 def sharded_layout(cfg: ModelConfig, tcfg: TrainConfig, params, opt_state=None):
     """The step's layout under the current rules and mesh (None without
-    them: one device). Everything it checks is local, so an unrouted
-    family or rule raises on every rank before any collective."""
+    them: one device). Everything it checks is local, so a rule or a
+    width it cannot take raises on every rank before any collective."""
     rules, mesh = current_rules(), current_mesh()
     if rules is None or mesh is None:
         return None
-    if cfg.family not in _SHARDED_FAMILIES:
-        raise _unsupported(f"routes the {' and '.join(_SHARDED_FAMILIES)} families, "
-                           f"not {cfg.family} ({cfg.arch_id})")
     if tuple(mesh.mesh_dim_names) != ("data", "model"):
         raise _unsupported(f"takes a ('data', 'model') mesh, not {mesh.mesh_dim_names}")
     size = dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -152,10 +149,16 @@ def sharded_layout(cfg: ModelConfig, tcfg: TrainConfig, params, opt_state=None):
         raise _unsupported(f"takes 'batch' over 'data', not {rules['batch']!r}")
     if _axis(rules, "batch") is None and size["data"] > 1:
         raise _unsupported("needs 'batch' over a data axis wider than one rank")
-    for name in ("heads", "kv_heads", "mlp", "vocab"):
+    for name in ("heads", "kv_heads", "mlp", "vocab", "experts", "ssm_inner", "ssm_heads"):
         if _axis(rules, name) not in (None, ("model",)):
             raise _unsupported(f"takes {name!r} over 'model' or unsharded, not {rules[name]!r}")
-    for name in ("heads", "kv_heads"):
+    if _axis(rules, "expert_mlp") is not None:
+        raise _unsupported(f"keeps 'expert_mlp' unsharded; the rules give {rules['expert_mlp']!r}")
+    if _axis(rules, "ssm_inner") != _axis(rules, "ssm_heads"):
+        raise _unsupported(f"shards 'ssm_inner' as 'ssm_heads': the rules give "
+                           f"{rules.get('ssm_inner')!r} and {rules.get('ssm_heads')!r}")
+    # the activations' rules read the head counts: mamba2 has no attention
+    for name in ("heads", "kv_heads") if cfg.n_heads else ():
         if _axis(rules, name) != _axis(rules, f"{name}_act"):
             raise _unsupported(f"needs {name}_act sharded as {name} is: the rules give "
                                f"{name} {rules.get(name)!r}, {name}_act "
@@ -163,12 +166,10 @@ def sharded_layout(cfg: ModelConfig, tcfg: TrainConfig, params, opt_state=None):
     if _axis(rules, "kv_heads") and not _axis(rules, "heads"):
         raise _unsupported("shards the KV heads only with the query heads")
     m = size["model"]
-    widths = {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "mlp": cfg.d_ff,
-              "vocab": cfg.vocab_padded}
-    for name, width in widths.items():
+    for name, width in _widths(cfg):
         if _axis(rules, name) and width % m:
             raise _unsupported(f"splits {name} ({width}) evenly over 'model' ({m} ranks)")
-    if _axis(rules, "heads") and not _axis(rules, "kv_heads") and m > 1:
+    if cfg.n_heads and _axis(rules, "heads") and not _axis(rules, "kv_heads") and m > 1:
         local, rep = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
         if local % rep and rep % local:
             raise _unsupported(f"gives each rank whole KV groups: {local} query heads a "
@@ -195,6 +196,26 @@ def sharded_layout(cfg: ModelConfig, tcfg: TrainConfig, params, opt_state=None):
     return _Layout(data=data, data_rank=coord[0], data_size=size["data"],
                    model=mesh.get_group("model") if m > 1 else None,
                    sharded=[any(p.is_shard() for p in pl) for pl in placements])
+
+
+def _widths(cfg: ModelConfig) -> list:
+    """(logical axis, a width of ``cfg`` it splits) for every width the
+    "model" axis must divide: the heads, the MLPs (moe's shared experts
+    too), the vocab, the routed experts, and the mamba block's SSM heads
+    and the two widths its contiguous "ssm_inner" shards slice (in_proj's
+    z | x | B | C | dt, conv_w's x | B | C)."""
+    widths = [("heads", cfg.n_heads), ("kv_heads", cfg.n_kv_heads), ("mlp", cfg.d_ff),
+              ("vocab", cfg.vocab_padded)]
+    if cfg.moe is not None:
+        widths += [("experts", cfg.moe.n_experts),
+                   ("mlp", cfg.moe.d_ff_expert * cfg.moe.n_shared_experts)]
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        h = d_inner // s.head_dim
+        widths += [("ssm_heads", h), ("ssm_inner", 2 * d_inner + 2 * s.d_state + h),
+                   ("ssm_inner", d_inner + 2 * s.d_state)]
+    return widths
 
 
 @functools.lru_cache(maxsize=16)

@@ -63,13 +63,21 @@ REMATS = ("none", "full")
 STEP_CASES = [dict(kind="step", arch=a, mesh=m, remat=r, **kw)
               for a, kw in STEP_ARCHS.items() for m in MESHES for r in REMATS]
 SHARD_CASES = [dict(kind="shard", arch="qwen1.5-4b", mesh=m) for m in MESHES]
-#: (id, case): every unrouted family, then rules the layout cannot take
+_SMOKE_SSM = configs.get_smoke_config("mamba2-780m").ssm
+_SMOKE_MOE = configs.get_smoke_config("deepseek-v2-lite-16b").moe
+#: (id, case): for each family past dense and vlm what its step still
+#: refuses, then rules the layout cannot take
 RAISE_CASES = {
-    "ssm": dict(arch="mamba2-780m", mesh=(2, 2)),
-    "hybrid": dict(arch="zamba2-2.7b", mesh=(2, 2)),
-    "encdec": dict(arch="seamless-m4t-large-v2", mesh=(2, 2)),
-    "moe-mla": dict(arch="deepseek-v2-lite-16b", mesh=(2, 2)),
-    "moe": dict(arch="llama4-maverick-400b-a17b", mesh=(2, 2)),
+    # in_proj's 298 columns over 4 ranks
+    "ssm": dict(arch="mamba2-780m", mesh=(1, 4),
+                replace={"ssm": dataclasses.replace(_SMOKE_SSM, d_state=17)}),
+    "hybrid": dict(arch="zamba2-2.7b", mesh=(2, 2), train={"gradient_compression": True}),
+    "encdec": dict(arch="seamless-m4t-large-v2", mesh=(2, 2), overrides={"embed": "model"}),
+    # 6 experts over 4 ranks
+    "moe-mla": dict(arch="deepseek-v2-lite-16b", mesh=(1, 4),
+                    replace={"moe": dataclasses.replace(_SMOKE_MOE, n_experts=6)}),
+    # 2 KV heads over 4 ranks, without the override that replicates them
+    "moe": dict(arch="llama4-maverick-400b-a17b", mesh=(1, 4)),
     "mqa-kv-heads-act-replicated": dict(arch="granite-34b", mesh=(1, 4)),
     "paligemma-kv-heads-act-replicated": dict(arch="paligemma-3b", mesh=(2, 2)),
     "d-ff-not-divided": dict(arch="stablelm-3b", mesh=(1, 4), replace={"d_ff": 250}),
@@ -386,7 +394,8 @@ def test_one_by_one_mesh_is_the_one_device_step_bitwise(one_rank_mesh, arch, rem
 
 
 @pytest.mark.parametrize("model", [1, 2, 4, 8])
-@pytest.mark.parametrize("arch", ["stablelm-3b", "qwen1.5-4b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["stablelm-3b", "qwen1.5-4b", "h2o-danube-3-4b", "zamba2-2.7b",
+                                  "seamless-m4t-large-v2"])
 def test_local_head_views_take_kernel_12s_16_byte_staging(arch, model):
     """A rank's (b, h / model, s, d) views of its q, k and v, as
     ``layers.attention`` hands them to kernel 12 at the published head

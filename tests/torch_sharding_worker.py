@@ -1,5 +1,6 @@
 """One rank of the sharded LM train step on a gloo group, for
-``tests/test_torch_sharding.py`` (spawned by ``repro_torch.testing.run_ranks``).
+``tests/test_torch_sharding.py`` and ``tests/test_torch_sharded_families.py``
+(spawned by ``repro_torch.testing.run_ranks``).
 
 ``run_cases`` runs each case of a list on this rank and returns what the
 test reads, as plain numbers, strings and numpy arrays:
@@ -7,14 +8,19 @@ test reads, as plain numbers, strings and numpy arrays:
   step    the smoke model's 3 sharded steps on a ("data", "model") mesh,
           its parameters and AdamW state placed by ``param_shardings``,
           against 3 one-device steps of the port from the same weights and
-          batches (run on every rank alike): the losses, the worst distance
-          of each rank's shards from the slices of the one-device results,
-          a digest of the replicated leaves, and kernel 12's calls
+          batches (run on every rank alike; for the moe family over more
+          than one data rank, with the batch split into a microbatch a
+          data rank): the losses, the worst distance of each rank's shards
+          from the slices of the one-device results, a digest of the
+          replicated leaves, and kernel 12's forward and backward calls
   shard   each rank's ``local_shard`` of every parameter and whether it
           equals ``distribute_tensor``'s local block
-  raise   the step of an unrouted family or rule: its error on this rank,
+  raise   the step of a rule or width the layout cannot take: its error on this rank,
           then a barrier, which every rank reaches only if none of them
           entered a collective first
+  collective  ``gather_summed`` or ``all_sum`` over "model" of this
+          rank's slice of a seeded tensor and the gradient of a loss of
+          the rank's own
 
 It imports torch, numpy and the port, nothing of JAX.
 """
@@ -32,6 +38,7 @@ from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.distributed import axis_rules  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.mesh import (build_rules, local_shard, param_shardings,  # noqa: E402
                                      placement_leaves, shard_tree, specs_like)
@@ -49,10 +56,10 @@ def smoke(arch: str, **replace):
     return cfg.replace(**replace) if replace else cfg
 
 
-def tcfg(remat: str, batch: int = BATCH):
+def tcfg(remat: str, batch: int = BATCH, **kw):
     return configs.TrainConfig(seq_len=SEQ, global_batch=batch, compute_dtype="float32",
                                remat=remat, learning_rate=1e-3, warmup_steps=2,
-                               total_steps=10)
+                               total_steps=10, **kw)
 
 
 def batches(cfg, batch: int = BATCH):
@@ -65,6 +72,9 @@ def batches(cfg, batch: int = BATCH):
             b["image_embeds"] = torch.from_numpy(
                 rng.standard_normal((batch, cfg.n_prefix_tokens, cfg.d_model),
                                     dtype=np.float32) * 0.02)
+        if cfg.family == "encdec":      # as many frames as tokens: kernel 12's cross form
+            b["src_embeds"] = torch.from_numpy(
+                rng.standard_normal((batch, SEQ, cfg.d_model), dtype=np.float32) * 0.02)
         out.append(b)
     return out
 
@@ -86,12 +96,15 @@ def steps(cfg, tc, params, opt, data):
 _ONE = {}
 
 
-def one_device(arch, remat, replace):
-    key = (arch, remat, tuple(sorted(replace.items())))
+def one_device(arch, remat, replace, microbatch=0):
+    """One device's 3 steps (kept for the cases that share them); with
+    ``microbatch`` the batch split into that many slices, the yardstick
+    of the moe family over that many data ranks."""
+    key = (arch, remat, tuple(sorted(replace.items())), microbatch)
     if key not in _ONE:
         cfg = smoke(arch, **replace)
         params, opt = init(cfg)
-        _ONE[key] = steps(cfg, tcfg(remat), params, opt, batches(cfg))
+        _ONE[key] = steps(cfg, tcfg(remat, microbatch=microbatch), params, opt, batches(cfg))
     return _ONE[key]
 
 
@@ -116,19 +129,25 @@ def _step_case(case, mesh):
         local = shard_tree(params, mesh, pl)
         local_opt = AdamWState(step=opt.step, mu=shard_tree(opt.mu, mesh, pl),
                                nu=shard_tree(opt.nu, mesh, pl))
-        calls = []
-        kernel = ops.flash_attention
+        calls, bwd_calls = [], []
+        kernel, backward = ops.flash_attention, fa.flash_attention_bwd
 
         def spy(*args, **kw):
             calls.append(1)
             return kernel(*args, **kw)
 
-        ops.flash_attention = spy
+        def spy_backward(*args, **kw):
+            bwd_calls.append(1)
+            return backward(*args, **kw)
+
+        ops.flash_attention, fa.flash_attention_bwd = spy, spy_backward
         try:
             local, local_opt, losses = steps(cfg, tcfg(remat), local, local_opt, batches(cfg))
         finally:
-            ops.flash_attention = kernel
-    one_params, one_opt, one_losses = one_device(arch, remat, replace)
+            ops.flash_attention, fa.flash_attention_bwd = kernel, backward
+    # moe over data ranks: its aux loss is each data shard's, as a microbatch's
+    micro = mesh.shape[0] if cfg.family == "moe" and mesh.shape[0] > 1 else 0
+    one_params, one_opt, one_losses = one_device(arch, remat, replace, micro)
     flat = placement_leaves(pl)
     worst = {}
     for what, got, want in (("params", local, one_params), ("mu", local_opt.mu, one_opt.mu),
@@ -144,7 +163,8 @@ def _step_case(case, mesh):
             digest.update(g.numpy().tobytes())
     return dict(losses=losses, one_losses=one_losses, worst=worst,
                 replicated=digest.hexdigest(), flash_calls=len(calls),
-                n_layers=cfg.n_layers, coordinate=list(mesh.get_coordinate()))
+                flash_bwd_calls=len(bwd_calls), n_layers=cfg.n_layers,
+                coordinate=list(mesh.get_coordinate()))
 
 
 def _shard_case(case, mesh):
@@ -173,14 +193,36 @@ def _raise_case(case, mesh):
     raised = None
     with axis_rules(rules, mesh=mesh):
         try:
-            build_train_step(cfg, tcfg("full", batch))(params, opt, batches(cfg, batch)[0])
+            build_train_step(cfg, tcfg("full", batch, **case.get("train", {})))(
+                params, opt, batches(cfg, batch)[0])
         except NotImplementedError as e:
             raised = str(e)
     dist.barrier()
     return dict(raised=raised)
 
 
-_KINDS = {"step": _step_case, "shard": _shard_case, "raise": _raise_case}
+def _collective_case(case, mesh):
+    """gather_summed or all_sum over "model" of this rank's part of a
+    seeded tensor, then a loss of this rank's own (the parts it reads
+    weighted by its rank): the forward, and the gradient of the rank's
+    part from the sum of the ranks' losses."""
+    from repro_torch.distributed import collectives as C
+    m, r = mesh.shape[1], mesh.get_coordinate()[1]
+    grp = mesh.get_group("model") if m > 1 else None
+    full = torch.from_numpy(np.random.default_rng(7).standard_normal(case["shape"]))
+    dim, width = case["dim"], case["shape"][case["dim"]] // m
+    part = full.narrow(dim, r * width, width).clone().requires_grad_()
+    if case["op"] == "gather_summed":
+        out = C.gather_summed(part, grp, dim)
+    else:
+        out = C.all_sum(part, grp)
+    weight = torch.from_numpy(np.random.default_rng(100 + r).standard_normal(out.shape))
+    (grad,) = torch.autograd.grad((out * weight).sum(), [part])
+    return dict(out=out.detach().numpy(), grad=grad.numpy(), rank=r)
+
+
+_KINDS = {"step": _step_case, "shard": _shard_case, "raise": _raise_case,
+          "collective": _collective_case}
 
 
 def run_cases(rank, world, cases):
