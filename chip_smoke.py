@@ -239,7 +239,16 @@ Phases (any failure exits non-zero before the last line is printed):
                   published widths, 2 of 48 layers (74 GB, the card
                   alone), 1 x 1,024 prompt tokens and 8 generated: kernel
                   12 once a layer in the prefill, the logits against the
-                  same weights through the plain attention.
+                  same weights through the plain attention;
+                - the sharded serve steps (build_prefill and
+                  build_decode_step under axis_rules(rules, mesh=mesh)) on
+                  a 1 x 1 mesh over a 1-rank NCCL group, each against one
+                  device's prefill and decode of the same 4 x 512 prompt
+                  tokens and 16 steps: llama4 (2 layers) and granite-34b
+                  (4 layers) from one device's cache, stablelm-3b and the
+                  five families above at FAMILY_ARCHS's depth through the
+                  sharded prefill (kernel 12's launches one device's), with
+                  four cards also on meshes (1, 4) and (2, 2).
   4. profile    one more n = 45,000 run of each engine under torch.profiler:
                 the device's busy share of the wall time and device time by
                 kernel and the k-means stage; and the graph runs E1
@@ -319,23 +328,33 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+TRACES = 3                  # device_events' tries at a trace the profiler lost
+
+
 def device_events(fn, reps: int) -> list[tuple[str, float]]:
     """(name, device ms) of every device event that torch.profiler records
     over ``reps`` calls of ``fn``, after one warm-up call. The trace opens
     with a marker kernel (torch.cuda._sleep's spin_kernel, left out of the
-    result): the profiler can miss the first kernel of a trace."""
+    result): the profiler can miss the first kernel of a trace. A trace
+    with no device event at all, the marker's neither, was lost by the
+    profiler (seen once in a whole-script run): it is taken again, up to
+    TRACES times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return [(ev.name, ev.time_range.elapsed_us() / 1e3) for ev in prof.events()
-            if ev.device_type == DeviceType.CUDA and "spin_kernel" not in ev.name]
+    for _ in range(TRACES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        if events:
+            break
+    return [(ev.name, ev.time_range.elapsed_us() / 1e3) for ev in events
+            if "spin_kernel" not in ev.name]
 
 
 def device_ms(fn, reps: int) -> float:
@@ -4030,6 +4049,7 @@ def phase_llama4(report):
 SHARDED_SERVE_BATCH, SHARDED_SERVE_PROMPT, SHARDED_SERVE_GEN = 4, 512, 16
 LLAMA4_SERVE_PROMPT, LLAMA4_SERVE_GEN = 256, 8
 SHARDED_SERVE_REL = 1e-4    # a sharded decode's logits against one device's, of max|logits|
+SHARDED_FAMILY_REL = 1e-5   # (d): a 1 x 1 mesh's prefill, decode and caches against one device's
 PROFILE_STEPS = 4           # decode steps under torch.profiler
 GRANITE_ARCH, GRANITE_CUT = "granite-34b", dict(n_layers=4)   # of its 88 layers
 EP_MOE_CF = 11.0            # deepseek's capacity factor past E / k = 64 / 6: no form drops a copy
@@ -4069,12 +4089,14 @@ def _counting_forms(calls):
             setattr(mod, name, saved[key])
 
 
-def _decode_rules(cfg, mesh, overrides=None, model_size=None, data_size=None):
-    """build_rules for the decode_32k cell: on ``mesh``'s axes, or on the
-    production (16, 16) mesh's where no sizes are given."""
+def _decode_rules(cfg, mesh, overrides=None, model_size=None, data_size=None,
+                  cell="decode_32k"):
+    """build_rules for a decode cell (``decode_32k`` unless named): on
+    ``mesh``'s axes, or on the production (16, 16) mesh's where no sizes
+    are given."""
     from repro_torch.configs import SHAPE_CELLS
     from repro_torch.launch.mesh import build_rules
-    cell = {c.name: c for c in SHAPE_CELLS}["decode_32k"]
+    cell = {c.name: c for c in SHAPE_CELLS}[cell]
     return build_rules(cfg, cell, model_size=model_size or 16, data_size=data_size or 16,
                        overrides=overrides)
 
@@ -4093,41 +4115,87 @@ def _drops_both(x, p, cfg):
                         (slot_ep == m.n_experts * 2 * cap).sum()])
 
 
-def _sharded_decode(cfg, params, rules, mesh, dev, batch, prompt, gen, profile=False,
-                    drops=False):
-    """One device's prefill of ``batch`` seeded prompts of ``prompt`` tokens
+def _rel(got, want) -> float:
+    """max |got - want| / max |want| (a shard of zeros, positions past the
+    prompt, against 1e-30), on the device (one sync)."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.train._tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+@contextlib.contextmanager
+def _peak(dev, own: int, peaks: list):
+    """Append to ``peaks`` the most the block held on the card: its peak
+    allocation less what was allocated at its start, plus ``own`` bytes
+    (the path's own tensors allocated before it: its weights, its cache),
+    so that the yardsticks kept for a comparison are not counted."""
+    base = torch.cuda.memory_allocated(dev) - own
+    torch.cuda.reset_peak_memory_stats(dev)
+    yield
+    peaks.append(torch.cuda.max_memory_allocated(dev) - base)
+
+
+def _sharded_serve(cfg, params, rules, mesh, dev, batch, prompt, gen, profile=False,
+                    drops=False, sharded_prefill=False):
+    """One device's prefill (build_prefill) of ``batch`` seeded prompts of
+    ``prompt`` tokens (and the family's stub embeddings, make_train_batch's)
     into an f32 cache, ``gen`` greedy steps of the one-device decode, then
     the same steps (the one-device tokens fed) through build_decode_step
-    under axis_rules(rules, mesh=mesh) on this rank's shards of the weights
-    (the weights themselves on a 1 x 1 mesh) and of that cache. Returns
-    each form's ms a token, the worst distance of the sharded logits from
-    one device's as a share of max|logits|, whether each step's greedy
-    tokens are equal, the mesh forms called, kernel 12's launches in the
-    sharded steps and the peak (each form timed after one untimed step);
-    with ``profile`` the sharded form's wall
-    and busy ms over PROFILE_STEPS more steps; with ``drops`` each step's
-    [local, expert-parallel] dropped copies summed over the moe layers."""
+    under axis_rules(rules, mesh=mesh) on this rank's shards of the
+    weights (the weights themselves on a 1 x 1 mesh) and of that cache:
+    shared out by local_shard, or with ``sharded_prefill`` made by the
+    sharded prefill (build_prefill under the rules, ROADMAP 12b.4c.1),
+    whose logits, enc_out and cache shard are held to one device's (each
+    prefill then timed after an untimed one).
+    Returns each form's ms a token (and prefill ms), the worst distance of
+    the sharded logits from one device's as a share of max|logits|,
+    whether each step's greedy tokens are equal, the distances of the
+    cache shard after the prefill and after the steps from local_shard of
+    one device's, the mesh forms called, kernel 12's launches in each
+    prefill and in the sharded steps, and each form's peak over its
+    prefill and steps with its weights and cache (``_peak``; each decode
+    timed after one untimed step); with ``profile``
+    the sharded form's wall and busy ms over PROFILE_STEPS more steps;
+    with ``drops`` each step's [local, expert-parallel] dropped copies
+    summed over the moe layers."""
     import gc
 
     from repro_torch.distributed import axis_rules
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import param_shardings, shard_tree, specs_like
-    from repro_torch.models import get_api, moe
-    from repro_torch.train._tree import tree_map
-    from repro_torch.train.train_step import build_decode_step
+    from repro_torch.models import get_api, make_train_batch, moe
+    from repro_torch.train._tree import leaves, tree_map
+    from repro_torch.train.train_step import build_decode_step, build_prefill
     api = get_api(cfg)
     gc.collect()
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
-                           generator=torch.Generator().manual_seed(0)).to(dev)
-    # positions in 64s, which every mesh axis here divides
-    max_len = -(-(prompt + gen + PROFILE_STEPS) // 64) * 64
-    logits, cache = api.prefill(params, cfg, {"tokens": tokens}, max_len,
-                                compute_dtype=torch.float32, cache_dtype=torch.float32)
-    fed = [logits[:, -1, :cfg.vocab_size].argmax(-1).to(torch.int32)]
-    del logits
+    data = make_train_batch(cfg, batch, prompt, torch.Generator().manual_seed(0))
+    data = {key: x.to(dev) for key, x in data.items() if key != "labels"}
+    prefix = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+    # positions in 64s past the prefix, which every mesh axis here divides
+    max_len = prefix + -(-(prompt + gen + PROFILE_STEPS) // 64) * 64
+    pos0 = prefix + prompt
+    prefill = build_prefill(cfg, max_len, torch.float32, cache_dtype=torch.float32)
+    if sharded_prefill:     # both prefills timed warm: the first call of a shape is not
+        prefill(params, data)
+    weights, one_peaks, peaks = _tree_bytes(params), [], []
+    ops.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    with _peak(dev, weights, one_peaks):
+        t0 = time.perf_counter()
+        out = prefill(params, data)
+        torch.cuda.synchronize(dev)
+    one_prefill_ms = (time.perf_counter() - t0) * 1e3
+    one_prefill_launches = ops.launch_counts()["flash_attention"]
+    want_prefill, cache = out[0][..., :cfg.vocab_size], out[1]
+    extras = {"enc_out": out[2]} if len(out) > 2 else None
+    fed = [want_prefill[:, -1].argmax(-1).to(torch.int32)]
+    del out
     start = tree_map(torch.clone, cache)
     step = build_decode_step(cfg, torch.float32, return_logits=True)
     step_drops, real_moe = [], moe.moe_ffn
@@ -4139,20 +4207,21 @@ def _sharded_decode(cfg, params, rules, mesh, dev, batch, prompt, gen, profile=F
         moe.moe_ffn = counted
     try:
         want = []
-        # one step first, repeated in the timed run (it writes the same
-        # entries): a process group's first collective sets up its
-        # communicator, and the first call of a shape its kernels
-        step(params, fed[0][:, None], cache, prompt)
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        for i in range(gen):
-            step_drops.append(torch.zeros(2, dtype=torch.int64, device=dev))
-            nxt, cache, lg = step(params, fed[-1][:, None], cache, prompt + i)
-            want.append(lg[:, -1])
-            fed.append(nxt)
-        torch.cuda.synchronize(dev)
+        with _peak(dev, weights + _tree_bytes(cache) + _tree_bytes(extras or {}), one_peaks):
+            # one step first, repeated in the timed run (it writes the same
+            # entries): a process group's first collective sets up its
+            # communicator, and the first call of a shape its kernels
+            step(params, fed[0][:, None], cache, pos0, extras)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for i in range(gen):
+                step_drops.append(torch.zeros(2, dtype=torch.int64, device=dev))
+                nxt, cache, lg = step(params, fed[-1][:, None], cache, pos0 + i, extras)
+                want.append(lg[:, -1])
+                fed.append(nxt)
+            torch.cuda.synchronize(dev)
         one_ms = (time.perf_counter() - t0) * 1e3 / gen
-        del cache
+        one_final = cache
         calls, got = {}, []
         with axis_rules(rules, mesh=mesh):
             if all(s == 1 for s in mesh.shape):
@@ -4160,35 +4229,71 @@ def _sharded_decode(cfg, params, rules, mesh, dev, batch, prompt, gen, profile=F
             else:
                 local = shard_tree(params, mesh,
                                    param_shardings(mesh, specs_like(api.param_specs(cfg), params)))
-            cache = shard_tree(start, mesh, param_shardings(mesh, api.cache_specs(cfg)))
+            cache_pl = param_shardings(mesh, api.cache_specs(cfg))
+            weights = _tree_bytes(local)
+            rec = dict(one_device_ms_per_token=one_ms, one_device_prefill_ms=one_prefill_ms,
+                       one_device_prefill_launches=one_prefill_launches,
+                       one_device_peak_mem_bytes=max(one_peaks), sharded_prefill=sharded_prefill)
+            if sharded_prefill:
+                # warm, as the one-device prefill is: the first call under the
+                # rules also builds the layout caches and, over several ranks,
+                # the communicators (each call makes a fresh cache shard)
+                prefill(local, data)
+                ops.reset_launch_counts()
+                torch.cuda.synchronize(dev)
+                with _peak(dev, weights, peaks):
+                    t0 = time.perf_counter()
+                    out = prefill(local, data)
+                    torch.cuda.synchronize(dev)
+                rec.update(prefill_ms=(time.perf_counter() - t0) * 1e3,
+                           prefill_launches=ops.launch_counts()["flash_attention"],
+                           prefill_rel=_rel(out[0][..., :cfg.vocab_size], want_prefill),
+                           prefill_same_token=bool(torch.equal(
+                               out[0][:, -1, :cfg.vocab_size].argmax(-1).to(torch.int32),
+                               fed[0])))
+                cache = out[1]
+                if extras is not None:
+                    rec["enc_rel"] = _rel(out[2], extras["enc_out"])
+                    extras = {"enc_out": out[2]}
+                del out
+            else:
+                cache = shard_tree(start, mesh, cache_pl)
+            del want_prefill
+            rec["prefill_cache_rel"] = max(
+                _rel(g, w) for g, w in zip(leaves(cache), leaves(shard_tree(start, mesh, cache_pl)),
+                                           strict=True))
             del start
             one_device_drops, step_drops = step_drops, []
-            step(local, fed[0][:, None], cache, prompt)
-            step_drops = one_device_drops
-            ops.reset_launch_counts()
-            with _counting_forms(calls):
-                torch.cuda.synchronize(dev)
-                t0 = time.perf_counter()
-                for i in range(gen):
-                    step_drops.append(torch.zeros(2, dtype=torch.int64, device=dev))
-                    nxt, cache, lg = step(local, fed[i][:, None], cache, prompt + i)
-                    got.append((lg[:, -1], nxt))
-                torch.cuda.synchronize(dev)
-                ms = (time.perf_counter() - t0) * 1e3 / gen
+            with _peak(dev, weights + _tree_bytes(cache) + _tree_bytes(extras or {}), peaks):
+                step(local, fed[0][:, None], cache, pos0, extras)
+                step_drops = one_device_drops
+                ops.reset_launch_counts()
+                with _counting_forms(calls):
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    for i in range(gen):
+                        step_drops.append(torch.zeros(2, dtype=torch.int64, device=dev))
+                        nxt, cache, lg = step(local, fed[i][:, None], cache, pos0 + i, extras)
+                        got.append((lg[:, -1], nxt))
+                    torch.cuda.synchronize(dev)
+                    ms = (time.perf_counter() - t0) * 1e3 / gen
             launches = ops.launch_counts()["flash_attention"]
-            rec = dict(ms_per_token=ms, one_device_ms_per_token=one_ms, calls=calls,
-                       flash_launches=launches)
+            rec.update(ms_per_token=ms, calls=calls, flash_launches=launches,
+                       peak_mem_bytes=max(peaks),
+                       final_cache_rel=max(_rel(g, w) for g, w in zip(
+                           leaves(cache), leaves(shard_tree(one_final, mesh, cache_pl)),
+                           strict=True)))
+            del one_final
             if profile:
                 def more():
                     tok = fed[-1][:, None]
                     for i in range(PROFILE_STEPS):
-                        nxt, _, _ = step(local, tok, cache, prompt + gen + i)
+                        nxt, _, _ = step(local, tok, cache, pos0 + gen + i, extras)
                         tok = nxt[:, None]
                 rec["profile"] = _profiled(more)
         rel = [float((lg - w).abs().max() / w.abs().max()) for (lg, _), w in zip(got, want)]
         same = [bool(torch.equal(nxt, fed[i + 1])) for i, (_, nxt) in enumerate(got)]
-        rec.update(max_rel=max(rel), same_tokens=same, peak_mem_bytes=
-                   torch.cuda.max_memory_allocated(dev))
+        rec.update(max_rel=max(rel), same_tokens=same)
         if drops:
             d = torch.stack(step_drops).cpu()
             rec.update(one_device_drops=d[:gen].sum(0)[0].item(),
@@ -4202,19 +4307,47 @@ def _sharded_decode(cfg, params, rules, mesh, dev, batch, prompt, gen, profile=F
     return rec
 
 
-def _report_sharded_decode(tag, cfg, rec, expect_ep):
-    """Print a case of _sharded_decode and check it: tokens equal at each
+def _attention_layers(cfg) -> int:
+    """The cached self-attentions a decode step runs through layers.attention
+    (MLA's absorbed form is its own)."""
+    if cfg.family == "ssm" or cfg.mla is not None:
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers
+
+
+def _report_sharded_serve(tag, cfg, rec, expect_ep, rules=None, prefill_launches=None,
+                           rel_limit=SHARDED_SERVE_REL):
+    """Print a case of _sharded_serve and check it: tokens equal at each
     step (where neither moe form drops a copy), logits within
-    SHARDED_SERVE_REL, the flash form once a layer a step, the
-    expert-parallel form once a moe layer a step, no kernel 12."""
+    ``rel_limit``, the flash form once a cached attention a step where
+    ``rules`` map "cache_seq" (every attention where no rules are given),
+    the expert-parallel form once a moe layer a step, no kernel 12 in the
+    decode; with a sharded prefill, its logits within ``rel_limit`` and
+    its first token equal, the cache shard after the prefill and after
+    the steps within ``rel_limit`` of one device's, and kernel 12's
+    launches in it one device's and ``prefill_launches``."""
     gen = len(rec["same_tokens"])
     prof = rec.get("profile")
     busy = prof and prof["device_busy_ms"]
-    print(f"[sharded-serve] {tag}: {gen} steps, sharded {rec['ms_per_token']:.3f} ms a token "
+    pre = rec["sharded_prefill"]
+    print(f"[sharded-serve] {tag}: "
+          + (f"sharded prefill {rec['prefill_ms']:.3f} ms (one device "
+             f"{rec['one_device_prefill_ms']:.3f}), logits within {rec['prefill_rel']:.3e} of "
+             f"one device's max|logits|, kernel 12 launches {rec['prefill_launches']} (one "
+             f"device {rec['one_device_prefill_launches']})"
+             + (f", enc_out within {rec['enc_rel']:.3e}" if "enc_rel" in rec else "") + "; "
+             if pre else "")
+          + f"{gen} steps, sharded {rec['ms_per_token']:.3f} ms a token "
           f"(one device {rec['one_device_ms_per_token']:.3f}); logits within "
           f"{rec['max_rel']:.3e} of one device's max|logits|; tokens equal "
-          f"{sum(rec['same_tokens'])}/{gen}; forms {rec['calls']}; kernel 12 launches "
-          f"{rec['flash_launches']}; peak_mem_GB={rec['peak_mem_bytes'] / 1e9:.3f}"
+          f"{sum(rec['same_tokens'])}/{gen}; cache shards within "
+          f"{rec['prefill_cache_rel']:.3e} (prefill) and {rec['final_cache_rel']:.3e} (after "
+          f"the steps) of one device's; forms {rec['calls']}; kernel 12 launches "
+          f"{rec['flash_launches']}; peak_mem_GB={rec['peak_mem_bytes'] / 1e9:.3f} (one device "
+          f"{rec['one_device_peak_mem_bytes'] / 1e9:.3f}; each path's weights, cache and "
+          "temporaries)"
           + (f"; profiled {PROFILE_STEPS} steps wall_ms={prof['wall_ms']:.3f} busy="
              + (f"{busy / prof['wall_ms']:.4f}" if busy else "not measured")
              + " (top device ms: " + ", ".join(f"{t['name'][:48]} x{t['launches']} "
@@ -4225,39 +4358,83 @@ def _report_sharded_decode(tag, cfg, rec, expect_ep):
     held = rec.get("no_drop_steps", [True] * gen)
     check(all(s for s, h in zip(rec["same_tokens"], held) if h),
           f"sharded serve {tag}: greedy tokens differ from one device's")
-    check(rec["max_rel"] <= SHARDED_SERVE_REL or not all(held),
+    check(rec["max_rel"] <= rel_limit or not all(held),
           f"sharded serve {tag}: logits {rec['max_rel']:.3e} of max from one device's "
-          f"(limit {SHARDED_SERVE_REL})")
-    n_moe = cfg.n_layers // cfg.moe.moe_every if cfg.moe else 0
-    check(rec["calls"].get("flash", 0) == cfg.n_layers * gen
+          f"(limit {rel_limit})")
+    check(max(rec["prefill_cache_rel"], rec["final_cache_rel"]) <= rel_limit or not all(held),
+          f"sharded serve {tag}: a cache shard is not within {rel_limit} of one device's")
+    if pre:
+        check(rec["prefill_rel"] <= rel_limit and rec["prefill_same_token"]
+              and rec.get("enc_rel", 0.0) <= rel_limit,
+              f"sharded serve {tag}: the sharded prefill is not within {rel_limit} of one "
+              f"device's")
+        check(rec["prefill_launches"] == rec["one_device_prefill_launches"] == prefill_launches,
+              f"sharded serve {tag}: kernel 12 launches in the prefill "
+              f"{rec['prefill_launches']} (one device {rec['one_device_prefill_launches']}, "
+              f"{prefill_launches} expected)")
+    from repro_torch.models import moe
+    n_moe = sum(k == "moe" for k, _ in moe.layer_schedule(cfg)) if cfg.moe else 0
+    flash = _attention_layers(cfg) * gen if rules is None or rules["cache_seq"] else 0
+    check(rec["calls"].get("flash", 0) == flash
           and rec["calls"].get("ep", 0) == (n_moe * gen if expect_ep else 0)
           and not rec["calls"].get("gathered") and rec["flash_launches"] == 0,
           f"sharded serve {tag}: forms {rec['calls']}, kernel 12 {rec['flash_launches']} "
-          f"(flash {cfg.n_layers * gen}, expert-parallel {n_moe * gen} expected, no kernel 12)")
+          f"(flash {flash}, expert-parallel {n_moe * gen} expected, no kernel 12)")
+
+
+#: phase_sharded_serve (d): each family at FAMILY_ARCHS's depth, the cells
+#: whose production rules it runs under, and kernel 12's launches in a
+#: prefill (zamba2's 6 layers one group, seamless's 2 encoder layers and 2
+#: decoder layers of a self- and a cross-attention)
+SHARDED_FAMILY_SERVE = {
+    "mamba2-780m": (("decode_32k", "long_500k"), 0),
+    "zamba2-2.7b": (("decode_32k",), 1),
+    "seamless-m4t-large-v2": (("decode_32k",), 6),
+    "paligemma-3b": (("decode_32k",), 0),
+    "deepseek-v2-lite-16b": (("decode_32k", "long_500k"), 0),
+}
+
+
+def _family_serve_cut(arch):
+    """``arch`` at its published widths and FAMILY_ARCHS's depth; deepseek
+    at capacity factor EP_MOE_CF, where neither moe form drops a copy (the
+    expert-parallel form's capacity is twice the local form's)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(**FAMILY_ARCHS[arch])
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=EP_MOE_CF))
+    return cfg
 
 
 def phase_sharded_serve(report, llama4_params):
-    """The sharded decode step (build_decode_step under axis_rules(rules,
-    mesh=mesh), ROADMAP 12b.4b) on a 1 x 1 ("data", "model") mesh over a
-    1-rank NCCL group, each case held to the one-device decode of the same
-    prompt (_sharded_decode): (c) llama4-maverick at LLAMA4_CUT under the
-    production decode_32k rules (``llama4_params``, phase_llama4's
-    weights, freed here): the flash decode and the expert-parallel moe
-    layer on one rank, each form's dropped copies; (a) stablelm-3b at full
-    width with "cache_seq" mapped to "model": the flash form over the whole
-    cache; (b) granite-34b at GRANITE_CUT under its production decode_32k
-    rules (MQA: "cache_seq" over "model"). Returns kernel 12's launches in
-    the sharded decodes (none expected)."""
+    """The sharded serve steps (build_prefill and build_decode_step under
+    axis_rules(rules, mesh=mesh), ROADMAP 12b.4b and 12b.4c.1) on a 1 x 1
+    ("data", "model") mesh over a 1-rank NCCL group, each case held to the
+    one-device prefill and decode of the same prompt (_sharded_serve):
+    (c) llama4-maverick at LLAMA4_CUT under the production decode_32k
+    rules (``llama4_params``, phase_llama4's weights, freed here), from
+    one device's prefill: the flash decode and the expert-parallel moe
+    layer on one rank, each form's dropped copies; (a) stablelm-3b at
+    full width with "cache_seq" mapped to "model": the sharded prefill
+    (kernel 12 once a layer) and the flash form over the whole cache; (b)
+    granite-34b at GRANITE_CUT under its production decode_32k rules (MQA:
+    "cache_seq" over "model"), from one device's prefill; (d) the ssm,
+    hybrid, encdec, vlm and MLA families (SHARDED_FAMILY_SERVE) at
+    published widths and FAMILY_ARCHS's depth under their production
+    rules, the sharded prefill and decode held to 1e-5. Returns kernel
+    12's launches in the sharded prefills and in the sharded decodes."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_api
     from repro_torch.train._tree import leaves
     out = {}
     with _one_rank_mesh() as mesh:
         cfg = get_config(LLAMA4_ARCH).replace(**LLAMA4_CUT)
-        rec = _sharded_decode(cfg, llama4_params, _decode_rules(cfg, mesh), mesh, "cuda",
+        rec = _sharded_serve(cfg, llama4_params, _decode_rules(cfg, mesh), mesh, "cuda",
                               LLAMA4_BATCH, LLAMA4_SERVE_PROMPT, LLAMA4_SERVE_GEN, drops=True)
         llama4_params.clear()
-        _report_sharded_decode(f"(c) {LLAMA4_ARCH} {LLAMA4_CUT}", cfg, rec, expect_ep=True)
+        _report_sharded_serve(f"(c) {LLAMA4_ARCH} {LLAMA4_CUT}", cfg, rec, expect_ep=True)
         out["llama4"] = rec
         for key, arch, cut, overrides in (("stablelm", SERVE_ARCH, None, {"cache_seq": ("model",)}),
                                           ("granite", GRANITE_ARCH, GRANITE_CUT, None)):
@@ -4269,16 +4446,35 @@ def phase_sharded_serve(report, llama4_params):
             params = get_api(cfg).init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
             rules = (_decode_rules(cfg, mesh, overrides, model_size=1, data_size=1) if overrides
                      else _decode_rules(cfg, mesh))
-            rec = _sharded_decode(cfg, params, rules, mesh, "cuda", SHARDED_SERVE_BATCH,
-                                  SHARDED_SERVE_PROMPT, SHARDED_SERVE_GEN, profile=True)
+            pre = key == "stablelm"
+            rec = _sharded_serve(cfg, params, rules, mesh, "cuda", SHARDED_SERVE_BATCH,
+                                  SHARDED_SERVE_PROMPT, SHARDED_SERVE_GEN, profile=True,
+                                  sharded_prefill=pre)
             del params
-            tag = "(a)" if key == "stablelm" else "(b)"
-            _report_sharded_decode(f"{tag} {arch} {cut or 'full'}, cache_seq "
-                                   f"{rules['cache_seq']}", cfg, rec, expect_ep=False)
+            tag = "(a)" if pre else "(b)"
+            _report_sharded_serve(f"{tag} {arch} {cut or 'full'}, cache_seq "
+                                   f"{rules['cache_seq']}", cfg, rec, expect_ep=False,
+                                   prefill_launches=cfg.n_layers if pre else None)
             out[key] = dict(rec, n_params=n_params)
+        for arch, (cells, launches) in SHARDED_FAMILY_SERVE.items():
+            cfg = _family_serve_cut(arch)
+            params = get_api(cfg).init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+            for cell in cells:
+                rules = _decode_rules(cfg, mesh, cell=cell)
+                rec = _sharded_serve(cfg, params, rules, mesh, "cuda", SHARDED_SERVE_BATCH,
+                                      SHARDED_SERVE_PROMPT, SHARDED_SERVE_GEN,
+                                      sharded_prefill=True)
+                _report_sharded_serve(f"(d) {arch} {FAMILY_ARCHS[arch]}, {cell} rules "
+                                       f"(batch {rules['batch']}, cache_seq "
+                                       f"{rules['cache_seq']})", cfg, rec,
+                                       expect_ep=cfg.moe is not None, rules=rules,
+                                       prefill_launches=launches, rel_limit=SHARDED_FAMILY_REL)
+                out[f"{arch} {cell}"] = rec
+            del params
     torch.cuda.empty_cache()
     report["sharded_serve"] = out
-    return sum(r["flash_launches"] for r in out.values())
+    return ({"prefill": sum(r.get("prefill_launches", 0) for r in out.values()),
+             "decode": sum(r["flash_launches"] for r in out.values())})
 
 
 def _moe_ep_vs_local(cfg, p, mesh, dev):
@@ -6014,15 +6210,22 @@ def _four_rank_lm(dev):
     return out
 
 
+#: _four_rank_serve's families: each at FAMILY_ARCHS's depth, a sharded
+#: prefill (kernel 12's launches a rank: SHARDED_FAMILY_SERVE's) and
+#: SHARDED_SERVE_GEN steps
+FOUR_RANK_SERVE_FAMILIES = ("zamba2-2.7b", "seamless-m4t-large-v2")
+
+
 def _four_rank_serve(dev):
     """This rank's part of the sharded serve on four cards, on each of
-    SHARDED_MESHES: phase_sharded_serve's (a) stablelm-3b at full width with
-    "cache_seq" over "model" and (b) granite-34b at GRANITE_CUT under its
-    decode_32k rules for the mesh, each against the one-device decode on
-    this card (_sharded_decode, 4 more steps profiled), and phase_moe_ffn's
-    expert-parallel deepseek layer (_moe_ep_vs_local)."""
-    import dataclasses
-
+    SHARDED_MESHES, each case against the one-device prefill and decode
+    on this card (_sharded_serve): phase_sharded_serve's (a) stablelm-3b
+    at full width with "cache_seq" over "model", its sharded prefill and
+    4 more steps profiled; (b) granite-34b at GRANITE_CUT under its
+    decode_32k rules for the mesh, from one device's prefill, profiled;
+    FOUR_RANK_SERVE_FAMILIES under their decode_32k rules for the mesh,
+    a sharded prefill and its decode; and phase_moe_ffn's expert-parallel
+    deepseek layer (_moe_ep_vs_local)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs import get_config
@@ -6030,17 +6233,22 @@ def _four_rank_serve(dev):
     meshes = {shape: init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
               for shape in SHARDED_MESHES}
     out = {}
-    for key, arch, cut, overrides in (("stablelm", SERVE_ARCH, None, {"cache_seq": ("model",)}),
-                                      ("granite", GRANITE_ARCH, GRANITE_CUT, None)):
+    cases = [("stablelm", SERVE_ARCH, None, {"cache_seq": ("model",)}, True),
+             ("granite", GRANITE_ARCH, GRANITE_CUT, None, False)]
+    cases += [(arch.split("-")[0], arch, FAMILY_ARCHS[arch], None, True)
+              for arch in FOUR_RANK_SERVE_FAMILIES]
+    for key, arch, cut, overrides, sharded_prefill in cases:
         cfg = get_config(arch)
         cfg = cfg.replace(**cut) if cut else cfg
         params = get_api(cfg).init_params(torch.Generator(device=dev).manual_seed(0), cfg)
         for shape, mesh in meshes.items():
             rules = _decode_rules(cfg, mesh, overrides, model_size=shape[1], data_size=shape[0])
             out[f"{key} {shape[0]}x{shape[1]}"] = dict(
-                _sharded_decode(cfg, params, rules, mesh, dev, SHARDED_SERVE_BATCH,
-                                SHARDED_SERVE_PROMPT, SHARDED_SERVE_GEN, profile=True),
-                cache_seq=rules["cache_seq"])
+                _sharded_serve(cfg, params, rules, mesh, dev, SHARDED_SERVE_BATCH,
+                                SHARDED_SERVE_PROMPT, SHARDED_SERVE_GEN,
+                                profile=key in ("stablelm", "granite"),
+                                sharded_prefill=sharded_prefill),
+                arch=arch, cut=cut, rules={k: rules[k] for k in ("batch", "cache_seq")})
         del params
         torch.cuda.empty_cache()
     cfg = get_config(MOE_ARCH)
@@ -6053,10 +6261,13 @@ def _four_rank_serve(dev):
 
 
 def _check_four_rank_serve(serve):
-    """The four ranks' records of _four_rank_serve: each decode case held
-    as phase_sharded_serve's (tokens equal, logits within
-    SHARDED_SERVE_REL of one device's, the flash form once a layer a step,
-    no kernel 12), the expert-parallel moe_ffn as phase_moe_ffn's."""
+    """The four ranks' records of _four_rank_serve: each serve case held
+    as phase_sharded_serve's (tokens equal, logits and caches within
+    SHARDED_SERVE_REL of one device's, the flash form once a cached
+    attention a step where "cache_seq" is mapped, no kernel 12 in the
+    decode; a sharded prefill within SHARDED_SERVE_REL, with kernel 12's
+    launches one device's on every rank), the expert-parallel moe_ffn as
+    phase_moe_ffn's."""
     from repro_torch.configs import get_config
     rec = {}
     for name in serve[0]:
@@ -6065,13 +6276,15 @@ def _check_four_rank_serve(serve):
             for i, r in enumerate(ranks):
                 _check_moe_ep(f"{MOE_ARCH} 4 ranks, rank {i}", r)
         else:
-            arch, cut = ((SERVE_ARCH, None) if name.startswith("stablelm")
-                         else (GRANITE_ARCH, GRANITE_CUT))
-            cfg = get_config(arch)
-            cfg = cfg.replace(**cut) if cut else cfg
+            cfg = get_config(ranks[0]["arch"])
+            cfg = cfg.replace(**ranks[0]["cut"]) if ranks[0]["cut"] else cfg
+            launches = (cfg.n_layers if cfg.family == "dense" else
+                        SHARDED_FAMILY_SERVE[ranks[0]["arch"]][1])
             for i, r in enumerate(ranks):
-                _report_sharded_decode(f"4 ranks {name} (cache_seq {r['cache_seq']}), rank {i}",
-                                       cfg, r, expect_ep=False)
+                _report_sharded_serve(f"4 ranks {name} (batch {r['rules']['batch']}, cache_seq "
+                                       f"{r['rules']['cache_seq']}), rank {i}", cfg, r,
+                                       expect_ep=False, rules=r["rules"],
+                                       prefill_launches=launches)
         rec[name] = ranks
     return rec
 
@@ -6366,7 +6579,7 @@ def main(argv=None) -> int:
     family_launches = phase_family_serve(report)
     phase_moe_ffn(report)
     family_launches[LLAMA4_ARCH], llama4_params = phase_llama4(report)
-    sharded_decode = phase_sharded_serve(report, llama4_params)
+    sharded_serve = phase_sharded_serve(report, llama4_params)
     del llama4_params
     train_launches, one_device = phase_train(report)
     counts.update({op: train_launches[op] for op in BWD_LABELS})
@@ -6406,7 +6619,9 @@ def main(argv=None) -> int:
          **(_bf16_keys(kernels[name]["bf16"], bf16_counts[name])
             if name in bf16_counts else {}),
          **({"train_launches": train_launches[name]} if name in train_launches else {}),
-         **({"family_launches": family_launches, "sharded_decode_launches": sharded_decode}
+         **({"family_launches": family_launches,
+             "sharded_prefill_launches": sharded_serve["prefill"],
+             "sharded_decode_launches": sharded_serve["decode"]}
             if name == "flash_attention" else {}),
          **({"family_train_launches": {arch: c[name] for arch, c in family_train.items()}}
             if name in ("flash_attention", *BWD_LABELS) else {}),

@@ -34,6 +34,7 @@ unsharded, or over mesh axes of one rank, where every function here is
 the identity and adds no operation. "data", "model" and both (the whole
 mesh, data-major) have groups; :func:`axis_index` is this rank's place
 along such axes, as the reference's ``jax.lax.axis_index``.
+:func:`local_zeros` makes a sharded prefill's empty cache shard.
 """
 from __future__ import annotations
 
@@ -226,6 +227,35 @@ def all_max(x, grp):
 
 def rank(grp) -> int:
     return 0 if grp is None else dist.get_rank(grp)
+
+
+def spec_axes(entry) -> tuple:
+    """A resolved spec entry (None, an axis name or a tuple of them) as a
+    tuple of mesh axes."""
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_zeros(tree, specs, device):
+    """Zeros of each leaf's shape in ``tree`` (meta tensors; dicts), cut to
+    this rank's shard under the current rules and mesh: each dimension
+    split by the mesh axes its logical name in ``specs`` resolves to,
+    except "batch", whose rows the caller has cut already. Without rules
+    or a mesh, the whole shapes. A dimension the axes do not divide
+    raises, naming 12b.4c."""
+    from .sharding import logical_to_spec
+    if isinstance(tree, dict):
+        return {k: local_zeros(v, specs[k], device) for k, v in tree.items()}
+    shape = list(tree.shape)
+    if current_rules() is not None and current_mesh() is not None:
+        for dim, (name, axes) in enumerate(zip(specs, logical_to_spec(specs))):
+            n = axis_size(spec_axes(axes))
+            if name == "batch" or n == 1:
+                continue
+            if shape[dim] % n:
+                raise NotImplementedError(f"a cache dimension of {shape[dim]} ({name}) over "
+                                          f"{n} ranks ({SHARDED_TODO})")
+            shape[dim] //= n
+    return torch.zeros(shape, dtype=tree.dtype, device=device)
 
 
 def vocab_embedding(tokens, table, grp):

@@ -14,15 +14,18 @@ V in every layer at every step, as the reference does (no cross cache).
 Parameters: ``{"embed", "enc_layers": [...], "dec_layers": [...],
 "ln_enc", "ln_f"}``. The decoder's self-attention cache is stacked on
 the layers, (n_layers, b, S, kv, hd) for K and for V, updated in place.
-Under rules and a mesh (the sharded train step) each attention runs on
-the rank's heads and the MLP on its columns; the cross-attention's
-``enter`` of ``enc_out`` sums its gradient over the ranks' heads.
+Under rules and a mesh (the sharded train, prefill and decode steps)
+each attention runs on the rank's heads and the MLP on its columns; the
+cross-attention's ``enter`` of ``enc_out`` sums its gradient over the
+ranks' heads. The sharded prefill's ``enc_out`` is the rank's rows, whole
+over "model".
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed import collectives as C
 from ..distributed.sharding import stacked
 from . import layers as L
 from . import transformer as T
@@ -160,6 +163,7 @@ def prefill(params, cfg: ModelConfig, batch, max_len, *, compute_dtype=torch.bfl
     with the target tokens. Returns (logits, cache, enc_out)."""
     enc_out = encode(params, cfg, batch["src_embeds"], compute_dtype=compute_dtype)
     tokens = batch["tokens"]
-    cache = init_cache(cfg, tokens.shape[0], max_len, cache_dtype, device=tokens.device)
+    cache = C.local_zeros(init_cache(cfg, tokens.shape[0], max_len, cache_dtype,
+                                     device="meta"), cache_specs(cfg), tokens.device)
     h = L.embed_tokens(params["embed"], tokens).to(compute_dtype)
     return _run_decoder(params, cfg, h, cache, 0, enc_out, compute_dtype), cache, enc_out

@@ -8,10 +8,10 @@ its ``shared_attn_every`` mamba blocks, then the shared block. The
 shared block's attention is causal self-attention with RoPE: kernel 12 in
 the forward and the prefill. ``remat`` "full" or "dots" recomputes each
 group in the backward (the reference's ``jax.checkpoint`` of its group
-body). Under rules and a mesh (the sharded train step) the mamba blocks
-run on the rank's SSM heads and the shared block on its attention heads
-and MLP columns; the shared leaves' gradients add up over the groups, as
-on one device.
+body). Under rules and a mesh (the sharded train, prefill and decode
+steps) the mamba blocks run on the rank's SSM heads and the shared block
+on its attention heads and MLP columns, each on its cache shard; the
+shared leaves' gradients add up over the groups, as on one device.
 
 Parameters: ``{"embed", "mamba": [block, ...] (n_layers), "shared_attn":
 {"ln1", "attn", "ln2", "mlp"}, "ln_f"}``. The cache keeps the reference's
@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed import collectives as C
 from ..distributed.sharding import stacked
 from . import layers as L
 from . import ssm
@@ -164,7 +165,8 @@ def prefill(params, cfg: ModelConfig, tokens, max_len, *, compute_dtype=torch.bf
     """Full-sequence forward that also fills a new cache of ``max_len``
     attention positions. Returns (logits, cache)."""
     b, _ = tokens.shape
-    cache = {"attn": _attn_cache(cfg, b, max_len, cache_dtype, tokens.device)}
+    cache = {"attn": C.local_zeros(_attn_cache(cfg, b, max_len, cache_dtype, "meta"),
+                                   cache_specs(cfg)["attn"], tokens.device)}
     h = L.embed_tokens(params["embed"], tokens).to(compute_dtype)
     h, mamba = _serve(params, cfg, h, cache, 0, compute_dtype, prefill_mode=True)
     return head_logits(params, cfg, h, compute_dtype), {"mamba": mamba, "attn": cache["attn"]}

@@ -37,19 +37,21 @@ by a masked lookup and the logits gathered. K and V replicated over
 axis wider than its KV heads) are projected on every rank, which takes
 the KV heads of its own query heads.
 
-Under a mesh the cache path runs the decode step (one token a row) on
-each rank's shard of the cache, laid out by the cache spec ("batch",
-"cache_seq", "kv_heads_act"): where the rules map "cache_seq", the
-reference's flash decode (a partial softmax over each rank's positions,
-combined by a max and two sums over the "cache_seq" axes); otherwise the
-dense decode on the rank's query heads over a cache sharded by KV heads
-or whole (or gathered over its positions under ``REPRO_NAIVE=1``). The
-owning rank alone writes a new position. A prefill or a cached
-cross-attention under a mesh raises, naming 12b.4c. A cross-attention
-without a cache (the encoder-decoder's training forward) runs on the
-rank's heads as self-attention does, K and V projected from ``x_kv``
-through ``enter``, so that its gradient (the encoder's output) is summed
-over the ranks' heads.
+Under a mesh the cache path runs on each rank's shard of the cache, laid
+out by the cache spec ("batch", "cache_seq", "kv_heads_act"). The decode
+step (one token a row): where the rules map "cache_seq", the reference's
+flash decode (a partial softmax over each rank's positions, combined by a
+max and two sums over the "cache_seq" axes); otherwise the dense decode
+on the rank's query heads over a cache sharded by KV heads or whole (or
+gathered over its positions under ``REPRO_NAIVE=1``). The owning rank
+alone writes a new position. The prefill (from position 0): attention as
+the training forward computes it, on the rank's query heads over the
+fresh K and V (kernel 12 where one device calls it), while each rank
+writes the prompt positions its shard holds. A cross-attention without a
+cache (the encoder-decoder's training forward, prefill and decode) runs
+on the rank's heads as self-attention does, K and V projected from
+``x_kv`` through ``enter``, so that its gradient (the encoder's output)
+is summed over the ranks' heads.
 """
 from __future__ import annotations
 
@@ -183,7 +185,9 @@ def attention(
     reference returns an updated copy; on the card a copy of the cache per
     layer and step would cost its whole size in memory traffic), and the
     same dict is returned. Cross-attention (``x_kv``) takes no cache: the
-    reference's models pass none, and its decode re-projects ``x_kv``."""
+    reference's models pass none, and its decode re-projects ``x_kv``.
+    Under rules and a mesh a cached call is the sharded decode (one token)
+    or prefill (from position 0) on the rank's cache shard."""
     if x_kv is not None and cache is not None:
         raise ValueError("cross-attention (x_kv) takes no cache")
     b, s, _ = x.shape
@@ -192,13 +196,14 @@ def attention(
     window = cfg.sliding_window
     src = x if x_kv is None else x_kv
     s_kv = src.shape[1]
-    if cache is not None and current_rules() is not None and current_mesh() is not None:
-        if x_kv is not None or s != 1:
-            raise NotImplementedError(f"under a mesh attention runs the training forward and "
-                                      f"the decode step (one token a row), not a prefill of "
-                                      f"{s} tokens or a cached cross-attention ({SHARDED_TODO})")
-        return _sharded_decode(x, p, cfg, positions, cache, int(cache_pos), rope)
     heads, kv_heads = C.group("heads"), C.group("kv_heads")
+    if cache is not None and current_rules() is not None and current_mesh() is not None:
+        if s == 1:
+            return _sharded_decode(x, p, cfg, positions, cache, int(cache_pos), rope)
+        q, k, v = _sharded_prefill(x, p, cfg, positions, cache, int(cache_pos), rope)
+        out = _attend(q, k, v, causal=True, window=window, prefix_len=prefix_len, q_offset=0,
+                      cached=True)
+        return C.reduce(_out_proj(out, v, p, b, s), heads), cache
     if kv_heads is not None and heads is None:
         raise NotImplementedError(f"sharded attention shards the query heads wherever the KV "
                                   f"heads are ({SHARDED_TODO})")
@@ -247,39 +252,104 @@ def attention(
         # the positions past q_offset + s are masked in the reference
         k, v = ck[:, :q_offset + s], cv[:, :q_offset + s]
         causal = True
+    out = _attend(q, k, v, causal=causal, window=window, prefix_len=prefix_len,
+                  q_offset=q_offset, cached=cache is not None)
+    return C.reduce(_out_proj(out, v, p, b, s), heads), cache
 
-    t = k.shape[1]
+
+def _attend(q, k, v, *, causal, window, prefix_len, q_offset, cached):
+    """q (b, s, h, d) at positions ``q_offset`` on over k, v (b, t, kv, d):
+    kernel 12 where its function is the mask's (from position 0, plain
+    causal or full, d <= ``MAX_D``); else the reference's blockwise path
+    (no cache, past 8,192 positions) or its full-scores path, under its
+    ``_build_mask`` without a cache and its cache path's mask with one."""
+    s, t, hd = q.shape[1], k.shape[1], q.shape[-1]
     plain_mask = not causal or (not prefix_len and (not window or t <= window))
     if q_offset == 0 and plain_mask and hd <= MAX_D:
         # kernel 12's function: (b, h, s, d) views of q and of k, v (the
         # cache slice on the prefill), read in place by the kernel
-        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=causal).transpose(1, 2)
-    elif cache is None and s > _BLOCKWISE_MIN and s % _BLOCK_Q == 0:
-        out = _blockwise_attention(q, k, v, window, prefix_len)
-    else:
-        qi = q_offset + torch.arange(s, device=q.device)[:, None]
-        kj = torch.arange(t, device=q.device)[None, :]
-        if cache is None:   # the reference's _build_mask
-            ok = _visible(qi, kj, causal=causal, window=window, prefix_len=prefix_len)
-        else:               # its cache path's mask: the prefix only among prefix rows
-            ok = _visible(qi, kj, window=window, prefix_len=prefix_len, prefix_rows=True)
-        out = _masked_attention(q, k, v, ok)
-    return C.reduce(_out_proj(out, v, p, b, s), heads), cache
+        return ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal).transpose(1, 2)
+    if not cached and s > _BLOCKWISE_MIN and s % _BLOCK_Q == 0:
+        return _blockwise_attention(q, k, v, window, prefix_len)
+    qi = q_offset + torch.arange(s, device=q.device)[:, None]
+    kj = torch.arange(t, device=q.device)[None, :]
+    if not cached:      # the reference's _build_mask
+        ok = _visible(qi, kj, causal=causal, window=window, prefix_len=prefix_len)
+    else:               # its cache path's mask: the prefix only among prefix rows
+        ok = _visible(qi, kj, window=window, prefix_len=prefix_len, prefix_rows=True)
+    return _masked_attention(q, k, v, ok)
 
 
-def _spec_axes(entry) -> tuple:
-    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+def _serve_qkv(x, p, cfg, positions, cache, rope):
+    """The serve steps' projections under the rules and mesh, on the
+    rank's shards of the weights: q on its query heads (b, s, h_loc, d);
+    K and V (b, s, kv_c, d) on the KV heads its cache shard holds (its
+    columns of wk and wv gathered over "model" into whole heads where the
+    cache holds every KV head, a replicated projection's own heads taken
+    where it holds the rank's), each with RoPE at ``positions``. Also the
+    mesh axes of the cache's positions."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    spec = logical_to_spec(("batch", "cache_seq", "kv_heads_act", None))
+    seq_axes, kv_axes = C.spec_axes(spec[1]), C.spec_axes(spec[2])
+    kv_cols = C.group("kv_heads")
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if kv_cols is not None and not kv_axes:     # the cache wants whole KV heads
+        k, v = C.gather(k, kv_cols), C.gather(v, kv_cols)
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
+    n = cache["k"].shape[2]
+    if k.shape[2] != n:                         # replicated wk, wv: the cache's own KV heads
+        r = C.rank(C.group_of(("model",)))
+        k, v = k.narrow(2, r * n, n), v.narrow(2, r * n, n)
+    if rope:
+        cos, sin = rope_table(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin).to(v.dtype)
+        k = apply_rope(k, cos, sin).to(v.dtype)
+    return q, k, v, seq_axes
+
+
+def _sharded_prefill(x, p, cfg, positions, cache, pos, rope):
+    """A prefill of s tokens under the rules and mesh (ROADMAP 12b.4c.1):
+    the projections of :func:`_serve_qkv`; the rank writes its cache shard
+    (b, S_loc, kv_c, d), the positions of the prompt its "cache_seq"
+    shard holds (``start = axis_index * S_loc`` on); then (q, K, V) for
+    :func:`_attend` over the fresh keys, as the training forward takes
+    them: the rank's query heads over their KV heads, K and V in the
+    cache's type (one device attends over its cache slice)."""
+    b, s, _ = x.shape
+    if pos:
+        raise NotImplementedError(f"under a mesh attention prefills from cache position 0, "
+                                  f"not {s} tokens at {pos} ({SHARDED_TODO})")
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q, k, v, seq_axes = _serve_qkv(x, p, cfg, positions, cache, rope)
+    ck, cv = cache["k"], cache["v"]
+    s_loc = ck.shape[1]
+    if s > s_loc * C.axis_size(seq_axes):
+        raise ValueError(f"a prompt of {s} tokens past the cache's "
+                         f"{s_loc * C.axis_size(seq_axes)} positions")
+    start = C.axis_index(seq_axes) * s_loc
+    end = min(start + s_loc, s)
+    if start < end:                             # this rank's shard holds prompt positions
+        ck[:, :end - start] = k[:, start:end].to(ck.dtype)
+        cv[:, :end - start] = v[:, start:end].to(cv.dtype)
+    k, v = _group_kv(k.to(ck.dtype), v.to(cv.dtype), q.shape[2], cfg, C.group("heads"))
+    return q, k, v
 
 
 def _sharded_decode(x, p, cfg, positions, cache, pos, rope):
     """One decode token under the rules and mesh, on the rank's shards of
     the weights and of the cache (b, S_loc, kv_c, d), whose layout is the
     cache spec's: rows over "batch", positions over "cache_seq", KV heads
-    over "kv_heads_act". q is projected on the rank's query heads; K and V
-    on its columns of wk and wv, gathered over "model" into whole heads
-    where the cache holds every KV head. The new K and V are written in
-    place by the rank whose cache shard holds ``pos`` alone.
+    over "kv_heads_act" (:func:`_serve_qkv`). The new K and V are written
+    in place by the rank whose cache shard holds ``pos`` alone.
 
     With "cache_seq" mapped (and ``REPRO_NAIVE`` unset) the reference's
     flash decode (:func:`_flash_decode`); otherwise the dense decode over
@@ -288,32 +358,13 @@ def _sharded_decode(x, p, cfg, positions, cache, pos, rope):
     Either way the rank's heads go through its rows of wo, summed over
     "model". Returns (out (b, 1, e), cache)."""
     b = x.shape[0]
-    hd, window = cfg.resolved_head_dim, cfg.sliding_window
-    spec = logical_to_spec(("batch", "cache_seq", "kv_heads_act", None))
-    seq_axes, kv_axes = _spec_axes(spec[1]), _spec_axes(spec[2])
-    heads, kv_cols = C.group("heads"), C.group("kv_heads")
-    model = C.group_of(("model",))
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if kv_cols is not None and not kv_axes:     # the cache wants whole KV heads
-        k, v = C.gather(k, kv_cols), C.gather(v, kv_cols)
-    h_loc = q.shape[-1] // hd
-    q = q.reshape(b, 1, h_loc, hd)
-    k = k.reshape(b, 1, -1, hd)
-    v = v.reshape(b, 1, -1, hd)
-    ck, cv = cache["k"], cache["v"]
-    if k.shape[2] != ck.shape[2]:               # replicated wk, wv: the cache's own KV heads
-        n = ck.shape[2]
-        k, v = k.narrow(2, C.rank(model) * n, n), v.narrow(2, C.rank(model) * n, n)
+    window = cfg.sliding_window
+    heads = C.group("heads")
     if positions is None:
         positions = pos + torch.arange(1, device=x.device)
-    if rope:
-        cos, sin = rope_table(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, cos, sin).to(v.dtype)
-        k = apply_rope(k, cos, sin).to(v.dtype)
+    q, k, v, seq_axes = _serve_qkv(x, p, cfg, positions, cache, rope)
+    h_loc = q.shape[2]
+    ck, cv = cache["k"], cache["v"]
 
     s_loc = ck.shape[1]
     start = C.axis_index(seq_axes) * s_loc

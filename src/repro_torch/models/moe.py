@@ -15,8 +15,9 @@ read a zero pad row, whose gradient is discarded), and the combine sums a
 token's k copies over a dimension of their own, so the forward and the
 backward sum in a fixed order: no scatter-add, no atomics.
 
-Under rules and a mesh (the sharded train and decode steps) the reference's
-expert-parallel path (:func:`_moe_ffn_ep`) where "experts" is mapped: each
+Under rules and a mesh (the sharded train, prefill and decode steps) the
+reference's expert-parallel path (:func:`_moe_ffn_ep`) where "experts" is
+mapped: each
 rank routes its rows over every expert, packs the copies of its own
 experts at twice its rows' capacity, and y is summed over the expert axis
 by one all-reduce (no all-to-all); the aux loss is averaged over "data".
@@ -27,10 +28,12 @@ computes the local form on the gathered rows and experts
 "mlp" in both.
 
 MLA (DeepSeek-V2): K and V compressed to a ``kv_lora_rank`` latent plus one
-shared RoPE key. Without a cache the expanded form (under a mesh on the
-rank's heads); with one (prefill and decode, as in the reference) the
-absorbed form over all the cache's positions under the causal mask, the
-cache (b, S, r) and (b, S, dr) written in place.
+shared RoPE key. Without a cache the expanded form; with one (prefill and
+decode, as in the reference) the absorbed form over all the cache's
+positions under the causal mask, the cache (b, S, r) and (b, S, dr)
+written in place. Under a mesh either runs on the rank's heads; the
+cache is the rank's shard of rows and positions, a decode step's partial
+softmax combined over the "cache_seq" axes where they are mapped.
 
 The model: the reference's two stacked groups, ``dense_layers`` and
 ``moe_layers``, are lists of per-layer dicts, walked in
@@ -51,8 +54,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, MoEConfig
 from ..distributed import collectives as C
-from ..distributed.sharding import (SHARDED_TODO, current_mesh, current_rules, naive_mode,
-                                    stacked)
+from ..distributed.sharding import (SHARDED_TODO, current_mesh, current_rules,
+                                    logical_to_spec, naive_mode, stacked)
 from . import layers as L
 from .transformer import _save_dots, checkpointed, head_logits
 
@@ -326,20 +329,24 @@ def mla_attention(x, p, cfg: ModelConfig, *, positions=None, cache=None, cache_p
     S positions, the new entries written at ``cache_pos`` in place. Returns
     (y (b, s, e), cache).
 
-    Under rules and a mesh (the training forward) on the rank's heads:
-    ``wq``, ``w_uk``, ``w_uv`` and ``wo`` are split by heads, while
-    ``w_dkv``, ``w_kr`` and ``kv_norm`` are whole on every rank, so the
-    latent ``ckv`` and the shared RoPE key ``kr`` enter the rank's heads
-    through ``enter`` (their gradients summed over the ranks' heads) and
-    the output projection is summed by ``reduce``."""
+    Under rules and a mesh, on the rank's heads: ``wq``, ``w_uk``, ``w_uv``
+    and ``wo`` are split by heads, while ``w_dkv``, ``w_kr`` and
+    ``kv_norm`` are whole on every rank, so the latent ``ckv`` and the
+    shared RoPE key ``kr`` are whole too (in the training forward they
+    enter the rank's heads through ``enter``, their gradients summed over
+    the ranks' heads), and the output projection is summed by ``reduce``.
+    The cache is the rank's shard, its rows and the positions of its
+    "cache_seq" shard (``start = axis_index * S_loc``), written by the
+    rank that holds each new position. The prefill (from position 0) runs
+    the absorbed form over the fresh whole-sequence ``ckv`` and ``kr``; a
+    decode step over the rank's positions, combined where "cache_seq" is
+    mapped by a partial softmax (:func:`_mla_flash_decode`)."""
     a = cfg.mla
     b, s, _ = x.shape
     dn, dr, dv, r = a.nope_head_dim, a.rope_head_dim, a.v_head_dim, a.kv_lora_rank
     h = p["wq"].shape[1] // (dn + dr)                           # this rank's heads
     heads = C.group("heads")
-    if cache is not None and heads is not None:
-        raise NotImplementedError(f"under a mesh MLA runs the training forward, not the "
-                                  f"absorbed form over a cache ({SHARDED_TODO})")
+    sharded = cache is not None and current_rules() is not None and current_mesh() is not None
     if positions is None:
         positions = torch.arange(s, device=x.device)
 
@@ -357,22 +364,39 @@ def mla_attention(x, p, cfg: ModelConfig, *, positions=None, cache=None, cache_p
     if cache is not None:
         pos = int(cache_pos)
         ckv_c, kr_c = cache["ckv"], cache["kr"]
-        if pos < 0 or pos + s > ckv_c.shape[1]:
-            raise ValueError(f"cache_pos {pos} + {s} tokens past the cache's "
-                             f"{ckv_c.shape[1]} positions")
-        ckv_c[:, pos:pos + s] = ckv.to(ckv_c.dtype)
-        kr_c[:, pos:pos + s] = kr.to(kr_c.dtype)
+        seq_axes = (C.spec_axes(logical_to_spec(mla_cache_specs(cfg)["ckv"])[1]) if sharded
+                    else ())
+        s_loc = ckv_c.shape[1]
+        start, total = C.axis_index(seq_axes) * s_loc, s_loc * C.axis_size(seq_axes)
+        if pos < 0 or pos + s > total:
+            raise ValueError(f"cache_pos {pos} + {s} tokens past the cache's {total} positions")
+        if sharded and s > 1 and pos:
+            raise NotImplementedError(f"under a mesh MLA prefills from cache position 0, not "
+                                      f"{s} tokens at {pos} ({SHARDED_TODO})")
+        lo, hi = max(pos, start), min(pos + s, start + s_loc)
+        if lo < hi:                                 # this rank's shard holds new positions
+            ckv_c[:, lo - start:hi - start] = ckv[:, lo - pos:hi - pos].to(ckv_c.dtype)
+            kr_c[:, lo - start:hi - start] = kr[:, lo - pos:hi - pos].to(kr_c.dtype)
         # absorbed: q_eff = q_nope @ W_uk, per head, into the latent space
         q_eff = _einsum("bshd,rhd->bshr", q_nope, p["w_uk"].reshape(r, h, dn))
-        # in place: at the prefill the (b, h, s, S) scores are the largest
-        # tensors of the layer
-        logits = _einsum("bshr,btr->bhst", q_eff, ckv_c)
-        logits.add_(_einsum("bshd,btd->bhst", q_rope, kr_c))
-        qi = pos + torch.arange(s, device=x.device)[:, None]
-        kj = torch.arange(ckv_c.shape[1], device=x.device)[None, :]
-        probs = _masked_softmax(logits, kj <= qi, scale, x.dtype)
-        del logits
-        lat = _einsum("bhst,btr->bshr", probs, ckv_c)                           # (b, s, h, r)
+        seq = C.group_of(seq_axes)
+        if sharded and s > 1:       # the prefill: over the fresh keys, in the cache's type
+            keys, rkeys, first = ckv.to(ckv_c.dtype), kr.to(kr_c.dtype), 0
+        else:
+            keys, rkeys, first = ckv_c, kr_c, start
+        if seq is not None and s == 1:
+            lat = _mla_flash_decode(q_eff, q_rope, ckv_c, kr_c, pos, start, scale, seq_axes,
+                                    heads)
+        else:
+            # in place: at the prefill the (b, h, s, S) scores are the largest
+            # tensors of the layer
+            logits = _einsum("bshr,btr->bhst", q_eff, keys)
+            logits.add_(_einsum("bshd,btd->bhst", q_rope, rkeys))
+            qi = pos + torch.arange(s, device=x.device)[:, None]
+            kj = first + torch.arange(keys.shape[1], device=x.device)[None, :]
+            probs = _masked_softmax(logits, kj <= qi, scale, x.dtype)
+            del logits
+            lat = _einsum("bhst,btr->bshr", probs, keys)                         # (b, s, h, r)
         out = _einsum("bshr,rhd->bshd", lat, p["w_uv"].reshape(r, h, dv))
     else:
         ckv, kr = C.enter(ckv, heads), C.enter(kr, heads)
@@ -385,6 +409,31 @@ def mla_attention(x, p, cfg: ModelConfig, *, positions=None, cache=None, cache_p
         out = _einsum("bhst,bthd->bshd", probs, v)
 
     return C.reduce(_mm(out.reshape(b, s, h * dv), p["wo"]), heads), cache
+
+
+def _mla_flash_decode(q_eff, q_rope, ckv_c, kr_c, pos, start, scale, seq_axes, heads):
+    """One decode token's absorbed attention over this rank's positions of
+    the cache (``start`` on), combined over the mesh axes ``seq_axes``
+    as the flash decode does (``layers._flash_decode``): the scores in f32
+    under the causal mask, one max and two sums over ``grp`` (the
+    probabilities' and the latent's), then ``lat / max(l, 1e-30)``. Where
+    the axes take "model" every rank of them combines the same heads: the
+    queries are gathered over ``heads`` and the rank keeps its own.
+    Returns the latent (b, 1, h, r) in the queries' type."""
+    h, grp = q_eff.shape[2], C.group_of(seq_axes)
+    gathered = "model" in seq_axes and heads is not None
+    if gathered:
+        q_eff, q_rope = C.gather(q_eff, heads, 2), C.gather(q_rope, heads, 2)
+    logits = (_einsum("bshr,btr->bhst", q_eff, ckv_c)
+              + _einsum("bshd,btd->bhst", q_rope, kr_c)).float() * scale    # (b, h, 1, t)
+    ok = start + torch.arange(ckv_c.shape[1], device=q_eff.device) <= pos
+    logits = logits.masked_fill(~ok, -torch.inf)
+    m = C.all_max(logits.amax(-1, keepdim=True), grp)
+    p = torch.exp(logits - m).masked_fill(~ok, 0.0)
+    l = C.reduce(p.sum(-1, keepdim=True), grp)                              # (b, h, 1, 1)
+    lat = C.reduce(_einsum("bhst,btr->bshr", p.to(q_eff.dtype), ckv_c).float(), grp)
+    lat = (lat / torch.clamp_min(l, 1e-30).permute(0, 2, 1, 3)).to(q_eff.dtype)
+    return lat.narrow(2, C.rank(heads) * h, h) if gathered else lat
 
 
 def init_mla_cache(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16, device=None):
@@ -604,7 +653,8 @@ def prefill(params, cfg: ModelConfig, tokens, max_len, *, compute_dtype=torch.bf
     (MLA: its absorbed form, as the reference's prefill). Returns (logits,
     cache)."""
     b, _ = tokens.shape
-    cache = init_cache(cfg, b, max_len, cache_dtype, device=tokens.device)
+    cache = C.local_zeros(init_cache(cfg, b, max_len, cache_dtype, device="meta"),
+                          cache_specs(cfg), tokens.device)
     h = L.embed_tokens(params["embed"], tokens).to(compute_dtype)
     h = _serve(params, cfg, h, cache, 0, compute_dtype)
     return head_logits(params, cfg, h, compute_dtype), cache

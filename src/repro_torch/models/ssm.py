@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..distributed import collectives as C
-from ..distributed.sharding import SHARDED_TODO, stacked
+from ..distributed.sharding import stacked
 from . import layers as L
 from .transformer import _cast, checkpointed, head_logits
 
@@ -150,17 +150,17 @@ def ssd_chunked(x, dt, a, b_ssm, c_ssm, *, chunk):
 
 
 def _local_proj(cfg, zxbcdt, w, conv_b, grp):
-    """(z, x, B, C, dt, conv_w, conv_b) of this rank's SSM heads: z, x
-    and dt of its heads, B and C whole, and the conv's weights of its x
-    columns and of B and C. Under ``grp`` the shards of ``in_proj``,
-    ``conv_w`` and ``conv_b`` are contiguous slices of z | x | B | C | dt
-    and of x | B | C, not the rank's heads: the projection and the conv's
-    weights are gathered whole (``gather_summed``: a rank's gradient is
-    its heads' share, and B and C are every rank's) and each rank takes
-    its own columns."""
+    """(z, x, B, C, dt, conv_w, conv_b, zxbcdt) of this rank's SSM heads:
+    z, x and dt of its heads, B and C whole, the conv's weights of its x
+    columns and of B and C, and the whole projection. Under ``grp`` the
+    shards of ``in_proj``, ``conv_w`` and ``conv_b`` are contiguous slices
+    of z | x | B | C | dt and of x | B | C, not the rank's heads: the
+    projection and the conv's weights are gathered whole
+    (``gather_summed``: a rank's gradient is its heads' share, and B and C
+    are every rank's) and each rank takes its own columns."""
     s, d_inner, h, _ = _dims(cfg)
     if grp is None:
-        return (*_split_proj(cfg, zxbcdt), w, conv_b)
+        return (*_split_proj(cfg, zxbcdt), w, conv_b, zxbcdt)
     zxbcdt = C.gather_summed(zxbcdt, grp)
     w, conv_b = C.gather_summed(w, grp), C.gather_summed(conv_b, grp)
     m, r = dist.get_world_size(grp), C.rank(grp)
@@ -169,11 +169,22 @@ def _local_proj(cfg, zxbcdt, w, conv_b, grp):
     x = zxbcdt[..., d_inner + r * di:d_inner + (r + 1) * di]
     b_ssm, c_ssm = torch.split(zxbcdt[..., 2 * d_inner:2 * d_inner + 2 * n], n, dim=-1)
     dt = zxbcdt[..., 2 * d_inner + 2 * n + r * hl:2 * d_inner + 2 * n + (r + 1) * hl]
+    return (z, x, b_ssm, c_ssm, dt, _conv_cols(w, d_inner, grp),
+            _conv_cols(conv_b, d_inner, grp), zxbcdt)
 
-    def conv_cols(t):
-        return torch.cat([t[..., r * di:(r + 1) * di], t[..., d_inner:]], dim=-1)
 
-    return z, x, b_ssm, c_ssm, dt, conv_cols(w), conv_cols(conv_b)
+def _conv_cols(t, d_inner, grp):
+    """The columns of a whole x | B | C tensor (last dimension) that this
+    rank's conv reads: its heads' x columns, then B and C."""
+    di, r = d_inner // dist.get_world_size(grp), C.rank(grp)
+    return torch.cat([t[..., r * di:(r + 1) * di], t[..., d_inner:]], dim=-1)
+
+
+def _conv_shard(xbc, grp):
+    """This rank's contiguous "ssm_inner" slice of a whole x | B | C
+    tensor (last dimension): its shard of the conv cache."""
+    width = xbc.shape[-1] // dist.get_world_size(grp)
+    return xbc.narrow(-1, C.rank(grp) * width, width)
 
 
 def _gated_norm(y, gamma, eps, d_inner, grp):
@@ -196,18 +207,17 @@ def mamba_forward(params, cfg: ModelConfig, u, *, chunk=None, return_cache=False
     Under rules and a mesh that shard "ssm_inner" and "ssm_heads", on the
     rank's shards: the SSD on its heads (:func:`_local_proj`), the gated
     norm summed over the ranks, ``out_proj``'s rows (its heads) summed by
-    ``reduce``."""
-    s_cfg, d_inner, _, _ = _dims(cfg)
+    ``reduce``; the cache is the rank's shard, the final state of its
+    heads and its contiguous "ssm_inner" slice of the whole x | B | C
+    tail (not its heads' columns)."""
+    s_cfg, d_inner, _, conv_dim = _dims(cfg)
     q = chunk or s_cfg.chunk
     grp = C.group("ssm_inner")
-    if grp is not None and return_cache:
-        raise NotImplementedError(f"under a mesh the mamba block runs the training forward, "
-                                  f"not a prefill ({SHARDED_TODO})")
     res = u
     u = L.rms_norm(u, params["ln"], cfg.norm_eps)
     zxbcdt = C.enter(u, grp) @ params["in_proj"]
-    z, x, b_ssm, c_ssm, dt, w, conv_b = _local_proj(cfg, zxbcdt, params["conv_w"],
-                                                    params["conv_b"], grp)
+    z, x, b_ssm, c_ssm, dt, w, conv_b, whole = _local_proj(cfg, zxbcdt, params["conv_w"],
+                                                           params["conv_b"], grp)
 
     # depthwise causal conv over (x, B, C)
     xbc_pre = torch.cat([x, b_ssm, c_ssm], dim=-1)            # (b, s, conv_dim)
@@ -227,7 +237,10 @@ def mamba_forward(params, cfg: ModelConfig, u, *, chunk=None, return_cache=False
     y = _gated_norm(y * F.silu(z), params["norm"], cfg.norm_eps, d_inner, grp)
     out = res + C.reduce(y @ params["out_proj"], grp)
     if return_cache:
-        return out, {"conv": xbc_pre[:, -(s_cfg.d_conv - 1):].float(), "state": final_state}
+        tail = -(s_cfg.d_conv - 1)
+        conv_tail = (xbc_pre[:, tail:] if grp is None else
+                     _conv_shard(whole[:, tail:, d_inner:d_inner + conv_dim], grp))
+        return out, {"conv": conv_tail.float(), "state": final_state}
     return out
 
 
@@ -254,34 +267,49 @@ def mamba_cache_specs(cfg: ModelConfig):
 def mamba_decode_step(params, cfg: ModelConfig, u, cache):
     """u (b, 1, d_model); cache {conv (b, k - 1, conv_dim), state (b, h, p,
     n)}, written in place with the new conv tail and state. Returns (out,
-    cache)."""
-    s_cfg, d_inner, h, conv_dim = _dims(cfg)
+    cache).
+
+    Under rules and a mesh that shard "ssm_inner", on the rank's shards of
+    the weights and of the cache: ``in_proj``'s output and the conv shard
+    gathered over "model", the recurrence on the rank's heads (x, dt and z
+    its heads', B and C whole), the gated norm summed over the ranks,
+    ``out_proj`` summed by ``reduce``; the rank writes back its own conv
+    columns and state heads."""
+    s_cfg, d_inner, _, conv_dim = _dims(cfg)
+    grp = C.group("ssm_inner")
     res = u
     un = L.rms_norm(u, params["ln"], cfg.norm_eps)
     zxbcdt = un @ params["in_proj"]
-    z, x, b_ssm, c_ssm, dt = _split_proj(cfg, zxbcdt)
+    z, x, b_ssm, c_ssm, dt, w, conv_b, whole = _local_proj(cfg, zxbcdt, params["conv_w"],
+                                                           params["conv_b"], grp)
+    di = x.shape[-1]                                          # the rank's x columns
 
-    xbc_new = torch.cat([x, b_ssm, c_ssm], dim=-1)[:, 0]      # (b, conv_dim)
-    hist = torch.cat([cache["conv"], xbc_new[:, None].to(cache["conv"].dtype)],
-                     dim=1)                                   # (b, k, conv_dim)
-    w = params["conv_w"]
-    conv = torch.einsum("bkc,kc->bc", hist.float(), w.float()) + params["conv_b"]
+    xbc_new = torch.cat([x, b_ssm, c_ssm], dim=-1)[:, 0]      # (b, di + 2n)
+    cached = cache["conv"]
+    if grp is not None:     # the whole history, then the columns this rank's conv reads
+        cached = C.gather(cached, grp)
+        whole_new = torch.cat([cached[:, 1:], whole[:, :, d_inner:d_inner + conv_dim]
+                               .to(cached.dtype)], dim=1)
+        cached = _conv_cols(cached, d_inner, grp)
+    hist = torch.cat([cached, xbc_new[:, None].to(cache["conv"].dtype)],
+                     dim=1)                                   # (b, k, di + 2n)
+    conv = torch.einsum("bkc,kc->bc", hist.float(), w.float()) + conv_b
     xbc = F.silu(conv)
-    x1, b1, c1 = torch.split(xbc, [d_inner, s_cfg.d_state, s_cfg.d_state], dim=-1)
+    x1, b1, c1 = torch.split(xbc, [di, s_cfg.d_state, s_cfg.d_state], dim=-1)
 
     dt1 = F.softplus(dt[:, 0].float() + params["dt_bias"].float())   # (b, h)
     a = -torch.exp(params["a_log"].float())                          # (h,)
     da = torch.exp(dt1 * a)                                          # (b, h)
-    xh = x1.reshape(-1, h, s_cfg.head_dim).float()                   # (b, h, p)
+    xh = x1.reshape(-1, di // s_cfg.head_dim, s_cfg.head_dim).float()   # (b, h, p)
     # state' = exp(dt a) state + dt * x (outer) B
     new_state = cache["state"] * da[..., None, None] \
         + torch.einsum("bhp,bn,bh->bhpn", xh, b1.float(), dt1)
     y = torch.einsum("bhpn,bn->bhp", new_state, c1.float())
     y = y + params["d_skip"].float()[None, :, None] * xh
-    y = y.reshape(-1, 1, d_inner).to(u.dtype)
-    y = L.rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    out = y @ params["out_proj"]
-    cache["conv"].copy_(hist[:, 1:])
+    y = y.reshape(-1, 1, di).to(u.dtype)
+    y = _gated_norm(y * F.silu(z), params["norm"], cfg.norm_eps, d_inner, grp)
+    out = C.reduce(y @ params["out_proj"], grp)
+    cache["conv"].copy_(hist[:, 1:] if grp is None else _conv_shard(whole_new, grp))
     cache["state"].copy_(new_state)
     return res + out, cache
 

@@ -22,6 +22,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..distributed import collectives as C
 from ..distributed.sharding import bind, stacked
 from . import layers as L
 
@@ -196,7 +197,9 @@ def prefill(params, cfg: ModelConfig, tokens, max_len,
     """Full-sequence forward that also fills a new KV cache of ``max_len``
     positions. Returns (logits, cache)."""
     b, _ = tokens.shape
-    cache = init_cache(cfg, b, max_len, cache_dtype, device=tokens.device)
+    # under rules and a mesh, this rank's shard of the cache
+    cache = C.local_zeros(init_cache(cfg, b, max_len, cache_dtype, device="meta"),
+                          cache_specs(cfg), tokens.device)
     h = L.embed_tokens(params["embed"], tokens).to(compute_dtype)
     h = _run_layers(params, cfg, h, cache, 0, compute_dtype)
     return head_logits(params, cfg, h, compute_dtype), cache

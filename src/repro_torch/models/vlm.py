@@ -7,13 +7,15 @@ runs over [image prefix + text] into the KV cache at position 0, the
 prefix bidirectional among its own positions (the reference's cache-path
 mask), the text causal; the decode counts positions past the prefix. A
 prefix is never kernel 12's function (a plain causal or full mask), so
-no call here reaches it.
+no call here reaches it. Under rules and a mesh the prefill and decode
+run on the rank's heads and cache shard (``layers.attention``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed import collectives as C
 from . import layers as L
 from . import transformer as T
 
@@ -38,7 +40,8 @@ def prefill(params, cfg: ModelConfig, batch, max_len, *, compute_dtype=torch.bfl
     Returns (the text positions' logits, cache)."""
     img, tokens = batch["image_embeds"], batch["tokens"]
     b, p = img.shape[:2]
-    cache = T.init_cache(cfg, b, max_len, cache_dtype, device=tokens.device)
+    cache = C.local_zeros(T.init_cache(cfg, b, max_len, cache_dtype, device="meta"),
+                          T.cache_specs(cfg), tokens.device)
     h = torch.cat([img.to(compute_dtype),
                    L.embed_tokens(params["embed"], tokens).to(compute_dtype)], dim=1)
     h = T._run_layers(params, cfg, h, cache, 0, compute_dtype, prefix_len=p)

@@ -25,6 +25,11 @@ routed; rules and widths this layout cannot take raise
 family's aux loss is the mean of each data shard's (the reference's
 ``pmean`` over "batch"), so over more than one data rank its step is one
 device's step with ``microbatch`` equal to the data ranks.
+
+The serve steps (:func:`build_prefill`, :func:`build_decode_step`) are
+sharded the same way under the rules and a mesh, for every family
+(ROADMAP 12b.4b, 12b.4c.1): the rank's rows of the global batch, its
+shards of the parameters and of the cache, the logits gathered whole.
 """
 from __future__ import annotations
 
@@ -166,7 +171,8 @@ def sharded_layout(cfg: ModelConfig, tcfg: TrainConfig, params, opt_state=None):
     if _axis(rules, "kv_heads") and not _axis(rules, "heads"):
         raise _unsupported("shards the KV heads only with the query heads")
     m = size["model"]
-    for name, width in _widths(cfg):
+    # whole KV heads a rank
+    for name, width in [("kv_heads", cfg.n_kv_heads), *_widths(cfg)]:
         if _axis(rules, name) and width % m:
             raise _unsupported(f"splits {name} ({width}) evenly over 'model' ({m} ranks)")
     if cfg.n_heads and _axis(rules, "heads") and not _axis(rules, "kv_heads") and m > 1:
@@ -199,13 +205,14 @@ def sharded_layout(cfg: ModelConfig, tcfg: TrainConfig, params, opt_state=None):
 
 
 def _widths(cfg: ModelConfig) -> list:
-    """(logical axis, a width of ``cfg`` it splits) for every width the
-    "model" axis must divide: the heads, the MLPs (moe's shared experts
-    too), the vocab, the routed experts, and the mamba block's SSM heads
-    and the two widths its contiguous "ssm_inner" shards slice (in_proj's
-    z | x | B | C | dt, conv_w's x | B | C)."""
-    widths = [("heads", cfg.n_heads), ("kv_heads", cfg.n_kv_heads), ("mlp", cfg.d_ff),
-              ("vocab", cfg.vocab_padded)]
+    """(logical axis, a width of ``cfg`` it splits) for the widths the
+    "model" axis must divide in the train and the serve steps alike: the
+    heads, the MLPs (moe's shared experts too), the vocab, the routed
+    experts, and the mamba block's SSM heads and the two widths its
+    contiguous "ssm_inner" shards slice (in_proj's z | x | B | C | dt,
+    conv_w's x | B | C, also the conv cache's width). Each step adds its
+    KV widths."""
+    widths = [("heads", cfg.n_heads), ("mlp", cfg.d_ff), ("vocab", cfg.vocab_padded)]
     if cfg.moe is not None:
         widths += [("experts", cfg.moe.n_experts),
                    ("mlp", cfg.moe.d_ff_expert * cfg.moe.n_shared_experts)]
@@ -277,80 +284,83 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 # ---------------------------------------------------------------------------
 
 
-_DECODE_FAMILIES = ("dense", "moe")
-
-
 @dataclass
-class _DecodeLayout:
-    """The sharded decode step's rows: the rank's rows of the global
-    batch where "batch" is sharded over "data" (None: every rank reads
-    every row)."""
+class _ServeLayout:
+    """The sharded serve steps' rows: the rank's rows of the global batch
+    where "batch" is sharded over "data" (data None: every rank reads
+    every row), and the mesh's axis sizes."""
     data: object
     data_rank: int
     data_size: int
+    size: dict
 
-    def rows(self, tokens):
-        n = tokens.shape[0] // self.data_size
-        return tokens.narrow(0, self.data_rank * n, n)
+    def rows(self, x):
+        n = x.shape[0] // self.data_size
+        return x.narrow(0, self.data_rank * n, n)
 
-    def gather(self, logits):
-        return C.gather(logits, self.data, 0)
-
-
-def _no_decode(why: str):
-    return NotImplementedError(f"the sharded decode step {why} ({SHARDED_TODO})")
+    def gather(self, x):
+        return C.gather(x, self.data, 0)
 
 
-def decode_layout(cfg: ModelConfig, params, cache, tokens):
-    """The sharded decode step's layout under the current rules and mesh
+def _serve_layout(cfg: ModelConfig, params, b: int, what: str, max_len=None):
+    """The sharded serve step's layout under the current rules and mesh
     (None without them: one device), the counterpart of
-    :func:`sharded_layout`. It checks the family (dense, and moe without
-    MLA), the rules, the widths the "model" axis must divide, and that
-    each parameter and cache leaf is this rank's shard; everything it
-    reads is local, so what it refuses raises on every rank before any
-    collective, naming 12b.4c."""
+    :func:`sharded_layout`: the rules, the widths the "model" axis must
+    divide, the batch's rows, a new cache's ``max_len`` positions (a
+    prefill's) split evenly over "cache_seq", and each parameter leaf
+    this rank's shard. Everything it reads is local, so what it refuses
+    raises on every rank before any collective, naming 12b.4c."""
     rules, mesh = current_rules(), current_mesh()
     if rules is None or mesh is None:
         return None
-    if cfg.family not in _DECODE_FAMILIES or cfg.mla is not None:
-        raise _no_decode(f"routes the dense family and moe's layers without MLA, not "
-                         f"{cfg.family}{' with MLA' if cfg.mla else ''} ({cfg.arch_id})")
+
+    def refuse(why):
+        return NotImplementedError(f"the sharded {what} {why} ({SHARDED_TODO})")
+
     if tuple(mesh.mesh_dim_names) != ("data", "model"):
-        raise _no_decode(f"takes a ('data', 'model') mesh, not {mesh.mesh_dim_names}")
+        raise refuse(f"takes a ('data', 'model') mesh, not {mesh.mesh_dim_names}")
     size = dict(zip(mesh.mesh_dim_names, mesh.shape))
     for name in ("layers", "embed", "seq", "expert_mlp"):
         if _axis(rules, name) is not None:
-            raise _no_decode(f"keeps {name!r} unsharded; the rules give {rules[name]!r}")
+            raise refuse(f"keeps {name!r} unsharded; the rules give {rules[name]!r}")
     batch = _axis(rules, "batch")
     if batch not in (None, ("data",)):
-        raise _no_decode(f"takes 'batch' over 'data' or unsharded, not {rules['batch']!r}")
-    for name in ("heads", "kv_heads", "mlp", "vocab", "experts", "kv_heads_act"):
+        raise refuse(f"takes 'batch' over 'data' or unsharded, not {rules['batch']!r}")
+    for name in ("heads", "kv_heads", "mlp", "vocab", "experts", "kv_heads_act", "ssm_inner",
+                 "ssm_heads"):
         if _axis(rules, name) not in (None, ("model",)):
-            raise _no_decode(f"takes {name!r} over 'model' or unsharded, not {rules[name]!r}")
+            raise refuse(f"takes {name!r} over 'model' or unsharded, not {rules[name]!r}")
+    if _axis(rules, "ssm_inner") != _axis(rules, "ssm_heads"):
+        raise refuse(f"shards 'ssm_inner' as 'ssm_heads': the rules give "
+                     f"{rules.get('ssm_inner')!r} and {rules.get('ssm_heads')!r}")
     seq = _axis(rules, "cache_seq") or ()
     if seq not in ((), ("data",), ("model",), ("data", "model")):
-        raise _no_decode(f"shards 'cache_seq' over ('data',), ('model',) or ('data', 'model'), "
-                         f"not {rules['cache_seq']!r}")
+        raise refuse(f"shards 'cache_seq' over ('data',), ('model',) or ('data', 'model'), "
+                     f"not {rules['cache_seq']!r}")
     m = size["model"]
     heads, kv_act = _axis(rules, "heads"), _axis(rules, "kv_heads_act")
-    if kv_act and not heads and m > 1:
-        raise _no_decode("shards the cache's KV heads only with the query heads")
-    widths = [("heads", cfg.n_heads), ("kv_heads", cfg.n_kv_heads * cfg.resolved_head_dim),
-              ("mlp", cfg.d_ff), ("vocab", cfg.vocab_padded), ("kv_heads_act", cfg.n_kv_heads)]
-    if cfg.moe is not None:
-        widths += [("experts", cfg.moe.n_experts),
-                   ("mlp", cfg.moe.d_ff_expert * cfg.moe.n_shared_experts)]
-    for name, width in widths:
+    # mamba2 has no attention, and no KV heads to shard
+    if cfg.n_heads and kv_act and not heads and m > 1:
+        raise refuse("shards the cache's KV heads only with the query heads")
+    # wk's and wv's columns are gathered, so the KV heads' flat width splits,
+    # and the cache's KV heads
+    kv = [("kv_heads", cfg.n_kv_heads * cfg.resolved_head_dim),
+          ("kv_heads_act", cfg.n_kv_heads)]
+    for name, width in [*kv, *_widths(cfg)]:
         if _axis(rules, name) and width % m:
-            raise _no_decode(f"splits {name} ({width}) evenly over 'model' ({m} ranks)")
-    if heads and m > 1:
+            raise refuse(f"splits {name} ({width}) evenly over 'model' ({m} ranks)")
+    if cfg.n_heads and heads and m > 1:
         local, rep = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
         if local % rep and rep % local:
-            raise _no_decode(f"gives each rank whole KV groups: {local} query heads a rank "
-                             f"in groups of {rep}")
-    b = tokens.shape[0]
+            raise refuse(f"gives each rank whole KV groups: {local} query heads a rank "
+                         f"in groups of {rep}")
     if batch and b % size["data"]:
-        raise _no_decode(f"splits a batch of {b} rows over {size['data']} data ranks")
+        raise refuse(f"splits a batch of {b} rows over {size['data']} data ranks")
+    n = math.prod(size[a] for a in seq)
+    if max_len is not None and max_len % n and any(
+            "cache_seq" in spec for spec in _named(get_api(cfg).cache_specs(cfg)).values()):
+        raise refuse(f"splits a cache of {max_len} positions evenly over 'cache_seq' "
+                     f"({n} ranks)")
 
     _, want = _expected_layout(cfg, tuple(sorted(rules.items())),
                                tuple(mesh.mesh_dim_names), tuple(mesh.shape))
@@ -362,36 +372,60 @@ def decode_layout(cfg: ModelConfig, params, cache, tokens):
                              f"{cfg.arch_id}'s has {len(want)} ({SHARDED_TODO})")
         raise ValueError(f"parameter leaf {bad} is {shapes[bad]} on this rank; its placement "
                          f"on the mesh {size} gives {want[bad]} ({SHARDED_TODO})")
-    _check_cache(cfg, cache, b, size)
     data = mesh.get_group("data") if batch and size["data"] > 1 else None
-    return _DecodeLayout(data=data, data_rank=mesh.get_coordinate()[0] if batch else 0,
-                         data_size=size["data"] if batch else 1)
+    return _ServeLayout(data=data, data_rank=mesh.get_coordinate()[0] if batch else 0,
+                        data_size=size["data"] if batch else 1, size=size)
+
+
+def decode_layout(cfg: ModelConfig, params, cache, tokens):
+    """The sharded decode step's layout (:func:`_serve_layout`), each
+    cache leaf also checked to be this rank's shard."""
+    layout = _serve_layout(cfg, params, tokens.shape[0], "decode step")
+    if layout is not None:
+        _check_cache(cfg, cache, tokens.shape[0], layout.size)
+    return layout
+
+
+def prefill_layout(cfg: ModelConfig, params, batch, max_len: int):
+    """The sharded prefill's layout (:func:`_serve_layout`) for a batch
+    whose leaves have the same rows and a new cache of ``max_len``
+    positions."""
+    if current_rules() is None or current_mesh() is None:
+        return None
+    rows = {x.shape[0] for x in batch.values()}
+    if len(rows) != 1:
+        raise ValueError(f"the batch's leaves have {sorted(rows)} rows")
+    return _serve_layout(cfg, params, rows.pop(), "prefill", max_len)
+
+
+@functools.lru_cache(maxsize=16)
+def _cache_shapes(cfg: ModelConfig, b: int) -> dict:
+    """{leaf: its whole shape} of ``cfg``'s cache of ``b`` rows and one
+    position."""
+    cache = get_api(cfg).init_cache(cfg, b, 1, torch.float32, device="meta")
+    return {name: tuple(t.shape) for name, t in _named(cache).items()}
 
 
 def _check_cache(cfg, cache, b, size):
-    """Each cache leaf's rows, KV heads and head width those of this
-    rank's shard under the cache specs (its layers and positions as
+    """Each cache leaf the shape of this rank's shard under the cache
+    specs: its rows, layers, KV and SSM heads and widths (its positions as
     given)."""
     specs = _named(get_api(cfg).cache_specs(cfg))
     got = _named(cache)
     if sorted(got) != sorted(specs):
         raise ValueError(f"the cache has leaves {sorted(got)}; {cfg.arch_id}'s has "
                          f"{sorted(specs)} ({SHARDED_TODO})")
-    full = {"batch": b, "kv_heads_act": cfg.n_kv_heads}
+    whole = _cache_shapes(cfg, b)
     for name, spec in specs.items():
-        t, resolved = got[name], logical_to_spec(spec)
-        for dim, (logical, axes) in enumerate(zip(spec, resolved)):
-            if logical is None and dim == len(spec) - 1:
-                want = cfg.resolved_head_dim
-            elif logical in full:
-                axes = () if axes is None else (axes,) if isinstance(axes, str) else axes
-                want = full[logical] // math.prod(size[a] for a in axes)
+        t, want = got[name], list(whole[name])
+        for dim, (logical, axes) in enumerate(zip(spec, logical_to_spec(spec))):
+            if logical == "cache_seq":
+                want[dim] = t.shape[dim] if t.ndim == len(want) else want[dim]
             else:
-                continue
-            if t.shape[dim] != want:
-                raise ValueError(f"cache leaf {name} is {tuple(t.shape)} on this rank; its "
-                                 f"dimension {dim} ({logical}) on the mesh {size} is {want} "
-                                 f"({SHARDED_TODO})")
+                want[dim] //= math.prod(size[a] for a in C.spec_axes(axes))
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(f"cache leaf {name} is {tuple(t.shape)} on this rank; its shard "
+                             f"on the mesh {size} is {tuple(want)} ({SHARDED_TODO})")
 
 
 def _named(tree, prefix="") -> dict:
@@ -409,18 +443,21 @@ def build_decode_step(cfg: ModelConfig, compute_dtype=torch.bfloat16, return_log
 
     Under ``axis_rules(rules, mesh=mesh)`` the step is sharded, the
     counterpart of the reference's ``jax.jit`` of its decode under the same
-    context (ROADMAP 12b.4b): each rank passes its shards of the
-    parameters and of the cache (``launch/mesh.py``'s ``param_shardings``
-    of the param and cache specs, ``shard_tree``) and the global tokens,
-    of which it reads its rows of "batch"; :func:`decode_layout` checks
-    the layout first. The cache shards are updated in place, and the
-    logits and tokens come out whole and alike on every rank."""
+    context (ROADMAP 12b.4b, every family since 12b.4c.1): each rank passes
+    its shards of the parameters and of the cache (the sharded prefill's,
+    or ``launch/mesh.py``'s ``param_shardings`` of the param and cache
+    specs, ``shard_tree``) and the global tokens and ``enc_out``, of which
+    it reads its rows of "batch"; :func:`decode_layout` checks the layout
+    first. The cache shards are updated in place, and the logits and
+    tokens come out whole and alike on every rank."""
     api = get_api(cfg)
 
     def serve_step(params, tokens, cache, pos, extras=None):
         layout = decode_layout(cfg, params, cache, tokens)
         if layout is not None:
             tokens = layout.rows(tokens)
+            if extras and "enc_out" in extras:
+                extras = {**extras, "enc_out": layout.rows(extras["enc_out"])}
         logits, cache = api.decode_step(params, cfg, tokens, cache, pos,
                                         extras, compute_dtype=compute_dtype)
         if layout is not None:
@@ -434,18 +471,32 @@ def build_decode_step(cfg: ModelConfig, compute_dtype=torch.bfloat16, return_log
     return serve_step
 
 
-def build_prefill(cfg: ModelConfig, max_len: int, compute_dtype=torch.bfloat16):
+def build_prefill(cfg: ModelConfig, max_len: int, compute_dtype=torch.bfloat16,
+                  cache_dtype=None):
     """prefill_step(params, batch) -> (logits, cache), and for encdec a third
     output, the encoder's ``enc_out``, which the decode step takes as
-    ``extras["enc_out"]``. One device only: under rules and a mesh it
-    raises, naming 12b.4c (prefill on one device and hand each rank its
-    shard of the cache, ``launch/mesh.py::local_shard``)."""
+    ``extras["enc_out"]``. ``cache_dtype`` None: the family's default.
+
+    Under ``axis_rules(rules, mesh=mesh)`` the prefill is sharded
+    (ROADMAP 12b.4c.1): each rank passes its shards of the parameters and
+    the global batch, of which it reads its rows of "batch";
+    :func:`prefill_layout` checks the layout first. The layers run as the
+    sharded training forward does (kernel 12 on the rank's heads), the
+    logits and ``enc_out`` come out whole and alike on every rank, and
+    the cache is this rank's shard under the family's cache specs (what
+    ``launch/mesh.py::local_shard`` cuts from one device's cache), for
+    the sharded decode step."""
     api = get_api(cfg)
+    kw = {} if cache_dtype is None else dict(cache_dtype=cache_dtype)
 
     def prefill_step(params, batch):
-        if current_rules() is not None and current_mesh() is not None:
-            raise NotImplementedError(f"the prefill runs on one device; under a mesh it has "
-                                      f"no sharded form yet ({SHARDED_TODO})")
-        return api.prefill(params, cfg, batch, max_len, compute_dtype=compute_dtype)
+        layout = prefill_layout(cfg, params, batch, max_len)
+        if layout is not None:
+            batch = {k: layout.rows(x) for k, x in batch.items()}
+        out = api.prefill(params, cfg, batch, max_len, compute_dtype=compute_dtype, **kw)
+        if layout is None:
+            return out
+        logits, cache, *rest = out
+        return (layout.gather(logits), cache, *(layout.gather(t) for t in rest))
 
     return prefill_step

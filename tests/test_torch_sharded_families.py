@@ -11,10 +11,12 @@ mamba2-780m, zamba2-2.7b, seamless-m4t-large-v2, deepseek-v2-lite-16b and
 llama4-maverick (its 2 KV heads replicated over a model axis of 4, the
 rule an MQA or GQA model needs on a model axis wider than its KV heads)
 on meshes (1, 4) and (2, 2), remat "full", and "none" for mamba2 and
-seamless, 3 AdamW steps each. The moe family's aux loss is the mean of
-each data shard's, so over 2 data ranks its yardstick is one device's
-step with ``microbatch=2``; the smoke capacity factor of 8 drops no copy
-in either form.
+seamless, 3 AdamW steps each; and deepseek under ``REPRO_NAIVE=1``,
+whose moe layers take the gathered local form. The expert-parallel moe
+family's aux loss is the mean of each data shard's, so over 2 data ranks
+its yardstick is one device's step with ``microbatch=2``; the gathered
+form's is the whole batch's, as one device's step; the smoke capacity
+factor of 8 drops no copy in either form.
 
 Tolerances, and why (``tests/test_torch_sharding.py``'s):
 - each step's loss: rtol 1e-5 of one device's (f32 throughout; the ranks
@@ -41,6 +43,7 @@ import torch_sharding_worker as W  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.testing import run_ranks  # noqa: E402
 from repro_torch.train._tree import leaves, named_leaves  # noqa: E402
 
@@ -64,15 +67,18 @@ ARCHS = {
 SSM_ARCHS = ("mamba2-780m", "zamba2-2.7b")
 
 
-def _step_case(arch, shape, remat):
-    case = dict(kind="step", arch=arch, mesh=shape, remat=remat)
+def _step_case(arch, shape, remat, naive=False):
+    case = dict(kind="step", arch=arch, mesh=shape, remat=remat, naive=naive)
     if configs.get_smoke_config(arch).n_kv_heads % shape[1]:
         case["overrides"] = {"kv_heads": None, "kv_heads_act": None}
     return case
 
 
+#: REPRO_NAIVE=1: deepseek's moe layers take the gathered local form
+#: (``moe._moe_ffn_gathered``: every rank's rows and experts gathered)
+NAIVE_STEP_CASES = [_step_case("deepseek-v2-lite-16b", m, "full", naive=True) for m in MESHES]
 STEP_CASES = [_step_case(a, m, r) for a, (remats, _) in ARCHS.items() for m in MESHES
-              for r in remats]
+              for r in remats] + NAIVE_STEP_CASES
 SHARD_CASES = [dict(kind="shard", arch=a, mesh=m) for a in SSM_ARCHS for m in MESHES]
 #: (op, shape, dim) of the collectives' cases, each on both meshes' model axes
 COLLECTIVES = (("gather_summed", (2, 3, 8), 2), ("gather_summed", (8, 3), 0),
@@ -90,7 +96,8 @@ def ranks():
 
 
 def _step_id(case):
-    return f"{case['arch']}-{case['mesh'][0]}x{case['mesh'][1]}-{case['remat']}"
+    return (f"{case['arch']}-{case['mesh'][0]}x{case['mesh'][1]}-{case['remat']}"
+            + ("-naive" if case["naive"] else ""))
 
 
 STEP_IDS = [_step_id(c) for c in STEP_CASES]
@@ -133,6 +140,19 @@ def test_kernel_12_runs_on_each_ranks_heads_a_step(ranks, i):
     for res in ranks[i]:
         assert res["flash_calls"] == a_forward * forwards * W.STEPS
         assert res["flash_bwd_calls"] == a_forward * W.STEPS
+
+
+@pytest.mark.parametrize("i", range(len(STEP_CASES)), ids=STEP_IDS)
+def test_moe_layers_take_the_form_the_mode_asks_for(ranks, i):
+    """The moe layers' expert-parallel form (once a forward and once a
+    recomputation a moe layer a step), or under REPRO_NAIVE=1 the gathered
+    local form as often; the other families call neither."""
+    case = STEP_CASES[i]
+    cfg = configs.get_smoke_config(case["arch"])
+    n_moe = sum(k == "moe" for k, _ in moe.layer_schedule(cfg)) if cfg.moe else 0
+    want = {"_moe_ffn_gathered" if case["naive"] else "_moe_ffn_ep": 2 * n_moe * W.STEPS}
+    for res in ranks[i]:
+        assert res["moe_forms"] == (want if n_moe else {}), res["moe_forms"]
 
 
 @pytest.mark.parametrize("i", range(len(SHARD_CASES)),

@@ -34,6 +34,7 @@ Where the reference raises (llama4 ``decode_32k`` at (2, 2): its GSPMD
 cache update stops in a ShardingTypeError, ROADMAP queue 3) the port is
 held to the one-device decodes of both packages instead.
 """
+import dataclasses
 import os
 import pickle
 import tempfile
@@ -86,14 +87,10 @@ NAIVE_CASES = {
     "moe-ffn-llama4": dict(kind="moe", arch="llama4-maverick-400b-a17b", cf=1.0, mesh=(1, 4),
                            naive=True),
 }
-#: (id, case): every unrouted family, then rules and inputs the layout cannot take
+#: (id, case): rules and widths the layout cannot take (ROADMAP 12b.4c items
+#: 2-3), at least one a family, decode steps and prefills
+SSM_17 = dataclasses.replace(configs.get_smoke_config("mamba2-780m").ssm, d_state=17)
 RAISE_CASES = {
-    "ssm": dict(arch="mamba2-780m", mesh=(2, 2)),
-    "hybrid": dict(arch="zamba2-2.7b", mesh=(2, 2)),
-    "encdec": dict(arch="seamless-m4t-large-v2", mesh=(2, 2)),
-    "vlm": dict(arch="paligemma-3b", mesh=(2, 2)),
-    "moe-mla": dict(arch="deepseek-v2-lite-16b", mesh=(2, 2)),
-    "prefill": dict(arch="stablelm-3b", mesh=(2, 2), prefill=True),
     "one-axis-mesh": dict(arch="stablelm-3b", mesh=(4,), mesh_names=("model",)),
     "d-ff-not-divided": dict(arch="stablelm-3b", mesh=(1, 4), replace={"d_ff": 250}),
     "cache-seq-out-of-mesh-order": dict(arch="granite-34b", mesh=(2, 2), cell="long_500k",
@@ -101,6 +98,19 @@ RAISE_CASES = {
     "experts-over-data": dict(arch="llama4-maverick-400b-a17b", mesh=(2, 2),
                               overrides={"experts": ("data",)}),
     "seq-sharded": dict(arch="stablelm-3b", mesh=(2, 2), overrides={"seq": "model"}),
+    # d_state 17: in_proj's 298 columns and the conv cache's 162 over 4 ranks
+    "ssm-inner-not-divided": dict(arch="mamba2-780m", mesh=(1, 4), replace={"ssm": SSM_17}),
+    "ssm-prefill-inner-not-divided": dict(arch="mamba2-780m", mesh=(1, 4),
+                                          replace={"ssm": SSM_17}, prefill=True),
+    "hybrid-embed-sharded": dict(arch="zamba2-2.7b", mesh=(2, 2), overrides={"embed": "model"}),
+    "encdec-prefill-d-ff-not-divided": dict(arch="seamless-m4t-large-v2", mesh=(1, 4),
+                                            replace={"d_ff": 250}, prefill=True),
+    "vlm-vocab-over-data": dict(arch="paligemma-3b", mesh=(2, 2),
+                                overrides={"vocab": ("data",)}),
+    "moe-mla-seq-sharded": dict(arch="deepseek-v2-lite-16b", mesh=(2, 2),
+                                overrides={"seq": "model"}),
+    "prefill-positions-not-divided": dict(arch="stablelm-3b", mesh=(1, 4), prefill=True,
+                                          max_len=30, overrides={"cache_seq": ("model",)}),
 }
 CASES = (DECODE_CASES + MOE_CASES + list(NAIVE_CASES.values())
          + [dict(kind="raise", **c) for c in RAISE_CASES.values()])
@@ -420,6 +430,8 @@ def test_naive_mode_takes_the_dense_and_local_paths(ranks, name):
 
 @pytest.mark.parametrize("name", list(RAISE_CASES))
 def test_unrouted_families_and_rules_raise_naming_12b_4c_on_every_rank(ranks, name):
+    """Every family routes since 12b.4c.1; what still raises are rules and
+    widths of its items 2-3, for the decode step and the prefill."""
     i = len(DECODE_CASES) + len(MOE_CASES) + len(NAIVE_CASES) + list(RAISE_CASES).index(name)
     for res in ranks[0][i]:
         assert res["raised"] is not None and "12b.4c" in res["raised"], res["raised"]

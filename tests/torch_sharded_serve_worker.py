@@ -26,9 +26,17 @@ what the test reads, as plain numbers, strings and numpy arrays:
           aux loss's backward is the identity on each rank (the train step
           averages over "data"), so the sum over "data" of each rank's
           gradient is the global loss's
-  raise   the decode (or prefill) step of an unrouted family or rule: its
-          error on this rank, then a barrier, which every rank reaches
-          only if none of them entered a collective first
+  family  the sharded prefill (``build_prefill`` under the rules, the
+          global batch) and STEPS greedy steps of the sharded decode from
+          its cache, of any family, against the port's one-device prefill
+          and decode and the reference's jitted runs under the same rules:
+          the distances of the prefill's and the steps' logits, of
+          ``enc_out`` and of the rank's cache shard (after the prefill and
+          after the steps) from ``local_shard`` of one device's, the
+          tokens, and kernel 12's calls (``ops.flash_attention``) in each
+  raise   the decode (or prefill) step of a rule or a width the layout
+          cannot take: its error on this rank, then a barrier, which every
+          rank reaches only if none of them entered a collective first
 
 It imports torch, numpy and the port, nothing of JAX.
 """
@@ -47,6 +55,7 @@ from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.distributed import axis_rules  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.mesh import (build_rules, local_shard, param_shardings,  # noqa: E402
                                      placement_leaves, shard_tree, specs_like)
 from repro_torch.models import get_api, layers, moe  # noqa: E402
@@ -107,13 +116,14 @@ def spied(calls: dict):
             setattr(mod, name, saved[key])
 
 
-def greedy(step, params, cache, first, steps=STEPS):
-    """``steps`` greedy steps from token ``first`` (b,): the logits (steps,
-    b, vocab_size) and the tokens fed (steps, b)."""
+def greedy(step, params, cache, first, steps=STEPS, pos0=PROMPT, extras=None):
+    """``steps`` greedy steps from token ``first`` (b,) at positions
+    ``pos0`` on: the logits (steps, b, vocab_size) and the tokens fed
+    (steps, b)."""
     tok, logits, fed = first[:, None].to(torch.int32), [], []
     for i in range(steps):
         fed.append(tok[:, 0])
-        nxt, cache, lg = step(params, tok, cache, PROMPT + i)
+        nxt, cache, lg = step(params, tok, cache, pos0 + i, extras)
         logits.append(lg[:, -1])
         tok = nxt[:, None]
     return torch.stack(logits), torch.stack(fed), cache
@@ -168,6 +178,89 @@ def _decode_case(case, mesh, inputs):
         one_ref = inputs["decode"][(arch, None, None)]
         out.update(one_ref_rel=rel(logits, one_ref["logits"]),
                    one_ref_same_tokens=bool((fed.numpy() == one_ref["tokens"]).all()))
+    return out
+
+
+@contextlib.contextmanager
+def flash_calls(calls: list):
+    """Record each call of kernel 12's wrapper (``ops.flash_attention``)
+    in ``calls``."""
+    real = ops.flash_attention
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    ops.flash_attention = spy
+    try:
+        yield
+    finally:
+        ops.flash_attention = real
+
+
+def serve(cfg, params, batch):
+    """build_prefill and STEPS greedy steps of build_decode_step (f32, an
+    f32 cache of MAX_LEN positions past the prefix) under the current
+    rules, from the prefill's own greedy token: (prefill logits, its
+    cache cloned, enc_out, each step's logits, the tokens fed, the final
+    cache, kernel 12's calls in the prefill and in the steps)."""
+    prefix = cfg.n_prefix_tokens or 0
+    prefill_calls, decode_calls = [], []
+    with flash_calls(prefill_calls):
+        out = build_prefill(cfg, MAX_LEN + prefix, torch.float32,
+                            cache_dtype=torch.float32)(params, batch)
+    logits, cache = out[0][..., :cfg.vocab_size], out[1]
+    enc_out = out[2] if len(out) > 2 else None
+    start = tree_map(torch.clone, cache)
+    step = build_decode_step(cfg, torch.float32, return_logits=True)
+    with flash_calls(decode_calls):
+        lg, fed, cache = greedy(step, params, cache, logits[:, -1].argmax(-1),
+                                pos0=PROMPT + prefix,
+                                extras=None if enc_out is None else {"enc_out": enc_out})
+    return dict(prefill=logits, start=start, enc_out=enc_out, logits=lg, fed=fed, cache=cache,
+                prefill_calls=len(prefill_calls), decode_calls=len(decode_calls))
+
+
+_ONE_SERVE = {}
+
+
+def _family_case(case, mesh, inputs):
+    arch = case["arch"]
+    cfg = smoke(arch)
+    api = get_api(cfg)
+    params, batch = inputs["params"][arch], inputs["batch"][arch]
+    if arch not in _ONE_SERVE:
+        _ONE_SERVE[arch] = serve(cfg, params, batch)
+    one = _ONE_SERVE[arch]
+    rules = build_rules(cfg, cell(case["cell"]), model_size=mesh.shape[1],
+                        data_size=mesh.shape[0], overrides=case.get("overrides"))
+    with axis_rules(rules, mesh=mesh):
+        local = shard_tree(params, mesh, placements(params, api.param_specs(cfg), mesh))
+        got = serve(cfg, local, batch)
+        cache_pl = param_shardings(mesh, api.cache_specs(cfg))
+        want_start = shard_tree(one["start"], mesh, cache_pl)
+        want_cache = shard_tree(one["cache"], mesh, cache_pl)
+    cache_rel = max(rel(g, w) for pair in ((got["start"], want_start), (got["cache"], want_cache))
+                    for g, w in zip(leaves(pair[0]), leaves(pair[1]), strict=True))
+    out = dict(rules={k: rules[k] for k in ("batch", "cache_seq", "kv_heads_act", "ssm_inner")},
+               prefill_one_rel=rel(got["prefill"], one["prefill"]),
+               one_rel=rel(got["logits"], one["logits"]),
+               one_same_tokens=bool(torch.equal(got["fed"], one["fed"])), cache_rel=cache_rel,
+               enc_rel=None if one["enc_out"] is None else rel(got["enc_out"], one["enc_out"]),
+               tokens=got["fed"].numpy(), prefill_calls=got["prefill_calls"],
+               decode_calls=got["decode_calls"], one_prefill_calls=one["prefill_calls"],
+               one_decode_calls=one["decode_calls"])
+    ref = inputs["serve"].get((arch, case["cell"], tuple(case["mesh"])))
+    if ref is not None:
+        # where the reference raised under these rules, its one-device run
+        one_ref = inputs["serve"][(arch, None, None)]
+        out["ref_errors"] = {k: ref[k] for k in ("prefill_error", "decode_error") if k in ref}
+        pre = one_ref if "prefill_error" in ref else ref
+        dec = ref if "logits" in ref else one_ref
+        out["ref_prefill_rel"] = rel(got["prefill"], pre["prefill"])
+        if "logits" in dec:
+            out.update(ref_rel=rel(got["logits"], dec["logits"]),
+                       ref_same_tokens=bool((got["fed"].numpy() == dec["tokens"]).all()))
     return out
 
 
@@ -284,7 +377,8 @@ def _raise_case(case, mesh, inputs):
     with axis_rules(rules, mesh=mesh):
         try:
             if case.get("prefill"):
-                build_prefill(cfg, MAX_LEN, torch.float32)(params, {"tokens": tokens})
+                build_prefill(cfg, case.get("max_len", MAX_LEN), torch.float32)(
+                    params, prompt_batch(cfg))
             else:
                 cache = api.init_cache(cfg, BATCH, MAX_LEN, torch.float32)
                 build_decode_step(cfg, torch.float32)(params, tokens, cache, PROMPT)
@@ -294,7 +388,19 @@ def _raise_case(case, mesh, inputs):
     return dict(raised=raised)
 
 
-_KINDS = {"decode": _decode_case, "moe": _moe_case, "raise": _raise_case}
+def prompt_batch(cfg):
+    """A prefill's batch of BATCH prompts of PROMPT zero tokens, and the
+    family's stub embeddings (zeros: the raise cases never read them)."""
+    batch = {"tokens": torch.zeros((BATCH, PROMPT), dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["src_embeds"] = torch.zeros((BATCH, PROMPT, cfg.d_model))
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.zeros((BATCH, cfg.n_prefix_tokens, cfg.d_model))
+    return batch
+
+
+_KINDS = {"decode": _decode_case, "moe": _moe_case, "raise": _raise_case,
+          "family": _family_case}
 
 
 def run_cases(rank, world, cases, inputs):

@@ -12,7 +12,11 @@ test reads, as plain numbers, strings and numpy arrays:
           than one data rank, with the batch split into a microbatch a
           data rank): the losses, the worst distance of each rank's shards
           from the slices of the one-device results, a digest of the
-          replicated leaves, and kernel 12's forward and backward calls
+          replicated leaves, kernel 12's forward and backward calls, and
+          the calls of moe_ffn's two mesh forms (``naive``: the step under
+          REPRO_NAIVE=1, where moe takes its gathered local form; over
+          data ranks its yardstick is one device's step on the whole
+          batch, since that form's aux loss is the whole batch's)
   shard   each rank's ``local_shard`` of every parameter and whether it
           equals ``distribute_tensor``'s local block
   raise   the step of a rule or width the layout cannot take: its error on this rank,
@@ -26,7 +30,9 @@ It imports torch, numpy and the port, nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import os
 
 import numpy as np
 import torch
@@ -42,7 +48,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.mesh import (build_rules, local_shard, param_shardings,  # noqa: E402
                                      placement_leaves, shard_tree, specs_like)
-from repro_torch.models import get_api  # noqa: E402
+from repro_torch.models import get_api, moe  # noqa: E402
 from repro_torch.train import adamw_init, build_train_step  # noqa: E402
 from repro_torch.train._tree import leaves, named_leaves  # noqa: E402
 from repro_torch.train.optimizer import AdamWState  # noqa: E402
@@ -118,13 +124,46 @@ def _distance(got, want):
     return float(d.max()), float((d / (ATOL + RTOL * want.abs())).max())
 
 
+@contextlib.contextmanager
+def _naive(on: bool):
+    """REPRO_NAIVE set to 1 (or 0) for the block."""
+    before = os.environ.get("REPRO_NAIVE")
+    os.environ["REPRO_NAIVE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["REPRO_NAIVE"]
+        else:
+            os.environ["REPRO_NAIVE"] = before
+
+
+@contextlib.contextmanager
+def _moe_forms(calls: dict):
+    """Count the calls of moe_ffn's expert-parallel and gathered forms."""
+    saved = {name: getattr(moe, name) for name in ("_moe_ffn_ep", "_moe_ffn_gathered")}
+    for name, fn in saved.items():
+        def spy(*a, _fn=fn, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+        setattr(moe, name, spy)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(moe, name, fn)
+
+
 def _step_case(case, mesh):
     arch, remat, replace = case["arch"], case["remat"], case.get("replace", {})
     cfg = smoke(arch, **replace)
-    rules = build_rules(cfg, model_size=mesh.shape[1], data_size=mesh.shape[0],
-                        overrides=case.get("overrides"))
+    naive = case.get("naive", False)
+    with _naive(naive):
+        rules = build_rules(cfg, model_size=mesh.shape[1], data_size=mesh.shape[0],
+                            overrides=case.get("overrides"))
     params, opt = init(cfg)
-    with axis_rules(rules, mesh=mesh):
+    forms = {}
+    with axis_rules(rules, mesh=mesh), _naive(naive), _moe_forms(forms):
         pl = placements_of(cfg, mesh, params)
         local = shard_tree(params, mesh, pl)
         local_opt = AdamWState(step=opt.step, mu=shard_tree(opt.mu, mesh, pl),
@@ -145,8 +184,9 @@ def _step_case(case, mesh):
             local, local_opt, losses = steps(cfg, tcfg(remat), local, local_opt, batches(cfg))
         finally:
             ops.flash_attention, fa.flash_attention_bwd = kernel, backward
-    # moe over data ranks: its aux loss is each data shard's, as a microbatch's
-    micro = mesh.shape[0] if cfg.family == "moe" and mesh.shape[0] > 1 else 0
+    # moe over data ranks: its expert-parallel aux loss is each data shard's,
+    # as a microbatch's
+    micro = mesh.shape[0] if cfg.family == "moe" and mesh.shape[0] > 1 and not naive else 0
     one_params, one_opt, one_losses = one_device(arch, remat, replace, micro)
     flat = placement_leaves(pl)
     worst = {}
@@ -163,7 +203,7 @@ def _step_case(case, mesh):
             digest.update(g.numpy().tobytes())
     return dict(losses=losses, one_losses=one_losses, worst=worst,
                 replicated=digest.hexdigest(), flash_calls=len(calls),
-                flash_bwd_calls=len(bwd_calls), n_layers=cfg.n_layers,
+                flash_bwd_calls=len(bwd_calls), n_layers=cfg.n_layers, moe_forms=forms,
                 coordinate=list(mesh.get_coordinate()))
 
 
