@@ -224,12 +224,15 @@ Phases (any failure exits non-zero before the last line is printed):
                   steps bit for bit the one-device step's, kernel 12's
                   launches exact, ms a step, peak and busy share; with
                   four cards, also on meshes (1, 4) and (2, 2), one card a
-                  rank (phase_four_ranks);
+                  rank (phase_four_ranks); granite-34b and qwen1.5-4b at 4
+                  layers under their rules for 8 model ranks (an attention
+                  activation whole), bit for bit one device's, and with
+                  four cards granite under its default rules;
                 - the other families (FAMILY_ARCHS): mamba2-780m,
                   zamba2-2.7b, seamless-m4t-large-v2, paligemma-3b and
                   deepseek-v2-lite-16b at full width cut in depth, batch
                   2, a prompt of 100, on the card against the CPU, then
-                  each served at half its depth (4 x 2,048 prompt tokens, 32
+                  each served at a quarter of its depth (4 x 2,048 prompt tokens, 32
                   generated; kernel 12's launches exact), deepseek's
                   routing counted (copies dropped past the capacity,
                   tokens at a router near-tie); deepseek's routed experts
@@ -247,8 +250,10 @@ Phases (any failure exits non-zero before the last line is printed):
                   tokens and 16 steps: llama4 (2 layers) and granite-34b
                   (4 layers) from one device's cache, stablelm-3b and the
                   five families above at FAMILY_ARCHS's depth through the
-                  sharded prefill (kernel 12's launches one device's), with
-                  four cards also on meshes (1, 4) and (2, 2).
+                  sharded prefill (kernel 12's launches one device's),
+                  granite-34b and qwen1.5-4b under their rules for 8 model
+                  ranks too, with four cards also on meshes (1, 4) and
+                  (2, 2).
   4. profile    one more n = 45,000 run of each engine under torch.profiler:
                 the device's busy share of the wall time and device time by
                 kernel and the k-means stage; and the graph runs E1
@@ -3678,17 +3683,17 @@ FAMILY_ARCHS = {
     "paligemma-3b": dict(n_layers=2),
     "deepseek-v2-lite-16b": dict(n_layers=2),   # the dense layer 0 and one moe layer
 }
-#: phase_family_serve's depth, half of each family's (cut from the full
-#: depth to keep the script near 700 s), and kernel 12's launches
-#: in a prefill at it: zamba2 5 groups of 6, one launch each; seamless 12
-#: encoder, 12 decoder self and 12 cross-attention calls; deepseek the
-#: dense layer 0 and 13 moe layers
+#: phase_family_serve's depth, about a quarter of each family's (cut from
+#: the full depth to keep the script under 720 s), and kernel 12's launches
+#: in a prefill at it: zamba2 2 groups of 6, one launch each; seamless 6
+#: encoder, 6 decoder self and 6 cross-attention calls; deepseek the
+#: dense layer 0 and 6 moe layers
 FAMILY_SERVE = {
-    "mamba2-780m": (dict(n_layers=24), 0),
-    "zamba2-2.7b": (dict(n_layers=30), 5),
-    "seamless-m4t-large-v2": (dict(n_layers=12, n_enc_layers=12), 36),
-    "paligemma-3b": (dict(n_layers=9), 0),
-    "deepseek-v2-lite-16b": (dict(n_layers=14), 0),
+    "mamba2-780m": (dict(n_layers=12), 0),
+    "zamba2-2.7b": (dict(n_layers=12), 2),
+    "seamless-m4t-large-v2": (dict(n_layers=6, n_enc_layers=6), 18),
+    "paligemma-3b": (dict(n_layers=5), 0),
+    "deepseek-v2-lite-16b": (dict(n_layers=7), 0),
 }
 ROUTE_TIE = 1e-6            # router probabilities nearer than this: a near-tie
 
@@ -3820,8 +3825,8 @@ def phase_serve(report):
 
 
 def phase_family_serve(report):
-    """Each family of ``FAMILY_SERVE`` at its published width and half its
-    depth through launch/serve.py's ``serve``, weights drawn on the card from seed 0: 4
+    """Each family of ``FAMILY_SERVE`` at its published width and a quarter
+    of its depth through launch/serve.py's ``serve``, weights drawn on the card from seed 0: 4
     requests of 2,048 prompt tokens (seamless: 2,048 source frames;
     paligemma: its 256 image positions before them), 32 generated tokens;
     then a second call, whose tokens must equal the first's, and the
@@ -3852,7 +3857,7 @@ def phase_family_serve(report):
                            decode_ms_per_token=r.decode_s / (SERVE_GEN - 1) * 1e3)
                  for tag, r in (("first", res), ("second", again))}
         pre, dec = res.prefill_launches, res.decode_launches
-        print(f"[family-serve] {arch} half depth ({cfg.n_layers} layers"
+        print(f"[family-serve] {arch} quarter depth ({cfg.n_layers} layers"
               + (f", {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
               + f", d_model {cfg.d_model}), batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
               f"gen {SERVE_GEN}: "
@@ -4052,6 +4057,13 @@ SHARDED_SERVE_REL = 1e-4    # a sharded decode's logits against one device's, of
 SHARDED_FAMILY_REL = 1e-5   # (d): a 1 x 1 mesh's prefill, decode and caches against one device's
 PROFILE_STEPS = 4           # decode steps under torch.profiler
 GRANITE_ARCH, GRANITE_CUT = "granite-34b", dict(n_layers=4)   # of its 88 layers
+QWEN_ARCH, QWEN_CUT = "qwen1.5-4b", dict(n_layers=4)            # of its 40 layers
+#: the dense models whose rules leave an attention activation whole (ROADMAP
+#: 12b.4c.2a): granite's one KV head and qwen's 20 heads on a model axis of
+#: ACT_WHOLE_MODEL (one node of eight cards), where build_rules gives
+#: "kv_heads_act" None (and qwen "heads_act" None)
+ACT_WHOLE_ARCHS = {GRANITE_ARCH: GRANITE_CUT, QWEN_ARCH: QWEN_CUT}
+ACT_WHOLE_MODEL = 8
 EP_MOE_CF = 11.0            # deepseek's capacity factor past E / k = 64 / 6: no form drops a copy
 EP_MOE_TOKENS = (4, 256)    # (rows, tokens a row) of the expert-parallel check
 
@@ -4423,7 +4435,10 @@ def phase_sharded_serve(report, llama4_params):
     "cache_seq" over "model"), from one device's prefill; (d) the ssm,
     hybrid, encdec, vlm and MLA families (SHARDED_FAMILY_SERVE) at
     published widths and FAMILY_ARCHS's depth under their production
-    rules, the sharded prefill and decode held to 1e-5. Returns kernel
+    rules, the sharded prefill and decode held to 1e-5; (e) granite-34b
+    and qwen1.5-4b (ACT_WHOLE_ARCHS) under their rules for ACT_WHOLE_MODEL
+    model ranks (an attention activation whole, ROADMAP 12b.4c.2a), the
+    sharded prefill and decode bit for bit one device's. Returns kernel
     12's launches in the sharded prefills and in the sharded decodes."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_api
@@ -4471,10 +4486,44 @@ def phase_sharded_serve(report, llama4_params):
                                        prefill_launches=launches, rel_limit=SHARDED_FAMILY_REL)
                 out[f"{arch} {cell}"] = rec
             del params
+        out.update(_sharded_serve_act_whole(mesh))
     torch.cuda.empty_cache()
     report["sharded_serve"] = out
     return ({"prefill": sum(r.get("prefill_launches", 0) for r in out.values()),
              "decode": sum(r["flash_launches"] for r in out.values())})
+
+
+def _sharded_serve_act_whole(mesh):
+    """phase_sharded_serve (e): each of ACT_WHOLE_ARCHS at its published
+    widths and cut depth under its rules for ACT_WHOLE_MODEL model ranks
+    (no cell: the dense decode) on the 1 x 1 ``mesh``, the sharded
+    prefill and SHARDED_SERVE_GEN decode steps (_sharded_serve): kernel
+    12's launches one a layer in the prefill, none in the decode, and the
+    prefill's logits, the steps' logits and both caches one device's bit
+    for bit. Returns {case: record}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import build_rules
+    from repro_torch.models import get_api
+    out = {}
+    for arch, cut in ACT_WHOLE_ARCHS.items():
+        cfg = get_config(arch).replace(**cut)
+        params = get_api(cfg).init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+        rules = build_rules(cfg, model_size=ACT_WHOLE_MODEL)
+        rec = _sharded_serve(cfg, params, rules, mesh, "cuda", SHARDED_SERVE_BATCH,
+                              SHARDED_SERVE_PROMPT, SHARDED_SERVE_GEN, sharded_prefill=True)
+        del params
+        tag = (f"(e) {arch} {cut}, its rules for {ACT_WHOLE_MODEL} model ranks (heads_act "
+               f"{rules['heads_act']}, kv_heads_act {rules['kv_heads_act']})")
+        _report_sharded_serve(tag, cfg, rec, expect_ep=False, rules=rules,
+                               prefill_launches=cfg.n_layers, rel_limit=SHARDED_FAMILY_REL)
+        bitwise = all(rec[k] == 0.0 for k in ("prefill_rel", "max_rel", "prefill_cache_rel",
+                                               "final_cache_rel"))
+        print(f"[sharded-serve] {tag}: prefill, decode and caches bitwise one device's="
+              f"{bitwise}", flush=True)
+        check(bitwise, f"sharded serve {tag}: the 1 x 1 mesh's prefill, decode or caches are "
+              "not one device's bit for bit")
+        out[f"{arch} act whole"] = dict(rec, bitwise=bitwise)
+    return out
 
 
 def _moe_ep_vs_local(cfg, p, mesh, dev):
@@ -4927,11 +4976,12 @@ def _one_device_lm(cfg, tcfg, data_fn, dev, profile=False):
     return out
 
 
-def _sharded_lm_steps(mesh, cfg, tcfg, data_fn, dev, yardstick, profile=False):
+def _sharded_lm_steps(mesh, cfg, tcfg, data_fn, dev, yardstick, profile=False, rules=None):
     """``cfg``'s seed-0 weights placed on ``mesh`` by param_shardings
     (the AdamW moments with them: adamw_init's zeros of the local shards),
     then TRAIN_STEPS steps of ``data_fn`` through build_train_step under
-    axis_rules(rules, mesh=mesh): each step's loss, ms and kernel 12's
+    axis_rules(rules, mesh=mesh) (``rules`` None: build_rules for the
+    mesh's axes): each step's loss, ms and kernel 12's
     launches, the peak, and each rank's shards after the steps against
     the slices of ``yardstick`` (one device's parameters, on the host): bit
     for bit, the worst distance, and its share of the tolerance; a digest
@@ -4950,7 +5000,8 @@ def _sharded_lm_steps(mesh, cfg, tcfg, data_fn, dev, yardstick, profile=False):
     from repro_torch.train._tree import named_leaves
     import gc
     api = get_api(cfg)
-    rules = build_rules(cfg, model_size=mesh.shape[1], data_size=mesh.shape[0])
+    if rules is None:
+        rules = build_rules(cfg, model_size=mesh.shape[1], data_size=mesh.shape[0])
     # a process's first checkpointed forward imports parts of torch lazily,
     # and a frame cycle made there keeps that step's locals (its gradients,
     # the optimizer state) until the cycle collector runs: collect them
@@ -5018,7 +5069,9 @@ def phase_sharded_train(report, one_device):
     2 forwards and one backward (D, dK/dV, dQ) a layer a step. Records ms
     a step, the peak and the busy share of a profiled 4th step beside
     phase_train's. Then, on the same mesh, the ssm, hybrid, encdec and moe
-    families (ROADMAP 12b.4c's first part, :func:`_sharded_families`).
+    families (ROADMAP 12b.4c's first part, :func:`_sharded_families`), and
+    granite-34b and qwen1.5-4b under rules that leave an attention
+    activation whole (12b.4c.2a, :func:`_sharded_act_whole`).
     Returns kernel 12's launches over all the sharded steps, and each
     arch's one-device losses (the four-rank phase's yardstick)."""
     import torch.distributed as dist
@@ -5036,6 +5089,7 @@ def phase_sharded_train(report, one_device):
         rec = _sharded_lm_steps(mesh, cfg, tcfg, data_fn, "cuda", one_device["params"],
                                 profile=True)
         families = _sharded_families(mesh)
+        families.update(_sharded_act_whole(mesh))
     finally:
         dist.destroy_process_group()
     losses = [st["loss"] for st in rec["steps"]]
@@ -5161,21 +5215,69 @@ def _sharded_families(mesh):
     return out
 
 
-#: phase_family_train's steps: each family's depth cut (None: its full
-#: depth) and kernel 12's launches in one step under remat="full", where
+def _sharded_act_whole(mesh):
+    """The sharded train step of ACT_WHOLE_ARCHS on the 1 x 1 ``mesh``
+    under their rules for ACT_WHOLE_MODEL model ranks (ROADMAP 12b.4c.2a):
+    each at its published widths and cut depth, TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens on the card alone, then placed on the
+    mesh. Each loss and every parameter must be one device's bit for bit,
+    and kernel 12's launches 2 forwards and one backward a layer a step in
+    both runs. Returns {arch: record}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import build_rules
+    from repro_torch.launch.train import token_batches, train_config
+    out = {}
+    for arch, cut in ACT_WHOLE_ARCHS.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch).replace(**cut)
+        rules = build_rules(cfg, model_size=ACT_WHOLE_MODEL)
+        tcfg = train_config(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+        data_fn = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, "cuda")
+        one = _one_device_lm(cfg, tcfg, data_fn, "cuda")
+        rec = _sharded_lm_steps(mesh, cfg, tcfg, data_fn, "cuda", one.pop("params"), rules=rules)
+        losses = [st["loss"] for st in rec["steps"]]
+        want = {"flash_attention": 2 * cfg.n_layers, **dict.fromkeys(BWD_LABELS, cfg.n_layers)}
+        print(f"[sharded-train] {arch} full width, {cfg.n_layers} layers, on a 1 x 1 ('data', "
+              f"'model') mesh (1-rank NCCL) under its rules for {ACT_WHOLE_MODEL} model ranks "
+              f"(heads_act {rules['heads_act']}, kv_heads_act {rules['kv_heads_act']}), "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses {losses} (one device "
+              f"{one['losses']}, bitwise={losses == one['losses']}); parameters after "
+              f"{TRAIN_STEPS} steps bitwise={rec['bitwise']} (worst |d|={rec['worst_abs']:.3e}); "
+              "ms a step " + ", ".join(f"{st['ms']:.3f}" for st in rec["steps"])
+              + " (one device " + ", ".join(f"{st['ms']:.3f}" for st in one["steps"])
+              + f"); peak_mem_GB={rec['peak_mem_bytes'] / 1e9:.3f} (one device "
+              f"{one['peak_mem_bytes'] / 1e9:.3f}); kernel 12 launches a step "
+              f"{rec['steps'][0]['launches']}; {time.perf_counter() - t0:.1f} s", flush=True)
+        check(all(st["launches"] == want for st in rec["steps"] + one["steps"]),
+              f"{arch}: kernel 12's launches in a sharded step "
+              f"{[st['launches'] for st in rec['steps']]} (one device "
+              f"{[st['launches'] for st in one['steps']]}), expected {want}")
+        check(losses == one["losses"], f"{arch}: the 1-rank sharded step's losses {losses} under "
+              f"the rules for {ACT_WHOLE_MODEL} model ranks are not one device's {one['losses']} "
+              "bit for bit")
+        check(rec["bitwise"] and rec["finite"], f"{arch}: the 1-rank sharded step's parameters "
+              f"after {TRAIN_STEPS} steps are not one device's bit for bit")
+        out[arch] = dict(rec, one_device=one, n_layers=cfg.n_layers, losses_bitwise=True,
+                         rules={k: rules[k] for k in ("heads_act", "kv_heads_act")})
+    return out
+
+
+#: phase_family_train's steps: each family's depth cut (FAMILY_SERVE's,
+#: cut from the full depth to keep the script under 720 s)
+#: and kernel 12's launches in one step under remat="full", where
 #: each checkpoint runs its forward twice and its backward once: (forward,
-#: each of D, dK/dV and dQ). zamba2: one shared attention a group of 6, 9
-#: groups; seamless: 24 encoder (full), 24 decoder self (causal) and 24
+#: each of D, dK/dV and dQ). zamba2: one shared attention a group of 6, 2
+#: groups; seamless: 6 encoder (full), 6 decoder self (causal) and 6
 #: cross (full) calls; deepseek at 4 of 27 layers (the dense layer 0 and 3
 #: moe layers: its 27 would need 251 GB with AdamW's moments)
 #: phase_family_train (a)'s steps a family, the first of TRAIN_STEPS' schedule
 #: (cut from 3 to keep the script near 700 s; phase_train keeps all 3)
 FAMILY_TRAIN_STEPS = 2
 FAMILY_TRAIN = {
-    "mamba2-780m": (None, 0, 0),
-    "zamba2-2.7b": (None, 18, 9),
-    "seamless-m4t-large-v2": (None, 144, 72),
-    "paligemma-3b": (None, 0, 0),
+    "mamba2-780m": (FAMILY_SERVE["mamba2-780m"][0], 0, 0),
+    "zamba2-2.7b": (FAMILY_SERVE["zamba2-2.7b"][0], 4, 2),
+    "seamless-m4t-large-v2": (FAMILY_SERVE["seamless-m4t-large-v2"][0], 36, 18),
+    "paligemma-3b": (FAMILY_SERVE["paligemma-3b"][0], 0, 0),
     "deepseek-v2-lite-16b": (dict(n_layers=4), 0, 0),
 }
 #: kernel 12's launches in one value_and_grad at FAMILY_ARCHS's cut (remat
@@ -5215,7 +5317,7 @@ def _family_steps(arch, cut, fwd, bwd):
     from repro_torch.train import adamw_init, build_train_step
     from repro_torch.train import train_step as ts
     from repro_torch.train._tree import leaves
-    cfg = get_config(arch).replace(**(cut or {}))
+    cfg = get_config(arch).replace(**cut)
     tcfg = train_config(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -6186,20 +6288,22 @@ def _four_rank_worker(rank, world, store, out_path, ckpt_root):
 
 def _four_rank_lm(dev):
     """This rank's part of the sharded LM step on four cards: for
-    stablelm-3b at full width and each of FOUR_RANK_FAMILIES at its
-    published widths and FAMILY_ARCHS's depth, TRAIN_STEPS steps on this
-    card alone (the yardstick of the parameters), then on each of
-    SHARDED_MESHES through :func:`_sharded_lm_steps`."""
+    stablelm-3b at full width, each of FOUR_RANK_FAMILIES at its
+    published widths and FAMILY_ARCHS's depth and granite-34b at
+    GRANITE_CUT (its one KV head's columns split over "model", the
+    activation whole: ROADMAP 12b.4c.2a), TRAIN_STEPS steps on this card
+    alone (the yardstick of the parameters), then on each of
+    SHARDED_MESHES through :func:`_sharded_lm_steps` under the default
+    rules for the mesh."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch.configs import get_config
     from repro_torch.launch.train import token_batches, train_config
     tcfg = train_config(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
     meshes = {shape: init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
               for shape in SHARDED_MESHES}
     out = {}
-    for arch in (TRAIN_ARCH, *FOUR_RANK_FAMILIES):
-        cfg = get_config(arch) if arch == TRAIN_ARCH else _family_cut(arch)
+    for arch in (TRAIN_ARCH, *FOUR_RANK_FAMILIES, GRANITE_ARCH):
+        cfg = _four_rank_cfg(arch)
         data_fn = token_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, dev)
         one = _one_device_lm(cfg, tcfg, data_fn, dev)
         out[arch] = dict(one_losses=one["losses"], meshes={})
@@ -6208,6 +6312,17 @@ def _four_rank_lm(dev):
                 mesh, cfg, tcfg, data_fn, dev, one["params"])
         del one
     return out
+
+
+def _four_rank_cfg(arch):
+    """The config of ``arch`` in the four-rank LM step: stablelm-3b whole,
+    granite-34b at GRANITE_CUT, a family cut by :func:`_family_cut`."""
+    from repro_torch.configs import get_config
+    if arch == TRAIN_ARCH:
+        return get_config(arch)
+    if arch == GRANITE_ARCH:
+        return get_config(arch).replace(**GRANITE_CUT)
+    return _family_cut(arch)
 
 
 #: _four_rank_serve's families: each at FAMILY_ARCHS's depth, a sharded
@@ -6222,7 +6337,8 @@ def _four_rank_serve(dev):
     on this card (_sharded_serve): phase_sharded_serve's (a) stablelm-3b
     at full width with "cache_seq" over "model", its sharded prefill and
     4 more steps profiled; (b) granite-34b at GRANITE_CUT under its
-    decode_32k rules for the mesh, from one device's prefill, profiled;
+    decode_32k rules for the mesh (its KV columns gathered whole), its
+    sharded prefill and its decode, profiled;
     FOUR_RANK_SERVE_FAMILIES under their decode_32k rules for the mesh,
     a sharded prefill and its decode; and phase_moe_ffn's expert-parallel
     deepseek layer (_moe_ep_vs_local)."""
@@ -6234,7 +6350,7 @@ def _four_rank_serve(dev):
               for shape in SHARDED_MESHES}
     out = {}
     cases = [("stablelm", SERVE_ARCH, None, {"cache_seq": ("model",)}, True),
-             ("granite", GRANITE_ARCH, GRANITE_CUT, None, False)]
+             ("granite", GRANITE_ARCH, GRANITE_CUT, None, True)]
     cases += [(arch.split("-")[0], arch, FAMILY_ARCHS[arch], None, True)
               for arch in FOUR_RANK_SERVE_FAMILIES]
     for key, arch, cut, overrides, sharded_prefill in cases:
@@ -6294,13 +6410,13 @@ def _check_four_rank_lm(lm, losses_1):
     runs' losses ``losses_1`` (by arch): each loss within TRAIN_LOSS_REL,
     every rank's shards within the reference's tolerance of one device's
     parameters, the replicated leaves bitwise alike on every rank, kernel
-    12's launches a rank a step those of one device (stablelm-3b: 2
-    forwards and one backward a layer; the families: FAMILY_CUT_LAUNCHES)."""
-    from repro_torch.configs import get_config
+    12's launches a rank a step those of one device (stablelm-3b and
+    granite-34b: 2 forwards and one backward a layer; the families:
+    FAMILY_CUT_LAUNCHES)."""
     rec = {}
     for arch in lm[0]:
-        if arch == TRAIN_ARCH:
-            layers = get_config(TRAIN_ARCH).n_layers
+        if arch in (TRAIN_ARCH, GRANITE_ARCH):
+            layers = _four_rank_cfg(arch).n_layers
             want = {"flash_attention": 2 * layers, **dict.fromkeys(BWD_LABELS, layers)}
         else:
             want = _family_launches(arch)
@@ -6315,7 +6431,8 @@ def _check_four_rank_lm(lm, losses_1):
             ms = [[st["ms"] for st in r["steps"]] for r in ranks]
             peaks = [r["peak_mem_bytes"] for r in ranks]
             print(f"[distributed] 4 ranks sharded LM step {arch} full width"
-                  + ("" if arch == TRAIN_ARCH else f" {FAMILY_ARCHS[arch]}")
+                  + {TRAIN_ARCH: "", GRANITE_ARCH: f" {GRANITE_CUT}"}.get(
+                      arch, f" {FAMILY_ARCHS.get(arch)}")
                   + f", mesh {name} (data x model): losses {losses} (1 rank "
                   f"{losses_1[arch]}; worst rel {rel:.3e}); parameters after {TRAIN_STEPS} "
                   f"steps: worst |d|={worst:.3e} against one device, {share:.3f} of atol "
@@ -6347,9 +6464,10 @@ def phase_four_ranks(report, yardstick, lm_losses):
     supervised explicit run, interrupted on one rank, bitwise the 4-rank
     monolithic run with the notes retry and resumed:10; the reordered E1
     run's permutation exactly the 1-rank one (its labels against the 1-rank
-    run's recorded); the sharded LM step of stablelm-3b and
-    FOUR_RANK_FAMILIES at meshes (1, 4) and (2, 2) against the 1-rank runs'
-    losses ``lm_losses``, by arch (:func:`_check_four_rank_lm`);
+    run's recorded); the sharded LM step of stablelm-3b,
+    FOUR_RANK_FAMILIES and granite-34b at meshes (1, 4) and (2, 2)
+    against the 1-rank runs' losses ``lm_losses``, by arch
+    (:func:`_check_four_rank_lm`);
     the sharded decode and the expert-parallel moe_ffn at the same meshes
     (:func:`_check_four_rank_serve`).
     On fewer cards it says so on one line and runs nothing."""

@@ -33,9 +33,14 @@ collectives of ``distributed/collectives.py`` at the reference's
 counts are read from the local weights), the output projection and the
 MLP's down projection summed over "model", the vocab-sharded table read
 by a masked lookup and the logits gathered. K and V replicated over
-"model" (a ``kv_heads`` rule of None, as an MQA model needs on a model
-axis wider than its KV heads) are projected on every rank, which takes
-the KV heads of its own query heads.
+"model" (a ``kv_heads`` rule of None) are projected on every rank, which
+takes the KV heads of its own query heads. Where the rules shard wq's or
+wk's and wv's flat columns but leave the activation whole ("heads_act"
+or "kv_heads_act" None, the reference's rules wherever the head count
+does not divide the "model" axis, down to half a head a rank), the
+rank's columns are gathered (``gather_summed``), and where q is whole
+every rank attends every head and takes its own columns of the output
+into its rows of wo.
 
 Under a mesh the cache path runs on each rank's shard of the cache, laid
 out by the cache spec ("batch", "cache_seq", "kv_heads_act"). The decode
@@ -192,7 +197,6 @@ def attention(
         raise ValueError("cross-attention (x_kv) takes no cache")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    h, kv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd   # this rank's heads
     window = cfg.sliding_window
     src = x if x_kv is None else x_kv
     s_kv = src.shape[1]
@@ -203,7 +207,7 @@ def attention(
         q, k, v = _sharded_prefill(x, p, cfg, positions, cache, int(cache_pos), rope)
         out = _attend(q, k, v, causal=True, window=window, prefix_len=prefix_len, q_offset=0,
                       cached=True)
-        return C.reduce(_out_proj(out, v, p, b, s), heads), cache
+        return C.reduce(_out_proj(out, v, p, b, s, heads), heads), cache
     if kv_heads is not None and heads is None:
         raise NotImplementedError(f"sharded attention shards the query heads wherever the KV "
                                   f"heads are ({SHARDED_TODO})")
@@ -215,13 +219,18 @@ def attention(
     v = kv_in @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s_kv, kv, hd)
-    v = v.reshape(b, s_kv, kv, hd)
+    # an activation the rules leave whole over "model": the rank's columns
+    # gathered, the ranks' gradients of the whole summed (``gather_summed``)
+    q = C.gather_summed(q, _whole("heads", heads))
+    kv_cols = _whole("kv_heads", kv_heads)
+    k, v = C.gather_summed(k, kv_cols), C.gather_summed(v, kv_cols)
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s_kv, -1, hd)
+    v = v.reshape(b, s_kv, -1, hd)
     if heads is not None and kv_heads is None:
-        # K and V projected whole: the rank takes its query heads' KV heads,
-        # the ranks' gradients of K and V summed (``enter``)
-        k, v = _group_kv(C.enter(k, heads), C.enter(v, heads), h, cfg, heads)
+        # K and V projected whole on every rank: the ranks' gradients summed
+        k, v = C.enter(k, heads), C.enter(v, heads)
+    k, v = _group_kv(k, v, q.shape[2], cfg, heads)
 
     if x_kv is not None:
         if s_kv == s and hd <= MAX_D:       # kernel 12's full function
@@ -230,7 +239,7 @@ def attention(
         else:
             out = _masked_attention(q, k, v, torch.ones((s, s_kv), dtype=torch.bool,
                                                         device=q.device))
-        return C.reduce(_out_proj(out, v, p, b, s), heads), cache
+        return C.reduce(_out_proj(out, v, p, b, s, heads), heads), cache
 
     if positions is None:
         positions = torch.arange(s, device=x.device)
@@ -254,7 +263,15 @@ def attention(
         causal = True
     out = _attend(q, k, v, causal=causal, window=window, prefix_len=prefix_len,
                   q_offset=q_offset, cached=cache is not None)
-    return C.reduce(_out_proj(out, v, p, b, s), heads), cache
+    return C.reduce(_out_proj(out, v, p, b, s, heads), heads), cache
+
+
+def _whole(name, grp):
+    """``grp`` where the rules leave the activation of the sharded
+    parameter axis ``name`` ("heads" or "kv_heads") whole, as the
+    reference's rules do wherever its head count does not divide the
+    "model" axis (``{name}_act`` unsharded); else None."""
+    return grp if grp is not None and not C.mesh_axes(f"{name}_act") else None
 
 
 def _attend(q, k, v, *, causal, window, prefix_len, q_offset, cached):
@@ -283,12 +300,13 @@ def _attend(q, k, v, *, causal, window, prefix_len, q_offset, cached):
 
 def _serve_qkv(x, p, cfg, positions, cache, rope):
     """The serve steps' projections under the rules and mesh, on the
-    rank's shards of the weights: q on its query heads (b, s, h_loc, d);
-    K and V (b, s, kv_c, d) on the KV heads its cache shard holds (its
-    columns of wk and wv gathered over "model" into whole heads where the
-    cache holds every KV head, a replicated projection's own heads taken
-    where it holds the rank's), each with RoPE at ``positions``. Also the
-    mesh axes of the cache's positions."""
+    rank's shards of the weights: q on its query heads (b, s, h_loc, d),
+    or on every head where the rules leave "heads_act" whole (its columns
+    of wq gathered over "model"); K and V (b, s, kv_c, d) on the KV heads
+    its cache shard holds (its columns of wk and wv gathered over "model"
+    into whole heads where the cache holds every KV head, a replicated
+    projection's own heads taken where it holds the rank's), each with
+    RoPE at ``positions``. Also the mesh axes of the cache's positions."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     spec = logical_to_spec(("batch", "cache_seq", "kv_heads_act", None))
@@ -299,6 +317,7 @@ def _serve_qkv(x, p, cfg, positions, cache, rope):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = C.gather(q, _whole("heads", C.group("heads")))
     if kv_cols is not None and not kv_axes:     # the cache wants whole KV heads
         k, v = C.gather(k, kv_cols), C.gather(v, kv_cols)
     q = q.reshape(b, s, -1, hd)
@@ -322,7 +341,8 @@ def _sharded_prefill(x, p, cfg, positions, cache, pos, rope):
     shard holds (``start = axis_index * S_loc`` on); then (q, K, V) for
     :func:`_attend` over the fresh keys, as the training forward takes
     them: the rank's query heads over their KV heads, K and V in the
-    cache's type (one device attends over its cache slice)."""
+    cache's type (one device attends over its cache slice); every head
+    where q holds them all."""
     b, s, _ = x.shape
     if pos:
         raise NotImplementedError(f"under a mesh attention prefills from cache position 0, "
@@ -355,15 +375,16 @@ def _sharded_decode(x, p, cfg, positions, cache, pos, rope):
     flash decode (:func:`_flash_decode`); otherwise the dense decode over
     the cache, on the rank's query heads and their KV heads (a cache
     sharded by positions, under ``REPRO_NAIVE=1``, is gathered first).
-    Either way the rank's heads go through its rows of wo, summed over
-    "model". Returns (out (b, 1, e), cache)."""
+    Where q holds every head (the rules leave "heads_act" whole, or the
+    flash form's group spans "model") every head is attended. Either way
+    the rank's columns of the heads go through its rows of wo, summed
+    over "model". Returns (out (b, 1, e), cache)."""
     b = x.shape[0]
     window = cfg.sliding_window
     heads = C.group("heads")
     if positions is None:
         positions = pos + torch.arange(1, device=x.device)
     q, k, v, seq_axes = _serve_qkv(x, p, cfg, positions, cache, rope)
-    h_loc = q.shape[2]
     ck, cv = cache["k"], cache["v"]
 
     s_loc = ck.shape[1]
@@ -376,34 +397,40 @@ def _sharded_decode(x, p, cfg, positions, cache, pos, rope):
         cv[:, pos - start] = v[:, 0].to(cv.dtype)
 
     if seq_axes and not naive_mode():
-        if "model" in seq_axes and heads is not None:
+        if "model" in seq_axes and heads is not None and q.shape[2] < cfg.n_heads:
             # every rank of the group combines the same heads: all of them
-            out = _flash_decode(C.gather(q, heads, 2), ck, cv, pos, start, window,
-                                C.group_of(seq_axes))
-            out = out.narrow(2, C.rank(heads) * h_loc, h_loc)
-        else:
-            ck, cv = _group_kv(ck, cv, h_loc, cfg, heads)
-            out = _flash_decode(q, ck, cv, pos, start, window, C.group_of(seq_axes))
+            q = C.gather(q, heads, 2)
+        ck, cv = _group_kv(ck, cv, q.shape[2], cfg, heads)
+        out = _flash_decode(q, ck, cv, pos, start, window, C.group_of(seq_axes))
     else:
         grp = C.group_of(seq_axes)
         ck, cv = (C.gather(ck, grp, 1), C.gather(cv, grp, 1)) if grp is not None else (ck, cv)
-        ck, cv = _group_kv(ck[:, :pos + 1], cv[:, :pos + 1], h_loc, cfg, heads)
+        ck, cv = _group_kv(ck[:, :pos + 1], cv[:, :pos + 1], q.shape[2], cfg, heads)
         # made on the device: a host tensor copied there would wait for the queue
         qi = pos + torch.arange(1, device=x.device)[:, None]
         kj = torch.arange(pos + 1, device=x.device)[None, :]
         out = _masked_attention(q, ck, cv, _visible(qi, kj, window=window, prefix_rows=True))
-    return C.reduce(_out_proj(out, cv, p, b, 1), heads), cache
+    return C.reduce(_out_proj(out, cv, p, b, 1, heads), heads), cache
 
 
 def _group_kv(ck, cv, h, cfg, grp):
     """The KV heads (dimension 2) of this rank's ``h`` query heads, from K
     and V or a cache that hold them all (as they are where they hold the
-    rank's own)."""
+    rank's own, or where the rank attends every head). Where the rank's
+    heads part a KV group, each head's own KV head (rep 1)."""
     if grp is None or ck.shape[2] * cfg.n_heads == h * cfg.n_kv_heads:
         return ck, cv
     rep = cfg.n_heads // cfg.n_kv_heads
-    lo, n = C.rank(grp) * h // rep, max(h // rep, 1)
-    return ck.narrow(2, lo, n), cv.narrow(2, lo, n)
+    first = C.rank(grp) * h
+    if h % rep == 0 or rep % h == 0:            # whole KV groups, or heads of one
+        lo, n = first // rep, max(h // rep, 1)
+        return ck.narrow(2, lo, n), cv.narrow(2, lo, n)
+
+    def each_head(t):
+        b, s, kv, d = t.shape
+        return t[:, :, :, None].expand(b, s, kv, rep, d).reshape(b, s, kv * rep, d).narrow(
+            2, first, h)
+    return each_head(ck), each_head(cv)
 
 
 def _flash_decode(q, ck, cv, pos, start, window, grp):
@@ -435,11 +462,16 @@ def _flash_decode(q, ck, cv, pos, start, window, grp):
     return o.reshape(b, 1, h, hd).to(cv.dtype)
 
 
-def _out_proj(out, v, p, b, s):
+def _out_proj(out, v, p, b, s, grp=None):
     """The output projection of the attention ``out`` (b, s, h, d): the
     reference's attention output is in v's dtype (the cache's on prefill
-    and decode), then promoted for the product with wo."""
+    and decode), then promoted for the product with wo. Where ``out``
+    holds more heads than the rank's rows of wo take (every head, over
+    "model" ``grp``), the rank's columns of it."""
     out = out.to(v.dtype).reshape(b, s, -1)
+    w = p["wo"].shape[0]
+    if out.shape[-1] != w:
+        out = out.narrow(-1, C.rank(grp) * w, w)
     dt = torch.promote_types(out.dtype, p["wo"].dtype)
     return out.to(dt) @ p["wo"].to(dt)
 

@@ -154,7 +154,7 @@ def sharded_layout(cfg: ModelConfig, tcfg: TrainConfig, params, opt_state=None):
         raise _unsupported(f"takes 'batch' over 'data', not {rules['batch']!r}")
     if _axis(rules, "batch") is None and size["data"] > 1:
         raise _unsupported("needs 'batch' over a data axis wider than one rank")
-    for name in ("heads", "kv_heads", "mlp", "vocab", "experts", "ssm_inner", "ssm_heads"):
+    for name in ("mlp", "vocab", "experts", "ssm_inner", "ssm_heads"):
         if _axis(rules, name) not in (None, ("model",)):
             raise _unsupported(f"takes {name!r} over 'model' or unsharded, not {rules[name]!r}")
     if _axis(rules, "expert_mlp") is not None:
@@ -162,24 +162,11 @@ def sharded_layout(cfg: ModelConfig, tcfg: TrainConfig, params, opt_state=None):
     if _axis(rules, "ssm_inner") != _axis(rules, "ssm_heads"):
         raise _unsupported(f"shards 'ssm_inner' as 'ssm_heads': the rules give "
                            f"{rules.get('ssm_inner')!r} and {rules.get('ssm_heads')!r}")
-    # the activations' rules read the head counts: mamba2 has no attention
-    for name in ("heads", "kv_heads") if cfg.n_heads else ():
-        if _axis(rules, name) != _axis(rules, f"{name}_act"):
-            raise _unsupported(f"needs {name}_act sharded as {name} is: the rules give "
-                               f"{name} {rules.get(name)!r}, {name}_act "
-                               f"{rules.get(name + '_act')!r}")
-    if _axis(rules, "kv_heads") and not _axis(rules, "heads"):
-        raise _unsupported("shards the KV heads only with the query heads")
+    _check_head_rules(cfg, rules, _unsupported)
     m = size["model"]
-    # whole KV heads a rank
-    for name, width in [("kv_heads", cfg.n_kv_heads), *_widths(cfg)]:
+    for name, width in _widths(cfg):
         if _axis(rules, name) and width % m:
             raise _unsupported(f"splits {name} ({width}) evenly over 'model' ({m} ranks)")
-    if cfg.n_heads and _axis(rules, "heads") and not _axis(rules, "kv_heads") and m > 1:
-        local, rep = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
-        if local % rep and rep % local:
-            raise _unsupported(f"gives each rank whole KV groups: {local} query heads a "
-                               f"rank in groups of {rep}")
     if tcfg.gradient_compression and m > 1:
         raise _unsupported("compresses gradients only over 'data'")
 
@@ -204,15 +191,43 @@ def sharded_layout(cfg: ModelConfig, tcfg: TrainConfig, params, opt_state=None):
                    sharded=[any(p.is_shard() for p in pl) for pl in placements])
 
 
+def _check_head_rules(cfg: ModelConfig, rules, refuse):
+    """The attention's rules both steps take (mamba2 has none): "heads"
+    and "kv_heads" (wq's and wk's, wv's flat columns) and their
+    activations' "heads_act" and "kv_heads_act" each over "model" or
+    unsharded; an activation sharded only with its parameter axis (a
+    replicated wk, wv excepted: each rank takes its KV heads' columns)
+    and the KV heads' only with the query heads'. ``refuse(why)`` makes
+    the error."""
+    if not cfg.n_heads:
+        return
+    for name in ("heads", "kv_heads", "heads_act", "kv_heads_act"):
+        if _axis(rules, name) not in (None, ("model",)):
+            raise refuse(f"takes {name!r} over 'model' or unsharded, not {rules[name]!r}")
+    if _axis(rules, "heads_act") and not _axis(rules, "heads"):
+        raise refuse("shards 'heads_act' only with 'heads'")
+    if _axis(rules, "kv_heads") and not _axis(rules, "heads"):
+        raise refuse("shards the KV heads only with the query heads")
+    if _axis(rules, "kv_heads_act") and not _axis(rules, "heads_act"):
+        raise refuse("shards 'kv_heads_act' only with 'heads_act'")
+
+
 def _widths(cfg: ModelConfig) -> list:
     """(logical axis, a width of ``cfg`` it splits) for the widths the
-    "model" axis must divide in the train and the serve steps alike: the
-    heads, the MLPs (moe's shared experts too), the vocab, the routed
-    experts, and the mamba block's SSM heads and the two widths its
-    contiguous "ssm_inner" shards slice (in_proj's z | x | B | C | dt,
-    conv_w's x | B | C, also the conv cache's width). Each step adds its
-    KV widths."""
-    widths = [("heads", cfg.n_heads), ("mlp", cfg.d_ff), ("vocab", cfg.vocab_padded)]
+    "model" axis must divide in the train and the serve steps alike: wq's
+    and wk's, wv's flat columns (MLA's heads whole), the head counts
+    where their activations are sharded, the MLPs (moe's shared experts
+    too), the vocab, the routed experts, and the mamba block's SSM heads
+    and the two widths its contiguous "ssm_inner" shards slice (in_proj's
+    z | x | B | C | dt, conv_w's x | B | C, also the conv cache's
+    width)."""
+    hd = cfg.resolved_head_dim
+    if cfg.mla is not None:
+        widths = [("heads", cfg.n_heads)]
+    else:
+        widths = [("heads", cfg.n_heads * hd), ("kv_heads", cfg.n_kv_heads * hd),
+                  ("heads_act", cfg.n_heads), ("kv_heads_act", cfg.n_kv_heads)]
+    widths += [("mlp", cfg.d_ff), ("vocab", cfg.vocab_padded)]
     if cfg.moe is not None:
         widths += [("experts", cfg.moe.n_experts),
                    ("mlp", cfg.moe.d_ff_expert * cfg.moe.n_shared_experts)]
@@ -326,34 +341,21 @@ def _serve_layout(cfg: ModelConfig, params, b: int, what: str, max_len=None):
     batch = _axis(rules, "batch")
     if batch not in (None, ("data",)):
         raise refuse(f"takes 'batch' over 'data' or unsharded, not {rules['batch']!r}")
-    for name in ("heads", "kv_heads", "mlp", "vocab", "experts", "kv_heads_act", "ssm_inner",
-                 "ssm_heads"):
+    for name in ("mlp", "vocab", "experts", "ssm_inner", "ssm_heads"):
         if _axis(rules, name) not in (None, ("model",)):
             raise refuse(f"takes {name!r} over 'model' or unsharded, not {rules[name]!r}")
     if _axis(rules, "ssm_inner") != _axis(rules, "ssm_heads"):
         raise refuse(f"shards 'ssm_inner' as 'ssm_heads': the rules give "
                      f"{rules.get('ssm_inner')!r} and {rules.get('ssm_heads')!r}")
+    _check_head_rules(cfg, rules, refuse)
     seq = _axis(rules, "cache_seq") or ()
     if seq not in ((), ("data",), ("model",), ("data", "model")):
         raise refuse(f"shards 'cache_seq' over ('data',), ('model',) or ('data', 'model'), "
                      f"not {rules['cache_seq']!r}")
     m = size["model"]
-    heads, kv_act = _axis(rules, "heads"), _axis(rules, "kv_heads_act")
-    # mamba2 has no attention, and no KV heads to shard
-    if cfg.n_heads and kv_act and not heads and m > 1:
-        raise refuse("shards the cache's KV heads only with the query heads")
-    # wk's and wv's columns are gathered, so the KV heads' flat width splits,
-    # and the cache's KV heads
-    kv = [("kv_heads", cfg.n_kv_heads * cfg.resolved_head_dim),
-          ("kv_heads_act", cfg.n_kv_heads)]
-    for name, width in [*kv, *_widths(cfg)]:
+    for name, width in _widths(cfg):
         if _axis(rules, name) and width % m:
             raise refuse(f"splits {name} ({width}) evenly over 'model' ({m} ranks)")
-    if cfg.n_heads and heads and m > 1:
-        local, rep = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
-        if local % rep and rep % local:
-            raise refuse(f"gives each rank whole KV groups: {local} query heads a rank "
-                         f"in groups of {rep}")
     if batch and b % size["data"]:
         raise refuse(f"splits a batch of {b} rows over {size['data']} data ranks")
     n = math.prod(size[a] for a in seq)

@@ -76,10 +76,11 @@ RAISE_CASES = {
     # 6 experts over 4 ranks
     "moe-mla": dict(arch="deepseek-v2-lite-16b", mesh=(1, 4),
                     replace={"moe": dataclasses.replace(_SMOKE_MOE, n_experts=6)}),
-    # 2 KV heads over 4 ranks, without the override that replicates them
-    "moe": dict(arch="llama4-maverick-400b-a17b", mesh=(1, 4)),
-    "mqa-kv-heads-act-replicated": dict(arch="granite-34b", mesh=(1, 4)),
-    "paligemma-kv-heads-act-replicated": dict(arch="paligemma-3b", mesh=(2, 2)),
+    "embed-over-model": dict(arch="stablelm-3b", mesh=(1, 4), overrides={"embed": "model"}),
+    # wk's and wv's 30 columns (one KV head of 30) over 4 ranks
+    "kv-flat-width-not-divided": dict(arch="granite-34b", mesh=(1, 4),
+                                      replace={"head_dim": 30}),
+    "vocab-over-data": dict(arch="qwen1.5-4b", mesh=(2, 2), overrides={"vocab": ("data",)}),
     "d-ff-not-divided": dict(arch="stablelm-3b", mesh=(1, 4), replace={"d_ff": 250}),
     "batch-not-divided": dict(arch="qwen1.5-4b", mesh=(4, 1), batch=6),
     "seq-sharded": dict(arch="stablelm-3b", mesh=(2, 2), overrides={"seq": "model"}),

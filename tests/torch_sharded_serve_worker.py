@@ -34,6 +34,8 @@ what the test reads, as plain numbers, strings and numpy arrays:
           ``enc_out`` and of the rank's cache shard (after the prefill and
           after the steps) from ``local_shard`` of one device's, the
           tokens, and kernel 12's calls (``ops.flash_attention``) in each
+          (a smoke config with fields ``replace``-d reads its inputs by
+          the case's ``name``)
   raise   the decode (or prefill) step of a rule or a width the layout
           cannot take: its error on this rank, then a barrier, which every
           rank reaches only if none of them entered a collective first
@@ -225,13 +227,14 @@ _ONE_SERVE = {}
 
 
 def _family_case(case, mesh, inputs):
-    arch = case["arch"]
-    cfg = smoke(arch)
+    # a case of a smoke config with fields replaced names its inputs
+    arch, name = case["arch"], case.get("name", case["arch"])
+    cfg = smoke(arch, **case.get("replace", {}))
     api = get_api(cfg)
-    params, batch = inputs["params"][arch], inputs["batch"][arch]
-    if arch not in _ONE_SERVE:
-        _ONE_SERVE[arch] = serve(cfg, params, batch)
-    one = _ONE_SERVE[arch]
+    params, batch = inputs["params"][name], inputs["batch"][name]
+    if name not in _ONE_SERVE:
+        _ONE_SERVE[name] = serve(cfg, params, batch)
+    one = _ONE_SERVE[name]
     rules = build_rules(cfg, cell(case["cell"]), model_size=mesh.shape[1],
                         data_size=mesh.shape[0], overrides=case.get("overrides"))
     with axis_rules(rules, mesh=mesh):
@@ -242,7 +245,8 @@ def _family_case(case, mesh, inputs):
         want_cache = shard_tree(one["cache"], mesh, cache_pl)
     cache_rel = max(rel(g, w) for pair in ((got["start"], want_start), (got["cache"], want_cache))
                     for g, w in zip(leaves(pair[0]), leaves(pair[1]), strict=True))
-    out = dict(rules={k: rules[k] for k in ("batch", "cache_seq", "kv_heads_act", "ssm_inner")},
+    out = dict(rules={k: rules[k] for k in ("batch", "cache_seq", "heads_act", "kv_heads_act",
+                                            "ssm_inner")},
                prefill_one_rel=rel(got["prefill"], one["prefill"]),
                one_rel=rel(got["logits"], one["logits"]),
                one_same_tokens=bool(torch.equal(got["fed"], one["fed"])), cache_rel=cache_rel,
@@ -250,10 +254,10 @@ def _family_case(case, mesh, inputs):
                tokens=got["fed"].numpy(), prefill_calls=got["prefill_calls"],
                decode_calls=got["decode_calls"], one_prefill_calls=one["prefill_calls"],
                one_decode_calls=one["decode_calls"])
-    ref = inputs["serve"].get((arch, case["cell"], tuple(case["mesh"])))
+    ref = inputs["serve"].get((name, case["cell"], tuple(case["mesh"])))
     if ref is not None:
         # where the reference raised under these rules, its one-device run
-        one_ref = inputs["serve"][(arch, None, None)]
+        one_ref = inputs["serve"][(name, None, None)]
         out["ref_errors"] = {k: ref[k] for k in ("prefill_error", "decode_error") if k in ref}
         pre = one_ref if "prefill_error" in ref else ref
         dec = ref if "logits" in ref else one_ref

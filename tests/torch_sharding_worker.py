@@ -10,8 +10,11 @@ test reads, as plain numbers, strings and numpy arrays:
           against 3 one-device steps of the port from the same weights and
           batches (run on every rank alike; for the moe family over more
           than one data rank, with the batch split into a microbatch a
-          data rank): the losses, the worst distance of each rank's shards
-          from the slices of the one-device results, a digest of the
+          data rank; from the reference's weights where the case names
+          them in ``inputs``, and then also against the reference's
+          jitted steps under the same rules): the losses, the worst
+          distance of each rank's shards from the slices of the
+          one-device results (and of the reference's), a digest of the
           replicated leaves, kernel 12's forward and backward calls, and
           the calls of moe_ffn's two mesh forms (``naive``: the step under
           REPRO_NAIVE=1, where moe takes its gathered local form; over
@@ -50,7 +53,7 @@ from repro_torch.launch.mesh import (build_rules, local_shard, param_shardings, 
                                      placement_leaves, shard_tree, specs_like)
 from repro_torch.models import get_api, moe  # noqa: E402
 from repro_torch.train import adamw_init, build_train_step  # noqa: E402
-from repro_torch.train._tree import leaves, named_leaves  # noqa: E402
+from repro_torch.train._tree import leaves, named_leaves, tree_map  # noqa: E402
 from repro_torch.train.optimizer import AdamWState  # noqa: E402
 
 BATCH, SEQ, STEPS = 4, 16, 3
@@ -85,8 +88,12 @@ def batches(cfg, batch: int = BATCH):
     return out
 
 
-def init(cfg):
-    params = get_api(cfg).init_params(torch.Generator().manual_seed(0), cfg)
+def init(cfg, params=None):
+    """Seed 0's weights (or a copy of ``params``) and zero AdamW state."""
+    if params is None:
+        params = get_api(cfg).init_params(torch.Generator().manual_seed(0), cfg)
+    else:
+        params = tree_map(torch.clone, params)
     return params, adamw_init(params)
 
 
@@ -102,14 +109,15 @@ def steps(cfg, tc, params, opt, data):
 _ONE = {}
 
 
-def one_device(arch, remat, replace, microbatch=0):
-    """One device's 3 steps (kept for the cases that share them); with
+def one_device(arch, remat, replace, microbatch=0, start=None, name=None):
+    """One device's 3 steps (kept for the cases that share them, by
+    ``name`` where they start from the weights ``start``); with
     ``microbatch`` the batch split into that many slices, the yardstick
     of the moe family over that many data ranks."""
-    key = (arch, remat, tuple(sorted(replace.items())), microbatch)
+    key = (arch, remat, tuple(sorted(replace.items())), microbatch, name)
     if key not in _ONE:
         cfg = smoke(arch, **replace)
-        params, opt = init(cfg)
+        params, opt = init(cfg, start)
         _ONE[key] = steps(cfg, tcfg(remat, microbatch=microbatch), params, opt, batches(cfg))
     return _ONE[key]
 
@@ -154,14 +162,31 @@ def _moe_forms(calls: dict):
             setattr(moe, name, fn)
 
 
-def _step_case(case, mesh):
+def _worst(got, want, flat, mesh):
+    """{"params", "mu", "nu"}: (max |d|, max share of the tolerance) of
+    each rank's shards from the slices of ``want``'s (params, AdamW
+    state)."""
+    worst = {}
+    for what, g_tree, w_tree in (("params", got[0], want[0]), ("mu", got[1].mu, want[1].mu),
+                                 ("nu", got[1].nu, want[1].nu)):
+        dist_abs, dist_tol = 0.0, 0.0
+        for g, w, p in zip(leaves(g_tree), leaves(w_tree), flat, strict=True):
+            a, t = _distance(g, local_shard(w, mesh, p))
+            dist_abs, dist_tol = max(dist_abs, a), max(dist_tol, t)
+        worst[what] = (dist_abs, dist_tol)
+    return worst
+
+
+def _step_case(case, mesh, inputs):
     arch, remat, replace = case["arch"], case["remat"], case.get("replace", {})
     cfg = smoke(arch, **replace)
     naive = case.get("naive", False)
     with _naive(naive):
         rules = build_rules(cfg, model_size=mesh.shape[1], data_size=mesh.shape[0],
                             overrides=case.get("overrides"))
-    params, opt = init(cfg)
+    # the reference's weights and its steps under the same rules, where given
+    given = inputs.get(case.get("name"), {})
+    params, opt = init(cfg, given.get("params"))
     forms = {}
     with axis_rules(rules, mesh=mesh), _naive(naive), _moe_forms(forms):
         pl = placements_of(cfg, mesh, params)
@@ -187,27 +212,25 @@ def _step_case(case, mesh):
     # moe over data ranks: its expert-parallel aux loss is each data shard's,
     # as a microbatch's
     micro = mesh.shape[0] if cfg.family == "moe" and mesh.shape[0] > 1 and not naive else 0
-    one_params, one_opt, one_losses = one_device(arch, remat, replace, micro)
+    one_params, one_opt, one_losses = one_device(arch, remat, replace, micro,
+                                                 given.get("params"), case.get("name"))
     flat = placement_leaves(pl)
-    worst = {}
-    for what, got, want in (("params", local, one_params), ("mu", local_opt.mu, one_opt.mu),
-                            ("nu", local_opt.nu, one_opt.nu)):
-        dist_abs, dist_tol = 0.0, 0.0
-        for g, w, p in zip(leaves(got), leaves(want), flat, strict=True):
-            a, t = _distance(g, local_shard(w, mesh, p))
-            dist_abs, dist_tol = max(dist_abs, a), max(dist_tol, t)
-        worst[what] = (dist_abs, dist_tol)
+    worst = _worst((local, local_opt), (one_params, one_opt), flat, mesh)
     digest = hashlib.sha256()
     for g, p in zip(leaves(local), flat):
         if not any(x.is_shard() for x in p):
             digest.update(g.numpy().tobytes())
-    return dict(losses=losses, one_losses=one_losses, worst=worst,
-                replicated=digest.hexdigest(), flash_calls=len(calls),
-                flash_bwd_calls=len(bwd_calls), n_layers=cfg.n_layers, moe_forms=forms,
-                coordinate=list(mesh.get_coordinate()))
+    out = dict(losses=losses, one_losses=one_losses, worst=worst,
+               replicated=digest.hexdigest(), flash_calls=len(calls),
+               flash_bwd_calls=len(bwd_calls), n_layers=cfg.n_layers, moe_forms=forms,
+               coordinate=list(mesh.get_coordinate()))
+    if "ref" in given:
+        ref = given["ref"]
+        out["ref_worst"] = _worst((local, local_opt), (ref["params"], ref["opt"]), flat, mesh)
+    return out
 
 
-def _shard_case(case, mesh):
+def _shard_case(case, mesh, inputs):
     from torch.distributed.tensor import distribute_tensor
     cfg = smoke(case["arch"])
     rules = build_rules(cfg, model_size=mesh.shape[1], data_size=mesh.shape[0])
@@ -224,7 +247,7 @@ def _shard_case(case, mesh):
                 same_as_dtensor=all(same), coordinate=list(mesh.get_coordinate()))
 
 
-def _raise_case(case, mesh):
+def _raise_case(case, mesh, inputs):
     cfg = smoke(case["arch"], **case.get("replace", {}))
     rules = build_rules(cfg, model_size=mesh.shape[1], data_size=mesh.shape[0],
                         overrides=case.get("overrides"))
@@ -241,7 +264,7 @@ def _raise_case(case, mesh):
     return dict(raised=raised)
 
 
-def _collective_case(case, mesh):
+def _collective_case(case, mesh, inputs):
     """gather_summed or all_sum over "model" of this rank's part of a
     seeded tensor, then a loss of this rank's own (the parts it reads
     weighted by its rank): the forward, and the gradient of the rank's
@@ -265,11 +288,14 @@ _KINDS = {"step": _step_case, "shard": _shard_case, "raise": _raise_case,
           "collective": _collective_case}
 
 
-def run_cases(rank, world, cases):
+def run_cases(rank, world, cases, inputs=None):
+    """Each case on this rank; ``inputs`` {case name: {"params": the
+    weights to start from, "ref": the reference's steps}} for the step
+    cases that name them."""
     meshes, out = {}, []
     for case in cases:
         shape = tuple(case["mesh"])
         if shape not in meshes:
             meshes[shape] = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-        out.append(_KINDS[case["kind"]](case, meshes[shape]))
+        out.append(_KINDS[case["kind"]](case, meshes[shape], inputs or {}))
     return out
